@@ -1,0 +1,639 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py                 # every phase, as the checks run it
+    python3 chip_smoke.py --phases build,kernels
+
+Phases (each prints one JSON line; any failure raises, exit code != 0):
+
+  1. build    — compile every CUDA source of the port from this checkout.
+  2. kernels  — each kernel against its plain PyTorch version on the card at
+                the main path's shapes (qwen2-1.5b, DQ3_K_M, P=16, D=128),
+                with times, the roofline bound and the stated tolerance.
+  3. parity   — qwen2-1.5b at full width, depth 2, f32, DQ3_K_M weights from
+                one seed: a 64-token prefill chunk and 4 decode steps on the
+                card (kernels) and on the CPU (plain versions); logits agree.
+  4. serve    — qwen2-1.5b at full width and depth, DQ3_K_M, bf16: 8 greedy
+                requests through the engine, with q8_0 and with bf16 pools;
+                every kernel of the path must have been launched.
+
+The last three lines are the ``{"kernels": [...]}`` summary, the card's name
+and power limit as ``nvidia-smi`` reports them, and the result line
+``{"ok": true, "device": {...}}``.  It needs one CUDA card and imports
+nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+
+PHASES = ("build", "kernels", "parity", "serve")
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, ops: float, op_type: str) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS[op_type] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms(torch, fn, iters: int = 10) -> float:
+    """Device time per call of ``fn`` (ms): the sum of its kernels' times
+    from the CUDA activity of ``torch.profiler`` (CUPTI).  Fails if the
+    profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            total += (ev.self_cuda_time_total if us is None else us) / 1e3
+    if total <= 0:
+        fail("torch.profiler recorded no device time")
+    return total / iters
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# every kernel of the main path: C++ source, and the Pallas kernel it replaces
+KERNELS = {
+    "qmatmul_q4_k": ("src/repro_torch/csrc/qmatmul.cu",
+                     "src/repro/kernels/common.py:82"),
+    "qmatmul_q6_k": ("src/repro_torch/csrc/qmatmul.cu",
+                     "src/repro/kernels/common.py:82"),
+    "paged_attn_decode": ("src/repro_torch/csrc/paged_attn.cu",
+                          "src/repro/kernels/paged_attn.py:267"),
+    "paged_attn_decode_quant": ("src/repro_torch/csrc/paged_attn.cu",
+                                "src/repro/kernels/paged_attn.py:267"),
+    "paged_attn_prefill_quant": ("src/repro_torch/csrc/paged_attn.cu",
+                                 "src/repro/kernels/paged_attn.py:831"),
+}
+
+
+def kernel_entry(name: str, **measured) -> dict:
+    """One kernel's entry of the summary line, with every key present;
+    ``launches`` stays null unless the serve phase ran."""
+    source, replaces = KERNELS[name]
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "shape": None, "launches": None,
+             "max_abs_err": None, "max_rel_err": None, "tol": None,
+             "tol_of": None, "ms": None, "kernel_ms": None, "plain_ms": None,
+             "bound_ms": None, "bound_by": None, "library_ms": None}
+    entry.update(measured)
+    return entry
+
+
+def case(shape: str, y, ref, tol: float, tol_of: str, ms: float,
+         plain_ms: float, moved: float, ops: float, op_type: str) -> dict:
+    """One timed case: errors against the plain version, times, bound.
+    No single PyTorch call computes any of these functions, so
+    ``library_ms`` is null."""
+    err = (y.float() - ref.float()).abs().max().item()
+    rel = err / max(ref.float().abs().max().item(), 1e-30)
+    b_ms, b_by = bound(moved, ops, op_type)
+    res = {"shape": shape, "max_abs_err": err, "max_rel_err": rel,
+           "tol": tol, "tol_of": tol_of, "ms": ms, "kernel_ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None}
+    if not res[tol_of] <= tol:
+        fail(f"{shape}: {tol_of} {res[tol_of]} > {tol}")
+    return res
+
+
+# (K, N, format, what it is in the 28-layer model)
+B1_SHAPES = [(1536, 1536, "q4_k", "q_proj, o_proj"),
+             (1536, 256, "q6_k", "k_proj, v_proj"),
+             (1536, 8960, "q4_k", "gate, up"),
+             (8960, 1536, "q6_k", "down"),
+             (1536, 152064, "q4_k", "tied head")]
+B1_ROWS = (1, 4, 512)
+# the case that stands for each format in the summary line: the decode
+# shape (M = 4, bf16) that moves most of the format's weight bytes per step
+B1_SUMMARY = {"q4_k": (4, 1536, 8960), "q6_k": (4, 8960, 1536)}
+B1_TOL = 8e-3      # bf16 output: one bf16 ulp (2^-8) of the largest value
+B1_TOL_F32 = 1e-5  # f32 output: f32 summation order only
+ATTN_TOL = 1e-5    # f32 output: summation order and the online softmax
+
+
+def phase_kernels(torch, summary: dict) -> None:
+    from repro_torch.core.qtensor import QTensor, quantize
+    from repro_torch.kernels import paged_attn as pa
+    from repro_torch.kernels import qmatmul as qm
+    from repro_torch.models import paged
+    from repro_torch.serving.engine import _bucket_pages
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    detail = []
+    for k, n, fmt, use in B1_SHAPES:
+        name = f"qmatmul_{fmt}"
+        w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+        qt = quantize(w, fmt)
+        del w
+        wbytes = qt.packed_bytes()
+        # rotate over enough weight copies that each launch reads its
+        # weights from HBM, not from the 50 MB L2, as a decode step does
+        copies = [qt] + [QTensor({kk: v.clone() for kk, v in
+                                  qt.fields.items()}, qt.fmt, qt.shape)
+                         for _ in range(math.ceil(120e6 / wbytes) - 1)]
+        kern = qm.KERNELS[fmt]
+        for m in B1_ROWS:
+            for dt in (torch.bfloat16, torch.float32) if m == 4 else (
+                    torch.bfloat16,):
+                dt_name = str(dt).split(".")[-1]
+                x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+                y = kern(x, qt)
+                ref = qm.qmatmul_plain(x, qt)
+                torch.cuda.synchronize()
+                if y.shape != (m, n) or y.dtype != dt:
+                    fail(f"{name} shape/dtype {y.shape} {y.dtype}")
+                i = [0]
+
+                def run_kernel():
+                    i[0] = (i[0] + 1) % len(copies)
+                    kern(x, copies[i[0]])
+                ms = device_ms(torch, run_kernel)
+                plain_ms = device_ms(
+                    torch, lambda: qm.qmatmul_plain(x, qt), iters=3)
+                res = case(
+                    f"M={m} K={k} N={n} {dt_name} ({use})", y, ref,
+                    B1_TOL if dt == torch.bfloat16 else B1_TOL_F32,
+                    "max_rel_err", ms, plain_ms,
+                    wbytes + nbytes(x) + m * n * x.element_size(),
+                    2.0 * m * k * n, dt_name)
+                detail.append(dict(res, kernel=name))
+                if (m, k, n) == B1_SUMMARY[fmt] and dt == torch.bfloat16:
+                    summary[name] = kernel_entry(name, **res)
+        del copies, qt
+        torch.cuda.empty_cache()
+
+    # --- paged attention as the serve phase calls it -----------------------
+    # its engine: max_len 1024 (block tables 64 wide); decode bounds the page
+    # loop by the engine's power-of-two bucket of the live horizon, prefill
+    # passes no bound
+    B, H, HKV, D, P, max_len = 4, 12, 2, 128, 16, 1024
+    live = torch.tensor([100, 217, 333, 400], dtype=torch.int32)
+    nj = paged.pages_for(max_len, P)
+    n_lp = (live + P - 1) // P
+    num_pages = 2 + int(n_lp.sum())
+    bt = torch.full((B, nj), paged.GARBAGE_PAGE, dtype=torch.int32)
+    pos_pool = torch.full((num_pages, P), -1, dtype=torch.int32)
+    nxt = 2
+    for i in range(B):
+        for lp in range(int(n_lp[i])):
+            bt[i, lp] = nxt
+            hi = min(P, int(live[i]) - lp * P)
+            pos_pool[nxt, :hi] = torch.arange(lp * P, lp * P + hi)
+            nxt += 1
+    pos = live - 1
+    # every lane's page loop stops at its own pages, short of the bucket
+    lane_pages = n_lp.clone().to(torch.int32)
+    active = _bucket_pages(int(n_lp.max()), nj)
+    bt, pos_pool, pos, lane_pages = (t.to(dev) for t in (bt, pos_pool, pos,
+                                                         lane_pages))
+    q = torch.randn((B, H, D), generator=gen, device=dev)
+    kf = torch.randn((num_pages, P, HKV, D), generator=gen, device=dev)
+    vf = torch.randn((num_pages, P, HKV, D), generator=gen, device=dev)
+    k_qs, k_d = pa.quantize_kv_page_pool(kf)
+    v_qs, v_d = pa.quantize_kv_page_pool(vf)
+    visited = int(n_lp.sum())
+    # the queries and the arithmetic are f32 (the results must agree with
+    # the plain version to 1e-5), so f32 is the peak that bounds the ops
+    attn_ops = 4.0 * H * D * float(live.sum())
+    tok_bytes = {"float32": 2 * HKV * D * 4, "bfloat16": 2 * HKV * D * 2,
+                 "int8": 2 * HKV * (D + 4)}
+    cases = [
+        ("paged_attn_decode", "float32", (kf, vf), pa.paged_attn_decode),
+        ("paged_attn_decode", "bfloat16",
+         (kf.to(torch.bfloat16), vf.to(torch.bfloat16)),
+         pa.paged_attn_decode),
+        ("paged_attn_decode_quant", "int8", (k_qs, k_d, v_qs, v_d),
+         pa.paged_attn_decode_quant),
+    ]
+    for name, kv_type, kv, fn in cases:
+        quant = kv_type == "int8"
+        args = (q, *kv, pos_pool, bt, pos)
+        kw = dict(active_pages=active, lane_pages=lane_pages)
+
+        def plain():
+            return pa.attn_decode_plain(
+                q, kv, pos_pool, bt, pos, lane_pages, window=0, softcap=0.0,
+                scale=D ** -0.5, nj=active, quant=quant)
+        y = fn(*args, **kw)
+        ref = plain()
+        torch.cuda.synchronize()
+        if y.shape != (B, H, D):
+            fail(f"{name} ({kv_type} pages): shape {y.shape}")
+        ms = device_ms(torch, lambda: fn(*args, **kw), iters=20)
+        plain_ms = device_ms(torch, plain)
+        # K/V of the live tokens, the visited pages' positions, q, out
+        moved = (int(live.sum()) * tok_bytes[kv_type]
+                 + nbytes(q, pos, lane_pages) + visited * (4 + P * 4)
+                 + B * H * D * 4)
+        res = case(f"B={B} H={H} Hkv={HKV} D={D} P={P} live "
+                   f"{live.tolist()} active_pages={active} table {nj} wide, "
+                   f"{kv_type} pages", y, ref, ATTN_TOL, "max_abs_err", ms,
+                   plain_ms, moved, attn_ops, "float32")
+        detail.append(dict(res, kernel=name))
+        if kv_type != "float32":        # the serve path's pool types
+            summary[name] = kernel_entry(name, **res)
+
+    # prefill: a 128-token chunk per lane, ending at each lane's frontier;
+    # lane 0's chunk is short (padded rows have qpos = -1)
+    C = 128
+    qp = torch.stack([torch.arange(int(p) - C + 1, int(p) + 1) for p in live - 1])
+    qp[0, :C - 60] = -1
+    qp = qp.to(torch.int32).to(dev)
+    qc = torch.randn((B, C, H, D), generator=gen, device=dev)
+    args = (qc, k_qs, k_d, v_qs, v_d, pos_pool, bt, qp)
+
+    def plain():
+        return pa.attn_prefill_plain(
+            qc, (k_qs, k_d, v_qs, v_d), pos_pool, bt, qp, window=0,
+            softcap=0.0, scale=D ** -0.5, nj=nj)
+    y = pa.paged_attn_prefill_quant(*args)
+    ref = plain()
+    torch.cuda.synchronize()
+    ms = device_ms(torch, lambda: pa.paged_attn_prefill_quant(*args))
+    plain_ms = device_ms(torch, plain, iters=5)
+    valid_q = (qp >= 0).sum(dim=1).cpu()
+    keys = sum(int(v) * (int(p) + 1) - int(v) * (int(v) - 1) // 2
+               for v, p in zip(valid_q, live - 1))      # causal pairs
+    moved = (int(live.sum()) * tok_bytes["int8"] + nbytes(qc, qp)
+             + visited * (4 + P * 4) + B * C * H * D * 4)
+    res = case(f"B={B} C={C} H={H} Hkv={HKV} D={D} P={P} live "
+               f"{live.tolist()} table {nj} wide, int8 pages", y, ref,
+               ATTN_TOL, "max_abs_err", ms, plain_ms, moved,
+               4.0 * H * D * keys, "float32")
+    summary["paged_attn_prefill_quant"] = kernel_entry(
+        "paged_attn_prefill_quant", **res)
+    detail.append(dict(res, kernel="paged_attn_prefill_quant"))
+    emit({"phase": "kernels", "detail": detail})
+
+
+# ---------------------------------------------------------------------------
+# phase 3: depth-2 full-width model, card vs CPU
+# ---------------------------------------------------------------------------
+
+# max|d logits| / max|logit|, card vs CPU.  f32 pools: the two sides differ
+# only in f32 summation order.  q8_0 pools: where that order moves a K/V
+# value across a rounding boundary, the card and the CPU store codes one
+# step apart (a step is 1/127 of the row's max |x|), and the attention
+# output moves with it; the phase also checks that no code differs by more
+# than one step.
+PARITY_TOL = {"f32": 1e-3, "q8_0": 1e-2}
+
+
+def phase_parity(torch) -> None:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_to
+    from repro_torch.core import get_policy, quantize_params
+    from repro_torch.models import paged
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import init_params
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2)
+    dev = torch.device("cuda")
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    qparams = quantize_params(cfg, params, get_policy("DQ3_K_M"))
+    del params
+    cpu_params = tree_to(qparams, "cpu")
+    model = Model(cfg, dtype=torch.float32)
+    B, C, P, max_len, steps_n = 2, 64, 16, 128, 4
+    n = paged.pages_for(max_len, P)
+    bt = torch.tensor([[2 + i * n + j for j in range(n)] for i in range(B)],
+                      dtype=torch.int32)
+    rng = torch.Generator().manual_seed(1)
+    toks = torch.randint(4, cfg.vocab_size, (B, C), generator=rng,
+                         dtype=torch.int32)
+    # decode inputs are fixed, not sampled, so a near-tie argmax cannot
+    # send the two devices down different streams
+    dec_toks = torch.randint(4, cfg.vocab_size, (steps_n, B), generator=rng,
+                             dtype=torch.int32)
+    clen = torch.tensor([C, C - 9], dtype=torch.int32)
+    for kv_quant in (None, "q8_0"):
+        label = kv_quant or "f32"
+        logits, caches = {}, {}
+        for device, prm in ((dev, qparams), (torch.device("cpu"), cpu_params)):
+            cache = model.init_paged_cache(2 + B * n, P, B,
+                                           dtype=torch.float32,
+                                           kv_quant=kv_quant, device=device)
+            tables = {"full": bt.to(device)}
+            out, cache = model.prefill_chunk(
+                prm, cache, toks.to(device), torch.zeros(B, dtype=torch.int32,
+                                                         device=device),
+                clen.to(device), max_len=max_len, block_tables=tables,
+                page_size=P, kv_quant=kv_quant, active_pages=(n, 0))
+            steps = [out]
+            pos = clen.to(device).clone()
+            for i in range(steps_n):
+                lp = (pos // P + 1).to(torch.int32)
+                out, cache = model.decode_step_paged(
+                    prm, cache, dec_toks[i].to(device), pos, tables,
+                    page_size=P, max_len=max_len, active_pages=(n, 0),
+                    lane_pages={"full": lp}, kv_quant=kv_quant)
+                steps.append(out)
+                pos = pos + 1
+            logits[device.type] = torch.stack(steps).cpu()
+            caches[device.type] = {k: v.cpu() for k, v in cache.items()}
+        a, b = logits["cuda"], logits["cpu"]
+        if (a.shape != (steps_n + 1, B, cfg.vocab_size)
+                or not torch.isfinite(a).all()):
+            fail(f"parity ({label}): bad logits {a.shape}")
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        result = {"phase": "parity", "kv": label, "layers": cfg.n_layers,
+                  "max_abs": (a - b).abs().max().item(),
+                  "max_abs_logit": b.abs().max().item(), "rel": rel,
+                  "tol": PARITY_TOL[label]}
+        # every page but GARBAGE, the sink of padded writes, whose order
+        # among duplicates is unspecified and which is never read
+        read = [i for i in range(2 + B * n) if i != paged.GARBAGE_PAGE]
+        ca = {k: v[read] for k, v in caches["cuda"].items()}
+        cb = {k: v[read] for k, v in caches["cpu"].items()}
+        if any(not torch.equal(ca[k], cb[k]) for k in ca if k.endswith("/pos")):
+            fail(f"parity ({label}): the caches' positions differ")
+        if kv_quant:
+            steps_apart = [(ca[k].int() - cb[k].int()).abs() for k in ca
+                           if k.endswith("_qs")]
+            result["codes_one_step_apart"] = sum(
+                int((s == 1).sum()) for s in steps_apart)
+            if max(int(s.max()) for s in steps_apart) > 1:
+                fail(f"parity ({label}): q8_0 codes more than one step apart")
+        emit(result)
+        if not rel <= PARITY_TOL[label]:
+            fail(f"parity ({label}): max|d| / max|logit| = {rel}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the full model through the engine
+# ---------------------------------------------------------------------------
+
+def short_name(key: str) -> str:
+    """A CUDA kernel's profiler key without its namespace and arguments."""
+    return key.replace("void ", "").replace("(anonymous namespace)::",
+                                            "").split("(")[0]
+
+
+def profile_decode(torch, model, qparams, kv_quant, lanes=4, live=256,
+                   steps=5) -> dict:
+    """Where one batched decode step's time goes: ``lanes`` lanes with
+    ``live`` cached tokens each (built by two 128-token prefill chunks),
+    then ``steps`` decode steps, timed on the host clock and then traced.
+    Device time is summed by kernel family; the idle share is 1 - device
+    time / wall time; the host side is the count of kernels launched per
+    step and the operators with the most host time (profiler self time,
+    which the tracing itself inflates)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import paged
+
+    dev = torch.device("cuda")
+    P, max_len = 16, 1024
+    n = paged.pages_for(max_len, P)
+    bt = torch.tensor([[2 + i * n + j for j in range(n)]
+                       for i in range(lanes)], dtype=torch.int32, device=dev)
+    cache = model.init_paged_cache(2 + lanes * n, P, lanes, dtype=model.dtype,
+                                   kv_quant=kv_quant, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    C = 128
+    for c0 in range(0, live, C):
+        toks = torch.randint(4, model.cfg.vocab_size, (lanes, C),
+                             generator=gen, device=dev, dtype=torch.int32)
+        start = torch.full((lanes,), c0, dtype=torch.int32, device=dev)
+        clen = torch.full((lanes,), C, dtype=torch.int32, device=dev)
+        logits, cache = model.prefill_chunk(
+            qparams, cache, toks, start, clen, max_len=max_len,
+            block_tables={"full": bt}, page_size=P, kv_quant=kv_quant,
+            active_pages=(paged.pages_for(c0 + C, P), 0))
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    pos_h = [live] * lanes
+
+    def step():
+        # as the engine does: positions and page counts live on the host,
+        # and the sampled tokens come back once per step
+        nonlocal tok, cache, pos_h
+        lp_h = [p // P + 1 for p in pos_h]
+        out, cache = model.decode_step_paged(
+            qparams, cache, tok,
+            torch.tensor(pos_h, dtype=torch.int32, device=dev),
+            {"full": bt}, page_size=P, max_len=max_len,
+            active_pages=(max(lp_h), 0),
+            lane_pages={"full": torch.tensor(lp_h, dtype=torch.int32,
+                                             device=dev)},
+            kv_quant=kv_quant)
+        tok = torch.argmax(out, dim=-1).to(torch.int32)
+        tok.cpu()
+        pos_h = [p + 1 for p in pos_h]
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    fams = {"qmatmul (B1)": 0.0, "paged_attn (B2-B4)": 0.0, "other": 0.0}
+    per_kernel, host, launches = {}, {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            ms = (ev.self_cuda_time_total if us is None else us) / 1e3 / steps
+            per_kernel[ev.key] = ms
+            launches += ev.count
+            fam = ("qmatmul (B1)" if "qmatmul" in ev.key or "splitk" in ev.key
+                   else "paged_attn (B2-B4)" if "paged_attn" in ev.key
+                   else "other")
+            fams[fam] += ms
+        else:
+            host[ev.key] = ev.self_cpu_time_total / 1e3 / steps
+    busy = sum(fams.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
+    # the port's kernels by instantiation (qmatmul_kernel<T, rows, format>:
+    # format 0 is q4_k, 1 is q6_k), device ms per step
+    ours = {short_name(k): v for k, v in per_kernel.items()
+            if any(s in k for s in ("qmatmul", "splitk", "paged_attn"))}
+    return {"phase": "decode_profile", "kv": kv_quant or "bf16",
+            "lanes": lanes, "live_tokens": live, "step_wall_ms": wall,
+            "device_ms": busy, "idle_share": max(0.0, 1 - busy / wall),
+            "by_family_ms": fams, "kernels_per_step": launches / steps,
+            "port_kernels_ms": ours,
+            "top_kernels_ms": {k[:80]: v for k, v in top},
+            "top_host_ops_ms": {k[:60]: v for k, v in top_host}}
+
+
+def phase_serve(torch, summary: dict) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.core import get_policy, quantize_params
+    from repro_torch.kernels import paged_attn as pa
+    from repro_torch.kernels import qmatmul as qm
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import init_params
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampler import SamplerConfig
+
+    cfg = get_config("qwen2-1.5b")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    qparams = quantize_params(cfg, params, get_policy("DQ3_K_M"))
+    del params
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    model = Model(cfg, dtype=torch.bfloat16)
+    counters = {"qmatmul_q4_k": qm.qmatmul_q4_k,
+                "qmatmul_q6_k": qm.qmatmul_q6_k,
+                "paged_attn_decode": pa.paged_attn_decode,
+                "paged_attn_decode_quant": pa.paged_attn_decode_quant,
+                "paged_attn_prefill_quant": pa.paged_attn_prefill_quant}
+    path_kernels = {
+        "q8_0": ("qmatmul_q4_k", "qmatmul_q6_k", "paged_attn_decode_quant",
+                 "paged_attn_prefill_quant"),
+        None: ("qmatmul_q4_k", "qmatmul_q6_k", "paged_attn_decode")}
+    totals = {k: 0 for k in counters}
+    for kv_quant in ("q8_0", None):
+        engine = Engine(model, qparams, max_len=1024, device=dev,
+                        sampler=SamplerConfig(greedy=True), page_size=16,
+                        prefill_chunk=128, kv_quant=kv_quant)
+        # a short serve first, so that loading PyTorch's kernels at their
+        # first use is not timed as serving
+        engine.serve(build_requests(2, cfg.vocab_size, 20, 40, 4, seed=1),
+                     slots=4, seed=0)
+        reqs = build_requests(8, cfg.vocab_size, 100, 400, 32, seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        done = engine.serve(reqs, slots=4, seed=0)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        st = engine.last_stats
+        label = kv_quant or "bf16"
+        res = {"phase": "serve", "kv": label, "quantize_s": quant_s,
+               "requests": len(done),
+               "out_tokens": [len(r.out) for r in sorted(done,
+                                                         key=lambda r: r.rid)],
+               "prompt_tokens": [len(r.prompt) for r in reqs],
+               "wall_s": st.wall_s, "throughput_tok_s": st.throughput_tok_s,
+               "decode_tok_s": st.decode_tok_s,
+               "decode_step_ms_p50": st.decode_step_ms(0.5),
+               "decode_step_ms_p90": st.decode_step_ms(0.9),
+               "decode_steps": st.decode_iterations,
+               "prefill_chunks": st.prefill_iterations,
+               "ttft_ms_mean": st.mean_admission_s * 1e3,
+               "ttft_ms": [r.admission_s * 1e3 for r in st.requests],
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "pages_leaked": st.pages_leaked, "peak_pages": st.peak_pages,
+               "bytes_per_live_token": st.bytes_per_live_token,
+               "kv_bytes_per_decoded_token": st.kv_bytes_per_decoded_token,
+               "launches": launches}
+        emit(res)
+        if len(done) != 8 or any(r.status != "ok" or len(r.out) != 32
+                                 for r in done):
+            fail(f"serve ({label}): not every request completed")
+        if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
+            fail(f"serve ({label}): token outside the vocabulary")
+        if st.pages_leaked:
+            fail(f"serve ({label}): {st.pages_leaked} pages leaked")
+        missing = [k for k in path_kernels[kv_quant] if launches[k] <= 0]
+        if missing:
+            fail(f"serve ({label}): kernels never launched: {missing}")
+        for k, v in launches.items():
+            totals[k] += v
+    for kv_quant in ("q8_0", None):
+        emit(profile_decode(torch, model, qparams, kv_quant))
+    for name in counters:
+        summary.setdefault(name, kernel_entry(name))["launches"] = totals[name]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)}")
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    if set(phases) - set(PHASES):
+        fail(f"unknown phase in {phases}")
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on the card")
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = gpu_line()
+    summary: dict = {}
+    if "build" in phases:
+        t0 = time.perf_counter()
+        secs = build.build_all()
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "per_source_s": secs})
+        for name in build.SOURCES:
+            for line in build.ptxas_report(name).splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"ptxas[{name}] {line.strip()}", file=sys.stderr)
+    if "kernels" in phases:
+        phase_kernels(torch, summary)
+        torch.cuda.synchronize()
+    if "parity" in phases:
+        phase_parity(torch)
+        torch.cuda.synchronize()
+    if "serve" in phases:
+        phase_serve(torch, summary)
+        torch.cuda.synchronize()
+    emit({"kernels": list(summary.values())})
+    print(gpu, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,9 @@
+"""Core: K-quant formats, the paper's dynamic policies (DQ3_K_M), PTQ."""
+
+from .formats import FORMATS
+from .policy import POLICIES, Policy, get_policy
+from .qtensor import QTensor, quantize
+from .apply import format_map, quantize_params
+
+__all__ = ["FORMATS", "POLICIES", "Policy", "get_policy", "QTensor",
+           "quantize", "format_map", "quantize_params"]

@@ -1,0 +1,127 @@
+"""Build the CUDA sources in ``csrc/`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
+``nvcc`` builds it in seconds into ``_build/lib<name>-<hash>.so`` next to
+this package, at first use; the hash covers the source and the flags, so a
+changed source rebuilds and an unchanged one loads the library already
+built.  Pointers and the stream cross as ``ctypes.c_void_p``, and every C
+entry point returns ``cudaGetLastError()`` after its launch — the wrappers
+raise on anything but 0 (a refused launch never runs, and a later
+synchronise would not report it).
+
+``build_all()`` compiles every source at once, one ``nvcc`` process each,
+started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+SOURCES = ("qmatmul", "paged_attn")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from ``CUDA_HOME``, ``/usr/local/cuda`` or the ``PATH``."""
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def _start_build(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build into a temporary name, then rename: a concurrent process never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, Path(tmp), proc
+
+
+def _finish_build(name: str, job) -> str:
+    out, tmp, proc = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)
+    (BUILD_DIR / f"{out.stem}.log").write_text(log)
+    return log
+
+
+def build_all() -> dict[str, float]:
+    """Compile every source (in parallel); returns seconds per source
+    (0.0 for one already built)."""
+    t0 = time.perf_counter()
+    jobs = {name: _start_build(name) for name in SOURCES}
+    secs = {}
+    for name, job in jobs.items():
+        if job is not None:
+            _finish_build(name, job)
+        secs[name] = 0.0 if job is None else time.perf_counter() - t0
+    return secs
+
+
+def ptxas_report(name: str) -> str:
+    """What ``-Xptxas -v`` printed for one source (registers, shared
+    memory, spills per kernel), or "" when it was not built here."""
+    log = BUILD_DIR / f"{_lib_path(name).stem}.log"
+    return log.read_text() if log.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (built on first use)."""
+    job = _start_build(name)
+    if job is not None:
+        _finish_build(name, job)
+    return ctypes.CDLL(str(_lib_path(name)))
+
+
+def bind(name: str, fn: str, argtypes: list) -> ctypes._CFuncPtr:
+    f = getattr(library(name), fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()

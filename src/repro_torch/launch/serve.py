@@ -1,0 +1,88 @@
+"""Serving launcher: init seeded weights, quantize, serve batched requests.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+      --policy DQ3_K_M --page-size 16 --prefill-chunk 128 --kv-quant q8_0
+
+Runs on the card (``--device cuda``, the default); ``--device cpu`` runs
+the kernels' plain PyTorch versions (add ``--reduced`` there).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..configs import get_config
+from ..core import get_policy, quantize_params
+from ..models import spec as mspec
+from ..models.model import Model
+from ..serving.engine import Engine, Request
+from ..serving.sampler import SamplerConfig
+
+_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def build_requests(n: int, vocab: int, lo: int, hi: int, max_new: int,
+                   seed: int) -> list[Request]:
+    """``n`` requests with seeded random prompts of ``lo..hi`` tokens."""
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=[int(t) for t in rng.integers(
+                4, vocab, int(rng.integers(lo, hi + 1)))], max_new=max_new)
+            for i in range(n)]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--policy", default="DQ3_K_M")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", default="bf16", choices=tuple(_DTYPES))
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-min", type=int, default=100)
+    ap.add_argument("--prompt-max", type=int, default=400)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=0)
+    ap.add_argument("--prefill-chunk", type=int, default=0)
+    ap.add_argument("--kv-quant", default=None, choices=("q8_0",))
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--max-len", type=int, default=1024)
+    ap.add_argument("--temperature", type=float, default=0.6)
+    ap.add_argument("--top-p", type=float, default=0.95)
+    ap.add_argument("--greedy", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    dtype = _DTYPES[args.dtype]
+    policy = get_policy(args.policy)
+    params = mspec.init_params(cfg, args.seed, dtype=dtype, device=device)
+    qparams = quantize_params(cfg, params, policy)
+    del params
+    model = Model(cfg, dtype=dtype)
+    engine = Engine(model, qparams, max_len=args.max_len, device=device,
+                    sampler=SamplerConfig(args.temperature, args.top_p,
+                                          greedy=args.greedy),
+                    page_size=args.page_size, num_pages=args.num_pages,
+                    prefill_chunk=args.prefill_chunk, kv_quant=args.kv_quant)
+    reqs = build_requests(args.requests, cfg.vocab_size, args.prompt_min,
+                          min(args.prompt_max, args.max_len - 2),
+                          args.max_new, args.seed)
+    done = engine.serve(reqs, slots=args.slots, seed=args.seed)
+    for r in sorted(done, key=lambda r: r.rid):
+        tag = "" if r.status == "ok" else f"  [{r.status}]"
+        print(f"req {r.rid}: prompt[{len(r.prompt)}] -> {len(r.out)} tokens "
+              f"{r.out[:8]}{'...' if len(r.out) > 8 else ''}{tag}")
+    print(engine.last_stats.report())
+    return done
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,165 @@
+"""WeightSpec registry for the ported families (dense GQA so far).
+
+Every architecture enumerates its weight inventory as ``WeightSpec``s —
+logical shape, quantization role, absolute layer index — exactly as the
+reference's ``repro.models.spec`` does, so paths, roles and the policy's
+per-layer format choices agree path for path.  Params are a flat dict
+``{path: tensor-or-QTensor}``; layers are prefixed ``dec/L000/``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.policy import Policy, ROLES_FLOAT
+
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "f16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightSpec:
+    path: str
+    shape: tuple[int, ...]
+    role: str
+    layer: int | None = None          # absolute layer index within its stack
+    stack: str = "dec"                # "dec" | "global"
+    dtype: str = "bf16"
+    init: str = "fan_in"              # fan_in | zeros | ones
+
+    @property
+    def quantizable(self) -> bool:
+        return self.role not in ROLES_FLOAT and len(self.shape) >= 2
+
+
+class SpecBuilder:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.specs: dict[str, WeightSpec] = {}
+
+    def add(self, path: str, shape, role: str, *, layer=None, stack="global",
+            dtype="bf16", init="fan_in") -> None:
+        if path in self.specs:
+            raise ValueError(f"duplicate spec {path}")
+        self.specs[path] = WeightSpec(
+            path=path, shape=tuple(int(s) for s in shape), role=role,
+            layer=layer, stack=stack, dtype=dtype, init=init)
+
+
+def _attn_specs(b: SpecBuilder, cfg: ModelConfig, prefix: str, layer: int,
+                stack: str) -> None:
+    d, hd = cfg.d_model, cfg.head_dim
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    kw = dict(layer=layer, stack=stack)
+    b.add(f"{prefix}/attn_norm", (d,), "norm", init="ones", **kw)
+    b.add(f"{prefix}/q_proj", (d, nh * hd), "attn_q", **kw)
+    b.add(f"{prefix}/k_proj", (d, nkv * hd), "attn_k", **kw)
+    b.add(f"{prefix}/v_proj", (d, nkv * hd), "attn_v", **kw)
+    b.add(f"{prefix}/o_proj", (nh * hd, d), "attn_output", **kw)
+    if cfg.qkv_bias:
+        for nm, width in (("q_bias", nh * hd), ("k_bias", nkv * hd),
+                          ("v_bias", nkv * hd)):
+            b.add(f"{prefix}/{nm}", (width,), "bias", init="zeros", **kw)
+
+
+def _ffn_specs(b: SpecBuilder, cfg: ModelConfig, prefix: str, layer: int,
+               stack: str) -> None:
+    d, ff = cfg.d_model, cfg.d_ff
+    kw = dict(layer=layer, stack=stack)
+    b.add(f"{prefix}/ffn_norm", (d,), "norm", init="ones", **kw)
+    b.add(f"{prefix}/gate", (d, ff), "ffn_gate", **kw)
+    b.add(f"{prefix}/up", (d, ff), "ffn_up", **kw)
+    b.add(f"{prefix}/down", (ff, d), "ffn_down", **kw)
+
+
+def layer_prefix(stack: str, layer: int) -> str:
+    return f"{stack}/L{layer:03d}"
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port serves dense GQA decoders; other families raise."""
+    kinds = {cfg.block_kind(layer) for layer in range(cfg.n_layers)}
+    if (kinds != {"attn"} or cfg.mla or cfg.is_moe or cfg.is_encdec
+            or cfg.frontend or cfg.d_ff == 0 or cfg.window
+            or cfg.attn_softcap or cfg.logit_softcap or cfg.embed_scale):
+        raise NotImplementedError(
+            f"{cfg.name}: only dense full-attention GQA decoders are ported "
+            "(ROADMAP D2 DeepSeek MLA + MoE, D6 other block families)")
+
+
+def model_specs(cfg: ModelConfig) -> dict[str, WeightSpec]:
+    """The complete weight inventory of one (dense GQA) architecture."""
+    check_supported(cfg)
+    b = SpecBuilder(cfg)
+    d = cfg.d_model
+    # embeddings / head stored (d_model, vocab): quant blocks along d_model
+    b.add("token_embd", (d, cfg.padded_vocab), "token_embd")
+    if not cfg.tie_embeddings:
+        b.add("output", (d, cfg.padded_vocab), "output")
+    b.add("output_norm", (d,), "norm", init="ones")
+    for layer in range(cfg.n_layers):
+        p = layer_prefix("dec", layer)
+        _attn_specs(b, cfg, p, layer, "dec")
+        _ffn_specs(b, cfg, p, layer, "dec")
+    return b.specs
+
+
+def role_layer_tables(specs: dict[str, WeightSpec]) -> dict:
+    """Per (stack, role): sorted list of layers containing it."""
+    table: dict[tuple[str, str], list[int]] = {}
+    for s in specs.values():
+        if s.layer is None or not s.quantizable:
+            continue
+        layers = table.setdefault((s.stack, s.role), [])
+        if s.layer not in layers:
+            layers.append(s.layer)
+    for v in table.values():
+        v.sort()
+    return table
+
+
+def resolve_format(spec: WeightSpec, policy: Policy, tables: dict) -> str:
+    """Format for one weight under one policy (fp formats pass through)."""
+    if not spec.quantizable:
+        if policy.unquantized:
+            return spec.dtype
+        return policy.float_fmt if spec.dtype == "bf16" else spec.dtype
+    if spec.layer is None:
+        return policy.resolve(spec.role, 0, 1)
+    layers = tables[(spec.stack, spec.role)]
+    return policy.resolve(spec.role, layers.index(spec.layer), len(layers))
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
+                device=None) -> dict[str, torch.Tensor]:
+    """Random init of the full (unquantized) parameter tree on ``device``.
+
+    Fan-in normal, as the reference; the numbers come from a
+    ``torch.Generator`` and so differ from ``jax.random`` (the parity tests
+    carry the reference's weights across with ``convert.from_jax_params``).
+    """
+    device = torch.device("cpu" if device is None else device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = {}
+    for path, s in sorted(model_specs(cfg).items()):
+        dt = DTYPES[s.dtype] if s.dtype != "bf16" else dtype
+        if s.init == "zeros":
+            params[path] = torch.zeros(s.shape, dtype=dt, device=device)
+        elif s.init == "ones":
+            params[path] = torch.ones(s.shape, dtype=dt, device=device)
+        else:  # fan_in
+            fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+            w = torch.randn(s.shape, generator=gen, dtype=torch.float32,
+                            device=device) / fan_in ** 0.5
+            params[path] = w.to(dt)
+    return params
+
+
+def subview(params: dict[str, Any], prefix: str) -> dict[str, Any]:
+    """All params under ``prefix/``, with the prefix stripped."""
+    pl = len(prefix) + 1
+    return {k[pl:]: v for k, v in params.items() if k.startswith(prefix + "/")}

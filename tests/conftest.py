@@ -9,6 +9,11 @@ import pytest
 from recompile_guard import recompile_budget  # noqa: F401  (fixture export)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips without one)")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _clear_jax_caches_between_modules():
     # The full suite compiles hundreds of distinct XLA executables in one

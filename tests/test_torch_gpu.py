@@ -1,0 +1,216 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA card.  The file
+imports neither JAX nor the JAX package, so it also runs on a machine that
+has only PyTorch; ``tests/conftest.py`` imports JAX, so run it there with
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+
+Inputs are made with numpy from fixed seeds.  Tolerances: f32 outputs
+1e-5 (absolute for attention's O(1) outputs, relative to max|y| for the
+matmul) — summation order and the online softmax differ, nothing else;
+bf16 matmul outputs one bf16 step (2^-8) of max|y|, since both sides
+round an f32 accumulator to bf16.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.convert import tree_to
+from repro_torch.core import get_policy, quantize_params
+from repro_torch.core.qtensor import quantize
+from repro_torch.kernels import paged_attn, qmatmul
+from repro_torch.models import paged
+from repro_torch.models.model import Model
+from repro_torch.models.spec import init_params
+
+TOL = 1e-5
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    return torch.device("cuda")
+
+
+def _np(rng, shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
+@pytest.mark.parametrize("m", [1, 4, 37])
+@pytest.mark.parametrize("k", [1280, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_qmatmul_kernel_matches_plain(cuda, fmt, m, k, dtype):
+    rng = np.random.default_rng(m * 7 + k)
+    qt = quantize(torch.from_numpy(_np(rng, (k, 384))).to(cuda), fmt)
+    x = torch.from_numpy(_np(rng, (m, k))).to(cuda).to(dtype)
+    before = qmatmul.KERNELS[fmt].launches
+    y = qmatmul.KERNELS[fmt](x, qt)
+    torch.cuda.synchronize()
+    assert qmatmul.KERNELS[fmt].launches == before + 1
+    assert y.dtype == dtype and y.shape == (m, 384)
+    ref = qmatmul.qmatmul_plain(x, qt).float()
+    tol = TOL if dtype == torch.float32 else 2 ** -8
+    assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
+
+
+def test_qmatmul_kernel_raises_on_what_it_does_not_take(cuda):
+    qt = quantize(torch.randn(256, 130, device=cuda), "q4_k")
+    with pytest.raises(ValueError, match="N % 4"):
+        qmatmul.qmatmul_q4_k(torch.randn(2, 256, device=cuda), qt)
+    qt = quantize(torch.randn(256, 128, device=cuda), "q4_k")
+    with pytest.raises(TypeError):
+        qmatmul.qmatmul_q4_k(torch.randn(2, 256, device=cuda,
+                                         dtype=torch.float16), qt)
+
+
+def _pools(rng, b, n_lp, page_size, hkv, d, live):
+    """Pools + block tables with ``live[i]`` written tokens per lane (partial
+    last pages whenever ``live % P != 0``) and NULL-page tails."""
+    n_pages = paged.RESERVED_PAGES + b * n_lp
+    k = _np(rng, (n_pages, page_size, hkv, d))
+    v = _np(rng, (n_pages, page_size, hkv, d))
+    pos_pool = np.full((n_pages, page_size), -1, np.int32)
+    bt = np.full((b, n_lp), paged.NULL_PAGE, np.int32)
+    nxt = paged.RESERVED_PAGES
+    for i in range(b):
+        for lp in range(-(-live[i] // page_size)):
+            bt[i, lp] = nxt
+            for o in range(page_size):
+                if lp * page_size + o < live[i]:
+                    pos_pool[nxt, o] = lp * page_size + o
+            nxt += 1
+    return k, v, pos_pool, bt
+
+
+DECODE_CASES = [
+    # page_size, window, softcap, active_pages, lane_pages
+    (3, 0, 0.0, None, None),
+    (5, 0, 0.0, 4, None),            # active_pages < table width
+    (7, 6, 20.0, None, None),        # sliding window + softcap
+    (4, 0, 0.0, 5, [2, 5, 1]),       # per-lane bound short of nj
+    (16, 0, 0.0, None, [3, 1, 2]),   # the serving page size
+]
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "q8_0"])
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("d", [16, 128])
+def test_paged_decode_kernel_matches_plain(cuda, kv, case, d):
+    page_size, window, softcap, active, lanes = case
+    rng = np.random.default_rng(page_size * 3 + d)
+    b, h, hkv, n_lp = 3, 12, 2, 6
+    live = [page_size * 2 + 1, page_size * 4, 2]
+    if lanes is not None:
+        live = [min(x, lp * page_size) for x, lp in zip(live, lanes)]
+    k, v, pos_pool, bt = (torch.from_numpy(a).to(cuda) for a in _pools(
+        rng, b, n_lp, page_size, hkv, d, live))
+    pos = torch.tensor([x - 1 for x in live], dtype=torch.int32, device=cuda)
+    q = torch.from_numpy(_np(rng, (b, h, d))).to(cuda)
+    lp = None if lanes is None else torch.tensor(lanes, dtype=torch.int32,
+                                                 device=cuda)
+    kw = dict(window=window, softcap=softcap, active_pages=active,
+              lane_pages=lp)
+    if kv == "q8_0":
+        pools = (*paged_attn.quantize_kv_page_pool(k),
+                 *paged_attn.quantize_kv_page_pool(v))
+        fn, counter = paged_attn.paged_attn_decode_quant, \
+            paged_attn.paged_attn_decode_quant
+    else:
+        dt = torch.float32 if kv == "f32" else torch.bfloat16
+        pools = (k.to(dt), v.to(dt))
+        fn = counter = paged_attn.paged_attn_decode
+    before = counter.launches
+    y = fn(q, *pools, pos_pool, bt, pos, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    nj = paged_attn._n_active(bt, active)
+    ref = paged_attn.attn_decode_plain(
+        q, pools, pos_pool, bt, pos, paged_attn._lane_bound(lp, b, nj, cuda),
+        window=window, softcap=softcap, scale=d ** -0.5, nj=nj,
+        quant=kv == "q8_0")
+    assert y.shape == (b, h, d)
+    assert (y - ref).abs().max() < TOL
+
+
+@pytest.mark.parametrize("page_size,active,c", [(3, None, 5), (5, 3, 5),
+                                                (16, None, 40)])
+def test_paged_prefill_kernel_matches_plain(cuda, page_size, active, c):
+    """Write-then-attend prefill over q8_0 pools, with padded query rows
+    (qpos = -1 -> zeros) and stale rows past a lane's frontier."""
+    rng = np.random.default_rng(page_size + c)
+    b, h, hkv, d, n_lp = 2, 12, 2, 128, 6
+    live = [min(page_size * 2 + 2 + c, page_size * n_lp), page_size + c]
+    k, v, pos_pool, bt = (torch.from_numpy(a).to(cuda) for a in _pools(
+        rng, b, n_lp, page_size, hkv, d, live))
+    qpos = torch.stack([torch.arange(x - c, x) for x in live]).to(
+        torch.int32)
+    qpos[1, -2:] = -1
+    qpos = qpos.to(cuda)
+    q = torch.from_numpy(_np(rng, (b, c, h, d))).to(cuda)
+    pools = (*paged_attn.quantize_kv_page_pool(k),
+             *paged_attn.quantize_kv_page_pool(v))
+    before = paged_attn.paged_attn_prefill_quant.launches
+    y = paged_attn.paged_attn_prefill_quant(q, *pools, pos_pool, bt, qpos,
+                                            active_pages=active)
+    torch.cuda.synchronize()
+    assert paged_attn.paged_attn_prefill_quant.launches == before + 1
+    ref = paged_attn.attn_prefill_plain(
+        q, pools, pos_pool, bt, qpos, window=0, softcap=0.0,
+        scale=d ** -0.5, nj=paged_attn._n_active(bt, active))
+    assert bool((y[1, -2:] == 0).all())
+    assert (y - ref).abs().max() < TOL
+
+
+@pytest.mark.parametrize("kv_quant", [None, "q8_0"])
+def test_model_on_card_matches_cpu(cuda, kv_quant):
+    """qwen2-1.5b reduced, DQ3_K_M, f32: a prefill chunk and two decode
+    steps through the kernels give the CPU's logits (1e-4 of max|logit|;
+    q8_0 codes may sit one step apart where the summation order moves a
+    value across a rounding boundary, hence 1e-3 there)."""
+    cfg = get_config("qwen2-1.5b").reduced()
+    params = quantize_params(cfg, init_params(cfg, 0, dtype=torch.float32,
+                                              device=cuda),
+                             get_policy("DQ3_K_M"))
+    model = Model(cfg, dtype=torch.float32)
+    P, max_len, b, c = 4, 32, 2, 6
+    n = paged.pages_for(max_len, P)
+    bt = torch.tensor([[2 + i * n + j for j in range(n)] for i in range(b)],
+                      dtype=torch.int32)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(4, cfg.vocab_size, (b, c)).astype(
+        np.int32))
+    dec = torch.from_numpy(rng.integers(4, cfg.vocab_size, (2, b)).astype(
+        np.int32))
+    out = {}
+    for dev, prm in ((cuda, params), (torch.device("cpu"),
+                                      tree_to(params, "cpu"))):
+        cache = model.init_paged_cache(2 + b * n, P, b, dtype=torch.float32,
+                                       kv_quant=kv_quant, device=dev)
+        tables = {"full": bt.to(dev)}
+        clen = torch.tensor([c, c - 2], dtype=torch.int32, device=dev)
+        lg, cache = model.prefill_chunk(
+            prm, cache, toks.to(dev), torch.zeros(b, dtype=torch.int32,
+                                                  device=dev), clen,
+            max_len=max_len, block_tables=tables, kv_quant=kv_quant)
+        steps = [lg]
+        pos = clen.clone()
+        for i in range(2):
+            lg, cache = model.decode_step_paged(
+                prm, cache, dec[i].to(dev), pos, tables, page_size=P,
+                max_len=max_len, kv_quant=kv_quant,
+                lane_pages={"full": (pos // P + 1).to(torch.int32)})
+            steps.append(lg)
+            pos = pos + 1
+        out[dev.type] = torch.stack(steps).cpu()
+    a, r = out["cuda"], out["cpu"]
+    tol = 1e-4 if kv_quant is None else 1e-3
+    assert torch.isfinite(a).all()
+    assert (a - r).abs().max() <= tol * r.abs().max()

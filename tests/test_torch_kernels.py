@@ -1,0 +1,253 @@
+"""The port's kernel modules against the JAX reference's Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version (the CUDA kernels
+build and run only on the card: ``python3 chip_smoke.py`` and the
+``gpu``-marked tests of ``tests/test_torch_gpu.py`` hold them against
+these same plain versions there).  The reference's Pallas kernels run as
+its own tests run them, ``impl="pallas"`` in interpret mode.
+
+Tolerances: 1e-5 (absolute, on O(1)-scaled f32 outputs) everywhere — both
+sides are f32; only the summation order and the online-softmax folding
+differ.  Quantizers (``quantize_kv_page_pool``) and the column gather are
+bitwise.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import quantize as jax_quantize
+from repro.kernels import ops as jax_ops
+from repro.kernels import paged_attn as jax_pa
+
+from repro_torch.convert import from_jax_params
+from repro_torch.core.qtensor import quantize
+from repro_torch.kernels import ops, paged_attn, qmatmul
+from repro_torch.models import paged
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+TOL = 1e-5
+
+
+def _qt_pair(fmt, k, n, seed):
+    w = np.random.default_rng(seed).normal(size=(k, n)).astype(np.float32)
+    jq = jax_quantize(jnp.asarray(w), fmt)
+    tq = from_jax_params({"w": {"fmt": jq.fmt, "shape": jq.shape, "fields": {
+        a: np.asarray(b) for a, b in jq.fields.items()}}})["w"]
+    return jq, tq
+
+
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
+@pytest.mark.parametrize("m,k,n", [(1, 256, 128), (4, 512, 256),
+                                   (8, 300, 128), (13, 768, 128)])
+def test_qmatmul_plain_matches_pallas(fmt, m, k, n):
+    """Plain B1 vs the reference's fused Pallas kernel (interpret mode), in
+    f32, including K that is not a multiple of the superblock."""
+    jq, tq = _qt_pair(fmt, k, n, seed=m * 1000 + k)
+    x = np.random.default_rng(k + n).normal(size=(m, k)).astype(np.float32)
+    ref = np.asarray(jax_ops.qmatmul(jnp.asarray(x), jq, impl="pallas"))
+    before = qmatmul.KERNELS[fmt].launches
+    got = ops.qmatmul(torch.from_numpy(x), tq)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    # CPU tensors take the plain version: no kernel launch is counted
+    assert qmatmul.KERNELS[fmt].launches == before
+    np.testing.assert_allclose(got.numpy(), ref, rtol=TOL,
+                               atol=TOL * np.abs(ref).max())
+
+
+def test_qmatmul_bf16_rows_and_leading_dims():
+    jq, tq = _qt_pair("q4_k", 512, 128, seed=3)
+    x = np.random.default_rng(4).normal(size=(2, 3, 512)).astype(np.float32)
+    y = ops.qmatmul(torch.from_numpy(x).to(torch.bfloat16), tq)
+    assert y.dtype == torch.bfloat16 and y.shape == (2, 3, 128)
+    ref = np.asarray(jax_ops.qmatmul(
+        jnp.asarray(x).astype(jnp.bfloat16), jq, impl="pallas"),
+        np.float32)
+    # bf16 output: both round an f32 accumulator to bf16 (1 ulp = 2^-8)
+    np.testing.assert_allclose(y.float().numpy(), ref, rtol=2 ** -7,
+                               atol=2 ** -7 * np.abs(ref).max())
+
+
+def test_qmatmul_rejects_unported_weights():
+    w = torch.randn(2, 256, 128)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.qmatmul(torch.randn(2, 4, 256), quantize(w, "q4_k"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.qmatmul(torch.randn(4, 256), quantize(w[0], "q3_k"))
+
+
+def test_qgather_columns_bitwise():
+    jq, tq = _qt_pair("q4_k", 512, 64, seed=2)
+    idx = np.array([[3, 7], [63, 0]], np.int32)
+    ref = np.asarray(jax_ops.qgather_columns(jq, jnp.asarray(idx)))
+    got = ops.qgather_columns(tq, torch.from_numpy(idx).long()).numpy()
+    assert got.shape == ref.shape and got.tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("shape", [(5, 3, 2, 16), (4, 7, 2, 64)])
+def test_quantize_kv_page_pool_bitwise(shape):
+    x = np.random.default_rng(sum(shape)).normal(size=shape).astype(
+        np.float32)
+    x[0, 0, 0] = 0.0                       # an all-zero row: d = 0
+    qs_j, d_j = jax_pa.quantize_kv_page_pool(jnp.asarray(x))
+    qs_t, d_t = paged_attn.quantize_kv_page_pool(torch.from_numpy(x))
+    assert qs_t.dtype == torch.int8 and d_t.dtype == torch.float32
+    assert qs_t.numpy().tobytes() == np.asarray(qs_j).tobytes()
+    assert d_t.numpy().tobytes() == np.asarray(d_j).tobytes()
+
+
+# ---------------------------------------------------------------------------
+# paged attention: B2 (f32), B3 (q8_0) decode, B4 (q8_0) prefill
+# ---------------------------------------------------------------------------
+
+def _pools(rng, b, n_lp, page_size, hkv, d, live):
+    """Pools + block tables with ``live[i]`` written tokens per lane (partial
+    last pages whenever ``live % P != 0``) and NULL-page tails."""
+    n_pages = paged.RESERVED_PAGES + b * n_lp
+    k = rng.normal(size=(n_pages, page_size, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(n_pages, page_size, hkv, d)).astype(np.float32)
+    pos_pool = np.full((n_pages, page_size), -1, np.int32)
+    bt = np.full((b, n_lp), paged.NULL_PAGE, np.int32)
+    nxt = paged.RESERVED_PAGES
+    for i in range(b):
+        for lp in range(-(-live[i] // page_size)):
+            bt[i, lp] = nxt
+            for o in range(page_size):
+                if lp * page_size + o < live[i]:
+                    pos_pool[nxt, o] = lp * page_size + o
+            nxt += 1
+    k[paged.NULL_PAGE] = 0.0
+    v[paged.NULL_PAGE] = 0.0
+    return k, v, pos_pool, bt
+
+
+DECODE_CASES = [
+    # page_size, window, softcap, active_pages, lane_pages
+    (3, 0, 0.0, None, None),
+    (5, 0, 0.0, 4, None),            # active_pages < table width
+    (7, 6, 20.0, None, None),        # sliding window + softcap
+    (4, 0, 0.0, 5, [2, 5, 1]),       # per-lane bound short of nj
+]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "q8_0"])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_paged_decode_plain_matches_pallas(quant, case):
+    page_size, window, softcap, active, lanes = case
+    rng = np.random.default_rng(page_size * 7 + window)
+    b, h, hkv, d, n_lp = 3, 4, 2, 16, 6
+    live = [page_size * 2 + 1, page_size * 4, 2]
+    if lanes is not None:
+        live = [min(x, lp * page_size) for x, lp in zip(live, lanes)]
+    k, v, pos_pool, bt = _pools(rng, b, n_lp, page_size, hkv, d, live)
+    pos = np.array([x - 1 for x in live], np.int32)
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    lp = None if lanes is None else np.array(lanes, np.int32)
+    kw = dict(window=window, softcap=softcap, active_pages=active)
+    tk = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    jk = lambda a: None if a is None else jnp.asarray(a)       # noqa: E731
+    if quant:
+        kq, kd = jax_pa.quantize_kv_page_pool(jnp.asarray(k))
+        vq, vd = jax_pa.quantize_kv_page_pool(jnp.asarray(v))
+        ref = jax_pa.paged_attn_decode_quant(
+            jnp.asarray(q), kq, kd, vq, vd, jk(pos_pool), jk(bt), jk(pos),
+            mode="q8_0", lane_pages=jk(lp), impl="pallas", interpret=True,
+            **kw)
+        got = paged_attn.paged_attn_decode_quant(
+            tk(q), *(torch.from_numpy(np.asarray(a)) for a in (kq, kd, vq,
+                                                               vd)),
+            tk(pos_pool), tk(bt), tk(pos), mode="q8_0", lane_pages=tk(lp),
+            **kw)
+    else:
+        ref = jax_pa.paged_attn_decode(
+            jnp.asarray(q), jk(k), jk(v), jk(pos_pool), jk(bt), jk(pos),
+            lane_pages=jk(lp), impl="pallas", interpret=True, **kw)
+        got = paged_attn.paged_attn_decode(
+            tk(q), tk(k), tk(v), tk(pos_pool), tk(bt), tk(pos),
+            lane_pages=tk(lp), **kw)
+    assert got.shape == (b, h, d) and got.dtype == torch.float32
+    assert np.max(np.abs(got.numpy() - np.asarray(ref))) < TOL
+
+
+@pytest.mark.parametrize("page_size,active", [(3, None), (5, 3), (4, 6)])
+def test_paged_prefill_plain_matches_pallas(page_size, active):
+    """Write-then-attend chunk prefill over q8_0 pools, with a padded query
+    row (qpos = -1 -> zeros) and stale rows past a lane's frontier."""
+    rng = np.random.default_rng(page_size + 11)
+    b, c, h, hkv, d, n_lp = 2, 5, 4, 2, 16, 6
+    live = [page_size * 2 + 2, page_size + 1]
+    k, v, pos_pool, bt = _pools(rng, b, n_lp, page_size, hkv, d, live)
+    qpos = np.stack([np.arange(x - c, x) for x in live]).astype(np.int32)
+    qpos[1, -2:] = -1                        # padded rows of a short chunk
+    q = rng.normal(size=(b, c, h, d)).astype(np.float32)
+    kq, kd = jax_pa.quantize_kv_page_pool(jnp.asarray(k))
+    vq, vd = jax_pa.quantize_kv_page_pool(jnp.asarray(v))
+    ref = np.asarray(jax_pa.paged_attn_prefill_quant(
+        jnp.asarray(q), kq, kd, vq, vd, jnp.asarray(pos_pool),
+        jnp.asarray(bt), jnp.asarray(qpos), mode="q8_0", active_pages=active,
+        impl="pallas", interpret=True))
+    got = paged_attn.paged_attn_prefill_quant(
+        torch.from_numpy(q),
+        *(torch.from_numpy(np.asarray(a)) for a in (kq, kd, vq, vd)),
+        torch.from_numpy(pos_pool), torch.from_numpy(bt),
+        torch.from_numpy(qpos), mode="q8_0", active_pages=active).numpy()
+    assert got.shape == (b, c, h, d)
+    assert np.all(got[1, -2:] == 0.0)
+    assert np.max(np.abs(got - ref)) < TOL
+
+
+def test_q4_0_kv_mode_names_roadmap_item():
+    z = torch.zeros((3, 2, 1, 4), dtype=torch.int8)
+    d = torch.zeros((3, 2, 1))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        paged_attn.paged_attn_decode_quant(
+            torch.zeros(1, 2, 8), z, d, z, d, torch.zeros((3, 2), dtype=torch.int32),
+            torch.zeros((1, 1), dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32), mode="q4_0")
+
+
+def test_paged_q8_rows_and_scatters_bitwise():
+    """The q8_0 page helpers against ``repro.models.paged``: quantize-on-
+    write token and chunk scatters (with GARBAGE routing and a
+    last-writer-wins plan), the round trip and the dequantizing gather."""
+    from repro.models import paged as jpaged
+
+    rng = np.random.default_rng(9)
+    n_pages, p, hkv, d = 8, 3, 2, 16
+    bt = np.array([[2, 3, 4], [5, 6, 7]], np.int32)
+    qs0 = np.zeros((n_pages, p, hkv, d), np.int8)
+    d0 = np.zeros((n_pages, p, hkv), np.float32)
+    tq = [torch.from_numpy(qs0.copy()), torch.from_numpy(d0.copy())]
+    jq = [jnp.asarray(qs0), jnp.asarray(d0)]
+
+    val = rng.normal(size=(2, hkv, d)).astype(np.float32)
+    idx, ok = np.array([4, 7], np.int32), np.array([True, False])
+    jq = list(jpaged.scatter_token_quant(*jq, jnp.asarray(bt), jnp.asarray(idx),
+                                         jnp.asarray(val), ok=jnp.asarray(ok)))
+    paged.scatter_token_quant(*tq, torch.from_numpy(bt), torch.from_numpy(idx),
+                              torch.from_numpy(val), ok=torch.from_numpy(ok))
+
+    chunk = rng.normal(size=(2, 4, hkv, d)).astype(np.float32)
+    cidx = np.array([[0, 1, 2, 1], [5, 6, 7, 8]], np.int32)
+    valid = np.array([[True, True, True, True], [True, True, False, False]])
+    jok = jpaged.chunk_write_plan(jnp.asarray(cidx), jnp.asarray(valid), 9)
+    tok = paged.chunk_write_plan(torch.from_numpy(cidx),
+                                 torch.from_numpy(valid), 9)
+    assert np.array_equal(tok.numpy(), np.asarray(jok))
+    jqs, jd, jdq = jpaged.roundtrip_quant(jnp.asarray(chunk))
+    tqs, td, tdq = paged.roundtrip_quant(torch.from_numpy(chunk))
+    for a, b in ((jqs, tqs), (jd, td), (jdq, tdq)):
+        assert b.numpy().tobytes() == np.asarray(a).tobytes()
+    jq = [jpaged.scatter_chunk(pool, jnp.asarray(bt), jnp.asarray(cidx), v,
+                               jok) for pool, v in zip(jq, (jqs, jd))]
+    for pool, v in zip(tq, (tqs, td)):
+        paged.scatter_chunk(pool, torch.from_numpy(bt), torch.from_numpy(cidx),
+                            v, tok)
+    # GARBAGE takes duplicate writes in an unspecified order; never read
+    read = [i for i in range(n_pages) if i != paged.GARBAGE_PAGE]
+    for a, b in zip(jq, tq):
+        assert b.numpy()[read].tobytes() == np.asarray(a)[read].tobytes()
+    got = paged.gather_pages_quant(*tq, torch.from_numpy(bt), 8)
+    ref = jpaged.gather_pages_quant(*jq, jnp.asarray(bt), 8)
+    assert got.numpy().tobytes() == np.asarray(ref).tobytes()
