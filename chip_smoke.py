@@ -4,18 +4,24 @@
     python3 chip_smoke.py                 # every phase, as the checks run it
     python3 chip_smoke.py --phases build,kernels
 
-Phases (each prints one JSON line; any failure raises, exit code != 0):
+Phases (each prints JSON lines; any failure raises, exit code != 0):
 
   1. build    — compile every CUDA source of the port from this checkout.
   2. kernels  — each kernel against its plain PyTorch version on the card at
-                the main path's shapes (qwen2-1.5b, DQ3_K_M, P=16, D=128),
-                with times, the roofline bound and the stated tolerance.
-  3. parity   — qwen2-1.5b at full width, depth 2, f32, DQ3_K_M weights from
-                one seed: a 64-token prefill chunk and 4 decode steps on the
-                card (kernels) and on the CPU (plain versions); logits agree.
-  4. serve    — qwen2-1.5b at full width and depth, DQ3_K_M, bf16: 8 greedy
-                requests through the engine, with q8_0 and with bf16 pools;
-                every kernel of the path must have been launched.
+                the main paths' shapes (qwen2-1.5b and DeepSeek-V3, DQ3_K_M,
+                P=16), with times, the roofline bound and the stated
+                tolerance.
+  3. parity   — full width, f32, DQ3_K_M weights from one seed, card
+                (kernels) against CPU (plain versions), model-dtype and q8_0
+                pools: qwen2-1.5b at depth 2 (a 64-token prefill chunk, 4
+                decode steps) and DeepSeek-V3 at depth 4 (3 dense + 1 MoE
+                layer; an 8-token chunk, 2 decode steps).
+  4. serve    — 8 greedy requests through the engine, with q8_0 and with
+                bf16 pools, weights made and quantized on the card: qwen2-1.5b
+                at full width and depth, then the DeepSeek-V3 cut at full
+                width and 7 layers (3 dense + 4 MoE).  Every kernel of each
+                path must have been launched in its run; one traced decode
+                step per path and pool kind says where the time goes.
 
 The last three lines are the ``{"kernels": [...]}`` summary, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -26,9 +32,11 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -105,6 +113,18 @@ KERNELS = {
                                 "src/repro/kernels/paged_attn.py:267"),
     "paged_attn_prefill_quant": ("src/repro_torch/csrc/paged_attn.cu",
                                  "src/repro/kernels/paged_attn.py:831"),
+    "qmatmul_experts_q3_k": ("src/repro_torch/csrc/qmatmul.cu",
+                             "src/repro/kernels/common.py:82"),
+    "qmatmul_experts_q4_k": ("src/repro_torch/csrc/qmatmul.cu",
+                             "src/repro/kernels/common.py:82"),
+    "qmatmul_experts_q6_k": ("src/repro_torch/csrc/qmatmul.cu",
+                             "src/repro/kernels/common.py:82"),
+    "paged_mla_decode": ("src/repro_torch/csrc/paged_mla.cu",
+                         "src/repro/kernels/paged_attn.py:535"),
+    "paged_mla_decode_quant": ("src/repro_torch/csrc/paged_mla.cu",
+                               "src/repro/kernels/paged_attn.py:535"),
+    "paged_mla_prefill_quant": ("src/repro_torch/csrc/paged_mla.cu",
+                                "src/repro/kernels/paged_attn.py:982"),
 }
 
 
@@ -138,16 +158,30 @@ def case(shape: str, y, ref, tol: float, tol_of: str, ms: float,
     return res
 
 
-# (K, N, format, what it is in the 28-layer model)
+# (K, N, format, what it is in the 28-layer qwen2 model or the DeepSeek cut)
 B1_SHAPES = [(1536, 1536, "q4_k", "q_proj, o_proj"),
              (1536, 256, "q6_k", "k_proj, v_proj"),
              (1536, 8960, "q4_k", "gate, up"),
              (8960, 1536, "q6_k", "down"),
-             (1536, 152064, "q4_k", "tied head")]
+             (1536, 152064, "q4_k", "tied head"),
+             (7168, 18432, "q4_k", "DeepSeek dense gate, up"),
+             (18432, 7168, "q6_k", "DeepSeek dense down"),
+             (7168, 2048, "q3_k", "q3_k at an expert's shape, one weight")]
 B1_ROWS = (1, 4, 512)
 # the case that stands for each format in the summary line: the decode
 # shape (M = 4, bf16) that moves most of the format's weight bytes per step
 B1_SUMMARY = {"q4_k": (4, 1536, 8960), "q6_k": (4, 8960, 1536)}
+# DeepSeek-V3 expert weights (E = 256): (K, N, what they are).  C = 1 is an
+# expert's capacity at decode (4 lanes x top-8 / 256, at least 1), C = 20
+# at a 4 x 128-token prefill chunk (1.25 x 512 x 8 / 256).
+EXPERTS = 256
+EXPERT_SHAPES = [(7168, 2048, "gate_exps, up_exps"), (2048, 7168, "down_exps")]
+EXPERT_ROWS = (1, 20)
+# the case that stands for each expert format in the summary line: C = 1,
+# the shape of the format's experts in the DeepSeek cut (q3_k: gate/up of
+# every MoE layer; q4_k, q6_k: down of the 3rd / 1st-2nd MoE layers)
+EXPERT_SUMMARY = {"q3_k": (7168, 2048), "q4_k": (2048, 7168),
+                  "q6_k": (2048, 7168)}
 B1_TOL = 8e-3      # bf16 output: one bf16 ulp (2^-8) of the largest value
 B1_TOL_F32 = 1e-5  # f32 output: f32 summation order only
 ATTN_TOL = 1e-5    # f32 output: summation order and the online softmax
@@ -201,7 +235,7 @@ def phase_kernels(torch, summary: dict) -> None:
                     wbytes + nbytes(x) + m * n * x.element_size(),
                     2.0 * m * k * n, dt_name)
                 detail.append(dict(res, kernel=name))
-                if (m, k, n) == B1_SUMMARY[fmt] and dt == torch.bfloat16:
+                if (m, k, n) == B1_SUMMARY.get(fmt) and dt == torch.bfloat16:
                     summary[name] = kernel_entry(name, **res)
         del copies, qt
         torch.cuda.empty_cache()
@@ -307,40 +341,178 @@ def phase_kernels(torch, summary: dict) -> None:
     summary["paged_attn_prefill_quant"] = kernel_entry(
         "paged_attn_prefill_quant", **res)
     detail.append(dict(res, kernel="paged_attn_prefill_quant"))
+    del kf, vf, k_qs, k_d, v_qs, v_d, qc
+    kernels_experts(torch, summary, detail, gen)
+    kernels_mla(torch, summary, detail, gen, live, n_lp, num_pages, bt, pos,
+                lane_pages, active, nj, qp)
     emit({"phase": "kernels", "detail": detail})
 
 
+def kernels_experts(torch, summary: dict, detail: list, gen) -> None:
+    """B1's expert form: all 256 experts of one weight in one launch."""
+    from repro_torch.core.apply import quantize_in_groups
+    from repro_torch.kernels import qmatmul as qm
+
+    dev = torch.device("cuda")
+    for fmt in ("q3_k", "q4_k", "q6_k"):
+        name = f"qmatmul_experts_{fmt}"
+        kern = qm.EXPERT_KERNELS[fmt]
+        for k, n, use in EXPERT_SHAPES:
+            qt = quantize_in_groups(
+                lambda r, k=k, n=n: torch.randn(
+                    (len(r), k, n), generator=gen, device=dev) / math.sqrt(k),
+                EXPERTS, fmt, group=16, dim=0)
+            wbytes = qt.packed_bytes()        # > 1 GB: every launch is cold
+            for c in EXPERT_ROWS:
+                x = torch.randn((EXPERTS, c, k), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                y = kern(x, qt)
+                ref = qm.qmatmul_plain(x, qt)
+                torch.cuda.synchronize()
+                if y.shape != (EXPERTS, c, n) or y.dtype != torch.bfloat16:
+                    fail(f"{name} shape/dtype {y.shape} {y.dtype}")
+                ms = device_ms(torch, lambda: kern(x, qt))
+                plain_ms = device_ms(torch, lambda: qm.qmatmul_plain(x, qt),
+                                     iters=2)
+                res = case(f"E={EXPERTS} C={c} K={k} N={n} bfloat16 ({use})",
+                           y, ref, B1_TOL, "max_rel_err", ms, plain_ms,
+                           wbytes + nbytes(x) + EXPERTS * c * n * 2,
+                           2.0 * EXPERTS * c * k * n, "bfloat16")
+                detail.append(dict(res, kernel=name))
+                if c == 1 and (k, n) == EXPERT_SUMMARY[fmt]:
+                    summary[name] = kernel_entry(name, **res)
+                del x, y, ref
+            del qt
+            torch.cuda.empty_cache()
+
+
+def kernels_mla(torch, summary: dict, detail: list, gen, live, n_lp,
+                num_pages, bt, pos, lane_pages, active, nj, qp) -> None:
+    """B6 and B7 at the DeepSeek serve's shapes: the same 4 lanes, block
+    tables and page bucket as the GQA cases, 128 heads, latent 512, rope
+    64."""
+    from repro_torch.kernels import paged_attn as pa
+
+    dev = torch.device("cuda")
+    B, H, R, DR, P, C = 4, 128, 512, 64, 16, 128
+    scale = (128 + 64) ** -0.5
+    ckv = torch.randn((num_pages, P, R), generator=gen, device=dev)
+    kr = torch.randn((num_pages, P, DR), generator=gen, device=dev)
+    cq, cd = pa.quantize_kv_page_pool(ckv)
+    kq, kd = pa.quantize_kv_page_pool(kr)
+    # the serve passes the queries in the model dtype
+    q_eff = torch.randn((B, H, R), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q_rope = torch.randn((B, H, DR), generator=gen, device=dev).to(
+        torch.bfloat16)
+    visited = int(n_lp.sum())
+    n_live = int(live.sum())
+    tok_bytes = {"float32": (R + DR) * 4, "bfloat16": (R + DR) * 2,
+                 "int8": R + DR + 8}
+    # per head and key: scores 2 (R + Dr), p . c_kv 2 R; f32 arithmetic
+    per_pair = 4.0 * R + 2.0 * DR
+    cases = [("paged_mla_decode", "float32", (ckv, kr)),
+             ("paged_mla_decode", "bfloat16",
+              (ckv.to(torch.bfloat16), kr.to(torch.bfloat16))),
+             ("paged_mla_decode_quant", "int8", (cq, cd, kq, kd))]
+    for name, kv_type, kv in cases:
+        fn = getattr(pa, name)
+        kw = dict(scale=scale, active_pages=active, lane_pages=lane_pages)
+
+        def plain():
+            return pa.mla_decode_plain(q_eff, q_rope, kv, bt, pos,
+                                       scale=scale, nj=active,
+                                       quant=kv_type == "int8")
+        y = fn(q_eff, q_rope, *kv, bt, pos, **kw)
+        ref = plain()
+        torch.cuda.synchronize()
+        if y.shape != (B, H, R):
+            fail(f"{name} ({kv_type} pools): shape {y.shape}")
+        ms = device_ms(torch, lambda: fn(q_eff, q_rope, *kv, bt, pos, **kw),
+                       iters=20)
+        plain_ms = device_ms(torch, plain)
+        moved = (n_live * tok_bytes[kv_type] + nbytes(q_eff, q_rope, pos,
+                                                      lane_pages)
+                 + visited * 4 + B * H * R * 4)
+        res = case(f"B={B} H={H} R={R} Dr={DR} P={P} live {live.tolist()} "
+                   f"active_pages={active} table {nj} wide, {kv_type} pools",
+                   y, ref, ATTN_TOL, "max_abs_err", ms, plain_ms, moved,
+                   per_pair * H * n_live, "float32")
+        detail.append(dict(res, kernel=name))
+        if kv_type != "float32":        # the serve path's pool types
+            summary[name] = kernel_entry(name, **res)
+
+    # prefill: one 128-token chunk per lane ending at its frontier, lane 0's
+    # chunk short (padded rows have qpos = -1), as the GQA case
+    qe = torch.randn((B, C, H, R), generator=gen, device=dev).to(
+        torch.bfloat16)
+    qr = torch.randn((B, C, H, DR), generator=gen, device=dev).to(
+        torch.bfloat16)
+    pools = (cq, cd, kq, kd)
+
+    def plain():
+        return pa.mla_prefill_plain(qe, qr, pools, bt, qp, scale=scale, nj=nj)
+    y = pa.paged_mla_prefill_quant(qe, qr, *pools, bt, qp, scale=scale)
+    ref = plain()
+    torch.cuda.synchronize()
+    ms = device_ms(torch, lambda: pa.paged_mla_prefill_quant(
+        qe, qr, *pools, bt, qp, scale=scale), iters=5)
+    plain_ms = device_ms(torch, plain, iters=3)
+    valid_q = (qp >= 0).sum(dim=1).cpu()
+    keys = sum(int(v) * (int(p) + 1) - int(v) * (int(v) - 1) // 2
+               for v, p in zip(valid_q, live - 1))      # causal pairs
+    moved = (n_live * tok_bytes["int8"] + nbytes(qe, qr, qp) + visited * 4
+             + B * C * H * R * 4)
+    res = case(f"B={B} C={C} H={H} R={R} Dr={DR} P={P} live {live.tolist()} "
+               f"table {nj} wide, int8 pools", y, ref, ATTN_TOL,
+               "max_abs_err", ms, plain_ms, moved, per_pair * H * keys,
+               "float32")
+    summary["paged_mla_prefill_quant"] = kernel_entry(
+        "paged_mla_prefill_quant", **res)
+    detail.append(dict(res, kernel="paged_mla_prefill_quant"))
+
+
 # ---------------------------------------------------------------------------
-# phase 3: depth-2 full-width model, card vs CPU
+# phase 3: full-width models at a cut depth, card vs CPU
 # ---------------------------------------------------------------------------
 
 # max|d logits| / max|logit|, card vs CPU.  f32 pools: the two sides differ
-# only in f32 summation order.  q8_0 pools: where that order moves a K/V
-# value across a rounding boundary, the card and the CPU store codes one
-# step apart (a step is 1/127 of the row's max |x|), and the attention
+# only in f32 summation order.  q8_0 pools: where that order moves a K/V (or
+# latent) value across a rounding boundary, the card and the CPU store codes
+# one step apart (a step is 1/127 of the row's max |x|), and the attention
 # output moves with it; the phase also checks that no code differs by more
 # than one step.
 PARITY_TOL = {"f32": 1e-3, "q8_0": 1e-2}
 
 
 def phase_parity(torch) -> None:
-    import dataclasses
-
     from repro_torch.configs import get_config
+
+    qwen = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2)
+    parity_model(torch, qwen, B=2, C=64, max_len=128, steps_n=4, short=9)
+    # DeepSeek-V3 at depth 4: the 3 dense layers and the first MoE layer.
+    # The CPU side dequantizes every weight it multiplies on every call
+    # (~3 G weights per forward, the experts of the tokens routed to them
+    # on top), so the chunk is short and the decode steps few.
+    deepseek = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=4)
+    parity_model(torch, deepseek, B=2, C=8, max_len=64, steps_n=2, short=3)
+
+
+def parity_model(torch, cfg, *, B: int, C: int, max_len: int, steps_n: int,
+                 short: int) -> None:
+    """One prefill chunk (lane 1 ``short`` tokens short) and ``steps_n``
+    decode steps of ``cfg`` on the card and on the CPU, per pool kind."""
     from repro_torch.convert import tree_to
-    from repro_torch.core import get_policy, quantize_params
+    from repro_torch.core import get_policy, init_quantized_params
     from repro_torch.models import paged
     from repro_torch.models.model import Model
-    from repro_torch.models.spec import init_params
 
-    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2)
     dev = torch.device("cuda")
-    params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
-    qparams = quantize_params(cfg, params, get_policy("DQ3_K_M"))
-    del params
+    qparams = init_quantized_params(cfg, get_policy("DQ3_K_M"), 0,
+                                    dtype=torch.float32, device=dev)
     cpu_params = tree_to(qparams, "cpu")
     model = Model(cfg, dtype=torch.float32)
-    B, C, P, max_len, steps_n = 2, 64, 16, 128, 4
+    P = 16
     n = paged.pages_for(max_len, P)
     bt = torch.tensor([[2 + i * n + j for j in range(n)] for i in range(B)],
                       dtype=torch.int32)
@@ -351,11 +523,13 @@ def phase_parity(torch) -> None:
     # send the two devices down different streams
     dec_toks = torch.randint(4, cfg.vocab_size, (steps_n, B), generator=rng,
                              dtype=torch.int32)
-    clen = torch.tensor([C, C - 9], dtype=torch.int32)
+    clen = torch.tensor([C, C - short], dtype=torch.int32)
     for kv_quant in (None, "q8_0"):
         label = kv_quant or "f32"
-        logits, caches = {}, {}
-        for device, prm in ((dev, qparams), (torch.device("cpu"), cpu_params)):
+        logits, caches, secs = {}, {}, {}
+        for side, device, prm in (("card", dev, qparams),
+                                  ("cpu", torch.device("cpu"), cpu_params)):
+            t0 = time.perf_counter()
             cache = model.init_paged_cache(2 + B * n, P, B,
                                            dtype=torch.float32,
                                            kv_quant=kv_quant, device=device)
@@ -375,34 +549,40 @@ def phase_parity(torch) -> None:
                     lane_pages={"full": lp}, kv_quant=kv_quant)
                 steps.append(out)
                 pos = pos + 1
-            logits[device.type] = torch.stack(steps).cpu()
-            caches[device.type] = {k: v.cpu() for k, v in cache.items()}
-        a, b = logits["cuda"], logits["cpu"]
+            logits[side] = torch.stack(steps).cpu()
+            caches[side] = {k: v.cpu() for k, v in cache.items()}
+            secs[side] = time.perf_counter() - t0
+        a, b = logits["card"], logits["cpu"]
         if (a.shape != (steps_n + 1, B, cfg.vocab_size)
                 or not torch.isfinite(a).all()):
-            fail(f"parity ({label}): bad logits {a.shape}")
+            fail(f"parity ({cfg.name}, {label}): bad logits {a.shape}")
         rel = ((a - b).abs().max() / b.abs().max()).item()
-        result = {"phase": "parity", "kv": label, "layers": cfg.n_layers,
+        result = {"phase": "parity", "arch": cfg.name, "kv": label,
+                  "layers": cfg.n_layers, "chunk": C, "decode_steps": steps_n,
                   "max_abs": (a - b).abs().max().item(),
                   "max_abs_logit": b.abs().max().item(), "rel": rel,
-                  "tol": PARITY_TOL[label]}
+                  "tol": PARITY_TOL[label], "card_s": secs["card"],
+                  "cpu_s": secs["cpu"]}
         # every page but GARBAGE, the sink of padded writes, whose order
         # among duplicates is unspecified and which is never read
         read = [i for i in range(2 + B * n) if i != paged.GARBAGE_PAGE]
-        ca = {k: v[read] for k, v in caches["cuda"].items()}
+        ca = {k: v[read] for k, v in caches["card"].items()}
         cb = {k: v[read] for k, v in caches["cpu"].items()}
         if any(not torch.equal(ca[k], cb[k]) for k in ca if k.endswith("/pos")):
-            fail(f"parity ({label}): the caches' positions differ")
+            fail(f"parity ({cfg.name}, {label}): the caches' positions differ")
         if kv_quant:
             steps_apart = [(ca[k].int() - cb[k].int()).abs() for k in ca
                            if k.endswith("_qs")]
             result["codes_one_step_apart"] = sum(
                 int((s == 1).sum()) for s in steps_apart)
             if max(int(s.max()) for s in steps_apart) > 1:
-                fail(f"parity ({label}): q8_0 codes more than one step apart")
+                fail(f"parity ({cfg.name}, {label}): q8_0 codes more than "
+                     "one step apart")
         emit(result)
         if not rel <= PARITY_TOL[label]:
-            fail(f"parity ({label}): max|d| / max|logit| = {rel}")
+            fail(f"parity ({cfg.name}, {label}): max|d| / max|logit| = {rel}")
+    del qparams, cpu_params
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -413,6 +593,26 @@ def short_name(key: str) -> str:
     """A CUDA kernel's profiler key without its namespace and arguments."""
     return key.replace("void ", "").replace("(anonymous namespace)::",
                                             "").split("(")[0]
+
+
+# kernel families of a traced decode step: qmatmul_kernel<T, rows, format,
+# experts> (format 0 q4_k, 1 q6_k, 2 q3_k), its split-K reduction, and the
+# attention kernels
+B1_FORMATS = {"0": "q4_k", "1": "q6_k", "2": "q3_k"}
+
+
+def family(key: str) -> str:
+    m = re.search(r"qmatmul_kernel<[^,]+, *\d+, *(\d), *(true|false)>", key)
+    if m:
+        return (f"B1 experts {B1_FORMATS[m.group(1)]}" if m.group(2) == "true"
+                else "B1 dense")
+    if "splitk" in key:
+        return "B1 dense"
+    if "paged_mla" in key:
+        return "B6/B7 paged_mla"
+    if "paged_attn" in key:
+        return "B2-B4 paged_attn"
+    return "other"
 
 
 def profile_decode(torch, model, qparams, kv_quant, lanes=4, live=256,
@@ -477,7 +677,7 @@ def profile_decode(torch, model, qparams, kv_quant, lanes=4, live=256,
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    fams = {"qmatmul (B1)": 0.0, "paged_attn (B2-B4)": 0.0, "other": 0.0}
+    fams: dict[str, float] = {}
     per_kernel, host, launches = {}, {}, 0
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -485,20 +685,16 @@ def profile_decode(torch, model, qparams, kv_quant, lanes=4, live=256,
             ms = (ev.self_cuda_time_total if us is None else us) / 1e3 / steps
             per_kernel[ev.key] = ms
             launches += ev.count
-            fam = ("qmatmul (B1)" if "qmatmul" in ev.key or "splitk" in ev.key
-                   else "paged_attn (B2-B4)" if "paged_attn" in ev.key
-                   else "other")
-            fams[fam] += ms
+            fams[family(ev.key)] = fams.get(family(ev.key), 0.0) + ms
         else:
             host[ev.key] = ev.self_cpu_time_total / 1e3 / steps
     busy = sum(fams.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
     top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
-    # the port's kernels by instantiation (qmatmul_kernel<T, rows, format>:
-    # format 0 is q4_k, 1 is q6_k), device ms per step
     ours = {short_name(k): v for k, v in per_kernel.items()
-            if any(s in k for s in ("qmatmul", "splitk", "paged_attn"))}
-    return {"phase": "decode_profile", "kv": kv_quant or "bf16",
+            if family(k) != "other"}
+    return {"phase": "decode_profile", "arch": model.cfg.name,
+            "layers": model.cfg.n_layers, "kv": kv_quant or "bf16",
             "lanes": lanes, "live_tokens": live, "step_wall_ms": wall,
             "device_ms": busy, "idle_share": max(0.0, 1 - busy / wall),
             "by_family_ms": fams, "kernels_per_step": launches / steps,
@@ -507,36 +703,63 @@ def profile_decode(torch, model, qparams, kv_quant, lanes=4, live=256,
             "top_host_ops_ms": {k[:60]: v for k, v in top_host}}
 
 
+# what ``repro.core.size.model_size`` gives for the 7-layer DeepSeek-V3 cut
+# under DQ3_K_M: GGUF bytes and the structure-of-arrays layout both
+# packages store (8-bit scale fields), in GiB
+REFERENCE_GIB = {"gguf": 25783579136 / 2**30, "soa": 26417660416 / 2**30}
+
+
 def phase_serve(torch, summary: dict) -> None:
     from repro_torch.configs import get_config
-    from repro_torch.core import get_policy, quantize_params
     from repro_torch.kernels import paged_attn as pa
     from repro_torch.kernels import qmatmul as qm
+
+    counters = {name: getattr(qm, name, None) or getattr(pa, name)
+                for name in KERNELS}
+    totals = {k: 0 for k in counters}
+    dense = ("qmatmul_q4_k", "qmatmul_q6_k")
+    experts = ("qmatmul_experts_q3_k", "qmatmul_experts_q4_k",
+               "qmatmul_experts_q6_k")
+    serve_model(torch, get_config("qwen2-1.5b"), counters, totals, {
+        "q8_0": dense + ("paged_attn_decode_quant",
+                         "paged_attn_prefill_quant"),
+        None: dense + ("paged_attn_decode",)})
+    # DeepSeek-V3 cut to 7 layers: the 3 dense layers of the published
+    # config and 4 MoE layers, where ffn_down_exps takes all three of
+    # DQ3_K_M's formats; every width is the published one
+    deepseek = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=7)
+    serve_model(torch, deepseek, counters, totals, {
+        "q8_0": dense + experts + ("paged_mla_decode_quant",
+                                   "paged_mla_prefill_quant"),
+        None: dense + experts + ("paged_mla_decode",)})
+    for name in counters:
+        summary.setdefault(name, kernel_entry(name))["launches"] = totals[name]
+
+
+def serve_model(torch, cfg, counters: dict, totals: dict,
+                path_kernels: dict) -> None:
+    """Weights from seed 0 made and quantized on the card (DQ3_K_M, bf16),
+    then 8 greedy requests with q8_0 and with bf16 pools; the counts are
+    set to 0 just before each serve and read just after."""
+    from repro_torch.core import QTensor, get_policy, init_quantized_params
     from repro_torch.launch.serve import build_requests
     from repro_torch.models.model import Model
-    from repro_torch.models.spec import init_params
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.sampler import SamplerConfig
 
-    cfg = get_config("qwen2-1.5b")
     dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
-    qparams = quantize_params(cfg, params, get_policy("DQ3_K_M"))
-    del params
+    qparams = init_quantized_params(cfg, get_policy("DQ3_K_M"), 0,
+                                    dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    packed_gib = sum(v.packed_bytes() if isinstance(v, QTensor)
+                     else v.numel() * v.element_size()
+                     for v in qparams.values()) / 2**30
     model = Model(cfg, dtype=torch.bfloat16)
-    counters = {"qmatmul_q4_k": qm.qmatmul_q4_k,
-                "qmatmul_q6_k": qm.qmatmul_q6_k,
-                "paged_attn_decode": pa.paged_attn_decode,
-                "paged_attn_decode_quant": pa.paged_attn_decode_quant,
-                "paged_attn_prefill_quant": pa.paged_attn_prefill_quant}
-    path_kernels = {
-        "q8_0": ("qmatmul_q4_k", "qmatmul_q6_k", "paged_attn_decode_quant",
-                 "paged_attn_prefill_quant"),
-        None: ("qmatmul_q4_k", "qmatmul_q6_k", "paged_attn_decode")}
-    totals = {k: 0 for k in counters}
     for kv_quant in ("q8_0", None):
         engine = Engine(model, qparams, max_len=1024, device=dev,
                         sampler=SamplerConfig(greedy=True), page_size=16,
@@ -554,7 +777,9 @@ def phase_serve(torch, summary: dict) -> None:
         launches = {k: c.launches for k, c in counters.items()}
         st = engine.last_stats
         label = kv_quant or "bf16"
-        res = {"phase": "serve", "kv": label, "quantize_s": quant_s,
+        res = {"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
+               "kv": label, "quantize_s": quant_s,
+               "init_peak_mem_gib": init_peak, "packed_gib": packed_gib,
                "requests": len(done),
                "out_tokens": [len(r.out) for r in sorted(done,
                                                          key=lambda r: r.rid)],
@@ -570,25 +795,31 @@ def phase_serve(torch, summary: dict) -> None:
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                "pages_leaked": st.pages_leaked, "peak_pages": st.peak_pages,
                "bytes_per_live_token": st.bytes_per_live_token,
+               "dense_cache_bytes": st.dense_cache_bytes,
                "kv_bytes_per_decoded_token": st.kv_bytes_per_decoded_token,
-               "launches": launches}
+               "launches": {k: v for k, v in launches.items() if v}}
+        if cfg.mla:
+            res["reference_size_gib"] = REFERENCE_GIB
         emit(res)
         if len(done) != 8 or any(r.status != "ok" or len(r.out) != 32
                                  for r in done):
-            fail(f"serve ({label}): not every request completed")
+            fail(f"serve ({cfg.name}, {label}): not every request completed")
         if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
-            fail(f"serve ({label}): token outside the vocabulary")
+            fail(f"serve ({cfg.name}, {label}): token outside the vocabulary")
         if st.pages_leaked:
-            fail(f"serve ({label}): {st.pages_leaked} pages leaked")
+            fail(f"serve ({cfg.name}, {label}): {st.pages_leaked} pages "
+                 "leaked")
         missing = [k for k in path_kernels[kv_quant] if launches[k] <= 0]
         if missing:
-            fail(f"serve ({label}): kernels never launched: {missing}")
+            fail(f"serve ({cfg.name}, {label}): kernels never launched: "
+                 f"{missing}")
         for k, v in launches.items():
             totals[k] += v
     for kv_quant in ("q8_0", None):
-        emit(profile_decode(torch, model, qparams, kv_quant))
-    for name in counters:
-        summary.setdefault(name, kernel_entry(name))["launches"] = totals[name]
+        emit(profile_decode(torch, model, qparams, kv_quant,
+                            steps=3 if cfg.mla else 5))
+    del qparams, model, engine
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:

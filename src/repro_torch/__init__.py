@@ -2,8 +2,9 @@
 
 Mirrors the module layout of the JAX package ``repro`` (the reference it is
 tested against) for the slice it ports: the K-quant weight formats and
-policies, the dense GQA forward over a paged (f32/bf16 or q8_0) KV cache,
-and the continuous-batching engine with the ``reserve`` scheduler.  The
+policies, the dense GQA and DeepSeek MLA + MoE forwards over a paged
+(f32/bf16 or q8_0) KV cache, and the continuous-batching engine with the
+``reserve`` scheduler.  The
 kernels on that path are hand-written CUDA for Hopper (``csrc/``); every
 kernel wrapper runs its plain PyTorch version for CPU tensors and launches
 the kernel (or raises) for CUDA tensors.

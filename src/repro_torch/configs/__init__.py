@@ -1,14 +1,15 @@
 """Architecture registry of the port: the configs it serves.
 
-Only the dense GQA family is ported so far; the other architectures of the
-reference registry arrive with their block families (ROADMAP D2, D6).
+The dense GQA family (qwen2-1.5b) and DeepSeek's MLA + MoE family
+(deepseek-v3-671b) are ported; the other architectures of the reference
+registry arrive with their block families (ROADMAP D6).
 """
 
 from .base import ModelConfig
-from . import qwen2_1_5b
+from . import deepseek_v3_671b, qwen2_1_5b
 
 CONFIGS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG
-                                   for m in (qwen2_1_5b,)}
+                                   for m in (qwen2_1_5b, deepseek_v3_671b)}
 
 
 def get_config(name: str) -> ModelConfig:

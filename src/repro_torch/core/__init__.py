@@ -3,7 +3,8 @@
 from .formats import FORMATS
 from .policy import POLICIES, Policy, get_policy
 from .qtensor import QTensor, quantize
-from .apply import format_map, quantize_params
+from .apply import format_map, init_quantized_params, quantize_params
 
 __all__ = ["FORMATS", "POLICIES", "Policy", "get_policy", "QTensor",
-           "quantize", "format_map", "quantize_params"]
+           "quantize", "format_map", "init_quantized_params",
+           "quantize_params"]

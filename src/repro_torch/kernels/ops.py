@@ -1,9 +1,9 @@
 """Quantized-weight ops: ``qmatmul`` dispatch and ``qgather_columns``.
 
 ``qmatmul(x, qt)`` computes ``x @ dequant(qt)`` through kernel B1 for the
-formats that have one (q4_k, q6_k); the wrapper picks the CUDA kernel or
-its plain version by the tensors' device.  Weights with a leading expert
-dim are not on the ported path.
+formats that have one (q4_k, q6_k, q3_k), for one (K, N) weight or a stack
+of expert weights (E, K, N) against x (E, C, K); the wrapper picks the
+CUDA kernel or its plain version by the tensors' device.
 """
 
 from __future__ import annotations
@@ -11,20 +11,22 @@ from __future__ import annotations
 import torch
 
 from ..core.qtensor import QTensor
-from .qmatmul import KERNELS
+from .qmatmul import EXPERT_KERNELS, KERNELS
 
 
 def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """x: (..., K) -> (..., N) in ``x.dtype``."""
-    if qt.shape[:-2]:
-        raise NotImplementedError(
-            "batched (expert) weights are not ported yet "
-            "(ROADMAP D2, DeepSeek MLA + MoE)")
+    """x: (..., K) -> (..., N), or (E, ..., K) -> (E, ..., N) for expert
+    weights, in ``x.dtype``."""
     if qt.fmt not in KERNELS:
         raise NotImplementedError(
-            f"no kernel for {qt.fmt!r} weights yet (ROADMAP D4, kernel B8: the "
-            "remaining formats' kernels)")
-    return KERNELS[qt.fmt](x, qt)
+            f"no kernel for {qt.fmt!r} weights yet (ROADMAP D4, kernel B8: "
+            "the q5_k, q2_k and q8_0 kernels)")
+    if len(qt.shape) == 2:
+        return KERNELS[qt.fmt](x, qt)
+    if len(qt.shape) == 3:
+        return EXPERT_KERNELS[qt.fmt](x, qt)
+    raise ValueError(f"qmatmul takes (K, N) or (E, K, N) weights, got "
+                     f"{qt.shape}")
 
 
 def qgather_columns(qt: QTensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,22 @@
-"""Kernels B2/B3 and B4: paged GQA attention over KV page pools.
+"""Kernels B2/B3 and B4 (paged GQA attention over KV page pools) and B6/B7
+(absorbed MLA over latent page pools).
 
 Replace the Pallas TPU kernels ``repro/kernels/paged_attn.py::_attn_core``
-(one-token flash-decode, f32 and q8_0 tile loaders) and
-``::_attn_prefill_core`` (write-then-attend chunked prefill, q8_0 loader).
-The CUDA kernel is ``csrc/paged_attn.cu`` (its header says what bounds it
-on an H100 and how the design answers that).  Beside each wrapper is its
-plain PyTorch version, the reference's bounded-gather twin: gather only the
-first ``active_pages`` logical pages through the block table and run one
-masked softmax over them.
+(one-token flash-decode, f32 and q8_0 tile loaders),
+``::_attn_prefill_core`` (write-then-attend chunked prefill, q8_0 loader),
+``::_mla_core`` (absorbed-MLA decode, f32 and q8_0 loaders) and
+``::_mla_prefill_core`` (its chunked-prefill form, q8_0 loader).  The CUDA
+kernels are ``csrc/paged_attn.cu`` and ``csrc/paged_mla.cu`` (their headers
+say what bounds them on an H100 and how the designs answer that).  Beside
+each wrapper is its plain PyTorch version, the reference's bounded-gather
+twin: gather only the first ``active_pages`` logical pages through the
+block table and run one masked softmax over them.
 
-Layouts are the reference's: pools ``(num_pages, P, Hkv, D)``, q8_0 row
-scales ``(num_pages, P, Hkv)``, ``pos_pool (num_pages, P)`` int32 (-1 =
-unwritten), block tables ``(B, n)`` int32.  Dispatch is by device only:
+Layouts are the reference's: GQA pools ``(num_pages, P, Hkv, D)``, q8_0
+row scales ``(num_pages, P, Hkv)``, ``pos_pool (num_pages, P)`` int32 (-1
+= unwritten); MLA pools ``(num_pages, P, R)`` and ``(num_pages, P, Dr)``
+with q8_0 token scales ``(num_pages, P)`` and no positions (validity is
+positional); block tables ``(B, n)`` int32.  Dispatch is by device only:
 CPU tensors take the plain version, CUDA tensors launch the kernel or
 raise.  Each public wrapper's ``launches`` counts its kernel launches.
 """
@@ -281,6 +286,192 @@ def paged_attn_prefill_quant(q, k_qs, k_d, v_qs, v_d, pos_pool, block_table,
 paged_attn_decode.launches = 0
 paged_attn_decode_quant.launches = 0
 paged_attn_prefill_quant.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# MLA: absorbed latent attention over c_kv / k_rope page pools (B6, B7)
+# ---------------------------------------------------------------------------
+
+_MLA_MAX_R, _MLA_MAX_DR = 512, 64     # the widths csrc/paged_mla.cu holds
+
+
+def _gathered_latents(kv: tuple, btj: torch.Tensor, quant: bool):
+    b, nj = btj.shape
+    cs, ks = _gathered_kv(kv, btj, quant)
+    return (cs.reshape(b, nj * cs.shape[2], cs.shape[3]),
+            ks.reshape(b, nj * ks.shape[2], ks.shape[3]))
+
+
+def mla_decode_plain(q_eff, q_rope, kv, block_table, pos, *, scale: float,
+                     nj: int, quant: bool) -> torch.Tensor:
+    """Bounded-gather twin of the MLA decode kernel (``_xla_mla``): one
+    masked softmax over the first ``nj`` pages, valid iff the key's
+    logical index is ``<= pos``."""
+    cs, ks = _gathered_latents(kv, block_table[:, :nj].long(), quant)
+    s = (torch.einsum("bhr,blr->bhl", q_eff.to(torch.float32), cs)
+         + torch.einsum("bhd,bld->bhl", q_rope.to(torch.float32),
+                        ks)) * scale
+    valid = (torch.arange(cs.shape[1], device=cs.device)[None, :]
+             <= pos[:, None])
+    s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhl,blr->bhr", w, cs)
+
+
+def mla_prefill_plain(q_eff, q_rope, kv, block_table, qpos, *, scale: float,
+                      nj: int) -> torch.Tensor:
+    """Bounded-gather twin of the MLA prefill kernel (``_mla_prefill_core``
+    xla), including the zeroing of fully masked (padded) rows."""
+    cs, ks = _gathered_latents(kv, block_table[:, :nj].long(), True)
+    kidx = torch.arange(cs.shape[1], device=cs.device)
+    valid = kidx[None, None, :] <= qpos[:, :, None]              # (B, C, L)
+    s = (torch.einsum("bchr,blr->bchl", q_eff.to(torch.float32), cs)
+         + torch.einsum("bchd,bld->bchl", q_rope.to(torch.float32),
+                        ks)) * scale
+    vmask = valid[:, :, None, :]
+    s = torch.where(vmask, s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    w = torch.where(vmask, w, torch.zeros_like(w))
+    return torch.einsum("bchl,blr->bchr", w, cs)
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_entry():
+    v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return build.bind("paged_mla", "paged_mla",
+                      [i, v, v, v, v, v, v, v, v, v, v,
+                       i, i, i, i, i, i, i, i, f, i, v])
+
+
+def _mla_launch(kind: int, q_eff, q_rope, ckv, krope, cd, kd, block_table,
+                qpos, lane_pages, *, nj: int, scale: float,
+                rw: int) -> torch.Tensor:
+    """q_eff (B, C, H, R) / q_rope (B, C, H, Dr) in any float type (read
+    as f32); returns (B, C, H, R) f32."""
+    dev = q_eff.device
+    b, c, h, r = q_eff.shape
+    dr = q_rope.shape[-1]
+    q_eff = q_eff.to(torch.float32).contiguous()
+    q_rope = q_rope.to(torch.float32).contiguous()
+    tensors = [q_eff, q_rope, ckv, krope, block_table, qpos] + [
+        t for t in (cd, kd, lane_pages) if t is not None]
+    _require(all(t.device == dev for t in tensors),
+             "paged MLA operands must share one CUDA device")
+    _require(all(t.is_contiguous() for t in tensors),
+             "paged MLA operands must be contiguous")
+    _require(r <= _MLA_MAX_R and dr <= _MLA_MAX_DR,
+             f"MLA widths must be R <= {_MLA_MAX_R}, Dr <= {_MLA_MAX_DR}")
+    _require(ckv.shape[-1] == r and krope.shape[-1] == dr
+             and ckv.shape[:2] == krope.shape[:2],
+             "latent pools do not match the queries")
+    _require(q_rope.shape[:3] == (b, c, h), "q_rope does not match q_eff")
+    for t in (block_table, qpos) + (
+            () if lane_pages is None else (lane_pages,)):
+        _require(t.dtype == torch.int32, "indices must be int32")
+    out = torch.empty((b, c, h, r), dtype=torch.float32, device=dev)
+    err = _mla_entry()(kind, q_eff.data_ptr(), q_rope.data_ptr(),
+                       ckv.data_ptr(), krope.data_ptr(), build.ptr(cd),
+                       build.ptr(kd), block_table.data_ptr(), qpos.data_ptr(),
+                       build.ptr(lane_pages), out.data_ptr(), b, c, h, r, dr,
+                       ckv.shape[1], block_table.shape[1], nj, float(scale),
+                       rw, build.stream_ptr(dev))
+    build.check(err, "paged_mla")
+    return out
+
+
+def _mla_decode(q_eff, q_rope, kv, block_table, pos, lane_pages, *, scale,
+                active_pages, quant: bool, counter):
+    nj = _n_active(block_table, active_pages)
+    if q_eff.device.type == "cpu":
+        # the positional kidx <= pos mask already bounds every lane
+        return mla_decode_plain(q_eff, q_rope, kv, block_table, pos,
+                                scale=scale, nj=nj, quant=quant)
+    if quant:
+        cq, cd, kq, kd = kv
+        _require(cq.dtype == torch.int8 and kq.dtype == torch.int8
+                 and cd.dtype == torch.float32 and kd.dtype == torch.float32,
+                 "q8_0 latent pools are int8 values with float32 scales")
+        kind = _Q8
+    else:
+        (cq, kq), cd, kd = kv, None, None
+        _require(cq.dtype in _KV_KIND and kq.dtype == cq.dtype,
+                 "latent pools must be float32 or bfloat16")
+        kind = _KV_KIND[cq.dtype]
+    lp = None if lane_pages is None else lane_pages.to(torch.int32)
+    out = _mla_launch(kind, q_eff[:, None], q_rope[:, None], cq, kq, cd, kd,
+                      block_table, pos.to(torch.int32)[:, None].contiguous(),
+                      lp, nj=nj, scale=scale, rw=1)
+    counter.launches += 1
+    return out[:, 0]
+
+
+def paged_mla_decode(q_eff, q_rope, ckv_pool, krope_pool, block_table, pos,
+                     *, scale: float, active_pages: int | None = None,
+                     lane_pages: torch.Tensor | None = None) -> torch.Tensor:
+    """Fused one-token paged MLA decode, absorbed form (B6).
+
+    q_eff: (B, H, R) query pre-multiplied by the absorbed ``kv_b`` key
+    projection; q_rope: (B, H, Dr); ckv_pool: (num_pages, P, R);
+    krope_pool: (num_pages, P, Dr), f32 or bf16.  Entry ``j * P + o`` is
+    valid iff its logical index is ``<= pos``; ``lane_pages`` bounds each
+    lane's page loop.  Returns the attended latents (B, H, R) f32.
+    """
+    return _mla_decode(q_eff, q_rope, (ckv_pool, krope_pool), block_table,
+                       pos, lane_pages, scale=scale,
+                       active_pages=active_pages, quant=False,
+                       counter=paged_mla_decode)
+
+
+def paged_mla_decode_quant(q_eff, q_rope, ckv_qs, ckv_d, kr_qs, kr_d,
+                           block_table, pos, *, scale: float,
+                           latent_mode: str = "q8_0",
+                           rope_mode: str = "q8_0",
+                           active_pages: int | None = None,
+                           lane_pages: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """:func:`paged_mla_decode` over q8_0 latent/rope pools (B6): int8
+    values and one f32 scale per (page, token) row, dequantized inside the
+    page loop."""
+    _check_mode(latent_mode)
+    _check_mode(rope_mode)
+    return _mla_decode(q_eff, q_rope, (ckv_qs, ckv_d, kr_qs, kr_d),
+                       block_table, pos, lane_pages, scale=scale,
+                       active_pages=active_pages, quant=True,
+                       counter=paged_mla_decode_quant)
+
+
+def paged_mla_prefill_quant(q_eff, q_rope, ckv_qs, ckv_d, kr_qs, kr_d,
+                            block_table, qpos, *, scale: float,
+                            latent_mode: str = "q8_0",
+                            rope_mode: str = "q8_0",
+                            active_pages: int | None = None) -> torch.Tensor:
+    """Write-then-attend chunked-prefill absorbed MLA over q8_0 latent
+    pools (B7).
+
+    q_eff: (B, C, H, R); q_rope: (B, C, H, Dr); qpos: (B, C) int32 query
+    positions, -1 for padded rows (their outputs are zeros).  A latent
+    token is valid for row (b, c) iff its logical index is ``<= qpos``.
+    Returns (B, C, H, R) f32.
+    """
+    _check_mode(latent_mode)
+    _check_mode(rope_mode)
+    nj = _n_active(block_table, active_pages)
+    kv = (ckv_qs, ckv_d, kr_qs, kr_d)
+    if q_eff.device.type == "cpu":
+        return mla_prefill_plain(q_eff, q_rope, kv, block_table, qpos,
+                                 scale=scale, nj=nj)
+    _require(ckv_qs.dtype == torch.int8 and kr_qs.dtype == torch.int8,
+             "q8_0 latent pools are int8 values with float32 scales")
+    out = _mla_launch(_Q8, q_eff, q_rope, ckv_qs, kr_qs, ckv_d, kr_d,
+                      block_table, qpos.to(torch.int32).contiguous(), None,
+                      nj=nj, scale=scale, rw=4)
+    paged_mla_prefill_quant.launches += 1
+    return out
+
+
+paged_mla_decode.launches = 0
+paged_mla_decode_quant.launches = 0
+paged_mla_prefill_quant.launches = 0
 
 
 # ---------------------------------------------------------------------------

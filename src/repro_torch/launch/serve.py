@@ -1,10 +1,15 @@
-"""Serving launcher: init seeded weights, quantize, serve batched requests.
+"""Serving launcher: make seeded weights, quantize, serve batched requests.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --policy DQ3_K_M --page-size 16 --prefill-chunk 128 --kv-quant q8_0
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v3-671b --reduced --device cpu --dtype f32
 
 Runs on the card (``--device cuda``, the default); ``--device cpu`` runs
-the kernels' plain PyTorch versions (add ``--reduced`` there).
+the kernels' plain PyTorch versions (add ``--reduced`` there).  Weights
+are made and quantized one at a time (expert weights a group of experts
+at a time) on the serving device, so the unquantized tree is never held:
+the full-width deepseek-v3-671b needs several cards at its 61 layers.
 """
 
 from __future__ import annotations
@@ -16,8 +21,7 @@ import torch
 
 from .. import resolve_device
 from ..configs import get_config
-from ..core import get_policy, quantize_params
-from ..models import spec as mspec
+from ..core import get_policy, init_quantized_params
 from ..models.model import Model
 from ..serving.engine import Engine, Request
 from ..serving.sampler import SamplerConfig
@@ -63,9 +67,8 @@ def main(argv=None):
         cfg = cfg.reduced()
     dtype = _DTYPES[args.dtype]
     policy = get_policy(args.policy)
-    params = mspec.init_params(cfg, args.seed, dtype=dtype, device=device)
-    qparams = quantize_params(cfg, params, policy)
-    del params
+    qparams = init_quantized_params(cfg, policy, args.seed, dtype=dtype,
+                                    device=device)
     model = Model(cfg, dtype=dtype)
     engine = Engine(model, qparams, max_len=args.max_len, device=device,
                     sampler=SamplerConfig(args.temperature, args.top_p,

@@ -40,9 +40,9 @@ class Model:
     def init_paged_cache(self, num_pages: int, page_size: int, slots: int,
                          dtype=torch.bfloat16, kv_quant: str | None = None,
                          device=None):
-        """Attention K/V (+pos) as ``(num_pages, page_size, ...)`` pools
-        shared by all slots via block tables; ``kv_quant="q8_0"`` stores
-        int8 values + per-row f32 scales."""
+        """Attention K/V (+pos), or MLA latents, as ``(num_pages,
+        page_size, ...)`` pools shared by all slots via block tables;
+        ``kv_quant="q8_0"`` stores int8 values + per-row f32 scales."""
         flat = {}
         for layer in range(self.cfg.n_layers):
             c = transformer.init_layer_cache_paged(

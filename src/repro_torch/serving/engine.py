@@ -337,11 +337,14 @@ class Engine:
         return sum(t.numel() * t.element_size() for t in meta.values())
 
     def _dense_cache_bytes(self, slots: int) -> int:
-        """The contiguous ``slots x max_len`` layout's K/V/pos bytes."""
-        cfg = self.model.cfg
-        item = torch.empty((), dtype=self.model.dtype).element_size()
-        per_tok = 2 * cfg.n_kv_heads * cfg.head_dim * item + 4
-        return cfg.n_layers * slots * self.max_len * per_tok
+        """The contiguous ``slots x max_len`` layout's bytes, derived from
+        the model's own cache leaves (K/V/pos for GQA, ``c_kv``/``k_rope``
+        for MLA) in the model dtype: ``slots`` pages of ``max_len``
+        tokens."""
+        meta = self.model.init_paged_cache(
+            slots, self.max_len, slots, dtype=self.model.dtype,
+            device="meta")
+        return sum(t.numel() * t.element_size() for t in meta.values())
 
     # -- continuous batching -------------------------------------------------
     def serve(self, requests: list[Request], slots: int = 4,

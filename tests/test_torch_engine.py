@@ -43,6 +43,36 @@ def weights():
 
 @pytest.mark.parametrize("kv_quant", [None, "q8_0"])
 def test_greedy_serve_matches_reference_engine(weights, kv_quant):
+    _greedy_serve_both(weights, kv_quant)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "q8_0"])
+def test_deepseek_greedy_serve_matches_reference_engine(kv_quant):
+    """deepseek-v3 reduced (MLA latent pools, 1 dense + 4 MoE layers,
+    DQ3_K_M): the same greedy streams, stats and byte accounting."""
+    _greedy_serve_both(reference_weights("DQ3_K_M", 1, "deepseek-v3-671b"),
+                       kv_quant)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-v3-671b"])
+def test_dense_cache_bytes_match_reference_engine(arch):
+    """The contiguous ``slots x max_len`` layout's bytes come from the
+    model's own cache leaves: K/V/pos for GQA, c_kv/k_rope for MLA."""
+    jcfg, cfg, jparams, params = reference_weights("DQ3_K_M", 1, arch)
+    kw = dict(max_len=48, page_size=4)
+    jeng = JaxEngine(JaxModel(jcfg, dtype=jnp.float32), jparams, jit=False,
+                     **kw)
+    teng = Engine(Model(cfg, dtype=torch.float32), params, device="cpu",
+                  **kw)
+    for slots in (1, 3):
+        assert teng._dense_cache_bytes(slots) == jeng._dense_cache_bytes(
+            slots)
+    if cfg.mla:       # c_kv + k_rope per token and layer, no positions
+        assert teng._dense_cache_bytes(1) == (
+            cfg.n_layers * 48 * 4 * (cfg.kv_lora_rank + cfg.qk_rope_head_dim))
+
+
+def _greedy_serve_both(weights, kv_quant):
     jcfg, cfg, jparams, params = weights
     kw = dict(max_len=32, page_size=4, prefill_chunk=4, kv_quant=kv_quant)
     jeng = JaxEngine(JaxModel(jcfg, dtype=jnp.float32), jparams, jit=False,
@@ -120,6 +150,16 @@ def test_serve_cli_on_cpu(capsys):
         "--arch", "qwen2-1.5b", "--reduced", "--device", "cpu", "--dtype",
         "f32", "--requests", "3", "--slots", "2", "--prompt-min", "3",
         "--prompt-max", "9", "--page-size", "4", "--prefill-chunk", "4",
+        "--max-new", "3", "--max-len", "32", "--kv-quant", "q8_0"])
+    assert len(done) == 3 and all(len(r.out) == 3 for r in done)
+    assert "leaked 0" in capsys.readouterr().out
+
+
+def test_serve_cli_deepseek_on_cpu(capsys):
+    done = serve_cli.main([
+        "--arch", "deepseek-v3-671b", "--reduced", "--device", "cpu",
+        "--dtype", "f32", "--requests", "3", "--slots", "2", "--prompt-min",
+        "3", "--prompt-max", "9", "--page-size", "4", "--prefill-chunk", "4",
         "--max-new", "3", "--max-len", "32", "--kv-quant", "q8_0"])
     assert len(done) == 3 and all(len(r.out) == 3 for r in done)
     assert "leaked 0" in capsys.readouterr().out

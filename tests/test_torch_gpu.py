@@ -19,12 +19,11 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.convert import tree_to
-from repro_torch.core import get_policy, quantize_params
+from repro_torch.core import get_policy, init_quantized_params
 from repro_torch.core.qtensor import quantize
 from repro_torch.kernels import paged_attn, qmatmul
 from repro_torch.models import paged
 from repro_torch.models.model import Model
-from repro_torch.models.spec import init_params
 
 TOL = 1e-5
 
@@ -59,6 +58,47 @@ def test_qmatmul_kernel_matches_plain(cuda, fmt, m, k, dtype):
     ref = qmatmul.qmatmul_plain(x, qt).float()
     tol = TOL if dtype == torch.float32 else 2 ** -8
     assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
+
+
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_qmatmul_q3_k_kernel_matches_plain(cuda, m, dtype):
+    rng = np.random.default_rng(m + 3)
+    qt = quantize(torch.from_numpy(_np(rng, (1000, 256))).to(cuda), "q3_k")
+    x = torch.from_numpy(_np(rng, (m, 1000))).to(cuda).to(dtype)
+    before = qmatmul.qmatmul_q3_k.launches
+    y = qmatmul.qmatmul_q3_k(x, qt)
+    torch.cuda.synchronize()
+    assert qmatmul.qmatmul_q3_k.launches == before + 1
+    ref = qmatmul.qmatmul_plain(x, qt).float()
+    tol = TOL if dtype == torch.float32 else 2 ** -8
+    assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
+
+
+@pytest.mark.parametrize("fmt", ["q3_k", "q4_k", "q6_k"])
+@pytest.mark.parametrize("c", [1, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_qmatmul_experts_kernel_matches_plain(cuda, fmt, c, dtype):
+    """x (E, C, K) against (E, K, N) expert weights in one launch, K not a
+    multiple of the superblock, one expert's rows all zero."""
+    rng = np.random.default_rng(c * 5 + len(fmt))
+    e, k, n = 5, 700, 136
+    qt = quantize(torch.from_numpy(_np(rng, (e, k, n))).to(cuda), fmt)
+    x = torch.from_numpy(_np(rng, (e, c, k))).to(cuda)
+    x[2] = 0.0
+    x = x.to(dtype)
+    kern = qmatmul.EXPERT_KERNELS[fmt]
+    before = kern.launches
+    y = kern(x, qt)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert y.dtype == dtype and y.shape == (e, c, n)
+    ref = qmatmul.qmatmul_plain(x, qt).float()
+    tol = TOL if dtype == torch.float32 else 2 ** -8
+    assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
+    assert bool((y[2] == 0).all())
 
 
 def test_qmatmul_kernel_raises_on_what_it_does_not_take(cuda):
@@ -169,16 +209,115 @@ def test_paged_prefill_kernel_matches_plain(cuda, page_size, active, c):
     assert (y - ref).abs().max() < TOL
 
 
+def _latent_pools(rng, b, n_lp, page_size, r, dr, live):
+    """f32 latent / rope pools and block tables with ``live[i]`` tokens per
+    lane and NULL-page tails."""
+    n_pages = paged.RESERVED_PAGES + b * n_lp
+    ckv = _np(rng, (n_pages, page_size, r))
+    kr = _np(rng, (n_pages, page_size, dr))
+    bt = np.full((b, n_lp), paged.NULL_PAGE, np.int32)
+    nxt = paged.RESERVED_PAGES
+    for i in range(b):
+        for lp in range(-(-live[i] // page_size)):
+            bt[i, lp] = nxt
+            nxt += 1
+    return ckv, kr, bt
+
+
+MLA_DECODE_CASES = [
+    # page_size, active_pages, lane_pages, live
+    (3, None, None, [7, 12, 1]),
+    (5, 4, [2, 4, 1], [9, 20, 1]),       # bounds short of the table width
+    (16, None, [3, 1, 2], [33, 1, 17]),  # the serving page size
+]
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "q8_0"])
+@pytest.mark.parametrize("case", MLA_DECODE_CASES)
+@pytest.mark.parametrize("r,dr,h", [(32, 16, 5), (512, 64, 12)])
+def test_paged_mla_decode_kernel_matches_plain(cuda, kv, case, r, dr, h):
+    page_size, active, lanes, live = case
+    rng = np.random.default_rng(page_size + r)
+    b, n_lp = 3, 6
+    ckv, kr, bt = (torch.from_numpy(a).to(cuda) for a in _latent_pools(
+        rng, b, n_lp, page_size, r, dr, live))
+    pos = torch.tensor([x - 1 for x in live], dtype=torch.int32, device=cuda)
+    q_eff = torch.from_numpy(_np(rng, (b, h, r))).to(cuda)
+    q_rope = torch.from_numpy(_np(rng, (b, h, dr))).to(cuda)
+    lp = None if lanes is None else torch.tensor(lanes, dtype=torch.int32,
+                                                 device=cuda)
+    scale = 192 ** -0.5
+    if kv == "q8_0":
+        pools = (*paged_attn.quantize_kv_page_pool(ckv),
+                 *paged_attn.quantize_kv_page_pool(kr))
+        fn = paged_attn.paged_mla_decode_quant
+    else:
+        dt = torch.float32 if kv == "f32" else torch.bfloat16
+        pools = (ckv.to(dt), kr.to(dt))
+        fn = paged_attn.paged_mla_decode
+    before = fn.launches
+    y = fn(q_eff, q_rope, *pools, bt, pos, scale=scale, active_pages=active,
+           lane_pages=lp)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = paged_attn.mla_decode_plain(
+        q_eff, q_rope, pools, bt, pos, scale=scale,
+        nj=paged_attn._n_active(bt, active), quant=kv == "q8_0")
+    assert y.shape == (b, h, r)
+    assert (y - ref).abs().max() < TOL
+
+
+@pytest.mark.parametrize("page_size,active,c", [(3, None, 5), (5, 3, 5),
+                                                (16, None, 40)])
+def test_paged_mla_prefill_kernel_matches_plain(cuda, page_size, active, c):
+    """Write-then-attend MLA prefill over q8_0 latent pools, with padded
+    query rows (qpos = -1 -> zeros) and stale tokens past a lane's
+    frontier."""
+    rng = np.random.default_rng(page_size * 2 + c)
+    b, h, r, dr, n_lp = 2, 6, 512, 64, 6
+    live = [min(page_size * 2 + 2 + c, page_size * n_lp), page_size + c]
+    ckv, kr, bt = (torch.from_numpy(a).to(cuda) for a in _latent_pools(
+        rng, b, n_lp, page_size, r, dr, [page_size * n_lp] * b))
+    qpos = torch.stack([torch.arange(x - c, x) for x in live]).to(
+        torch.int32)
+    qpos[1, -2:] = -1
+    qpos = qpos.to(cuda)
+    q_eff = torch.from_numpy(_np(rng, (b, c, h, r))).to(cuda)
+    q_rope = torch.from_numpy(_np(rng, (b, c, h, dr))).to(cuda)
+    pools = (*paged_attn.quantize_kv_page_pool(ckv),
+             *paged_attn.quantize_kv_page_pool(kr))
+    before = paged_attn.paged_mla_prefill_quant.launches
+    y = paged_attn.paged_mla_prefill_quant(q_eff, q_rope, *pools, bt, qpos,
+                                           scale=0.1, active_pages=active)
+    torch.cuda.synchronize()
+    assert paged_attn.paged_mla_prefill_quant.launches == before + 1
+    ref = paged_attn.mla_prefill_plain(
+        q_eff, q_rope, pools, bt, qpos, scale=0.1,
+        nj=paged_attn._n_active(bt, active))
+    assert bool((y[1, -2:] == 0).all())
+    assert (y - ref).abs().max() < TOL
+
+
 @pytest.mark.parametrize("kv_quant", [None, "q8_0"])
 def test_model_on_card_matches_cpu(cuda, kv_quant):
     """qwen2-1.5b reduced, DQ3_K_M, f32: a prefill chunk and two decode
     steps through the kernels give the CPU's logits (1e-4 of max|logit|;
     q8_0 codes may sit one step apart where the summation order moves a
     value across a rounding boundary, hence 1e-3 there)."""
-    cfg = get_config("qwen2-1.5b").reduced()
-    params = quantize_params(cfg, init_params(cfg, 0, dtype=torch.float32,
-                                              device=cuda),
-                             get_policy("DQ3_K_M"))
+    _model_on_card_matches_cpu(cuda, "qwen2-1.5b", kv_quant)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "q8_0"])
+def test_deepseek_model_on_card_matches_cpu(cuda, kv_quant):
+    """deepseek-v3 reduced (MLA + MoE, all three expert formats), the same
+    check as the qwen2 case."""
+    _model_on_card_matches_cpu(cuda, "deepseek-v3-671b", kv_quant)
+
+
+def _model_on_card_matches_cpu(cuda, arch, kv_quant):
+    cfg = get_config(arch).reduced()
+    params = init_quantized_params(cfg, get_policy("DQ3_K_M"), 0,
+                                   dtype=torch.float32, device=cuda)
     model = Model(cfg, dtype=torch.float32)
     P, max_len, b, c = 4, 32, 2, 6
     n = paged.pages_for(max_len, P)

@@ -72,9 +72,10 @@ def test_qmatmul_bf16_rows_and_leading_dims():
 def test_qmatmul_rejects_unported_weights():
     w = torch.randn(2, 256, 128)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.qmatmul(torch.randn(2, 4, 256), quantize(w, "q4_k"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.qmatmul(torch.randn(4, 256), quantize(w[0], "q3_k"))
+        ops.qmatmul(torch.randn(2, 4, 256), quantize(w, "q5_k"))
+    for fmt in ("q2_k", "q8_0"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ops.qmatmul(torch.randn(4, 256), quantize(w[0], fmt))
 
 
 def test_qgather_columns_bitwise():
