@@ -6,22 +6,28 @@
 
 Phases (each prints JSON lines; any failure raises, exit code != 0):
 
-  1. build    — compile every CUDA source of the port from this checkout.
+  1. build    — compile every CUDA library of the port from this checkout
+                (one nvcc process each, started together).
   2. kernels  — each kernel against its plain PyTorch version on the card at
-                the main paths' shapes (qwen2-1.5b and DeepSeek-V3, DQ3_K_M,
-                P=16), with times, the roofline bound and the stated
-                tolerance.
-  3. parity   — full width, f32, DQ3_K_M weights from one seed, card
-                (kernels) against CPU (plain versions), model-dtype and q8_0
-                pools: qwen2-1.5b at depth 2 (a 64-token prefill chunk, 4
-                decode steps) and DeepSeek-V3 at depth 4 (3 dense + 1 MoE
-                layer; an 8-token chunk, 2 decode steps).
-  4. serve    — 8 greedy requests through the engine, with q8_0 and with
-                bf16 pools, weights made and quantized on the card: qwen2-1.5b
-                at full width and depth, then the DeepSeek-V3 cut at full
-                width and 7 layers (3 dense + 4 MoE).  Every kernel of each
-                path must have been launched in its run; one traced decode
-                step per path and pool kind says where the time goes.
+                the main paths' shapes (qwen2-1.5b and DeepSeek-V3 under
+                DQ3_K_M, Q3_K_M, Q2_K_L and Q8_0, P=16), with times, the
+                roofline bound and the stated tolerance.
+  3. parity   — full width, f32, weights from one seed, card (kernels)
+                against CPU (plain versions): qwen2-1.5b at depth 2 (a
+                64-token prefill chunk, 4 decode steps) under DQ3_K_M with
+                model-dtype and q8_0 pools, and under Q3_K_M and Q8_0 with
+                model-dtype pools; DeepSeek-V3 at depth 4 (3 dense + 1 MoE
+                layer; an 8-token chunk, 2 decode steps) under DQ3_K_M with
+                both pool kinds and under Q2_K_L with model-dtype pools.
+  4. serve    — 8 greedy requests through the engine, weights made and
+                quantized on the card: qwen2-1.5b at full width and depth
+                under DQ3_K_M, then the DeepSeek-V3 cut at full width and 7
+                layers (3 dense + 4 MoE) under DQ3_K_M, with q8_0 and with
+                bf16 pools, and under Q3_K_M, Q2_K_L and Q8_0 with q8_0
+                pools.  Every kernel of each path must have been launched in
+                its run, and the DeepSeek weights must pack to the reference
+                size calculator's bytes; one traced decode step per path and
+                pool kind says where the time goes.
 
 The last three lines are the ``{"kernels": [...]}`` summary, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -72,25 +78,63 @@ def bound(nbytes: float, ops: float, op_type: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(torch, fn, iters: int = 10) -> float:
-    """Device time per call of ``fn`` (ms): the sum of its kernels' times
-    from the CUDA activity of ``torch.profiler`` (CUPTI).  Fails if the
-    profiler records no device activity."""
+def kernel_ms(torch, prof, calls: int) -> dict:
+    """Each kernel ``prof`` recorded over ``calls`` identical calls: key ->
+    (device ms per call, launches per call).  The ms are the kernel's mean
+    time over the launches recorded, times its launches per call: CUPTI
+    has been seen to miss some of a session's launches, and the session's
+    sum over ``calls`` then fell short."""
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count:
+            us = getattr(ev, "self_device_time_total", None)
+            us = ev.self_cuda_time_total if us is None else us
+            per_call = max(1, round(ev.count / calls))
+            out[ev.key] = (us / 1e3 / ev.count * per_call, per_call)
+    return out
+
+
+def profiler_ready(torch, tries: int = 10) -> bool:
+    """Whether ``torch.profiler`` records device activity, waiting for it
+    up to ``tries`` sessions of a few bf16 matmuls: CUPTI has been seen to
+    record none in a process's first sessions."""
     from torch.profiler import ProfilerActivity, profile
+    a = torch.ones((2048, 2048), dtype=torch.bfloat16, device="cuda")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                a @ a
+            torch.cuda.synchronize()
+        if kernel_ms(torch, prof, 20):
+            return True
+        time.sleep(1.0)
+    return False
+
+
+# GPU clock cycles of the spin that the timed calls queue behind (~50 ms)
+SPIN_CYCLES = 100_000_000
+
+
+def device_ms(torch, fn, iters: int = 10) -> float:
+    """Device time per call of ``fn`` (ms): CUDA events around ``iters``
+    calls, after a warm-up call.  The calls are queued behind a spin
+    kernel, so the host's time to launch them is not counted, unless a
+    call waits for the card itself (the plain expert path reads which
+    experts are used).  CUDA events, not ``torch.profiler``: on the card's
+    machine CUPTI missed some or all of a session's launches in some
+    runs."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(ev, "self_device_time_total", None)
-            total += (ev.self_cuda_time_total if us is None else us) / 1e3
-    if total <= 0:
-        fail("torch.profiler recorded no device time")
-    return total / iters
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def nbytes(*ts) -> int:
@@ -101,12 +145,21 @@ def nbytes(*ts) -> int:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-# every kernel of the main path: C++ source, and the Pallas kernel it replaces
+# every kernel of the main paths: C++ source, and the Pallas kernel it
+# replaces
 KERNELS = {
     "qmatmul_q4_k": ("src/repro_torch/csrc/qmatmul.cu",
                      "src/repro/kernels/common.py:82"),
     "qmatmul_q6_k": ("src/repro_torch/csrc/qmatmul.cu",
                      "src/repro/kernels/common.py:82"),
+    "qmatmul_q3_k": ("src/repro_torch/csrc/qmatmul.cu",
+                     "src/repro/kernels/q3_k.py:27"),
+    "qmatmul_q5_k": ("src/repro_torch/csrc/qmatmul.cu",
+                     "src/repro/kernels/q5_k.py:25"),
+    "qmatmul_q2_k": ("src/repro_torch/csrc/qmatmul.cu",
+                     "src/repro/kernels/q2_k.py:26"),
+    "qmatmul_q8_0": ("src/repro_torch/csrc/qmatmul.cu",
+                     "src/repro/kernels/q8_0.py:23"),
     "paged_attn_decode": ("src/repro_torch/csrc/paged_attn.cu",
                           "src/repro/kernels/paged_attn.py:267"),
     "paged_attn_decode_quant": ("src/repro_torch/csrc/paged_attn.cu",
@@ -119,6 +172,12 @@ KERNELS = {
                              "src/repro/kernels/common.py:82"),
     "qmatmul_experts_q6_k": ("src/repro_torch/csrc/qmatmul.cu",
                              "src/repro/kernels/common.py:82"),
+    "qmatmul_experts_q5_k": ("src/repro_torch/csrc/qmatmul.cu",
+                             "src/repro/kernels/q5_k.py:25"),
+    "qmatmul_experts_q2_k": ("src/repro_torch/csrc/qmatmul.cu",
+                             "src/repro/kernels/q2_k.py:26"),
+    "qmatmul_experts_q8_0": ("src/repro_torch/csrc/qmatmul.cu",
+                             "src/repro/kernels/q8_0.py:23"),
     "paged_mla_decode": ("src/repro_torch/csrc/paged_mla.cu",
                          "src/repro/kernels/paged_attn.py:535"),
     "paged_mla_decode_quant": ("src/repro_torch/csrc/paged_mla.cu",
@@ -158,7 +217,8 @@ def case(shape: str, y, ref, tol: float, tol_of: str, ms: float,
     return res
 
 
-# (K, N, format, what it is in the 28-layer qwen2 model or the DeepSeek cut)
+# (K, N, format, what it is in the 28-layer qwen2 model or the DeepSeek
+# cut, and under which policy where it is not DQ3_K_M)
 B1_SHAPES = [(1536, 1536, "q4_k", "q_proj, o_proj"),
              (1536, 256, "q6_k", "k_proj, v_proj"),
              (1536, 8960, "q4_k", "gate, up"),
@@ -166,11 +226,21 @@ B1_SHAPES = [(1536, 1536, "q4_k", "q_proj, o_proj"),
              (1536, 152064, "q4_k", "tied head"),
              (7168, 18432, "q4_k", "DeepSeek dense gate, up"),
              (18432, 7168, "q6_k", "DeepSeek dense down"),
-             (7168, 2048, "q3_k", "q3_k at an expert's shape, one weight")]
+             (7168, 2048, "q3_k", "q3_k at an expert's shape, one weight"),
+             (7168, 1536, "q3_k", "DeepSeek attn_q_a, Q3_K_M"),
+             (18432, 7168, "q5_k", "DeepSeek dense down, Q3_K_M"),
+             (8960, 1536, "q5_k", "qwen2 down, Q3_K_M"),
+             (1536, 24576, "q2_k", "DeepSeek attn_q_b, Q2_K_L"),
+             (7168, 18432, "q2_k", "DeepSeek dense gate, up, Q2_K_L"),
+             (1536, 8960, "q8_0", "qwen2 gate, up, Q8_0"),
+             (7168, 18432, "q8_0", "DeepSeek dense gate, up, Q8_0")]
 B1_ROWS = (1, 4, 512)
 # the case that stands for each format in the summary line: the decode
 # shape (M = 4, bf16) that moves most of the format's weight bytes per step
-B1_SUMMARY = {"q4_k": (4, 1536, 8960), "q6_k": (4, 8960, 1536)}
+# on its path
+B1_SUMMARY = {"q4_k": (4, 1536, 8960), "q6_k": (4, 8960, 1536),
+              "q3_k": (4, 7168, 1536), "q5_k": (4, 18432, 7168),
+              "q2_k": (4, 7168, 18432), "q8_0": (4, 7168, 18432)}
 # DeepSeek-V3 expert weights (E = 256): (K, N, what they are).  C = 1 is an
 # expert's capacity at decode (4 lanes x top-8 / 256, at least 1), C = 20
 # at a 4 x 128-token prefill chunk (1.25 x 512 x 8 / 256).
@@ -178,10 +248,13 @@ EXPERTS = 256
 EXPERT_SHAPES = [(7168, 2048, "gate_exps, up_exps"), (2048, 7168, "down_exps")]
 EXPERT_ROWS = (1, 20)
 # the case that stands for each expert format in the summary line: C = 1,
-# the shape of the format's experts in the DeepSeek cut (q3_k: gate/up of
-# every MoE layer; q4_k, q6_k: down of the 3rd / 1st-2nd MoE layers)
+# the shape of the format's experts in the DeepSeek cut under DQ3_K_M (q3_k:
+# gate/up of every MoE layer; q4_k, q6_k: down of the 3rd / 1st-2nd MoE
+# layers), Q2_K_L (q2_k: gate/up) and Q8_0 (q8_0: gate/up, as down);
+# no policy puts q5_k on experts
 EXPERT_SUMMARY = {"q3_k": (7168, 2048), "q4_k": (2048, 7168),
-                  "q6_k": (2048, 7168)}
+                  "q6_k": (2048, 7168), "q5_k": (7168, 2048),
+                  "q2_k": (7168, 2048), "q8_0": (7168, 2048)}
 B1_TOL = 8e-3      # bf16 output: one bf16 ulp (2^-8) of the largest value
 B1_TOL_F32 = 1e-5  # f32 output: f32 summation order only
 ATTN_TOL = 1e-5    # f32 output: summation order and the online softmax
@@ -354,7 +427,7 @@ def kernels_experts(torch, summary: dict, detail: list, gen) -> None:
     from repro_torch.kernels import qmatmul as qm
 
     dev = torch.device("cuda")
-    for fmt in ("q3_k", "q4_k", "q6_k"):
+    for fmt in EXPERT_SUMMARY:
         name = f"qmatmul_experts_{fmt}"
         kern = qm.EXPERT_KERNELS[fmt]
         for k, n, use in EXPERT_SHAPES:
@@ -489,26 +562,34 @@ def phase_parity(torch) -> None:
     from repro_torch.configs import get_config
 
     qwen = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2)
-    parity_model(torch, qwen, B=2, C=64, max_len=128, steps_n=4, short=9)
+    qwen_kw = dict(B=2, C=64, max_len=128, steps_n=4, short=9)
+    parity_model(torch, qwen, "DQ3_K_M", (None, "q8_0"), **qwen_kw)
+    # q5_k (ffn_down) and q8_0 weights; the pool kinds were covered above
+    for policy in ("Q3_K_M", "Q8_0"):
+        parity_model(torch, qwen, policy, (None,), **qwen_kw)
     # DeepSeek-V3 at depth 4: the 3 dense layers and the first MoE layer.
     # The CPU side dequantizes every weight it multiplies on every call
     # (~3 G weights per forward, the experts of the tokens routed to them
     # on top), so the chunk is short and the decode steps few.
     deepseek = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=4)
-    parity_model(torch, deepseek, B=2, C=8, max_len=64, steps_n=2, short=3)
+    ds_kw = dict(B=2, C=8, max_len=64, steps_n=2, short=3)
+    parity_model(torch, deepseek, "DQ3_K_M", (None, "q8_0"), **ds_kw)
+    # q2_k 2-D and experts, q3_k 2-D and experts
+    parity_model(torch, deepseek, "Q2_K_L", (None,), **ds_kw)
 
 
-def parity_model(torch, cfg, *, B: int, C: int, max_len: int, steps_n: int,
-                 short: int) -> None:
+def parity_model(torch, cfg, policy: str, pools: tuple, *, B: int, C: int,
+                 max_len: int, steps_n: int, short: int) -> None:
     """One prefill chunk (lane 1 ``short`` tokens short) and ``steps_n``
-    decode steps of ``cfg`` on the card and on the CPU, per pool kind."""
+    decode steps of ``cfg`` under ``policy`` on the card and on the CPU,
+    per pool kind in ``pools`` (None: model-dtype pools)."""
     from repro_torch.convert import tree_to
     from repro_torch.core import get_policy, init_quantized_params
     from repro_torch.models import paged
     from repro_torch.models.model import Model
 
     dev = torch.device("cuda")
-    qparams = init_quantized_params(cfg, get_policy("DQ3_K_M"), 0,
+    qparams = init_quantized_params(cfg, get_policy(policy), 0,
                                     dtype=torch.float32, device=dev)
     cpu_params = tree_to(qparams, "cpu")
     model = Model(cfg, dtype=torch.float32)
@@ -524,7 +605,7 @@ def parity_model(torch, cfg, *, B: int, C: int, max_len: int, steps_n: int,
     dec_toks = torch.randint(4, cfg.vocab_size, (steps_n, B), generator=rng,
                              dtype=torch.int32)
     clen = torch.tensor([C, C - short], dtype=torch.int32)
-    for kv_quant in (None, "q8_0"):
+    for kv_quant in pools:
         label = kv_quant or "f32"
         logits, caches, secs = {}, {}, {}
         for side, device, prm in (("card", dev, qparams),
@@ -555,10 +636,12 @@ def parity_model(torch, cfg, *, B: int, C: int, max_len: int, steps_n: int,
         a, b = logits["card"], logits["cpu"]
         if (a.shape != (steps_n + 1, B, cfg.vocab_size)
                 or not torch.isfinite(a).all()):
-            fail(f"parity ({cfg.name}, {label}): bad logits {a.shape}")
+            fail(f"parity ({cfg.name}, {policy}, {label}): bad logits "
+                 f"{a.shape}")
         rel = ((a - b).abs().max() / b.abs().max()).item()
-        result = {"phase": "parity", "arch": cfg.name, "kv": label,
-                  "layers": cfg.n_layers, "chunk": C, "decode_steps": steps_n,
+        result = {"phase": "parity", "arch": cfg.name, "policy": policy,
+                  "kv": label, "layers": cfg.n_layers, "chunk": C,
+                  "decode_steps": steps_n,
                   "max_abs": (a - b).abs().max().item(),
                   "max_abs_logit": b.abs().max().item(), "rel": rel,
                   "tol": PARITY_TOL[label], "card_s": secs["card"],
@@ -569,18 +652,20 @@ def parity_model(torch, cfg, *, B: int, C: int, max_len: int, steps_n: int,
         ca = {k: v[read] for k, v in caches["card"].items()}
         cb = {k: v[read] for k, v in caches["cpu"].items()}
         if any(not torch.equal(ca[k], cb[k]) for k in ca if k.endswith("/pos")):
-            fail(f"parity ({cfg.name}, {label}): the caches' positions differ")
+            fail(f"parity ({cfg.name}, {policy}, {label}): the caches' "
+                 "positions differ")
         if kv_quant:
             steps_apart = [(ca[k].int() - cb[k].int()).abs() for k in ca
                            if k.endswith("_qs")]
             result["codes_one_step_apart"] = sum(
                 int((s == 1).sum()) for s in steps_apart)
             if max(int(s.max()) for s in steps_apart) > 1:
-                fail(f"parity ({cfg.name}, {label}): q8_0 codes more than "
-                     "one step apart")
+                fail(f"parity ({cfg.name}, {policy}, {label}): q8_0 codes "
+                     "more than one step apart")
         emit(result)
         if not rel <= PARITY_TOL[label]:
-            fail(f"parity ({cfg.name}, {label}): max|d| / max|logit| = {rel}")
+            fail(f"parity ({cfg.name}, {policy}, {label}): max|d| / "
+                 f"max|logit| = {rel}")
     del qparams, cpu_params
     torch.cuda.empty_cache()
 
@@ -596,9 +681,10 @@ def short_name(key: str) -> str:
 
 
 # kernel families of a traced decode step: qmatmul_kernel<T, rows, format,
-# experts> (format 0 q4_k, 1 q6_k, 2 q3_k), its split-K reduction, and the
-# attention kernels
-B1_FORMATS = {"0": "q4_k", "1": "q6_k", "2": "q3_k"}
+# experts> (format ids as in csrc/qmatmul.cu), its split-K reduction, and
+# the attention kernels
+B1_FORMATS = {"0": "q4_k", "1": "q6_k", "2": "q3_k", "3": "q5_k", "4": "q2_k",
+              "5": "q8_0"}
 
 
 def family(key: str) -> str:
@@ -678,17 +764,16 @@ def profile_decode(torch, model, qparams, kv_quant, lanes=4, live=256,
             step()
         torch.cuda.synchronize()
     fams: dict[str, float] = {}
-    per_kernel, host, launches = {}, {}, 0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(ev, "self_device_time_total", None)
-            ms = (ev.self_cuda_time_total if us is None else us) / 1e3 / steps
-            per_kernel[ev.key] = ms
-            launches += ev.count
-            fams[family(ev.key)] = fams.get(family(ev.key), 0.0) + ms
-        else:
-            host[ev.key] = ev.self_cpu_time_total / 1e3 / steps
-    busy = sum(fams.values())
+    per_kernel, launches = {}, 0
+    for key, (ms, n) in kernel_ms(torch, prof, steps).items():
+        per_kernel[key] = ms
+        launches += n
+        fams[family(key)] = fams.get(family(key), 0.0) + ms
+    host = {ev.key: ev.self_cpu_time_total / 1e3 / steps
+            for ev in prof.key_averages()
+            if ev.device_type != torch.autograd.DeviceType.CUDA}
+    # CUPTI recorded nothing: the device side is not measured
+    busy = sum(fams.values()) or None
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
     top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
     ours = {short_name(k): v for k, v in per_kernel.items()
@@ -696,17 +781,35 @@ def profile_decode(torch, model, qparams, kv_quant, lanes=4, live=256,
     return {"phase": "decode_profile", "arch": model.cfg.name,
             "layers": model.cfg.n_layers, "kv": kv_quant or "bf16",
             "lanes": lanes, "live_tokens": live, "step_wall_ms": wall,
-            "device_ms": busy, "idle_share": max(0.0, 1 - busy / wall),
-            "by_family_ms": fams, "kernels_per_step": launches / steps,
+            "device_ms": busy,
+            "idle_share": busy and max(0.0, 1 - busy / wall),
+            "by_family_ms": fams, "kernels_per_step": launches,
             "port_kernels_ms": ours,
             "top_kernels_ms": {k[:80]: v for k, v in top},
             "top_host_ops_ms": {k[:60]: v for k, v in top_host}}
 
 
 # what ``repro.core.size.model_size`` gives for the 7-layer DeepSeek-V3 cut
-# under DQ3_K_M: GGUF bytes and the structure-of-arrays layout both
-# packages store (8-bit scale fields), in GiB
-REFERENCE_GIB = {"gguf": 25783579136 / 2**30, "soa": 26417660416 / 2**30}
+# per policy: GGUF bytes and the structure-of-arrays layout both packages
+# store (8-bit scale fields); the serve checks the packed bytes against the
+# latter
+REFERENCE_BYTES = {
+    "DQ3_K_M": {"gguf": 25783579136, "soa": 26417660416},
+    "Q3_K_M": {"gguf": 23930701312, "soa": 24691620352},
+    "Q2_K_L": {"gguf": 18656924160, "soa": 18926240256},
+    "Q8_0": {"gguf": 52756695040, "soa": 52756695040}}
+# the B1 forms each policy's DeepSeek path takes: (2-D formats, expert
+# formats); under every policy the output head is q6_k but for Q8_0
+DEEPSEEK_B1 = {"DQ3_K_M": (("q4_k", "q6_k"), ("q3_k", "q4_k", "q6_k")),
+               "Q3_K_M": (("q3_k", "q4_k", "q5_k", "q6_k"), ("q3_k", "q4_k")),
+               "Q2_K_L": (("q2_k", "q3_k", "q6_k"), ("q2_k", "q3_k")),
+               "Q8_0": (("q8_0",), ("q8_0",))}
+
+
+def b1_path(policy: str) -> tuple:
+    dense, experts = DEEPSEEK_B1[policy]
+    return (tuple(f"qmatmul_{f}" for f in dense)
+            + tuple(f"qmatmul_experts_{f}" for f in experts))
 
 
 def phase_serve(torch, summary: dict) -> None:
@@ -718,29 +821,35 @@ def phase_serve(torch, summary: dict) -> None:
                 for name in KERNELS}
     totals = {k: 0 for k in counters}
     dense = ("qmatmul_q4_k", "qmatmul_q6_k")
-    experts = ("qmatmul_experts_q3_k", "qmatmul_experts_q4_k",
-               "qmatmul_experts_q6_k")
-    serve_model(torch, get_config("qwen2-1.5b"), counters, totals, {
-        "q8_0": dense + ("paged_attn_decode_quant",
-                         "paged_attn_prefill_quant"),
-        None: dense + ("paged_attn_decode",)})
+    serve_model(torch, get_config("qwen2-1.5b"), "DQ3_K_M", counters,
+                totals, {
+                    "q8_0": dense + ("paged_attn_decode_quant",
+                                     "paged_attn_prefill_quant"),
+                    None: dense + ("paged_attn_decode",)})
     # DeepSeek-V3 cut to 7 layers: the 3 dense layers of the published
     # config and 4 MoE layers, where ffn_down_exps takes all three of
     # DQ3_K_M's formats; every width is the published one
     deepseek = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=7)
-    serve_model(torch, deepseek, counters, totals, {
-        "q8_0": dense + experts + ("paged_mla_decode_quant",
-                                   "paged_mla_prefill_quant"),
-        None: dense + experts + ("paged_mla_decode",)})
+    mla_q8 = ("paged_mla_decode_quant", "paged_mla_prefill_quant")
+    serve_model(torch, deepseek, "DQ3_K_M", counters, totals, {
+        "q8_0": b1_path("DQ3_K_M") + mla_q8,
+        None: b1_path("DQ3_K_M") + ("paged_mla_decode",)})
+    # the paper's other policies, q8_0 pools (the pool kinds are covered
+    # above); each policy's weights are freed before the next is made
+    for policy in ("Q3_K_M", "Q2_K_L", "Q8_0"):
+        serve_model(torch, deepseek, policy, counters, totals,
+                    {"q8_0": b1_path(policy) + mla_q8})
     for name in counters:
         summary.setdefault(name, kernel_entry(name))["launches"] = totals[name]
 
 
-def serve_model(torch, cfg, counters: dict, totals: dict,
+def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
                 path_kernels: dict) -> None:
-    """Weights from seed 0 made and quantized on the card (DQ3_K_M, bf16),
-    then 8 greedy requests with q8_0 and with bf16 pools; the counts are
-    set to 0 just before each serve and read just after."""
+    """Weights from seed 0 made and quantized on the card (``policy``,
+    bf16), then 8 greedy requests per pool kind of ``path_kernels`` (q8_0,
+    or None for bf16 pools), which also lists the kernels each run must
+    launch; the counts are set to 0 just before each serve and read just
+    after."""
     from repro_torch.core import QTensor, get_policy, init_quantized_params
     from repro_torch.launch.serve import build_requests
     from repro_torch.models.model import Model
@@ -751,16 +860,18 @@ def serve_model(torch, cfg, counters: dict, totals: dict,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    qparams = init_quantized_params(cfg, get_policy("DQ3_K_M"), 0,
+    qparams = init_quantized_params(cfg, get_policy(policy), 0,
                                     dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated() / 2**30
-    packed_gib = sum(v.packed_bytes() if isinstance(v, QTensor)
-                     else v.numel() * v.element_size()
-                     for v in qparams.values()) / 2**30
+    packed = sum(v.packed_bytes() if isinstance(v, QTensor)
+                 else v.numel() * v.element_size() for v in qparams.values())
+    if cfg.mla and packed != REFERENCE_BYTES[policy]["soa"]:
+        fail(f"serve ({cfg.name}, {policy}): packed {packed} bytes, the "
+             f"reference calculator {REFERENCE_BYTES[policy]['soa']}")
     model = Model(cfg, dtype=torch.bfloat16)
-    for kv_quant in ("q8_0", None):
+    for kv_quant in path_kernels:
         engine = Engine(model, qparams, max_len=1024, device=dev,
                         sampler=SamplerConfig(greedy=True), page_size=16,
                         prefill_chunk=128, kv_quant=kv_quant)
@@ -778,8 +889,8 @@ def serve_model(torch, cfg, counters: dict, totals: dict,
         st = engine.last_stats
         label = kv_quant or "bf16"
         res = {"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
-               "kv": label, "quantize_s": quant_s,
-               "init_peak_mem_gib": init_peak, "packed_gib": packed_gib,
+               "policy": policy, "kv": label, "quantize_s": quant_s,
+               "init_peak_mem_gib": init_peak, "packed_gib": packed / 2**30,
                "requests": len(done),
                "out_tokens": [len(r.out) for r in sorted(done,
                                                          key=lambda r: r.rid)],
@@ -799,25 +910,25 @@ def serve_model(torch, cfg, counters: dict, totals: dict,
                "kv_bytes_per_decoded_token": st.kv_bytes_per_decoded_token,
                "launches": {k: v for k, v in launches.items() if v}}
         if cfg.mla:
-            res["reference_size_gib"] = REFERENCE_GIB
+            res["reference_size_gib"] = {
+                k: v / 2**30 for k, v in REFERENCE_BYTES[policy].items()}
         emit(res)
+        what = f"serve ({cfg.name}, {policy}, {label})"
         if len(done) != 8 or any(r.status != "ok" or len(r.out) != 32
                                  for r in done):
-            fail(f"serve ({cfg.name}, {label}): not every request completed")
+            fail(f"{what}: not every request completed")
         if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
-            fail(f"serve ({cfg.name}, {label}): token outside the vocabulary")
+            fail(f"{what}: token outside the vocabulary")
         if st.pages_leaked:
-            fail(f"serve ({cfg.name}, {label}): {st.pages_leaked} pages "
-                 "leaked")
+            fail(f"{what}: {st.pages_leaked} pages leaked")
         missing = [k for k in path_kernels[kv_quant] if launches[k] <= 0]
         if missing:
-            fail(f"serve ({cfg.name}, {label}): kernels never launched: "
-                 f"{missing}")
+            fail(f"{what}: kernels never launched: {missing}")
         for k, v in launches.items():
             totals[k] += v
-    for kv_quant in ("q8_0", None):
-        emit(profile_decode(torch, model, qparams, kv_quant,
-                            steps=3 if cfg.mla else 5))
+    for kv_quant in path_kernels:
+        emit(dict(profile_decode(torch, model, qparams, kv_quant,
+                                 steps=3 if cfg.mla else 5), policy=policy))
     del qparams, model, engine
     torch.cuda.empty_cache()
 
@@ -844,20 +955,25 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         secs = build.build_all()
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
-              "per_source_s": secs})
-        for name in build.SOURCES:
+              "per_library_s": secs})
+        for name in build.LIBRARIES:
             for line in build.ptxas_report(name).splitlines():
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("properties for", "registers",
+                                           "spill")):
                     print(f"ptxas[{name}] {line.strip()}", file=sys.stderr)
-    if "kernels" in phases:
-        phase_kernels(torch, summary)
-        torch.cuda.synchronize()
-    if "parity" in phases:
-        phase_parity(torch)
-        torch.cuda.synchronize()
-    if "serve" in phases:
-        phase_serve(torch, summary)
-        torch.cuda.synchronize()
+    if "serve" in phases and not profiler_ready(torch):
+        emit({"warning": "torch.profiler records no device activity: the "
+                         "decode profiles' device times are not measured"})
+    seconds = {}
+    for name, run in (("kernels", lambda: phase_kernels(torch, summary)),
+                      ("parity", lambda: phase_parity(torch)),
+                      ("serve", lambda: phase_serve(torch, summary))):
+        if name in phases:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+    emit({"phase_seconds": seconds})
     emit({"kernels": list(summary.values())})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,15 +1,17 @@
 """Build the CUDA sources in ``csrc/`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
-``nvcc`` builds it in seconds into ``_build/lib<name>-<hash>.so`` next to
-this package, at first use; the hash covers the source and the flags, so a
-changed source rebuilds and an unchanged one loads the library already
-built.  Pointers and the stream cross as ``ctypes.c_void_p``, and every C
-entry point returns ``cudaGetLastError()`` after its launch — the wrappers
-raise on anything but 0 (a refused launch never runs, and a later
-synchronise would not report it).
+Each ``csrc/<source>.cu`` has a plain C interface (no PyTorch headers), so
+``nvcc`` builds it in seconds into ``_build/lib<library>-<hash>.so`` next
+to this package, at first use; the hash covers the source and the flags,
+so a changed source rebuilds and an unchanged one loads the library
+already built.  ``csrc/qmatmul.cu`` is built once per weight format
+(``-DQMATMUL_FMT=<id>``, one library each), so that its 48 kernels compile
+in six processes at once.  Pointers and the stream cross as
+``ctypes.c_void_p``, and every C entry point returns ``cudaGetLastError()``
+after its launch — the wrappers raise on anything but 0 (a refused launch
+never runs, and a later synchronise would not report it).
 
-``build_all()`` compiles every source at once, one ``nvcc`` process each,
+``build_all()`` compiles every library at once, one ``nvcc`` process each,
 started together.
 """
 
@@ -29,7 +31,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("qmatmul", "paged_attn", "paged_mla")
+# B1's formats in the order of their ids in csrc/qmatmul.cu
+QMATMUL_FORMATS = ("q4_k", "q6_k", "q3_k", "q5_k", "q2_k", "q8_0")
+# library -> (source in csrc/, its extra nvcc flags)
+LIBRARIES = {
+    **{f"qmatmul_{fmt}": ("qmatmul", (f"-DQMATMUL_FMT={i}",))
+       for i, fmt in enumerate(QMATMUL_FORMATS)},
+    "paged_attn": ("paged_attn", ()),
+    "paged_mla": ("paged_mla", ()),
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,8 +57,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    source, flags = LIBRARIES[name]
+    src = (CSRC / f"{source}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS + flags).encode()
+                         ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
@@ -61,7 +73,9 @@ def _start_build(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
     # loads a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    source, flags = LIBRARIES[name]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", tmp,
+           str(CSRC / f"{source}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, Path(tmp), proc
@@ -72,17 +86,18 @@ def _finish_build(name: str, job) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for {name} "
+                           f"(csrc/{LIBRARIES[name][0]}.cu):\n{log}")
     os.replace(tmp, out)
     (BUILD_DIR / f"{out.stem}.log").write_text(log)
     return log
 
 
 def build_all() -> dict[str, float]:
-    """Compile every source (in parallel); returns seconds per source
+    """Compile every library (in parallel); returns seconds per library
     (0.0 for one already built)."""
     t0 = time.perf_counter()
-    jobs = {name: _start_build(name) for name in SOURCES}
+    jobs = {name: _start_build(name) for name in LIBRARIES}
     secs = {}
     for name, job in jobs.items():
         if job is not None:
@@ -92,7 +107,7 @@ def build_all() -> dict[str, float]:
 
 
 def ptxas_report(name: str) -> str:
-    """What ``-Xptxas -v`` printed for one source (registers, shared
+    """What ``-Xptxas -v`` printed for one library (registers, shared
     memory, spills per kernel), or "" when it was not built here."""
     log = BUILD_DIR / f"{_lib_path(name).stem}.log"
     return log.read_text() if log.exists() else ""

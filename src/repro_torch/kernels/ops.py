@@ -1,9 +1,10 @@
 """Quantized-weight ops: ``qmatmul`` dispatch and ``qgather_columns``.
 
-``qmatmul(x, qt)`` computes ``x @ dequant(qt)`` through kernel B1 for the
-formats that have one (q4_k, q6_k, q3_k), for one (K, N) weight or a stack
-of expert weights (E, K, N) against x (E, C, K); the wrapper picks the
-CUDA kernel or its plain version by the tensors' device.
+``qmatmul(x, qt)`` computes ``x @ dequant(qt)`` through kernel B1, which
+takes every packed format (q4_k, q6_k, q3_k, q5_k, q2_k, q8_0), for one
+(K, N) weight or a stack of expert weights (E, K, N) against x (E, C, K);
+the wrapper picks the CUDA kernel or its plain version by the tensors'
+device.
 """
 
 from __future__ import annotations
@@ -18,9 +19,7 @@ def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """x: (..., K) -> (..., N), or (E, ..., K) -> (E, ..., N) for expert
     weights, in ``x.dtype``."""
     if qt.fmt not in KERNELS:
-        raise NotImplementedError(
-            f"no kernel for {qt.fmt!r} weights yet (ROADMAP D4, kernel B8: "
-            "the q5_k, q2_k and q8_0 kernels)")
+        raise ValueError(f"qmatmul takes packed weights, not {qt.fmt!r}")
     if len(qt.shape) == 2:
         return KERNELS[qt.fmt](x, qt)
     if len(qt.shape) == 3:

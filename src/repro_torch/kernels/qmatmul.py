@@ -1,8 +1,9 @@
 """Kernel B1: fused K-quant dequant-matmul ``y = x @ dequant(W)``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/common.py::build_qmatmul``
-(body :119-131) for ``q4_k``, ``q6_k`` and ``q3_k``, and the reference's
-XLA path for expert-batched weights (``repro/kernels/ops.py:39-50``).  The
+(body :119-131) for every K-quant format and ``q8_0`` (``q4_k``, ``q6_k``,
+``q3_k``, ``q5_k``, ``q2_k``, ``q8_0``), and the reference's XLA path for
+expert-batched weights (``repro/kernels/ops.py:39-50``).  The
 CUDA kernel is ``csrc/qmatmul.cu`` (its header says what bounds it on an
 H100 and how the design answers that); :func:`qmatmul_plain` is its plain
 PyTorch version — dequantize to f32, then an f32 matmul.
@@ -27,10 +28,14 @@ from . import build
 # fields in the order the C entry point takes them
 FIELDS = {"q4_k": ("qs", "scales", "mins", "d", "dmin"),
           "q6_k": ("ql", "qh", "scales", "d"),
-          "q3_k": ("qs", "hmask", "scales", "d")}
-_FMT_ID = {"q4_k": 0, "q6_k": 1, "q3_k": 2}
+          "q3_k": ("qs", "hmask", "scales", "d"),
+          "q5_k": ("qs", "qh", "scales", "mins", "d", "dmin"),
+          "q2_k": ("qs", "sm", "d", "dmin"),
+          "q8_0": ("qs", "d")}
+_FMT_ID = {fmt: build.QMATMUL_FORMATS.index(fmt) for fmt in FIELDS}
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 _COLS = 128          # output columns per thread block (csrc/qmatmul.cu)
+_TILE = 256          # rows of K per tile: a superblock, or 8 q8_0 blocks
 _ROWS = {True: 4, False: 16}   # row tile: M <= 4, else 16
 _MAX_GRID_Z = 65535
 
@@ -60,14 +65,15 @@ def qmatmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _splits(device: torch.device, n: int, row_tiles: int, s: int) -> int:
-    """Superblock splits so that the grid has ~2 blocks per SM."""
+    """Splits of the ``s`` tiles of K so that the grid has ~2 blocks per
+    SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = -(-2 * sms // (-(-n // _COLS) * row_tiles))
     return max(1, min(s, want))
 
 
-def _field_ptrs(qt: QTensor, device: torch.device) -> list:
-    """The C entry point's field pointers, padded to five."""
+def _field_ptrs(qt: QTensor, device: torch.device) -> ctypes.Array:
+    """The C entry point's field pointers, as a C array."""
     ptrs = []
     for name in FIELDS[qt.fmt]:
         f = qt.fields[name]
@@ -75,7 +81,7 @@ def _field_ptrs(qt: QTensor, device: torch.device) -> list:
             raise ValueError("B1 fields must be contiguous, 16-byte "
                              "aligned and on x's device")
         ptrs.append(f.data_ptr())
-    return ptrs + [None] * (5 - len(ptrs))
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
 def _launch(x: torch.Tensor, qt: QTensor, e: int, counter) -> torch.Tensor:
@@ -97,13 +103,12 @@ def _launch(x: torch.Tensor, qt: QTensor, e: int, counter) -> torch.Tensor:
     if row_tiles * e > _MAX_GRID_Z:
         raise ValueError(f"B1 grid too tall: {e} experts x {row_tiles} row "
                          "tiles")
-    splits = (_splits(dev, n, row_tiles, qt.num_superblocks) if e == 1
-              else 1)
+    splits = _splits(dev, n, row_tiles, -(-k // _TILE)) if e == 1 else 1
     partial = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
                if splits > 1 else None)
-    err = _entry()(_FMT_ID[qt.fmt], _DTYPE_ID[x.dtype], x3.data_ptr(), *ptrs,
-                   build.ptr(partial), out.data_ptr(), e, m, k, n, splits,
-                   build.stream_ptr(dev))
+    err = _entry(qt.fmt)(_FMT_ID[qt.fmt], _DTYPE_ID[x.dtype], x3.data_ptr(),
+                         ptrs, len(ptrs), build.ptr(partial), out.data_ptr(),
+                         e, m, k, n, splits, build.stream_ptr(dev))
     counter.launches += 1
     build.check(err, counter.__name__)
     return out
@@ -136,46 +141,38 @@ def _qmatmul(x: torch.Tensor, qt: QTensor, fmt: str,
     return out.reshape(*x.shape[:-1], qt.shape[-1])
 
 
-def qmatmul_q4_k(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """B1 for one q4_k weight (see :func:`_qmatmul`)."""
-    return _qmatmul(x, qt, "q4_k", experts=False)
+def _wrapper(fmt: str, experts: bool):
+    """B1's wrapper for one format and form, with its ``launches`` count."""
+    def fn(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+        return _qmatmul(x, qt, fmt, experts)
+    fn.__name__ = fn.__qualname__ = (
+        f"qmatmul_experts_{fmt}" if experts else f"qmatmul_{fmt}")
+    fn.__doc__ = (f"B1 for {'expert weights' if experts else 'one weight'} "
+                  f"of format {fmt} (see :func:`_qmatmul`).")
+    fn.launches = 0
+    return fn
 
 
-def qmatmul_q6_k(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """B1 for one q6_k weight (see :func:`_qmatmul`)."""
-    return _qmatmul(x, qt, "q6_k", experts=False)
-
-
-def qmatmul_q3_k(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """B1 for one q3_k weight (see :func:`_qmatmul`)."""
-    return _qmatmul(x, qt, "q3_k", experts=False)
-
-
-def qmatmul_experts_q4_k(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """B1 for q4_k expert weights (see :func:`_qmatmul`)."""
-    return _qmatmul(x, qt, "q4_k", experts=True)
-
-
-def qmatmul_experts_q6_k(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """B1 for q6_k expert weights (see :func:`_qmatmul`)."""
-    return _qmatmul(x, qt, "q6_k", experts=True)
-
-
-def qmatmul_experts_q3_k(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """B1 for q3_k expert weights (see :func:`_qmatmul`)."""
-    return _qmatmul(x, qt, "q3_k", experts=True)
-
-
-KERNELS = {"q4_k": qmatmul_q4_k, "q6_k": qmatmul_q6_k, "q3_k": qmatmul_q3_k}
-EXPERT_KERNELS = {"q4_k": qmatmul_experts_q4_k, "q6_k": qmatmul_experts_q6_k,
-                  "q3_k": qmatmul_experts_q3_k}
-for _fn in (*KERNELS.values(), *EXPERT_KERNELS.values()):
-    _fn.launches = 0
+KERNELS = {fmt: _wrapper(fmt, experts=False) for fmt in FIELDS}
+EXPERT_KERNELS = {fmt: _wrapper(fmt, experts=True) for fmt in FIELDS}
+qmatmul_q4_k = KERNELS["q4_k"]
+qmatmul_q6_k = KERNELS["q6_k"]
+qmatmul_q3_k = KERNELS["q3_k"]
+qmatmul_q5_k = KERNELS["q5_k"]
+qmatmul_q2_k = KERNELS["q2_k"]
+qmatmul_q8_0 = KERNELS["q8_0"]
+qmatmul_experts_q4_k = EXPERT_KERNELS["q4_k"]
+qmatmul_experts_q6_k = EXPERT_KERNELS["q6_k"]
+qmatmul_experts_q3_k = EXPERT_KERNELS["q3_k"]
+qmatmul_experts_q5_k = EXPERT_KERNELS["q5_k"]
+qmatmul_experts_q2_k = EXPERT_KERNELS["q2_k"]
+qmatmul_experts_q8_0 = EXPERT_KERNELS["q8_0"]
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
+def _entry(fmt: str):
+    """The C entry point of ``fmt``'s library (one per format)."""
     v = ctypes.c_void_p
     i = ctypes.c_int
-    return build.bind("qmatmul", "qmatmul",
-                      [i, i, v, v, v, v, v, v, v, v, i, i, i, i, i, v])
+    return build.bind(f"qmatmul_{fmt}", "qmatmul",
+                      [i, i, v, ctypes.POINTER(v), i, v, v, i, i, i, i, i, v])

@@ -41,12 +41,14 @@ def _np(rng, shape):
     return rng.normal(size=shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q5_k", "q2_k", "q8_0"])
 @pytest.mark.parametrize("m", [1, 4, 37])
-@pytest.mark.parametrize("k", [1280, 1000])
+@pytest.mark.parametrize("k", [1280, 1000, 700])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_qmatmul_kernel_matches_plain(cuda, fmt, m, k, dtype):
+    """K = 1000 and 700 are not multiples of 256; K = 700 is 22 q8_0
+    blocks, so the last 256-row tile has 6 of its 8 blocks."""
     rng = np.random.default_rng(m * 7 + k)
     qt = quantize(torch.from_numpy(_np(rng, (k, 384))).to(cuda), fmt)
     x = torch.from_numpy(_np(rng, (m, k))).to(cuda).to(dtype)
@@ -76,13 +78,16 @@ def test_qmatmul_q3_k_kernel_matches_plain(cuda, m, dtype):
     assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
 
 
-@pytest.mark.parametrize("fmt", ["q3_k", "q4_k", "q6_k"])
+@pytest.mark.parametrize("fmt", ["q3_k", "q4_k", "q6_k", "q5_k", "q2_k",
+                                 "q8_0"])
 @pytest.mark.parametrize("c", [1, 20])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_qmatmul_experts_kernel_matches_plain(cuda, fmt, c, dtype):
     """x (E, C, K) against (E, K, N) expert weights in one launch, K not a
-    multiple of the superblock, one expert's rows all zero."""
+    multiple of the superblock (a ragged last q8_0 tile), one expert's
+    rows all zero; every expert reads its own fields (its own d and dmin
+    too), which E = 5 with distinct weights shows."""
     rng = np.random.default_rng(c * 5 + len(fmt))
     e, k, n = 5, 700, 136
     qt = quantize(torch.from_numpy(_np(rng, (e, k, n))).to(cuda), fmt)
@@ -314,9 +319,18 @@ def test_deepseek_model_on_card_matches_cpu(cuda, kv_quant):
     _model_on_card_matches_cpu(cuda, "deepseek-v3-671b", kv_quant)
 
 
-def _model_on_card_matches_cpu(cuda, arch, kv_quant):
+@pytest.mark.parametrize("policy", ["Q3_K_M", "Q2_K_L", "UD_Q2_K_XL",
+                                    "Q8_0"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-v3-671b"])
+def test_policy_model_on_card_matches_cpu(cuda, arch, policy):
+    """The paper's other policies (q5_k, q2_k and q8_0 weights through B1),
+    model-dtype pools, the same check as the DQ3_K_M cases."""
+    _model_on_card_matches_cpu(cuda, arch, None, policy)
+
+
+def _model_on_card_matches_cpu(cuda, arch, kv_quant, policy="DQ3_K_M"):
     cfg = get_config(arch).reduced()
-    params = init_quantized_params(cfg, get_policy("DQ3_K_M"), 0,
+    params = init_quantized_params(cfg, get_policy(policy), 0,
                                    dtype=torch.float32, device=cuda)
     model = Model(cfg, dtype=torch.float32)
     P, max_len, b, c = 4, 32, 2, 6

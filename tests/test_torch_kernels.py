@@ -22,8 +22,8 @@ from repro.kernels import ops as jax_ops
 from repro.kernels import paged_attn as jax_pa
 
 from repro_torch.convert import from_jax_params
-from repro_torch.core.qtensor import quantize
-from repro_torch.kernels import ops, paged_attn, qmatmul
+from repro_torch.core.qtensor import QTensor, quantize
+from repro_torch.kernels import build, ops, paged_attn, qmatmul
 from repro_torch.models import paged
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -38,12 +38,13 @@ def _qt_pair(fmt, k, n, seed):
     return jq, tq
 
 
-@pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q5_k", "q2_k", "q8_0"])
 @pytest.mark.parametrize("m,k,n", [(1, 256, 128), (4, 512, 256),
                                    (8, 300, 128), (13, 768, 128)])
 def test_qmatmul_plain_matches_pallas(fmt, m, k, n):
     """Plain B1 vs the reference's fused Pallas kernel (interpret mode), in
-    f32, including K that is not a multiple of the superblock."""
+    f32, including K that is not a multiple of the superblock (K = 300 is
+    10 q8_0 blocks: a last 256-row tile with 2 of its 8 blocks)."""
     jq, tq = _qt_pair(fmt, k, n, seed=m * 1000 + k)
     x = np.random.default_rng(k + n).normal(size=(m, k)).astype(np.float32)
     ref = np.asarray(jax_ops.qmatmul(jnp.asarray(x), jq, impl="pallas"))
@@ -70,12 +71,26 @@ def test_qmatmul_bf16_rows_and_leading_dims():
 
 
 def test_qmatmul_rejects_unported_weights():
-    w = torch.randn(2, 256, 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.qmatmul(torch.randn(2, 4, 256), quantize(w, "q5_k"))
-    for fmt in ("q2_k", "q8_0"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ops.qmatmul(torch.randn(4, 256), quantize(w[0], fmt))
+    """Every packed format has B1; what is not a packed (K, N) or
+    (E, K, N) weight raises."""
+    w = torch.randn(256, 128)
+    with pytest.raises(ValueError, match="packed"):
+        ops.qmatmul(torch.randn(4, 256), QTensor({"w": w}, "bf16", w.shape))
+    with pytest.raises(ValueError, match=r"\(K, N\) or \(E, K, N\)"):
+        ops.qmatmul(torch.randn(2, 2, 4, 256),
+                    quantize(torch.randn(2, 2, 256, 128), "q8_0"))
+
+
+def test_qmatmul_builds_one_library_per_format():
+    """csrc/qmatmul.cu is compiled once per format; each wrapper binds the
+    library built for its own format id."""
+    for fmt, fid in qmatmul._FMT_ID.items():
+        assert build.LIBRARIES[f"qmatmul_{fmt}"] == (
+            "qmatmul", (f"-DQMATMUL_FMT={fid}",))
+    assert sorted(qmatmul._FMT_ID.values()) == list(range(len(
+        qmatmul.FIELDS)))
+    assert set(qmatmul.KERNELS) == set(qmatmul.EXPERT_KERNELS) == set(
+        qmatmul.FIELDS)
 
 
 def test_qgather_columns_bitwise():
