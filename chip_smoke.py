@@ -10,24 +10,28 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 (one nvcc process each, started together).
   2. kernels  — each kernel against its plain PyTorch version on the card at
                 the main paths' shapes (qwen2-1.5b and DeepSeek-V3 under
-                DQ3_K_M, Q3_K_M, Q2_K_L and Q8_0, P=16), with times, the
-                roofline bound and the stated tolerance.
+                DQ3_K_M, Q3_K_M, Q2_K_L and Q8_0, P=16), the attention
+                kernels with each tile loader the serves use (bf16, q8_0,
+                q4_0 pools; MLA also q8_0 latents beside q4_0 rope keys),
+                with times, the roofline bound and the stated tolerance.
   3. parity   — full width, f32, weights from one seed, card (kernels)
                 against CPU (plain versions): qwen2-1.5b at depth 2 (a
                 64-token prefill chunk, 4 decode steps) under DQ3_K_M with
-                model-dtype and q8_0 pools, and under Q3_K_M and Q8_0 with
-                model-dtype pools; DeepSeek-V3 at depth 4 (3 dense + 1 MoE
-                layer; an 8-token chunk, 2 decode steps) under DQ3_K_M with
-                both pool kinds and under Q2_K_L with model-dtype pools.
+                model-dtype and q8_0 pools, at depth 3 with q4_0 and dq
+                pools, and under Q3_K_M and Q8_0 with model-dtype pools;
+                DeepSeek-V3 at depth 4 (3 dense + 1 MoE layer; an 8-token
+                chunk, 2 decode steps) under DQ3_K_M with model-dtype, q8_0
+                and dq pools and under Q2_K_L with model-dtype pools.
   4. serve    — 8 greedy requests through the engine, weights made and
                 quantized on the card: qwen2-1.5b at full width and depth
                 under DQ3_K_M, then the DeepSeek-V3 cut at full width and 7
-                layers (3 dense + 4 MoE) under DQ3_K_M, with q8_0 and with
-                bf16 pools, and under Q3_K_M, Q2_K_L and Q8_0 with q8_0
-                pools.  Every kernel of each path must have been launched in
-                its run, and the DeepSeek weights must pack to the reference
-                size calculator's bytes; one traced decode step per path and
-                pool kind says where the time goes.
+                layers (3 dense + 4 MoE) under DQ3_K_M, each with q8_0,
+                bf16, q4_0 and dq pools (dq with the quant probe), and the
+                cut under Q3_K_M, Q2_K_L and Q8_0 with q8_0 pools.  Every
+                kernel of each path must have been launched in its run,
+                and the DeepSeek weights must pack to the reference size
+                calculator's bytes; one traced decode step per path and
+                pool kind (q8_0, bf16, dq) says where the time goes.
 
 The last three lines are the ``{"kernels": [...]}`` summary, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -184,7 +188,53 @@ KERNELS = {
                                "src/repro/kernels/paged_attn.py:535"),
     "paged_mla_prefill_quant": ("src/repro_torch/csrc/paged_mla.cu",
                                 "src/repro/kernels/paged_attn.py:982"),
+    # B5: the q4_0 tile loaders of B3, B4, B6 and B7 (the reference unpacks
+    # with unpack_q4_rows :692 inside each kernel's loader)
+    "paged_attn_decode_quant_q4_0": ("src/repro_torch/csrc/paged_attn.cu",
+                                     "src/repro/kernels/paged_attn.py:267"),
+    "paged_attn_prefill_quant_q4_0": ("src/repro_torch/csrc/paged_attn.cu",
+                                      "src/repro/kernels/paged_attn.py:831"),
+    "paged_mla_decode_quant_q4_0": ("src/repro_torch/csrc/paged_mla.cu",
+                                    "src/repro/kernels/paged_attn.py:535"),
+    "paged_mla_decode_quant_q8_0_q4_0": ("src/repro_torch/csrc/paged_mla.cu",
+                                         "src/repro/kernels/paged_attn.py:535"),
+    "paged_mla_prefill_quant_q4_0": ("src/repro_torch/csrc/paged_mla.cu",
+                                     "src/repro/kernels/paged_attn.py:982"),
+    "paged_mla_prefill_quant_q8_0_q4_0": (
+        "src/repro_torch/csrc/paged_mla.cu",
+        "src/repro/kernels/paged_attn.py:982"),
 }
+# the rows of the quantized attention wrappers, one per tile loader: the
+# wrapper and its ``loaders`` key (the mode, or the MLA (latent, rope) pair)
+Q8, Q4, MIXED = ("q8_0", "q8_0"), ("q4_0", "q4_0"), ("q8_0", "q4_0")
+LOADER_ROWS = {
+    "paged_attn_decode_quant": ("paged_attn_decode_quant", "q8_0"),
+    "paged_attn_decode_quant_q4_0": ("paged_attn_decode_quant", "q4_0"),
+    "paged_attn_prefill_quant": ("paged_attn_prefill_quant", "q8_0"),
+    "paged_attn_prefill_quant_q4_0": ("paged_attn_prefill_quant", "q4_0"),
+    "paged_mla_decode_quant": ("paged_mla_decode_quant", Q8),
+    "paged_mla_decode_quant_q4_0": ("paged_mla_decode_quant", Q4),
+    "paged_mla_decode_quant_q8_0_q4_0": ("paged_mla_decode_quant", MIXED),
+    "paged_mla_prefill_quant": ("paged_mla_prefill_quant", Q8),
+    "paged_mla_prefill_quant_q4_0": ("paged_mla_prefill_quant", Q4),
+    "paged_mla_prefill_quant_q8_0_q4_0": ("paged_mla_prefill_quant", MIXED),
+}
+
+
+def launch_counters() -> dict:
+    """Each summary row's launch count: the wrapper's ``launches``, or for
+    a quantized attention row the count of its tile loader."""
+    from repro_torch.kernels import paged_attn as pa
+    from repro_torch.kernels import qmatmul as qm
+
+    out = {}
+    for name in KERNELS:
+        if name in LOADER_ROWS:
+            fn, key = LOADER_ROWS[name]
+            out[name] = getattr(pa, fn).loaders[key]
+        else:
+            out[name] = getattr(qm, name, None) or getattr(pa, name)
+    return out
 
 
 def kernel_entry(name: str, **measured) -> dict:
@@ -257,7 +307,8 @@ EXPERT_SUMMARY = {"q3_k": (7168, 2048), "q4_k": (2048, 7168),
                   "q2_k": (7168, 2048), "q8_0": (7168, 2048)}
 B1_TOL = 8e-3      # bf16 output: one bf16 ulp (2^-8) of the largest value
 B1_TOL_F32 = 1e-5  # f32 output: f32 summation order only
-ATTN_TOL = 1e-5    # f32 output: summation order and the online softmax
+ATTN_TOL = 1e-5    # f32 output: summation order and the online softmax;
+# the q4_0 loaders dequantize each element bitwise as the plain version
 
 
 def phase_kernels(torch, summary: dict) -> None:
@@ -340,31 +391,33 @@ def phase_kernels(torch, summary: dict) -> None:
     q = torch.randn((B, H, D), generator=gen, device=dev)
     kf = torch.randn((num_pages, P, HKV, D), generator=gen, device=dev)
     vf = torch.randn((num_pages, P, HKV, D), generator=gen, device=dev)
-    k_qs, k_d = pa.quantize_kv_page_pool(kf)
-    v_qs, v_d = pa.quantize_kv_page_pool(vf)
+    quantized = {mode: (*paged.quantize_rows(kf, mode),
+                        *paged.quantize_rows(vf, mode))
+                 for mode in paged.KV_QUANT_MODES}
     visited = int(n_lp.sum())
     # the queries and the arithmetic are f32 (the results must agree with
     # the plain version to 1e-5), so f32 is the peak that bounds the ops
     attn_ops = 4.0 * H * D * float(live.sum())
     tok_bytes = {"float32": 2 * HKV * D * 4, "bfloat16": 2 * HKV * D * 2,
-                 "int8": 2 * HKV * (D + 4)}
+                 "q8_0": 2 * HKV * (D + 4), "q4_0": 2 * HKV * (D // 2 + 4)}
     cases = [
-        ("paged_attn_decode", "float32", (kf, vf), pa.paged_attn_decode),
+        ("paged_attn_decode", "float32", (kf, vf), None),
         ("paged_attn_decode", "bfloat16",
-         (kf.to(torch.bfloat16), vf.to(torch.bfloat16)),
-         pa.paged_attn_decode),
-        ("paged_attn_decode_quant", "int8", (k_qs, k_d, v_qs, v_d),
-         pa.paged_attn_decode_quant),
+         (kf.to(torch.bfloat16), vf.to(torch.bfloat16)), None),
+        ("paged_attn_decode_quant", "q8_0", quantized["q8_0"], "q8_0"),
+        ("paged_attn_decode_quant_q4_0", "q4_0", quantized["q4_0"], "q4_0"),
     ]
-    for name, kv_type, kv, fn in cases:
-        quant = kv_type == "int8"
+    for name, kv_type, kv, mode in cases:
+        fn = pa.paged_attn_decode_quant if mode else pa.paged_attn_decode
         args = (q, *kv, pos_pool, bt, pos)
         kw = dict(active_pages=active, lane_pages=lane_pages)
+        if mode:
+            kw["mode"] = mode
 
         def plain():
             return pa.attn_decode_plain(
                 q, kv, pos_pool, bt, pos, lane_pages, window=0, softcap=0.0,
-                scale=D ** -0.5, nj=active, quant=quant)
+                scale=D ** -0.5, nj=active, quant=mode)
         y = fn(*args, **kw)
         ref = plain()
         torch.cuda.synchronize()
@@ -391,30 +444,32 @@ def phase_kernels(torch, summary: dict) -> None:
     qp[0, :C - 60] = -1
     qp = qp.to(torch.int32).to(dev)
     qc = torch.randn((B, C, H, D), generator=gen, device=dev)
-    args = (qc, k_qs, k_d, v_qs, v_d, pos_pool, bt, qp)
-
-    def plain():
-        return pa.attn_prefill_plain(
-            qc, (k_qs, k_d, v_qs, v_d), pos_pool, bt, qp, window=0,
-            softcap=0.0, scale=D ** -0.5, nj=nj)
-    y = pa.paged_attn_prefill_quant(*args)
-    ref = plain()
-    torch.cuda.synchronize()
-    ms = device_ms(torch, lambda: pa.paged_attn_prefill_quant(*args))
-    plain_ms = device_ms(torch, plain, iters=5)
     valid_q = (qp >= 0).sum(dim=1).cpu()
     keys = sum(int(v) * (int(p) + 1) - int(v) * (int(v) - 1) // 2
                for v, p in zip(valid_q, live - 1))      # causal pairs
-    moved = (int(live.sum()) * tok_bytes["int8"] + nbytes(qc, qp)
-             + visited * (4 + P * 4) + B * C * H * D * 4)
-    res = case(f"B={B} C={C} H={H} Hkv={HKV} D={D} P={P} live "
-               f"{live.tolist()} table {nj} wide, int8 pages", y, ref,
-               ATTN_TOL, "max_abs_err", ms, plain_ms, moved,
-               4.0 * H * D * keys, "float32")
-    summary["paged_attn_prefill_quant"] = kernel_entry(
-        "paged_attn_prefill_quant", **res)
-    detail.append(dict(res, kernel="paged_attn_prefill_quant"))
-    del kf, vf, k_qs, k_d, v_qs, v_d, qc
+    for name, mode in (("paged_attn_prefill_quant", "q8_0"),
+                       ("paged_attn_prefill_quant_q4_0", "q4_0")):
+        args = (qc, *quantized[mode], pos_pool, bt, qp)
+
+        def plain():
+            return pa.attn_prefill_plain(
+                qc, quantized[mode], pos_pool, bt, qp, window=0,
+                softcap=0.0, scale=D ** -0.5, nj=nj, quant=mode)
+        y = pa.paged_attn_prefill_quant(*args, mode=mode)
+        ref = plain()
+        torch.cuda.synchronize()
+        ms = device_ms(torch, lambda: pa.paged_attn_prefill_quant(
+            *args, mode=mode))
+        plain_ms = device_ms(torch, plain, iters=5)
+        moved = (int(live.sum()) * tok_bytes[mode] + nbytes(qc, qp)
+                 + visited * (4 + P * 4) + B * C * H * D * 4)
+        res = case(f"B={B} C={C} H={H} Hkv={HKV} D={D} P={P} live "
+                   f"{live.tolist()} table {nj} wide, {mode} pages", y, ref,
+                   ATTN_TOL, "max_abs_err", ms, plain_ms, moved,
+                   4.0 * H * D * keys, "float32")
+        summary[name] = kernel_entry(name, **res)
+        detail.append(dict(res, kernel=name))
+    del kf, vf, quantized, qc
     kernels_experts(torch, summary, detail, gen)
     kernels_mla(torch, summary, detail, gen, live, n_lp, num_pages, bt, pos,
                 lane_pages, active, nj, qp)
@@ -463,16 +518,19 @@ def kernels_mla(torch, summary: dict, detail: list, gen, live, n_lp,
                 num_pages, bt, pos, lane_pages, active, nj, qp) -> None:
     """B6 and B7 at the DeepSeek serve's shapes: the same 4 lanes, block
     tables and page bucket as the GQA cases, 128 heads, latent 512, rope
-    64."""
+    64; quantized pools in each (latent, rope) mode pair a serve uses."""
     from repro_torch.kernels import paged_attn as pa
+    from repro_torch.models import paged
 
     dev = torch.device("cuda")
     B, H, R, DR, P, C = 4, 128, 512, 64, 16, 128
     scale = (128 + 64) ** -0.5
     ckv = torch.randn((num_pages, P, R), generator=gen, device=dev)
     kr = torch.randn((num_pages, P, DR), generator=gen, device=dev)
-    cq, cd = pa.quantize_kv_page_pool(ckv)
-    kq, kd = pa.quantize_kv_page_pool(kr)
+
+    def pools(modes):
+        return (*paged.quantize_rows(ckv, modes[0]),
+                *paged.quantize_rows(kr, modes[1]))
     # the serve passes the queries in the model dtype
     q_eff = torch.randn((B, H, R), generator=gen, device=dev).to(
         torch.bfloat16)
@@ -480,27 +538,34 @@ def kernels_mla(torch, summary: dict, detail: list, gen, live, n_lp,
         torch.bfloat16)
     visited = int(n_lp.sum())
     n_live = int(live.sum())
+    # bytes of one token's latent and rope rows (a quantized row: its codes
+    # and one f32 scale)
+    row = {"q8_0": lambda w: w + 4, "q4_0": lambda w: w // 2 + 4}
     tok_bytes = {"float32": (R + DR) * 4, "bfloat16": (R + DR) * 2,
-                 "int8": R + DR + 8}
+                 **{m: row[m[0]](R) + row[m[1]](DR) for m in (Q8, Q4, MIXED)}}
     # per head and key: scores 2 (R + Dr), p . c_kv 2 R; f32 arithmetic
     per_pair = 4.0 * R + 2.0 * DR
-    cases = [("paged_mla_decode", "float32", (ckv, kr)),
+    cases = [("paged_mla_decode", "float32", (ckv, kr), None),
              ("paged_mla_decode", "bfloat16",
-              (ckv.to(torch.bfloat16), kr.to(torch.bfloat16))),
-             ("paged_mla_decode_quant", "int8", (cq, cd, kq, kd))]
-    for name, kv_type, kv in cases:
-        fn = getattr(pa, name)
+              (ckv.to(torch.bfloat16), kr.to(torch.bfloat16)), None),
+             ("paged_mla_decode_quant", Q8, pools(Q8), Q8),
+             ("paged_mla_decode_quant_q4_0", Q4, pools(Q4), Q4),
+             ("paged_mla_decode_quant_q8_0_q4_0", MIXED, pools(MIXED), MIXED)]
+    for name, kv_type, kv, modes in cases:
+        fn = pa.paged_mla_decode_quant if modes else pa.paged_mla_decode
         kw = dict(scale=scale, active_pages=active, lane_pages=lane_pages)
+        if modes:
+            kw.update(latent_mode=modes[0], rope_mode=modes[1])
+        label = "/".join(kv_type) if modes else kv_type
 
         def plain():
             return pa.mla_decode_plain(q_eff, q_rope, kv, bt, pos,
-                                       scale=scale, nj=active,
-                                       quant=kv_type == "int8")
+                                       scale=scale, nj=active, quant=modes)
         y = fn(q_eff, q_rope, *kv, bt, pos, **kw)
         ref = plain()
         torch.cuda.synchronize()
         if y.shape != (B, H, R):
-            fail(f"{name} ({kv_type} pools): shape {y.shape}")
+            fail(f"{name} ({label} pools): shape {y.shape}")
         ms = device_ms(torch, lambda: fn(q_eff, q_rope, *kv, bt, pos, **kw),
                        iters=20)
         plain_ms = device_ms(torch, plain)
@@ -508,7 +573,7 @@ def kernels_mla(torch, summary: dict, detail: list, gen, live, n_lp,
                                                       lane_pages)
                  + visited * 4 + B * H * R * 4)
         res = case(f"B={B} H={H} R={R} Dr={DR} P={P} live {live.tolist()} "
-                   f"active_pages={active} table {nj} wide, {kv_type} pools",
+                   f"active_pages={active} table {nj} wide, {label} pools",
                    y, ref, ATTN_TOL, "max_abs_err", ms, plain_ms, moved,
                    per_pair * H * n_live, "float32")
         detail.append(dict(res, kernel=name))
@@ -521,28 +586,32 @@ def kernels_mla(torch, summary: dict, detail: list, gen, live, n_lp,
         torch.bfloat16)
     qr = torch.randn((B, C, H, DR), generator=gen, device=dev).to(
         torch.bfloat16)
-    pools = (cq, cd, kq, kd)
-
-    def plain():
-        return pa.mla_prefill_plain(qe, qr, pools, bt, qp, scale=scale, nj=nj)
-    y = pa.paged_mla_prefill_quant(qe, qr, *pools, bt, qp, scale=scale)
-    ref = plain()
-    torch.cuda.synchronize()
-    ms = device_ms(torch, lambda: pa.paged_mla_prefill_quant(
-        qe, qr, *pools, bt, qp, scale=scale), iters=5)
-    plain_ms = device_ms(torch, plain, iters=3)
     valid_q = (qp >= 0).sum(dim=1).cpu()
     keys = sum(int(v) * (int(p) + 1) - int(v) * (int(v) - 1) // 2
                for v, p in zip(valid_q, live - 1))      # causal pairs
-    moved = (n_live * tok_bytes["int8"] + nbytes(qe, qr, qp) + visited * 4
-             + B * C * H * R * 4)
-    res = case(f"B={B} C={C} H={H} R={R} Dr={DR} P={P} live {live.tolist()} "
-               f"table {nj} wide, int8 pools", y, ref, ATTN_TOL,
-               "max_abs_err", ms, plain_ms, moved, per_pair * H * keys,
-               "float32")
-    summary["paged_mla_prefill_quant"] = kernel_entry(
-        "paged_mla_prefill_quant", **res)
-    detail.append(dict(res, kernel="paged_mla_prefill_quant"))
+    for name, modes in (("paged_mla_prefill_quant", Q8),
+                        ("paged_mla_prefill_quant_q4_0", Q4),
+                        ("paged_mla_prefill_quant_q8_0_q4_0", MIXED)):
+        kv = pools(modes)
+        kw = dict(scale=scale, latent_mode=modes[0], rope_mode=modes[1])
+
+        def plain():
+            return pa.mla_prefill_plain(qe, qr, kv, bt, qp, scale=scale,
+                                        nj=nj, quant=modes)
+        y = pa.paged_mla_prefill_quant(qe, qr, *kv, bt, qp, **kw)
+        ref = plain()
+        torch.cuda.synchronize()
+        ms = device_ms(torch, lambda: pa.paged_mla_prefill_quant(
+            qe, qr, *kv, bt, qp, **kw), iters=5)
+        plain_ms = device_ms(torch, plain, iters=3)
+        moved = (n_live * tok_bytes[modes] + nbytes(qe, qr, qp)
+                 + visited * 4 + B * C * H * R * 4)
+        res = case(f"B={B} C={C} H={H} R={R} Dr={DR} P={P} live "
+                   f"{live.tolist()} table {nj} wide, {'/'.join(modes)} "
+                   "pools", y, ref, ATTN_TOL, "max_abs_err", ms, plain_ms,
+                   moved, per_pair * H * keys, "float32")
+        summary[name] = kernel_entry(name, **res)
+        detail.append(dict(res, kernel=name))
 
 
 # ---------------------------------------------------------------------------
@@ -556,6 +625,54 @@ def kernels_mla(torch, summary: dict, detail: list, gen, live, n_lp,
 # output moves with it; the phase also checks that no code differs by more
 # than one step.
 PARITY_TOL = {"f32": 1e-3, "q8_0": 1e-2}
+# q4_0 and dq pools: the f32 limit where no code is apart, and on top, for
+# each code one step apart in the first layer whose codes differ (later
+# layers' codes move with it), that step's share of the reference's error
+# budget (tests/test_kv_dynamic.py q4_budget, tests/test_kv_quant.py
+# rel_budget: AMP per layer x the half-step, EPS = 1/14 for q4_0, 1/254 for
+# q8_0, of the row's max|x|): the budget charges every one of a row's W
+# codes its half step, a code apart is one code two half steps off, so it
+# is allowed 2 * EPS * AMP * n_layers / W of max|logit|.  A q4_0 step is
+# 18x a q8_0 step, so the q8_0 limit does not carry over.
+EPS = {"q8_0": 1.0 / 254.0, "q4_0": 1.0 / 14.0}
+AMP = {"qwen2-1.5b": 24, "deepseek-v3-671b": 96}
+
+
+def codes_apart(torch, cfg, kv_quant: str, ca: dict, cb: dict) -> dict:
+    """The stored codes of two caches compared layer by layer (q4_0 leaves
+    unpacked).  The first layer whose codes differ made them from inputs
+    that agree up to f32 order, so none may be more than one step apart;
+    later layers take inputs those steps moved (a q4_0 step moves them by
+    ~1e-2 of their scale, more than a q8_0 step), so there they are
+    counted but not bounded.  Returns {"first_layer", "max_step" (in the
+    first layer), "max_step_all", "apart" (codes apart, all layers),
+    "allowance" (the first layer's codes' shares of the error budget)}."""
+    from repro_torch.kernels.paged_attn import unpack_q4_rows
+    from repro_torch.models import paged
+
+    out = {"first_layer": None, "max_step": 0, "max_step_all": 0,
+           "apart": 0, "allowance": 0.0}
+    for layer in range(cfg.n_layers):
+        lq = paged.resolve_layer_quant(kv_quant, cfg, layer)
+        steps = []
+        for key in sorted(k for k in ca if k.endswith("_qs")
+                          and k.startswith(f"dec/L{layer:03d}/")):
+            mode = lq.latent if key.endswith("c_kv_qs") else lq.kv
+            qa, qb = ca[key], cb[key]
+            if mode == "q4_0":
+                qa, qb = unpack_q4_rows(qa), unpack_q4_rows(qb)
+            steps.append((mode, (qa.int() - qb.int()).abs()))
+        n = sum(int((st > 0).sum()) for _, st in steps)
+        out["apart"] += n
+        out["max_step_all"] = max([out["max_step_all"]]
+                                  + [int(st.max()) for _, st in steps])
+        if n and out["first_layer"] is None:
+            out["first_layer"] = layer
+            out["max_step"] = max(int(st.max()) for _, st in steps)
+            out["allowance"] = sum(
+                int((st > 0).sum()) * 2 * EPS[mode] * AMP[cfg.name]
+                * cfg.n_layers / st.shape[-1] for mode, st in steps)
+    return out
 
 
 def phase_parity(torch) -> None:
@@ -564,6 +681,10 @@ def phase_parity(torch) -> None:
     qwen = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2)
     qwen_kw = dict(B=2, C=64, max_len=128, steps_n=4, short=9)
     parity_model(torch, qwen, "DQ3_K_M", (None, "q8_0"), **qwen_kw)
+    # q4_0 and dq pools at depth 3: dq keeps layers 0 and 2 at q8_0 and
+    # packs layer 1 (at depth 2 it would be uniform q8_0)
+    parity_model(torch, dataclasses.replace(qwen, n_layers=3), "DQ3_K_M",
+                 ("q4_0", "dq"), **qwen_kw)
     # q5_k (ffn_down) and q8_0 weights; the pool kinds were covered above
     for policy in ("Q3_K_M", "Q8_0"):
         parity_model(torch, qwen, policy, (None,), **qwen_kw)
@@ -573,7 +694,8 @@ def phase_parity(torch) -> None:
     # on top), so the chunk is short and the decode steps few.
     deepseek = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=4)
     ds_kw = dict(B=2, C=8, max_len=64, steps_n=2, short=3)
-    parity_model(torch, deepseek, "DQ3_K_M", (None, "q8_0"), **ds_kw)
+    # dq: q8_0 latents, q4_0 rope keys on layers 1 and 2
+    parity_model(torch, deepseek, "DQ3_K_M", (None, "q8_0", "dq"), **ds_kw)
     # q2_k 2-D and experts, q3_k 2-D and experts
     parity_model(torch, deepseek, "Q2_K_L", (None,), **ds_kw)
 
@@ -644,8 +766,7 @@ def parity_model(torch, cfg, policy: str, pools: tuple, *, B: int, C: int,
                   "decode_steps": steps_n,
                   "max_abs": (a - b).abs().max().item(),
                   "max_abs_logit": b.abs().max().item(), "rel": rel,
-                  "tol": PARITY_TOL[label], "card_s": secs["card"],
-                  "cpu_s": secs["cpu"]}
+                  "card_s": secs["card"], "cpu_s": secs["cpu"]}
         # every page but GARBAGE, the sink of padded writes, whose order
         # among duplicates is unspecified and which is never read
         read = [i for i in range(2 + B * n) if i != paged.GARBAGE_PAGE]
@@ -654,16 +775,26 @@ def parity_model(torch, cfg, policy: str, pools: tuple, *, B: int, C: int,
         if any(not torch.equal(ca[k], cb[k]) for k in ca if k.endswith("/pos")):
             fail(f"parity ({cfg.name}, {policy}, {label}): the caches' "
                  "positions differ")
-        if kv_quant:
-            steps_apart = [(ca[k].int() - cb[k].int()).abs() for k in ca
-                           if k.endswith("_qs")]
-            result["codes_one_step_apart"] = sum(
-                int((s == 1).sum()) for s in steps_apart)
-            if max(int(s.max()) for s in steps_apart) > 1:
+        tol = PARITY_TOL.get(label)
+        if kv_quant == "q8_0":
+            apart = codes_apart(torch, cfg, kv_quant, ca, cb)
+            result["codes_one_step_apart"] = apart["apart"]
+            if apart["max_step_all"] > 1:
                 fail(f"parity ({cfg.name}, {policy}, {label}): q8_0 codes "
                      "more than one step apart")
+        elif kv_quant:
+            apart = codes_apart(torch, cfg, kv_quant, ca, cb)
+            result.update(codes_apart=apart["apart"],
+                          first_layer_apart=apart["first_layer"],
+                          max_step_after_it=apart["max_step_all"])
+            if apart["max_step"] > 1:
+                fail(f"parity ({cfg.name}, {policy}, {label}): codes of "
+                     f"layer {apart['first_layer']}, the first whose codes "
+                     "differ, more than one step apart")
+            tol = PARITY_TOL["f32"] + apart["allowance"]
+        result["tol"] = tol
         emit(result)
-        if not rel <= PARITY_TOL[label]:
+        if not rel <= tol:
             fail(f"parity ({cfg.name}, {policy}, {label}): max|d| / "
                  f"max|logit| = {rel}")
     del qparams, cpu_params
@@ -814,42 +945,53 @@ def b1_path(policy: str) -> tuple:
 
 def phase_serve(torch, summary: dict) -> None:
     from repro_torch.configs import get_config
-    from repro_torch.kernels import paged_attn as pa
-    from repro_torch.kernels import qmatmul as qm
 
-    counters = {name: getattr(qm, name, None) or getattr(pa, name)
-                for name in KERNELS}
+    counters = launch_counters()
     totals = {k: 0 for k in counters}
     dense = ("qmatmul_q4_k", "qmatmul_q6_k")
+    gqa_q8 = ("paged_attn_decode_quant", "paged_attn_prefill_quant")
+    gqa_q4 = ("paged_attn_decode_quant_q4_0", "paged_attn_prefill_quant_q4_0")
+    # dq: the quant probe's shadow bf16 pools decode through B2
     serve_model(torch, get_config("qwen2-1.5b"), "DQ3_K_M", counters,
                 totals, {
-                    "q8_0": dense + ("paged_attn_decode_quant",
-                                     "paged_attn_prefill_quant"),
-                    None: dense + ("paged_attn_decode",)})
+                    "q8_0": dense + gqa_q8,
+                    None: dense + ("paged_attn_decode",),
+                    "q4_0": dense + gqa_q4,
+                    "dq": dense + gqa_q8 + gqa_q4 + ("paged_attn_decode",)},
+                profiled=("q8_0", None, "dq"))
     # DeepSeek-V3 cut to 7 layers: the 3 dense layers of the published
     # config and 4 MoE layers, where ffn_down_exps takes all three of
     # DQ3_K_M's formats; every width is the published one
     deepseek = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=7)
     mla_q8 = ("paged_mla_decode_quant", "paged_mla_prefill_quant")
+    mla_q4 = ("paged_mla_decode_quant_q4_0", "paged_mla_prefill_quant_q4_0")
+    mla_dq = ("paged_mla_decode_quant_q8_0_q4_0",
+              "paged_mla_prefill_quant_q8_0_q4_0")
     serve_model(torch, deepseek, "DQ3_K_M", counters, totals, {
         "q8_0": b1_path("DQ3_K_M") + mla_q8,
-        None: b1_path("DQ3_K_M") + ("paged_mla_decode",)})
+        None: b1_path("DQ3_K_M") + ("paged_mla_decode",),
+        "q4_0": b1_path("DQ3_K_M") + mla_q4,
+        "dq": b1_path("DQ3_K_M") + mla_q8 + mla_dq + ("paged_mla_decode",)},
+        profiled=("q8_0", None, "dq"))
     # the paper's other policies, q8_0 pools (the pool kinds are covered
     # above); each policy's weights are freed before the next is made
     for policy in ("Q3_K_M", "Q2_K_L", "Q8_0"):
         serve_model(torch, deepseek, policy, counters, totals,
-                    {"q8_0": b1_path(policy) + mla_q8})
+                    {"q8_0": b1_path(policy) + mla_q8}, profiled=("q8_0",))
     for name in counters:
         summary.setdefault(name, kernel_entry(name))["launches"] = totals[name]
 
 
 def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
-                path_kernels: dict) -> None:
+                path_kernels: dict, profiled: tuple) -> None:
     """Weights from seed 0 made and quantized on the card (``policy``,
-    bf16), then 8 greedy requests per pool kind of ``path_kernels`` (q8_0,
-    or None for bf16 pools), which also lists the kernels each run must
-    launch; the counts are set to 0 just before each serve and read just
-    after."""
+    bf16), then 8 greedy requests per pool kind of ``path_kernels`` (a
+    ``kv_quant``, or None for bf16 pools), which also lists the kernels
+    each run must launch; the counts are set to 0 just before each serve
+    and read just after.  The "dq" serve runs the quant probe, whose
+    shadow bf16 pools are served through the same steps (its step times
+    include them).  One decode step per pool kind of ``profiled`` is
+    traced."""
     from repro_torch.core import QTensor, get_policy, init_quantized_params
     from repro_torch.launch.serve import build_requests
     from repro_torch.models.model import Model
@@ -874,7 +1016,8 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
     for kv_quant in path_kernels:
         engine = Engine(model, qparams, max_len=1024, device=dev,
                         sampler=SamplerConfig(greedy=True), page_size=16,
-                        prefill_chunk=128, kv_quant=kv_quant)
+                        prefill_chunk=128, kv_quant=kv_quant,
+                        quant_probe=kv_quant == "dq")
         # a short serve first, so that loading PyTorch's kernels at their
         # first use is not timed as serving
         engine.serve(build_requests(2, cfg.vocab_size, 20, 40, 4, seed=1),
@@ -908,7 +1051,11 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
                "bytes_per_live_token": st.bytes_per_live_token,
                "dense_cache_bytes": st.dense_cache_bytes,
                "kv_bytes_per_decoded_token": st.kv_bytes_per_decoded_token,
+               "page_bytes": st.page_bytes,
                "launches": {k: v for k, v in launches.items() if v}}
+        if engine.quant_probe:
+            res["quant_probe_steps"] = st.quant_probe_steps
+            res["quant_logit_gap_per_lane"] = st.quant_logit_gap_per_lane
         if cfg.mla:
             res["reference_size_gib"] = {
                 k: v / 2**30 for k, v in REFERENCE_BYTES[policy].items()}
@@ -924,9 +1071,15 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
         missing = [k for k in path_kernels[kv_quant] if launches[k] <= 0]
         if missing:
             fail(f"{what}: kernels never launched: {missing}")
+        gaps = st.quant_logit_gap_per_lane
+        if engine.quant_probe and not (
+                st.quant_probe_steps and gaps
+                and all(math.isfinite(g) and g > 0 for g in gaps)):
+            fail(f"{what}: quant probe gaps {gaps} over "
+                 f"{st.quant_probe_steps} steps")
         for k, v in launches.items():
             totals[k] += v
-    for kv_quant in path_kernels:
+    for kv_quant in profiled:
         emit(dict(profile_decode(torch, model, qparams, kv_quant,
                                  steps=3 if cfg.mla else 5), policy=policy))
     del qparams, model, engine

@@ -3,9 +3,10 @@
 //
 // Replaces the Pallas TPU kernels repro/kernels/paged_attn.py::_attn_core
 // (body :321-362; entries paged_attn_decode :183, paged_attn_decode_quant
-// :728, paged_attn_decode_q8 :761) with its f32 and q8_0 tile loaders, and
-// ::_attn_prefill_core (body :880-919; entry paged_attn_prefill_quant :784)
-// with the q8_0 loader.
+// :728, paged_attn_decode_q8 :761) with its f32, q8_0 and q4_0 tile loaders
+// (q4_0: _dequant :217 -> unpack_q4_rows :692), and ::_attn_prefill_core
+// (body :880-919; entry paged_attn_prefill_quant :784) with the q8_0 and
+// q4_0 loaders.
 //
 // What bounds it on an H100: the page bytes it streams (each live K/V row
 // once per kv head) — decode is memory-bound, ~2*rep flops per K/V element.
@@ -20,7 +21,9 @@
 // with (m, l, acc) in shared memory.  The block reads its own block-table
 // entry per page, loads one page sub-tile (TP tokens) of K and V into
 // shared memory as f32 (f32/bf16 pages as stored, q8_0 pages as int8 x the
-// row's f32 scale), scores the block's query rows against it, folds the
+// row's f32 scale, q4_0 pages as the row's sign-extended nibble x its f32
+// scale: one f32 multiply, as the plain version's, so every dequantised
+// element is bitwise the plain version's), scores the block's query rows against it, folds the
 // tile into the online softmax and accumulates p @ V.  Decode loops
 // j < min(active pages, lane_pages[i]), so no page is revisited and the
 // j < lane_pages[i] mask follows from the loop bound; prefill stops after
@@ -42,17 +45,17 @@ constexpr float NEG_INF = -2.0e38f;
 
 struct Args {
   const float* q;          // (B, C, H, D) f32 (decode: C = 1)
-  const void* k;           // (NP, P, Hkv, D) f32 | bf16 | int8
-  const void* v;           // (NP, P, Hkv, Dv)
-  const float* kd;         // (NP, P, Hkv) q8_0 row scales (else null)
+  const void* k;           // (NP, P, Hkv, D) f32 | bf16 | int8 (q4_0: D/2)
+  const void* v;           // (NP, P, Hkv, Dv)                  (q4_0: Dv/2)
+  const float* kd;         // (NP, P, Hkv) quantized row scales (else null)
   const float* vd;
   const int* pos_pool;     // (NP, P)
   const int* block_table;  // (B, nbt)
   const int* qpos;         // (B, C) query positions, -1 = padded row
   const int* lane_pages;   // (B,) decode page bound per lane, or null
   float* out;              // (B, C, H, Dv)
-  int B, C, H, Hkv, D, Dv, P, nbt, nj, ct, window, logical_mask;
-  float scale, softcap;
+  int B, C, H, Hkv, D, Dv, P, nbt, nj, ct, window, logical_mask;  // D, Dv:
+  float scale, softcap;                                  // logical widths
 };
 
 template <typename T>
@@ -64,7 +67,8 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Tile loaders: element (page, token, kv head, dim) of the K or V pool as f32.
+// Tile loaders: element d of the K or V row ``row`` (= (page * P + token) *
+// Hkv + kv head) as f32; ``width`` is the row's logical width.
 template <typename T>
 struct PlainLoader {
   __device__ __forceinline__ static float load(const void* pool,
@@ -80,6 +84,21 @@ struct Q8Loader {
                                                int width, int d) {
     return (float)static_cast<const int8_t*>(pool)[row * width + d] *
            scales[row];
+  }
+};
+
+// q4_0: a row of ``width`` values is width / 2 bytes, element d in the low
+// (d even) or high (d odd) nibble of byte d / 2, two's complement: the
+// (n ^ 8) - 8 sign extension gives what the plain version's (b << 4) >> 4
+// and b >> 4 give.
+struct Q4Loader {
+  __device__ __forceinline__ static float load(const void* pool,
+                                               const float* scales, size_t row,
+                                               int width, int d) {
+    const unsigned b = static_cast<const uint8_t*>(
+        pool)[row * (size_t)(width >> 1) + (d >> 1)];
+    const unsigned n = (d & 1) ? (b >> 4) : (b & 15u);
+    return (float)((int)(n ^ 8u) - 8) * scales[row];
   }
 };
 
@@ -233,7 +252,8 @@ int launch(const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // kv_kind: 0 = float32 pages, 1 = bfloat16 pages, 2 = q8_0 (int8 + f32 row
-// scales).  Decode passes C = 1, qpos = pos and lane_pages; prefill passes
+// scales), 3 = q4_0 (two int4 a byte + f32 row scales; D and Dv are the
+// logical widths, even).  Decode passes C = 1, qpos = pos and lane_pages; prefill passes
 // logical_mask = 1 (a key's logical index must not exceed the query's
 // position) and lane_pages = null.  ct = queries per block.  Returns
 // cudaGetLastError() after the launch.
@@ -253,6 +273,9 @@ extern "C" int paged_attn(int kv_kind, const float* q, const void* k,
     case 0: return launch<PlainLoader<float>>(a, st);
     case 1: return launch<PlainLoader<__nv_bfloat16>>(a, st);
     case 2: return launch<Q8Loader>(a, st);
+    case 3:
+      if ((D | Dv) & 1) return (int)cudaErrorInvalidValue;
+      return launch<Q4Loader>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,25 +3,31 @@
 //
 // Replaces the Pallas TPU kernels repro/kernels/paged_attn.py::_mla_core
 // (body :566-589; entries paged_mla_decode :438 and paged_mla_decode_quant
-// :468) with its f32 and q8_0 tile loaders, and ::_mla_prefill_core (body
-// :1011-1036; entry paged_mla_prefill_quant :950) with the q8_0 loader.
+// :468) with its f32, q8_0 and q4_0 tile loaders, and ::_mla_prefill_core
+// (body :1011-1036; entry paged_mla_prefill_quant :950) with the q8_0 and
+// q4_0 loaders.  As there, the latent and rope leaves each have their own
+// mode: the "dq" cache policy keeps q8_0 latents beside q4_0 rope keys, so
+// the kernel takes one loader per leaf and one launch reads both.
 // Every query row r = (c, h) scores s = (q_eff . c_kv + q_rope . k_rope) *
 // scale against the lane's latent tokens, a token valid iff its logical
 // index is <= the row's position, and returns the attended latents p . c_kv
 // (B, C, H, R) in f32; the caller projects them out with W_vb.
 //
 // What bounds it on an H100: decode reads each live latent token once per
-// lane (R + Dr values: 1,152 B in bf16, 580 B in q8_0) and does ~4 (R + Dr)
-// flops per head per token, 128 heads: ~1.1 flop per byte in bf16, so it is
-// memory-bound, but the latent pages of a step are a few MB and sit in L2.
+// lane (R + Dr values: 1,152 B in bf16; with the two f32 scales 584 B in
+// q8_0, 296 B in q4_0, 552 B for dq's q8_0 latent and q4_0 rope) and does
+// ~4 (R + Dr) flops per head per token, 128 heads: ~1.1 flop per byte in
+// bf16, so it is memory-bound, but the latent pages of a step are a few MB
+// and sit in L2.
 // Prefill (C = 128 queries x 128 heads per lane) is bound by its f32 FMAs
 // (~28 GFLOP per layer per chunk at ~200 keys per query: >= 0.4 ms at the
 // 67 TFLOP/s CUDA-core peak).
 //
 // Design.  Every head of a lane reads the same latent page, so a block owns
 // one lane and a tile of NW x RW query rows (one warp per RW rows), stages
-// each page sub-tile (TP tokens x (R + Dr) latents, bf16 / f32 as stored or
-// q8_0 int8 x the token's f32 scale) in shared memory as f32 once, and every
+// each page sub-tile (TP tokens x (R + Dr) latents, bf16 / f32 as stored, or
+// the q8_0 int8 or q4_0 sign-extended nibble x the token's f32 scale, one
+// f32 multiply as in the plain version) in shared memory as f32 once, and every
 // warp scores its rows against it: a lane holds 1/32 of each row's query
 // and of its accumulator (R / 32 values) in registers, partial dot products
 // are summed across the warp with shuffles, lane t keeps token t's score,
@@ -54,9 +60,9 @@ constexpr unsigned FULL = 0xffffffffu;
 struct Args {
   const float* q_eff;      // (B, C, H, R) f32
   const float* q_rope;     // (B, C, H, Dr) f32
-  const void* ckv;         // (NP, P, R) f32 | bf16 | int8
-  const void* krope;       // (NP, P, Dr)
-  const float* cd;         // (NP, P) q8_0 token scales (else null)
+  const void* ckv;         // (NP, P, R) f32 | bf16 | int8 (q4_0: R/2)
+  const void* krope;       // (NP, P, Dr)                  (q4_0: Dr/2)
+  const float* cd;         // (NP, P) quantized token scales (else null)
   const float* kd;
   const int* block_table;  // (B, nbt)
   const int* qpos;         // (B, C) query positions, -1 = padded row
@@ -94,6 +100,21 @@ struct Q8Loader {
   }
 };
 
+// q4_0: a token row of ``width`` values is width / 2 bytes, element d in the
+// low (d even) or high (d odd) nibble of byte d / 2, two's complement: the
+// (n ^ 8) - 8 sign extension gives what the plain version's (b << 4) >> 4
+// and b >> 4 give.
+struct Q4Loader {
+  __device__ __forceinline__ static float load(const void* pool,
+                                               const float* scales, size_t row,
+                                               int width, int d) {
+    const unsigned b = static_cast<const uint8_t*>(
+        pool)[row * (size_t)(width >> 1) + (d >> 1)];
+    const unsigned n = (d & 1) ? (b >> 4) : (b & 15u);
+    return (float)((int)(n ^ 8u) - 8) * scales[row];
+  }
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
@@ -106,7 +127,8 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <typename L, int RW>
+// LC loads the latent leaf, LK the rope leaf.
+template <typename LC, typename LK, int RW>
 __global__ void __launch_bounds__(NT) paged_mla_kernel(Args a) {
   extern __shared__ float smem[];
   float* cs = smem;                      // TP x R latents
@@ -164,11 +186,11 @@ __global__ void __launch_bounds__(NT) paged_mla_kernel(Args a) {
       __syncthreads();                   // every warp is done with the tile
       for (int idx = tid; idx < nt * R; idx += NT) {
         const int t = idx / R, r = idx % R;
-        cs[t * R + r] = L::load(a.ckv, a.cd, tok0 + t, R, r);
+        cs[t * R + r] = LC::load(a.ckv, a.cd, tok0 + t, R, r);
       }
       for (int idx = tid; idx < nt * Dr; idx += NT) {
         const int t = idx / Dr, d = idx % Dr;
-        ks[t * Dr + d] = L::load(a.krope, a.kd, tok0 + t, Dr, d);
+        ks[t * Dr + d] = LK::load(a.krope, a.kd, tok0 + t, Dr, d);
       }
       __syncthreads();
 
@@ -253,42 +275,52 @@ __global__ void __launch_bounds__(NT) paged_mla_kernel(Args a) {
   }
 }
 
-template <typename L, int RW>
+template <typename LC, typename LK, int RW>
 int launch(const Args& a, cudaStream_t stream) {
   const size_t bytes = (size_t)TP * (a.R + a.Dr) * sizeof(float);
   const int per_block = NW * RW;
   const dim3 grid(a.B, (a.C * a.H + per_block - 1) / per_block);
-  paged_mla_kernel<L, RW><<<grid, NT, bytes, stream>>>(a);
+  paged_mla_kernel<LC, LK, RW><<<grid, NT, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename L>
+template <typename LC, typename LK>
 int launch_rw(const Args& a, int rw, cudaStream_t stream) {
-  if (rw == 1) return launch<L, 1>(a, stream);
-  if (rw == 4) return launch<L, 4>(a, stream);
+  if (rw == 1) return launch<LC, LK, 1>(a, stream);
+  if (rw == 4) return launch<LC, LK, 4>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// kind: 0 = float32 pools, 1 = bfloat16 pools, 2 = q8_0 (int8 + f32 token
-// scales).  Decode passes C = 1, qpos = pos and lane_pages; prefill passes
-// the chunk's C and lane_pages = null.  rw = query rows per warp (1 or 4).
-// R <= 512 and Dr <= 64.  Returns cudaGetLastError() after the launch.
-extern "C" int paged_mla(int kind, const float* q_eff, const float* q_rope,
-                         const void* ckv, const void* krope, const float* cd,
-                         const float* kd, const int* block_table,
-                         const int* qpos, const int* lane_pages, float* out,
-                         int B, int C, int H, int R, int Dr, int P, int nbt,
-                         int nj, float scale, int rw, void* stream) {
+// latent_kind / rope_kind: 0 = float32 pools, 1 = bfloat16 pools, 2 = q8_0
+// (int8 + f32 token scales), 3 = q4_0 (two int4 a byte + f32 token scales;
+// R or Dr even).  The pairs built: (0, 0), (1, 1), (2, 2), (3, 3) and
+// (2, 3), the "dq" policy's q8_0 latents and q4_0 rope keys.  Decode passes
+// C = 1, qpos = pos and lane_pages; prefill passes the chunk's C and
+// lane_pages = null.  rw = query rows per warp (1 or 4).  R <= 512 and
+// Dr <= 64 (logical widths).  Returns cudaGetLastError() after the launch.
+extern "C" int paged_mla(int latent_kind, int rope_kind, const float* q_eff,
+                         const float* q_rope, const void* ckv,
+                         const void* krope, const float* cd, const float* kd,
+                         const int* block_table, const int* qpos,
+                         const int* lane_pages, float* out, int B, int C,
+                         int H, int R, int Dr, int P, int nbt, int nj,
+                         float scale, int rw, void* stream) {
   if (R > RMAX || Dr > DMAX) return (int)cudaErrorInvalidValue;
+  if ((latent_kind == 3 && (R & 1)) || (rope_kind == 3 && (Dr & 1)))
+    return (int)cudaErrorInvalidValue;
   Args a{q_eff, q_rope, ckv, krope, cd, kd, block_table, qpos, lane_pages,
          out, B, C, H, R, Dr, P, nbt, nj, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case 0: return launch_rw<PlainLoader<float>>(a, rw, st);
-    case 1: return launch_rw<PlainLoader<__nv_bfloat16>>(a, rw, st);
-    case 2: return launch_rw<Q8Loader>(a, rw, st);
+  switch (latent_kind * 4 + rope_kind) {
+    case 0: return launch_rw<PlainLoader<float>, PlainLoader<float>>(a, rw, st);
+    case 5:
+      return launch_rw<PlainLoader<__nv_bfloat16>,
+                       PlainLoader<__nv_bfloat16>>(a, rw, st);
+    case 10: return launch_rw<Q8Loader, Q8Loader>(a, rw, st);
+    case 15: return launch_rw<Q4Loader, Q4Loader>(a, rw, st);
+    case 11: return launch_rw<Q8Loader, Q4Loader>(a, rw, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

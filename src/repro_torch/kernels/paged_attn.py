@@ -1,24 +1,29 @@
-"""Kernels B2/B3 and B4 (paged GQA attention over KV page pools) and B6/B7
-(absorbed MLA over latent page pools).
+"""Kernels B2/B3 and B4 (paged GQA attention over KV page pools), B6/B7
+(absorbed MLA over latent page pools) and their q4_0 tile loaders (B5).
 
 Replace the Pallas TPU kernels ``repro/kernels/paged_attn.py::_attn_core``
-(one-token flash-decode, f32 and q8_0 tile loaders),
-``::_attn_prefill_core`` (write-then-attend chunked prefill, q8_0 loader),
-``::_mla_core`` (absorbed-MLA decode, f32 and q8_0 loaders) and
-``::_mla_prefill_core`` (its chunked-prefill form, q8_0 loader).  The CUDA
+(one-token flash-decode, f32, q8_0 and q4_0 tile loaders),
+``::_attn_prefill_core`` (write-then-attend chunked prefill, q8_0 and q4_0
+loaders), ``::_mla_core`` (absorbed-MLA decode, f32, q8_0 and q4_0
+loaders, one mode per leaf) and ``::_mla_prefill_core`` (its
+chunked-prefill form, q8_0 and q4_0 loaders).  The CUDA
 kernels are ``csrc/paged_attn.cu`` and ``csrc/paged_mla.cu`` (their headers
 say what bounds them on an H100 and how the designs answer that).  Beside
 each wrapper is its plain PyTorch version, the reference's bounded-gather
 twin: gather only the first ``active_pages`` logical pages through the
 block table and run one masked softmax over them.
 
-Layouts are the reference's: GQA pools ``(num_pages, P, Hkv, D)``, q8_0
-row scales ``(num_pages, P, Hkv)``, ``pos_pool (num_pages, P)`` int32 (-1
-= unwritten); MLA pools ``(num_pages, P, R)`` and ``(num_pages, P, Dr)``
-with q8_0 token scales ``(num_pages, P)`` and no positions (validity is
-positional); block tables ``(B, n)`` int32.  Dispatch is by device only:
-CPU tensors take the plain version, CUDA tensors launch the kernel or
-raise.  Each public wrapper's ``launches`` counts its kernel launches.
+Layouts are the reference's: GQA pools ``(num_pages, P, Hkv, D)``,
+quantized row scales ``(num_pages, P, Hkv)``, ``pos_pool (num_pages, P)``
+int32 (-1 = unwritten); MLA pools ``(num_pages, P, R)`` and ``(num_pages,
+P, Dr)`` with token scales ``(num_pages, P)`` and no positions (validity
+is positional); block tables ``(B, n)`` int32.  A q4_0 leaf packs two
+signed nibbles a byte along its trailing axis (element 2i in the low
+nibble of byte i), so it is half the logical width.  Dispatch is by device
+only: CPU tensors take the plain version, CUDA tensors launch the kernel
+or raise.  Each public wrapper's ``launches`` counts its kernel launches;
+the quantized wrappers also count them per tile loader in ``loaders``
+(keyed by the mode, or by the MLA ``(latent, rope)`` mode pair).
 """
 
 from __future__ import annotations
@@ -31,9 +36,21 @@ import torch
 from . import build
 
 NEG_INF = -2.0e38
+# the kernels' loader ids: model-dtype pages, and the quantized modes
 _KV_KIND = {torch.float32: 0, torch.bfloat16: 1}
-_Q8 = 2
+_QUANT_KIND = {"q8_0": 2, "q4_0": 3}
+KV_MODES = tuple(_QUANT_KIND)
+# the (latent, rope) mode pairs csrc/paged_mla.cu instantiates: uniform
+# pools, and "dq"'s q8_0 latents beside q4_0 rope keys
+MLA_MODE_PAIRS = (("q8_0", "q8_0"), ("q4_0", "q4_0"), ("q8_0", "q4_0"))
 _ROWS_PER_BLOCK = 32      # prefill query rows (queries x rep) per block
+
+
+class Launches:
+    """A launch count of one tile loader of a quantized wrapper."""
+
+    def __init__(self):
+        self.launches = 0
 
 
 def _n_active(block_table: torch.Tensor, active_pages: int | None) -> int:
@@ -51,37 +68,48 @@ def _lane_bound(lane_pages, b: int, nj: int, device) -> torch.Tensor:
 
 
 def _check_mode(mode: str) -> str:
-    if mode == "q4_0":
-        raise NotImplementedError("q4_0 KV pages are not ported yet "
-                                  "(ROADMAP D1, kernel B5)")
-    if mode != "q8_0":
+    if mode not in _QUANT_KIND:
         raise ValueError(f"unknown kv-quant storage mode {mode!r}")
     return mode
+
+
+def _width(stored: int, mode) -> int:
+    """Logical row width of a leaf whose stored trailing dim is ``stored``
+    (a q4_0 leaf holds two values a byte)."""
+    return 2 * stored if mode == "q4_0" else stored
 
 
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (the bounded-gather twins)
 # ---------------------------------------------------------------------------
 
-def _dequant(qs: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """q8_0 tile loader: int8 values x per-row f32 scale."""
+def _dequant(qs: torch.Tensor, d: torch.Tensor, mode: str) -> torch.Tensor:
+    """Tile loader: int8 values x per-row f32 scale; a q4_0 leaf is first
+    unpacked (:func:`unpack_q4_rows`), so its trailing axis doubles."""
+    if mode == "q4_0":
+        qs = unpack_q4_rows(qs)
     return qs.to(torch.float32) * d.to(torch.float32)[..., None]
 
 
-def _gathered_kv(kv: tuple, btj: torch.Tensor, quant: bool):
+def _gathered_kv(kv: tuple, btj: torch.Tensor, quant):
+    """Both leaves of ``kv`` gathered through ``btj`` as f32.  ``quant`` is
+    None (model-dtype leaves), one mode for both leaves, or a per-leaf
+    ``(mode_a, mode_b)`` pair (MLA latent / rope under "dq")."""
     if quant:
-        kq, kd, vq, vd = kv
-        return _dequant(kq[btj], kd[btj]), _dequant(vq[btj], vd[btj])
+        ma, mb = (quant, quant) if isinstance(quant, str) else quant
+        aq, ad, bq, bd = kv
+        return _dequant(aq[btj], ad[btj], ma), _dequant(bq[btj], bd[btj], mb)
     return tuple(x[btj].to(torch.float32) for x in kv)
 
 
 def attn_decode_plain(q, kv, pos_pool, block_table, pos, lane_pages, *,
                       window: int, softcap: float, scale: float, nj: int,
-                      quant: bool) -> torch.Tensor:
-    """Bounded-gather twin of the decode kernel (``_attn_core`` xla)."""
+                      quant: str | None) -> torch.Tensor:
+    """Bounded-gather twin of the decode kernel (``_attn_core`` xla);
+    ``quant`` is None (model-dtype pools) or the pools' mode."""
     b, h, d = q.shape
     tp, hkv = kv[0].shape[1], kv[0].shape[2]
-    dv = (kv[2] if quant else kv[1]).shape[-1]
+    dv = _width((kv[2] if quant else kv[1]).shape[-1], quant)
     btj = block_table[:, :nj].long()
     ks, vs = _gathered_kv(kv, btj, quant)
     ps = pos_pool[btj]                                       # (B, nj, P)
@@ -107,15 +135,16 @@ def attn_decode_plain(q, kv, pos_pool, block_table, pos, lane_pages, *,
 
 
 def attn_prefill_plain(q, kv, pos_pool, block_table, qpos, *, window: int,
-                       softcap: float, scale: float, nj: int) -> torch.Tensor:
+                       softcap: float, scale: float, nj: int,
+                       quant: str = "q8_0") -> torch.Tensor:
     """Bounded-gather twin of the prefill kernel (``_attn_prefill_core``
     xla), including the zeroing of fully masked (padded) rows."""
     b, c, h, d = q.shape
     tp, hkv = kv[0].shape[1], kv[0].shape[2]
     rep = h // hkv
-    dv = kv[2].shape[-1]
+    dv = _width(kv[2].shape[-1], quant)
     btj = block_table[:, :nj].long()
-    ks, vs = _gathered_kv(kv, btj, True)
+    ks, vs = _gathered_kv(kv, btj, quant)
     ks = ks.reshape(b, nj * tp, hkv, d)
     vs = vs.reshape(b, nj * tp, hkv, dv)
     ps = pos_pool[btj].reshape(b, nj * tp)
@@ -156,11 +185,11 @@ def _require(cond: bool, what: str) -> None:
 
 
 def _launch(kind: int, q, k, v, kd, vd, pos_pool, block_table, qpos,
-            lane_pages, *, c: int, nj: int, ct: int, window: int,
+            lane_pages, *, dv: int, c: int, nj: int, ct: int, window: int,
             logical_mask: int, scale: float, softcap: float) -> torch.Tensor:
     dev = q.device
     b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
-    hkv, tp, dv = k.shape[2], k.shape[1], v.shape[-1]
+    hkv, tp = k.shape[2], k.shape[1]
     tensors = [q, k, v, pos_pool, block_table, qpos] + [
         t for t in (kd, vd, lane_pages) if t is not None]
     _require(all(t.device == dev for t in tensors),
@@ -187,8 +216,38 @@ def _launch(kind: int, q, k, v, kd, vd, pos_pool, block_table, qpos,
     return out
 
 
+def _check_quant_pair(qs, d, width: int, mode: str, what: str) -> None:
+    """A quantized leaf pair as the kernels take it: int8 values of
+    ``width`` logical columns (``width / 2`` bytes for q4_0, which needs an
+    even width) and one f32 scale per row."""
+    _require(qs.dtype == torch.int8 and d.dtype == torch.float32,
+             f"{mode} {what} pools are int8 values with float32 row scales")
+    _require(mode != "q4_0" or width % 2 == 0,
+             f"q4_0 {what} rows need an even width, got {width}")
+    _require(_width(qs.shape[-1], mode) == width,
+             f"{mode} {what} pool is {qs.shape[-1]} wide, not "
+             f"{width // 2 if mode == 'q4_0' else width} for {width} values")
+    _require(d.shape == qs.shape[:-1],
+             f"{what} scales are not one per stored row")
+
+
+def _quant_kv(q, kv, mode: str):
+    """Validated quantized K/V leaves -> (kind, k, kd, v, vd, Dv)."""
+    k, kd, v, vd = kv
+    _check_quant_pair(k, kd, q.shape[-1], mode, "K")
+    dv = _width(v.shape[-1], mode)
+    _check_quant_pair(v, vd, dv, mode, "V")
+    return _QUANT_KIND[mode], k, kd, v, vd, dv
+
+
+def _count(counter, key) -> None:
+    counter.launches += 1
+    if key is not None:
+        counter.loaders[key].launches += 1
+
+
 def _decode(q, kv, pos_pool, block_table, pos, lane_pages, *, window,
-            softcap, scale, active_pages, quant: bool, counter):
+            softcap, scale, active_pages, quant: str | None, counter):
     nj = _n_active(block_table, active_pages)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
@@ -197,22 +256,19 @@ def _decode(q, kv, pos_pool, block_table, pos, lane_pages, *, window,
                                  window=window, softcap=softcap, scale=scale,
                                  nj=nj, quant=quant)
     if quant:
-        k, kd, v, vd = kv
-        _require(k.dtype == torch.int8 and v.dtype == torch.int8
-                 and kd.dtype == torch.float32 and vd.dtype == torch.float32,
-                 "q8_0 pools are int8 values with float32 row scales")
-        kind = _Q8
+        kind, k, kd, v, vd, dv = _quant_kv(q, kv, quant)
     else:
         (k, v), kd, vd = kv, None, None
         _require(k.dtype in _KV_KIND and v.dtype == k.dtype,
                  "K/V pools must be float32 or bfloat16")
-        kind = _KV_KIND[k.dtype]
+        _require(k.shape[-1] == q.shape[-1], "K pool width differs from q")
+        kind, dv = _KV_KIND[k.dtype], v.shape[-1]
     lp = None if lane_pages is None else lane_pages.to(torch.int32)
     out = _launch(kind, q.to(torch.float32).contiguous(), k, v, kd, vd,
                   pos_pool, block_table, pos.to(torch.int32).contiguous(), lp,
-                  c=1, nj=nj, ct=1, window=window, logical_mask=0,
+                  dv=dv, c=1, nj=nj, ct=1, window=window, logical_mask=0,
                   scale=scale, softcap=softcap)
-    counter.launches += 1
+    _count(counter, quant)
     return out[:, 0]
 
 
@@ -231,7 +287,7 @@ def paged_attn_decode(q, k_pool, v_pool, pos_pool, block_table, pos, *,
     """
     return _decode(q, (k_pool, v_pool), pos_pool, block_table, pos,
                    lane_pages, window=window, softcap=softcap, scale=scale,
-                   active_pages=active_pages, quant=False,
+                   active_pages=active_pages, quant=None,
                    counter=paged_attn_decode)
 
 
@@ -241,13 +297,13 @@ def paged_attn_decode_quant(q, k_qs, k_d, v_qs, v_d, pos_pool, block_table,
                             active_pages: int | None = None,
                             lane_pages: torch.Tensor | None = None
                             ) -> torch.Tensor:
-    """:func:`paged_attn_decode` over q8_0 pools (B3): int8 values and one
-    f32 scale per (page, token, head) row, dequantized inside the page
-    loop."""
-    _check_mode(mode)
+    """:func:`paged_attn_decode` over quantized pools: q8_0 (B3) or
+    nibble-packed q4_0 (B5), int8 values (trailing axis halved for q4_0)
+    and one f32 scale per (page, token, head) row, dequantized inside the
+    page loop."""
     return _decode(q, (k_qs, k_d, v_qs, v_d), pos_pool, block_table, pos,
                    lane_pages, window=window, softcap=softcap, scale=scale,
-                   active_pages=active_pages, quant=True,
+                   active_pages=active_pages, quant=_check_mode(mode),
                    counter=paged_attn_decode_quant)
 
 
@@ -255,7 +311,8 @@ def paged_attn_prefill_quant(q, k_qs, k_d, v_qs, v_d, pos_pool, block_table,
                              qpos, *, mode: str = "q8_0", window: int = 0,
                              softcap: float = 0.0, scale: float | None = None,
                              active_pages: int | None = None) -> torch.Tensor:
-    """Write-then-attend chunked prefill over q8_0 pools (B4).
+    """Write-then-attend chunked prefill over q8_0 (B4) or q4_0 (B5)
+    pools.
 
     q: (B, C, H, D); qpos: (B, C) int32 query positions, -1 for padded
     rows (their outputs are zeros).  A key row is attendable for query
@@ -270,22 +327,23 @@ def paged_attn_prefill_quant(q, k_qs, k_d, v_qs, v_d, pos_pool, block_table,
     if q.device.type == "cpu":
         return attn_prefill_plain(q, kv, pos_pool, block_table, qpos,
                                   window=window, softcap=softcap, scale=scale,
-                                  nj=nj)
-    _require(k_qs.dtype == torch.int8 and v_qs.dtype == torch.int8,
-             "q8_0 pools are int8 values with float32 row scales")
-    rep = q.shape[2] // k_qs.shape[2]
+                                  nj=nj, quant=mode)
+    kind, k, kd, v, vd, dv = _quant_kv(q, kv, mode)
+    rep = q.shape[2] // k.shape[2]
     ct = max(1, min(q.shape[1], _ROWS_PER_BLOCK // max(rep, 1)))
-    out = _launch(_Q8, q.to(torch.float32).contiguous(), k_qs, v_qs, k_d,
-                  v_d, pos_pool, block_table, qpos.to(torch.int32).contiguous(),
-                  None, c=q.shape[1], nj=nj, ct=ct, window=window,
+    out = _launch(kind, q.to(torch.float32).contiguous(), k, v, kd, vd,
+                  pos_pool, block_table, qpos.to(torch.int32).contiguous(),
+                  None, dv=dv, c=q.shape[1], nj=nj, ct=ct, window=window,
                   logical_mask=1, scale=scale, softcap=softcap)
-    paged_attn_prefill_quant.launches += 1
+    _count(paged_attn_prefill_quant, mode)
     return out
 
 
 paged_attn_decode.launches = 0
 paged_attn_decode_quant.launches = 0
 paged_attn_prefill_quant.launches = 0
+paged_attn_decode_quant.loaders = {m: Launches() for m in KV_MODES}
+paged_attn_prefill_quant.loaders = {m: Launches() for m in KV_MODES}
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +353,7 @@ paged_attn_prefill_quant.launches = 0
 _MLA_MAX_R, _MLA_MAX_DR = 512, 64     # the widths csrc/paged_mla.cu holds
 
 
-def _gathered_latents(kv: tuple, btj: torch.Tensor, quant: bool):
+def _gathered_latents(kv: tuple, btj: torch.Tensor, quant):
     b, nj = btj.shape
     cs, ks = _gathered_kv(kv, btj, quant)
     return (cs.reshape(b, nj * cs.shape[2], cs.shape[3]),
@@ -303,10 +361,11 @@ def _gathered_latents(kv: tuple, btj: torch.Tensor, quant: bool):
 
 
 def mla_decode_plain(q_eff, q_rope, kv, block_table, pos, *, scale: float,
-                     nj: int, quant: bool) -> torch.Tensor:
+                     nj: int, quant) -> torch.Tensor:
     """Bounded-gather twin of the MLA decode kernel (``_xla_mla``): one
     masked softmax over the first ``nj`` pages, valid iff the key's
-    logical index is ``<= pos``."""
+    logical index is ``<= pos``.  ``quant``: None (model-dtype pools) or
+    the ``(latent, rope)`` modes (one string for both)."""
     cs, ks = _gathered_latents(kv, block_table[:, :nj].long(), quant)
     s = (torch.einsum("bhr,blr->bhl", q_eff.to(torch.float32), cs)
          + torch.einsum("bhd,bld->bhl", q_rope.to(torch.float32),
@@ -319,10 +378,10 @@ def mla_decode_plain(q_eff, q_rope, kv, block_table, pos, *, scale: float,
 
 
 def mla_prefill_plain(q_eff, q_rope, kv, block_table, qpos, *, scale: float,
-                      nj: int) -> torch.Tensor:
+                      nj: int, quant=("q8_0", "q8_0")) -> torch.Tensor:
     """Bounded-gather twin of the MLA prefill kernel (``_mla_prefill_core``
     xla), including the zeroing of fully masked (padded) rows."""
-    cs, ks = _gathered_latents(kv, block_table[:, :nj].long(), True)
+    cs, ks = _gathered_latents(kv, block_table[:, :nj].long(), quant)
     kidx = torch.arange(cs.shape[1], device=cs.device)
     valid = kidx[None, None, :] <= qpos[:, :, None]              # (B, C, L)
     s = (torch.einsum("bchr,blr->bchl", q_eff.to(torch.float32), cs)
@@ -339,15 +398,16 @@ def mla_prefill_plain(q_eff, q_rope, kv, block_table, qpos, *, scale: float,
 def _mla_entry():
     v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return build.bind("paged_mla", "paged_mla",
-                      [i, v, v, v, v, v, v, v, v, v, v,
+                      [i, i, v, v, v, v, v, v, v, v, v, v,
                        i, i, i, i, i, i, i, i, f, i, v])
 
 
-def _mla_launch(kind: int, q_eff, q_rope, ckv, krope, cd, kd, block_table,
-                qpos, lane_pages, *, nj: int, scale: float,
+def _mla_launch(kinds: tuple, q_eff, q_rope, ckv, krope, cd, kd,
+                block_table, qpos, lane_pages, *, nj: int, scale: float,
                 rw: int) -> torch.Tensor:
     """q_eff (B, C, H, R) / q_rope (B, C, H, Dr) in any float type (read
-    as f32); returns (B, C, H, R) f32."""
+    as f32); ``kinds``: the latent and rope leaves' loader ids.  Returns
+    (B, C, H, R) f32."""
     dev = q_eff.device
     b, c, h, r = q_eff.shape
     dr = q_rope.shape[-1]
@@ -361,47 +421,56 @@ def _mla_launch(kind: int, q_eff, q_rope, ckv, krope, cd, kd, block_table,
              "paged MLA operands must be contiguous")
     _require(r <= _MLA_MAX_R and dr <= _MLA_MAX_DR,
              f"MLA widths must be R <= {_MLA_MAX_R}, Dr <= {_MLA_MAX_DR}")
-    _require(ckv.shape[-1] == r and krope.shape[-1] == dr
-             and ckv.shape[:2] == krope.shape[:2],
-             "latent pools do not match the queries")
+    _require(ckv.shape[:2] == krope.shape[:2],
+             "latent and rope pools differ in layout")
     _require(q_rope.shape[:3] == (b, c, h), "q_rope does not match q_eff")
     for t in (block_table, qpos) + (
             () if lane_pages is None else (lane_pages,)):
         _require(t.dtype == torch.int32, "indices must be int32")
     out = torch.empty((b, c, h, r), dtype=torch.float32, device=dev)
-    err = _mla_entry()(kind, q_eff.data_ptr(), q_rope.data_ptr(),
-                       ckv.data_ptr(), krope.data_ptr(), build.ptr(cd),
-                       build.ptr(kd), block_table.data_ptr(), qpos.data_ptr(),
-                       build.ptr(lane_pages), out.data_ptr(), b, c, h, r, dr,
-                       ckv.shape[1], block_table.shape[1], nj, float(scale),
-                       rw, build.stream_ptr(dev))
+    err = _mla_entry()(kinds[0], kinds[1], q_eff.data_ptr(),
+                       q_rope.data_ptr(), ckv.data_ptr(), krope.data_ptr(),
+                       build.ptr(cd), build.ptr(kd), block_table.data_ptr(),
+                       qpos.data_ptr(), build.ptr(lane_pages), out.data_ptr(),
+                       b, c, h, r, dr, ckv.shape[1], block_table.shape[1],
+                       nj, float(scale), rw, build.stream_ptr(dev))
     build.check(err, "paged_mla")
     return out
 
 
+def _mla_leaves(q_eff, q_rope, kv, quant):
+    """Validated latent / rope leaves -> (kinds, ckv, cd, krope, kd)."""
+    if quant is None:
+        (ckv, krope), cd, kd = kv, None, None
+        _require(ckv.dtype in _KV_KIND and krope.dtype == ckv.dtype,
+                 "latent pools must be float32 or bfloat16")
+        _require(ckv.shape[-1] == q_eff.shape[-1]
+                 and krope.shape[-1] == q_rope.shape[-1],
+                 "latent pools do not match the queries")
+        kind = _KV_KIND[ckv.dtype]
+        return (kind, kind), ckv, cd, krope, kd
+    _require(quant in MLA_MODE_PAIRS,
+             f"no MLA kernel holds (latent, rope) modes {quant}; supported: "
+             f"{MLA_MODE_PAIRS}")
+    ckv, cd, krope, kd = kv
+    _check_quant_pair(ckv, cd, q_eff.shape[-1], quant[0], "latent")
+    _check_quant_pair(krope, kd, q_rope.shape[-1], quant[1], "rope")
+    return (_QUANT_KIND[quant[0]], _QUANT_KIND[quant[1]]), ckv, cd, krope, kd
+
+
 def _mla_decode(q_eff, q_rope, kv, block_table, pos, lane_pages, *, scale,
-                active_pages, quant: bool, counter):
+                active_pages, quant, counter):
     nj = _n_active(block_table, active_pages)
     if q_eff.device.type == "cpu":
         # the positional kidx <= pos mask already bounds every lane
         return mla_decode_plain(q_eff, q_rope, kv, block_table, pos,
                                 scale=scale, nj=nj, quant=quant)
-    if quant:
-        cq, cd, kq, kd = kv
-        _require(cq.dtype == torch.int8 and kq.dtype == torch.int8
-                 and cd.dtype == torch.float32 and kd.dtype == torch.float32,
-                 "q8_0 latent pools are int8 values with float32 scales")
-        kind = _Q8
-    else:
-        (cq, kq), cd, kd = kv, None, None
-        _require(cq.dtype in _KV_KIND and kq.dtype == cq.dtype,
-                 "latent pools must be float32 or bfloat16")
-        kind = _KV_KIND[cq.dtype]
+    kinds, cq, cd, kq, kd = _mla_leaves(q_eff, q_rope, kv, quant)
     lp = None if lane_pages is None else lane_pages.to(torch.int32)
-    out = _mla_launch(kind, q_eff[:, None], q_rope[:, None], cq, kq, cd, kd,
+    out = _mla_launch(kinds, q_eff[:, None], q_rope[:, None], cq, kq, cd, kd,
                       block_table, pos.to(torch.int32)[:, None].contiguous(),
                       lp, nj=nj, scale=scale, rw=1)
-    counter.launches += 1
+    _count(counter, quant)
     return out[:, 0]
 
 
@@ -418,7 +487,7 @@ def paged_mla_decode(q_eff, q_rope, ckv_pool, krope_pool, block_table, pos,
     """
     return _mla_decode(q_eff, q_rope, (ckv_pool, krope_pool), block_table,
                        pos, lane_pages, scale=scale,
-                       active_pages=active_pages, quant=False,
+                       active_pages=active_pages, quant=None,
                        counter=paged_mla_decode)
 
 
@@ -429,14 +498,15 @@ def paged_mla_decode_quant(q_eff, q_rope, ckv_qs, ckv_d, kr_qs, kr_d,
                            active_pages: int | None = None,
                            lane_pages: torch.Tensor | None = None
                            ) -> torch.Tensor:
-    """:func:`paged_mla_decode` over q8_0 latent/rope pools (B6): int8
-    values and one f32 scale per (page, token) row, dequantized inside the
-    page loop."""
-    _check_mode(latent_mode)
-    _check_mode(rope_mode)
+    """:func:`paged_mla_decode` over quantized latent/rope pools (B6, and
+    its q4_0 loaders B5): int8 values (a q4_0 leaf nibble-packed, its
+    trailing axis halved) and one f32 scale per (page, token) row,
+    dequantized inside the page loop.  ``latent_mode`` and ``rope_mode``
+    may differ: "dq" keeps q8_0 latents beside q4_0 rope keys."""
+    quant = (_check_mode(latent_mode), _check_mode(rope_mode))
     return _mla_decode(q_eff, q_rope, (ckv_qs, ckv_d, kr_qs, kr_d),
                        block_table, pos, lane_pages, scale=scale,
-                       active_pages=active_pages, quant=True,
+                       active_pages=active_pages, quant=quant,
                        counter=paged_mla_decode_quant)
 
 
@@ -445,37 +515,38 @@ def paged_mla_prefill_quant(q_eff, q_rope, ckv_qs, ckv_d, kr_qs, kr_d,
                             latent_mode: str = "q8_0",
                             rope_mode: str = "q8_0",
                             active_pages: int | None = None) -> torch.Tensor:
-    """Write-then-attend chunked-prefill absorbed MLA over q8_0 latent
-    pools (B7).
+    """Write-then-attend chunked-prefill absorbed MLA over quantized latent
+    pools (B7, and its q4_0 loaders B5); the modes as in
+    :func:`paged_mla_decode_quant`.
 
     q_eff: (B, C, H, R); q_rope: (B, C, H, Dr); qpos: (B, C) int32 query
     positions, -1 for padded rows (their outputs are zeros).  A latent
     token is valid for row (b, c) iff its logical index is ``<= qpos``.
     Returns (B, C, H, R) f32.
     """
-    _check_mode(latent_mode)
-    _check_mode(rope_mode)
+    quant = (_check_mode(latent_mode), _check_mode(rope_mode))
     nj = _n_active(block_table, active_pages)
     kv = (ckv_qs, ckv_d, kr_qs, kr_d)
     if q_eff.device.type == "cpu":
         return mla_prefill_plain(q_eff, q_rope, kv, block_table, qpos,
-                                 scale=scale, nj=nj)
-    _require(ckv_qs.dtype == torch.int8 and kr_qs.dtype == torch.int8,
-             "q8_0 latent pools are int8 values with float32 scales")
-    out = _mla_launch(_Q8, q_eff, q_rope, ckv_qs, kr_qs, ckv_d, kr_d,
-                      block_table, qpos.to(torch.int32).contiguous(), None,
-                      nj=nj, scale=scale, rw=4)
-    paged_mla_prefill_quant.launches += 1
+                                 scale=scale, nj=nj, quant=quant)
+    kinds, cq, cd, kq, kd = _mla_leaves(q_eff, q_rope, kv, quant)
+    out = _mla_launch(kinds, q_eff, q_rope, cq, kq, cd, kd, block_table,
+                      qpos.to(torch.int32).contiguous(), None, nj=nj,
+                      scale=scale, rw=4)
+    _count(paged_mla_prefill_quant, quant)
     return out
 
 
 paged_mla_decode.launches = 0
 paged_mla_decode_quant.launches = 0
 paged_mla_prefill_quant.launches = 0
+paged_mla_decode_quant.loaders = {m: Launches() for m in MLA_MODE_PAIRS}
+paged_mla_prefill_quant.loaders = {m: Launches() for m in MLA_MODE_PAIRS}
 
 
 # ---------------------------------------------------------------------------
-# quantized K/V page pools
+# quantized K/V page pools: q8_0, and nibble-packed q4_0
 # ---------------------------------------------------------------------------
 
 def quantize_kv_page_pool(pool: torch.Tensor
@@ -493,3 +564,41 @@ def quantize_kv_page_pool(pool: torch.Tensor
     qs = torch.clamp(torch.round(x / safe[..., None]), -127, 127).to(
         torch.int8)
     return qs, d
+
+
+def pack_q4_rows(qs: torch.Tensor) -> torch.Tensor:
+    """Pack int4-valued int8 rows two a byte along the trailing axis.
+
+    qs: (..., D) int8, every value in [-8, 7]; D must be even.  Byte ``i``
+    holds element ``2i`` in its low nibble and ``2i + 1`` in its high
+    nibble (GGUF's q4_0 order).  int8 ``<<`` wraps, as ``jnp``'s does.
+    """
+    width = qs.shape[-1]
+    if width % 2:
+        raise ValueError(f"q4_0 packing needs an even trailing dim; "
+                         f"got {width}")
+    lo = torch.bitwise_and(qs[..., 0::2], 0x0F)
+    hi = torch.bitwise_left_shift(qs[..., 1::2], 4)
+    return torch.bitwise_or(lo, hi).to(torch.int8)
+
+
+def unpack_q4_rows(packed: torch.Tensor) -> torch.Tensor:
+    """Invert :func:`pack_q4_rows`: (..., D/2) int8 -> (..., D) int8.
+    ``(b << 4) >> 4`` sign-extends the low nibble, ``b >> 4`` the high one
+    (arithmetic shifts on int8)."""
+    lo = torch.bitwise_right_shift(torch.bitwise_left_shift(packed, 4), 4)
+    hi = torch.bitwise_right_shift(packed, 4)
+    return torch.stack([lo, hi], dim=-1).reshape(
+        *packed.shape[:-1], 2 * packed.shape[-1])
+
+
+def quantize_kv_page_pool_q4(pool: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """q4_0-style per-row quantization: symmetric int4 in [-7, 7], ``d =
+    max|x| / 7``, nibble-packed (:func:`pack_q4_rows`), so the stored
+    trailing axis is ``D // 2``.  Bitwise equal to the reference."""
+    x = pool.to(torch.float32)
+    d = torch.amax(torch.abs(x), dim=-1) / 7.0
+    safe = torch.clamp(d, min=1e-30)
+    qs = torch.clamp(torch.round(x / safe[..., None]), -7, 7).to(torch.int8)
+    return pack_q4_rows(qs), d

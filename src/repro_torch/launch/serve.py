@@ -2,6 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --policy DQ3_K_M --page-size 16 --prefill-chunk 128 --kv-quant q8_0
+      (or --kv-quant q4_0 / dq)
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-v3-671b --reduced --device cpu --dtype f32
 
@@ -52,7 +53,12 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=0)
     ap.add_argument("--prefill-chunk", type=int, default=0)
-    ap.add_argument("--kv-quant", default=None, choices=("q8_0",))
+    ap.add_argument("--kv-quant", default=None,
+                    choices=("q8_0", "q4_0", "dq"),
+                    help="quantize the paged KV pools: 'q8_0' int8 values + "
+                         "per-row f32 scales, 'q4_0' two int4 values a "
+                         "byte, 'dq' per layer (q8_0 on the first/last "
+                         "layers and MLA latents, q4_0 elsewhere)")
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--max-len", type=int, default=1024)
     ap.add_argument("--temperature", type=float, default=0.6)

@@ -1,11 +1,14 @@
 """Full-horizon GQA attention (with QKV bias) over a paged KV cache.
 
 Decode runs the fused paged kernels (B2 for model-dtype pools, B3 for
-q8_0 pools).  Chunked prefill over q8_0 pools is write-then-attend: the
-chunk's rows are quantized once, scattered into their pages, and every
-chunk query attends the pools in place (B4).  Chunked prefill over
-model-dtype pools gathers the dense view and runs the online-softmax
-attention below in plain PyTorch, as the reference leaves it to XLA.
+q8_0 pools, its q4_0 loader B5 for q4_0 pools).  Chunked prefill over
+quantized pools is write-then-attend: the chunk's rows are quantized
+once, scattered into their pages, and every chunk query attends the pools
+in place (B4, or B5 for q4_0).  Chunked prefill over model-dtype pools
+gathers the dense view and runs the online-softmax attention below in
+plain PyTorch, as the reference leaves it to XLA.  ``kv_quant`` here is
+one layer's mode: a string, or a ``paged.LayerQuant`` whose ``kv`` field
+the K/V leaves take.
 """
 
 from __future__ import annotations
@@ -113,21 +116,29 @@ def _qkv(p, cfg: ModelConfig, x, positions):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
+def _kv_mode(kv_quant) -> str | None:
+    """The K/V leaves' storage mode of one layer's ``kv_quant``."""
+    return paged.as_layer_quant(kv_quant).kv if kv_quant else None
+
+
 def init_paged_attn_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                           dtype=torch.bfloat16, kv_quant=None,
                           device=None) -> dict:
-    """Paged K/V/pos pools shared by every slot: model-dtype leaves, or q8_0
-    int8 values plus per-(token, head) f32 scales."""
+    """Paged K/V/pos pools shared by every slot: model-dtype leaves, or int8
+    values (q8_0, or q4_0 nibble-packed to ``head_dim / 2`` bytes a row)
+    plus per-(token, head) f32 scales."""
     nkv, hd = cfg.n_kv_heads, cfg.head_dim
     kw = dict(device=device)
     pos = torch.full((num_pages, page_size), -1, dtype=torch.int32, **kw)
-    if paged.check_kv_quant(kv_quant):
+    mode = _kv_mode(kv_quant)
+    if mode:
+        hd_s = paged.q4_packed_dim(hd, "head") if mode == "q4_0" else hd
         return {
-            "k_qs": torch.zeros((num_pages, page_size, nkv, hd),
+            "k_qs": torch.zeros((num_pages, page_size, nkv, hd_s),
                                 dtype=torch.int8, **kw),
             "k_d": torch.zeros((num_pages, page_size, nkv),
                                dtype=torch.float32, **kw),
-            "v_qs": torch.zeros((num_pages, page_size, nkv, hd),
+            "v_qs": torch.zeros((num_pages, page_size, nkv, hd_s),
                                 dtype=torch.int8, **kw),
             "v_d": torch.zeros((num_pages, page_size, nkv),
                                dtype=torch.float32, **kw),
@@ -146,8 +157,7 @@ def attn_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
                       live: torch.Tensor | None = None,
                       active_pages: int | None = None,
                       lane_pages: torch.Tensor | None = None,
-                      kv_quant: str | None = None
-                      ) -> tuple[torch.Tensor, dict]:
+                      kv_quant=None) -> tuple[torch.Tensor, dict]:
     """One-token decode against a paged cache (the fused kernels).
 
     Scatters the new K/V/pos row into its page (in place; rows with
@@ -155,6 +165,7 @@ def attn_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
     through the block table.  ``active_pages`` bounds the page loop to the
     batch's live horizon, ``lane_pages`` (B,) each lane to its own.
     """
+    kv_quant = _kv_mode(kv_quant)
     b = x.shape[0]
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(p, cfg, h, pos[:, None])
@@ -193,6 +204,7 @@ def attn_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
     (B,) first position of the chunk; chunk_len: (B,) valid tokens (0 = an
     inactive row: no writes, output ignored).
     """
+    kv_quant = _kv_mode(kv_quant)
     b, c, _ = x.shape
     length = max_len
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)

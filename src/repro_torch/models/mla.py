@@ -6,8 +6,12 @@ page pools with no positions: a token is valid iff its logical index is
 ``<= pos``.  Decode runs the **absorbed** form: ``kv_b``'s key half is
 folded into the query (``q_eff``), kernel B6 attends the latent pages in
 place, and ``kv_b``'s value half projects the attended latents out.
-Chunked prefill over q8_0 pools is write-then-attend in the same absorbed
-form (kernel B7); over model-dtype pools it materialises per-head K/V from
+Chunked prefill over quantized pools is write-then-attend in the same
+absorbed form (kernel B7).  Quantized pools take one mode per leaf
+(``paged.LayerQuant``: ``latent`` for ``c_kv``, ``kv`` for the rope key),
+q8_0 or nibble-packed q4_0 (B6/B7's q4_0 loaders, B5); under "dq" the
+latent stays q8_0 while the rope key of a non-sensitive layer is q4_0.
+Over model-dtype pools, prefill materialises per-head K/V from
 [cached latents | chunk latents] and runs the online-softmax attention in
 plain PyTorch, as the reference leaves it to XLA.  The ``kv_b`` absorption
 einsums and ``o_proj`` stay plain PyTorch / B1 as well.
@@ -49,22 +53,34 @@ def _latents(p, cfg: ModelConfig, h, positions):
     return c_kv, k_rope
 
 
+def _latent_widths(cfg: ModelConfig, lq: paged.LayerQuant):
+    """Stored trailing dims of the quantized ``c_kv`` / ``k_rope`` leaves
+    (halved for a q4_0 leaf)."""
+    rank_s = (paged.q4_packed_dim(cfg.kv_lora_rank, "latent rank")
+              if lq.latent == "q4_0" else cfg.kv_lora_rank)
+    dr_s = (paged.q4_packed_dim(cfg.qk_rope_head_dim, "rope dim")
+            if lq.kv == "q4_0" else cfg.qk_rope_head_dim)
+    return rank_s, dr_s
+
+
 def init_paged_mla_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                          dtype=torch.bfloat16, kv_quant=None,
                          device=None) -> dict:
-    """Paged latent pools shared by every slot: model-dtype leaves, or q8_0
-    int8 values plus one f32 scale per (page, token) row (block = the
-    latent / rope width).  NULL-page zeros are never attended: validity is
+    """Paged latent pools shared by every slot: model-dtype leaves, or int8
+    values (per leaf q8_0, or q4_0 nibble-packed to half the width) plus
+    one f32 scale per (page, token) row (block = the latent / rope
+    width).  NULL-page zeros are never attended: validity is
     positional."""
     rank, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
     kw = dict(device=device)
-    if paged.check_kv_quant(kv_quant):
+    if kv_quant:
+        rank_s, dr_s = _latent_widths(cfg, paged.as_layer_quant(kv_quant))
         return {
-            "c_kv_qs": torch.zeros((num_pages, page_size, rank),
+            "c_kv_qs": torch.zeros((num_pages, page_size, rank_s),
                                    dtype=torch.int8, **kw),
             "c_kv_d": torch.zeros((num_pages, page_size),
                                   dtype=torch.float32, **kw),
-            "k_rope_qs": torch.zeros((num_pages, page_size, dr),
+            "k_rope_qs": torch.zeros((num_pages, page_size, dr_s),
                                      dtype=torch.int8, **kw),
             "k_rope_d": torch.zeros((num_pages, page_size),
                                     dtype=torch.float32, **kw),
@@ -97,27 +113,27 @@ def mla_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
                      max_len: int, live: torch.Tensor | None = None,
                      active_pages: int | None = None,
                      lane_pages: torch.Tensor | None = None,
-                     kv_quant: str | None = None
-                     ) -> tuple[torch.Tensor, dict]:
+                     kv_quant=None) -> tuple[torch.Tensor, dict]:
     """Absorbed one-token decode against paged latents (the fused kernel).
 
     Scatters the new latent / rope row into its page (in place, quantized
-    first for q8_0 pools; rows with ``live == False`` go to GARBAGE), then
-    attends the pages in place through the block table (B6).
+    first for quantized pools; rows with ``live == False`` go to GARBAGE),
+    then attends the pages in place through the block table (B6).
     """
     del max_len
+    lq = paged.as_layer_quant(kv_quant) if kv_quant else None
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q_nope, q_rope = _project_q(p, cfg, h, pos[:, None])      # (B,1,H,*)
     c_new, kr_new = _latents(p, cfg, h, pos[:, None])         # (B,1,rank)
     idx = pos.to(torch.int32)
-    if kv_quant:
+    if lq:
         paged.scatter_token_quant(cache["c_kv_qs"], cache["c_kv_d"],
                                   block_table, idx, c_new[:, 0], ok=live,
-                                  mode=kv_quant)
+                                  mode=lq.latent)
         paged.scatter_token_quant(cache["k_rope_qs"], cache["k_rope_d"],
                                   block_table, idx, kr_new[:, 0], ok=live,
-                                  mode=kv_quant)
+                                  mode=lq.kv)
     else:
         paged.scatter_token(cache["c_kv"], block_table, idx, c_new[:, 0],
                             ok=live)
@@ -129,11 +145,11 @@ def mla_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
                          w_kb.to(torch.float32))              # (B,H,rank)
     kw = dict(scale=(dn + dr) ** -0.5, active_pages=active_pages,
               lane_pages=lane_pages)
-    if kv_quant:
+    if lq:
         lat = paged_attn.paged_mla_decode_quant(
             q_eff.to(dt), q_rope[:, 0], cache["c_kv_qs"], cache["c_kv_d"],
             cache["k_rope_qs"], cache["k_rope_d"], block_table, pos,
-            latent_mode=kv_quant, rope_mode=kv_quant, **kw)
+            latent_mode=lq.latent, rope_mode=lq.kv, **kw)
     else:
         lat = paged_attn.paged_mla_decode(
             q_eff.to(dt), q_rope[:, 0], cache["c_kv"], cache["k_rope"],
@@ -150,12 +166,14 @@ def mla_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """One prefill chunk against the paged latent cache.
 
     x: (B, C, D) right-padded per row; positions: (B, C) absolute; start:
-    (B,) first position of the chunk; chunk_len: (B,) valid tokens.  q8_0
-    pools: quantize the chunk's latents once, scatter them, and attend the
-    packed pools in place in absorbed form (B7).  Model-dtype pools:
+    (B,) first position of the chunk; chunk_len: (B,) valid tokens.
+    Quantized pools: quantize the chunk's latents once (each leaf in its
+    own mode), scatter them, and attend the packed pools in place in
+    absorbed form (B7).  Model-dtype pools:
     materialise per-head K/V from [cached latents | chunk latents] and
     attend with per-row positional masks, then write the chunk's latents.
     """
+    lq = paged.as_layer_quant(kv_quant) if kv_quant else None
     b, c, _ = x.shape
     nh = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -166,9 +184,10 @@ def mla_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
                  < chunk_len[:, None])                               # (B, C)
     idx = positions.to(torch.int32)
 
-    if kv_quant:
-        for leaf, val in (("c_kv", c_new), ("k_rope", kr_new)):
-            qs, d = paged.quantize_rows(val, kv_quant)
+    if lq:
+        for leaf, val, mode in (("c_kv", c_new, lq.latent),
+                                ("k_rope", kr_new, lq.kv)):
+            qs, d = paged.quantize_rows(val, mode)
             paged.scatter_chunk(cache[f"{leaf}_qs"], block_table, idx, qs,
                                 valid_tok)
             paged.scatter_chunk(cache[f"{leaf}_d"], block_table, idx, d,
@@ -182,8 +201,8 @@ def mla_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
         lat = paged_attn.paged_mla_prefill_quant(
             q_eff.to(dt), q_rope, cache["c_kv_qs"], cache["c_kv_d"],
             cache["k_rope_qs"], cache["k_rope_d"], block_table, qpos,
-            scale=(dn + dr) ** -0.5, latent_mode=kv_quant,
-            rope_mode=kv_quant, active_pages=active_pages)
+            scale=(dn + dr) ** -0.5, latent_mode=lq.latent,
+            rope_mode=lq.kv, active_pages=active_pages)
         return _project_out(p, cfg, lat, w_vb, x), cache
 
     ckv = paged.gather_pages(cache["c_kv"], block_table, max_len)

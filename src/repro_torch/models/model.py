@@ -41,8 +41,13 @@ class Model:
                          dtype=torch.bfloat16, kv_quant: str | None = None,
                          device=None):
         """Attention K/V (+pos), or MLA latents, as ``(num_pages,
-        page_size, ...)`` pools shared by all slots via block tables;
-        ``kv_quant="q8_0"`` stores int8 values + per-row f32 scales."""
+        page_size, ...)`` pools shared by all slots via block tables.
+        ``kv_quant`` stores int8 values + per-row f32 scales: "q8_0" in
+        every leaf; "q4_0" nibble-packs every leaf (``k_qs``/``v_qs``,
+        ``c_kv_qs``/``k_rope_qs``) to half its width; "dq" packs q4_0
+        only the K/V (or MLA rope-key) leaves of the layers outside
+        ``paged.dq_sensitive_layers`` and keeps the rest, and every MLA
+        latent, q8_0."""
         flat = {}
         for layer in range(self.cfg.n_layers):
             c = transformer.init_layer_cache_paged(
@@ -69,7 +74,8 @@ class Model:
         tokens/pos: (B,) int32; block_tables: {"full": (B, n) int32};
         ``active_pages``: optional ``(n_full, n_ring)`` bound on the fused
         kernels' page loops; ``lane_pages``: optional ``{"full": (B,)}``
-        per-lane refinement.  Returns (logits (B, vocab), cache).
+        per-lane refinement; ``kv_quant``: None, "q8_0", "q4_0" or "dq",
+        as the cache was made.  Returns (logits (B, vocab), cache).
         """
         del page_size
         self._check_kernel(kernel)
@@ -96,8 +102,9 @@ class Model:
 
         tokens: (B, C) int32, right-padded per row; start: (B,) absolute
         position of each row's first token; chunk_len: (B,) valid tokens
-        (0 = inactive row).  Returns (logits (B, vocab) at each row's last
-        valid position, cache).
+        (0 = inactive row); ``kv_quant`` as in :meth:`decode_step_paged`.
+        Returns (logits (B, vocab) at each row's last valid position,
+        cache).
         """
         del page_size
         self._check_kernel(kernel)

@@ -11,32 +11,95 @@ Scatters write in place (``index_put_`` without ``accumulate``): a pool
 is updated where it lies instead of being copied per step, which is what
 keeps a full-width pool's memory flat.  Duplicate targets only ever hit
 GARBAGE (last-writer-wins plans route superseded writes there), so the
-unspecified order among duplicates is harmless.  Quantized pools
-(``kv_quant="q8_0"``) store int8 values plus one f32 scale per row.
+unspecified order among duplicates is harmless.
+
+Quantized pools store int8 values plus one f32 scale per row:
+``kv_quant="q8_0"``, ``"q4_0"`` (two signed nibbles a byte along the row,
+so the stored trailing dim is half the row width, :func:`q4_packed_dim`)
+or ``"dq"``, the per-layer policy of :func:`resolve_layer_quant`: the
+first and last ``max(1, n_layers // 8)`` layers, and every MLA latent,
+stay q8_0 while the rest drop to q4_0.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from ..kernels.paged_attn import quantize_kv_page_pool
+from ..kernels.paged_attn import (KV_MODES, quantize_kv_page_pool,
+                                  quantize_kv_page_pool_q4, unpack_q4_rows)
 
 NULL_PAGE = 0
 GARBAGE_PAGE = 1
 RESERVED_PAGES = 2
 
-KV_QUANTS = ("q8_0",)
+# engine-level cache-quantization specs; "dq" resolves per layer to the
+# concrete per-leaf storage modes
+KV_QUANTS = ("q8_0", "q4_0", "dq")
+KV_QUANT_MODES = KV_MODES
 
 
 def check_kv_quant(kv_quant: str | None) -> str | None:
     """Validate a cache-quantization spec (None = model-dtype pools)."""
-    if kv_quant in ("q4_0", "dq"):
-        raise NotImplementedError(
-            f"kv_quant={kv_quant!r} is not ported yet (ROADMAP D1, kernel B5)")
     if kv_quant and kv_quant not in KV_QUANTS:
         raise ValueError(f"unknown kv_quant {kv_quant!r}; "
                          f"supported: {KV_QUANTS}")
     return kv_quant or None
+
+
+def q4_packed_dim(width: int, what: str = "row") -> int:
+    """Stored (bytes) trailing dim of one q4_0 row of ``width`` values:
+    two nibbles share a byte, so the width must be even."""
+    if width % 2:
+        raise ValueError(
+            f"q4_0 requires an even {what} width (two nibbles per byte); "
+            f"got {width}")
+    return width // 2
+
+
+class LayerQuant(NamedTuple):
+    """One layer's cache-quantization modes: ``kv`` for the GQA K/V pools
+    (on MLA layers, the rope-key pool) and ``latent`` for the MLA ``c_kv``
+    pool (equal to ``kv`` on GQA layers, where it is unused)."""
+    kv: str
+    latent: str
+
+
+def as_layer_quant(kv_quant) -> LayerQuant | None:
+    """A uniform mode string applies to every leaf; a ``LayerQuant`` (or
+    any ``(kv, latent)`` pair) passes through; None stays None."""
+    if kv_quant is None:
+        return None
+    if isinstance(kv_quant, str):
+        if kv_quant not in KV_QUANT_MODES:
+            raise ValueError(f"not a concrete kv-quant mode: {kv_quant!r} "
+                             f"(supported: {KV_QUANT_MODES})")
+        return LayerQuant(kv_quant, kv_quant)
+    return LayerQuant(*kv_quant)
+
+
+def dq_sensitive_layers(n_layers: int) -> frozenset:
+    """Layers "dq" keeps at q8_0: the first and last ``max(1, n_layers //
+    8)``, so stacks of two layers or fewer are uniform q8_0."""
+    n = max(1, n_layers // 8)
+    return frozenset(range(n)) | frozenset(range(max(0, n_layers - n),
+                                                 n_layers))
+
+
+def resolve_layer_quant(kv_quant: str | None, cfg,
+                        layer: int) -> LayerQuant | None:
+    """The engine-level ``kv_quant`` spec for one layer: a uniform mode
+    applies to every leaf; "dq" keeps the sensitive layers at q8_0, drops
+    the rest to q4_0, and keeps MLA ``c_kv`` latents at q8_0 on every
+    layer.  None for model-dtype pools."""
+    kv_quant = check_kv_quant(kv_quant)
+    if kv_quant is None:
+        return None
+    if kv_quant != "dq":
+        return LayerQuant(kv_quant, kv_quant)
+    kv = "q8_0" if layer in dq_sensitive_layers(cfg.n_layers) else "q4_0"
+    return LayerQuant(kv, "q8_0" if cfg.mla else kv)
 
 
 def pages_for(length: int, page_size: int) -> int:
@@ -87,17 +150,22 @@ def scatter_chunk(pool: torch.Tensor, block_table: torch.Tensor,
 
 
 def quantize_rows(val: torch.Tensor, mode: str):
-    """Quantize float rows over the trailing axis: ``(qs, d)``."""
-    if mode != "q8_0":
-        check_kv_quant(mode)
-        raise ValueError(f"unknown kv-quant mode {mode!r}")
-    return quantize_kv_page_pool(val)
+    """Quantize float rows over the trailing axis in storage ``mode``:
+    ``(qs, d)``, int8 values (nibble-packed for q4_0, trailing dim halved)
+    and per-row f32 scales."""
+    if mode == "q8_0":
+        return quantize_kv_page_pool(val)
+    if mode == "q4_0":
+        return quantize_kv_page_pool_q4(val)
+    raise ValueError(f"unknown kv-quant mode {mode!r}")
 
 
 def dequant_rows(qs: torch.Tensor, d: torch.Tensor, mode: str
                  ) -> torch.Tensor:
     """Dequantize stored rows back to the f32 view every reader attends."""
-    if mode != "q8_0":
+    if mode == "q4_0":
+        qs = unpack_q4_rows(qs)
+    elif mode != "q8_0":
         raise ValueError(f"unknown kv-quant mode {mode!r}")
     return qs.to(torch.float32) * d.to(torch.float32)[..., None]
 

@@ -1,5 +1,9 @@
 """Per-layer decode / chunked-prefill for the ported block kinds: full
-attention (GQA or MLA) followed by a dense SwiGLU FFN or routed experts."""
+attention (GQA or MLA) followed by a dense SwiGLU FFN or routed experts.
+
+``kv_quant`` is the engine-level spec ("q8_0", "q4_0", "dq" or None); each
+layer resolves its own modes with ``paged.resolve_layer_quant``, so under
+"dq" the layers of one model keep differently packed pools."""
 
 from __future__ import annotations
 
@@ -8,6 +12,7 @@ import torch
 from ..configs.base import ModelConfig
 from . import attention, mla, moe
 from .common import ffn_apply, rms_norm
+from .paged import resolve_layer_quant
 
 
 def _ffn(cfg: ModelConfig, p: dict, layer: int, x: torch.Tensor
@@ -28,7 +33,8 @@ def decode_layer(cfg: ModelConfig, p: dict, layer: int, x: torch.Tensor,
     attend = mla.mla_decode_paged if cfg.mla else attention.attn_decode_paged
     delta, cache_new = attend(
         p, cfg, x, cache, pos, block_table, max_len=max_len, live=live,
-        active_pages=active_pages, lane_pages=lane_pages, kv_quant=kv_quant)
+        active_pages=active_pages, lane_pages=lane_pages,
+        kv_quant=resolve_layer_quant(kv_quant, cfg, layer))
     return _ffn(cfg, p, layer, x + delta), cache_new
 
 
@@ -43,7 +49,9 @@ def prefill_chunk_layer(cfg: ModelConfig, p: dict, layer: int,
               else attention.attn_prefill_chunk)
     delta, cache_new = attend(
         p, cfg, x, cache, positions, start, chunk_len, max_len=max_len,
-        block_table=block_table, kv_quant=kv_quant, active_pages=active_pages)
+        block_table=block_table,
+        kv_quant=resolve_layer_quant(kv_quant, cfg, layer),
+        active_pages=active_pages)
     return _ffn(cfg, p, layer, x + delta), cache_new
 
 
@@ -51,9 +59,10 @@ def init_layer_cache_paged(cfg: ModelConfig, layer: int, num_pages: int,
                            page_size: int, slots: int, dtype=torch.bfloat16,
                            kv_quant: str | None = None, device=None) -> dict:
     """Paged layer cache: the attention (or MLA latent) leaves as page
-    pools."""
-    del layer, slots  # every ported layer kind keeps only paged leaves
+    pools, quantized in the layer's own modes."""
+    del slots  # every ported layer kind keeps only paged leaves
     init = (mla.init_paged_mla_cache if cfg.mla
             else attention.init_paged_attn_cache)
-    return init(cfg, num_pages, page_size, dtype, kv_quant=kv_quant,
+    return init(cfg, num_pages, page_size, dtype,
+                kv_quant=resolve_layer_quant(kv_quant, cfg, layer),
                 device=device)

@@ -5,8 +5,10 @@ scheduler), the port of ``repro.serving.engine``'s main path.
     FREE, PREFILLING (its prompt streams in chunk by chunk) or LIVE.
   * **Paged KV cache.**  Positional leaves are page pools; each lane owns a
     block-table row mapping its logical pages to physical ones, allocated
-    from a host-side free list (:class:`PagePool`).  ``kv_quant="q8_0"``
-    stores the pools as int8 + per-row f32 scales.
+    from a host-side free list (:class:`PagePool`).  ``kv_quant`` stores
+    the pools as int8 + per-row f32 scales: "q8_0", "q4_0" (two int4
+    codes a byte) or "dq" (per layer: q8_0 on the first/last layers and
+    MLA latents, q4_0 elsewhere).
   * **Admission (reserve).**  A request is admitted only when the pool can
     hold its worst case, so allocation never fails mid-serve; prompts
     stream in ``prefill_chunk``-token chunks through ONE batched
@@ -24,6 +26,11 @@ scheduler), the port of ``repro.serving.engine``'s main path.
     throughput, TTFT, decode tok/s, page occupancy, leaked pages,
     bytes-per-live-token and KV bytes per decoded token, and adds the
     per-step decode times.
+  * **Quantization probe.**  ``quant_probe=True`` serves a shadow
+    model-dtype cache through the same steps (the same block tables,
+    teacher-forced with the served tokens) and reports each lane's
+    largest quantized-vs-unquantized logit gap; the gap stays on the
+    card until the serve ends.
 
 The engine runs on the card unless ``device="cpu"`` is asked for.
 """
@@ -157,6 +164,12 @@ class EngineStats:
     dense_cache_bytes: int = 0           # slots x max_len layout, to compare
     decode_kv_bytes: int = 0             # KV bytes the decode kernels read
     decoded_tokens: int = 0
+    # Engine(quant_probe=True): per slot, the largest max|l - ref| /
+    # max|ref| between the served logits and the shadow cache's, over the
+    # steps the slot was live; empty when the probe is off
+    quant_probe_steps: int = 0
+    quant_logit_gap_per_lane: list[float] = dataclasses.field(
+        default_factory=list)
 
     @property
     def max_concurrency(self) -> int:
@@ -203,6 +216,11 @@ class EngineStats:
         return self.decode_kv_bytes / max(self.decoded_tokens, 1)
 
     @property
+    def quant_logit_gap_max(self) -> float:
+        """The worst lane's probe gap (0.0 when the probe was off)."""
+        return max(self.quant_logit_gap_per_lane, default=0.0)
+
+    @property
     def decode_tok_s(self) -> float:
         """Decoded tokens over the summed decode-step wall time."""
         total = sum(self.decode_step_s)
@@ -238,6 +256,11 @@ class EngineStats:
             lines.append(
                 f"decode reads {self.kv_bytes_per_decoded_token:.0f} "
                 f"KV-B/decoded-token over {self.decoded_tokens} tokens")
+        if self.quant_probe_steps:
+            lines.append(
+                f"quant probe ({self.kv_quant}): max per-lane logit gap "
+                f"{self.quant_logit_gap_max:.3e} over "
+                f"{self.quant_probe_steps} compared steps")
         for r in sorted(self.requests, key=lambda r: r.rid):
             tag = "" if r.status == "ok" else f"  [{r.status}]"
             lines.append(
@@ -282,8 +305,11 @@ class Engine:
     ``page_size`` tokens per KV page (``num_pages`` caps the pool; default:
     the worst case for ``slots x max_len``); ``prefill_chunk`` admission
     chunk length (default: whole prompts); ``kv_quant`` None (model-dtype
-    pools) or ``"q8_0"``.  ``device=None`` means the card; params are moved
-    to the engine's device.
+    pools), ``"q8_0"``, ``"q4_0"`` or ``"dq"``; ``quant_probe`` (needs
+    ``kv_quant`` and the ``reserve`` scheduler) shadows every step with a
+    model-dtype cache and reports the logit gap in :class:`EngineStats`.
+    ``device=None`` means the card; params are moved to the engine's
+    device.
     """
 
     SCHEDULERS = ("reserve",)
@@ -298,12 +324,23 @@ class Engine:
                  mesh=None, faults=None, max_queue: int | None = None,
                  class_queues=None):
         self.device = resolve_device(device)
+        self.kv_quant = paged.check_kv_quant(kv_quant)
+        self.quant_probe = bool(quant_probe)
+        if self.quant_probe:
+            if not self.kv_quant:
+                raise ValueError("quant_probe measures the quantized-vs-f32 "
+                                 "logit gap and requires kv_quant")
+            if scheduler != "reserve" or faults is not None or (
+                    mesh is not None):
+                raise ValueError("quant_probe shadows the serve call with "
+                                 "an unquantized cache and supports only "
+                                 "the default scheduler with no fault plan "
+                                 "and no mesh")
         if scheduler == "preempt":
             _not_ported("scheduler='preempt'", "D3")
         if scheduler not in self.SCHEDULERS:
             raise ValueError(f"unknown scheduler {scheduler!r}")
-        for name, val, item in (("quant_probe", quant_probe, "D1"),
-                                ("swap_budget_bytes", swap_budget_bytes, "D3"),
+        for name, val, item in (("swap_budget_bytes", swap_budget_bytes, "D3"),
                                 ("swap_dir", swap_dir, "D3"),
                                 ("faults", faults, "D3"),
                                 ("max_queue", max_queue, "D3"),
@@ -322,7 +359,6 @@ class Engine:
         self.sampler = sampler
         self.page_size = page_size
         self.num_pages = num_pages
-        self.kv_quant = paged.check_kv_quant(kv_quant)
         self.scheduler = scheduler
         self.prefill_chunk = min(prefill_chunk, max_len) or max_len
         self.last_stats: EngineStats | None = None
@@ -373,6 +409,13 @@ class Engine:
                                        dtype=model.dtype,
                                        kv_quant=self.kv_quant, device=dev)
         pos_keys = [k for k in cache if k.endswith("/pos")]
+        shadow, probe_gap = None, None
+        if self.quant_probe:
+            # model-dtype pools sharing the slots' block tables, fed the
+            # served token and position streams
+            shadow = model.init_paged_cache(num_pages, P, slots,
+                                            dtype=model.dtype, device=dev)
+            probe_gap = torch.zeros(slots, dtype=torch.float32, device=dev)
         bt_full = np.full((slots, n_full), paged.GARBAGE_PAGE, np.int32)
         stats.page_size, stats.num_pages = P, num_pages
         stats.page_bytes = self._page_bytes
@@ -414,6 +457,8 @@ class Engine:
                 ids = torch.tensor(lane.pages, dtype=torch.long, device=dev)
                 for k in pos_keys:
                     cache[k].index_fill_(0, ids, -1)
+                    if shadow is not None:
+                        shadow[k].index_fill_(0, ids, -1)
                 pool.free(lane.pages)
             bt_full[s, :] = paged.GARBAGE_PAGE
             lane.pages = []
@@ -470,12 +515,17 @@ class Engine:
                     toks[s, :n] = prompt[lane.prefill_pos:lane.prefill_pos + n]
                     start[s] = lane.prefill_pos
                     clen[s] = n
+                chunk = (torch.from_numpy(toks).to(dev),
+                         torch.from_numpy(start).to(dev),
+                         torch.from_numpy(clen).to(dev))
+                bts = tables()
                 logits, cache = model.prefill_chunk(
-                    params, cache, torch.from_numpy(toks).to(dev),
-                    torch.from_numpy(start).to(dev),
-                    torch.from_numpy(clen).to(dev), max_len=self.max_len,
-                    block_tables=tables(), page_size=P,
-                    kv_quant=self.kv_quant)
+                    params, cache, *chunk, max_len=self.max_len,
+                    block_tables=bts, page_size=P, kv_quant=self.kv_quant)
+                if shadow is not None:
+                    _, shadow = model.prefill_chunk(
+                        params, shadow, *chunk, max_len=self.max_len,
+                        block_tables=bts, page_size=P)
                 stats.prefill_iterations += 1
                 first_toks = None
                 for s in prefilling:
@@ -529,11 +579,27 @@ class Engine:
             pos = torch.tensor([l.pos if l.live else 0 for l in lanes],
                                dtype=torch.int32, device=dev)
             live_mask = torch.tensor([l.live for l in lanes], device=dev)
+            step_kw = dict(page_size=P, max_len=self.max_len, live=live_mask,
+                           active_pages=active,
+                           lane_pages={"full": torch.from_numpy(lf).to(dev)})
+            bts = tables()
             logits, cache = model.decode_step_paged(
-                params, cache, toks, pos, tables(), page_size=P,
-                max_len=self.max_len, live=live_mask, active_pages=active,
-                lane_pages={"full": torch.from_numpy(lf).to(dev)},
-                kv_quant=self.kv_quant)
+                params, cache, toks, pos, bts, kv_quant=self.kv_quant,
+                **step_kw)
+            if shadow is not None:
+                # the same step over the shadow pools, teacher-forced with
+                # the served tokens: the gap is the cache quantization's
+                # alone, at identical context
+                ref, shadow = model.decode_step_paged(
+                    params, shadow, toks, pos, bts, **step_kw)
+                ref = ref.to(torch.float32)
+                gap = (torch.amax(torch.abs(logits.to(torch.float32) - ref),
+                                  dim=-1)
+                       / torch.clamp(torch.amax(torch.abs(ref), dim=-1),
+                                     min=1e-6))
+                probe_gap = torch.where(
+                    live_mask, torch.maximum(probe_gap, gap), probe_gap)
+                stats.quant_probe_steps += 1
             stats.decoded_tokens += len(live)
             seeds = [stream_seed(seed, l.req.rid, l.n_out)
                      if l.live and not greedy else None for l in lanes]
@@ -563,6 +629,8 @@ class Engine:
 
         stats.peak_pages = pool.peak_in_use
         stats.pages_leaked = pool.in_use
+        if probe_gap is not None:
+            stats.quant_logit_gap_per_lane = probe_gap.cpu().tolist()
         stats.wall_s = time.perf_counter() - t_start
         self.last_stats = stats
         return done

@@ -135,8 +135,7 @@ def test_engine_runs_on_the_card_unless_asked(weights, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"scheduler": "preempt"}, {"page_size": 0}, {"kv_quant": "q4_0"},
-    {"kv_quant": "dq"}, {"quant_probe": True}, {"mesh": object()},
+    {"scheduler": "preempt"}, {"page_size": 0}, {"mesh": object()},
     {"faults": object()}, {"max_queue": 4}, {"kernel": "gather"}])
 def test_unported_options_name_their_roadmap_item(weights, kwargs):
     _, cfg, _, params = weights

@@ -10,8 +10,12 @@ Inputs are made with numpy from fixed seeds.  Tolerances: f32 outputs
 1e-5 (absolute for attention's O(1) outputs, relative to max|y| for the
 matmul) — summation order and the online softmax differ, nothing else;
 bf16 matmul outputs one bf16 step (2^-8) of max|y|, since both sides
-round an f32 accumulator to bf16.
+round an f32 accumulator to bf16.  The attention kernels' q4_0 loaders
+(B5) dequantize each element bitwise as the plain version does, so they
+are held to the same 1e-5.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -145,10 +149,16 @@ DECODE_CASES = [
 ]
 
 
-@pytest.mark.parametrize("kv", ["f32", "bf16", "q8_0"])
+QUANTIZE = {"q8_0": paged_attn.quantize_kv_page_pool,
+            "q4_0": paged_attn.quantize_kv_page_pool_q4}
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "q8_0", "q4_0"])
 @pytest.mark.parametrize("case", DECODE_CASES)
 @pytest.mark.parametrize("d", [16, 128])
 def test_paged_decode_kernel_matches_plain(cuda, kv, case, d):
+    """q4_0 pools take B3's q4_0 loader (B5): ragged last pages, lane
+    bounds short of the bucket (``lane_pages < active_pages``)."""
     page_size, window, softcap, active, lanes = case
     rng = np.random.default_rng(page_size * 3 + d)
     b, h, hkv, n_lp = 3, 12, 2, 6
@@ -163,11 +173,12 @@ def test_paged_decode_kernel_matches_plain(cuda, kv, case, d):
                                                  device=cuda)
     kw = dict(window=window, softcap=softcap, active_pages=active,
               lane_pages=lp)
-    if kv == "q8_0":
-        pools = (*paged_attn.quantize_kv_page_pool(k),
-                 *paged_attn.quantize_kv_page_pool(v))
-        fn, counter = paged_attn.paged_attn_decode_quant, \
-            paged_attn.paged_attn_decode_quant
+    quant = kv if kv in QUANTIZE else None
+    if quant:
+        pools = (*QUANTIZE[kv](k), *QUANTIZE[kv](v))
+        fn = paged_attn.paged_attn_decode_quant
+        counter = fn.loaders[kv]
+        kw["mode"] = kv
     else:
         dt = torch.float32 if kv == "f32" else torch.bfloat16
         pools = (k.to(dt), v.to(dt))
@@ -179,17 +190,19 @@ def test_paged_decode_kernel_matches_plain(cuda, kv, case, d):
     nj = paged_attn._n_active(bt, active)
     ref = paged_attn.attn_decode_plain(
         q, pools, pos_pool, bt, pos, paged_attn._lane_bound(lp, b, nj, cuda),
-        window=window, softcap=softcap, scale=d ** -0.5, nj=nj,
-        quant=kv == "q8_0")
+        window=window, softcap=softcap, scale=d ** -0.5, nj=nj, quant=quant)
     assert y.shape == (b, h, d)
     assert (y - ref).abs().max() < TOL
 
 
+@pytest.mark.parametrize("mode", ["q8_0", "q4_0"])
 @pytest.mark.parametrize("page_size,active,c", [(3, None, 5), (5, 3, 5),
                                                 (16, None, 40)])
-def test_paged_prefill_kernel_matches_plain(cuda, page_size, active, c):
-    """Write-then-attend prefill over q8_0 pools, with padded query rows
-    (qpos = -1 -> zeros) and stale rows past a lane's frontier."""
+def test_paged_prefill_kernel_matches_plain(cuda, page_size, active, c,
+                                            mode):
+    """Write-then-attend prefill over q8_0 (B4) and q4_0 (B5) pools, with
+    padded query rows (qpos = -1 -> zeros) and stale rows past a lane's
+    frontier."""
     rng = np.random.default_rng(page_size + c)
     b, h, hkv, d, n_lp = 2, 12, 2, 128, 6
     live = [min(page_size * 2 + 2 + c, page_size * n_lp), page_size + c]
@@ -200,16 +213,16 @@ def test_paged_prefill_kernel_matches_plain(cuda, page_size, active, c):
     qpos[1, -2:] = -1
     qpos = qpos.to(cuda)
     q = torch.from_numpy(_np(rng, (b, c, h, d))).to(cuda)
-    pools = (*paged_attn.quantize_kv_page_pool(k),
-             *paged_attn.quantize_kv_page_pool(v))
-    before = paged_attn.paged_attn_prefill_quant.launches
+    pools = (*QUANTIZE[mode](k), *QUANTIZE[mode](v))
+    counter = paged_attn.paged_attn_prefill_quant.loaders[mode]
+    before = counter.launches
     y = paged_attn.paged_attn_prefill_quant(q, *pools, pos_pool, bt, qpos,
-                                            active_pages=active)
+                                            mode=mode, active_pages=active)
     torch.cuda.synchronize()
-    assert paged_attn.paged_attn_prefill_quant.launches == before + 1
+    assert counter.launches == before + 1
     ref = paged_attn.attn_prefill_plain(
         q, pools, pos_pool, bt, qpos, window=0, softcap=0.0,
-        scale=d ** -0.5, nj=paged_attn._n_active(bt, active))
+        scale=d ** -0.5, nj=paged_attn._n_active(bt, active), quant=mode)
     assert bool((y[1, -2:] == 0).all())
     assert (y - ref).abs().max() < TOL
 
@@ -237,10 +250,21 @@ MLA_DECODE_CASES = [
 ]
 
 
-@pytest.mark.parametrize("kv", ["f32", "bf16", "q8_0"])
+# MLA pool kinds: model-dtype, or the (latent, rope) modes of the quantized
+# pools (B6's q8_0 and q4_0 loaders, and dq's mixed pair)
+MLA_KV = {"f32": None, "bf16": None, "q8_0": ("q8_0", "q8_0"),
+          "q4_0": ("q4_0", "q4_0"), "q8_0+q4_0": ("q8_0", "q4_0")}
+
+
+def _mla_quant_pools(ckv, kr, modes):
+    return (*QUANTIZE[modes[0]](ckv), *QUANTIZE[modes[1]](kr))
+
+
+@pytest.mark.parametrize("kv", list(MLA_KV))
 @pytest.mark.parametrize("case", MLA_DECODE_CASES)
-@pytest.mark.parametrize("r,dr,h", [(32, 16, 5), (512, 64, 12)])
+@pytest.mark.parametrize("r,dr,h", [(32, 16, 5), (32, 14, 5), (512, 64, 12)])
 def test_paged_mla_decode_kernel_matches_plain(cuda, kv, case, r, dr, h):
+    """Dr = 14: a q4_0 rope row is an odd 7 bytes."""
     page_size, active, lanes, live = case
     rng = np.random.default_rng(page_size + r)
     b, n_lp = 3, 6
@@ -252,32 +276,36 @@ def test_paged_mla_decode_kernel_matches_plain(cuda, kv, case, r, dr, h):
     lp = None if lanes is None else torch.tensor(lanes, dtype=torch.int32,
                                                  device=cuda)
     scale = 192 ** -0.5
-    if kv == "q8_0":
-        pools = (*paged_attn.quantize_kv_page_pool(ckv),
-                 *paged_attn.quantize_kv_page_pool(kr))
+    modes, kw = MLA_KV[kv], {}
+    if modes:
+        pools = _mla_quant_pools(ckv, kr, modes)
         fn = paged_attn.paged_mla_decode_quant
+        counter = fn.loaders[modes]
+        kw = dict(latent_mode=modes[0], rope_mode=modes[1])
     else:
         dt = torch.float32 if kv == "f32" else torch.bfloat16
         pools = (ckv.to(dt), kr.to(dt))
-        fn = paged_attn.paged_mla_decode
-    before = fn.launches
+        fn = counter = paged_attn.paged_mla_decode
+    before = counter.launches
     y = fn(q_eff, q_rope, *pools, bt, pos, scale=scale, active_pages=active,
-           lane_pages=lp)
+           lane_pages=lp, **kw)
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    assert counter.launches == before + 1
     ref = paged_attn.mla_decode_plain(
         q_eff, q_rope, pools, bt, pos, scale=scale,
-        nj=paged_attn._n_active(bt, active), quant=kv == "q8_0")
+        nj=paged_attn._n_active(bt, active), quant=modes)
     assert y.shape == (b, h, r)
     assert (y - ref).abs().max() < TOL
 
 
+@pytest.mark.parametrize("kv", ["q8_0", "q4_0", "q8_0+q4_0"])
 @pytest.mark.parametrize("page_size,active,c", [(3, None, 5), (5, 3, 5),
                                                 (16, None, 40)])
-def test_paged_mla_prefill_kernel_matches_plain(cuda, page_size, active, c):
-    """Write-then-attend MLA prefill over q8_0 latent pools, with padded
-    query rows (qpos = -1 -> zeros) and stale tokens past a lane's
-    frontier."""
+def test_paged_mla_prefill_kernel_matches_plain(cuda, page_size, active, c,
+                                                kv):
+    """Write-then-attend MLA prefill over quantized latent pools (B7 and
+    its q4_0 loaders), with padded query rows (qpos = -1 -> zeros) and
+    stale tokens past a lane's frontier."""
     rng = np.random.default_rng(page_size * 2 + c)
     b, h, r, dr, n_lp = 2, 6, 512, 64, 6
     live = [min(page_size * 2 + 2 + c, page_size * n_lp), page_size + c]
@@ -289,16 +317,18 @@ def test_paged_mla_prefill_kernel_matches_plain(cuda, page_size, active, c):
     qpos = qpos.to(cuda)
     q_eff = torch.from_numpy(_np(rng, (b, c, h, r))).to(cuda)
     q_rope = torch.from_numpy(_np(rng, (b, c, h, dr))).to(cuda)
-    pools = (*paged_attn.quantize_kv_page_pool(ckv),
-             *paged_attn.quantize_kv_page_pool(kr))
-    before = paged_attn.paged_mla_prefill_quant.launches
-    y = paged_attn.paged_mla_prefill_quant(q_eff, q_rope, *pools, bt, qpos,
-                                           scale=0.1, active_pages=active)
+    modes = MLA_KV[kv]
+    pools = _mla_quant_pools(ckv, kr, modes)
+    counter = paged_attn.paged_mla_prefill_quant.loaders[modes]
+    before = counter.launches
+    y = paged_attn.paged_mla_prefill_quant(
+        q_eff, q_rope, *pools, bt, qpos, scale=0.1, active_pages=active,
+        latent_mode=modes[0], rope_mode=modes[1])
     torch.cuda.synchronize()
-    assert paged_attn.paged_mla_prefill_quant.launches == before + 1
+    assert counter.launches == before + 1
     ref = paged_attn.mla_prefill_plain(
         q_eff, q_rope, pools, bt, qpos, scale=0.1,
-        nj=paged_attn._n_active(bt, active))
+        nj=paged_attn._n_active(bt, active), quant=modes)
     assert bool((y[1, -2:] == 0).all())
     assert (y - ref).abs().max() < TOL
 
@@ -319,6 +349,42 @@ def test_deepseek_model_on_card_matches_cpu(cuda, kv_quant):
     _model_on_card_matches_cpu(cuda, "deepseek-v3-671b", kv_quant)
 
 
+@pytest.mark.parametrize("kv_quant", ["q4_0", "dq"])
+@pytest.mark.parametrize("arch,n_layers", [("qwen2-1.5b", 3),
+                                           ("deepseek-v3-671b", None)])
+def test_q4_model_on_card_matches_cpu(cuda, arch, n_layers, kv_quant):
+    """q4_0 and dq pools (qwen2 at 3 layers, so dq packs layer 1; deepseek
+    reduced, dq packs the rope keys of layers 1-3): the same check; 1e-4
+    where no code is apart, and each code one step apart in the first
+    layer whose codes differ adds its share of the reference's error
+    budget (``tests/test_kv_dynamic.py`` q4_budget: ``AMP * n_layers``
+    times the half-step EPS for each of a row's W codes), see
+    :func:`budget_allowance`."""
+    _model_on_card_matches_cpu(cuda, arch, kv_quant, n_layers=n_layers)
+
+
+def test_paged_kernels_raise_on_what_they_do_not_take(cuda):
+    """Packed widths that do not match the queries, and an MLA mode pair
+    no kernel instantiates (q4_0 latent beside q8_0 rope), raise before
+    any launch."""
+    z = torch.zeros((4, 2, 2, 8), dtype=torch.int8, device=cuda)
+    d = torch.zeros((4, 2, 2), device=cuda)
+    idx = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    pos_pool = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    one = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="wide"):
+        paged_attn.paged_attn_decode_quant(
+            torch.zeros(1, 4, 8, device=cuda), z, d, z, d, pos_pool, idx,
+            one, mode="q4_0")
+    lat = torch.zeros((4, 2, 16), dtype=torch.int8, device=cuda)
+    sc = torch.zeros((4, 2), device=cuda)
+    with pytest.raises(ValueError, match="no MLA kernel"):
+        paged_attn.paged_mla_decode_quant(
+            torch.zeros(1, 2, 32, device=cuda),
+            torch.zeros(1, 2, 16, device=cuda), lat, sc, lat, sc, idx, one,
+            scale=1.0, latent_mode="q4_0", rope_mode="q8_0")
+
+
 @pytest.mark.parametrize("policy", ["Q3_K_M", "Q2_K_L", "UD_Q2_K_XL",
                                     "Q8_0"])
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-v3-671b"])
@@ -328,8 +394,11 @@ def test_policy_model_on_card_matches_cpu(cuda, arch, policy):
     _model_on_card_matches_cpu(cuda, arch, None, policy)
 
 
-def _model_on_card_matches_cpu(cuda, arch, kv_quant, policy="DQ3_K_M"):
+def _model_on_card_matches_cpu(cuda, arch, kv_quant, policy="DQ3_K_M",
+                               n_layers=None):
     cfg = get_config(arch).reduced()
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     params = init_quantized_params(cfg, get_policy(policy), 0,
                                    dtype=torch.float32, device=cuda)
     model = Model(cfg, dtype=torch.float32)
@@ -342,7 +411,7 @@ def _model_on_card_matches_cpu(cuda, arch, kv_quant, policy="DQ3_K_M"):
         np.int32))
     dec = torch.from_numpy(rng.integers(4, cfg.vocab_size, (2, b)).astype(
         np.int32))
-    out = {}
+    out, caches = {}, {}
     for dev, prm in ((cuda, params), (torch.device("cpu"),
                                       tree_to(params, "cpu"))):
         cache = model.init_paged_cache(2 + b * n, P, b, dtype=torch.float32,
@@ -363,7 +432,45 @@ def _model_on_card_matches_cpu(cuda, arch, kv_quant, policy="DQ3_K_M"):
             steps.append(lg)
             pos = pos + 1
         out[dev.type] = torch.stack(steps).cpu()
+        caches[dev.type] = {k: v.cpu() for k, v in cache.items()}
     a, r = out["cuda"], out["cpu"]
     tol = 1e-4 if kv_quant is None else 1e-3
+    if kv_quant in ("q4_0", "dq"):
+        tol = 1e-4 + budget_allowance(cfg, arch, kv_quant, caches["cuda"],
+                                      caches["cpu"])
     assert torch.isfinite(a).all()
     assert (a - r).abs().max() <= tol * r.abs().max()
+
+
+EPS = {"q8_0": 1.0 / 254.0, "q4_0": 1.0 / 14.0}    # the reference's half-steps
+AMP = {"qwen2-1.5b": 24, "deepseek-v3-671b": 96}   # its amplification
+
+
+def budget_allowance(cfg, arch, kv_quant, ca, cb) -> float:
+    """The error-budget share of the codes apart between two caches
+    (numpy or torch leaves; q4_0 leaves unpacked; GARBAGE, the sink of
+    padded writes, skipped), layer by layer from the first: the first
+    layer whose codes differ made them from inputs that agree up to f32
+    order, so none of its codes may be more than one step apart, and each
+    one step apart is allowed ``2 * EPS * AMP * n_layers / W``; later
+    layers take inputs those steps moved (a q4_0 step moves them by ~1e-2
+    of their scale), so their codes are not bounded."""
+    for layer in range(cfg.n_layers):
+        lq = paged.resolve_layer_quant(kv_quant, cfg, layer)
+        allowance, moved = 0.0, False
+        for key in sorted(k for k in ca if k.endswith("_qs")
+                          and k.startswith(f"dec/L{layer:03d}/")):
+            mode = lq.latent if key.endswith("c_kv_qs") else lq.kv
+            qa, qb = (torch.as_tensor(np.asarray(c[key])) for c in (ca, cb))
+            if mode == "q4_0":
+                qa, qb = (paged_attn.unpack_q4_rows(t) for t in (qa, qb))
+            step = (qa.int() - qb.int()).abs()
+            step[paged.GARBAGE_PAGE] = 0
+            assert int(step.max()) <= 1, key
+            n = int(step.sum())
+            moved = moved or n > 0
+            allowance += (n * 2 * EPS[mode] * AMP[arch] * cfg.n_layers
+                          / step.shape[-1])
+        if moved:
+            return allowance
+    return 0.0

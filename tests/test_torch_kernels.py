@@ -213,16 +213,6 @@ def test_paged_prefill_plain_matches_pallas(page_size, active):
     assert np.max(np.abs(got - ref)) < TOL
 
 
-def test_q4_0_kv_mode_names_roadmap_item():
-    z = torch.zeros((3, 2, 1, 4), dtype=torch.int8)
-    d = torch.zeros((3, 2, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        paged_attn.paged_attn_decode_quant(
-            torch.zeros(1, 2, 8), z, d, z, d, torch.zeros((3, 2), dtype=torch.int32),
-            torch.zeros((1, 1), dtype=torch.int32),
-            torch.zeros(1, dtype=torch.int32), mode="q4_0")
-
-
 def test_paged_q8_rows_and_scatters_bitwise():
     """The q8_0 page helpers against ``repro.models.paged``: quantize-on-
     write token and chunk scatters (with GARBAGE routing and a

@@ -162,13 +162,3 @@ def test_mla_prefill_plain_matches_reference(page_size, active, impl):
     assert np.all(got[1, -2:] == 0.0)
     assert np.max(np.abs(got - ref)) < TOL
 
-
-def test_mla_q4_0_pools_name_roadmap_item():
-    z = torch.zeros((3, 2, 4), dtype=torch.int8)
-    d = torch.zeros((3, 2))
-    args = (torch.zeros(1, 2, 8), torch.zeros(1, 2, 4), z, d, z, d,
-            torch.zeros((1, 1), dtype=torch.int32),
-            torch.zeros(1, dtype=torch.int32))
-    for mode in ({"latent_mode": "q4_0"}, {"rope_mode": "q4_0"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP D1"):
-            paged_attn.paged_mla_decode_quant(*args, scale=1.0, **mode)

@@ -17,6 +17,7 @@ the reference's decode runs its XLA twin where the port runs the plain
 version (the same algorithm).
 """
 
+import dataclasses
 import functools
 
 import jax.numpy as jnp
@@ -54,14 +55,23 @@ def export(params) -> dict:
     return out
 
 
+def reference_weights(policy: str, seed: int = 0, arch: str = "qwen2-1.5b",
+                      n_layers: int | None = None):
+    """(jax cfg, port cfg, jax params, port params) for ``arch`` reduced
+    (to ``n_layers`` layers when given), quantized under ``policy`` by the
+    reference (made once per process: the reference quantizes deepseek-v3
+    reduced in ~30 s here).  Nothing mutates them: the models write only
+    their caches."""
+    return _reference_weights(policy, seed, arch, n_layers)
+
+
 @functools.lru_cache(maxsize=None)
-def reference_weights(policy: str, seed: int = 0, arch: str = "qwen2-1.5b"):
-    """(jax cfg, port cfg, jax params, port params) for ``arch`` reduced,
-    quantized under ``policy`` by the reference (made once per process:
-    the reference quantizes deepseek-v3 reduced in ~30 s here).  Nothing
-    mutates them: the models write only their caches."""
+def _reference_weights(policy, seed, arch, n_layers):
     jcfg = jax_get_config(arch).reduced()
     cfg = get_config(arch).reduced()
+    if n_layers is not None:
+        jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     raw = jax_init_params(jcfg, seed, dtype=jnp.float32)
     jparams = jax_quantize_params(jcfg, raw, jax_get_policy(policy))
     return jcfg, cfg, jparams, from_jax_params(export(jparams))
@@ -92,8 +102,9 @@ def test_quantize_params_bitwise():
     assert n_q == 1 + 7 * cfg.n_layers
 
 
-def _run_both(policy, kv_quant, arch="qwen2-1.5b", seed=0):
-    jcfg, cfg, jparams, params = reference_weights(policy, seed, arch)
+def _run_both(policy, kv_quant, arch="qwen2-1.5b", seed=0, n_layers=None):
+    jcfg, cfg, jparams, params = reference_weights(policy, seed, arch,
+                                                   n_layers)
     P, max_len, b, c = 3, 24, 2, 5
     n = paged.pages_for(max_len, P)
     num_pages = paged.RESERVED_PAGES + b * n
