@@ -619,60 +619,16 @@ def kernels_mla(torch, summary: dict, detail: list, gen, live, n_lp,
 # ---------------------------------------------------------------------------
 
 # max|d logits| / max|logit|, card vs CPU.  f32 pools: the two sides differ
-# only in f32 summation order.  q8_0 pools: where that order moves a K/V (or
-# latent) value across a rounding boundary, the card and the CPU store codes
-# one step apart (a step is 1/127 of the row's max |x|), and the attention
-# output moves with it; the phase also checks that no code differs by more
-# than one step.
+# only in f32 summation order.  Quantized pools: where that order moves a
+# K/V (or latent) value across a rounding boundary, the card and the CPU
+# store codes one step apart, and the attention output moves with it.
+# ``paged.parity_limit`` holds a run at the f32 limit where no code is
+# apart, and at the q8_0 limit where the first layer whose codes differ
+# has q8_0 codes one step apart (later layers' codes, q4_0 ones too, move
+# with them).  It fails the run where that first layer has a q4_0 code
+# apart or any code two steps apart.  The q8_0 limit is fixed, 3.5x the
+# largest reading of sound runs (qwen2 dq 2.84e-3, DeepSeek q8_0 2.71e-3).
 PARITY_TOL = {"f32": 1e-3, "q8_0": 1e-2}
-# q4_0 and dq pools: the f32 limit where no code is apart, and on top, for
-# each code one step apart in the first layer whose codes differ (later
-# layers' codes move with it), that step's share of the reference's error
-# budget (tests/test_kv_dynamic.py q4_budget, tests/test_kv_quant.py
-# rel_budget: AMP per layer x the half-step, EPS = 1/14 for q4_0, 1/254 for
-# q8_0, of the row's max|x|): the budget charges every one of a row's W
-# codes its half step, a code apart is one code two half steps off, so it
-# is allowed 2 * EPS * AMP * n_layers / W of max|logit|.  A q4_0 step is
-# 18x a q8_0 step, so the q8_0 limit does not carry over.
-EPS = {"q8_0": 1.0 / 254.0, "q4_0": 1.0 / 14.0}
-AMP = {"qwen2-1.5b": 24, "deepseek-v3-671b": 96}
-
-
-def codes_apart(torch, cfg, kv_quant: str, ca: dict, cb: dict) -> dict:
-    """The stored codes of two caches compared layer by layer (q4_0 leaves
-    unpacked).  The first layer whose codes differ made them from inputs
-    that agree up to f32 order, so none may be more than one step apart;
-    later layers take inputs those steps moved (a q4_0 step moves them by
-    ~1e-2 of their scale, more than a q8_0 step), so there they are
-    counted but not bounded.  Returns {"first_layer", "max_step" (in the
-    first layer), "max_step_all", "apart" (codes apart, all layers),
-    "allowance" (the first layer's codes' shares of the error budget)}."""
-    from repro_torch.kernels.paged_attn import unpack_q4_rows
-    from repro_torch.models import paged
-
-    out = {"first_layer": None, "max_step": 0, "max_step_all": 0,
-           "apart": 0, "allowance": 0.0}
-    for layer in range(cfg.n_layers):
-        lq = paged.resolve_layer_quant(kv_quant, cfg, layer)
-        steps = []
-        for key in sorted(k for k in ca if k.endswith("_qs")
-                          and k.startswith(f"dec/L{layer:03d}/")):
-            mode = lq.latent if key.endswith("c_kv_qs") else lq.kv
-            qa, qb = ca[key], cb[key]
-            if mode == "q4_0":
-                qa, qb = unpack_q4_rows(qa), unpack_q4_rows(qb)
-            steps.append((mode, (qa.int() - qb.int()).abs()))
-        n = sum(int((st > 0).sum()) for _, st in steps)
-        out["apart"] += n
-        out["max_step_all"] = max([out["max_step_all"]]
-                                  + [int(st.max()) for _, st in steps])
-        if n and out["first_layer"] is None:
-            out["first_layer"] = layer
-            out["max_step"] = max(int(st.max()) for _, st in steps)
-            out["allowance"] = sum(
-                int((st > 0).sum()) * 2 * EPS[mode] * AMP[cfg.name]
-                * cfg.n_layers / st.shape[-1] for mode, st in steps)
-    return out
 
 
 def phase_parity(torch) -> None:
@@ -770,28 +726,24 @@ def parity_model(torch, cfg, policy: str, pools: tuple, *, B: int, C: int,
         # every page but GARBAGE, the sink of padded writes, whose order
         # among duplicates is unspecified and which is never read
         read = [i for i in range(2 + B * n) if i != paged.GARBAGE_PAGE]
-        ca = {k: v[read] for k, v in caches["card"].items()}
-        cb = {k: v[read] for k, v in caches["cpu"].items()}
-        if any(not torch.equal(ca[k], cb[k]) for k in ca if k.endswith("/pos")):
+        ca, cb = caches["card"], caches["cpu"]
+        if any(not torch.equal(ca[k][read], cb[k][read]) for k in ca
+               if k.endswith("/pos")):
             fail(f"parity ({cfg.name}, {policy}, {label}): the caches' "
                  "positions differ")
-        tol = PARITY_TOL.get(label)
-        if kv_quant == "q8_0":
-            apart = codes_apart(torch, cfg, kv_quant, ca, cb)
-            result["codes_one_step_apart"] = apart["apart"]
-            if apart["max_step_all"] > 1:
-                fail(f"parity ({cfg.name}, {policy}, {label}): q8_0 codes "
-                     "more than one step apart")
-        elif kv_quant:
-            apart = codes_apart(torch, cfg, kv_quant, ca, cb)
+        try:    # skips GARBAGE too
+            tol, apart = paged.parity_limit(
+                cfg, kv_quant, ca, cb, exact=PARITY_TOL["f32"],
+                stepped=PARITY_TOL["q8_0"])
+        except ValueError as e:
+            fail(f"parity ({cfg.name}, {policy}, {label}): {e}")
+        if apart:
             result.update(codes_apart=apart["apart"],
                           first_layer_apart=apart["first_layer"],
-                          max_step_after_it=apart["max_step_all"])
-            if apart["max_step"] > 1:
-                fail(f"parity ({cfg.name}, {policy}, {label}): codes of "
-                     f"layer {apart['first_layer']}, the first whose codes "
-                     "differ, more than one step apart")
-            tol = PARITY_TOL["f32"] + apart["allowance"]
+                          max_step_all=apart["max_step_all"])
+            if kv_quant == "q8_0" and apart["max_step_all"] > 1:
+                fail(f"parity ({cfg.name}, {policy}, {label}): q8_0 codes "
+                     "more than one step apart")
         result["tol"] = tol
         emit(result)
         if not rel <= tol:

@@ -6,9 +6,9 @@ quantized pools is write-then-attend: the chunk's rows are quantized
 once, scattered into their pages, and every chunk query attends the pools
 in place (B4, or B5 for q4_0).  Chunked prefill over model-dtype pools
 gathers the dense view and runs the online-softmax attention below in
-plain PyTorch, as the reference leaves it to XLA.  ``kv_quant`` here is
-one layer's mode: a string, or a ``paged.LayerQuant`` whose ``kv`` field
-the K/V leaves take.
+plain PyTorch, as the reference leaves it to XLA.  ``lq`` is one layer's
+``paged.LayerQuant`` (None for model-dtype pools); the K/V leaves take its
+``kv`` mode.
 """
 
 from __future__ import annotations
@@ -116,13 +116,9 @@ def _qkv(p, cfg: ModelConfig, x, positions):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _kv_mode(kv_quant) -> str | None:
-    """The K/V leaves' storage mode of one layer's ``kv_quant``."""
-    return paged.as_layer_quant(kv_quant).kv if kv_quant else None
-
-
 def init_paged_attn_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                          dtype=torch.bfloat16, kv_quant=None,
+                          dtype=torch.bfloat16,
+                          lq: paged.LayerQuant | None = None,
                           device=None) -> dict:
     """Paged K/V/pos pools shared by every slot: model-dtype leaves, or int8
     values (q8_0, or q4_0 nibble-packed to ``head_dim / 2`` bytes a row)
@@ -130,7 +126,7 @@ def init_paged_attn_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     nkv, hd = cfg.n_kv_heads, cfg.head_dim
     kw = dict(device=device)
     pos = torch.full((num_pages, page_size), -1, dtype=torch.int32, **kw)
-    mode = _kv_mode(kv_quant)
+    mode = lq.kv if lq else None
     if mode:
         hd_s = paged.q4_packed_dim(hd, "head") if mode == "q4_0" else hd
         return {
@@ -157,7 +153,8 @@ def attn_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
                       live: torch.Tensor | None = None,
                       active_pages: int | None = None,
                       lane_pages: torch.Tensor | None = None,
-                      kv_quant=None) -> tuple[torch.Tensor, dict]:
+                      lq: paged.LayerQuant | None = None
+                      ) -> tuple[torch.Tensor, dict]:
     """One-token decode against a paged cache (the fused kernels).
 
     Scatters the new K/V/pos row into its page (in place; rows with
@@ -165,7 +162,7 @@ def attn_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
     through the block table.  ``active_pages`` bounds the page loop to the
     batch's live horizon, ``lane_pages`` (B,) each lane to its own.
     """
-    kv_quant = _kv_mode(kv_quant)
+    mode = lq.kv if lq else None
     b = x.shape[0]
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(p, cfg, h, pos[:, None])
@@ -174,14 +171,14 @@ def attn_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
                         pos.to(torch.int32), ok=live)
     kw = dict(softcap=cfg.attn_softcap, scale=cfg.head_dim ** -0.5,
               active_pages=active_pages, lane_pages=lane_pages)
-    if kv_quant:
+    if mode:
         paged.scatter_token_quant(cache["k_qs"], cache["k_d"], block_table,
-                                  slot, k[:, 0], ok=live, mode=kv_quant)
+                                  slot, k[:, 0], ok=live, mode=mode)
         paged.scatter_token_quant(cache["v_qs"], cache["v_d"], block_table,
-                                  slot, v[:, 0], ok=live, mode=kv_quant)
+                                  slot, v[:, 0], ok=live, mode=mode)
         o = paged_attn.paged_attn_decode_quant(
             q[:, 0], cache["k_qs"], cache["k_d"], cache["v_qs"],
-            cache["v_d"], cache["pos"], block_table, pos, mode=kv_quant, **kw)
+            cache["v_d"], cache["pos"], block_table, pos, mode=mode, **kw)
     else:
         paged.scatter_token(cache["k"], block_table, slot, k[:, 0], ok=live)
         paged.scatter_token(cache["v"], block_table, slot, v[:, 0], ok=live)
@@ -196,7 +193,8 @@ def attn_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
                        cache: dict, positions: torch.Tensor,
                        start: torch.Tensor, chunk_len: torch.Tensor, *,
                        max_len: int, block_table: torch.Tensor,
-                       kv_quant=None, active_pages: int | None = None
+                       lq: paged.LayerQuant | None = None,
+                       active_pages: int | None = None
                        ) -> tuple[torch.Tensor, dict]:
     """One prefill chunk against the paged cache.
 
@@ -204,7 +202,7 @@ def attn_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
     (B,) first position of the chunk; chunk_len: (B,) valid tokens (0 = an
     inactive row: no writes, output ignored).
     """
-    kv_quant = _kv_mode(kv_quant)
+    mode = lq.kv if lq else None
     b, c, _ = x.shape
     length = max_len
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
@@ -215,12 +213,12 @@ def attn_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
     ok = paged.chunk_write_plan(idx, valid_tok, length)
     wpos = positions.to(torch.int32)
 
-    if kv_quant:
+    if mode:
         # write-then-attend: quantize once, scatter, attend the pages in
         # place (stored pos == logical index lets the kernel mask stale
         # rows beyond the frontier)
         for leaf, val in (("k", k), ("v", v)):
-            qs, d = paged.quantize_rows(val, kv_quant)
+            qs, d = paged.quantize_rows(val, mode)
             paged.scatter_chunk(cache[f"{leaf}_qs"], block_table, idx, qs, ok)
             paged.scatter_chunk(cache[f"{leaf}_d"], block_table, idx, d, ok)
         paged.scatter_chunk(cache["pos"], block_table, idx, wpos, ok)
@@ -228,7 +226,7 @@ def attn_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
                            torch.full_like(positions, -1)).to(torch.int32)
         o = paged_attn.paged_attn_prefill_quant(
             q, cache["k_qs"], cache["k_d"], cache["v_qs"], cache["v_d"],
-            cache["pos"], block_table, qpos, mode=kv_quant, window=0,
+            cache["pos"], block_table, qpos, mode=mode, window=0,
             softcap=cfg.attn_softcap, scale=cfg.head_dim ** -0.5,
             active_pages=active_pages)
         o = o.reshape(b, c, cfg.n_heads * cfg.head_dim).to(x.dtype)

@@ -64,7 +64,8 @@ def _latent_widths(cfg: ModelConfig, lq: paged.LayerQuant):
 
 
 def init_paged_mla_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                         dtype=torch.bfloat16, kv_quant=None,
+                         dtype=torch.bfloat16,
+                         lq: paged.LayerQuant | None = None,
                          device=None) -> dict:
     """Paged latent pools shared by every slot: model-dtype leaves, or int8
     values (per leaf q8_0, or q4_0 nibble-packed to half the width) plus
@@ -73,8 +74,8 @@ def init_paged_mla_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     positional."""
     rank, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
     kw = dict(device=device)
-    if kv_quant:
-        rank_s, dr_s = _latent_widths(cfg, paged.as_layer_quant(kv_quant))
+    if lq:
+        rank_s, dr_s = _latent_widths(cfg, lq)
         return {
             "c_kv_qs": torch.zeros((num_pages, page_size, rank_s),
                                    dtype=torch.int8, **kw),
@@ -113,7 +114,8 @@ def mla_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
                      max_len: int, live: torch.Tensor | None = None,
                      active_pages: int | None = None,
                      lane_pages: torch.Tensor | None = None,
-                     kv_quant=None) -> tuple[torch.Tensor, dict]:
+                     lq: paged.LayerQuant | None = None
+                     ) -> tuple[torch.Tensor, dict]:
     """Absorbed one-token decode against paged latents (the fused kernel).
 
     Scatters the new latent / rope row into its page (in place, quantized
@@ -121,7 +123,6 @@ def mla_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     then attends the pages in place through the block table (B6).
     """
     del max_len
-    lq = paged.as_layer_quant(kv_quant) if kv_quant else None
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q_nope, q_rope = _project_q(p, cfg, h, pos[:, None])      # (B,1,H,*)
@@ -161,7 +162,8 @@ def mla_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
                       cache: dict, positions: torch.Tensor,
                       start: torch.Tensor, chunk_len: torch.Tensor, *,
                       max_len: int, block_table: torch.Tensor,
-                      kv_quant=None, active_pages: int | None = None
+                      lq: paged.LayerQuant | None = None,
+                      active_pages: int | None = None
                       ) -> tuple[torch.Tensor, dict]:
     """One prefill chunk against the paged latent cache.
 
@@ -173,7 +175,6 @@ def mla_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
     materialise per-head K/V from [cached latents | chunk latents] and
     attend with per-row positional masks, then write the chunk's latents.
     """
-    lq = paged.as_layer_quant(kv_quant) if kv_quant else None
     b, c, _ = x.shape
     nh = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim

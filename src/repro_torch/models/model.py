@@ -13,7 +13,7 @@ from typing import Any
 import torch
 
 from ..configs.base import ModelConfig
-from . import transformer
+from . import paged, transformer
 from .common import embed, linear, rms_norm
 from .spec import check_supported, layer_prefix, subview
 
@@ -49,10 +49,11 @@ class Model:
         ``paged.dq_sensitive_layers`` and keeps the rest, and every MLA
         latent, q8_0."""
         flat = {}
+        lqs = paged.layer_quants(kv_quant, self.cfg)
         for layer in range(self.cfg.n_layers):
             c = transformer.init_layer_cache_paged(
                 self.cfg, layer, num_pages, page_size, slots, dtype,
-                kv_quant=kv_quant, device=device)
+                lq=lqs[layer], device=device)
             for k, v in c.items():
                 flat[f"{layer_prefix('dec', layer)}/{k}"] = v
         return flat
@@ -82,13 +83,14 @@ class Model:
         cfg = self.cfg
         ap = (active_pages[0] or None) if active_pages is not None else None
         lp = lane_pages["full"] if lane_pages is not None else None
+        lqs = paged.layer_quants(kv_quant, cfg)
         x = self._embed_tokens(params, tokens[:, None])
         for layer in range(cfg.n_layers):
             lpx = layer_prefix("dec", layer)
             x, c_new = transformer.decode_layer(
                 cfg, subview(params, lpx), layer, x, subview(cache, lpx), pos,
                 block_table=block_tables["full"], max_len=max_len, live=live,
-                active_pages=ap, lane_pages=lp, kv_quant=kv_quant)
+                active_pages=ap, lane_pages=lp, lq=lqs[layer])
             for k, v in c_new.items():
                 cache[f"{lpx}/{k}"] = v
         x = rms_norm(x, params["output_norm"], cfg.norm_eps)
@@ -115,6 +117,7 @@ class Model:
         cfg = self.cfg
         ap = (active_pages[0] or None) if active_pages is not None else None
         c = tokens.shape[1]
+        lqs = paged.layer_quants(kv_quant, cfg)
         x = self._embed_tokens(params, tokens)
         positions = start[:, None] + torch.arange(
             c, dtype=start.dtype, device=start.device)[None, :]
@@ -123,7 +126,7 @@ class Model:
             x, c_new = transformer.prefill_chunk_layer(
                 cfg, subview(params, lpx), layer, x, subview(cache, lpx),
                 positions, start, chunk_len, max_len=max_len,
-                block_table=block_tables["full"], kv_quant=kv_quant,
+                block_table=block_tables["full"], lq=lqs[layer],
                 active_pages=ap)
             for k, v in c_new.items():
                 cache[f"{lpx}/{k}"] = v

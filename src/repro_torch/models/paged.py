@@ -23,6 +23,7 @@ stay q8_0 while the rest drop to q4_0.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -66,19 +67,6 @@ class LayerQuant(NamedTuple):
     latent: str
 
 
-def as_layer_quant(kv_quant) -> LayerQuant | None:
-    """A uniform mode string applies to every leaf; a ``LayerQuant`` (or
-    any ``(kv, latent)`` pair) passes through; None stays None."""
-    if kv_quant is None:
-        return None
-    if isinstance(kv_quant, str):
-        if kv_quant not in KV_QUANT_MODES:
-            raise ValueError(f"not a concrete kv-quant mode: {kv_quant!r} "
-                             f"(supported: {KV_QUANT_MODES})")
-        return LayerQuant(kv_quant, kv_quant)
-    return LayerQuant(*kv_quant)
-
-
 def dq_sensitive_layers(n_layers: int) -> frozenset:
     """Layers "dq" keeps at q8_0: the first and last ``max(1, n_layers //
     8)``, so stacks of two layers or fewer are uniform q8_0."""
@@ -100,6 +88,76 @@ def resolve_layer_quant(kv_quant: str | None, cfg,
         return LayerQuant(kv_quant, kv_quant)
     kv = "q8_0" if layer in dq_sensitive_layers(cfg.n_layers) else "q4_0"
     return LayerQuant(kv, "q8_0" if cfg.mla else kv)
+
+
+@functools.lru_cache(maxsize=None)
+def layer_quants(kv_quant: str | None, cfg) -> tuple:
+    """:func:`resolve_layer_quant` for every layer of ``cfg``, resolved
+    once per (spec, config) rather than on every step."""
+    return tuple(resolve_layer_quant(kv_quant, cfg, layer)
+                 for layer in range(cfg.n_layers))
+
+
+def codes_apart(cfg, kv_quant: str, ca: dict, cb: dict) -> dict:
+    """The stored codes of two caches of one model compared layer by layer
+    (q4_0 leaves unpacked, ``GARBAGE_PAGE``, the sink of padded writes,
+    skipped).  ``ca``/``cb``: CPU tensors keyed as
+    ``Model.init_paged_cache`` makes them.  Returns ``first_layer`` (the
+    first layer whose codes differ, or None), ``first_modes`` (the modes
+    of its leaves whose codes differ), ``max_step_first`` (its largest
+    step apart), and over all layers ``apart`` (codes apart) and
+    ``max_step_all``."""
+    out = {"first_layer": None, "first_modes": [], "max_step_first": 0,
+           "apart": 0, "max_step_all": 0}
+    for layer, lq in enumerate(layer_quants(kv_quant, cfg)):
+        steps = []
+        for key in sorted(k for k in ca if k.endswith("_qs")
+                          and k.startswith(f"dec/L{layer:03d}/")):
+            mode = lq.latent if key.endswith("c_kv_qs") else lq.kv
+            qa, qb = ca[key], cb[key]
+            if mode == "q4_0":
+                qa, qb = unpack_q4_rows(qa), unpack_q4_rows(qb)
+            step = (qa.int() - qb.int()).abs()
+            step[GARBAGE_PAGE] = 0
+            steps.append((mode, step))
+        n = sum(int((st > 0).sum()) for _, st in steps)
+        out["apart"] += n
+        top = max(int(st.max()) for _, st in steps)
+        out["max_step_all"] = max(out["max_step_all"], top)
+        if n and out["first_layer"] is None:
+            out.update(first_layer=layer, max_step_first=top,
+                       first_modes=sorted({m for m, st in steps
+                                           if bool((st > 0).any())}))
+    return out
+
+
+def parity_limit(cfg, kv_quant: str | None, ca: dict, cb: dict, *,
+                 exact: float, stepped: float) -> tuple[float, dict]:
+    """The limit on ``max|d logits| / max|logit|`` between two f32 runs of
+    one model over ``kv_quant`` pools that ended in caches ``ca`` and
+    ``cb``, and the :func:`codes_apart` counts behind it.
+
+    The runs differ in summation order.  Where that order moves a value
+    across a rounding boundary, the two store codes one step apart; later
+    layers take the inputs that step moved, so there codes may differ by
+    more.  With no code apart the limit is ``exact``.  Otherwise the
+    first layer whose codes differ may hold q8_0 codes one step apart (a
+    step is 1/127 of the row's max|x|) and the limit is ``stepped``, a
+    fixed q8_0-sized limit.  A q4_0 code apart there (a step of 1/7) is
+    refused, not allowed for: its effect on the logits has no bound that
+    would not pass anything, so it raises ``ValueError``, as does any
+    code of that layer two or more steps apart."""
+    if kv_quant is None:
+        return exact, {}
+    stats = codes_apart(cfg, kv_quant, ca, cb)
+    if stats["first_layer"] is None:
+        return exact, stats
+    where = f"layer {stats['first_layer']}, the first whose codes differ"
+    if stats["max_step_first"] > 1:
+        raise ValueError(f"codes of {where}, more than one step apart")
+    if "q4_0" in stats["first_modes"]:
+        raise ValueError(f"q4_0 codes of {where}, one step apart")
+    return stepped, stats
 
 
 def pages_for(length: int, page_size: int) -> int:

@@ -338,7 +338,8 @@ def test_model_on_card_matches_cpu(cuda, kv_quant):
     """qwen2-1.5b reduced, DQ3_K_M, f32: a prefill chunk and two decode
     steps through the kernels give the CPU's logits (1e-4 of max|logit|;
     q8_0 codes may sit one step apart where the summation order moves a
-    value across a rounding boundary, hence 1e-3 there)."""
+    value across a rounding boundary, hence 1e-3 there, as
+    ``paged.parity_limit`` sets it)."""
     _model_on_card_matches_cpu(cuda, "qwen2-1.5b", kv_quant)
 
 
@@ -354,12 +355,10 @@ def test_deepseek_model_on_card_matches_cpu(cuda, kv_quant):
                                            ("deepseek-v3-671b", None)])
 def test_q4_model_on_card_matches_cpu(cuda, arch, n_layers, kv_quant):
     """q4_0 and dq pools (qwen2 at 3 layers, so dq packs layer 1; deepseek
-    reduced, dq packs the rope keys of layers 1-3): the same check; 1e-4
-    where no code is apart, and each code one step apart in the first
-    layer whose codes differ adds its share of the reference's error
-    budget (``tests/test_kv_dynamic.py`` q4_budget: ``AMP * n_layers``
-    times the half-step EPS for each of a row's W codes), see
-    :func:`budget_allowance`."""
+    reduced, dq packs the rope keys of layers 1-3): the same check.  A
+    q4_0 code apart in the first layer whose codes differ fails it
+    (``paged.parity_limit``: a q4_0 step is 18x a q8_0 step, and its
+    effect on the logits is not bounded)."""
     _model_on_card_matches_cpu(cuda, arch, kv_quant, n_layers=n_layers)
 
 
@@ -434,43 +433,7 @@ def _model_on_card_matches_cpu(cuda, arch, kv_quant, policy="DQ3_K_M",
         out[dev.type] = torch.stack(steps).cpu()
         caches[dev.type] = {k: v.cpu() for k, v in cache.items()}
     a, r = out["cuda"], out["cpu"]
-    tol = 1e-4 if kv_quant is None else 1e-3
-    if kv_quant in ("q4_0", "dq"):
-        tol = 1e-4 + budget_allowance(cfg, arch, kv_quant, caches["cuda"],
-                                      caches["cpu"])
+    tol, _ = paged.parity_limit(cfg, kv_quant, caches["cuda"], caches["cpu"],
+                                exact=1e-4, stepped=1e-3)
     assert torch.isfinite(a).all()
     assert (a - r).abs().max() <= tol * r.abs().max()
-
-
-EPS = {"q8_0": 1.0 / 254.0, "q4_0": 1.0 / 14.0}    # the reference's half-steps
-AMP = {"qwen2-1.5b": 24, "deepseek-v3-671b": 96}   # its amplification
-
-
-def budget_allowance(cfg, arch, kv_quant, ca, cb) -> float:
-    """The error-budget share of the codes apart between two caches
-    (numpy or torch leaves; q4_0 leaves unpacked; GARBAGE, the sink of
-    padded writes, skipped), layer by layer from the first: the first
-    layer whose codes differ made them from inputs that agree up to f32
-    order, so none of its codes may be more than one step apart, and each
-    one step apart is allowed ``2 * EPS * AMP * n_layers / W``; later
-    layers take inputs those steps moved (a q4_0 step moves them by ~1e-2
-    of their scale), so their codes are not bounded."""
-    for layer in range(cfg.n_layers):
-        lq = paged.resolve_layer_quant(kv_quant, cfg, layer)
-        allowance, moved = 0.0, False
-        for key in sorted(k for k in ca if k.endswith("_qs")
-                          and k.startswith(f"dec/L{layer:03d}/")):
-            mode = lq.latent if key.endswith("c_kv_qs") else lq.kv
-            qa, qb = (torch.as_tensor(np.asarray(c[key])) for c in (ca, cb))
-            if mode == "q4_0":
-                qa, qb = (paged_attn.unpack_q4_rows(t) for t in (qa, qb))
-            step = (qa.int() - qb.int()).abs()
-            step[paged.GARBAGE_PAGE] = 0
-            assert int(step.max()) <= 1, key
-            n = int(step.sum())
-            moved = moved or n > 0
-            allowance += (n * 2 * EPS[mode] * AMP[arch] * cfg.n_layers
-                          / step.shape[-1])
-        if moved:
-            return allowance
-    return 0.0
