@@ -12,8 +12,10 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 the main paths' shapes (qwen2-1.5b and DeepSeek-V3 under
                 DQ3_K_M, Q3_K_M, Q2_K_L and Q8_0, P=16), the attention
                 kernels with each tile loader the serves use (bf16, q8_0,
-                q4_0 pools; MLA also q8_0 latents beside q4_0 rope keys),
-                with times, the roofline bound and the stated tolerance.
+                q4_0 pools; MLA also q8_0 latents beside q4_0 rope keys;
+                the q3_k and q2_k expert kernels also with the decode's
+                routing, 32 of 256 experts live), with times, the
+                roofline bound and the stated tolerance.
   3. parity   — full width, f32, weights from one seed, card (kernels)
                 against CPU (plain versions): qwen2-1.5b at depth 2 (a
                 64-token prefill chunk, 4 decode steps) under DQ3_K_M with
@@ -305,6 +307,11 @@ EXPERT_ROWS = (1, 20)
 EXPERT_SUMMARY = {"q3_k": (7168, 2048), "q4_k": (2048, 7168),
                   "q6_k": (2048, 7168), "q5_k": (7168, 2048),
                   "q2_k": (7168, 2048), "q8_0": (7168, 2048)}
+# decode routing: at 4 lanes x top-8 at most 32 of the 256 experts have a
+# row, the rest are zero; the formats whose expert kernel skips empty
+# experts are timed that way too, at seeded positions
+LIVE_EXPERTS = 32
+SKIPS_EMPTY = ("q3_k", "q2_k")
 B1_TOL = 8e-3      # bf16 output: one bf16 ulp (2^-8) of the largest value
 B1_TOL_F32 = 1e-5  # f32 output: f32 summation order only
 ATTN_TOL = 1e-5    # f32 output: summation order and the online softmax;
@@ -477,7 +484,9 @@ def phase_kernels(torch, summary: dict) -> None:
 
 
 def kernels_experts(torch, summary: dict, detail: list, gen) -> None:
-    """B1's expert form: all 256 experts of one weight in one launch."""
+    """B1's expert form: all 256 experts of one weight in one launch; for
+    the formats that skip empty experts also the decode's routing, 32
+    experts live and the rest zero."""
     from repro_torch.core.apply import quantize_in_groups
     from repro_torch.kernels import qmatmul as qm
 
@@ -491,23 +500,41 @@ def kernels_experts(torch, summary: dict, detail: list, gen) -> None:
                     (len(r), k, n), generator=gen, device=dev) / math.sqrt(k),
                 EXPERTS, fmt, group=16, dim=0)
             wbytes = qt.packed_bytes()        # > 1 GB: every launch is cold
-            for c in EXPERT_ROWS:
+            cases = [(c, EXPERTS) for c in EXPERT_ROWS]
+            if fmt in SKIPS_EMPTY:
+                cases.append((1, LIVE_EXPERTS))
+            for c, live in cases:
                 x = torch.randn((EXPERTS, c, k), generator=gen,
                                 device=dev).to(torch.bfloat16)
+                shape = f"E={EXPERTS} C={c} K={k} N={n} bfloat16 ({use})"
+                if live < EXPERTS:
+                    keep = torch.zeros(EXPERTS, dtype=torch.bool, device=dev)
+                    keep[torch.randperm(EXPERTS, generator=gen,
+                                        device=dev)[:live]] = True
+                    x[~keep] = 0
+                    shape = (f"E={EXPERTS} C={c} K={k} N={n} bfloat16, "
+                             f"{live} experts live at seeded positions, the "
+                             f"rest zero; bound from the live experts' "
+                             f"weight bytes ({use})")
                 y = kern(x, qt)
                 ref = qm.qmatmul_plain(x, qt)
                 torch.cuda.synchronize()
                 if y.shape != (EXPERTS, c, n) or y.dtype != torch.bfloat16:
                     fail(f"{name} shape/dtype {y.shape} {y.dtype}")
+                if live < EXPERTS and not torch.equal(
+                        y[~keep].view(torch.int16),
+                        ref[~keep].view(torch.int16)):
+                    fail(f"{name}: an empty expert's output is not the "
+                         "plain version's +0")
                 ms = device_ms(torch, lambda: kern(x, qt))
                 plain_ms = device_ms(torch, lambda: qm.qmatmul_plain(x, qt),
                                      iters=2)
-                res = case(f"E={EXPERTS} C={c} K={k} N={n} bfloat16 ({use})",
-                           y, ref, B1_TOL, "max_rel_err", ms, plain_ms,
-                           wbytes + nbytes(x) + EXPERTS * c * n * 2,
-                           2.0 * EXPERTS * c * k * n, "bfloat16")
+                res = case(shape, y, ref, B1_TOL, "max_rel_err", ms,
+                           plain_ms, wbytes * live // EXPERTS + nbytes(x)
+                           + EXPERTS * c * n * 2,
+                           2.0 * live * c * k * n, "bfloat16")
                 detail.append(dict(res, kernel=name))
-                if c == 1 and (k, n) == EXPERT_SUMMARY[fmt]:
+                if (c, live, k, n) == (1, EXPERTS, *EXPERT_SUMMARY[fmt]):
                     summary[name] = kernel_entry(name, **res)
                 del x, y, ref
             del qt
@@ -764,13 +791,17 @@ def short_name(key: str) -> str:
 
 
 # kernel families of a traced decode step: qmatmul_kernel<T, rows, format,
-# experts> (format ids as in csrc/qmatmul.cu), its split-K reduction, and
-# the attention kernels
+# experts> and qmatmul_experts_kernel<T, rows, format, copy bytes> (format
+# ids as in csrc/qmatmul.cu), the split-K reduction, and the attention
+# kernels
 B1_FORMATS = {"0": "q4_k", "1": "q6_k", "2": "q3_k", "3": "q5_k", "4": "q2_k",
               "5": "q8_0"}
 
 
 def family(key: str) -> str:
+    m = re.search(r"qmatmul_experts_kernel<[^,]+, *\d+, *(\d),", key)
+    if m:
+        return f"B1 experts {B1_FORMATS[m.group(1)]}"
     m = re.search(r"qmatmul_kernel<[^,]+, *\d+, *(\d), *(true|false)>", key)
     if m:
         return (f"B1 experts {B1_FORMATS[m.group(1)]}" if m.group(2) == "true"

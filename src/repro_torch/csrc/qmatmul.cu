@@ -8,8 +8,9 @@
 // (kernels/q8_0.py:23): every weight format of the paper's policies
 // (DQ3_K_M, Q4_K_M, Q3_K_M, Q2_K_L, UD_Q2_K_XL, Q8_0).  The reference sends
 // expert weights to XLA (repro/kernels/ops.py:39-50, dequantize then
-// einsum); here they run through the same kernel, with the expert index
-// folded into gridDim.z, one launch for all experts.
+// einsum); here they run in one launch for all experts: through the same
+// kernel, with the expert index folded into gridDim.z, for q4_k, q6_k, q5_k
+// and q8_0, and through qmatmul_experts_kernel (below) for q3_k and q2_k.
 //
 // What bounds it on an H100: at decode (M = 1..8 rows) it streams the packed
 // weights once and does ~2*M flops per weight, so it is memory-bound (one
@@ -39,6 +40,41 @@
 // q * (sc*d) - (m*dmin) may be contracted into one FMA by the compiler.
 // Expert weights are never split over K: E column-tile rows already give
 // thousands of blocks.
+//
+// The expert form of q3_k and q2_k (qmatmul_experts_kernel<T, ROWS, FMT,
+// V>): the largest device-time family of a DeepSeek-V3 decode step under
+// every 2-3-bit policy.  At decode C = 1 (4 lanes x top-8 over 256
+// experts), and qmatmul_kernel there was bound by instructions, not bytes:
+// a 4-row tile (4 FMAs a weight for 1 live row), one int-to-float
+// conversion a weight (a quarter-rate pipe), x staged again per superblock
+// behind two barriers, and every expert's weights read, used or not.  The
+// redesign:
+//  - the row tile follows C: one row at C = 1 (ROWS = 1), else 20 rows
+//    (the capacity of a 4 x 128-token prefill chunk);
+//  - codes become floats in one byte permute each, no int-to-float: q3_k
+//    as 2^23 + (code << shift) and one exact FADD; q2_k at C = 1 as 0.5 +
+//    code/16, with no FADD at all.  At C = 1 each 16-element sub-block's
+//    scale is factored out of its sum (q3_k: y += d * sum_sub sc * sum x
+//    (q - 4); q2_k: y += d * sum_sub sc * sum x q - dmin * sum_sub m * sum
+//    x, the sums of x per sub-block taken once per block), so a weight
+//    costs one FMA, one permute and (q3_k) one FADD, plus ~0.7 (q3_k) or
+//    ~0.45 (q2_k) integer ops of code assembly.  These sums are f32 in
+//    another order than the plain version's, not its dequantized weights
+//    (held to the same tolerances).  At C > 1 each weight is dequantized
+//    once to the plain version's f32 value, then one FMA per row;
+//  - x is staged as f32 once for the whole K at C = 1 (28 KB at K = 7168,
+//    one barrier), per superblock at C > 1, ordered so that one 16-byte
+//    shared load gives a byte row's four bit-pairs;
+//  - the weight fields come into shared memory through a ring of
+//    superblock tiles (2 at C = 1, 3 at C > 1) filled by cp.async, 16
+//    bytes a copy (V = 4 when N is not a multiple of 16), whose addresses
+//    a thread sets once per block; one barrier per superblock at C = 1;
+//  - a block whose rows of x are all zero (an expert no token was routed
+//    to) reads no weight byte and writes +0, the plain version's result.
+// So at C = 1 it is bound by the weight bytes and by the issue of ~3.5-4.3
+// instructions a weight, which take about the same time on an H100; at C
+// = 20 by the f32 FMAs.  The warps' partial sums are added in a fixed
+// order, with no atomics.
 //
 // Built once per format: -DQMATMUL_FMT=<id> instantiates that format's
 // kernels only (kernels/build.py builds the six libraries in parallel).
@@ -506,14 +542,571 @@ __global__ void splitk_reduce(const float* __restrict__ partial,
   out[i] = from_f32<T>(v);
 }
 
+// ---------------------------------------------------------------------------
+// The expert form for q3_k and q2_k: qmatmul_experts_kernel (see the
+// header).  A block owns 128 columns of one expert and one row tile (1 row,
+// or XROWS rows when C > 1).  Thread tid owns columns 4 * (tid % 32) .. + 3;
+// warp w takes qs byte rows 16w .. 16w + 15 of every superblock, whose
+// bit-pairs p are elements 16w + j + 64p, sub-blocks w + 4p (q3_k: hmask
+// rows 16 (w & 1) + j, bit 2p + (w >> 1)).  x is kept in shared memory as
+// f32 in the order (superblock, 16w + j, p[, row]), so one 16-byte load
+// gives the four bit-pairs' elements of a byte row.
+// ---------------------------------------------------------------------------
+
+// the formats whose expert form is qmatmul_experts_kernel
+constexpr bool own_expert_kernel(int fmt) { return fmt == 2 || fmt == 4; }
+
+// superblock tiles in the ring: at C = 1 two (one in flight while one is
+// consumed; four blocks of q2_k then fit an SM, three of q3_k, so 40-45 KB
+// of weights are in flight per SM), at C > 1 three
+template <int ROWS>
+__host__ __device__ constexpr int xstages() {
+  return ROWS == 1 ? 2 : 3;
+}
+constexpr int XROWS = 20;              // row tile when C > 1 (20 at prefill)
+constexpr int XWHOLE_MAX = 64 * 1024;  // bytes of x a C = 1 block keeps
+
+// a field's byte rows per superblock and its element bytes; fields in the
+// C entry point's order (q3_k: qs, hmask, scales, d; q2_k: qs, sm, d, dmin)
+__host__ __device__ constexpr int xf_rows(int fmt, int g) {
+  return fmt == 2 ? (g == 0 ? 64 : g == 1 ? 32 : g == 2 ? 16 : 1)
+                  : (g == 0 ? 64 : g == 1 ? 16 : 1);
+}
+__host__ __device__ constexpr int xf_esz(int fmt, int g) {
+  return fmt == 2 ? (g == 3 ? 2 : 1) : (g >= 2 ? 2 : 1);
+}
+// where field g of a stage (one superblock of 128 columns) starts
+__host__ __device__ constexpr int xf_off(int fmt, int g) {
+  return g == 0 ? 0
+                : xf_off(fmt, g - 1) +
+                      xf_rows(fmt, g - 1) * COLS * xf_esz(fmt, g - 1);
+}
+__host__ __device__ constexpr int stage_bytes(int fmt) {
+  return xf_off(fmt, 4);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// A thread's share of the copies of one superblock of the block's 128
+// columns, V bytes a copy (16 when N is a multiple of 16, else 4): in field
+// g its chunks are ``step`` rows apart, at the same column in every row, so
+// their addresses are set once per block and advanced by a superblock
+// after each stage.  A chunk past N is not copied.
+template <int FMT, int V>
+struct StageCopies {
+  const uint8_t* src[4];
+  uint32_t dst[4];
+  bool on[4];
+
+  __device__ __forceinline__ StageCopies(const Fields& f, size_t es0, int N,
+                                         int n0, const uint8_t* ring,
+                                         int tid) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int R = xf_rows(FMT, g), ES = xf_esz(FMT, g);
+      const int cpr = COLS * ES / V;  // chunks a row: divides NTHREADS
+      const int r0 = tid / cpr, b = (tid % cpr) * V;
+      on[g] = r0 < R && n0 + b / ES < N;
+      src[g] = f.p[g] + ((es0 * R + r0) * N + n0) * ES + b;
+      dst[g] = smem_addr(ring) + xf_off(FMT, g) + r0 * COLS * ES + b;
+    }
+  }
+  // start the copies of the next superblock into ring slot ``slot``
+  __device__ __forceinline__ void issue(int slot, int N) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int R = xf_rows(FMT, g), ES = xf_esz(FMT, g);
+      const int step = NTHREADS / (COLS * ES / V);
+      if (on[g]) {
+#pragma unroll
+        for (int i = 0; i < (R + step - 1) / step; ++i)
+          cp_async<V>(dst[g] + slot * stage_bytes(FMT) + i * step * COLS * ES,
+                      src[g] + (size_t)i * step * N * ES);
+      }
+      src[g] += (size_t)R * N * ES;
+    }
+  }
+};
+
+// Byte c of ``codes`` as the float 2^23 + byte (exact), in one byte
+// permute: the magic-number conversion, no int-to-float instruction.
+__device__ __forceinline__ float code_f32(uint32_t codes, int c) {
+  return __int_as_float(__byte_perm(codes, 0x4B000000u, 0x7440u | c));
+}
+constexpr float kMagic = 8388608.f;  // 2^23
+// Byte c of ``codes``, a code in bits 4-5, under the exponent byte 0x3F:
+// the float 0.5 + code / 16, also one byte permute.
+__device__ __forceinline__ float code_sixteenth(uint32_t codes, int c) {
+  return __int_as_float(__byte_perm(codes, 0x3F000000u, 0x7044u | (c << 8)));
+}
+
+// q3_k: the four columns' codes of bit-pair p, one per byte, from one qs
+// word and one hmask word: bit-pair p stays at bits 2p.. of its byte (bits
+// 4.. for p = 3, whose 3-bit code would cross the byte), so the byte is
+// code << q3_shift(p).
+__device__ __forceinline__ constexpr int q3_shift(int p) {
+  return p == 3 ? 4 : 2 * p;
+}
+__device__ __forceinline__ void q3k_codes(uint32_t q, uint32_t hm, int h,
+                                          uint32_t (&t)[4]) {
+  // hmask bit 2p + h goes to bit 2p + 2 of its byte (p < 3), bit 6 + h to
+  // bit 6 (p = 3)
+  const uint32_t hs = hm << (2 - h), hr = hm >> h;
+  t[0] = (q & 0x03030303u) | (hs & 0x04040404u);
+  t[1] = (q & 0x0C0C0C0Cu) | (hs & 0x10101010u);
+  t[2] = (q & 0x30303030u) | (hs & 0x40404040u);
+  t[3] = ((q >> 2) & 0x30303030u) | (hr & 0x40404040u);
+}
+
+// The sub-block's scale (q3_k eff = sc * d; q2_k es = sc * d) and min
+// (q2_k em = m * dmin) for four columns, each product rounded as the plain
+// version rounds it.  ``sub`` is the sub-block's row of scales or sm.
+struct SubScale {
+  float mul[4];
+  float min[4];
+};
+template <int FMT>
+__device__ __forceinline__ SubScale sub_scale(const uint8_t* stage, int sub,
+                                              int l) {
+  SubScale r;
+  float dd[4];
+  if constexpr (FMT == 2) {
+    load4_half(as_half(stage + xf_off(2, 3)) + 4 * l, dd);
+    const uint32_t sc = *reinterpret_cast<const uint32_t*>(
+        stage + xf_off(2, 2) + sub * COLS + 4 * l);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      r.mul[c] = __fmul_rn((float)(int8_t)byte_of(sc, c), dd[c]);
+      r.min[c] = 0.f;
+    }
+  } else {
+    float dm[4];
+    load4_half(as_half(stage + xf_off(4, 2)) + 4 * l, dd);
+    load4_half(as_half(stage + xf_off(4, 3)) + 4 * l, dm);
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(
+        stage + xf_off(4, 1) + sub * COLS + 4 * l);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      r.mul[c] = __fmul_rn(dd[c], (float)(byte_of(v, c) & 15u));
+      r.min[c] = __fmul_rn(dm[c], (float)(byte_of(v, c) >> 4));
+    }
+  }
+  return r;
+}
+
+// C = 1: sums per sub-block of x times the code, one byte permute and one
+// or two float ops a weight; then per sub-block and column the scale codes
+// times those sums, and per column the superblock's d (and dmin) times
+// that.  q3_k: y += d * sum_sub sc * sum x (q - 4), x stored divided by
+// 2^q3_shift(p).  q2_k: y += 16 d * sum_sub sc * (sum x (1/2 + q/16) -
+// sum x / 2) - dmin * sum_sub m * sum x: the code as 0.5 + q/16 needs no
+// subtraction per weight, and the sums of x per sub-block (``xsum``) are
+// taken once per block.
+template <int FMT>
+__device__ __forceinline__ void experts_superblock_c1(const uint8_t* stage,
+                                                      const float* xsb,
+                                                      const float* xsum_s,
+                                                      int w, int l,
+                                                      float (&acc)[4]) {
+  const int h = w >> 1;
+  const uint8_t* qrow = stage + 16 * w * COLS + 4 * l;
+  const uint8_t* hrow = stage + xf_off(FMT, 1) + 16 * (w & 1) * COLS + 4 * l;
+  const float* xr = xsb + 64 * w;
+  float part[4][4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) part[p][c] = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < 16; ++j) {
+    const uint32_t q = *reinterpret_cast<const uint32_t*>(qrow + j * COLS);
+    const float4 xv = *reinterpret_cast<const float4*>(xr + 4 * j);
+    const float xp[4] = {xv.x, xv.y, xv.z, xv.w};
+    uint32_t t[4];
+    if constexpr (FMT == 2) {
+      const uint32_t hm = *reinterpret_cast<const uint32_t*>(hrow + j * COLS);
+      q3k_codes(q, hm, h, t);
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          part[p][c] =
+              fmaf(xp[p],
+                   code_f32(t[p], c) - (kMagic + (float)(4 << q3_shift(p))),
+                   part[p][c]);
+    } else {
+      // bit-pair p's codes to bits 4-5 of their byte
+      t[0] = (q << 4) & 0x30303030u;
+      t[1] = (q << 2) & 0x30303030u;
+      t[2] = q & 0x30303030u;
+      t[3] = (q >> 2) & 0x30303030u;
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          part[p][c] = fmaf(xp[p], code_sixteenth(t[p], c), part[p][c]);
+    }
+  }
+  float a1[4] = {0.f, 0.f, 0.f, 0.f}, a2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int sub = w + 4 * p;
+    if constexpr (FMT == 2) {
+      const uint32_t sc = *reinterpret_cast<const uint32_t*>(
+          stage + xf_off(2, 2) + sub * COLS + 4 * l);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        a1[c] = fmaf((float)(int8_t)byte_of(sc, c), part[p][c], a1[c]);
+    } else {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(
+          stage + xf_off(4, 1) + sub * COLS + 4 * l);
+      const float xsub = xsum_s[sub];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        a1[c] = fmaf((float)(byte_of(v, c) & 15u),
+                     part[p][c] - 0.5f * xsub, a1[c]);
+        a2[c] = fmaf((float)(byte_of(v, c) >> 4), xsub, a2[c]);
+      }
+    }
+  }
+  float dd[4];
+  load4_half(as_half(stage + xf_off(FMT, FMT == 2 ? 3 : 2)) + 4 * l, dd);
+  if constexpr (FMT == 2) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[c] = fmaf(dd[c], a1[c], acc[c]);
+  } else {
+    float dm[4];
+    load4_half(as_half(stage + xf_off(4, 3)) + 4 * l, dm);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[c] = fmaf(16.f * dd[c], a1[c], acc[c]);
+      acc[c] = fmaf(-dm[c], a2[c], acc[c]);
+    }
+  }
+}
+
+// C > 1: each weight dequantized once (the plain version's f32 value:
+// (code - 4) * eff, or code * es - em with the product rounded first), then
+// one FMA per row.  x is the superblock's (256, XROWS) tile.
+template <int FMT>
+__device__ __forceinline__ void experts_superblock_rows(
+    const uint8_t* stage, const float* xt, int w, int l,
+    float (&acc)[XROWS][4]) {
+  const int h = w >> 1;
+  const uint8_t* qrow = stage + 16 * w * COLS + 4 * l;
+  const uint8_t* hrow = stage + xf_off(FMT, 1) + 16 * (w & 1) * COLS + 4 * l;
+  SubScale ss[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) ss[p] = sub_scale<FMT>(stage, w + 4 * p, l);
+#pragma unroll 1
+  for (int j = 0; j < 16; ++j) {
+    const uint32_t q = *reinterpret_cast<const uint32_t*>(qrow + j * COLS);
+    uint32_t t[4];
+    if constexpr (FMT == 2) {
+      q3k_codes(q, *reinterpret_cast<const uint32_t*>(hrow + j * COLS), h, t);
+    } else {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) t[p] = q & (0x03030303u << (2 * p));
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      // code << shift, then times the scale over 2^shift: exact scalings
+      const int shift = FMT == 2 ? q3_shift(p) : 2 * p;
+      const float inv = 1.f / (float)(1 << shift);
+      float wv[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if constexpr (FMT == 2)
+          wv[c] = __fmul_rn(code_f32(t[p], c) - (kMagic + (4 << shift)),
+                            ss[p].mul[c] * inv);
+        else
+          wv[c] = __fsub_rn(__fmul_rn(code_f32(t[p], c) - kMagic,
+                                      ss[p].mul[c] * inv),
+                            ss[p].min[c]);
+      }
+      const float* xk = xt + (64 * w + 4 * j + p) * XROWS;
+#pragma unroll
+      for (int r4 = 0; r4 < XROWS / 4; ++r4) {
+        const float4 xv = *reinterpret_cast<const float4*>(xk + 4 * r4);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[4 * r4 + 0][c] = fmaf(xv.x, wv[c], acc[4 * r4 + 0][c]);
+          acc[4 * r4 + 1][c] = fmaf(xv.y, wv[c], acc[4 * r4 + 1][c]);
+          acc[4 * r4 + 2][c] = fmaf(xv.z, wv[c], acc[4 * r4 + 2][c]);
+          acc[4 * r4 + 3][c] = fmaf(xv.w, wv[c], acc[4 * r4 + 3][c]);
+        }
+      }
+    }
+  }
+}
+
+// x[k0, k0 + V) of one row as f32, zeros past K: one 16-byte load when the
+// rows are 16-byte aligned, so that a thread has V elements in flight
+template <typename T>
+__device__ __forceinline__ void load_x(const T* row, int k0, int K, bool vec,
+                                       float (&v)[16 / sizeof(T)]) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec && k0 + V <= K) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(row + k0);
+    const T* t = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = to_f32<T>(t[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      v[i] = k0 + i < K ? to_f32<T>(row[k0 + i]) : 0.f;
+  }
+}
+
+// where element k of a superblock sits in shared memory: (16w + j, p) for
+// k = 16w + j + 64p
+__device__ __forceinline__ int xperm(int k) {
+  return ((k & 63) << 2) + (k >> 6);
+}
+
+// Dynamic shared memory: the ring of weight tiles, then x (ROWS = 1:
+// all S superblocks, and for q2_k their S * 16 sub-block sums; else one
+// superblock's (256, XROWS) tile).  The ring holds the warps' partial sums
+// at the end.
+template <int ROWS, int FMT>
+__host__ __device__ constexpr size_t experts_smem(int S) {
+  return (size_t)xstages<ROWS>() * stage_bytes(FMT) +
+         (ROWS == 1 ? (size_t)S * QK * 4 + (FMT == 4 ? (size_t)S * 64 : 0)
+                    : (size_t)QK * XROWS * 4);
+}
+
+template <typename T, int ROWS, int FMT, int V>
+__global__ void __launch_bounds__(NTHREADS)
+    qmatmul_experts_kernel(const T* __restrict__ x, Fields f,
+                           T* __restrict__ out, int M, int K, int N,
+                           int row_tiles) {
+  constexpr int STAGE = stage_bytes(FMT);
+  constexpr int NST = xstages<ROWS>();
+  static_assert((TY - 1) * ROWS * COLS * 4 <= NST * STAGE,
+                "the warps' partial sums must fit in the ring");
+  extern __shared__ __align__(16) uint8_t smem_x[];
+  uint8_t* ring = smem_x;
+  float* xs = reinterpret_cast<float*>(smem_x + NST * STAGE);
+
+  const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
+  const int n0 = blockIdx.x * COLS;
+  const int e = blockIdx.y / row_tiles;
+  const int m0 = (blockIdx.y % row_tiles) * ROWS;
+  const int rows = min(ROWS, M - m0);
+  const int S = (K + QK - 1) / QK;
+  const T* xe = x + ((size_t)e * M + m0) * K;
+  T* oe = out + ((size_t)e * M + m0) * N;
+
+  // Stage x (C = 1: all of it, once) and find whether any row of the tile
+  // is non-zero: an expert no token was routed to reads no weight byte and
+  // writes +0, as the plain version does.
+  constexpr int XV = 16 / sizeof(T);   // elements of x a load
+  constexpr int KV = QK / XV;          // loads a superblock row
+  const bool vec =
+      K % XV == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  bool live = false;
+  if constexpr (ROWS == 1) {
+    bool nz = false;
+#pragma unroll 4
+    for (int g = tid; g < S * KV; g += NTHREADS) {
+      float v[XV];
+      load_x<T>(xe, g * XV, K, vec, v);
+      const int base = (g / KV) * QK, kb = (g % KV) * XV;
+#pragma unroll
+      for (int i = 0; i < XV; ++i) {
+        nz |= v[i] != 0.f;
+        // q3_k: bit-pair p's elements divided by 2^q3_shift(p) (exact)
+        const int p = (kb + i) >> 6;
+        xs[base + xperm(kb + i)] =
+            FMT == 2 ? v[i] * (1.f / (float)(1 << q3_shift(p))) : v[i];
+      }
+    }
+    live = __syncthreads_or(nz);
+  } else {
+    // the first non-zero settles it: a live tile reads one superblock's rows
+    for (int k0 = 0; k0 < K && !live; k0 += QK) {
+      bool nz = false;
+      for (int g = tid; g < rows * KV; g += NTHREADS) {
+        float v[XV];
+        load_x<T>(xe + (size_t)(g / KV) * K, k0 + (g % KV) * XV, K, vec, v);
+#pragma unroll
+        for (int i = 0; i < XV; ++i) nz |= v[i] != 0.f;
+      }
+      live = __syncthreads_or(nz);
+    }
+  }
+  if (!live) {
+    for (int i = tid; i < rows * COLS; i += NTHREADS) {
+      const int n = n0 + i % COLS;
+      if (n < N) oe[(size_t)(i / COLS) * N + n] = from_f32<T>(0.f);
+    }
+    return;
+  }
+  float* xsum = xs + S * QK;
+  if constexpr (ROWS == 1 && FMT == 4) {
+    // sub-block i = w' + 4p of a superblock: elements 64 w' + 4 j + p
+    for (int i = tid; i < S * 16; i += NTHREADS) {
+      const float* src = xs + (i >> 4) * QK + 64 * (i & 3) + ((i & 15) >> 2);
+      float v = 0.f;
+      for (int j = 0; j < 16; ++j) v += src[4 * j];
+      xsum[i] = v;
+    }
+  }
+
+  StageCopies<FMT, V> copies(f, (size_t)e * S, N, n0, ring, tid);
+#pragma unroll
+  for (int st = 0; st < NST - 1; ++st) {
+    if (st < S) copies.issue(st, N);
+    cp_async_commit();
+  }
+  float acc[ROWS][4];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+
+  // ring slots of superblocks s and s + NST - 1
+  int slot = 0, fill = NST - 1;
+  for (int s = 0; s < S; ++s) {
+    const uint8_t* stage = ring + slot * STAGE;
+    if constexpr (ROWS == 1) {
+      cp_async_wait<NST - 2>();  // this thread's copies of superblock s
+      __syncthreads();  // everyone's; and superblock s - 1 is consumed
+    } else {
+      __syncthreads();  // superblock s - 1 and its x tile are consumed
+    }
+    if (s + NST - 1 < S) copies.issue(fill, N);
+    cp_async_commit();
+    if constexpr (ROWS == 1) {
+      experts_superblock_c1<FMT>(stage, xs + s * QK, xsum + 16 * s, w, l,
+                                 acc[0]);
+    } else {
+#pragma unroll 2
+      for (int g = tid; g < ROWS * KV; g += NTHREADS) {
+        const int r = g / KV, kb = (g % KV) * XV;
+        float v[XV];
+        if (r < rows) {
+          load_x<T>(xe + (size_t)r * K, s * QK + kb, K, vec, v);
+        } else {
+#pragma unroll
+          for (int i = 0; i < XV; ++i) v[i] = 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < XV; ++i) xs[xperm(kb + i) * ROWS + r] = v[i];
+      }
+      cp_async_wait<NST - 1>();
+      __syncthreads();
+      experts_superblock_rows<FMT>(stage, xs, w, l, acc);
+    }
+    slot = slot == NST - 1 ? 0 : slot + 1;
+    fill = fill == NST - 1 ? 0 : fill + 1;
+  }
+
+  // fixed-order sum of the four warps' partial sums
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);
+  if (w > 0) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        red[((w - 1) * ROWS + r) * COLS + 4 * l + c] = acc[r][c];
+  }
+  __syncthreads();
+  if (w == 0) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (r < rows) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int n = n0 + 4 * l + c;
+          float v = acc[r][c];
+#pragma unroll
+          for (int ww = 0; ww < TY - 1; ++ww)
+            v += red[(ww * ROWS + r) * COLS + 4 * l + c];
+          if (n < N) oe[(size_t)r * N + n] = from_f32<T>(v);
+        }
+      }
+    }
+  }
+}
+
+// launches of qmatmul_experts_kernel made by this library
+long long g_experts_launches = 0;
+
+template <typename T, int ROWS, int FMT, int V>
+cudaError_t launch_experts_rows(const void* x, const Fields& f, void* out,
+                                int E, int M, int K, int N,
+                                cudaStream_t stream) {
+  auto kernel = qmatmul_experts_kernel<T, ROWS, FMT, V>;
+  const size_t smem = experts_smem<ROWS, FMT>((K + QK - 1) / QK);
+  static size_t configured = 0;   // the largest size allowed so far
+  if (smem > configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    configured = smem;
+  }
+  const int row_tiles = (M + ROWS - 1) / ROWS;
+  const dim3 grid((N + COLS - 1) / COLS, E * row_tiles);
+  kernel<<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const T*>(x), f, static_cast<T*>(out), M, K, N, row_tiles);
+  ++g_experts_launches;
+  return cudaSuccess;
+}
+
+// C = 1 keeps one row and all of x (up to XWHOLE_MAX bytes); C > 1 takes
+// XROWS rows.  16-byte copies where N allows, else 4-byte ones.
+template <typename T, int FMT>
+cudaError_t launch_experts(const void* x, const Fields& f, void* out, int E,
+                           int M, int K, int N, cudaStream_t stream) {
+  const bool whole = M == 1 && (size_t)((K + QK - 1) / QK) * QK * 4 <=
+                                   XWHOLE_MAX;
+  if (N % 16 == 0)
+    return whole ? launch_experts_rows<T, 1, FMT, 16>(x, f, out, E, M, K, N,
+                                                      stream)
+                 : launch_experts_rows<T, XROWS, FMT, 16>(x, f, out, E, M, K,
+                                                          N, stream);
+  return whole ? launch_experts_rows<T, 1, FMT, 4>(x, f, out, E, M, K, N,
+                                                   stream)
+               : launch_experts_rows<T, XROWS, FMT, 4>(x, f, out, E, M, K, N,
+                                                       stream);
+}
+
 template <typename T, int MT, int FMT>
 void launch(const void* x, const Fields& f, void* partial, void* out, int E,
             int M, int K, int N, int splits, cudaStream_t stream) {
   const int row_tiles = (M + MT - 1) / MT;
   const dim3 block(TX, TY);
   const dim3 grid((N + COLS - 1) / COLS, splits, row_tiles * E);
-  auto kernel = E > 1 ? qmatmul_kernel<T, MT, FMT, true>
-                      : qmatmul_kernel<T, MT, FMT, false>;
+  auto kernel = qmatmul_kernel<T, MT, FMT, false>;
+  if constexpr (!own_expert_kernel(FMT))
+    if (E > 1) kernel = qmatmul_kernel<T, MT, FMT, true>;
   kernel<<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), f, static_cast<float*>(partial),
       static_cast<T*>(out), M, K, N, splits, row_tiles);
@@ -540,6 +1133,14 @@ void launch_rows(const void* x, const Fields& f, void* partial, void* out,
 template <typename T>
 int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
                int E, int M, int K, int N, int splits, cudaStream_t st) {
+  if constexpr (own_expert_kernel(QMATMUL_FMT)) {
+    if (E > 1) {
+      const cudaError_t err =
+          launch_experts<T, QMATMUL_FMT>(x, f, out, E, M, K, N, st);
+      if (err != cudaSuccess) return (int)err;
+      return (int)cudaGetLastError();
+    }
+  }
   launch_rows<T, QMATMUL_FMT>(x, f, partial, out, E, M, K, N, splits, st);
   return (int)cudaGetLastError();
 }
@@ -548,11 +1149,13 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
 
 // fmt: 0 = q4_k, 1 = q6_k, 2 = q3_k, 3 = q5_k, 4 = q2_k, 5 = q8_0, and
 // must be the QMATMUL_FMT this library was built for; ``fields`` holds the
-// format's ``nfields`` field pointers in the order of kFieldBytes.  dtype of x and out: 0 = float32, 1 = bfloat16.  E experts:
-// x (E, M, K), fields with a leading E, out (E, M, N); E = 1 for one
-// weight.  N must be a multiple of 4; ``partial`` holds splits x M x N
-// floats when splits > 1 (E = 1 only; splits count 256-row tiles).
-// Returns cudaGetLastError() after the launches.
+// format's ``nfields`` field pointers in the order of kFieldBytes.  dtype of
+// x and out: 0 = float32, 1 = bfloat16.  E experts: x (E, M, K), fields
+// with a leading E, out (E, M, N); E = 1 for one weight.  q3_k and q2_k
+// experts (E > 1) go to qmatmul_experts_kernel, the rest to qmatmul_kernel.
+// N must be a multiple of 4; ``partial`` holds splits x M x N floats when
+// splits > 1 (E = 1 only; splits count 256-row tiles).  Returns
+// cudaGetLastError() after the launches.
 extern "C" int qmatmul(int fmt, int dtype, const void* x,
                        const void* const* fields, int nfields, void* partial,
                        void* out, int E, int M, int K, int N, int splits,
@@ -570,4 +1173,10 @@ extern "C" int qmatmul(int fmt, int dtype, const void* x,
     return launch_fmt<__nv_bfloat16>(x, f, partial, out, E, M, K, N, splits,
                                      st);
   return (int)cudaErrorInvalidValue;
+}
+
+// How many times this library launched qmatmul_experts_kernel (0 for the
+// formats that have none): the card tests read it to see which kernel ran.
+extern "C" long long qmatmul_experts_kernel_launches(void) {
+  return g_experts_launches;
 }

@@ -5,7 +5,7 @@ Each ``csrc/<source>.cu`` has a plain C interface (no PyTorch headers), so
 to this package, at first use; the hash covers the source and the flags,
 so a changed source rebuilds and an unchanged one loads the library
 already built.  ``csrc/qmatmul.cu`` is built once per weight format
-(``-DQMATMUL_FMT=<id>``, one library each), so that its 48 kernels compile
+(``-DQMATMUL_FMT=<id>``, one library each), so that its 56 kernels compile
 in six processes at once.  Pointers and the stream cross as
 ``ctypes.c_void_p``, and every C entry point returns ``cudaGetLastError()``
 after its launch — the wrappers raise on anything but 0 (a refused launch

@@ -13,6 +13,16 @@ tensors and launches the kernel (or raises) for CUDA tensors.  Each
 wrapper's ``launches`` counts its kernel launches: ``qmatmul_<fmt>`` for
 one (K, N) weight, ``qmatmul_experts_<fmt>`` for a stack of expert weights
 (E, K, N) against x (E, C, K), all experts in one launch.
+
+The expert form of q3_k and q2_k is a kernel of its own,
+``qmatmul_experts_kernel``, which replaces ``qmatmul_kernel`` there (the
+largest device-time family of a DeepSeek decode step): at C = 1 it carries
+one row, turns codes into floats with a byte permute instead of an
+int-to-float conversion, factors each 16-element sub-block's scale out of
+its sum, brings the weight tiles into shared memory through a ring of
+asynchronous copies, and reads no weight byte of an expert whose rows of x
+are all zero (it writes +0, the plain version's result).  Its header in
+``csrc/qmatmul.cu`` says what bounds it.
 """
 
 from __future__ import annotations
@@ -99,6 +109,7 @@ def _launch(x: torch.Tensor, qt: QTensor, e: int, counter) -> torch.Tensor:
     out = torch.empty((e, m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return out
+    # (qmatmul_experts_kernel's row tiles, 1 or 20 rows, are never more)
     row_tiles = -(-m // _ROWS[m <= 4])
     if row_tiles * e > _MAX_GRID_Z:
         raise ValueError(f"B1 grid too tall: {e} experts x {row_tiles} row "
@@ -176,3 +187,13 @@ def _entry(fmt: str):
     i = ctypes.c_int
     return build.bind(f"qmatmul_{fmt}", "qmatmul",
                       [i, i, v, ctypes.POINTER(v), i, v, v, i, i, i, i, i, v])
+
+
+def experts_kernel_launches(fmt: str) -> int:
+    """Launches of ``qmatmul_experts_kernel`` made by ``fmt``'s library
+    (0 for a format whose expert form is ``qmatmul_kernel``): which kernel
+    an expert call ran, for the card tests."""
+    f = build.library(f"qmatmul_{fmt}").qmatmul_experts_kernel_launches
+    f.restype = ctypes.c_longlong
+    f.argtypes = []
+    return int(f())

@@ -4,12 +4,15 @@ routed experts plus shared experts), the port of ``repro.models.moe``.
 Top-k routing -> stable sort of the (token, choice) assignments by expert
 -> capacity-clipped scatter into per-expert buffers (E, capacity, D) ->
 batched expert SwiGLU (kernel B1's expert form: one launch per weight for
-all experts) -> gate-weighted combine.  The reference's behaviour is kept,
-including what it costs: every expert's buffer is multiplied, empty ones
-included, so a decode step streams all expert weights; tokens past an
-expert's capacity are dropped in stable-sort order (at decode the capacity
-is one slot per expert); and lanes that are not live still route their
-throwaway token, so they can take a live token's slot.
+all experts) -> gate-weighted combine.  The reference's behaviour is kept:
+tokens past an expert's capacity are dropped in stable-sort order (at
+decode the capacity is one slot per expert), and lanes that are not live
+still route their throwaway token, so they can take a live token's slot.
+An expert no token was routed to has an all-zero buffer, and SwiGLU keeps
+its down projection's input zero, so its outputs are zero; the q3_k and
+q2_k expert kernels read none of its weights (a decode step at 4 lanes
+reads at most 32 of 256 experts there), while the q4_k, q6_k, q5_k and
+q8_0 ones still multiply every expert, as the reference does.
 """
 
 from __future__ import annotations

@@ -82,6 +82,11 @@ def test_qmatmul_q3_k_kernel_matches_plain(cuda, m, dtype):
     assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
 
 
+# the formats whose expert form is qmatmul_experts_kernel, which skips
+# experts whose rows of x are all zero
+SKIPS_EMPTY = ("q3_k", "q2_k")
+
+
 @pytest.mark.parametrize("fmt", ["q3_k", "q4_k", "q6_k", "q5_k", "q2_k",
                                  "q8_0"])
 @pytest.mark.parametrize("c", [1, 20])
@@ -100,14 +105,59 @@ def test_qmatmul_experts_kernel_matches_plain(cuda, fmt, c, dtype):
     x = x.to(dtype)
     kern = qmatmul.EXPERT_KERNELS[fmt]
     before = kern.launches
+    own = qmatmul.experts_kernel_launches(fmt)
     y = kern(x, qt)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
+    # q3_k and q2_k run qmatmul_experts_kernel (here with 4-byte copies: N
+    # is not a multiple of 16), the others qmatmul_kernel
+    assert qmatmul.experts_kernel_launches(fmt) == own + (
+        fmt in SKIPS_EMPTY)
     assert y.dtype == dtype and y.shape == (e, c, n)
     ref = qmatmul.qmatmul_plain(x, qt).float()
     tol = TOL if dtype == torch.float32 else 2 ** -8
     assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
     assert bool((y[2] == 0).all())
+
+
+@pytest.mark.parametrize("fmt", SKIPS_EMPTY)
+@pytest.mark.parametrize("c", [1, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("k,n", [(1024, 256), (512, 768)],
+                         ids=["k>n", "k<n"])
+def test_qmatmul_experts_kernel_skips_empty_experts(cuda, fmt, c, dtype, k,
+                                                    n):
+    """E = 16 experts of which 3 are live (at C = 20 one of them has zero
+    rows too), in both orientations of the DeepSeek expert weights (K > N:
+    gate/up; K < N: down): one launch of qmatmul_experts_kernel per call;
+    the empty experts' outputs are bitwise the plain version's +0, the zero
+    rows of a live expert exactly 0, and the live rows within the
+    tolerance."""
+    rng = np.random.default_rng(c * 3 + k + len(fmt))
+    e, live = 16, [2, 7, 11]
+    qt = quantize(torch.from_numpy(_np(rng, (e, k, n))).to(cuda), fmt)
+    x = torch.zeros((e, c, k), device=cuda)
+    x[live] = torch.from_numpy(_np(rng, (3, c, k))).to(cuda)
+    if c == 20:
+        x[7, 3:9] = 0.0
+    x = x.to(dtype)
+    kern = qmatmul.EXPERT_KERNELS[fmt]
+    before, own = kern.launches, qmatmul.experts_kernel_launches(fmt)
+    y = kern(x, qt)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert qmatmul.experts_kernel_launches(fmt) == own + 1
+    ref = qmatmul.qmatmul_plain(x, qt)
+    empty = [i for i in range(e) if i not in live]
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(y[empty].view(bits), ref[empty].view(bits))
+    assert not bool(y[empty].view(bits).any())          # +0, not -0
+    if c == 20:
+        assert bool((y[7, 3:9] == 0).all())
+    tol = TOL if dtype == torch.float32 else 2 ** -8
+    err = (y[live].float() - ref[live].float()).abs().max()
+    assert err <= tol * ref.float().abs().max()
 
 
 def test_qmatmul_kernel_raises_on_what_it_does_not_take(cuda):

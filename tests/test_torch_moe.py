@@ -12,6 +12,9 @@ expert-batched) against the JAX reference.
   * ``moe_apply`` at reduced width, f32, drop-free (``capacity_factor``
     8.0) and dropping tokens (1.0): the same kept set, outputs and aux
     value within 1e-5;
+  * at the decode shape (4 tokens, 256 experts, top-8, capacity 1) the
+    same experts are empty in both packages' dispatch, and ``expert_ffn``
+    gives them exact zeros — what lets B1 skip them on the card;
   * ``format_map`` equals the reference path for path for deepseek-v3-671b
     (61 layers and the 7-layer cut) under DQ3_K_M and Q4_K_M.
 """
@@ -169,6 +172,44 @@ def test_moe_apply_matches_reference(cf):
     assert np.array_equal(keep.numpy(), np.asarray(jkeep))
     assert np.array_equal(slot.numpy(), np.asarray(jslot))
     assert bool(keep.all()) == (cf == 8.0)      # 1.0 drops tokens
+
+
+def test_decode_dispatch_leaves_empty_experts_zero():
+    """The premise of B1's skip of empty experts, at the serve's decode
+    shape (4 tokens, DeepSeek-V3's 256 experts, top-8, capacity 1; inputs
+    from a numpy seed): ``moe_dispatch`` gives a non-zero buffer row to the
+    same experts as the reference's (at most 32), and ``expert_ffn`` (q3_k
+    gate/up, q2_k down) gives exact zeros for every other expert in both
+    packages, and the same outputs within 1e-5 for the used ones."""
+    cfg = get_config("deepseek-v3-671b")
+    jcfg = jax_get_config("deepseek-v3-671b")
+    t, d, ff, e = 4, 256, 64, cfg.n_experts
+    rng = np.random.default_rng(15)
+    x = rng.normal(size=(t, d)).astype(np.float32)
+    router = rng.normal(size=(d, e)).astype(np.float32)
+    logits = moe.router_probs(torch.from_numpy(router), torch.from_numpy(x))
+    gates, idx = torch.topk(torch.softmax(logits, -1), cfg.top_k)
+    gates = gates / gates.sum(-1, keepdim=True)
+    capacity = max(1, int(cfg.capacity_factor * t * cfg.top_k / e))
+    assert (e, cfg.top_k, capacity) == (256, 8, 1)
+    buf, _ = moe.moe_dispatch(torch.from_numpy(x), gates, idx, e, capacity)
+    jbuf, _ = jax_moe.moe_dispatch(jnp.asarray(x), jnp.asarray(gates.numpy()),
+                                   jnp.asarray(idx.numpy()), e, capacity)
+    used = buf.reshape(e, -1).ne(0).any(1).numpy()
+    assert np.array_equal(used, np.asarray(jbuf).reshape(e, -1).any(1))
+    assert 0 < used.sum() <= t * cfg.top_k
+
+    shapes = {"gate_exps": ((e, d, ff), "q3_k"),
+              "up_exps": ((e, d, ff), "q3_k"),
+              "down_exps": ((e, ff, d), "q2_k")}
+    jp, tp = {}, {}
+    for i, (name, (shape, fmt)) in enumerate(shapes.items()):
+        _, jp[name], tp[name] = _qt_pair(fmt, shape, seed=30 + i)
+    ref = np.asarray(jax_moe.expert_ffn(jp, jbuf))
+    got = moe.expert_ffn(tp, buf).numpy()
+    assert got.shape == ref.shape == (e, capacity, d)
+    assert np.all(got[~used] == 0) and np.all(ref[~used] == 0)
+    assert np.max(np.abs(got - ref)) <= TOL * np.abs(ref).max()
 
 
 def test_moe_unported_options_name_roadmap_items():
