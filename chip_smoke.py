@@ -13,9 +13,10 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 DQ3_K_M, Q3_K_M, Q2_K_L and Q8_0, P=16), the attention
                 kernels with each tile loader the serves use (bf16, q8_0,
                 q4_0 pools; MLA also q8_0 latents beside q4_0 rope keys;
-                the q3_k and q2_k expert kernels also with the decode's
-                routing, 32 of 256 experts live), with times, the
-                roofline bound and the stated tolerance.
+                every expert form also with the decode's routing, 32 of
+                256 experts live, where the q4_k, q3_k, q2_k and q8_0
+                kernels read no empty expert), with times, the roofline
+                bound and the stated tolerance.
   3. parity   — full width, f32, weights from one seed, card (kernels)
                 against CPU (plain versions): qwen2-1.5b at depth 2 (a
                 64-token prefill chunk, 4 decode steps) under DQ3_K_M with
@@ -29,7 +30,8 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 under DQ3_K_M, then the DeepSeek-V3 cut at full width and 7
                 layers (3 dense + 4 MoE) under DQ3_K_M, each with q8_0,
                 bf16, q4_0 and dq pools (dq with the quant probe), and the
-                cut under Q3_K_M, Q2_K_L and Q8_0 with q8_0 pools.  Every
+                cut under Q4_K_M, Q3_K_M, Q2_K_L and Q8_0 with q8_0 pools.
+                Every
                 kernel of each path must have been launched in its run,
                 and the DeepSeek weights must pack to the reference size
                 calculator's bytes; one traced decode step per path and
@@ -308,10 +310,11 @@ EXPERT_SUMMARY = {"q3_k": (7168, 2048), "q4_k": (2048, 7168),
                   "q6_k": (2048, 7168), "q5_k": (7168, 2048),
                   "q2_k": (7168, 2048), "q8_0": (7168, 2048)}
 # decode routing: at 4 lanes x top-8 at most 32 of the 256 experts have a
-# row, the rest are zero; the formats whose expert kernel skips empty
-# experts are timed that way too, at seeded positions
+# row, the rest are zero; every expert form is timed that way too, at
+# seeded positions, and the formats whose expert kernel skips empty experts
+# must give them the plain version's +0 bitwise
 LIVE_EXPERTS = 32
-SKIPS_EMPTY = ("q3_k", "q2_k")
+SKIPS_EMPTY = ("q3_k", "q2_k", "q4_k", "q8_0")
 B1_TOL = 8e-3      # bf16 output: one bf16 ulp (2^-8) of the largest value
 B1_TOL_F32 = 1e-5  # f32 output: f32 summation order only
 ATTN_TOL = 1e-5    # f32 output: summation order and the online softmax;
@@ -484,9 +487,8 @@ def phase_kernels(torch, summary: dict) -> None:
 
 
 def kernels_experts(torch, summary: dict, detail: list, gen) -> None:
-    """B1's expert form: all 256 experts of one weight in one launch; for
-    the formats that skip empty experts also the decode's routing, 32
-    experts live and the rest zero."""
+    """B1's expert form: all 256 experts of one weight in one launch, and
+    the decode's routing, 32 experts live and the rest zero."""
     from repro_torch.core.apply import quantize_in_groups
     from repro_torch.kernels import qmatmul as qm
 
@@ -500,9 +502,8 @@ def kernels_experts(torch, summary: dict, detail: list, gen) -> None:
                     (len(r), k, n), generator=gen, device=dev) / math.sqrt(k),
                 EXPERTS, fmt, group=16, dim=0)
             wbytes = qt.packed_bytes()        # > 1 GB: every launch is cold
-            cases = [(c, EXPERTS) for c in EXPERT_ROWS]
-            if fmt in SKIPS_EMPTY:
-                cases.append((1, LIVE_EXPERTS))
+            cases = [(c, EXPERTS) for c in EXPERT_ROWS] + [
+                (1, LIVE_EXPERTS)]
             for c, live in cases:
                 x = torch.randn((EXPERTS, c, k), generator=gen,
                                 device=dev).to(torch.bfloat16)
@@ -521,7 +522,7 @@ def kernels_experts(torch, summary: dict, detail: list, gen) -> None:
                 torch.cuda.synchronize()
                 if y.shape != (EXPERTS, c, n) or y.dtype != torch.bfloat16:
                     fail(f"{name} shape/dtype {y.shape} {y.dtype}")
-                if live < EXPERTS and not torch.equal(
+                if live < EXPERTS and fmt in SKIPS_EMPTY and not torch.equal(
                         y[~keep].view(torch.int16),
                         ref[~keep].view(torch.int16)):
                     fail(f"{name}: an empty expert's output is not the "
@@ -911,13 +912,15 @@ REFERENCE_BYTES = {
     "DQ3_K_M": {"gguf": 25783579136, "soa": 26417660416},
     "Q3_K_M": {"gguf": 23930701312, "soa": 24691620352},
     "Q2_K_L": {"gguf": 18656924160, "soa": 18926240256},
-    "Q8_0": {"gguf": 52756695040, "soa": 52756695040}}
+    "Q8_0": {"gguf": 52756695040, "soa": 52756695040},
+    "Q4_K_M": {"gguf": 30230380544, "soa": 30867207168}}
 # the B1 forms each policy's DeepSeek path takes: (2-D formats, expert
 # formats); under every policy the output head is q6_k but for Q8_0
 DEEPSEEK_B1 = {"DQ3_K_M": (("q4_k", "q6_k"), ("q3_k", "q4_k", "q6_k")),
                "Q3_K_M": (("q3_k", "q4_k", "q5_k", "q6_k"), ("q3_k", "q4_k")),
                "Q2_K_L": (("q2_k", "q3_k", "q6_k"), ("q2_k", "q3_k")),
-               "Q8_0": (("q8_0",), ("q8_0",))}
+               "Q8_0": (("q8_0",), ("q8_0",)),
+               "Q4_K_M": (("q4_k", "q6_k"), ("q4_k", "q6_k"))}
 
 
 def b1_path(policy: str) -> tuple:
@@ -958,7 +961,7 @@ def phase_serve(torch, summary: dict) -> None:
         profiled=("q8_0", None, "dq"))
     # the paper's other policies, q8_0 pools (the pool kinds are covered
     # above); each policy's weights are freed before the next is made
-    for policy in ("Q3_K_M", "Q2_K_L", "Q8_0"):
+    for policy in ("Q4_K_M", "Q3_K_M", "Q2_K_L", "Q8_0"):
         serve_model(torch, deepseek, policy, counters, totals,
                     {"q8_0": b1_path(policy) + mla_q8}, profiled=("q8_0",))
     for name in counters:

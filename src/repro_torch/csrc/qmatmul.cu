@@ -9,8 +9,8 @@
 // (DQ3_K_M, Q4_K_M, Q3_K_M, Q2_K_L, UD_Q2_K_XL, Q8_0).  The reference sends
 // expert weights to XLA (repro/kernels/ops.py:39-50, dequantize then
 // einsum); here they run in one launch for all experts: through the same
-// kernel, with the expert index folded into gridDim.z, for q4_k, q6_k, q5_k
-// and q8_0, and through qmatmul_experts_kernel (below) for q3_k and q2_k.
+// kernel, with the expert index folded into gridDim.z, for q6_k and q5_k,
+// and through qmatmul_experts_kernel (below) for q4_k, q3_k, q2_k and q8_0.
 //
 // What bounds it on an H100: at decode (M = 1..8 rows) it streams the packed
 // weights once and does ~2*M flops per weight, so it is memory-bound (one
@@ -37,41 +37,49 @@
 // same f32 values as the plain version's (q6_k: (q-32) * (sc*d); q3_k:
 // (q-4) * (sc*d); q5_k and q2_k: q * (sc*d) - (m*dmin), product rounded
 // before the subtraction as the plain version does; q8_0: q * d); q4_k's
-// q * (sc*d) - (m*dmin) may be contracted into one FMA by the compiler.
-// Expert weights are never split over K: E column-tile rows already give
-// thousands of blocks.
+// q * (sc*d) - (m*dmin) may be contracted into one FMA by the compiler,
+// which gives the same value, since q * (sc*d) is exact.  Expert weights
+// are never split over K: E column-tile rows already give thousands of
+// blocks.  The expert kernel below holds at C = 1 a sum, not each weight,
+// to the plain version's values (see there).
 //
-// The expert form of q3_k and q2_k (qmatmul_experts_kernel<T, ROWS, FMT,
-// V>): the largest device-time family of a DeepSeek-V3 decode step under
-// every 2-3-bit policy.  At decode C = 1 (4 lanes x top-8 over 256
-// experts), and qmatmul_kernel there was bound by instructions, not bytes:
-// a 4-row tile (4 FMAs a weight for 1 live row), one int-to-float
-// conversion a weight (a quarter-rate pipe), x staged again per superblock
-// behind two barriers, and every expert's weights read, used or not.  The
-// redesign:
+// The expert form of q4_k, q3_k, q2_k and q8_0 (qmatmul_experts_kernel<T,
+// ROWS, FMT, V>): the largest device-time family of a DeepSeek-V3 decode
+// step under every policy but DQ3_K_M (whose q6_k experts come next).  At
+// decode C = 1 (4 lanes x top-8 over 256 experts), and qmatmul_kernel there
+// was bound by instructions, not bytes: a 4-row tile (4 FMAs a weight for 1
+// live row), one int-to-float conversion a weight (a quarter-rate pipe), x
+// staged again per superblock behind two barriers, and every expert's
+// weights read, used or not.  The redesign:
 //  - the row tile follows C: one row at C = 1 (ROWS = 1), else 20 rows
 //    (the capacity of a 4 x 128-token prefill chunk);
 //  - codes become floats in one byte permute each, no int-to-float: q3_k
-//    as 2^23 + (code << shift) and one exact FADD; q2_k at C = 1 as 0.5 +
-//    code/16, with no FADD at all.  At C = 1 each 16-element sub-block's
-//    scale is factored out of its sum (q3_k: y += d * sum_sub sc * sum x
-//    (q - 4); q2_k: y += d * sum_sub sc * sum x q - dmin * sum_sub m * sum
-//    x, the sums of x per sub-block taken once per block), so a weight
-//    costs one FMA, one permute and (q3_k) one FADD, plus ~0.7 (q3_k) or
-//    ~0.45 (q2_k) integer ops of code assembly.  These sums are f32 in
-//    another order than the plain version's, not its dequantized weights
-//    (held to the same tolerances).  At C > 1 each weight is dequantized
-//    once to the plain version's f32 value, then one FMA per row;
+//    as 2^23 + (code << shift) and one exact FADD, q8_0 as 2^23 + (q +
+//    128) (one XOR a word of four codes) and one exact FADD; at C = 1
+//    q2_k as 0.5 + code/16 and q4_k as 0.5 + q/32 (the nibble in bits 3-6
+//    of its byte), with no FADD at all.  At C = 1 each sub-block's scale
+//    is factored out of its sum (q3_k: y += d * sum_sub sc * sum x (q -
+//    4); q2_k (16 elements) and q4_k (32): y += d * sum_sub sc * sum x q -
+//    dmin * sum_sub m * sum x, the sums of x per sub-block taken once per
+//    block; q8_0: y += sum_blk d * sum x q), so a weight costs one FMA,
+//    one permute and (q3_k, q8_0) one FADD, plus ~0.7 (q3_k), ~0.45
+//    (q2_k), 0.5 (q4_k) or 0.25 (q8_0) integer ops of code assembly.
+//    These sums are f32 in another order than the plain version's, not
+//    its dequantized weights (held to the same tolerances).  At C > 1
+//    each weight is dequantized once to the plain version's f32 value,
+//    then one FMA per row;
 //  - x is staged as f32 once for the whole K at C = 1 (28 KB at K = 7168,
-//    one barrier), per superblock at C > 1, ordered so that one 16-byte
-//    shared load gives a byte row's four bit-pairs;
-//  - the weight fields come into shared memory through a ring of
-//    superblock tiles (2 at C = 1, 3 at C > 1) filled by cp.async, 16
-//    bytes a copy (V = 4 when N is not a multiple of 16), whose addresses
-//    a thread sets once per block; one barrier per superblock at C = 1;
+//    one barrier), per stage at C > 1, ordered so that one 16-byte shared
+//    load gives a byte row's four bit-pairs (q3_k, q2_k), two byte rows'
+//    nibbles (q4_k) or four rows (q8_0);
+//  - the weight fields come into shared memory through a ring of stages
+//    (2 at C = 1, 3 at C > 1; a stage is a superblock, or 4 q8_0 blocks
+//    of 32 rows) filled by cp.async, 16 bytes a copy (V = 4 when N is not
+//    a multiple of 16), whose addresses a thread sets once per block; one
+//    barrier per stage at C = 1;
 //  - a block whose rows of x are all zero (an expert no token was routed
 //    to) reads no weight byte and writes +0, the plain version's result.
-// So at C = 1 it is bound by the weight bytes and by the issue of ~3.5-4.3
+// So at C = 1 it is bound by the weight bytes and by the issue of ~2.7-4.3
 // instructions a weight, which take about the same time on an H100; at C
 // = 20 by the f32 FMAs.  The warps' partial sums are added in a fixed
 // order, with no atomics.
@@ -412,21 +420,55 @@ __device__ __forceinline__ void q8_0_tile(
   }
 }
 
-// Formats: 0 q4_k, 1 q6_k, 2 q3_k, 3 q5_k, 4 q2_k, 5 q8_0.  Their fields
-// in the order the C entry point takes them, and each field's bytes per
-// output column per block of the format (256 rows; q8_0: 32), which place
-// expert e's slab of the field.
-constexpr int NFMT = 6;
+// Formats: 0 q4_k, 1 q6_k, 2 q3_k, 3 q5_k, 4 q2_k, 5 q8_0.  Their fields,
+// in the order the C entry point takes them, each as its byte rows per 256
+// rows of K (a row holds one element per output column) and the bytes of
+// one element; {0, 0} past a format's last field.  The field count, the
+// bytes that place an expert's slab and a stage's rows all derive from it.
 constexpr int MAXF = 6;
 constexpr int Q8_0 = 5;
-constexpr int kNumFields[NFMT] = {5, 4, 4, 6, 4, 2};
-__constant__ int kFieldBytes[NFMT][MAXF] = {
-    {128, 8, 8, 2, 2, 0},     // q4_k: qs, scales, mins, d, dmin
-    {128, 64, 16, 2, 0, 0},   // q6_k: ql, qh, scales, d
-    {64, 32, 16, 2, 0, 0},    // q3_k: qs, hmask, scales, d
-    {128, 32, 8, 8, 2, 2},    // q5_k: qs, qh, scales, mins, d, dmin
-    {64, 16, 2, 2, 0, 0},     // q2_k: qs, sm, d, dmin
-    {32, 2, 0, 0, 0, 0}};     // q8_0: qs, d
+struct FieldLayout {
+  int rows, esz;
+};
+// field g of a list, {0, 0} past its end (a chain of selects: no array
+// for device code to keep in memory)
+__host__ __device__ constexpr FieldLayout pick(
+    int g, FieldLayout f0, FieldLayout f1, FieldLayout f2 = {},
+    FieldLayout f3 = {}, FieldLayout f4 = {}, FieldLayout f5 = {}) {
+  return g == 0   ? f0
+         : g == 1 ? f1
+         : g == 2 ? f2
+         : g == 3 ? f3
+         : g == 4 ? f4
+         : g == 5 ? f5
+                  : FieldLayout{};
+}
+__host__ __device__ constexpr FieldLayout field_layout(int fmt, int g) {
+  // q4_k: qs, scales, mins, d, dmin
+  return fmt == 0 ? pick(g, {128, 1}, {8, 1}, {8, 1}, {1, 2}, {1, 2})
+         // q6_k: ql, qh, scales, d
+         : fmt == 1 ? pick(g, {128, 1}, {64, 1}, {16, 1}, {1, 2})
+         // q3_k: qs, hmask, scales, d
+         : fmt == 2 ? pick(g, {64, 1}, {32, 1}, {16, 1}, {1, 2})
+         // q5_k: qs, qh, scales, mins, d, dmin
+         : fmt == 3 ? pick(g, {128, 1}, {32, 1}, {8, 1}, {8, 1}, {1, 2},
+                           {1, 2})
+         // q2_k: qs, sm, d, dmin
+         : fmt == 4 ? pick(g, {64, 1}, {16, 1}, {1, 2}, {1, 2})
+         // q8_0: qs, d (8 blocks of 32 rows)
+                    : pick(g, {256, 1}, {8, 2});
+}
+__host__ __device__ constexpr int num_fields(int fmt) {
+  int n = 0;
+  while (n < MAXF && field_layout(fmt, n).rows > 0) ++n;
+  return n;
+}
+// field g's bytes per output column per block of the format (256 rows;
+// q8_0: 32), which place expert e's slab of the field
+__host__ __device__ constexpr int field_bytes(int fmt, int g) {
+  return field_layout(fmt, g).rows * field_layout(fmt, g).esz /
+         (fmt == Q8_0 ? QK / 32 : 1);
+}
 
 struct Fields {
   const uint8_t* p[MAXF];
@@ -461,7 +503,7 @@ __global__ void __launch_bounds__(NTHREADS)
     x += e * M * K;
     out += e * M * N;
 #pragma unroll
-    for (int i = 0; i < MAXF; ++i) f.p[i] += e * sn * kFieldBytes[FMT][i];
+    for (int i = 0; i < MAXF; ++i) f.p[i] += e * sn * field_bytes(FMT, i);
   }
   const int s_begin = (int)((long long)tiles * split / splits);
   const int s_end = (int)((long long)tiles * (split + 1) / splits);
@@ -543,46 +585,64 @@ __global__ void splitk_reduce(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
-// The expert form for q3_k and q2_k: qmatmul_experts_kernel (see the
-// header).  A block owns 128 columns of one expert and one row tile (1 row,
-// or XROWS rows when C > 1).  Thread tid owns columns 4 * (tid % 32) .. + 3;
-// warp w takes qs byte rows 16w .. 16w + 15 of every superblock, whose
-// bit-pairs p are elements 16w + j + 64p, sub-blocks w + 4p (q3_k: hmask
-// rows 16 (w & 1) + j, bit 2p + (w >> 1)).  x is kept in shared memory as
-// f32 in the order (superblock, 16w + j, p[, row]), so one 16-byte load
-// gives the four bit-pairs' elements of a byte row.
+// The expert form for q4_k, q3_k, q2_k and q8_0: qmatmul_experts_kernel (see
+// the header).  A block owns 128 columns of one expert and one row tile (1
+// row, or XROWS rows when C > 1), and walks K one stage at a time: a
+// superblock (256 rows), or for q8_0 Q8_STAGE_BLOCKS blocks of 32 rows.
+// Thread tid owns columns 4 * (tid % 32) .. + 3; how the four warps split a
+// stage, and the order in which x is kept in shared memory (as f32, so that
+// one 16-byte load gives the elements a warp needs next), is each format's
+// own (xperm, and the stage functions below).
 // ---------------------------------------------------------------------------
 
 // the formats whose expert form is qmatmul_experts_kernel
-constexpr bool own_expert_kernel(int fmt) { return fmt == 2 || fmt == 4; }
+constexpr bool own_expert_kernel(int fmt) {
+  return fmt == 0 || fmt == 2 || fmt == 4 || fmt == Q8_0;
+}
 
-// superblock tiles in the ring: at C = 1 two (one in flight while one is
-// consumed; four blocks of q2_k then fit an SM, three of q3_k, so 40-45 KB
-// of weights are in flight per SM), at C > 1 three
+// stages in the ring: at C = 1 two (one in flight while one is
+// consumed; four blocks of q2_k then fit an SM, three of q3_k, q4_k and
+// q8_0, so 40-55 KB of weights are in flight per SM), at C > 1 three
 template <int ROWS>
 __host__ __device__ constexpr int xstages() {
   return ROWS == 1 ? 2 : 3;
 }
 constexpr int XROWS = 20;              // row tile when C > 1 (20 at prefill)
 constexpr int XWHOLE_MAX = 64 * 1024;  // bytes of x a C = 1 block keeps
+// q8_0 blocks a stage: 4 (128 rows, 17 KB with their d) rather than a
+// superblock's 8, so that at C = 1 three blocks share an SM (two 34 KB
+// stages and 28 KB of x would let only two): more warps to hide the
+// shared-memory and FMA latencies, and as many bytes in flight.
+constexpr int Q8_STAGE_BLOCKS = 4;
 
-// a field's byte rows per superblock and its element bytes; fields in the
-// C entry point's order (q3_k: qs, hmask, scales, d; q2_k: qs, sm, d, dmin)
+// format blocks a stage, and rows of K a stage
+__host__ __device__ constexpr int stage_blocks(int fmt) {
+  return fmt == Q8_0 ? Q8_STAGE_BLOCKS : 1;
+}
+__host__ __device__ constexpr int stage_k(int fmt) {
+  return fmt == Q8_0 ? 32 * Q8_STAGE_BLOCKS : QK;
+}
+// field g's byte rows per stage, and their element bytes (field_layout)
 __host__ __device__ constexpr int xf_rows(int fmt, int g) {
-  return fmt == 2 ? (g == 0 ? 64 : g == 1 ? 32 : g == 2 ? 16 : 1)
-                  : (g == 0 ? 64 : g == 1 ? 16 : 1);
+  return field_layout(fmt, g).rows * stage_k(fmt) / QK;
 }
 __host__ __device__ constexpr int xf_esz(int fmt, int g) {
-  return fmt == 2 ? (g == 3 ? 2 : 1) : (g >= 2 ? 2 : 1);
+  return field_layout(fmt, g).esz;
 }
-// where field g of a stage (one superblock of 128 columns) starts
+// where field g of a stage (128 columns) starts (a loop rather than
+// recursion, which nvcc did not fold at every call site)
 __host__ __device__ constexpr int xf_off(int fmt, int g) {
-  return g == 0 ? 0
-                : xf_off(fmt, g - 1) +
-                      xf_rows(fmt, g - 1) * COLS * xf_esz(fmt, g - 1);
+  int off = 0;
+  for (int i = 0; i < g; ++i) off += xf_rows(fmt, i) * COLS * xf_esz(fmt, i);
+  return off;
 }
 __host__ __device__ constexpr int stage_bytes(int fmt) {
-  return xf_off(fmt, 4);
+  return xf_off(fmt, num_fields(fmt));
+}
+// sums of x a C = 1 block keeps per stage: one per sub-block whose min is
+// factored out (q2_k 16 of 16 elements, q4_k 8 of 32)
+__host__ __device__ constexpr int xsums(int fmt) {
+  return fmt == 4 ? 16 : fmt == 0 ? 8 : 0;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -607,41 +667,52 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
-// A thread's share of the copies of one superblock of the block's 128
-// columns, V bytes a copy (16 when N is a multiple of 16, else 4): in field
-// g its chunks are ``step`` rows apart, at the same column in every row, so
-// their addresses are set once per block and advanced by a superblock
-// after each stage.  A chunk past N is not copied.
+// A thread's share of the copies of one stage of the block's 128 columns,
+// V bytes a copy (16 when N is a multiple of 16, else 4): in field g its
+// chunks are ``step`` rows apart, at the same column in every row, so
+// their addresses are set once per block and advanced by a stage after
+// each one.  A chunk past N is not copied, nor (q8_0) a block past the
+// expert's last: its slab holds ceil(K / 32) blocks, not a whole number of
+// stages.
 template <int FMT, int V>
 struct StageCopies {
-  const uint8_t* src[4];
-  uint32_t dst[4];
-  bool on[4];
+  static constexpr int NF = num_fields(FMT);
+  const uint8_t* src[NF];
+  uint32_t dst[NF];
+  int row[NF];
+  bool on[NF];
 
-  __device__ __forceinline__ StageCopies(const Fields& f, size_t es0, int N,
+  // blk0: the expert's first format block along K (e * blocks an expert)
+  __device__ __forceinline__ StageCopies(const Fields& f, size_t blk0, int N,
                                          int n0, const uint8_t* ring,
                                          int tid) {
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
+    for (int g = 0; g < NF; ++g) {
       const int R = xf_rows(FMT, g), ES = xf_esz(FMT, g);
+      const int RB = R / stage_blocks(FMT);  // byte rows a format block
       const int cpr = COLS * ES / V;  // chunks a row: divides NTHREADS
       const int r0 = tid / cpr, b = (tid % cpr) * V;
+      row[g] = r0;
       on[g] = r0 < R && n0 + b / ES < N;
-      src[g] = f.p[g] + ((es0 * R + r0) * N + n0) * ES + b;
+      src[g] = f.p[g] + ((blk0 * RB + r0) * N + n0) * ES + b;
       dst[g] = smem_addr(ring) + xf_off(FMT, g) + r0 * COLS * ES + b;
     }
   }
-  // start the copies of the next superblock into ring slot ``slot``
-  __device__ __forceinline__ void issue(int slot, int N) {
+  // start the copies of the next stage, whose first ``nvalid`` format
+  // blocks exist, into ring slot ``slot``
+  __device__ __forceinline__ void issue(int slot, int N, int nvalid) {
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
+    for (int g = 0; g < NF; ++g) {
       const int R = xf_rows(FMT, g), ES = xf_esz(FMT, g);
+      const int RB = R / stage_blocks(FMT);
       const int step = NTHREADS / (COLS * ES / V);
       if (on[g]) {
 #pragma unroll
         for (int i = 0; i < (R + step - 1) / step; ++i)
-          cp_async<V>(dst[g] + slot * stage_bytes(FMT) + i * step * COLS * ES,
-                      src[g] + (size_t)i * step * N * ES);
+          if (stage_blocks(FMT) == 1 || row[g] + i * step < nvalid * RB)
+            cp_async<V>(
+                dst[g] + slot * stage_bytes(FMT) + i * step * COLS * ES,
+                src[g] + (size_t)i * step * N * ES);
       }
       src[g] += (size_t)R * N * ES;
     }
@@ -654,9 +725,10 @@ __device__ __forceinline__ float code_f32(uint32_t codes, int c) {
   return __int_as_float(__byte_perm(codes, 0x4B000000u, 0x7440u | c));
 }
 constexpr float kMagic = 8388608.f;  // 2^23
-// Byte c of ``codes``, a code in bits 4-5, under the exponent byte 0x3F:
-// the float 0.5 + code / 16, also one byte permute.
-__device__ __forceinline__ float code_sixteenth(uint32_t codes, int c) {
+// Byte c of ``codes`` (bit 7 clear) under the exponent byte 0x3F: the
+// float 0.5 + byte / 256, also one byte permute.  A q2_k code in bits 4-5
+// gives 0.5 + code / 16, a q4_k nibble in bits 3-6 0.5 + q / 32.
+__device__ __forceinline__ float code_half(uint32_t codes, int c) {
   return __int_as_float(__byte_perm(codes, 0x3F000000u, 0x7044u | (c << 8)));
 }
 
@@ -764,7 +836,7 @@ __device__ __forceinline__ void experts_superblock_c1(const uint8_t* stage,
       for (int p = 0; p < 4; ++p)
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          part[p][c] = fmaf(xp[p], code_sixteenth(t[p], c), part[p][c]);
+          part[p][c] = fmaf(xp[p], code_half(t[p], c), part[p][c]);
     }
   }
   float a1[4] = {0.f, 0.f, 0.f, 0.f}, a2[4] = {0.f, 0.f, 0.f, 0.f};
@@ -801,6 +873,23 @@ __device__ __forceinline__ void experts_superblock_c1(const uint8_t* stage,
     for (int c = 0; c < 4; ++c) {
       acc[c] = fmaf(16.f * dd[c], a1[c], acc[c]);
       acc[c] = fmaf(-dm[c], a2[c], acc[c]);
+    }
+  }
+}
+
+// C > 1: the XROWS rows of x at one element (``xk``, 16-byte aligned)
+// times four columns' weights
+__device__ __forceinline__ void fma_xrows(const float* xk, const float (&wv)[4],
+                                          float (&acc)[XROWS][4]) {
+#pragma unroll
+  for (int r4 = 0; r4 < XROWS / 4; ++r4) {
+    const float4 xv = *reinterpret_cast<const float4*>(xk + 4 * r4);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[4 * r4 + 0][c] = fmaf(xv.x, wv[c], acc[4 * r4 + 0][c]);
+      acc[4 * r4 + 1][c] = fmaf(xv.y, wv[c], acc[4 * r4 + 1][c]);
+      acc[4 * r4 + 2][c] = fmaf(xv.z, wv[c], acc[4 * r4 + 2][c]);
+      acc[4 * r4 + 3][c] = fmaf(xv.w, wv[c], acc[4 * r4 + 3][c]);
     }
   }
 }
@@ -844,18 +933,7 @@ __device__ __forceinline__ void experts_superblock_rows(
                                       ss[p].mul[c] * inv),
                             ss[p].min[c]);
       }
-      const float* xk = xt + (64 * w + 4 * j + p) * XROWS;
-#pragma unroll
-      for (int r4 = 0; r4 < XROWS / 4; ++r4) {
-        const float4 xv = *reinterpret_cast<const float4*>(xk + 4 * r4);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          acc[4 * r4 + 0][c] = fmaf(xv.x, wv[c], acc[4 * r4 + 0][c]);
-          acc[4 * r4 + 1][c] = fmaf(xv.y, wv[c], acc[4 * r4 + 1][c]);
-          acc[4 * r4 + 2][c] = fmaf(xv.z, wv[c], acc[4 * r4 + 2][c]);
-          acc[4 * r4 + 3][c] = fmaf(xv.w, wv[c], acc[4 * r4 + 3][c]);
-        }
-      }
+      fma_xrows(xt + (64 * w + 4 * j + p) * XROWS, wv, acc);
     }
   }
 }
@@ -878,21 +956,186 @@ __device__ __forceinline__ void load_x(const T* row, int k0, int K, bool vec,
   }
 }
 
-// where element k of a superblock sits in shared memory: (16w + j, p) for
-// k = 16w + j + 64p
+// where element k of a stage sits in shared memory: q3_k, q2_k (16w + j,
+// p) for k = 16w + j + 64p (a byte row's four bit-pairs); q4_k (j, h) for
+// k = j + 128h (a byte row's two nibbles); q8_0 in order
+template <int FMT>
 __device__ __forceinline__ int xperm(int k) {
-  return ((k & 63) << 2) + (k >> 6);
+  if constexpr (FMT == 0)
+    return ((k & 127) << 1) + (k >> 7);
+  else if constexpr (FMT == Q8_0)
+    return k;
+  else
+    return ((k & 63) << 2) + (k >> 6);
 }
 
-// Dynamic shared memory: the ring of weight tiles, then x (ROWS = 1:
-// all S superblocks, and for q2_k their S * 16 sub-block sums; else one
-// superblock's (256, XROWS) tile).  The ring holds the warps' partial sums
-// at the end.
+// q4_k, C = 1.  Warp w takes qs byte rows 32w .. 32w + 31: their low
+// nibbles are elements 32w + j (sub-block w), their high ones 128 + 32w +
+// j (sub-block 4 + w), and one 16-byte load of x gives two byte rows' four
+// elements.  A nibble moved to bits 3-6 of its byte becomes 0.5 + q/32 in
+// one byte permute (two integer ops a word place the four low or high
+// nibbles), so a weight costs one permute and one FMA, plus 0.5 integer
+// ops.  Per sub-block and column: sum x q = 32 (part - xsum / 2), and y +=
+// 32 d sum_sub sc (part - xsum / 2) - dmin sum_sub m xsum, with the sums
+// of x per sub-block (``xsum_s``) taken once per block.
+__device__ __forceinline__ void q4k_stage_c1(const uint8_t* stage,
+                                             const float* xsb,
+                                             const float* xsum_s, int w,
+                                             int l, float (&acc)[4]) {
+  const uint8_t* qrow = stage + 32 * w * COLS + 4 * l;
+  const float* xr = xsb + 64 * w;
+  float plo[4] = {0.f, 0.f, 0.f, 0.f}, phi[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int j = 0; j < 32; j += 2) {
+    const float4 xv = *reinterpret_cast<const float4*>(xr + 2 * j);
+    const uint32_t q0 = *reinterpret_cast<const uint32_t*>(qrow + j * COLS);
+    const uint32_t q1 =
+        *reinterpret_cast<const uint32_t*>(qrow + (j + 1) * COLS);
+    const uint32_t lo0 = (q0 << 3) & 0x78787878u, hi0 = (q0 >> 1) & 0x78787878u;
+    const uint32_t lo1 = (q1 << 3) & 0x78787878u, hi1 = (q1 >> 1) & 0x78787878u;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      plo[c] = fmaf(xv.x, code_half(lo0, c), plo[c]);
+      phi[c] = fmaf(xv.y, code_half(hi0, c), phi[c]);
+      plo[c] = fmaf(xv.z, code_half(lo1, c), plo[c]);
+      phi[c] = fmaf(xv.w, code_half(hi1, c), phi[c]);
+    }
+  }
+  const uint8_t* sc = stage + xf_off(0, 1) + 4 * l;
+  const uint8_t* mn = stage + xf_off(0, 2) + 4 * l;
+  const uint32_t sl = *reinterpret_cast<const uint32_t*>(sc + w * COLS);
+  const uint32_t sh = *reinterpret_cast<const uint32_t*>(sc + (4 + w) * COLS);
+  const uint32_t ml = *reinterpret_cast<const uint32_t*>(mn + w * COLS);
+  const uint32_t mh = *reinterpret_cast<const uint32_t*>(mn + (4 + w) * COLS);
+  const float xl = xsum_s[w], xh = xsum_s[4 + w];
+  float dd[4], dm[4];
+  load4_half(as_half(stage + xf_off(0, 3)) + 4 * l, dd);
+  load4_half(as_half(stage + xf_off(0, 4)) + 4 * l, dm);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float a1 = fmaf((float)byte_of(sl, c), plo[c] - 0.5f * xl,
+                          (float)byte_of(sh, c) * (phi[c] - 0.5f * xh));
+    const float a2 =
+        fmaf((float)byte_of(ml, c), xl, (float)byte_of(mh, c) * xh);
+    acc[c] = fmaf(32.f * dd[c], a1, acc[c]);
+    acc[c] = fmaf(-dm[c], a2, acc[c]);
+  }
+}
+
+// q4_k, C > 1: the same split; each weight dequantized once to the plain
+// version's q * (sc * d) - m * dmin: q * (sc * d) is exact (4 x 17
+// significant bits), so one FMA rounds as the plain version's product and
+// subtraction do.  The high nibble is taken as 16 q, times the scale over
+// 16.  Then one FMA per row; x is the stage's (256, XROWS) tile.  Two byte
+// rows an iteration: on an H100 SXM at C = 20, 5.0-5.2 ms a launch, against
+// 5.4-5.6 with one row an iteration and 5.6 with the two nibbles'
+// sub-blocks in turn.
+__device__ __forceinline__ void q4k_stage_rows(const uint8_t* stage,
+                                               const float* xt, int w, int l,
+                                               float (&acc)[XROWS][4]) {
+  const uint8_t* qrow = stage + 32 * w * COLS + 4 * l;
+  float dd[4], dm[4], es[2][4], nem[2][4];
+  load4_half(as_half(stage + xf_off(0, 3)) + 4 * l, dd);
+  load4_half(as_half(stage + xf_off(0, 4)) + 4 * l, dm);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t sc = *reinterpret_cast<const uint32_t*>(
+        stage + xf_off(0, 1) + (w + 4 * h) * COLS + 4 * l);
+    const uint32_t mn = *reinterpret_cast<const uint32_t*>(
+        stage + xf_off(0, 2) + (w + 4 * h) * COLS + 4 * l);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      es[h][c] =
+          __fmul_rn(dd[c], (float)byte_of(sc, c)) * (h ? 1.f / 16.f : 1.f);
+      nem[h][c] = -__fmul_rn(dm[c], (float)byte_of(mn, c));
+    }
+  }
+#pragma unroll 2
+  for (int j = 0; j < 32; ++j) {
+    const uint32_t q = *reinterpret_cast<const uint32_t*>(qrow + j * COLS);
+    const uint32_t t[2] = {q & 0x0F0F0F0Fu, q & 0xF0F0F0F0u};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float wv[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        wv[c] = fmaf(code_f32(t[h], c) - kMagic, es[h][c], nem[h][c]);
+      fma_xrows(xt + (2 * (32 * w + j) + h) * XROWS, wv, acc);
+    }
+  }
+}
+
+// q8_0: warp w takes the stage's blocks w, w + 4, .. (32 rows each) that
+// exist (``nvalid`` of them).  A code becomes a float in one XOR (0x80 per
+// byte, four codes a word: q + 128), one byte permute (2^23 + q + 128)
+// and one exact FADD of -(2^23 + 128).  C = 1: d is factored out of each
+// block's sum, acc += d * sum x q, so a weight costs ~3.3 instructions.
+__device__ __forceinline__ void q80_stage_c1(const uint8_t* stage,
+                                             const float* xsb, int nvalid,
+                                             int w, int l, float (&acc)[4]) {
+  for (int b = w; b < Q8_STAGE_BLOCKS; b += TY) {
+    if (b >= nvalid) break;
+    const uint8_t* qrow = stage + 32 * b * COLS + 4 * l;
+    const float* xr = xsb + 32 * b;
+    float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 4
+    for (int j = 0; j < 32; j += 4) {
+      const float4 xv = *reinterpret_cast<const float4*>(xr + j);
+      const float xp[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t u =
+            *reinterpret_cast<const uint32_t*>(qrow + (j + i) * COLS) ^
+            0x80808080u;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          part[i & 1][c] = fmaf(xp[i], code_f32(u, c) - (kMagic + 128.f),
+                                part[i & 1][c]);
+      }
+    }
+    float dd[4];
+    load4_half(as_half(stage + xf_off(Q8_0, 1)) + b * COLS + 4 * l, dd);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      acc[c] = fmaf(dd[c], part[0][c] + part[1][c], acc[c]);
+  }
+}
+
+// q8_0, C > 1: each weight dequantized once to the plain version's q * d,
+// then one FMA per row, four rows an iteration (on an H100 SXM at C = 20,
+// 5.0-5.1 ms a launch, against 5.2-5.3 with one).  x is the stage's (128,
+// XROWS) tile.
+__device__ __forceinline__ void q80_stage_rows(const uint8_t* stage,
+                                               const float* xt, int nvalid,
+                                               int w, int l,
+                                               float (&acc)[XROWS][4]) {
+  for (int b = w; b < Q8_STAGE_BLOCKS; b += TY) {
+    if (b >= nvalid) break;
+    const uint8_t* qrow = stage + 32 * b * COLS + 4 * l;
+    float dd[4];
+    load4_half(as_half(stage + xf_off(Q8_0, 1)) + b * COLS + 4 * l, dd);
+#pragma unroll 4
+    for (int j = 0; j < 32; ++j) {
+      const uint32_t u =
+          *reinterpret_cast<const uint32_t*>(qrow + j * COLS) ^ 0x80808080u;
+      float wv[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        wv[c] = __fmul_rn(code_f32(u, c) - (kMagic + 128.f), dd[c]);
+      fma_xrows(xt + (32 * b + j) * XROWS, wv, acc);
+    }
+  }
+}
+
+// Dynamic shared memory: the ring of weight tiles, then x (ROWS = 1: all S
+// stages, and for q2_k and q4_k their sub-block sums; else one stage's
+// (stage_k, XROWS) tile).  The ring holds the warps' partial sums at the
+// end.
 template <int ROWS, int FMT>
 __host__ __device__ constexpr size_t experts_smem(int S) {
   return (size_t)xstages<ROWS>() * stage_bytes(FMT) +
-         (ROWS == 1 ? (size_t)S * QK * 4 + (FMT == 4 ? (size_t)S * 64 : 0)
-                    : (size_t)QK * XROWS * 4);
+         (ROWS == 1 ? (size_t)S * (stage_k(FMT) + xsums(FMT)) * 4
+                    : (size_t)stage_k(FMT) * XROWS * 4);
 }
 
 template <typename T, int ROWS, int FMT, int V>
@@ -902,6 +1145,8 @@ __global__ void __launch_bounds__(NTHREADS)
                            int row_tiles) {
   constexpr int STAGE = stage_bytes(FMT);
   constexpr int NST = xstages<ROWS>();
+  constexpr int SK = stage_k(FMT);       // rows of K a stage
+  constexpr int SB = stage_blocks(FMT);  // format blocks a stage
   static_assert((TY - 1) * ROWS * COLS * 4 <= NST * STAGE,
                 "the warps' partial sums must fit in the ring");
   extern __shared__ __align__(16) uint8_t smem_x[];
@@ -913,7 +1158,8 @@ __global__ void __launch_bounds__(NTHREADS)
   const int e = blockIdx.y / row_tiles;
   const int m0 = (blockIdx.y % row_tiles) * ROWS;
   const int rows = min(ROWS, M - m0);
-  const int S = (K + QK - 1) / QK;
+  const int S = (K + SK - 1) / SK;                    // stages
+  const int nblk = (K + SK / SB - 1) / (SK / SB);     // format blocks
   const T* xe = x + ((size_t)e * M + m0) * K;
   T* oe = out + ((size_t)e * M + m0) * N;
 
@@ -921,7 +1167,7 @@ __global__ void __launch_bounds__(NTHREADS)
   // is non-zero: an expert no token was routed to reads no weight byte and
   // writes +0, as the plain version does.
   constexpr int XV = 16 / sizeof(T);   // elements of x a load
-  constexpr int KV = QK / XV;          // loads a superblock row
+  constexpr int KV = SK / XV;          // loads a stage row
   const bool vec =
       K % XV == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   bool live = false;
@@ -931,20 +1177,20 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int g = tid; g < S * KV; g += NTHREADS) {
       float v[XV];
       load_x<T>(xe, g * XV, K, vec, v);
-      const int base = (g / KV) * QK, kb = (g % KV) * XV;
+      const int base = (g / KV) * SK, kb = (g % KV) * XV;
 #pragma unroll
       for (int i = 0; i < XV; ++i) {
         nz |= v[i] != 0.f;
         // q3_k: bit-pair p's elements divided by 2^q3_shift(p) (exact)
         const int p = (kb + i) >> 6;
-        xs[base + xperm(kb + i)] =
+        xs[base + xperm<FMT>(kb + i)] =
             FMT == 2 ? v[i] * (1.f / (float)(1 << q3_shift(p))) : v[i];
       }
     }
     live = __syncthreads_or(nz);
   } else {
-    // the first non-zero settles it: a live tile reads one superblock's rows
-    for (int k0 = 0; k0 < K && !live; k0 += QK) {
+    // the first non-zero settles it: a live tile reads one stage's rows
+    for (int k0 = 0; k0 < K && !live; k0 += SK) {
       bool nz = false;
       for (int g = tid; g < rows * KV; g += NTHREADS) {
         float v[XV];
@@ -962,21 +1208,23 @@ __global__ void __launch_bounds__(NTHREADS)
     }
     return;
   }
-  float* xsum = xs + S * QK;
-  if constexpr (ROWS == 1 && FMT == 4) {
-    // sub-block i = w' + 4p of a superblock: elements 64 w' + 4 j + p
-    for (int i = tid; i < S * 16; i += NTHREADS) {
-      const float* src = xs + (i >> 4) * QK + 64 * (i & 3) + ((i & 15) >> 2);
+  float* xsum = xs + S * SK;
+  if constexpr (ROWS == 1 && xsums(FMT) > 0) {
+    // the sum of x over each sub-block (elements sub * NS .. + NS - 1)
+    constexpr int NSUB = xsums(FMT), NS = QK / NSUB;
+    for (int i = tid; i < S * NSUB; i += NTHREADS) {
+      const float* src = xs + (i / NSUB) * QK;
+      const int k0 = (i % NSUB) * NS;
       float v = 0.f;
-      for (int j = 0; j < 16; ++j) v += src[4 * j];
+      for (int j = 0; j < NS; ++j) v += src[xperm<FMT>(k0 + j)];
       xsum[i] = v;
     }
   }
 
-  StageCopies<FMT, V> copies(f, (size_t)e * S, N, n0, ring, tid);
+  StageCopies<FMT, V> copies(f, (size_t)e * nblk, N, n0, ring, tid);
 #pragma unroll
   for (int st = 0; st < NST - 1; ++st) {
-    if (st < S) copies.issue(st, N);
+    if (st < S) copies.issue(st, N, min(SB, nblk - st * SB));
     cp_async_commit();
   }
   float acc[ROWS][4];
@@ -985,38 +1233,51 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
 
-  // ring slots of superblocks s and s + NST - 1
+  // ring slots of stages s and s + NST - 1
   int slot = 0, fill = NST - 1;
   for (int s = 0; s < S; ++s) {
     const uint8_t* stage = ring + slot * STAGE;
     if constexpr (ROWS == 1) {
-      cp_async_wait<NST - 2>();  // this thread's copies of superblock s
-      __syncthreads();  // everyone's; and superblock s - 1 is consumed
+      cp_async_wait<NST - 2>();  // this thread's copies of stage s
+      __syncthreads();  // everyone's; and stage s - 1 is consumed
     } else {
-      __syncthreads();  // superblock s - 1 and its x tile are consumed
+      __syncthreads();  // stage s - 1 and its x tile are consumed
     }
-    if (s + NST - 1 < S) copies.issue(fill, N);
+    if (s + NST - 1 < S)
+      copies.issue(fill, N, min(SB, nblk - (s + NST - 1) * SB));
     cp_async_commit();
+    const int nvalid = min(SB, nblk - s * SB);  // q8_0 blocks of stage s
     if constexpr (ROWS == 1) {
-      experts_superblock_c1<FMT>(stage, xs + s * QK, xsum + 16 * s, w, l,
-                                 acc[0]);
+      if constexpr (FMT == 0)
+        q4k_stage_c1(stage, xs + s * SK, xsum + 8 * s, w, l, acc[0]);
+      else if constexpr (FMT == Q8_0)
+        q80_stage_c1(stage, xs + s * SK, nvalid, w, l, acc[0]);
+      else
+        experts_superblock_c1<FMT>(stage, xs + s * QK, xsum + 16 * s, w, l,
+                                   acc[0]);
     } else {
 #pragma unroll 2
       for (int g = tid; g < ROWS * KV; g += NTHREADS) {
         const int r = g / KV, kb = (g % KV) * XV;
         float v[XV];
         if (r < rows) {
-          load_x<T>(xe + (size_t)r * K, s * QK + kb, K, vec, v);
+          load_x<T>(xe + (size_t)r * K, s * SK + kb, K, vec, v);
         } else {
 #pragma unroll
           for (int i = 0; i < XV; ++i) v[i] = 0.f;
         }
 #pragma unroll
-        for (int i = 0; i < XV; ++i) xs[xperm(kb + i) * ROWS + r] = v[i];
+        for (int i = 0; i < XV; ++i)
+          xs[xperm<FMT>(kb + i) * ROWS + r] = v[i];
       }
       cp_async_wait<NST - 1>();
       __syncthreads();
-      experts_superblock_rows<FMT>(stage, xs, w, l, acc);
+      if constexpr (FMT == 0)
+        q4k_stage_rows(stage, xs, w, l, acc);
+      else if constexpr (FMT == Q8_0)
+        q80_stage_rows(stage, xs, nvalid, w, l, acc);
+      else
+        experts_superblock_rows<FMT>(stage, xs, w, l, acc);
     }
     slot = slot == NST - 1 ? 0 : slot + 1;
     fill = fill == NST - 1 ? 0 : fill + 1;
@@ -1060,7 +1321,8 @@ cudaError_t launch_experts_rows(const void* x, const Fields& f, void* out,
                                 int E, int M, int K, int N,
                                 cudaStream_t stream) {
   auto kernel = qmatmul_experts_kernel<T, ROWS, FMT, V>;
-  const size_t smem = experts_smem<ROWS, FMT>((K + QK - 1) / QK);
+  const size_t smem =
+      experts_smem<ROWS, FMT>((K + stage_k(FMT) - 1) / stage_k(FMT));
   static size_t configured = 0;   // the largest size allowed so far
   if (smem > configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1085,7 +1347,8 @@ cudaError_t launch_experts_rows(const void* x, const Fields& f, void* out,
 template <typename T, int FMT>
 cudaError_t launch_experts(const void* x, const Fields& f, void* out, int E,
                            int M, int K, int N, cudaStream_t stream) {
-  const bool whole = M == 1 && (size_t)((K + QK - 1) / QK) * QK * 4 <=
+  constexpr int SK = stage_k(FMT);
+  const bool whole = M == 1 && (size_t)((K + SK - 1) / SK) * SK * 4 <=
                                    XWHOLE_MAX;
   if (N % 16 == 0)
     return whole ? launch_experts_rows<T, 1, FMT, 16>(x, f, out, E, M, K, N,
@@ -1149,10 +1412,11 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
 
 // fmt: 0 = q4_k, 1 = q6_k, 2 = q3_k, 3 = q5_k, 4 = q2_k, 5 = q8_0, and
 // must be the QMATMUL_FMT this library was built for; ``fields`` holds the
-// format's ``nfields`` field pointers in the order of kFieldBytes.  dtype of
-// x and out: 0 = float32, 1 = bfloat16.  E experts: x (E, M, K), fields
-// with a leading E, out (E, M, N); E = 1 for one weight.  q3_k and q2_k
-// experts (E > 1) go to qmatmul_experts_kernel, the rest to qmatmul_kernel.
+// format's ``nfields`` field pointers in the order of field_layout.  dtype
+// of x and out: 0 = float32, 1 = bfloat16.  E experts: x (E, M, K), fields
+// with a leading E, out (E, M, N); E = 1 for one weight.  q4_k, q3_k, q2_k
+// and q8_0 experts (E > 1) go to qmatmul_experts_kernel, the rest to
+// qmatmul_kernel.
 // N must be a multiple of 4; ``partial`` holds splits x M x N floats when
 // splits > 1 (E = 1 only; splits count 256-row tiles).  Returns
 // cudaGetLastError() after the launches.
@@ -1161,7 +1425,7 @@ extern "C" int qmatmul(int fmt, int dtype, const void* x,
                        void* out, int E, int M, int K, int N, int splits,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fmt != QMATMUL_FMT || nfields != kNumFields[fmt] || E < 1 ||
+  if (fmt != QMATMUL_FMT || nfields != num_fields(fmt) || E < 1 ||
       (E > 1 && splits != 1))
     return (int)cudaErrorInvalidValue;
   Fields f{};

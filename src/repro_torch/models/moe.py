@@ -9,10 +9,10 @@ tokens past an expert's capacity are dropped in stable-sort order (at
 decode the capacity is one slot per expert), and lanes that are not live
 still route their throwaway token, so they can take a live token's slot.
 An expert no token was routed to has an all-zero buffer, and SwiGLU keeps
-its down projection's input zero, so its outputs are zero; the q3_k and
-q2_k expert kernels read none of its weights (a decode step at 4 lanes
-reads at most 32 of 256 experts there), while the q4_k, q6_k, q5_k and
-q8_0 ones still multiply every expert, as the reference does.
+its down projection's input zero, so its outputs are zero; the q4_k, q3_k,
+q2_k and q8_0 expert kernels read none of its weights (a decode step at 4
+lanes reads at most 32 of 256 experts there), while the q6_k and q5_k ones
+still multiply every expert, as the reference does.
 """
 
 from __future__ import annotations

@@ -84,7 +84,7 @@ def test_qmatmul_q3_k_kernel_matches_plain(cuda, m, dtype):
 
 # the formats whose expert form is qmatmul_experts_kernel, which skips
 # experts whose rows of x are all zero
-SKIPS_EMPTY = ("q3_k", "q2_k")
+SKIPS_EMPTY = ("q3_k", "q2_k", "q4_k", "q8_0")
 
 
 @pytest.mark.parametrize("fmt", ["q3_k", "q4_k", "q6_k", "q5_k", "q2_k",
@@ -94,9 +94,10 @@ SKIPS_EMPTY = ("q3_k", "q2_k")
                          ids=["f32", "bf16"])
 def test_qmatmul_experts_kernel_matches_plain(cuda, fmt, c, dtype):
     """x (E, C, K) against (E, K, N) expert weights in one launch, K not a
-    multiple of the superblock (a ragged last q8_0 tile), one expert's
-    rows all zero; every expert reads its own fields (its own d and dmin
-    too), which E = 5 with distinct weights shows."""
+    multiple of the superblock (q8_0: 22 blocks, so an expert's slab is
+    not a whole number of 4-block stages), one expert's rows all zero;
+    every expert reads its own fields (its own d and dmin too), which E = 5
+    with distinct weights shows."""
     rng = np.random.default_rng(c * 5 + len(fmt))
     e, k, n = 5, 700, 136
     qt = quantize(torch.from_numpy(_np(rng, (e, k, n))).to(cuda), fmt)
@@ -109,8 +110,9 @@ def test_qmatmul_experts_kernel_matches_plain(cuda, fmt, c, dtype):
     y = kern(x, qt)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
-    # q3_k and q2_k run qmatmul_experts_kernel (here with 4-byte copies: N
-    # is not a multiple of 16), the others qmatmul_kernel
+    # q3_k, q2_k, q4_k and q8_0 run qmatmul_experts_kernel (here with
+    # 4-byte copies: N is not a multiple of 16), q6_k and q5_k
+    # qmatmul_kernel
     assert qmatmul.experts_kernel_launches(fmt) == own + (
         fmt in SKIPS_EMPTY)
     assert y.dtype == dtype and y.shape == (e, c, n)
@@ -124,16 +126,20 @@ def test_qmatmul_experts_kernel_matches_plain(cuda, fmt, c, dtype):
 @pytest.mark.parametrize("c", [1, 20])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("k,n", [(1024, 256), (512, 768)],
-                         ids=["k>n", "k<n"])
+@pytest.mark.parametrize("k,n", [(1024, 256), (512, 768), (544, 256)],
+                         ids=["k>n", "k<n", "ragged"])
 def test_qmatmul_experts_kernel_skips_empty_experts(cuda, fmt, c, dtype, k,
                                                     n):
     """E = 16 experts of which 3 are live (at C = 20 one of them has zero
     rows too), in both orientations of the DeepSeek expert weights (K > N:
-    gate/up; K < N: down): one launch of qmatmul_experts_kernel per call;
-    the empty experts' outputs are bitwise the plain version's +0, the zero
-    rows of a live expert exactly 0, and the live rows within the
-    tolerance."""
+    gate/up; K < N: down), and with K = 544, a multiple of 32 but not of
+    256 (q8_0: 17 blocks, four stages of 4 and a last one of 1, which the
+    16-byte copies of N = 256 meet): one launch of qmatmul_experts_kernel
+    per call; the empty experts' outputs are bitwise the plain version's
+    +0, the zero rows of a live expert exactly 0, and the live rows within
+    the tolerance.  Expert 11's x is zero outside elements 128..255, so a
+    test for empty tiles that looked at part of each stage would call it
+    empty."""
     rng = np.random.default_rng(c * 3 + k + len(fmt))
     e, live = 16, [2, 7, 11]
     qt = quantize(torch.from_numpy(_np(rng, (e, k, n))).to(cuda), fmt)
@@ -141,6 +147,8 @@ def test_qmatmul_experts_kernel_skips_empty_experts(cuda, fmt, c, dtype, k,
     x[live] = torch.from_numpy(_np(rng, (3, c, k))).to(cuda)
     if c == 20:
         x[7, 3:9] = 0.0
+    x[11, :, :128] = 0.0
+    x[11, :, 256:] = 0.0
     x = x.to(dtype)
     kern = qmatmul.EXPERT_KERNELS[fmt]
     before, own = kern.launches, qmatmul.experts_kernel_launches(fmt)
@@ -434,12 +442,12 @@ def test_paged_kernels_raise_on_what_they_do_not_take(cuda):
             scale=1.0, latent_mode="q4_0", rope_mode="q8_0")
 
 
-@pytest.mark.parametrize("policy", ["Q3_K_M", "Q2_K_L", "UD_Q2_K_XL",
-                                    "Q8_0"])
+@pytest.mark.parametrize("policy", ["Q4_K_M", "Q3_K_M", "Q2_K_L",
+                                    "UD_Q2_K_XL", "Q8_0"])
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-v3-671b"])
 def test_policy_model_on_card_matches_cpu(cuda, arch, policy):
-    """The paper's other policies (q5_k, q2_k and q8_0 weights through B1),
-    model-dtype pools, the same check as the DQ3_K_M cases."""
+    """The paper's other policies (q4_k, q6_k, q5_k, q2_k and q8_0 weights
+    through B1), model-dtype pools, the same check as the DQ3_K_M cases."""
     _model_on_card_matches_cpu(cuda, arch, None, policy)
 
 

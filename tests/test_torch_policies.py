@@ -9,10 +9,12 @@ batched path in ``test_torch_moe.py``):
     policy, on qwen2-1.5b (full and reduced) and deepseek-v3-671b (61
     layers and the 7-layer cut the card serves);
   * the seeded quantized init of deepseek-v3 reduced packs to the bytes of
-    the reference's size calculator under each of those policies;
-  * prefill + decode logits of deepseek-v3 reduced under Q2_K_L and Q3_K_M
-    and of qwen2-1.5b reduced under Q3_K_M and Q8_0, model-dtype pools,
-    within ``test_torch_model``'s tolerance (1e-4 of max|logit|);
+    the reference's size calculator under each of those policies and under
+    Q4_K_M, the paper's 4-bit baseline;
+  * prefill + decode logits of deepseek-v3 reduced under Q2_K_L, Q3_K_M,
+    Q4_K_M and Q8_0 and of qwen2-1.5b reduced under Q3_K_M and Q8_0,
+    model-dtype pools, within ``test_torch_model``'s tolerance (1e-4 of
+    max|logit|);
   * the greedy engine stream of deepseek-v3 reduced under Q2_K_L equals
     the reference engine's, with its byte accounting.
 """
@@ -66,7 +68,7 @@ def test_format_map_matches_reference(policy, arch, variant):
     assert got == jax_apply.format_map(jcfg, jax_get_policy(policy))
 
 
-@pytest.mark.parametrize("policy", OTHER_POLICIES)
+@pytest.mark.parametrize("policy", OTHER_POLICIES + ("Q4_K_M",))
 def test_packed_bytes_match_reference_size_calculator(policy):
     cfg = get_config("deepseek-v3-671b").reduced()
     params = init_quantized_params(cfg, get_policy(policy), 0)
@@ -79,11 +81,13 @@ def test_packed_bytes_match_reference_size_calculator(policy):
 
 @pytest.mark.parametrize("arch,policy", [
     ("deepseek-v3-671b", "Q2_K_L"), ("deepseek-v3-671b", "Q3_K_M"),
+    ("deepseek-v3-671b", "Q4_K_M"), ("deepseek-v3-671b", "Q8_0"),
     ("qwen2-1.5b", "Q3_K_M"), ("qwen2-1.5b", "Q8_0")])
 def test_prefill_and_decode_logits_match_reference(arch, policy):
     """Q2_K_L: q2_k 2-D and experts, q3_k 2-D and experts; Q3_K_M: q5_k
-    dense down, q3_k and q4_k experts; Q8_0: q8_0 everywhere.  Weight seed
-    1, as the DQ3_K_M deepseek case."""
+    dense down, q3_k and q4_k experts; Q4_K_M: q4_k and q6_k experts;
+    Q8_0: q8_0 everywhere (on deepseek its experts too).  Weight seed 1,
+    as the DQ3_K_M deepseek case."""
     _check_logits_and_caches(*_run_both(policy, None, arch=arch, seed=1),
                              leaf_max_rel=arch == "deepseek-v3-671b")
 
