@@ -14,9 +14,11 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 kernels with each tile loader the serves use (bf16, q8_0,
                 q4_0 pools; MLA also q8_0 latents beside q4_0 rope keys;
                 every expert form also with the decode's routing, 32 of
-                256 experts live, where the q4_k, q3_k, q2_k and q8_0
-                kernels read no empty expert), with times, the roofline
-                bound and the stated tolerance.
+                256 experts live, where every kernel but q5_k's reads no
+                empty expert), with times, the roofline bound and the
+                stated tolerance; the GQA decode also at the engine's
+                horizon (4 lanes x 1,000 tokens, a 64-page bucket), on a
+                line of its own.
   3. parity   — full width, f32, weights from one seed, card (kernels)
                 against CPU (plain versions): qwen2-1.5b at depth 2 (a
                 64-token prefill chunk, 4 decode steps) under DQ3_K_M with
@@ -314,7 +316,7 @@ EXPERT_SUMMARY = {"q3_k": (7168, 2048), "q4_k": (2048, 7168),
 # seeded positions, and the formats whose expert kernel skips empty experts
 # must give them the plain version's +0 bitwise
 LIVE_EXPERTS = 32
-SKIPS_EMPTY = ("q3_k", "q2_k", "q4_k", "q8_0")
+SKIPS_EMPTY = ("q3_k", "q2_k", "q4_k", "q6_k", "q8_0")
 B1_TOL = 8e-3      # bf16 output: one bf16 ulp (2^-8) of the largest value
 B1_TOL_F32 = 1e-5  # f32 output: f32 summation order only
 ATTN_TOL = 1e-5    # f32 output: summation order and the online softmax;
@@ -418,34 +420,16 @@ def phase_kernels(torch, summary: dict) -> None:
         ("paged_attn_decode_quant_q4_0", "q4_0", quantized["q4_0"], "q4_0"),
     ]
     for name, kv_type, kv, mode in cases:
-        fn = pa.paged_attn_decode_quant if mode else pa.paged_attn_decode
-        args = (q, *kv, pos_pool, bt, pos)
-        kw = dict(active_pages=active, lane_pages=lane_pages)
-        if mode:
-            kw["mode"] = mode
-
-        def plain():
-            return pa.attn_decode_plain(
-                q, kv, pos_pool, bt, pos, lane_pages, window=0, softcap=0.0,
-                scale=D ** -0.5, nj=active, quant=mode)
-        y = fn(*args, **kw)
-        ref = plain()
-        torch.cuda.synchronize()
-        if y.shape != (B, H, D):
-            fail(f"{name} ({kv_type} pages): shape {y.shape}")
-        ms = device_ms(torch, lambda: fn(*args, **kw), iters=20)
-        plain_ms = device_ms(torch, plain)
-        # K/V of the live tokens, the visited pages' positions, q, out
-        moved = (int(live.sum()) * tok_bytes[kv_type]
-                 + nbytes(q, pos, lane_pages) + visited * (4 + P * 4)
-                 + B * H * D * 4)
-        res = case(f"B={B} H={H} Hkv={HKV} D={D} P={P} live "
-                   f"{live.tolist()} active_pages={active} table {nj} wide, "
-                   f"{kv_type} pages", y, ref, ATTN_TOL, "max_abs_err", ms,
-                   plain_ms, moved, attn_ops, "float32")
+        res = time_decode(
+            torch, name, q, kv, mode, pos_pool, bt, pos, lane_pages, active,
+            int(live.sum()) * tok_bytes[kv_type] + visited * (4 + P * 4),
+            attn_ops, f"B={B} H={H} Hkv={HKV} D={D} P={P} live "
+            f"{live.tolist()} active_pages={active} table {nj} wide, "
+            f"{kv_type} pages")
         detail.append(dict(res, kernel=name))
         if kv_type != "float32":        # the serve path's pool types
             summary[name] = kernel_entry(name, **res)
+    decode_horizon(torch, gen, cases[1:])
 
     # prefill: a 128-token chunk per lane, ending at each lane's frontier;
     # lane 0's chunk is short (padded rows have qpos = -1)
@@ -484,6 +468,76 @@ def phase_kernels(torch, summary: dict) -> None:
     kernels_mla(torch, summary, detail, gen, live, n_lp, num_pages, bt, pos,
                 lane_pages, active, nj, qp)
     emit({"phase": "kernels", "detail": detail})
+
+
+def time_decode(torch, name, q, kv, mode, pos_pool, bt, pos, lane_pages,
+                active, kv_bytes, ops, shape) -> dict:
+    """One GQA decode case (B2, B3 or B5a by ``mode``): the kernel against
+    its plain version, timed; ``kv_bytes`` are the live K/V rows and the
+    visited pages' table entries and positions, to which the bound adds
+    q, pos, lane_pages and the output."""
+    from repro_torch.kernels import paged_attn as pa
+
+    fn = pa.paged_attn_decode_quant if mode else pa.paged_attn_decode
+    kw = dict(active_pages=active, lane_pages=lane_pages)
+    if mode:
+        kw["mode"] = mode
+
+    def plain():
+        return pa.attn_decode_plain(
+            q, kv, pos_pool, bt, pos, lane_pages, window=0, softcap=0.0,
+            scale=q.shape[-1] ** -0.5, nj=active, quant=mode)
+    y = fn(q, *kv, pos_pool, bt, pos, **kw)
+    ref = plain()
+    torch.cuda.synchronize()
+    if y.shape != q.shape:
+        fail(f"{name} ({shape}): shape {y.shape}")
+    ms = device_ms(torch, lambda: fn(q, *kv, pos_pool, bt, pos, **kw),
+                   iters=20)
+    moved = kv_bytes + nbytes(q, pos, lane_pages) + q.numel() * 4
+    return case(shape, y, ref, ATTN_TOL, "max_abs_err", ms,
+                device_ms(torch, plain), moved, ops, "float32")
+
+
+def decode_horizon(torch, gen, cases) -> None:
+    """The GQA decode (B2, B3, B5a) at the engine's horizon: 4 lanes of
+    1,000 tokens each (63 pages of 16) in a 64-page bucket, the length a
+    max_len 1024 serve reaches; one detail line, not in the summary."""
+    from repro_torch.models import paged
+
+    dev = torch.device("cuda")
+    B, H, HKV, D, P, n_tok = 4, 12, 2, 128, 16, 1000
+    nj = paged.pages_for(1024, P)
+    n_lp = -(-n_tok // P)
+    num_pages = 2 + B * n_lp
+    bt = torch.full((B, nj), paged.GARBAGE_PAGE, dtype=torch.int32)
+    bt[:, :n_lp] = 2 + torch.arange(B * n_lp, dtype=torch.int32).reshape(
+        B, n_lp)
+    pos_pool = torch.full((num_pages, P), -1, dtype=torch.int32)
+    pos_pool[2:].view(-1)[:] = torch.arange(n_lp * P, dtype=torch.int32).repeat(
+        B)
+    pos_pool[pos_pool >= n_tok] = -1
+    bt, pos_pool = bt.to(dev), pos_pool.to(dev)
+    pos = torch.full((B,), n_tok - 1, dtype=torch.int32, device=dev)
+    lane_pages = torch.full((B,), n_lp, dtype=torch.int32, device=dev)
+    q = torch.randn((B, H, D), generator=gen, device=dev)
+    kf = torch.randn((num_pages, P, HKV, D), generator=gen, device=dev)
+    vf = torch.randn((num_pages, P, HKV, D), generator=gen, device=dev)
+    tok_bytes = {"bfloat16": 2 * HKV * D * 2, "q8_0": 2 * HKV * (D + 4),
+                 "q4_0": 2 * HKV * (D // 2 + 4)}
+    rows = []
+    for name, kv_type, _, mode in cases:
+        kv = ((kf.to(torch.bfloat16), vf.to(torch.bfloat16)) if mode is None
+              else (*paged.quantize_rows(kf, mode),
+                    *paged.quantize_rows(vf, mode)))
+        res = time_decode(
+            torch, name, q, kv, mode, pos_pool, bt, pos, lane_pages, nj,
+            B * n_tok * tok_bytes[kv_type] + B * n_lp * (4 + P * 4),
+            4.0 * H * D * B * n_tok, f"B={B} H={H} Hkv={HKV} D={D} P={P} "
+            f"live {n_tok} a lane active_pages={nj}, {kv_type} pages")
+        rows.append(dict(res, kernel=name))
+        del kv
+    emit({"phase": "decode_horizon", "detail": rows})
 
 
 def kernels_experts(torch, summary: dict, detail: list, gen) -> None:

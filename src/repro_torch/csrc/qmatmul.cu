@@ -9,8 +9,9 @@
 // (DQ3_K_M, Q4_K_M, Q3_K_M, Q2_K_L, UD_Q2_K_XL, Q8_0).  The reference sends
 // expert weights to XLA (repro/kernels/ops.py:39-50, dequantize then
 // einsum); here they run in one launch for all experts: through the same
-// kernel, with the expert index folded into gridDim.z, for q6_k and q5_k,
-// and through qmatmul_experts_kernel (below) for q4_k, q3_k, q2_k and q8_0.
+// kernel, with the expert index folded into gridDim.z, for q5_k, and
+// through qmatmul_experts_kernel (below) for q4_k, q6_k, q3_k, q2_k and
+// q8_0.
 //
 // What bounds it on an H100: at decode (M = 1..8 rows) it streams the packed
 // weights once and does ~2*M flops per weight, so it is memory-bound (one
@@ -43,10 +44,11 @@
 // blocks.  The expert kernel below holds at C = 1 a sum, not each weight,
 // to the plain version's values (see there).
 //
-// The expert form of q4_k, q3_k, q2_k and q8_0 (qmatmul_experts_kernel<T,
-// ROWS, FMT, V>): the largest device-time family of a DeepSeek-V3 decode
-// step under every policy but DQ3_K_M (whose q6_k experts come next).  At
-// decode C = 1 (4 lanes x top-8 over 256 experts), and qmatmul_kernel there
+// The expert form of q4_k, q6_k, q3_k, q2_k and q8_0
+// (qmatmul_experts_kernel<T, ROWS, FMT, V>), on qmatmul_kernel the
+// largest device-time family of a DeepSeek-V3 decode step under every
+// policy.  At decode C = 1 (4 lanes x top-8 over 256 experts), and
+// qmatmul_kernel there
 // was bound by instructions, not bytes: a 4-row tile (4 FMAs a weight for 1
 // live row), one int-to-float conversion a weight (a quarter-rate pipe), x
 // staged again per superblock behind two barriers, and every expert's
@@ -54,24 +56,28 @@
 //  - the row tile follows C: one row at C = 1 (ROWS = 1), else 20 rows
 //    (the capacity of a 4 x 128-token prefill chunk);
 //  - codes become floats in one byte permute each, no int-to-float: q3_k
-//    as 2^23 + (code << shift) and one exact FADD, q8_0 as 2^23 + (q +
-//    128) (one XOR a word of four codes) and one exact FADD; at C = 1
+//    as 2^23 + (code << shift) and one exact FADD, q6_k as 2^23 + q and
+//    one exact FADD (q - 32), q8_0 as 2^23 + (q + 128) (one XOR a word of
+//    four codes) and one exact FADD; at C = 1
 //    q2_k as 0.5 + code/16 and q4_k as 0.5 + q/32 (the nibble in bits 3-6
 //    of its byte), with no FADD at all.  At C = 1 each sub-block's scale
 //    is factored out of its sum (q3_k: y += d * sum_sub sc * sum x (q -
-//    4); q2_k (16 elements) and q4_k (32): y += d * sum_sub sc * sum x q -
-//    dmin * sum_sub m * sum x, the sums of x per sub-block taken once per
-//    block; q8_0: y += sum_blk d * sum x q), so a weight costs one FMA,
-//    one permute and (q3_k, q8_0) one FADD, plus ~0.7 (q3_k), ~0.45
-//    (q2_k), 0.5 (q4_k) or 0.25 (q8_0) integer ops of code assembly.
+//    4) and q6_k: y += d * sum_sub sc * sum x (q - 32); q2_k (16
+//    elements) and q4_k (32): y += d * sum_sub sc * sum x q - dmin *
+//    sum_sub m * sum x, the sums of x per sub-block taken once per block;
+//    q8_0: y += sum_blk d * sum x q), so a weight costs one FMA, one
+//    permute and (q3_k, q6_k, q8_0) one FADD, plus ~0.7 (q3_k), ~0.6
+//    (q6_k), ~0.45 (q2_k), 0.5 (q4_k) or 0.25 (q8_0) integer ops of code
+//    assembly.
 //    These sums are f32 in another order than the plain version's, not
 //    its dequantized weights (held to the same tolerances).  At C > 1
 //    each weight is dequantized once to the plain version's f32 value,
 //    then one FMA per row;
 //  - x is staged as f32 once for the whole K at C = 1 (28 KB at K = 7168,
 //    one barrier), per stage at C > 1, ordered so that one 16-byte shared
-//    load gives a byte row's four bit-pairs (q3_k, q2_k), two byte rows'
-//    nibbles (q4_k) or four rows (q8_0);
+//    load gives a byte row's four bit-pairs (q3_k, q2_k), the four
+//    elements of two ql rows and a qh row (q6_k), two byte rows' nibbles
+//    (q4_k) or four rows (q8_0);
 //  - the weight fields come into shared memory through a ring of stages
 //    (2 at C = 1, 3 at C > 1; a stage is a superblock, or 4 q8_0 blocks
 //    of 32 rows) filled by cp.async, 16 bytes a copy (V = 4 when N is not
@@ -585,7 +591,7 @@ __global__ void splitk_reduce(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
-// The expert form for q4_k, q3_k, q2_k and q8_0: qmatmul_experts_kernel (see
+// The expert form for every format but q5_k: qmatmul_experts_kernel (see
 // the header).  A block owns 128 columns of one expert and one row tile (1
 // row, or XROWS rows when C > 1), and walks K one stage at a time: a
 // superblock (256 rows), or for q8_0 Q8_STAGE_BLOCKS blocks of 32 rows.
@@ -595,14 +601,13 @@ __global__ void splitk_reduce(const float* __restrict__ partial,
 // own (xperm, and the stage functions below).
 // ---------------------------------------------------------------------------
 
-// the formats whose expert form is qmatmul_experts_kernel
-constexpr bool own_expert_kernel(int fmt) {
-  return fmt == 0 || fmt == 2 || fmt == 4 || fmt == Q8_0;
-}
+// the formats whose expert form is qmatmul_experts_kernel (all but q5_k)
+constexpr bool own_expert_kernel(int fmt) { return fmt != 3; }
 
 // stages in the ring: at C = 1 two (one in flight while one is
 // consumed; four blocks of q2_k then fit an SM, three of q3_k, q4_k and
-// q8_0, so 40-55 KB of weights are in flight per SM), at C > 1 three
+// q8_0, and of q6_k at K = 2048, so 40-80 KB of weights are in flight per
+// SM), at C > 1 three
 template <int ROWS>
 __host__ __device__ constexpr int xstages() {
   return ROWS == 1 ? 2 : 3;
@@ -956,9 +961,10 @@ __device__ __forceinline__ void load_x(const T* row, int k0, int K, bool vec,
   }
 }
 
-// where element k of a stage sits in shared memory: q3_k, q2_k (16w + j,
-// p) for k = 16w + j + 64p (a byte row's four bit-pairs); q4_k (j, h) for
-// k = j + 128h (a byte row's two nibbles); q8_0 in order
+// where element k of a stage sits in shared memory: q3_k, q2_k, q6_k (16w
+// + j, p) for k = 16w + j + 64p (a byte row's four bit-pairs; q6_k: ql
+// rows 16w + j and 64 + 16w + j and qh row 16w + j); q4_k (j, h) for k = j
+// + 128h (a byte row's two nibbles); q8_0 in order
 template <int FMT>
 __device__ __forceinline__ int xperm(int k) {
   if constexpr (FMT == 0)
@@ -1061,6 +1067,103 @@ __device__ __forceinline__ void q4k_stage_rows(const uint8_t* stage,
       for (int c = 0; c < 4; ++c)
         wv[c] = fmaf(code_f32(t[h], c) - kMagic, es[h][c], nem[h][c]);
       fma_xrows(xt + (2 * (32 * w + j) + h) * XROWS, wv, acc);
+    }
+  }
+}
+
+// q6_k: the four columns' 6-bit codes of elements r, r + 64, r + 128 and r
+// + 192 (t[p] for element r + 64p, one code a byte), from ql rows r (``lo``)
+// and r + 64 (``hi``) and qh row r: ql row r's low and high nibbles are
+// elements r and r + 128, row r + 64's are r + 64 and r + 192, and qh row
+// r's bit-pair p holds element r + 64p's two high bits.
+__device__ __forceinline__ void q6k_codes(uint32_t lo, uint32_t hi,
+                                          uint32_t qh, uint32_t (&t)[4]) {
+  t[0] = (lo & 0x0F0F0F0Fu) | ((qh << 4) & 0x30303030u);
+  t[1] = (hi & 0x0F0F0F0Fu) | ((qh << 2) & 0x30303030u);
+  t[2] = ((lo >> 4) & 0x0F0F0F0Fu) | (qh & 0x30303030u);
+  t[3] = ((hi >> 4) & 0x0F0F0F0Fu) | ((qh >> 2) & 0x30303030u);
+}
+
+// q6_k, C = 1.  Warp w takes qh rows 16w .. 16w + 15 and the ql rows r and
+// r + 64 beside each: elements 16w + j + 64p of sub-blocks w + 4p, whose
+// four x values one 16-byte load gives.  A code becomes 2^23 + q in one
+// byte permute and q - 32 in one exact FADD; each 16-element sub-block's
+// int8 scale and the superblock's d are factored out of its sum: y += d *
+// sum_sub sc * sum x (q - 32).
+__device__ __forceinline__ void q6k_stage_c1(const uint8_t* stage,
+                                             const float* xsb, int w, int l,
+                                             float (&acc)[4]) {
+  const uint8_t* lrow = stage + 16 * w * COLS + 4 * l;
+  const uint8_t* hrow = stage + xf_off(1, 1) + 16 * w * COLS + 4 * l;
+  const float* xr = xsb + 64 * w;
+  float part[4][4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) part[p][c] = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < 16; ++j) {
+    const uint32_t lo = *reinterpret_cast<const uint32_t*>(lrow + j * COLS);
+    const uint32_t hi =
+        *reinterpret_cast<const uint32_t*>(lrow + (64 + j) * COLS);
+    const uint32_t qh = *reinterpret_cast<const uint32_t*>(hrow + j * COLS);
+    const float4 xv = *reinterpret_cast<const float4*>(xr + 4 * j);
+    const float xp[4] = {xv.x, xv.y, xv.z, xv.w};
+    uint32_t t[4];
+    q6k_codes(lo, hi, qh, t);
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        part[p][c] =
+            fmaf(xp[p], code_f32(t[p], c) - (kMagic + 32.f), part[p][c]);
+  }
+  float a1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const uint32_t sc = *reinterpret_cast<const uint32_t*>(
+        stage + xf_off(1, 2) + (w + 4 * p) * COLS + 4 * l);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      a1[c] = fmaf((float)(int8_t)byte_of(sc, c), part[p][c], a1[c]);
+  }
+  float dd[4];
+  load4_half(as_half(stage + xf_off(1, 3)) + 4 * l, dd);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) acc[c] = fmaf(dd[c], a1[c], acc[c]);
+}
+
+// q6_k, C > 1: the same split; each weight dequantized once to the plain
+// version's (q - 32) * (sc * d), then one FMA per row.  x is the stage's
+// (256, XROWS) tile.
+__device__ __forceinline__ void q6k_stage_rows(const uint8_t* stage,
+                                               const float* xt, int w, int l,
+                                               float (&acc)[XROWS][4]) {
+  const uint8_t* lrow = stage + 16 * w * COLS + 4 * l;
+  const uint8_t* hrow = stage + xf_off(1, 1) + 16 * w * COLS + 4 * l;
+  float dd[4], eff[4][4];
+  load4_half(as_half(stage + xf_off(1, 3)) + 4 * l, dd);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const uint32_t sc = *reinterpret_cast<const uint32_t*>(
+        stage + xf_off(1, 2) + (w + 4 * p) * COLS + 4 * l);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      eff[p][c] = __fmul_rn((float)(int8_t)byte_of(sc, c), dd[c]);
+  }
+#pragma unroll 1
+  for (int j = 0; j < 16; ++j) {
+    uint32_t t[4];
+    q6k_codes(*reinterpret_cast<const uint32_t*>(lrow + j * COLS),
+              *reinterpret_cast<const uint32_t*>(lrow + (64 + j) * COLS),
+              *reinterpret_cast<const uint32_t*>(hrow + j * COLS), t);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      float wv[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        wv[c] = __fmul_rn(code_f32(t[p], c) - (kMagic + 32.f), eff[p][c]);
+      fma_xrows(xt + (64 * w + 4 * j + p) * XROWS, wv, acc);
     }
   }
 }
@@ -1250,6 +1353,8 @@ __global__ void __launch_bounds__(NTHREADS)
     if constexpr (ROWS == 1) {
       if constexpr (FMT == 0)
         q4k_stage_c1(stage, xs + s * SK, xsum + 8 * s, w, l, acc[0]);
+      else if constexpr (FMT == 1)
+        q6k_stage_c1(stage, xs + s * SK, w, l, acc[0]);
       else if constexpr (FMT == Q8_0)
         q80_stage_c1(stage, xs + s * SK, nvalid, w, l, acc[0]);
       else
@@ -1274,6 +1379,8 @@ __global__ void __launch_bounds__(NTHREADS)
       __syncthreads();
       if constexpr (FMT == 0)
         q4k_stage_rows(stage, xs, w, l, acc);
+      else if constexpr (FMT == 1)
+        q6k_stage_rows(stage, xs, w, l, acc);
       else if constexpr (FMT == Q8_0)
         q80_stage_rows(stage, xs, nvalid, w, l, acc);
       else
@@ -1414,9 +1521,9 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
 // must be the QMATMUL_FMT this library was built for; ``fields`` holds the
 // format's ``nfields`` field pointers in the order of field_layout.  dtype
 // of x and out: 0 = float32, 1 = bfloat16.  E experts: x (E, M, K), fields
-// with a leading E, out (E, M, N); E = 1 for one weight.  q4_k, q3_k, q2_k
-// and q8_0 experts (E > 1) go to qmatmul_experts_kernel, the rest to
-// qmatmul_kernel.
+// with a leading E, out (E, M, N); E = 1 for one weight.  q4_k, q6_k,
+// q3_k, q2_k and q8_0 experts (E > 1) go to qmatmul_experts_kernel, q5_k's
+// and every single weight to qmatmul_kernel.
 // N must be a multiple of 4; ``partial`` holds splits x M x N floats when
 // splits > 1 (E = 1 only; splits count 256-row tiles).  Returns
 // cudaGetLastError() after the launches.

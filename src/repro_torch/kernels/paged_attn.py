@@ -13,6 +13,11 @@ each wrapper is its plain PyTorch version, the reference's bounded-gather
 twin: gather only the first ``active_pages`` logical pages through the
 block table and run one masked softmax over them.
 
+The decode kernel splits each lane's page walk over the blocks of a
+thread-block cluster and merges their partial softmax states in one launch
+(:func:`decode_splits` sizes the split from host integers only, so a decode
+step stays free of host syncs).
+
 Layouts are the reference's: GQA pools ``(num_pages, P, Hkv, D)``,
 quantized row scales ``(num_pages, P, Hkv)``, ``pos_pool (num_pages, P)``
 int32 (-1 = unwritten); MLA pools ``(num_pages, P, R)`` and ``(num_pages,
@@ -172,11 +177,19 @@ def attn_prefill_plain(q, kv, pos_pool, block_table, qpos, *, window: int,
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _entry():
+def _prefill_entry():
     v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return build.bind("paged_attn", "paged_attn",
+    return build.bind("paged_attn", "paged_attn_prefill",
+                      [i, v, v, v, v, v, v, v, v, v,
+                       i, i, i, i, i, i, i, i, i, i, i, f, f, v])
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_entry():
+    v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return build.bind("paged_attn", "paged_attn_decode",
                       [i, v, v, v, v, v, v, v, v, v, v,
-                       i, i, i, i, i, i, i, i, i, i, i, i, f, f, v])
+                       i, i, i, i, i, i, i, i, i, i, i, f, f, v])
 
 
 def _require(cond: bool, what: str) -> None:
@@ -184,14 +197,39 @@ def _require(cond: bool, what: str) -> None:
         raise ValueError(what)
 
 
-def _launch(kind: int, q, k, v, kd, vd, pos_pool, block_table, qpos,
-            lane_pages, *, dv: int, c: int, nj: int, ct: int, window: int,
-            logical_mask: int, scale: float, softcap: float) -> torch.Tensor:
+# csrc/paged_attn.cu's decode kernel: blocks a cluster (MAX_SPLITS, the
+# portable cluster size), query heads a block (RMAX) and tokens a page
+_MAX_SPLITS = 8
+_DECODE_ROWS = 8
+_DECODE_MAX_P = 128
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def decode_splits(nj: int, blocks: int, sms: int) -> tuple[int, int]:
+    """How the decode kernel splits a walk over ``nj`` logical pages when
+    ``blocks`` (lanes x kv heads x row tiles) clusters share ``sms`` SMs:
+    ``(splits, pages_per_split)``, enough splits for about one block per
+    SM, at most ``_MAX_SPLITS`` and ``nj``, and no split left without a
+    page of the ``nj`` (a lane's own bound may still leave a split empty)."""
+    want = max(1, -(-sms // max(blocks, 1)))
+    s = max(1, min(want, _MAX_SPLITS, nj))
+    pps = -(-nj // s)
+    return -(-nj // pps), pps
+
+
+def _check_gqa(q, k, v, kd, vd, pos_pool, block_table, qpos, lane_pages,
+               dv: int) -> None:
+    """The operand checks of both GQA kernels; ``qpos`` holds the query
+    positions ((B,) at decode, (B, C) at prefill)."""
     dev = q.device
-    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
-    hkv, tp = k.shape[2], k.shape[1]
-    tensors = [q, k, v, pos_pool, block_table, qpos] + [
-        t for t in (kd, vd, lane_pages) if t is not None]
+    h, d, hkv = q.shape[-2], q.shape[-1], k.shape[2]
+    indices = [t for t in (pos_pool, block_table, qpos, lane_pages)
+               if t is not None]
+    tensors = [q, k, v] + [t for t in (kd, vd) if t is not None] + indices
     _require(all(t.device == dev for t in tensors),
              "paged attention operands must share one CUDA device")
     _require(all(t.is_contiguous() for t in tensors),
@@ -201,18 +239,57 @@ def _launch(kind: int, q, k, v, kd, vd, pos_pool, block_table, qpos,
     _require(k.shape[:3] == v.shape[:3], "K and V pools differ in layout")
     _require(pos_pool.shape == k.shape[:2], "pos_pool is not (num_pages, P)")
     _require(q.dtype == torch.float32, "q must be float32")
-    for t in (pos_pool, block_table, qpos) + (
-            () if lane_pages is None else (lane_pages,)):
-        _require(t.dtype == torch.int32, "indices must be int32")
+    _require(all(t.dtype == torch.int32 for t in indices),
+             "indices must be int32")
+
+
+def _launch_decode(kind: int, q, k, v, kd, vd, pos_pool, block_table, pos,
+                   lane_pages, *, dv: int, nj: int, window: int,
+                   scale: float, softcap: float) -> torch.Tensor:
+    """``paged_attn_decode_kernel``: q (B, H, D) -> (B, H, Dv)."""
+    _check_gqa(q, k, v, kd, vd, pos_pool, block_table, pos, lane_pages, dv)
+    dev = q.device
+    b, h, d = q.shape
+    hkv, tp = k.shape[2], k.shape[1]
+    _require(d % 8 == 0 and dv % 8 == 0,
+             f"the decode kernel takes head widths that are multiples of 8, "
+             f"got D={d}, Dv={dv}")
+    _require(tp <= _DECODE_MAX_P,
+             f"the decode kernel takes pages of at most {_DECODE_MAX_P} "
+             f"tokens, got {tp}")
+    _require(all(t.data_ptr() % 4 == 0 for t in (k, v)),
+             "K/V pools must be 4-byte aligned")
+    splits, pps = decode_splits(
+        nj, b * hkv * -(-(h // hkv) // _DECODE_ROWS), _sm_count(dev))
+    out = torch.empty((b, h, dv), dtype=torch.float32, device=dev)
+    err = _decode_entry()(kind, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          build.ptr(kd), build.ptr(vd), pos_pool.data_ptr(),
+                          block_table.data_ptr(), pos.data_ptr(),
+                          build.ptr(lane_pages), out.data_ptr(),
+                          b, h, hkv, d, dv, tp, block_table.shape[1], nj,
+                          splits, pps, int(window), float(scale),
+                          float(softcap), build.stream_ptr(dev))
+    build.check(err, "paged_attn_decode")
+    return out
+
+
+def _launch_prefill(kind: int, q, k, v, kd, vd, pos_pool, block_table,
+                    qpos, *, dv: int, c: int, nj: int, ct: int, window: int,
+                    scale: float, softcap: float) -> torch.Tensor:
+    """``paged_attn_kernel``: q (B, C, H, D) -> (B, C, H, Dv)."""
+    _check_gqa(q, k, v, kd, vd, pos_pool, block_table, qpos, None, dv)
+    dev = q.device
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    hkv, tp = k.shape[2], k.shape[1]
     out = torch.empty((b, c, h, dv), dtype=torch.float32, device=dev)
-    err = _entry()(kind, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   build.ptr(kd), build.ptr(vd), pos_pool.data_ptr(),
-                   block_table.data_ptr(), qpos.data_ptr(),
-                   build.ptr(lane_pages), out.data_ptr(),
-                   b, c, h, hkv, d, dv, tp, block_table.shape[1], nj, ct,
-                   int(window), int(logical_mask), float(scale),
-                   float(softcap), build.stream_ptr(dev))
-    build.check(err, "paged_attn")
+    err = _prefill_entry()(kind, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           build.ptr(kd), build.ptr(vd), pos_pool.data_ptr(),
+                           block_table.data_ptr(), qpos.data_ptr(),
+                           out.data_ptr(), b, c, h, hkv, d, dv, tp,
+                           block_table.shape[1], nj, ct, int(window),
+                           float(scale), float(softcap),
+                           build.stream_ptr(dev))
+    build.check(err, "paged_attn_prefill")
     return out
 
 
@@ -264,12 +341,12 @@ def _decode(q, kv, pos_pool, block_table, pos, lane_pages, *, window,
         _require(k.shape[-1] == q.shape[-1], "K pool width differs from q")
         kind, dv = _KV_KIND[k.dtype], v.shape[-1]
     lp = None if lane_pages is None else lane_pages.to(torch.int32)
-    out = _launch(kind, q.to(torch.float32).contiguous(), k, v, kd, vd,
-                  pos_pool, block_table, pos.to(torch.int32).contiguous(), lp,
-                  dv=dv, c=1, nj=nj, ct=1, window=window, logical_mask=0,
-                  scale=scale, softcap=softcap)
+    out = _launch_decode(kind, q.to(torch.float32).contiguous(), k, v, kd, vd,
+                         pos_pool, block_table,
+                         pos.to(torch.int32).contiguous(), lp, dv=dv, nj=nj,
+                         window=window, scale=scale, softcap=softcap)
     _count(counter, quant)
-    return out[:, 0]
+    return out
 
 
 def paged_attn_decode(q, k_pool, v_pool, pos_pool, block_table, pos, *,
@@ -331,10 +408,11 @@ def paged_attn_prefill_quant(q, k_qs, k_d, v_qs, v_d, pos_pool, block_table,
     kind, k, kd, v, vd, dv = _quant_kv(q, kv, mode)
     rep = q.shape[2] // k.shape[2]
     ct = max(1, min(q.shape[1], _ROWS_PER_BLOCK // max(rep, 1)))
-    out = _launch(kind, q.to(torch.float32).contiguous(), k, v, kd, vd,
-                  pos_pool, block_table, qpos.to(torch.int32).contiguous(),
-                  None, dv=dv, c=q.shape[1], nj=nj, ct=ct, window=window,
-                  logical_mask=1, scale=scale, softcap=softcap)
+    out = _launch_prefill(kind, q.to(torch.float32).contiguous(), k, v, kd,
+                          vd, pos_pool, block_table,
+                          qpos.to(torch.int32).contiguous(), dv=dv,
+                          c=q.shape[1], nj=nj, ct=ct, window=window,
+                          scale=scale, softcap=softcap)
     _count(paged_attn_prefill_quant, mode)
     return out
 

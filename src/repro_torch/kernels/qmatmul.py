@@ -14,16 +14,17 @@ wrapper's ``launches`` counts its kernel launches: ``qmatmul_<fmt>`` for
 one (K, N) weight, ``qmatmul_experts_<fmt>`` for a stack of expert weights
 (E, K, N) against x (E, C, K), all experts in one launch.
 
-The expert form of q4_k, q3_k, q2_k and q8_0 is a kernel of its own,
-``qmatmul_experts_kernel``, which replaces ``qmatmul_kernel`` there (the
-largest device-time family of a DeepSeek decode step): at C = 1 it carries
-one row, turns codes into floats with a byte permute instead of an
-int-to-float conversion, factors each sub-block's scale (q8_0: each
+The expert form of q4_k, q6_k, q3_k, q2_k and q8_0 is a kernel of its
+own, ``qmatmul_experts_kernel``, which replaces ``qmatmul_kernel`` there
+(the largest device-time family of a DeepSeek decode step): at C = 1 it
+carries one row, turns codes into floats with a byte permute instead of
+an int-to-float conversion, factors each sub-block's scale (q8_0: each
 block's d) out of its sum, brings the weight tiles into shared memory
 through a ring of asynchronous copies, and reads no weight byte of an
 expert whose rows of x are all zero (it writes +0, the plain version's
 result).  Its header in ``csrc/qmatmul.cu`` says what bounds it.  The
-q6_k and q5_k expert forms keep ``qmatmul_kernel`` and read every expert.
+q5_k expert form, which no policy serves, keeps ``qmatmul_kernel`` and
+reads every expert.
 """
 
 from __future__ import annotations

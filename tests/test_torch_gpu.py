@@ -84,7 +84,7 @@ def test_qmatmul_q3_k_kernel_matches_plain(cuda, m, dtype):
 
 # the formats whose expert form is qmatmul_experts_kernel, which skips
 # experts whose rows of x are all zero
-SKIPS_EMPTY = ("q3_k", "q2_k", "q4_k", "q8_0")
+SKIPS_EMPTY = ("q3_k", "q2_k", "q4_k", "q6_k", "q8_0")
 
 
 @pytest.mark.parametrize("fmt", ["q3_k", "q4_k", "q6_k", "q5_k", "q2_k",
@@ -110,9 +110,8 @@ def test_qmatmul_experts_kernel_matches_plain(cuda, fmt, c, dtype):
     y = kern(x, qt)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
-    # q3_k, q2_k, q4_k and q8_0 run qmatmul_experts_kernel (here with
-    # 4-byte copies: N is not a multiple of 16), q6_k and q5_k
-    # qmatmul_kernel
+    # q3_k, q2_k, q4_k, q6_k and q8_0 run qmatmul_experts_kernel (here with
+    # 4-byte copies: N is not a multiple of 16), q5_k qmatmul_kernel
     assert qmatmul.experts_kernel_launches(fmt) == own + (
         fmt in SKIPS_EMPTY)
     assert y.dtype == dtype and y.shape == (e, c, n)
@@ -249,6 +248,90 @@ def test_paged_decode_kernel_matches_plain(cuda, kv, case, d):
     ref = paged_attn.attn_decode_plain(
         q, pools, pos_pool, bt, pos, paged_attn._lane_bound(lp, b, nj, cuda),
         window=window, softcap=softcap, scale=d ** -0.5, nj=nj, quant=quant)
+    assert y.shape == (b, h, d)
+    assert (y - ref).abs().max() < TOL
+
+
+# 4 lanes, 16-token pages and a 64-page bucket, as the engine decodes at
+# max_len 1024: lanes of 44-45 pages split over the cluster's blocks,
+# ragged last pages, a lane of 1 token (its later splits hold no page), and
+# lane bounds short of the bucket; then a window and a softcap
+LONG_DECODE_CASES = [
+    # live tokens per lane, lane_pages, window, softcap
+    ([16 * 44 + 5, 16 * 40, 1, 16 * 41 + 9], [45, 41, 1, 43], 0, 0.0),
+    ([16 * 44 + 5, 16 * 40, 1, 16 * 41 + 9], None, 100, 30.0),
+]
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "q8_0", "q4_0"])
+@pytest.mark.parametrize("case", LONG_DECODE_CASES, ids=["bounded", "window"])
+def test_paged_decode_kernel_splits_long_lanes(cuda, kv, case):
+    """The decode kernel splits each lane's walk over a cluster of blocks
+    and merges their partial softmax states in a fixed order: one launch a
+    call, two calls bitwise equal, and the plain version's result within
+    TOL for every pool kind."""
+    live, lanes, window, softcap = case
+    rng = np.random.default_rng(len(kv) + window)
+    b, h, hkv, d, page_size, n_lp = 4, 12, 2, 128, 16, 64
+    k, v, pos_pool, bt = (torch.from_numpy(a).to(cuda) for a in _pools(
+        rng, b, n_lp, page_size, hkv, d, live))
+    pos = torch.tensor([x - 1 for x in live], dtype=torch.int32, device=cuda)
+    q = torch.from_numpy(_np(rng, (b, h, d))).to(cuda)
+    lp = None if lanes is None else torch.tensor(lanes, dtype=torch.int32,
+                                                 device=cuda)
+    kw = dict(window=window, softcap=softcap, active_pages=n_lp,
+              lane_pages=lp)
+    quant = kv if kv in QUANTIZE else None
+    if quant:
+        pools = (*QUANTIZE[kv](k), *QUANTIZE[kv](v))
+        fn = paged_attn.paged_attn_decode_quant
+        counter = fn.loaders[kv]
+        kw["mode"] = kv
+    else:
+        dt = torch.float32 if kv == "f32" else torch.bfloat16
+        pools = (k.to(dt), v.to(dt))
+        fn = counter = paged_attn.paged_attn_decode
+    splits, pps = paged_attn.decode_splits(
+        n_lp, b * hkv, paged_attn._sm_count(cuda))
+    assert splits > 1 and pps > 2      # several splits of several tiles
+    before = counter.launches
+    y = fn(q, *pools, pos_pool, bt, pos, **kw)
+    y2 = fn(q, *pools, pos_pool, bt, pos, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert torch.equal(y.view(torch.int32), y2.view(torch.int32))
+    ref = paged_attn.attn_decode_plain(
+        q, pools, pos_pool, bt, pos,
+        paged_attn._lane_bound(lp, b, n_lp, cuda), window=window,
+        softcap=softcap, scale=d ** -0.5, nj=n_lp, quant=quant)
+    assert y.shape == (b, h, d) and torch.isfinite(y).all()
+    assert (y - ref).abs().max() < TOL
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "q8_0", "q4_0"])
+def test_paged_decode_kernel_row_tiles(cuda, kv):
+    """20 query heads over 2 kv heads (10 a kv head: two row tiles of the
+    decode kernel's 8) and D = 96, not a power of two."""
+    rng = np.random.default_rng(len(kv))
+    b, h, hkv, d, page_size, n_lp = 2, 20, 2, 96, 16, 8
+    live = [16 * 5 + 3, 40]
+    k, v, pos_pool, bt = (torch.from_numpy(a).to(cuda) for a in _pools(
+        rng, b, n_lp, page_size, hkv, d, live))
+    pos = torch.tensor([x - 1 for x in live], dtype=torch.int32, device=cuda)
+    q = torch.from_numpy(_np(rng, (b, h, d))).to(cuda)
+    quant = kv if kv in QUANTIZE else None
+    if quant:
+        pools = (*QUANTIZE[kv](k), *QUANTIZE[kv](v))
+        y = paged_attn.paged_attn_decode_quant(q, *pools, pos_pool, bt, pos,
+                                               mode=kv)
+    else:
+        dt = torch.float32 if kv == "f32" else torch.bfloat16
+        pools = (k.to(dt), v.to(dt))
+        y = paged_attn.paged_attn_decode(q, *pools, pos_pool, bt, pos)
+    ref = paged_attn.attn_decode_plain(
+        q, pools, pos_pool, bt, pos, paged_attn._lane_bound(None, b, n_lp,
+                                                            cuda),
+        window=0, softcap=0.0, scale=d ** -0.5, nj=n_lp, quant=quant)
     assert y.shape == (b, h, d)
     assert (y - ref).abs().max() < TOL
 
@@ -421,9 +504,10 @@ def test_q4_model_on_card_matches_cpu(cuda, arch, n_layers, kv_quant):
 
 
 def test_paged_kernels_raise_on_what_they_do_not_take(cuda):
-    """Packed widths that do not match the queries, and an MLA mode pair
-    no kernel instantiates (q4_0 latent beside q8_0 rope), raise before
-    any launch."""
+    """Packed widths that do not match the queries, a decode head width
+    that is not a multiple of 8, and an MLA mode pair no kernel
+    instantiates (q4_0 latent beside q8_0 rope), raise before any
+    launch."""
     z = torch.zeros((4, 2, 2, 8), dtype=torch.int8, device=cuda)
     d = torch.zeros((4, 2, 2), device=cuda)
     idx = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
@@ -433,6 +517,11 @@ def test_paged_kernels_raise_on_what_they_do_not_take(cuda):
         paged_attn.paged_attn_decode_quant(
             torch.zeros(1, 4, 8, device=cuda), z, d, z, d, pos_pool, idx,
             one, mode="q4_0")
+    # the decode kernel takes head widths that are multiples of 8
+    k12 = torch.zeros((4, 2, 2, 12), device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        paged_attn.paged_attn_decode(torch.zeros(1, 4, 12, device=cuda), k12,
+                                     k12, pos_pool, idx, one)
     lat = torch.zeros((4, 2, 16), dtype=torch.int8, device=cuda)
     sc = torch.zeros((4, 2), device=cuda)
     with pytest.raises(ValueError, match="no MLA kernel"):

@@ -186,6 +186,108 @@ def test_paged_decode_plain_matches_pallas(quant, case):
     assert np.max(np.abs(got.numpy() - np.asarray(ref))) < TOL
 
 
+def _split_decode(q, k, v, pos_pool, bt, pos, lane_pages, *, pps, window,
+                  softcap, scale, nj):
+    """The decode kernel's rule written out: lane i's first ``min(lane
+    pages, nj)`` logical pages go in runs of ``pps``, each run folded page
+    by page into its own (m, l, acc), and the runs merged in run order
+    (the cluster's rank 0).  A run wholly past the lane's bound keeps the
+    empty (NEG_INF, 0, 0)."""
+    b, h, d = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    rep = h // hkv
+    neg = paged_attn.NEG_INF
+    out = torch.zeros(b, h, dv)
+    for i in range(b):
+        jmax = min(max(int(lane_pages[i]), 1), nj)
+        qi = (q[i] * scale).reshape(hkv, rep, d)
+        runs = []
+        for js in range(0, nj, pps):
+            m = torch.full((hkv, rep, 1), neg)
+            l = torch.zeros(hkv, rep, 1)
+            acc = torch.zeros(hkv, rep, dv)
+            for j in range(js, min(js + pps, jmax)):
+                page = int(bt[i, j])
+                s = torch.einsum("krd,pkd->krp", qi, k[page])
+                if softcap:
+                    s = softcap * torch.tanh(s / softcap)
+                tp = pos_pool[page]
+                ok = (tp >= 0) & (tp <= pos[i])
+                if window:
+                    ok &= tp > pos[i] - window
+                s = torch.where(ok, s, torch.full_like(s, neg))
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                p = torch.where(ok, torch.exp(s - m_new), torch.zeros_like(s))
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + torch.einsum("krp,pkd->krd", p, v[page])
+                m = m_new
+            runs.append((m, l, acc))
+        mx = torch.stack([r[0] for r in runs]).amax(0)
+        lsum = torch.zeros(hkv, rep, 1)
+        osum = torch.zeros(hkv, rep, dv)
+        for m, l, acc in runs:                  # fixed run order
+            e = torch.exp(m - mx)
+            lsum = lsum + l * e
+            osum = osum + acc * e
+        out[i] = (osum / torch.clamp(lsum, min=1e-30)).reshape(h, dv)
+    return out
+
+
+SPLIT_CASES = [
+    # page_size, live per lane, lane_pages, window, softcap
+    (3, [16, 12, 2], None, 0, 0.0),
+    (4, [7, 22, 3], [2, 6, 1], 0, 0.0),     # runs wholly past lane_pages
+    (5, [0, 17, 9], None, 0, 0.0),          # lane 0 has no valid key
+    (7, [13, 30, 2], None, 6, 20.0),        # window + softcap
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=["plain", "lane_pages", "no_key", "window"])
+def test_split_decode_rule_matches_pallas(case):
+    """Runs of 1, 2 and 3 pages, each with its own (m, l, acc), merged in
+    order, give the reference's ``_attn_core`` (Pallas, interpret mode)."""
+    page_size, live, lanes, window, softcap = case
+    rng = np.random.default_rng(page_size * 5 + window)
+    b, h, hkv, d, n_lp = 3, 4, 2, 16, 6
+    k, v, pos_pool, bt = _pools(rng, b, n_lp, page_size, hkv, d, live)
+    pos = np.array([x - 1 for x in live], np.int32)
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    lp = None if lanes is None else np.array(lanes, np.int32)
+    ref = np.asarray(jax_pa.paged_attn_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(pos_pool), jnp.asarray(bt), jnp.asarray(pos),
+        lane_pages=None if lp is None else jnp.asarray(lp), window=window,
+        softcap=softcap, impl="pallas", interpret=True))
+    lane_pages = [n_lp] * b if lanes is None else lanes
+    if live[0] == 0:
+        assert np.all(ref[0] == 0.0)
+    for pps in (1, 2, 3):
+        got = _split_decode(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            torch.from_numpy(pos_pool), torch.from_numpy(bt),
+            torch.from_numpy(pos), lane_pages, pps=pps, window=window,
+            softcap=softcap, scale=d ** -0.5, nj=n_lp).numpy()
+        assert np.max(np.abs(got - ref)) < TOL, pps
+        if live[0] == 0:
+            assert np.all(got[0] == 0.0)
+
+
+@pytest.mark.parametrize("sms", [1, 8, 132])
+def test_decode_splits_cover_every_page(sms):
+    """``decode_splits`` (host integers only): at most 8 blocks a cluster
+    (the portable size), at most one block per page, and the runs cover
+    the ``nj`` pages with none left empty of them."""
+    for nj in range(1, 130):
+        for blocks in (1, 3, 8, 24, 200):
+            splits, pps = paged_attn.decode_splits(nj, blocks, sms)
+            assert 1 <= splits <= 8 and splits <= nj
+            assert (splits - 1) * pps < nj <= splits * pps
+            if blocks * 8 <= sms and nj % 8 == 0:
+                assert splits == 8        # enough blocks to fill the SMs
+
+
 @pytest.mark.parametrize("page_size,active", [(3, None), (5, 3), (4, 6)])
 def test_paged_prefill_plain_matches_pallas(page_size, active):
     """Write-then-attend chunk prefill over q8_0 pools, with a padded query
