@@ -16,9 +16,9 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 every expert form also with the decode's routing, 32 of
                 256 experts live, where every kernel but q5_k's reads no
                 empty expert), with times, the roofline bound and the
-                stated tolerance; the GQA decode also at the engine's
-                horizon (4 lanes x 1,000 tokens, a 64-page bucket), on a
-                line of its own.
+                stated tolerance; the GQA and MLA decodes also at the
+                engine's horizon (4 lanes x 1,000 tokens, a 64-page
+                bucket), each on a line of its own.
   3. parity   — full width, f32, weights from one seed, card (kernels)
                 against CPU (plain versions): qwen2-1.5b at depth 2 (a
                 64-token prefill chunk, 4 decode steps) under DQ3_K_M with
@@ -661,6 +661,7 @@ def kernels_mla(torch, summary: dict, detail: list, gen, live, n_lp,
         detail.append(dict(res, kernel=name))
         if kv_type != "float32":        # the serve path's pool types
             summary[name] = kernel_entry(name, **res)
+    mla_decode_horizon(torch, gen, cases, tok_bytes, per_pair)
 
     # prefill: one 128-token chunk per lane ending at its frontier, lane 0's
     # chunk short (padded rows have qpos = -1), as the GQA case
@@ -694,6 +695,64 @@ def kernels_mla(torch, summary: dict, detail: list, gen, live, n_lp,
                    moved, per_pair * H * keys, "float32")
         summary[name] = kernel_entry(name, **res)
         detail.append(dict(res, kernel=name))
+
+
+def mla_decode_horizon(torch, gen, cases, tok_bytes, per_pair) -> None:
+    """The MLA decode (B6, B5c) at the engine's horizon: 4 lanes of 1,000
+    tokens each (63 pages of 16) in a 64-page bucket, 128 heads, each
+    serve pool kind of ``cases``; one detail line, not in the summary."""
+    from repro_torch.kernels import paged_attn as pa
+    from repro_torch.models import paged
+
+    dev = torch.device("cuda")
+    B, H, R, DR, P, n_tok = 4, 128, 512, 64, 16, 1000
+    nj = paged.pages_for(1024, P)
+    n_lp = -(-n_tok // P)
+    num_pages = 2 + B * n_lp
+    bt = torch.full((B, nj), paged.GARBAGE_PAGE, dtype=torch.int32)
+    bt[:, :n_lp] = 2 + torch.arange(B * n_lp, dtype=torch.int32).reshape(
+        B, n_lp)
+    bt = bt.to(dev)
+    pos = torch.full((B,), n_tok - 1, dtype=torch.int32, device=dev)
+    lane_pages = torch.full((B,), n_lp, dtype=torch.int32, device=dev)
+    ckv = torch.randn((num_pages, P, R), generator=gen, device=dev)
+    kr = torch.randn((num_pages, P, DR), generator=gen, device=dev)
+    q_eff = torch.randn((B, H, R), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q_rope = torch.randn((B, H, DR), generator=gen, device=dev).to(
+        torch.bfloat16)
+    scale = (128 + 64) ** -0.5
+    rows = []
+    for name, kv_type, _, modes in cases:
+        if kv_type == "float32":
+            continue
+        kv = ((ckv.to(torch.bfloat16), kr.to(torch.bfloat16)) if modes is None
+              else (*paged.quantize_rows(ckv, modes[0]),
+                    *paged.quantize_rows(kr, modes[1])))
+        fn = pa.paged_mla_decode_quant if modes else pa.paged_mla_decode
+        kw = dict(scale=scale, active_pages=nj, lane_pages=lane_pages)
+        if modes:
+            kw.update(latent_mode=modes[0], rope_mode=modes[1])
+        y = fn(q_eff, q_rope, *kv, bt, pos, **kw)
+
+        def plain():
+            return pa.mla_decode_plain(q_eff, q_rope, kv, bt, pos,
+                                       scale=scale, nj=nj, quant=modes)
+        ref = plain()
+        torch.cuda.synchronize()
+        label = "/".join(kv_type) if modes else kv_type
+        ms = device_ms(torch, lambda: fn(q_eff, q_rope, *kv, bt, pos, **kw),
+                       iters=20)
+        moved = (B * n_tok * tok_bytes[kv_type] + nbytes(q_eff, q_rope, pos,
+                                                         lane_pages)
+                 + B * n_lp * 4 + B * H * R * 4)
+        res = case(f"B={B} H={H} R={R} Dr={DR} P={P} live {n_tok} a lane "
+                   f"active_pages={nj}, {label} pools", y, ref, ATTN_TOL,
+                   "max_abs_err", ms, device_ms(torch, plain), moved,
+                   per_pair * H * B * n_tok, "float32")
+        rows.append(dict(res, kernel=name))
+        del kv
+    emit({"phase": "mla_decode_horizon", "detail": rows})
 
 
 # ---------------------------------------------------------------------------
@@ -846,9 +905,10 @@ def short_name(key: str) -> str:
 
 
 # kernel families of a traced decode step: qmatmul_kernel<T, rows, format,
-# experts> and qmatmul_experts_kernel<T, rows, format, copy bytes> (format
-# ids as in csrc/qmatmul.cu), the split-K reduction, and the attention
-# kernels
+# experts>, qmatmul_q4k_decode_kernel (q4_k's 2-D form at M <= 4) and
+# qmatmul_experts_kernel<T, rows, format, copy bytes> (format ids as in
+# csrc/qmatmul.cu), the split-K reduction, and the attention kernels (the
+# MLA decode and prefill kernels both "B6/B7 paged_mla")
 B1_FORMATS = {"0": "q4_k", "1": "q6_k", "2": "q3_k", "3": "q5_k", "4": "q2_k",
               "5": "q8_0"}
 
@@ -861,7 +921,7 @@ def family(key: str) -> str:
     if m:
         return (f"B1 experts {B1_FORMATS[m.group(1)]}" if m.group(2) == "true"
                 else "B1 dense")
-    if "splitk" in key:
+    if "splitk" in key or "qmatmul_q4k_decode_kernel" in key:
         return "B1 dense"
     if "paged_mla" in key:
         return "B6/B7 paged_mla"

@@ -1,0 +1,292 @@
+#!/usr/bin/env python3
+"""Ablations of the MLA decode and q4_k decode kernels on one CUDA card.
+
+    python3 scripts/decode_ablation.py            # prints JSON lines
+
+Builds variants of ``csrc/paged_mla.cu`` (``paged_mla_decode_kernel``) and
+of ``csrc/qmatmul.cu`` for q4_k (``qmatmul_q4k_decode_kernel``), each the
+source with one part of the kernel taken out by a text substitution, and
+times every variant with CUDA events (20 calls queued behind a spin
+kernel) at ``chip_smoke.py``'s shapes:
+
+  MLA decode   4 lanes x 128 heads, R = 512, Dr = 64, 16-token pages, bf16
+               and q8_0 pools, f32 queries: the serve case (lanes of
+               100/217/333/400 tokens, a 32-page bucket) and the horizon
+               (4 x 1,000 tokens, a 64-page bucket), at 6, 7 and 8 blocks a
+               cluster; variants: the kernel, no tiles (launch, query tile
+               and merge only), no scores, no p . c_kv, no conversion of
+               the stage; and how many clusters of each size are resident
+               at once (cudaOccupancyMaxActiveClusters).
+  q4_k decode  M = 4 bf16 at 1536->1536, 1536->8960, 1536->152064,
+               7168->18432, 16384->7168, 1536->24576, each at its K split
+               (``decode_ksplit``) and at the other divisors of its
+               superblocks; variants: the kernel, no compute, no x staging
+               and no merge, neither (the weight stream alone), no barrier
+               a stage; and the expert kernel (``qmatmul_experts_kernel``,
+               C = 1) streaming the same fields of two 7168->9216 experts.
+
+A variant that leaves work out computes a wrong result: only its time is
+read.  Weights rotate over copies of more than 120 MB, so that each call
+reads them from HBM.  The builds go to ``src/repro_torch/_build/ablation``.
+Needs ``nvcc`` (``CUDA_HOME``, ``/usr/local/cuda`` or the ``PATH``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import torch  # noqa: E402
+
+from repro_torch.core.apply import quantize_in_groups  # noqa: E402
+from repro_torch.core.qtensor import QTensor, quantize  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import qmatmul as qm  # noqa: E402
+from repro_torch.models import paged  # noqa: E402
+
+CSRC = os.path.join(ROOT, "src", "repro_torch", "csrc")
+OUT = os.path.join(ROOT, "src", "repro_torch", "_build", "ablation")
+
+# cudaOccupancyMaxActiveClusters for the bf16 and q8_0 decode kernels
+OCCUPANCY = r'''
+extern "C" int resident_clusters(int kind, int R, int Dr, int bt_cap,
+                                 int splits, int tiles, int lanes) {
+  auto kernel = kind == 2 ? paged_mla_decode_kernel<2, 2>
+                          : paged_mla_decode_kernel<1, 1>;
+  const DecodeSmem L = decode_smem(kind, kind, R, Dr, bt_cap);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       L.total);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       (int)cudaSharedmemCarveoutMaxShared);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, tiles, lanes);
+  cfg.blockDim = dim3(DNT);
+  cfg.dynamicSmemBytes = L.total;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = -1;
+  return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess
+             ? n : -1;
+}
+'''
+
+MLA_VARIANTS = {
+    "kernel": [],
+    "no tiles": [("const int ntiles = (ntok + TT - 1) / TT;",
+                  "const int ntiles = 0;")],
+    "no scores": [("      for (int k = 0; k < kslice; k += 8) {",
+                   "      for (int k = 0; k < 0; k += 8) {")],
+    "no p.c_kv": [("        for (int t = 0; t < nt; ++t) {\n"
+                   "          const float4 cv",
+                   "        for (int t = 0; t < 0; ++t) {\n"
+                   "          const float4 cv")],
+    "no conversion": [("        for (int c = lane; c < nc; c += 32) {",
+                       "        for (int c = lane; c < 0; c += 32) {")],
+}
+NO_COMPUTE = ("    q4k_stage_rows4(ring + slot * STAGE, xs + s * QK, xstride, "
+              "xsum + 8 * s,\n                    nsb * 8, w, l, acc);", "")
+NO_X = ("  for (int g0 = tid; g0 < nload; g0 += XB * NTHREADS) {",
+        "  for (int g0 = tid; g0 < 0; g0 += XB * NTHREADS) {")
+NO_MERGE = ("  const int lo = n_out * rank / ks, hi = n_out * (rank + 1) / ks;",
+            "  const int lo = 0, hi = 0;")
+NO_BARRIER = ("    __syncthreads();  // everyone's; stage s - 1 is consumed "
+              "(and xsum made)", "")
+Q4_VARIANTS = {
+    "kernel": [],
+    "no compute": [NO_COMPUTE],
+    "no x, no merge": [NO_X, NO_MERGE],
+    "weight stream only": [NO_COMPUTE, NO_X, NO_MERGE],
+    "no barrier a stage": [NO_BARRIER],
+}
+
+
+def start_build(source: str, name: str, subs, flags=(), append: str = ""):
+    text = open(os.path.join(CSRC, source)).read()
+    for old, new in subs:
+        if old not in text:
+            raise SystemExit(f"{name}: {old[:60]!r} not in {source}")
+        text = text.replace(old, new)
+    if append:
+        i = text.rindex("}  // namespace")
+        text = text[:i + len("}  // namespace")] + "\n" + append + text[
+            i + len("}  // namespace"):]
+    os.makedirs(OUT, exist_ok=True)
+    src = os.path.join(OUT, name + ".cu")
+    with open(src, "w") as f:
+        f.write(text)
+    lib = os.path.join(OUT, f"lib{name}.so")
+    cmd = [build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", *flags,
+           "-o", lib, src]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), lib
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def mla_case(gen, live, nj):
+    """4 lanes of ``live`` tokens in an ``nj``-page bucket."""
+    dev = torch.device("cuda")
+    B, H, R, DR, P = 4, 128, 512, 64, 16
+    n_lp = [-(-n // P) for n in live]
+    bt = torch.full((B, nj), paged.GARBAGE_PAGE, dtype=torch.int32)
+    nxt = 2
+    for b in range(B):
+        for j in range(n_lp[b]):
+            bt[b, j] = nxt
+            nxt += 1
+    ckv = torch.randn((nxt, P, R), generator=gen, device=dev)
+    kr = torch.randn((nxt, P, DR), generator=gen, device=dev)
+    pools = {"bf16": (1, ckv.to(torch.bfloat16), kr.to(torch.bfloat16),
+                      None, None)}
+    cq, cd = paged.quantize_rows(ckv, "q8_0")
+    kq, kd = paged.quantize_rows(kr, "q8_0")
+    pools["q8_0"] = (2, cq, kq, cd, kd)
+    return dict(bt=bt.to(dev), nj=nj, pools=pools,
+                pos=torch.tensor([n - 1 for n in live], dtype=torch.int32,
+                                 device=dev),
+                lp=torch.tensor(n_lp, dtype=torch.int32, device=dev),
+                qe=torch.randn((B, H, R), generator=gen, device=dev),
+                qr=torch.randn((B, H, DR), generator=gen, device=dev))
+
+
+def mla(libs, gen) -> dict:
+    v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    res = {}
+    out = torch.empty((4, 128, 512), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for case, live, nj in (("serve", [100, 217, 333, 400], 32),
+                           ("horizon", [1000] * 4, 64)):
+        c = mla_case(gen, live, nj)
+        for kind, (kid, ckv, kr, cd, kd) in c["pools"].items():
+            for splits in (6, 7, 8):
+                for name, lib in libs.items():
+                    fn = lib.paged_mla_decode
+                    fn.argtypes = [i, i, i] + [v] * 10 + [i] * 8 + [f, v]
+
+                    def call():
+                        return fn(kid, kid, 0, c["qe"].data_ptr(),
+                                  c["qr"].data_ptr(), ckv.data_ptr(),
+                                  kr.data_ptr(), build.ptr(cd),
+                                  build.ptr(kd), c["bt"].data_ptr(),
+                                  c["pos"].data_ptr(), c["lp"].data_ptr(),
+                                  out.data_ptr(), 4, 128, 512, 64, 16, nj, nj,
+                                  splits, 0.07, stream)
+                    if call() != 0:
+                        raise SystemExit(f"MLA {name} refused")
+                    res[f"{case} {kind} splits={splits} {name}"] = \
+                        device_ms(call)
+    occ = libs["kernel"].resident_clusters
+    occ.restype = i
+    for kid, kind in ((1, "bf16"), (2, "q8_0")):
+        for splits in (6, 7, 8):
+            res[f"resident clusters, {kind}, {splits} blocks"] = occ(
+                kid, 512, 64, 8, splits, 8, 4)
+    return res
+
+
+def q4k(libs, gen) -> dict:
+    v, i = ctypes.c_void_p, ctypes.c_int
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {}
+    for k, n in ((1536, 1536), (1536, 8960), (1536, 152064), (7168, 18432),
+                 (16384, 7168), (1536, 24576)):
+        w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+        qt = quantize(w, "q4_k")
+        del w
+        copies = [qt] + [QTensor({a: b.clone() for a, b in qt.fields.items()},
+                                 qt.fmt, qt.shape)
+                         for _ in range(math.ceil(120e6 / qt.packed_bytes())
+                                        - 1)]
+        ptrs = [(v * 5)(*[c.fields[f].data_ptr()
+                          for f in qm.FIELDS["q4_k"]]) for c in copies]
+        x = torch.randn((4, k), generator=gen, device=dev).to(torch.bfloat16)
+        out = torch.empty((4, n), dtype=torch.bfloat16, device=dev)
+        s = -(-k // 256)
+        chosen = qm.decode_ksplit(n, k, build.sm_count(dev))
+        splits = sorted({d for d in range(1, min(8, s) + 1) if s % d == 0
+                         and -(-s // d) <= 32} | {chosen})
+        for name, lib in libs.items():
+            fn = lib.qmatmul
+            fn.argtypes = [i, i, v, ctypes.POINTER(v), i, v, v] + [i] * 5 + [v]
+            for ks in splits if name == "kernel" else (chosen,):
+                it = [0]
+
+                def call():
+                    it[0] = (it[0] + 1) % len(ptrs)
+                    return fn(0, 1, x.data_ptr(), ptrs[it[0]], 5, None,
+                              out.data_ptr(), 1, 4, k, n, ks, stream)
+                if call() != 0:
+                    raise SystemExit(f"q4_k {name} refused")
+                mark = " (decode_ksplit)" if ks == chosen else ""
+                res[f"{k}->{n} ks={ks}{mark} {name}"] = device_ms(call)
+        del copies, qt, ptrs
+        torch.cuda.empty_cache()
+    # the expert kernel streaming the same fields: E = 2, C = 1
+    e, k, n = 2, 7168, 9216
+    qt = quantize_in_groups(
+        lambda r: torch.randn((len(r), k, n), generator=gen, device=dev)
+        / math.sqrt(k), e, "q4_k", group=1, dim=0)
+    x = torch.randn((e, 1, k), generator=gen, device=dev).to(torch.bfloat16)
+    out = torch.empty((e, 1, n), dtype=torch.bfloat16, device=dev)
+    fn = libs["kernel"].qmatmul
+    ptrs = (v * 5)(*[qt.fields[f].data_ptr() for f in qm.FIELDS["q4_k"]])
+    res[f"experts E={e} C=1 {k}->{n} ({qt.packed_bytes() / 1e6:.1f} MB)"] = \
+        device_ms(lambda: fn(0, 1, x.data_ptr(), ptrs, 5, None,
+                             out.data_ptr(), e, 1, k, n, 1, stream))
+    return res
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("decode_ablation: needs a CUDA card")
+    jobs = {("mla", name): start_build(
+        "paged_mla.cu", "mla_" + str(j), subs,
+        append=OCCUPANCY if name == "kernel" else "")
+        for j, (name, subs) in enumerate(MLA_VARIANTS.items())}
+    jobs.update({("q4k", name): start_build(
+        "qmatmul.cu", "q4k_" + str(j), subs, flags=("-DQMATMUL_FMT=0",))
+        for j, (name, subs) in enumerate(Q4_VARIANTS.items())})
+    libs = {"mla": {}, "q4k": {}}
+    for (which, name), (proc, lib) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {which} {name}:\n{log}")
+        libs[which][name] = ctypes.CDLL(lib)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    print(json.dumps({"ablation": "mla_decode", "ms": mla(libs["mla"], gen)}),
+          flush=True)
+    print(json.dumps({"ablation": "q4k_decode", "ms": q4k(libs["q4k"], gen)}),
+          flush=True)
+    print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,7 +7,7 @@
 // (body :1011-1036; entry paged_mla_prefill_quant :950) with the q8_0 and
 // q4_0 loaders.  As there, the latent and rope leaves each have their own
 // mode: the "dq" cache policy keeps q8_0 latents beside q4_0 rope keys, so
-// the kernel takes one loader per leaf and one launch reads both.
+// each kernel takes one loader per leaf and one launch reads both.
 // Every query row r = (c, h) scores s = (q_eff . c_kv + q_rope . k_rope) *
 // scale against the lane's latent tokens, a token valid iff its logical
 // index is <= the row's position, and returns the attended latents p . c_kv
@@ -16,39 +16,77 @@
 // What bounds it on an H100: decode reads each live latent token once per
 // lane (R + Dr values: 1,152 B in bf16; with the two f32 scales 584 B in
 // q8_0, 296 B in q4_0, 552 B for dq's q8_0 latent and q4_0 rope) and does
-// ~4 (R + Dr) flops per head per token, 128 heads: ~1.1 flop per byte in
-// bf16, so it is memory-bound, but the latent pages of a step are a few MB
-// and sit in L2.
-// Prefill (C = 128 queries x 128 heads per lane) is bound by its f32 FMAs
-// (~28 GFLOP per layer per chunk at ~200 keys per query: >= 0.4 ms at the
-// 67 TFLOP/s CUDA-core peak).
+// ~2 (2R + Dr) flops per head per token, 128 heads: ~240 flops per byte in
+// bf16, so its bound is the f32 FMAs (4 lanes of 100-400 tokens: 0.0044 ms
+// at the 67 TFLOP/s CUDA-core peak), and the latent pages of a step are a
+// few MB that sit in L2.  Prefill (C = 128 queries x 128 heads per lane) is
+// bound by its f32 FMAs too (~28 GFLOP per layer per chunk at ~200 keys per
+// query: >= 0.4 ms).
 //
-// Design.  Every head of a lane reads the same latent page, so a block owns
-// one lane and a tile of NW x RW query rows (one warp per RW rows), stages
-// each page sub-tile (TP tokens x (R + Dr) latents, bf16 / f32 as stored, or
-// the q8_0 int8 or q4_0 sign-extended nibble x the token's f32 scale, one
-// f32 multiply as in the plain version) in shared memory as f32 once, and every
-// warp scores its rows against it: a lane holds 1/32 of each row's query
-// and of its accumulator (R / 32 values) in registers, partial dot products
-// are summed across the warp with shuffles, lane t keeps token t's score,
-// and the online softmax (m, l) runs warp-wide.  RW = 1 at decode (128
-// heads / 4 warps: 32 blocks per lane, 128 blocks for 4 lanes on 132 SMs);
-// RW = 4 at prefill, where each shared-memory read feeds four rows.  The
-// page loop stops at min(active pages, lane_pages[b], the last page any of
-// the block's rows can see); fully masked pages are exact no-ops, so that
-// bound changes nothing.  The reference's numerics are kept: NEG_INF =
-// -2e38 is a finite sentinel, so masked probabilities are set to 0
-// explicitly, and l is clamped at 1e-30 before the divide (a row with no
-// valid key, such as a padded prefill row, gives zeros).
+// Decode design (paged_mla_decode_kernel).  The TPU grid (lane, logical
+// page) runs in order and carries (m, l, acc) in VMEM across page steps.
+// Here a thread-block cluster per (lane, tile of HT = 16 query heads) holds
+// ``splits`` blocks (flash-decoding).  The lane's valid tokens (its first
+// lane_pages logical pages, cut at the query position: tokens past it are
+// masked, so the cut is an exact no-op) are split evenly, in tiles of TT =
+// 16 tokens, over the blocks, each walking its own run of tiles (a run may
+// start or end inside a page); the split is read on the card, so the host
+// sizes only the cluster.  Inside a block, tile by tile:
+//  - the block's 16 query rows are read once (f32, or bf16 as the model
+//    passes them) into an f32 tile;
+//  - the tile's latent and rope rows come into one shared-memory stage as
+//    stored (16-byte cp.async copies where the rows and pools allow, 4-byte
+//    ones, or plain byte copies for rows of an odd size such as a q4_0 rope
+//    row of 7 bytes), with their f32 token scales; the next tile's copies
+//    are in flight while this tile is used;
+//  - the stage is converted once into an f32 tile of [c_kv | k_rope] rows
+//    (bf16 by a shift, q8_0 int8 x the token's f32 scale, q4_0 the
+//    sign-extended nibble x the scale: one f32 multiply, as the plain
+//    version, so every element is bitwise its value), rows padded so that
+//    the 16-byte loads below are free of bank conflicts;
+//  - scores S = Q . [c_kv | k_rope]^T as a register-tiled f32 product: a
+//    thread holds 4 heads x 4 tokens of one K slice (8 loads of 16 bytes
+//    feed 64 FMAs), the 16 slices are summed in a fixed order (one shuffle,
+//    then shared memory); no per-token warp reduction;
+//  - the online softmax runs per head row, 16 lanes a head;
+//  - acc += P . c_kv: a thread keeps 8 heads x 4 latent columns of the
+//    HT x R accumulator in registers (two broadcast loads of P and one of
+//    c_kv feed 32 FMAs).
+// After cluster.sync() every block merges a slice of the outputs from all
+// the blocks' partial (m, l, acc), read through distributed shared memory
+// and summed in rank order (bitwise repeatable, one launch, no global
+// scratch), and a second cluster.sync() keeps each block's shared memory
+// alive until all have read it.  A block whose run holds no valid token
+// keeps the empty partial (m = NEG_INF, l = 0, acc = 0).
+//
+// Prefill design (paged_mla_kernel).  Every head of a lane reads the same
+// latent page, so a block owns one lane and a tile of NW x RW query rows
+// (RW = 4 rows per warp), stages each page sub-tile (TP tokens x (R + Dr)
+// latents, as f32 through the tile loaders) in shared memory once, and
+// every warp scores its rows against it: a lane holds 1/32 of each row's
+// query and of its accumulator (R / 32 values) in registers, partial dot
+// products are summed across the warp with shuffles, lane t keeps token
+// t's score, and the online softmax (m, l) runs warp-wide.  The page loop
+// stops at the last page any of the block's rows can see; fully masked
+// pages are exact no-ops.
+//
+// The reference's numerics are kept by both: NEG_INF = -2e38 is a finite
+// sentinel, so masked probabilities are set to 0 explicitly, and l is
+// clamped at 1e-30 before the divide (a row with no valid key, such as a
+// padded prefill row, gives zeros).  All arithmetic is f32 FMAs on CUDA
+// cores.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// prefill (paged_mla_kernel)
 constexpr int NW = 4;                // warps per block
 constexpr int NT = 32 * NW;          // threads per block
+constexpr int RW = 4;                // query rows per warp
 constexpr int TP = 16;               // tokens per page sub-tile
 constexpr int RMAX = 512;            // latent width the registers hold
 constexpr int DMAX = 64;             // rope width the registers hold
@@ -57,6 +95,7 @@ constexpr int DK = DMAX / 32;        // rope values per lane
 constexpr float NEG_INF = -2.0e38f;
 constexpr unsigned FULL = 0xffffffffu;
 
+// The prefill kernel's arguments.
 struct Args {
   const float* q_eff;      // (B, C, H, R) f32
   const float* q_rope;     // (B, C, H, Dr) f32
@@ -66,31 +105,13 @@ struct Args {
   const float* kd;
   const int* block_table;  // (B, nbt)
   const int* qpos;         // (B, C) query positions, -1 = padded row
-  const int* lane_pages;   // (B,) page bound per lane, or null
   float* out;              // (B, C, H, R)
   int B, C, H, R, Dr, P, nbt, nj;
   float scale;
 };
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Tile loaders: element d of token row ``row`` (= page * P + token) as f32.
-template <typename T>
-struct PlainLoader {
-  __device__ __forceinline__ static float load(const void* pool,
-                                               const float*, size_t row,
-                                               int width, int d) {
-    return to_f32<T>(static_cast<const T*>(pool)[row * width + d]);
-  }
-};
-
+// Tile loaders of the prefill kernel: element d of token row ``row`` (=
+// page * P + token) as f32.
 struct Q8Loader {
   __device__ __forceinline__ static float load(const void* pool,
                                                const float* scales, size_t row,
@@ -128,7 +149,7 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // LC loads the latent leaf, LK the rope leaf.
-template <typename LC, typename LK, int RW>
+template <typename LC, typename LK>
 __global__ void __launch_bounds__(NT) paged_mla_kernel(Args a) {
   extern __shared__ float smem[];
   float* cs = smem;                      // TP x R latents
@@ -174,9 +195,7 @@ __global__ void __launch_bounds__(NT) paged_mla_kernel(Args a) {
   }
   __syncthreads();
 
-  int jmax = a.nj;
-  if (a.lane_pages != nullptr) jmax = min(max(a.lane_pages[b], 1), a.nj);
-  jmax = max_qpos < 0 ? 0 : min(jmax, max_qpos / a.P + 1);
+  const int jmax = max_qpos < 0 ? 0 : min(a.nj, max_qpos / a.P + 1);
 
   for (int j = 0; j < jmax; ++j) {
     const int page = a.block_table[(size_t)b * a.nbt + j];
@@ -275,20 +294,563 @@ __global__ void __launch_bounds__(NT) paged_mla_kernel(Args a) {
   }
 }
 
-template <typename LC, typename LK, int RW>
+template <typename LC, typename LK>
 int launch(const Args& a, cudaStream_t stream) {
   const size_t bytes = (size_t)TP * (a.R + a.Dr) * sizeof(float);
   const int per_block = NW * RW;
   const dim3 grid(a.B, (a.C * a.H + per_block - 1) / per_block);
-  paged_mla_kernel<LC, LK, RW><<<grid, NT, bytes, stream>>>(a);
+  paged_mla_kernel<LC, LK><<<grid, NT, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename LC, typename LK>
-int launch_rw(const Args& a, int rw, cudaStream_t stream) {
-  if (rw == 1) return launch<LC, LK, 1>(a, stream);
-  if (rw == 4) return launch<LC, LK, 4>(a, stream);
-  return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// Decode: paged_mla_decode_kernel (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int DNT = 256;             // threads per decode block
+constexpr int DNW = DNT / 32;        // warps
+constexpr int HT = 16;               // query heads a block holds
+constexpr int TT = 16;               // tokens a tile
+constexpr int MAX_SPLITS = 8;        // blocks a cluster (the portable size)
+
+// pool kinds: 0 f32, 1 bf16, 2 q8_0 (int8 + f32 token scale), 3 q4_0 (two
+// nibbles a byte + f32 token scale).  Bytes of a stored row of n elements.
+__host__ __device__ constexpr int kind_bytes(int kind, int n) {
+  return kind == 0 ? 4 * n : kind == 1 ? 2 * n : kind == 2 ? n : n / 2;
+}
+__host__ __device__ constexpr int align4(int x) { return (x + 3) & ~3; }
+__host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
+
+// Shared memory of a decode block (byte offsets, from the shapes).  The f32
+// rows [c_kv | 0 | k_rope | 0] are ``kw`` floats (the rope part at ``ra``,
+// kw a multiple of 64: 16 K slices of whole 16-byte pairs), ``ks`` = kw + 8
+// apart, so that the 16-byte loads of 4 rows x 2 neighbouring slices fall in
+// 8 distinct bank groups.
+struct DecodeSmem {
+  int ra, da, kw, ks;      // floats
+  int lrb, krb, lrs, krs;  // bytes of a stored latent / rope row; in the stage
+  int st_k, st_cd, st_kd;  // within the stage
+  int q, tile, part, p, stats, wts, bt, total;
+};
+
+__host__ __device__ inline DecodeSmem decode_smem(int lk, int kk, int R,
+                                                  int Dr, int bt_cap) {
+  DecodeSmem L{};
+  L.ra = align4(R);
+  L.da = align4(Dr);
+  L.kw = (L.ra + L.da + 63) / 64 * 64;
+  L.ks = L.kw + 8;
+  L.lrb = kind_bytes(lk, R);
+  L.krb = kind_bytes(kk, Dr);
+  L.lrs = align16(L.lrb);
+  L.krs = align16(L.krb);
+  L.st_k = TT * L.lrs;
+  L.st_cd = L.st_k + TT * L.krs;
+  L.st_kd = L.st_cd + TT * 4;
+  int off = align16(L.st_kd + TT * 4);
+  L.q = off;     off += HT * L.ks * 4;        // the query tile
+  L.tile = off;  off += TT * L.ks * 4;        // the f32 tile; then HT x R acc
+  L.part = off;  off += DNW * HT * TT * 4;    // score partials
+  L.p = off;     off += TT * HT * 4;          // probabilities [token][head]
+  L.stats = off; off += 3 * HT * 4;           // corr, m, l
+  L.wts = off;   off += (MAX_SPLITS + 1) * HT * 4;
+  L.bt = off;    off += align16(bt_cap * 4);
+  L.total = off;
+  return L;
+}
+
+struct DecodeArgs {
+  const void* q_eff;       // (B, H, R) f32 or bf16
+  const void* q_rope;      // (B, H, Dr), the same type
+  const uint8_t* ckv;      // (NP, P, R) as stored (q4_0: R/2 bytes)
+  const uint8_t* krope;    // (NP, P, Dr)          (q4_0: Dr/2)
+  const float* cd;         // (NP, P) quantized token scales (else null)
+  const float* kd;
+  const int* block_table;  // (B, nbt)
+  const int* pos;          // (B,) query positions
+  const int* lane_pages;   // (B,) page bound per lane, or null
+  float* out;              // (B, H, R)
+  int B, H, R, Dr, P, nbt, nj;
+  int bt_cap;              // block-table entries a block holds (bt_capacity)
+  int lv, kv;              // copy widths of the latent / rope rows: 16, 4, 1
+  int qsize;               // bytes of a query element: 4 (f32) or 2 (bf16)
+  float scale;
+};
+
+// Block-table entries a block can need: the pages of its share of the
+// 16-token tiles of nj pages of P tokens split over ``splits`` blocks.
+inline int bt_capacity(int nj, int P, int splits) {
+  const long long tiles = ((long long)nj * P + TT - 1) / TT;
+  const long long tokens = (tiles + splits - 1) / splits * TT;
+  return (int)((tokens + P - 1) / P + 1);
+}
+
+// 16 or 4 where every row and the pool's address allow copies that wide,
+// else 1 (plain byte copies)
+inline int copy_width(int row_bytes, const void* pool) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(pool);
+  if (row_bytes % 16 == 0 && p % 16 == 0) return 16;
+  if (row_bytes % 4 == 0 && p % 4 == 0) return 4;
+  return 1;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Element e of a stored row as f32 (quantized kinds times the row's scale,
+// one f32 multiply, as the plain version's).
+template <int KIND>
+__device__ __forceinline__ float elem(const uint8_t* row, int e, float sc) {
+  if constexpr (KIND == 0) {
+    return reinterpret_cast<const float*>(row)[e];
+  } else if constexpr (KIND == 1) {
+    return __uint_as_float(
+        (uint32_t)reinterpret_cast<const uint16_t*>(row)[e] << 16);
+  } else if constexpr (KIND == 2) {
+    return (float)reinterpret_cast<const int8_t*>(row)[e] * sc;
+  } else {
+    const uint32_t b = row[e >> 1];
+    const uint32_t n = (e & 1) ? b >> 4 : b & 15u;
+    return (float)((int)(n ^ 8u) - 8) * sc;
+  }
+}
+
+// Elements e .. e + 3 (e a multiple of 4) of a stored row of ``width``
+// elements, zeros past it; ``row`` is 16-byte aligned.
+template <int KIND>
+__device__ __forceinline__ float4 elems4(const uint8_t* row, int e, int width,
+                                         float sc) {
+  float v[4];
+  if (e + 4 <= width) {
+    if constexpr (KIND == 0) {
+      return *reinterpret_cast<const float4*>(row + 4 * e);
+    } else if constexpr (KIND == 1) {
+      const uint2 u = *reinterpret_cast<const uint2*>(row + 2 * e);
+      return make_float4(__uint_as_float(u.x << 16),
+                         __uint_as_float(u.x & 0xFFFF0000u),
+                         __uint_as_float(u.y << 16),
+                         __uint_as_float(u.y & 0xFFFF0000u));
+    } else if constexpr (KIND == 2) {
+      const uint32_t u = *reinterpret_cast<const uint32_t*>(row + e);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = (float)(int8_t)(u >> (8 * i)) * sc;
+    } else {
+      const uint32_t u = *reinterpret_cast<const uint16_t*>(row + e / 2);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = (float)((int)(((u >> (4 * i)) & 15u) ^ 8u) - 8) * sc;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = e + i < width ? elem<KIND>(row, e + i, sc) : 0.f;
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Warp w copies the stored rows w, w + DNW, .. (< nt) of one leaf into the
+// stage (rows ``rs`` bytes apart), its lanes along the row; lane t (< TT)
+// holds ``grow``, tile row t's token row in the pool.
+__device__ __forceinline__ void copy_leaf(uint8_t* dst, const uint8_t* pool,
+                                          int rb, int rs, int v, int nt,
+                                          int grow, int w, int lane) {
+  for (int t = w; t < nt; t += DNW) {
+    const uint8_t* src = pool + (size_t)__shfl_sync(FULL, grow, t) * rb;
+    uint8_t* d = dst + t * rs;
+    if (v == 16) {
+      for (int c = 16 * lane; c < rb; c += 16 * 32)
+        cp_async<16>(smem_u32(d + c), src + c);
+    } else if (v == 4) {
+      for (int c = 4 * lane; c < rb; c += 4 * 32)
+        cp_async<4>(smem_u32(d + c), src + c);
+    } else {
+      for (int c = lane; c < rb; c += 32) d[c] = src[c];
+    }
+  }
+}
+
+// Elements e .. e + 3 (e a multiple of 4) of a query row (f32, or bf16
+// where ``bf16``) as f32, zeros past ``width``: one 16- or 8-byte load
+// where the row allows it.
+__device__ __forceinline__ float4 q_elems4(const void* row, int e, int width,
+                                           bool bf16) {
+  float v[4];
+  if (bf16) {
+    const uint16_t* p = static_cast<const uint16_t*>(row) + e;
+    if (e + 4 <= width && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      return make_float4(__uint_as_float(u.x << 16),
+                         __uint_as_float(u.x & 0xFFFF0000u),
+                         __uint_as_float(u.y << 16),
+                         __uint_as_float(u.y & 0xFFFF0000u));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = e + i < width ? __uint_as_float((uint32_t)p[i] << 16) : 0.f;
+  } else {
+    const float* p = static_cast<const float*>(row) + e;
+    if (e + 4 <= width && (reinterpret_cast<uintptr_t>(p) & 15) == 0)
+      return *reinterpret_cast<const float4*>(p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = e + i < width ? p[i] : 0.f;
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// LK: the latent leaf's kind, KK: the rope leaf's.  Two blocks an SM where
+// shared memory allows (the bf16 and quantized pools' ~94-103 KB).
+template <int LK, int KK>
+__global__ void __launch_bounds__(DNT, 2)
+    paged_mla_decode_kernel(DecodeArgs a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) uint8_t dsmem[];
+  const int R = a.R, Dr = a.Dr, P = a.P;
+  const DecodeSmem L = decode_smem(LK, KK, R, Dr, a.bt_cap);
+  const int KS = L.ks;
+  uint8_t* stage = dsmem;
+  float* q_s = reinterpret_cast<float*>(dsmem + L.q);
+  float* c_s = reinterpret_cast<float*>(dsmem + L.tile);
+  float* part_s = reinterpret_cast<float*>(dsmem + L.part);
+  float* p_s = reinterpret_cast<float*>(dsmem + L.p);
+  float* corr_s = reinterpret_cast<float*>(dsmem + L.stats);
+  float* m_s = corr_s + HT;
+  float* l_s = m_s + HT;
+  int* bt_s = reinterpret_cast<int*>(dsmem + L.bt);
+
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int h0 = blockIdx.y * HT, nh = min(HT, a.H - h0);
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+
+  // the query tile: row h = [q_eff | 0 | q_rope | 0] as f32, zero past H,
+  // a thread's loads all issued before its stores; columns past the rope
+  // part are zero in it and in the f32 tile (the conversion writes the
+  // rest of a tile row, zeros up to ra and ra + da)
+  {
+    constexpr int QCH = (HT * (RMAX + DMAX) / 4 + DNT - 1) / DNT;
+    const int ncl = L.ra / 4, nch = ncl + L.da / 4;   // 4-element chunks
+    float4 qv[QCH];
+#pragma unroll
+    for (int u = 0; u < QCH; ++u) {
+      const int idx = tid + u * DNT, h = idx / nch, c = idx - h * nch;
+      qv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (h < nh) {
+        const size_t qrow = (size_t)b * a.H + h0 + h;
+        qv[u] = c < ncl
+                    ? q_elems4(static_cast<const uint8_t*>(a.q_eff) +
+                                   qrow * R * a.qsize,
+                               4 * c, R, a.qsize == 2)
+                    : q_elems4(static_cast<const uint8_t*>(a.q_rope) +
+                                   qrow * Dr * a.qsize,
+                               4 * (c - ncl), Dr, a.qsize == 2);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < QCH; ++u) {
+      const int idx = tid + u * DNT, h = idx / nch, c = idx - h * nch;
+      if (h < HT)
+        *reinterpret_cast<float4*>(
+            q_s + h * KS + (c < ncl ? 4 * c : L.ra + 4 * (c - ncl))) = qv[u];
+    }
+    for (int h = 0; h < HT; ++h) {
+      for (int e = L.ra + L.da + tid; e < L.kw; e += DNT) {
+        q_s[h * KS + e] = 0.f;
+        c_s[h * KS + e] = 0.f;      // TT == HT rows
+      }
+    }
+  }
+
+  // the lane's valid tokens: its first min(lane_pages, nj) logical pages,
+  // cut after the query position (kidx <= pos: past it every token is
+  // masked, so the cut is exact); their 16-token tiles are split evenly
+  // over the cluster's blocks, and this block takes tokens [u0, u0 + ntok)
+  // and the block-table entries of their pages
+  const int jmax = a.lane_pages != nullptr
+                       ? min(max(a.lane_pages[b], 1), a.nj)
+                       : a.nj;
+  const int nvalid = max(0, min(jmax * P, a.pos[b] + 1));
+  const int ntt = (nvalid + TT - 1) / TT;
+  const int u0 = ntt * split / splits * TT;
+  const int ntok = max(0, min(ntt * (split + 1) / splits * TT, nvalid) - u0);
+  const int ntiles = (ntok + TT - 1) / TT;
+  const int pg0 = u0 / P;
+  const int npg = ntok > 0 ? (u0 + ntok - 1) / P - pg0 + 1 : 0;
+  for (int i = tid; i < npg; i += DNT)
+    bt_s[i] = a.block_table[(size_t)b * a.nbt + pg0 + i];
+  __syncthreads();
+
+  // start the copies of tile i into the stage
+  auto issue = [&](int i) {
+    const int nt = min(TT, ntok - i * TT);
+    const int t = lane & (TT - 1);
+    int grow = 0;
+    if (t < nt) {
+      const int u = u0 + i * TT + t, pg = u / P;
+      grow = bt_s[pg - pg0] * P + (u - pg * P);
+    }
+    copy_leaf(stage, a.ckv, L.lrb, L.lrs, a.lv, nt, grow, w, lane);
+    copy_leaf(stage + L.st_k, a.krope, L.krb, L.krs, a.kv, nt, grow, w, lane);
+    if (LK >= 2 && w == 0 && lane < nt)
+      cp_async<4>(smem_u32(stage + L.st_cd + 4 * lane), a.cd + grow);
+    if (KK >= 2 && w == 1 && lane < nt)
+      cp_async<4>(smem_u32(stage + L.st_kd + 4 * lane), a.kd + grow);
+  };
+  if (ntiles > 0) issue(0);
+  cp_async_commit();
+
+  // softmax: warp w's half ``half`` owns head 2w + half, its 16 lanes one
+  // token each, and keeps (m, l) alike in all of them
+  const int half = lane >> 4, hs = 2 * w + half, ts = lane & 15;
+  float m = NEG_INF, l = 0.f;
+  // scores: lane (half, hq, tq) holds heads hq + 4j and tokens tq + 4i of K
+  // slice 2w + half (16-byte pairs, the two halves' interleaved)
+  const int hq = (lane >> 2) & 3, tq = lane & 3;
+  const int kslice = L.kw / DNW;            // floats a warp's slice, mult. of 8
+  const float* qb = q_s + w * kslice + 4 * half;
+  const float* cb = c_s + w * kslice + 4 * half;
+  // p . c_kv: heads hb .. hb + 7, latent columns 4 r4 .. 4 r4 + 3
+  const int hb = 8 * (w & 1), r4 = (w >> 1) * 32 + lane;
+  float acc[8][4];
+#pragma unroll
+  for (int h = 0; h < 8; ++h)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[h][c] = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int nt = min(TT, ntok - i * TT);
+    cp_async_wait_all();
+    __syncthreads();      // tile i's rows landed; tile i - 1 is consumed
+
+    // the stage as f32 rows, warp w converting rows w, w + DNW
+    {
+      const float* cd_s = reinterpret_cast<const float*>(stage + L.st_cd);
+      const float* kd_s = reinterpret_cast<const float*>(stage + L.st_kd);
+      const int ncl = L.ra / 4, nc = ncl + L.da / 4;
+      for (int t = w; t < nt; t += DNW) {
+        const uint8_t* lrow = stage + t * L.lrs;
+        const uint8_t* krow = stage + L.st_k + t * L.krs;
+        const float sl = LK >= 2 ? cd_s[t] : 1.f, sk = KK >= 2 ? kd_s[t] : 1.f;
+        float* dst = c_s + t * KS;
+        for (int c = lane; c < nc; c += 32) {
+          const float4 v = c < ncl ? elems4<LK>(lrow, 4 * c, R, sl)
+                                   : elems4<KK>(krow, 4 * (c - ncl), Dr, sk);
+          *reinterpret_cast<float4*>(dst + 4 * c) = v;
+        }
+      }
+    }
+    __syncthreads();      // the f32 tile is whole; the stage is free
+    if (i + 1 < ntiles) issue(i + 1);
+    cp_async_commit();
+
+    // scores over this thread's K slice
+    {
+      float s[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) s[j][t] = 0.f;
+      for (int k = 0; k < kslice; k += 8) {
+        float4 cv[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          cv[t] = *reinterpret_cast<const float4*>(cb + (tq + 4 * t) * KS + k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qb + (hq + 4 * j) * KS + k);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            float v = s[j][t];
+            v = fmaf(qv.x, cv[t].x, v);
+            v = fmaf(qv.y, cv[t].y, v);
+            v = fmaf(qv.z, cv[t].z, v);
+            v = fmaf(qv.w, cv[t].w, v);
+            s[j][t] = v;
+          }
+        }
+      }
+      // the two halves' slices summed: half 0 keeps heads hq, hq + 4, half
+      // 1 hq + 8, hq + 12; then one partial a warp
+      float* pw = part_s + w * HT * TT;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float send = half ? s[jj][t] : s[jj + 2][t];
+          const float keep = half ? s[jj + 2][t] : s[jj][t];
+          pw[(hq + 4 * (jj + 2 * half)) * TT + tq + 4 * t] =
+              keep + __shfl_xor_sync(FULL, send, 16);
+        }
+      }
+    }
+    __syncthreads();      // every warp's partial scores
+
+    // online softmax of head hs over the tile's tokens
+    {
+      float sv = 0.f;
+#pragma unroll
+      for (int ww = 0; ww < DNW; ++ww) sv += part_s[(ww * HT + hs) * TT + ts];
+      const bool ok = ts < nt;
+      sv = ok ? sv * a.scale : NEG_INF;
+      float mx = sv;
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+      const float m_new = fmaxf(m, mx);
+      const float p = ok ? expf(sv - m_new) : 0.f;
+      float sum = p;
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
+      const float corr = expf(m - m_new);
+      l = l * corr + sum;
+      m = m_new;
+      p_s[ts * HT + hs] = p;
+      if (ts == 0) corr_s[hs] = corr;
+    }
+    __syncthreads();      // the tile's probabilities
+
+    // acc = acc * corr + p . c_kv
+    {
+      const float4 ca = *reinterpret_cast<const float4*>(corr_s + hb);
+      const float4 cb4 = *reinterpret_cast<const float4*>(corr_s + hb + 4);
+      const float cr[8] = {ca.x, ca.y, ca.z, ca.w, cb4.x, cb4.y, cb4.z, cb4.w};
+#pragma unroll
+      for (int h = 0; h < 8; ++h)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[h][c] *= cr[h];
+      if (4 * r4 < R) {
+        const float* cc = c_s + 4 * r4;
+#pragma unroll 2
+        for (int t = 0; t < nt; ++t) {
+          const float4 cv = *reinterpret_cast<const float4*>(cc + t * KS);
+          const float4 pa = *reinterpret_cast<const float4*>(p_s + t * HT + hb);
+          const float4 pb =
+              *reinterpret_cast<const float4*>(p_s + t * HT + hb + 4);
+          const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+          for (int h = 0; h < 8; ++h) {
+            acc[h][0] = fmaf(pr[h], cv.x, acc[h][0]);
+            acc[h][1] = fmaf(pr[h], cv.y, acc[h][1]);
+            acc[h][2] = fmaf(pr[h], cv.z, acc[h][2]);
+            acc[h][3] = fmaf(pr[h], cv.w, acc[h][3]);
+          }
+        }
+      }
+    }
+  }
+
+  // this block's partial: (m, l) per head and acc as HT x R in place of the
+  // f32 tile
+  cp_async_wait_all();
+  __syncthreads();
+  float* red = c_s;
+  if (4 * r4 < R) {
+#pragma unroll
+    for (int h = 0; h < 8; ++h)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (4 * r4 + c < R) red[(hb + h) * R + 4 * r4 + c] = acc[h][c];
+  }
+  if (ts == 0) {
+    m_s[hs] = m;
+    l_s[hs] = l;
+  }
+
+  // every block of the cluster merges a slice of the outputs from all the
+  // blocks' partials, in rank order
+  cluster.sync();
+  float* wts = reinterpret_cast<float*>(dsmem + L.wts);   // splits x HT
+  float* lsum = wts + MAX_SPLITS * HT;
+  if (tid < HT) {
+    float ms[MAX_SPLITS], ls[MAX_SPLITS];
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPLITS; ++sp) {
+      if (sp < splits) {
+        ms[sp] = cluster.map_shared_rank(m_s, sp)[tid];
+        ls[sp] = cluster.map_shared_rank(l_s, sp)[tid];
+      }
+    }
+    float mx = NEG_INF;
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPLITS; ++sp)
+      if (sp < splits) mx = fmaxf(mx, ms[sp]);
+    float lt = 0.f;
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPLITS; ++sp) {
+      if (sp < splits) {
+        const float e = expf(ms[sp] - mx);
+        wts[sp * HT + tid] = e;
+        lt += ls[sp] * e;
+      }
+    }
+    lsum[tid] = fmaxf(lt, 1e-30f);
+  }
+  __syncthreads();
+  const int n_out = nh * R, rank = (int)cluster.block_rank();
+  const int lo = n_out * rank / splits, hi = n_out * (rank + 1) / splits;
+  for (int idx = lo + tid; idx < hi; idx += DNT) {
+    const int h = idx / R;
+    float part[MAX_SPLITS];
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPLITS; ++sp)
+      if (sp < splits) part[sp] = cluster.map_shared_rank(red, sp)[idx];
+    float v = 0.f;
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPLITS; ++sp)
+      if (sp < splits) v += part[sp] * wts[sp * HT + h];
+    a.out[((size_t)b * a.H + h0 + h) * R + idx - h * R] = v / lsum[h];
+  }
+  cluster.sync();   // each block's shared memory stays until all have read it
+}
+
+template <int LK, int KK>
+int launch_decode(const DecodeArgs& a, int splits, cudaStream_t stream) {
+  auto kernel = paged_mla_decode_kernel<LK, KK>;
+  const DecodeSmem L = decode_smem(LK, KK, a.R, a.Dr, a.bt_cap);
+  static int configured = 48 * 1024;   // the largest size allowed so far
+  if (L.total > configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    configured = L.total;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (a.H + HT - 1) / HT, a.B);
+  cfg.blockDim = dim3(DNT);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -296,31 +858,68 @@ int launch_rw(const Args& a, int rw, cudaStream_t stream) {
 // latent_kind / rope_kind: 0 = float32 pools, 1 = bfloat16 pools, 2 = q8_0
 // (int8 + f32 token scales), 3 = q4_0 (two int4 a byte + f32 token scales;
 // R or Dr even).  The pairs built: (0, 0), (1, 1), (2, 2), (3, 3) and
-// (2, 3), the "dq" policy's q8_0 latents and q4_0 rope keys.  Decode passes
-// C = 1, qpos = pos and lane_pages; prefill passes the chunk's C and
-// lane_pages = null.  rw = query rows per warp (1 or 4).  R <= 512 and
-// Dr <= 64 (logical widths).  Returns cudaGetLastError() after the launch.
-extern "C" int paged_mla(int latent_kind, int rope_kind, const float* q_eff,
-                         const float* q_rope, const void* ckv,
-                         const void* krope, const float* cd, const float* kd,
-                         const int* block_table, const int* qpos,
-                         const int* lane_pages, float* out, int B, int C,
-                         int H, int R, int Dr, int P, int nbt, int nj,
-                         float scale, int rw, void* stream) {
+// (2, 3), the "dq" policy's q8_0 latents and q4_0 rope keys; prefill takes
+// the quantized ones.  R <= 512 and Dr <= 64 (logical widths).
+
+// Chunked prefill (paged_mla_kernel): qpos (B, C) query positions, -1 for
+// padded rows.  Returns cudaGetLastError() after the launch.
+extern "C" int paged_mla_prefill(int latent_kind, int rope_kind,
+                                 const float* q_eff, const float* q_rope,
+                                 const void* ckv, const void* krope,
+                                 const float* cd, const float* kd,
+                                 const int* block_table, const int* qpos,
+                                 float* out, int B, int C, int H, int R,
+                                 int Dr, int P, int nbt, int nj, float scale,
+                                 void* stream) {
   if (R > RMAX || Dr > DMAX) return (int)cudaErrorInvalidValue;
   if ((latent_kind == 3 && (R & 1)) || (rope_kind == 3 && (Dr & 1)))
     return (int)cudaErrorInvalidValue;
-  Args a{q_eff, q_rope, ckv, krope, cd, kd, block_table, qpos, lane_pages,
-         out, B, C, H, R, Dr, P, nbt, nj, scale};
+  Args a{q_eff, q_rope, ckv, krope, cd, kd, block_table, qpos, out,
+         B, C, H, R, Dr, P, nbt, nj, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (latent_kind * 4 + rope_kind) {
-    case 0: return launch_rw<PlainLoader<float>, PlainLoader<float>>(a, rw, st);
-    case 5:
-      return launch_rw<PlainLoader<__nv_bfloat16>,
-                       PlainLoader<__nv_bfloat16>>(a, rw, st);
-    case 10: return launch_rw<Q8Loader, Q8Loader>(a, rw, st);
-    case 15: return launch_rw<Q4Loader, Q4Loader>(a, rw, st);
-    case 11: return launch_rw<Q8Loader, Q4Loader>(a, rw, st);
+    case 10: return launch<Q8Loader, Q8Loader>(a, st);
+    case 15: return launch<Q4Loader, Q4Loader>(a, st);
+    case 11: return launch<Q8Loader, Q4Loader>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// One-token decode (paged_mla_decode_kernel): q_eff / q_rope float32
+// (q_bf16 = 0) or bfloat16 (q_bf16 = 1); pos (B,) the query positions;
+// lane_pages (B,) or null.  A lane's valid tokens (its first
+// min(lane_pages, nj) logical pages, cut after its position) are split in
+// 16-token tiles over ``splits`` blocks (1 <= splits <= 8), a cluster per
+// (lane, tile of 16 heads).  Returns the launch's error code.
+extern "C" int paged_mla_decode(int latent_kind, int rope_kind, int q_bf16,
+                                const void* q_eff, const void* q_rope,
+                                const void* ckv, const void* krope,
+                                const float* cd, const float* kd,
+                                const int* block_table, const int* pos,
+                                const int* lane_pages, float* out, int B,
+                                int H, int R, int Dr, int P, int nbt, int nj,
+                                int splits, float scale, void* stream) {
+  if (R < 1 || R > RMAX || Dr < 1 || Dr > DMAX || P < 1 || nj < 1 ||
+      splits < 1 || splits > MAX_SPLITS || (q_bf16 != 0 && q_bf16 != 1))
+    return (int)cudaErrorInvalidValue;
+  if ((latent_kind == 3 && (R & 1)) || (rope_kind == 3 && (Dr & 1)))
+    return (int)cudaErrorInvalidValue;
+  const int lrb = kind_bytes(latent_kind, R), krb = kind_bytes(rope_kind, Dr);
+  const int bt_cap = bt_capacity(nj, P, splits);
+  const DecodeSmem L = decode_smem(latent_kind, rope_kind, R, Dr, bt_cap);
+  if (L.total > 227 * 1024) return (int)cudaErrorInvalidValue;
+  DecodeArgs a{q_eff, q_rope, static_cast<const uint8_t*>(ckv),
+               static_cast<const uint8_t*>(krope), cd, kd, block_table, pos,
+               lane_pages, out, B, H, R, Dr, P, nbt, nj, bt_cap,
+               copy_width(lrb, ckv), copy_width(krb, krope),
+               q_bf16 ? 2 : 4, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (latent_kind * 4 + rope_kind) {
+    case 0: return launch_decode<0, 0>(a, splits, st);
+    case 5: return launch_decode<1, 1>(a, splits, st);
+    case 10: return launch_decode<2, 2>(a, splits, st);
+    case 15: return launch_decode<3, 3>(a, splits, st);
+    case 11: return launch_decode<2, 3>(a, splits, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

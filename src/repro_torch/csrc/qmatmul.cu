@@ -32,7 +32,8 @@
 // Accumulation is f32; the four warps' partial sums are added in a fixed
 // order.  Where the column tiles alone give too few blocks to fill the
 // card, the tiles are split over gridDim.y and a second kernel adds the
-// per-split partials in a fixed order (deterministic split-K, no atomics).
+// per-split partials in a fixed order (deterministic split-K, no atomics;
+// every 2-D form but q4_k's at M <= 4, below).
 // K that is not a multiple of 256 reads x as zero past K, and q8_0 blocks
 // past the last one are not read at all.  The dequantized weights are the
 // same f32 values as the plain version's (q6_k: (q-32) * (sc*d); q3_k:
@@ -90,9 +91,29 @@
 // = 20 by the f32 FMAs.  The warps' partial sums are added in a fixed
 // order, with no atomics.
 //
+// q4_k's 2-D form at M <= 4 (qmatmul_q4k_decode_kernel<T, V>), on
+// qmatmul_kernel + splitk_reduce the largest B1 family of a qwen2 decode
+// step (1536 -> 1536 / 8960 at 12 % of the bytes bound).  There x was
+// restaged per superblock behind two barriers with no weight bytes in
+// flight, each weight took an int-to-float conversion, each thread had one
+// 4-byte load a field row in flight, and the split over K cost a second
+// launch and a per-call f32 buffer.  The redesign takes the expert form's
+// pieces: the weight tiles through a ring of cp.async stages (StageCopies),
+// x (up to DROWS = 4 rows, zero past M) staged once as f32 in q4_k's order
+// with its 32-element sub-block sums, a nibble moved to bits 3-6 becoming
+// 0.5 + q/32 in one byte permute, and each sub-block's scale and min
+// factored out of its sums (q4k_stage_rows4), so a weight costs one
+// permute, 0.5 integer ops and one FMA a row: ~6 instructions, about the
+// time of its 0.5625 bytes.  Where the column tiles alone are few, the
+// superblocks are split over a cluster of up to 8 blocks (about 4 blocks an
+// SM in all) and the blocks' column sums are added in rank order through
+// distributed shared memory: one launch, deterministic.  A zero row of x
+// gives +0, as the plain version does.
+//
 // Built once per format: -DQMATMUL_FMT=<id> instantiates that format's
 // kernels only (kernels/build.py builds the six libraries in parallel).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -1420,8 +1441,280 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-// launches of qmatmul_experts_kernel made by this library
+// ---------------------------------------------------------------------------
+// q4_k's 2-D form at M <= 4: qmatmul_q4k_decode_kernel (see the header).  A
+// cluster of ``ks`` blocks owns 128 columns; block ``rank`` walks its share
+// of the superblocks with x's up to DROWS rows staged once as f32 (rows past
+// M are zero) and the weight tiles through a ring of cp.async stages, then
+// the blocks' column sums are added in rank order through distributed
+// shared memory.
+// ---------------------------------------------------------------------------
+
+constexpr int DROWS = 4;                  // rows of x a decode block carries
+constexpr int DSTAGES = 2;                // stages in its ring
+constexpr int DECODE_MAX_K = 65536;       // K the decode form takes
+constexpr int MAX_KSPLIT = 8;             // blocks a cluster (the portable size)
+
+// q4_k, up to DROWS rows: q4k_stage_c1's split and code conversion, each
+// code feeding one FMA per row (x row r at ``xsb + r * xstride``, its
+// sub-block sums at ``xsum_s + r * sstride``).
+__device__ __forceinline__ void q4k_stage_rows4(const uint8_t* stage,
+                                                const float* xsb, int xstride,
+                                                const float* xsum_s,
+                                                int sstride, int w, int l,
+                                                float (&acc)[DROWS][4]) {
+  const uint8_t* qrow = stage + 32 * w * COLS + 4 * l;
+  const float* xr = xsb + 64 * w;
+  float plo[DROWS][4], phi[DROWS][4];
+#pragma unroll
+  for (int r = 0; r < DROWS; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) plo[r][c] = phi[r][c] = 0.f;
+#pragma unroll 2
+  for (int j = 0; j < 32; j += 2) {
+    const uint32_t q0 = *reinterpret_cast<const uint32_t*>(qrow + j * COLS);
+    const uint32_t q1 =
+        *reinterpret_cast<const uint32_t*>(qrow + (j + 1) * COLS);
+    const uint32_t lo0 = (q0 << 3) & 0x78787878u, hi0 = (q0 >> 1) & 0x78787878u;
+    const uint32_t lo1 = (q1 << 3) & 0x78787878u, hi1 = (q1 >> 1) & 0x78787878u;
+    float cl0[4], ch0[4], cl1[4], ch1[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      cl0[c] = code_half(lo0, c);
+      ch0[c] = code_half(hi0, c);
+      cl1[c] = code_half(lo1, c);
+      ch1[c] = code_half(hi1, c);
+    }
+#pragma unroll
+    for (int r = 0; r < DROWS; ++r) {
+      const float4 xv =
+          *reinterpret_cast<const float4*>(xr + r * xstride + 2 * j);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        plo[r][c] = fmaf(xv.x, cl0[c], plo[r][c]);
+        phi[r][c] = fmaf(xv.y, ch0[c], phi[r][c]);
+        plo[r][c] = fmaf(xv.z, cl1[c], plo[r][c]);
+        phi[r][c] = fmaf(xv.w, ch1[c], phi[r][c]);
+      }
+    }
+  }
+  const uint8_t* sc = stage + xf_off(0, 1) + 4 * l;
+  const uint8_t* mn = stage + xf_off(0, 2) + 4 * l;
+  const uint32_t sl = *reinterpret_cast<const uint32_t*>(sc + w * COLS);
+  const uint32_t sh = *reinterpret_cast<const uint32_t*>(sc + (4 + w) * COLS);
+  const uint32_t ml = *reinterpret_cast<const uint32_t*>(mn + w * COLS);
+  const uint32_t mh = *reinterpret_cast<const uint32_t*>(mn + (4 + w) * COLS);
+  float dd[4], dm[4];
+  load4_half(as_half(stage + xf_off(0, 3)) + 4 * l, dd);
+  load4_half(as_half(stage + xf_off(0, 4)) + 4 * l, dm);
+#pragma unroll
+  for (int r = 0; r < DROWS; ++r) {
+    const float xl = xsum_s[r * sstride + w], xh = xsum_s[r * sstride + 4 + w];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float a1 = fmaf((float)byte_of(sl, c), plo[r][c] - 0.5f * xl,
+                            (float)byte_of(sh, c) * (phi[r][c] - 0.5f * xh));
+      const float a2 =
+          fmaf((float)byte_of(ml, c), xl, (float)byte_of(mh, c) * xh);
+      acc[r][c] = fmaf(32.f * dd[c], a1, acc[r][c]);
+      acc[r][c] = fmaf(-dm[c], a2, acc[r][c]);
+    }
+  }
+}
+
+// Dynamic shared memory of a decode block holding ``nsb`` superblocks: the
+// ring (the warps' and the block's sums at the end), then x (DROWS x nsb x
+// 256 f32) and its sub-block sums (DROWS x nsb x 8).
+__host__ __device__ constexpr size_t decode_smem(int nsb) {
+  return (size_t)DSTAGES * stage_bytes(0) + (size_t)DROWS * nsb * (QK + 8) * 4;
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(NTHREADS)
+    qmatmul_q4k_decode_kernel(const T* __restrict__ x, Fields f,
+                              T* __restrict__ out, int M, int K, int N) {
+  constexpr int STAGE = stage_bytes(0);
+  static_assert(TY * DROWS * COLS * 4 <= DSTAGES * STAGE,
+                "the warps' and the block's sums must fit in the ring");
+  extern __shared__ __align__(16) uint8_t smem_d[];
+  uint8_t* ring = smem_d;
+  float* xs = reinterpret_cast<float*>(smem_d + DSTAGES * STAGE);
+
+  const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
+  const int n0 = blockIdx.x * COLS;
+  const int rank = blockIdx.y, ks = gridDim.y;
+  const int S = (K + QK - 1) / QK;
+  const int s0 = (int)((long long)S * rank / ks);
+  const int nsb = (int)((long long)S * (rank + 1) / ks) - s0;
+  const int xstride = nsb * QK;
+  float* xsum = xs + DROWS * xstride;       // DROWS x nsb x 8
+
+  // the first weight stages are in flight while x is staged
+  StageCopies<0, V> copies(f, (size_t)s0, N, n0, ring, tid);
+#pragma unroll
+  for (int st = 0; st < DSTAGES - 1; ++st) {
+    if (st < nsb) copies.issue(st, N, 1);
+    cp_async_commit();
+  }
+
+  // x[:, s0 * 256 ..) as f32 in q4_k's order (xperm), zero past K and M;
+  // a thread's loads of a batch are all issued before its stores
+  constexpr int XV = 16 / sizeof(T);   // elements of x a load
+  constexpr int KV = QK / XV;          // loads a superblock row
+  constexpr int XB = 8;                // loads a batch
+  const bool vec =
+      K % XV == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const int per_row = nsb * KV, nload = DROWS * per_row;
+  for (int g0 = tid; g0 < nload; g0 += XB * NTHREADS) {
+    float v[XB][XV];
+#pragma unroll
+    for (int u = 0; u < XB; ++u) {
+      const int g = g0 + u * NTHREADS, r = g / per_row;
+      if (g < nload && r < M) {
+        load_x<T>(x + (size_t)r * K, s0 * QK + (g - r * per_row) * XV, K,
+                  vec, v[u]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < XV; ++i) v[u][i] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < XB; ++u) {
+      const int g = g0 + u * NTHREADS, r = g / per_row, gr = g - r * per_row;
+      if (g < nload) {
+        const int base = (gr / KV) * QK, kb = (gr % KV) * XV;
+#pragma unroll
+        for (int i = 0; i < XV; ++i)
+          xs[r * xstride + base + xperm<0>(kb + i)] = v[u][i];
+      }
+    }
+  }
+  __syncthreads();
+  // the sum of x over each 32-element sub-block
+  for (int i = tid; i < DROWS * nsb * 8; i += NTHREADS) {
+    const int r = i / (nsb * 8), rem = i - r * nsb * 8;
+    const float* src = xs + r * xstride + (rem >> 3) * QK;
+    const int k0 = (rem & 7) * 32;
+    float v = 0.f;
+    for (int j = 0; j < 32; ++j) v += src[xperm<0>(k0 + j)];
+    xsum[i] = v;
+  }
+
+  float acc[DROWS][4];
+#pragma unroll
+  for (int r = 0; r < DROWS; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  int slot = 0, fill = DSTAGES - 1;
+  for (int s = 0; s < nsb; ++s) {
+    cp_async_wait<DSTAGES - 2>();  // this thread's copies of stage s
+    __syncthreads();  // everyone's; stage s - 1 is consumed (and xsum made)
+    if (s + DSTAGES - 1 < nsb) copies.issue(fill, N, 1);
+    cp_async_commit();
+    q4k_stage_rows4(ring + slot * STAGE, xs + s * QK, xstride, xsum + 8 * s,
+                    nsb * 8, w, l, acc);
+    slot = slot == DSTAGES - 1 ? 0 : slot + 1;
+    fill = fill == DSTAGES - 1 ? 0 : fill + 1;
+  }
+
+  // the block's column sums: the four warps' partial sums in a fixed order
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);          // (TY - 1) x DROWS x COLS
+  float* blk = red + (TY - 1) * DROWS * COLS;           // DROWS x COLS
+  if (w > 0) {
+#pragma unroll
+    for (int r = 0; r < DROWS; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        red[((w - 1) * DROWS + r) * COLS + 4 * l + c] = acc[r][c];
+  }
+  __syncthreads();
+  if (w == 0) {
+#pragma unroll
+    for (int r = 0; r < DROWS; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float v = acc[r][c];
+#pragma unroll
+        for (int ww = 0; ww < TY - 1; ++ww)
+          v += red[(ww * DROWS + r) * COLS + 4 * l + c];
+        const int n = n0 + 4 * l + c;
+        if (ks == 1) {
+          if (r < M && n < N) out[(size_t)r * N + n] = from_f32<T>(v);
+        } else {
+          blk[r * COLS + 4 * l + c] = v;
+        }
+      }
+    }
+  }
+  if (ks == 1) return;
+
+  // the cluster's blocks add their sums in rank order, each writing a slice
+  // of the 128 columns' outputs
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int n_out = DROWS * COLS;
+  const int lo = n_out * rank / ks, hi = n_out * (rank + 1) / ks;
+  for (int idx = lo + tid; idx < hi; idx += NTHREADS) {
+    const int r = idx / COLS, n = n0 + idx % COLS;
+    float part[MAX_KSPLIT];
+#pragma unroll
+    for (int sp = 0; sp < MAX_KSPLIT; ++sp)
+      if (sp < ks) part[sp] = cluster.map_shared_rank(blk, sp)[idx];
+    float v = 0.f;
+#pragma unroll
+    for (int sp = 0; sp < MAX_KSPLIT; ++sp)
+      if (sp < ks) v += part[sp];
+    if (r < M && n < N) out[(size_t)r * N + n] = from_f32<T>(v);
+  }
+  cluster.sync();   // each block's shared memory stays until all have read it
+}
+
+// launches of qmatmul_experts_kernel and qmatmul_q4k_decode_kernel, and of
+// splitk_reduce, made by this library
 long long g_experts_launches = 0;
+long long g_decode_launches = 0;
+long long g_splitk_launches = 0;
+
+template <typename T, int V>
+cudaError_t launch_q4k_decode(const void* x, const Fields& f, void* out,
+                              int M, int K, int N, int ks,
+                              cudaStream_t stream) {
+  auto kernel = qmatmul_q4k_decode_kernel<T, V>;
+  const int S = (K + QK - 1) / QK;
+  const size_t smem = decode_smem((S + ks - 1) / ks);
+  static size_t configured = 0;   // the largest size allowed so far
+  if (smem > configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    configured = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + COLS - 1) / COLS, ks);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = ks;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(x), f, static_cast<T*>(out), M, K,
+      N);
+  if (err != cudaSuccess) return err;
+  ++g_decode_launches;
+  return cudaSuccess;
+}
 
 template <typename T, int ROWS, int FMT, int V>
 cudaError_t launch_experts_rows(const void* x, const Fields& f, void* out,
@@ -1484,6 +1777,7 @@ void launch(const void* x, const Fields& f, void* partial, void* out, int E,
     const long long mn = (long long)M * N;
     splitk_reduce<T><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
         static_cast<const float*>(partial), static_cast<T*>(out), mn, splits);
+    ++g_splitk_launches;
   }
 }
 
@@ -1500,6 +1794,11 @@ void launch_rows(const void* x, const Fields& f, void* partial, void* out,
 #error "build with -DQMATMUL_FMT=<format id>"
 #endif
 
+// whether q4_k's (K, N) weight at M rows takes qmatmul_q4k_decode_kernel
+constexpr bool decode_form(int fmt, int E, int M, int K) {
+  return fmt == 0 && E == 1 && M <= DROWS && K <= DECODE_MAX_K;
+}
+
 template <typename T>
 int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
                int E, int M, int K, int N, int splits, cudaStream_t st) {
@@ -1507,6 +1806,16 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
     if (E > 1) {
       const cudaError_t err =
           launch_experts<T, QMATMUL_FMT>(x, f, out, E, M, K, N, st);
+      if (err != cudaSuccess) return (int)err;
+      return (int)cudaGetLastError();
+    }
+  }
+  if constexpr (QMATMUL_FMT == 0) {
+    if (decode_form(QMATMUL_FMT, E, M, K)) {
+      const cudaError_t err =
+          N % 16 == 0
+              ? launch_q4k_decode<T, 16>(x, f, out, M, K, N, splits, st)
+              : launch_q4k_decode<T, 4>(x, f, out, M, K, N, splits, st);
       if (err != cudaSuccess) return (int)err;
       return (int)cudaGetLastError();
     }
@@ -1522,10 +1831,12 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
 // format's ``nfields`` field pointers in the order of field_layout.  dtype
 // of x and out: 0 = float32, 1 = bfloat16.  E experts: x (E, M, K), fields
 // with a leading E, out (E, M, N); E = 1 for one weight.  q4_k, q6_k,
-// q3_k, q2_k and q8_0 experts (E > 1) go to qmatmul_experts_kernel, q5_k's
-// and every single weight to qmatmul_kernel.
-// N must be a multiple of 4; ``partial`` holds splits x M x N floats when
-// splits > 1 (E = 1 only; splits count 256-row tiles).  Returns
+// q3_k, q2_k and q8_0 experts (E > 1) go to qmatmul_experts_kernel; one
+// q4_k weight at M <= 4 (K <= 65536) to qmatmul_q4k_decode_kernel, its
+// superblocks split over a cluster of ``splits`` blocks (1..8, ``partial``
+// unused); every other weight to qmatmul_kernel.
+// N must be a multiple of 4; there ``partial`` holds splits x M x N floats
+// when splits > 1 (E = 1 only; splits count 256-row tiles).  Returns
 // cudaGetLastError() after the launches.
 extern "C" int qmatmul(int fmt, int dtype, const void* x,
                        const void* const* fields, int nfields, void* partial,
@@ -1534,6 +1845,10 @@ extern "C" int qmatmul(int fmt, int dtype, const void* x,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (fmt != QMATMUL_FMT || nfields != num_fields(fmt) || E < 1 ||
       (E > 1 && splits != 1))
+    return (int)cudaErrorInvalidValue;
+  if (decode_form(fmt, E, M, K) &&
+      (splits < 1 || splits > MAX_KSPLIT ||
+       decode_smem(((K + QK - 1) / QK + splits - 1) / splits) > 227 * 1024))
     return (int)cudaErrorInvalidValue;
   Fields f{};
   for (int i = 0; i < nfields; ++i)
@@ -1547,7 +1862,14 @@ extern "C" int qmatmul(int fmt, int dtype, const void* x,
 }
 
 // How many times this library launched qmatmul_experts_kernel (0 for the
-// formats that have none): the card tests read it to see which kernel ran.
+// formats that have none), qmatmul_q4k_decode_kernel (q4_k only) and
+// splitk_reduce: the card tests read them to see which kernels ran.
 extern "C" long long qmatmul_experts_kernel_launches(void) {
   return g_experts_launches;
+}
+extern "C" long long qmatmul_decode_kernel_launches(void) {
+  return g_decode_launches;
+}
+extern "C" long long qmatmul_splitk_reduce_launches(void) {
+  return g_splitk_launches;
 }

@@ -138,5 +138,11 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, which the kernels' splits are sized by."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()

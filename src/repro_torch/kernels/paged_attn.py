@@ -13,10 +13,11 @@ each wrapper is its plain PyTorch version, the reference's bounded-gather
 twin: gather only the first ``active_pages`` logical pages through the
 block table and run one masked softmax over them.
 
-The decode kernel splits each lane's page walk over the blocks of a
-thread-block cluster and merges their partial softmax states in one launch
-(:func:`decode_splits` sizes the split from host integers only, so a decode
-step stays free of host syncs).
+Both decode kernels (GQA and MLA) split each lane's page walk over the
+blocks of a thread-block cluster and merge their partial softmax states in
+one launch (:func:`decode_splits` and :func:`mla_decode_splits` size the
+split from host integers only, so a decode step stays free of host
+syncs).
 
 Layouts are the reference's: GQA pools ``(num_pages, P, Hkv, D)``,
 quantized row scales ``(num_pages, P, Hkv)``, ``pos_pool (num_pages, P)``
@@ -204,10 +205,6 @@ _DECODE_ROWS = 8
 _DECODE_MAX_P = 128
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
 
 def decode_splits(nj: int, blocks: int, sms: int) -> tuple[int, int]:
     """How the decode kernel splits a walk over ``nj`` logical pages when
@@ -260,7 +257,7 @@ def _launch_decode(kind: int, q, k, v, kd, vd, pos_pool, block_table, pos,
     _require(all(t.data_ptr() % 4 == 0 for t in (k, v)),
              "K/V pools must be 4-byte aligned")
     splits, pps = decode_splits(
-        nj, b * hkv * -(-(h // hkv) // _DECODE_ROWS), _sm_count(dev))
+        nj, b * hkv * -(-(h // hkv) // _DECODE_ROWS), build.sm_count(dev))
     out = torch.empty((b, h, dv), dtype=torch.float32, device=dev)
     err = _decode_entry()(kind, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           build.ptr(kd), build.ptr(vd), pos_pool.data_ptr(),
@@ -473,24 +470,53 @@ def mla_prefill_plain(q_eff, q_rope, kv, block_table, qpos, *, scale: float,
 
 
 @functools.lru_cache(maxsize=None)
-def _mla_entry():
+def _mla_prefill_entry():
     v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return build.bind("paged_mla", "paged_mla",
-                      [i, i, v, v, v, v, v, v, v, v, v, v,
-                       i, i, i, i, i, i, i, i, f, i, v])
+    return build.bind("paged_mla", "paged_mla_prefill",
+                      [i, i, v, v, v, v, v, v, v, v, v,
+                       i, i, i, i, i, i, i, i, f, v])
 
 
-def _mla_launch(kinds: tuple, q_eff, q_rope, ckv, krope, cd, kd,
-                block_table, qpos, lane_pages, *, nj: int, scale: float,
-                rw: int) -> torch.Tensor:
-    """q_eff (B, C, H, R) / q_rope (B, C, H, Dr) in any float type (read
-    as f32); ``kinds``: the latent and rope leaves' loader ids.  Returns
-    (B, C, H, R) f32."""
+@functools.lru_cache(maxsize=None)
+def _mla_decode_entry():
+    v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return build.bind("paged_mla", "paged_mla_decode",
+                      [i, i, i, v, v, v, v, v, v, v, v, v, v,
+                       i, i, i, i, i, i, i, i, f, v])
+
+
+# csrc/paged_mla.cu's decode kernel: query heads a block, and the blocks
+# that are resident on one SM at once, in tenths: two an SM by its shared
+# memory (bf16 and quantized pools), less a margin for the GPCs whose SMs
+# no whole cluster fills (on an H100, 30 clusters of 8 are resident, not
+# 33), so that every cluster of a launch runs in one wave
+_MLA_HEADS = 16
+_MLA_RESIDENT_TENTHS = 18
+
+
+def mla_decode_splits(nj: int, b: int, h: int, sms: int) -> int:
+    """Blocks a cluster of the MLA decode kernel, for ``b`` lanes of ``h``
+    heads (a cluster per lane and 16-head tile) over ``nj`` logical pages
+    on ``sms`` SMs, from host integers only: as many as keep every cluster
+    resident at once, at most 8 (the portable cluster size) and ``nj``.
+    The kernel splits each lane's valid tokens over them in 16-token
+    tiles, evenly, in rank order (``csrc/paged_mla.cu``)."""
+    clusters = b * -(-h // _MLA_HEADS)
+    want = _MLA_RESIDENT_TENTHS * sms // (10 * clusters)
+    return max(1, min(want, _MAX_SPLITS, nj))
+
+
+def _mla_operands(q_eff, q_rope, ckv, krope, cd, kd, block_table, qpos,
+                  lane_pages, keep_bf16: bool = False):
+    """The checks both MLA kernels share; q_eff / q_rope (any float type)
+    come back contiguous, as f32 unless both are bf16 and ``keep_bf16``
+    (the decode kernel reads bf16 queries itself)."""
     dev = q_eff.device
-    b, c, h, r = q_eff.shape
-    dr = q_rope.shape[-1]
-    q_eff = q_eff.to(torch.float32).contiguous()
-    q_rope = q_rope.to(torch.float32).contiguous()
+    r, dr = q_eff.shape[-1], q_rope.shape[-1]
+    dt = (torch.bfloat16 if keep_bf16 and q_eff.dtype == torch.bfloat16
+          and q_rope.dtype == torch.bfloat16 else torch.float32)
+    q_eff = q_eff.to(dt).contiguous()
+    q_rope = q_rope.to(dt).contiguous()
     tensors = [q_eff, q_rope, ckv, krope, block_table, qpos] + [
         t for t in (cd, kd, lane_pages) if t is not None]
     _require(all(t.device == dev for t in tensors),
@@ -501,18 +527,56 @@ def _mla_launch(kinds: tuple, q_eff, q_rope, ckv, krope, cd, kd,
              f"MLA widths must be R <= {_MLA_MAX_R}, Dr <= {_MLA_MAX_DR}")
     _require(ckv.shape[:2] == krope.shape[:2],
              "latent and rope pools differ in layout")
-    _require(q_rope.shape[:3] == (b, c, h), "q_rope does not match q_eff")
+    _require(q_rope.shape[:-1] == q_eff.shape[:-1],
+             "q_rope does not match q_eff")
     for t in (block_table, qpos) + (
             () if lane_pages is None else (lane_pages,)):
         _require(t.dtype == torch.int32, "indices must be int32")
-    out = torch.empty((b, c, h, r), dtype=torch.float32, device=dev)
-    err = _mla_entry()(kinds[0], kinds[1], q_eff.data_ptr(),
-                       q_rope.data_ptr(), ckv.data_ptr(), krope.data_ptr(),
-                       build.ptr(cd), build.ptr(kd), block_table.data_ptr(),
-                       qpos.data_ptr(), build.ptr(lane_pages), out.data_ptr(),
-                       b, c, h, r, dr, ckv.shape[1], block_table.shape[1],
-                       nj, float(scale), rw, build.stream_ptr(dev))
-    build.check(err, "paged_mla")
+    return q_eff, q_rope
+
+
+def _mla_prefill_launch(kinds: tuple, q_eff, q_rope, ckv, krope, cd, kd,
+                        block_table, qpos, *, nj: int,
+                        scale: float) -> torch.Tensor:
+    """``paged_mla_kernel``: q_eff (B, C, H, R) / q_rope (B, C, H, Dr);
+    ``kinds``: the latent and rope leaves' loader ids.  Returns (B, C, H,
+    R) f32."""
+    q_eff, q_rope = _mla_operands(q_eff, q_rope, ckv, krope, cd, kd,
+                                  block_table, qpos, None)
+    b, c, h, r = q_eff.shape
+    out = torch.empty((b, c, h, r), dtype=torch.float32, device=q_eff.device)
+    err = _mla_prefill_entry()(
+        kinds[0], kinds[1], q_eff.data_ptr(), q_rope.data_ptr(),
+        ckv.data_ptr(), krope.data_ptr(), build.ptr(cd), build.ptr(kd),
+        block_table.data_ptr(), qpos.data_ptr(), out.data_ptr(), b, c, h, r,
+        q_rope.shape[-1], ckv.shape[1], block_table.shape[1], nj,
+        float(scale), build.stream_ptr(q_eff.device))
+    build.check(err, "paged_mla_prefill")
+    return out
+
+
+def _mla_decode_launch(kinds: tuple, q_eff, q_rope, ckv, krope, cd, kd,
+                       block_table, pos, lane_pages, *, nj: int,
+                       scale: float) -> torch.Tensor:
+    """``paged_mla_decode_kernel``: q_eff (B, H, R) / q_rope (B, H, Dr) in
+    any float type (read as f32; bf16 ones as they are), pos (B,).
+    Returns (B, H, R) f32."""
+    q_eff, q_rope = _mla_operands(q_eff, q_rope, ckv, krope, cd, kd,
+                                  block_table, pos, lane_pages,
+                                  keep_bf16=True)
+    dev = q_eff.device
+    b, h, r = q_eff.shape
+    splits = mla_decode_splits(nj, b, h, build.sm_count(dev))
+    out = torch.empty((b, h, r), dtype=torch.float32, device=dev)
+    err = _mla_decode_entry()(
+        kinds[0], kinds[1], int(q_eff.dtype == torch.bfloat16),
+        q_eff.data_ptr(), q_rope.data_ptr(),
+        ckv.data_ptr(), krope.data_ptr(), build.ptr(cd), build.ptr(kd),
+        block_table.data_ptr(), pos.data_ptr(), build.ptr(lane_pages),
+        out.data_ptr(), b, h, r, q_rope.shape[-1], ckv.shape[1],
+        block_table.shape[1], nj, splits, float(scale),
+        build.stream_ptr(dev))
+    build.check(err, "paged_mla_decode")
     return out
 
 
@@ -545,11 +609,11 @@ def _mla_decode(q_eff, q_rope, kv, block_table, pos, lane_pages, *, scale,
                                 scale=scale, nj=nj, quant=quant)
     kinds, cq, cd, kq, kd = _mla_leaves(q_eff, q_rope, kv, quant)
     lp = None if lane_pages is None else lane_pages.to(torch.int32)
-    out = _mla_launch(kinds, q_eff[:, None], q_rope[:, None], cq, kq, cd, kd,
-                      block_table, pos.to(torch.int32)[:, None].contiguous(),
-                      lp, nj=nj, scale=scale, rw=1)
+    out = _mla_decode_launch(kinds, q_eff, q_rope, cq, kq, cd, kd,
+                             block_table, pos.to(torch.int32).contiguous(),
+                             lp, nj=nj, scale=scale)
     _count(counter, quant)
-    return out[:, 0]
+    return out
 
 
 def paged_mla_decode(q_eff, q_rope, ckv_pool, krope_pool, block_table, pos,
@@ -609,9 +673,9 @@ def paged_mla_prefill_quant(q_eff, q_rope, ckv_qs, ckv_d, kr_qs, kr_d,
         return mla_prefill_plain(q_eff, q_rope, kv, block_table, qpos,
                                  scale=scale, nj=nj, quant=quant)
     kinds, cq, cd, kq, kd = _mla_leaves(q_eff, q_rope, kv, quant)
-    out = _mla_launch(kinds, q_eff, q_rope, cq, kq, cd, kd, block_table,
-                      qpos.to(torch.int32).contiguous(), None, nj=nj,
-                      scale=scale, rw=4)
+    out = _mla_prefill_launch(kinds, q_eff, q_rope, cq, kq, cd, kd,
+                              block_table, qpos.to(torch.int32).contiguous(),
+                              nj=nj, scale=scale)
     _count(paged_mla_prefill_quant, quant)
     return out
 

@@ -25,6 +25,15 @@ expert whose rows of x are all zero (it writes +0, the plain version's
 result).  Its header in ``csrc/qmatmul.cu`` says what bounds it.  The
 q5_k expert form, which no policy serves, keeps ``qmatmul_kernel`` and
 reads every expert.
+
+One q4_k weight at M <= 4 rows (decode) takes ``qmatmul_q4k_decode_kernel``
+(:func:`decode_form`): the same code conversion and factored scales with
+up to four rows of x, and where the column tiles alone would leave SMs
+idle, the superblocks split over the blocks of a thread-block cluster
+(:func:`decode_ksplit`) whose sums are added in rank order in the same
+launch: no partial buffer and no second kernel.  Every other 2-D call
+keeps ``qmatmul_kernel``, with a split-K pass (``splitk_reduce``) where its
+column tiles are few.
 """
 
 from __future__ import annotations
@@ -48,8 +57,14 @@ _FMT_ID = {fmt: build.QMATMUL_FORMATS.index(fmt) for fmt in FIELDS}
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 _COLS = 128          # output columns per thread block (csrc/qmatmul.cu)
 _TILE = 256          # rows of K per tile: a superblock, or 8 q8_0 blocks
-_ROWS = {True: 4, False: 16}   # row tile: M <= 4, else 16
+_ROWS = {True: 4, False: 16}   # qmatmul_kernel's row tile: M <= 4, else 16
 _MAX_GRID_Z = 65535
+# qmatmul_q4k_decode_kernel: the rows of x it carries, the K it takes, the
+# blocks of a cluster (the portable size) and the superblocks of a block
+_DECODE_ROWS = 4
+_DECODE_MAX_K = 65536
+_MAX_KSPLIT = 8
+_DECODE_MAX_SB = 32
 
 
 def expert(qt: QTensor, e: int) -> QTensor:
@@ -75,13 +90,35 @@ def qmatmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return out
 
 
-@functools.lru_cache(maxsize=None)
+
 def _splits(device: torch.device, n: int, row_tiles: int, s: int) -> int:
     """Splits of the ``s`` tiles of K so that the grid has ~2 blocks per
-    SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-2 * sms // (-(-n // _COLS) * row_tiles))
+    SM (``qmatmul_kernel``)."""
+    want = -(-2 * build.sm_count(device) // (-(-n // _COLS) * row_tiles))
     return max(1, min(s, want))
+
+
+def decode_form(fmt: str, e: int, m: int, k: int) -> bool:
+    """Whether a call takes ``qmatmul_q4k_decode_kernel``: one q4_k weight
+    (``e == 1``) at M <= 4 rows, K <= 65536."""
+    return (fmt == "q4_k" and e == 1 and m <= _DECODE_ROWS
+            and k <= _DECODE_MAX_K)
+
+
+def decode_ksplit(n: int, k: int, sms: int) -> int:
+    """Blocks of a cluster that split the ``s = ceil(k / 256)`` superblocks
+    of q4_k's decode form, from host integers: at most 8 (the portable
+    cluster size), at most 32 superblocks a block, and a divisor of ``s``
+    where one fits (so that no block carries a superblock more than the
+    others), the least that gives the ``ceil(n / 128)`` column tiles about
+    four blocks per SM, else the largest."""
+    s = -(-k // _TILE)
+    want = -(-4 * sms // -(-n // _COLS))
+    lo, hi = -(-s // _DECODE_MAX_SB), min(_MAX_KSPLIT, s)
+    even = [d for d in range(lo, hi + 1) if s % d == 0]
+    if not even:
+        return max(lo, min(hi, want))
+    return next((d for d in even if d >= want), even[-1])
 
 
 def _field_ptrs(qt: QTensor, device: torch.device) -> ctypes.Array:
@@ -111,14 +148,18 @@ def _launch(x: torch.Tensor, qt: QTensor, e: int, counter) -> torch.Tensor:
     out = torch.empty((e, m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return out
-    # (qmatmul_experts_kernel's row tiles, 1 or 20 rows, are never more)
-    row_tiles = -(-m // _ROWS[m <= 4])
-    if row_tiles * e > _MAX_GRID_Z:
-        raise ValueError(f"B1 grid too tall: {e} experts x {row_tiles} row "
-                         "tiles")
-    splits = _splits(dev, n, row_tiles, -(-k // _TILE)) if e == 1 else 1
-    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
-               if splits > 1 else None)
+    if decode_form(qt.fmt, e, m, k):
+        # one launch: the K split merges inside the cluster
+        splits, partial = decode_ksplit(n, k, build.sm_count(dev)), None
+    else:
+        # (qmatmul_experts_kernel's row tiles, 1 or 20 rows, are never more)
+        row_tiles = -(-m // _ROWS[m <= 4])
+        if row_tiles * e > _MAX_GRID_Z:
+            raise ValueError(f"B1 grid too tall: {e} experts x {row_tiles} "
+                             "row tiles")
+        splits = _splits(dev, n, row_tiles, -(-k // _TILE)) if e == 1 else 1
+        partial = (torch.empty((splits, m, n), dtype=torch.float32,
+                               device=dev) if splits > 1 else None)
     err = _entry(qt.fmt)(_FMT_ID[qt.fmt], _DTYPE_ID[x.dtype], x3.data_ptr(),
                          ptrs, len(ptrs), build.ptr(partial), out.data_ptr(),
                          e, m, k, n, splits, build.stream_ptr(dev))
@@ -191,11 +232,16 @@ def _entry(fmt: str):
                       [i, i, v, ctypes.POINTER(v), i, v, v, i, i, i, i, i, v])
 
 
-def experts_kernel_launches(fmt: str) -> int:
-    """Launches of ``qmatmul_experts_kernel`` made by ``fmt``'s library
-    (0 for a format whose expert form is ``qmatmul_kernel``): which kernel
-    an expert call ran, for the card tests."""
-    f = build.library(f"qmatmul_{fmt}").qmatmul_experts_kernel_launches
+def library_launches(fmt: str, kernel: str = "experts") -> int:
+    """Launches made by ``fmt``'s library of ``qmatmul_experts_kernel``
+    (``kernel="experts"``; 0 for q5_k, whose expert form is
+    ``qmatmul_kernel``), ``qmatmul_q4k_decode_kernel`` (``"decode"``, q4_k
+    only) or ``splitk_reduce`` (``"splitk"``): which kernels a call ran, for
+    the card tests."""
+    name = {"experts": "qmatmul_experts_kernel_launches",
+            "decode": "qmatmul_decode_kernel_launches",
+            "splitk": "qmatmul_splitk_reduce_launches"}[kernel]
+    f = getattr(build.library(f"qmatmul_{fmt}"), name)
     f.restype = ctypes.c_longlong
     f.argtypes = []
     return int(f())

@@ -25,7 +25,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import tree_to
 from repro_torch.core import get_policy, init_quantized_params
 from repro_torch.core.qtensor import quantize
-from repro_torch.kernels import paged_attn, qmatmul
+from repro_torch.kernels import build, paged_attn, qmatmul
 from repro_torch.models import paged
 from repro_torch.models.model import Model
 
@@ -106,13 +106,13 @@ def test_qmatmul_experts_kernel_matches_plain(cuda, fmt, c, dtype):
     x = x.to(dtype)
     kern = qmatmul.EXPERT_KERNELS[fmt]
     before = kern.launches
-    own = qmatmul.experts_kernel_launches(fmt)
+    own = qmatmul.library_launches(fmt)
     y = kern(x, qt)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
     # q3_k, q2_k, q4_k, q6_k and q8_0 run qmatmul_experts_kernel (here with
     # 4-byte copies: N is not a multiple of 16), q5_k qmatmul_kernel
-    assert qmatmul.experts_kernel_launches(fmt) == own + (
+    assert qmatmul.library_launches(fmt) == own + (
         fmt in SKIPS_EMPTY)
     assert y.dtype == dtype and y.shape == (e, c, n)
     ref = qmatmul.qmatmul_plain(x, qt).float()
@@ -150,11 +150,11 @@ def test_qmatmul_experts_kernel_skips_empty_experts(cuda, fmt, c, dtype, k,
     x[11, :, 256:] = 0.0
     x = x.to(dtype)
     kern = qmatmul.EXPERT_KERNELS[fmt]
-    before, own = kern.launches, qmatmul.experts_kernel_launches(fmt)
+    before, own = kern.launches, qmatmul.library_launches(fmt)
     y = kern(x, qt)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
-    assert qmatmul.experts_kernel_launches(fmt) == own + 1
+    assert qmatmul.library_launches(fmt) == own + 1
     ref = qmatmul.qmatmul_plain(x, qt)
     empty = [i for i in range(e) if i not in live]
     bits = torch.int32 if dtype == torch.float32 else torch.int16
@@ -165,6 +165,42 @@ def test_qmatmul_experts_kernel_skips_empty_experts(cuda, fmt, c, dtype, k,
     tol = TOL if dtype == torch.float32 else 2 ** -8
     err = (y[live].float() - ref[live].float()).abs().max()
     assert err <= tol * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("k,n", [(1000, 388), (700, 260), (1536, 1536),
+                                 (1536, 8960)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_qmatmul_q4k_decode_form(cuda, m, k, n, dtype):
+    """q4_k's 2-D form at M <= 4 runs qmatmul_q4k_decode_kernel: one device
+    launch a call and no splitk_reduce, two calls bitwise equal, within
+    B1's limits of the plain version; ragged K (1000, 700), N % 16 != 0
+    (388, 260: 4-byte copies), the split shapes N = 1536 and 8960 (K
+    split over a cluster), and a zero row (a padded lane) gives +0."""
+    rng = np.random.default_rng(m * 13 + k + n)
+    qt = quantize(torch.from_numpy(_np(rng, (k, n))).to(cuda), "q4_k")
+    x = torch.from_numpy(_np(rng, (m, k))).to(cuda).to(dtype)
+    if m > 1:
+        x[m - 2] = 0
+    kern = qmatmul.qmatmul_q4_k
+    before = kern.launches
+    dec, red = (qmatmul.library_launches("q4_k", w)
+                for w in ("decode", "splitk"))
+    y = kern(x, qt)
+    y2 = kern(x, qt)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    assert qmatmul.library_launches("q4_k", "decode") == dec + 2
+    assert qmatmul.library_launches("q4_k", "splitk") == red
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(y.view(bits), y2.view(bits))
+    ref = qmatmul.qmatmul_plain(x, qt).float()
+    tol = TOL if dtype == torch.float32 else 2 ** -8
+    assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
+    if m > 1:
+        assert torch.equal(y[m - 2].view(bits),
+                           torch.zeros_like(y[m - 2]).view(bits))
 
 
 def test_qmatmul_kernel_raises_on_what_it_does_not_take(cuda):
@@ -292,7 +328,7 @@ def test_paged_decode_kernel_splits_long_lanes(cuda, kv, case):
         pools = (k.to(dt), v.to(dt))
         fn = counter = paged_attn.paged_attn_decode
     splits, pps = paged_attn.decode_splits(
-        n_lp, b * hkv, paged_attn._sm_count(cuda))
+        n_lp, b * hkv, build.sm_count(cuda))
     assert splits > 1 and pps > 2      # several splits of several tiles
     before = counter.launches
     y = fn(q, *pools, pos_pool, bt, pos, **kw)
@@ -436,6 +472,54 @@ def test_paged_mla_decode_kernel_matches_plain(cuda, kv, case, r, dr, h):
         q_eff, q_rope, pools, bt, pos, scale=scale,
         nj=paged_attn._n_active(bt, active), quant=modes)
     assert y.shape == (b, h, r)
+    assert (y - ref).abs().max() < TOL
+
+
+@pytest.mark.parametrize("kv", list(MLA_KV))
+@pytest.mark.parametrize("h", [5, 12])
+def test_paged_mla_decode_kernel_splits_long_lanes(cuda, kv, h):
+    """The MLA decode kernel splits each lane's tokens over a cluster of
+    blocks and merges their partial softmax states in a fixed order: 4
+    lanes in a 64-page bucket (44-45-page lanes, a 1-token lane whose
+    later blocks hold no token, lane bounds short of the bucket), H not a
+    multiple of the 16-head tile, f32 and bf16 queries; one launch a call,
+    two calls bitwise equal, the plain version's result within TOL for
+    every loader pair."""
+    rng = np.random.default_rng(len(kv) + h)
+    b, r, dr, page_size, n_lp = 4, 512, 64, 16, 64
+    live = [16 * 44 + 5, 16 * 40, 1, 16 * 41 + 9]
+    lanes = torch.tensor([45, 41, 1, 43], dtype=torch.int32, device=cuda)
+    ckv, kr, bt = (torch.from_numpy(a).to(cuda) for a in _latent_pools(
+        rng, b, n_lp, page_size, r, dr, live))
+    pos = torch.tensor([x - 1 for x in live], dtype=torch.int32, device=cuda)
+    # bf16 queries (as the model passes them) at H = 12, f32 at H = 5
+    qdt = torch.bfloat16 if h == 12 else torch.float32
+    q_eff = torch.from_numpy(_np(rng, (b, h, r))).to(cuda).to(qdt)
+    q_rope = torch.from_numpy(_np(rng, (b, h, dr))).to(cuda).to(qdt)
+    modes, kw = MLA_KV[kv], {}
+    if modes:
+        pools = _mla_quant_pools(ckv, kr, modes)
+        fn = paged_attn.paged_mla_decode_quant
+        counter = fn.loaders[modes]
+        kw = dict(latent_mode=modes[0], rope_mode=modes[1])
+    else:
+        dt = torch.float32 if kv == "f32" else torch.bfloat16
+        pools = (ckv.to(dt), kr.to(dt))
+        fn = counter = paged_attn.paged_mla_decode
+    splits = paged_attn.mla_decode_splits(n_lp, b, h,
+                                          build.sm_count(cuda))
+    assert splits > 1      # several blocks a lane, several tiles each
+    before = counter.launches
+    y = fn(q_eff, q_rope, *pools, bt, pos, scale=0.1, active_pages=n_lp,
+           lane_pages=lanes, **kw)
+    y2 = fn(q_eff, q_rope, *pools, bt, pos, scale=0.1, active_pages=n_lp,
+            lane_pages=lanes, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert torch.equal(y.view(torch.int32), y2.view(torch.int32))
+    ref = paged_attn.mla_decode_plain(q_eff, q_rope, pools, bt, pos,
+                                      scale=0.1, nj=n_lp, quant=modes)
+    assert y.shape == (b, h, r) and torch.isfinite(y).all()
     assert (y - ref).abs().max() < TOL
 
 

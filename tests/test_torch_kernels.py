@@ -93,6 +93,61 @@ def test_qmatmul_builds_one_library_per_format():
         qmatmul.FIELDS)
 
 
+def _q4k_factored(x, fields, ks):
+    """q4_k's decode form written out (``qmatmul_q4k_decode_kernel``): a
+    code as 0.5 + q/32, the sums of x per 32-element sub-block, y = sum_sb
+    (32 d sum_sub sc (sum x (0.5 + q/32) - sum x / 2) - dmin sum_sub m sum
+    x), and the superblocks split over ``ks`` blocks whose sums are added
+    in rank order.  x (M, K) f32; zeros past K."""
+    qs, sc, mn, d, dmin = (fields[n].to(torch.float32) if n in ("d", "dmin")
+                           else fields[n].to(torch.int32)
+                           for n in qmatmul.FIELDS["q4_k"])
+    s_blocks, _, n = qs.shape
+    m, k = x.shape
+    xp = torch.zeros(m, s_blocks * 256)
+    xp[:, :k] = x
+    xs = xp.reshape(m, s_blocks, 8, 32)
+    # sub-block j: the low nibbles of byte rows 32 j .. (j < 4), the high
+    # ones of rows 32 (j - 4) .. (j >= 4)
+    codes = torch.cat([qs & 15, qs >> 4], dim=1).reshape(s_blocks, 8, 32, n)
+    part = torch.einsum("msji,sjin->msjn", xs,
+                        0.5 + codes.to(torch.float32) / 32)
+    xsum = xs.sum(-1)[..., None]
+    a1 = (sc.to(torch.float32) * (part - 0.5 * xsum)).sum(2)
+    a2 = (mn.to(torch.float32) * xsum).sum(2)
+    per_sb = 32 * d * a1 - dmin * a2                       # (M, S, N)
+    out = torch.zeros(m, n)
+    for r in range(ks):                                    # rank order
+        out = out + per_sb[:, s_blocks * r // ks:
+                           s_blocks * (r + 1) // ks].sum(1)
+    return out
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_q4k_factored_decode_matches_pallas(m):
+    """The factored sum and the K-split merge of q4_k's decode form, with
+    a ragged K (700: the last superblock holds 188 rows) and 1, 2 and 3
+    blocks along K, against the reference's fused Pallas kernel
+    (interpret mode) within 1e-5 of max|y|; the wrapper sizes the split
+    from host integers, at most 8 blocks and the superblocks."""
+    k, n = 700, 256
+    jq, tq = _qt_pair("q4_k", k, n, seed=m + 40)
+    x = np.random.default_rng(m + 50).normal(size=(m, k)).astype(np.float32)
+    ref = np.asarray(jax_ops.qmatmul(jnp.asarray(x), jq, impl="pallas"))
+    for ks in (1, 2, 3):
+        got = _q4k_factored(torch.from_numpy(x), tq.fields, ks).numpy()
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=TOL * np.abs(ref).max())
+    assert qmatmul.decode_form("q4_k", 1, m, k)
+    assert not qmatmul.decode_form("q4_k", 1, 5, k)
+    assert not qmatmul.decode_form("q6_k", 1, m, k)
+    assert not qmatmul.decode_form("q4_k", 8, m, k)
+    for kk, nn in ((700, 256), (1536, 8960), (7168, 18432), (65536, 7168)):
+        s = -(-kk // 256)
+        ks = qmatmul.decode_ksplit(nn, kk, 132)
+        assert 1 <= ks <= min(8, s) and -(-s // ks) <= 32
+
+
 def test_qgather_columns_bitwise():
     jq, tq = _qt_pair("q4_k", 512, 64, seed=2)
     idx = np.array([[3, 7], [63, 0]], np.int32)

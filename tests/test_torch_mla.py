@@ -162,3 +162,136 @@ def test_mla_prefill_plain_matches_reference(page_size, active, impl):
     assert np.all(got[1, -2:] == 0.0)
     assert np.max(np.abs(got - ref)) < TOL
 
+
+
+def _split_tiles(n_valid, splits):
+    """The runs of tokens ``[u0, u1)`` the MLA decode kernel's blocks take
+    of a lane's ``n_valid`` valid tokens (``csrc/paged_mla.cu``): its
+    16-token tiles split evenly over ``splits`` blocks, in rank order."""
+    ntt = -(-n_valid // 16)
+    return [(ntt * r // splits * 16,
+             max(ntt * r // splits * 16,
+                 min(ntt * (r + 1) // splits * 16, n_valid)))
+            for r in range(splits)]
+
+
+def _split_mla_decode(q_eff, q_rope, ckv, kr, bt, pos, lane_pages, *,
+                      splits, scale, nj, page_size):
+    """The MLA decode kernel's rule written out: lane i's valid tokens (its
+    first ``min(lane pages, nj)`` logical pages, cut after the query
+    position) go in 16-token tiles, split evenly over ``splits`` runs
+    (``_split_tiles``: a run may start or end inside a page), each run
+    folded tile by tile into its own (m, l, acc), and the runs merged in
+    run order (the cluster's rank order).  A run with no token keeps the
+    empty (NEG_INF, 0, 0).  ``ckv`` / ``kr``: the pools as f32
+    (dequantized)."""
+    b, h, r = q_eff.shape
+    neg = paged_attn.NEG_INF
+    out = torch.zeros(b, h, r)
+    for i in range(b):
+        jmax = min(max(int(lane_pages[i]), 1), nj)
+        n_valid = max(0, min(jmax * page_size, int(pos[i]) + 1))
+        rows = [int(bt[i, u // page_size]) * page_size + u % page_size
+                for u in range(n_valid)]
+        cs = ckv.reshape(-1, r)[rows]
+        ks = kr.reshape(-1, kr.shape[-1])[rows]
+        runs = []
+        for t0, t1 in _split_tiles(n_valid, splits):
+            m = torch.full((h, 1), neg)
+            l = torch.zeros(h, 1)
+            acc = torch.zeros(h, r)
+            for u in range(t0, t1, 16):
+                c, k = cs[u:min(u + 16, t1)], ks[u:min(u + 16, t1)]
+                s = (q_eff[i] @ c.T + q_rope[i] @ k.T) * scale
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                p = torch.exp(s - m_new)
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + p @ c
+                m = m_new
+            runs.append((m, l, acc))
+        mx = torch.stack([x[0] for x in runs]).amax(0)
+        lsum = torch.zeros(h, 1)
+        osum = torch.zeros(h, r)
+        for m, l, acc in runs:                  # fixed run order
+            e = torch.exp(m - mx)
+            lsum = lsum + l * e
+            osum = osum + acc * e
+        out[i] = osum / torch.clamp(lsum, min=1e-30)
+    return out
+
+
+# the reference's quantizers by mode, and the pool kinds of the split test:
+# f32, and the (latent, rope) modes of the quantized pools
+JAX_QUANTIZE = {"q8_0": jax_pa.quantize_kv_page_pool,
+                "q4_0": jax_pa.quantize_kv_page_pool_q4}
+SPLIT_KV = {"f32": None, "q8_0": ("q8_0", "q8_0"), "q4_0": ("q4_0", "q4_0"),
+            "q8_0+q4_0": ("q8_0", "q4_0")}
+
+
+@pytest.mark.parametrize("kv", list(SPLIT_KV))
+def test_mla_split_decode_rule_matches_pallas(kv):
+    """A lane's valid tokens split in 16-token tiles over 1, 2, 3 and 5
+    runs (6-token pages, so runs and tiles start inside pages; more runs
+    than tiles leave some empty), each with its own (m, l, acc), merged in
+    order, give the reference's ``_mla_core`` (Pallas, interpret mode);
+    lane bounds short of the bucket and a 1-token lane included."""
+    modes = SPLIT_KV[kv]
+    rng = np.random.default_rng(len(kv))
+    b, h, r, dr, n_lp, page_size = 3, 4, 16, 8, 5, 6
+    live = [27, 1, 14]
+    lanes = [5, 1, 3]
+    ckv, kr, bt = _latent_pools(rng, b, n_lp, page_size, r, dr, live)
+    pos = np.array([x - 1 for x in live], np.int32)
+    q_eff = rng.normal(size=(b, h, r)).astype(np.float32)
+    q_rope = rng.normal(size=(b, h, dr)).astype(np.float32)
+    kw = dict(scale=SCALE, lane_pages=jnp.asarray(np.array(lanes, np.int32)),
+              impl="pallas", interpret=True)
+    if modes:
+        jpools = (*JAX_QUANTIZE[modes[0]](jnp.asarray(ckv)),
+                  *JAX_QUANTIZE[modes[1]](jnp.asarray(kr)))
+        ref = np.asarray(jax_pa.paged_mla_decode_quant(
+            jnp.asarray(q_eff), jnp.asarray(q_rope), *jpools,
+            jnp.asarray(bt), jnp.asarray(pos), latent_mode=modes[0],
+            rope_mode=modes[1], **kw))
+        tp = [torch.from_numpy(np.array(a)) for a in jpools]
+        cf = paged_attn._dequant(tp[0], tp[1], modes[0])
+        kf = paged_attn._dequant(tp[2], tp[3], modes[1])
+    else:
+        ref = np.asarray(jax_pa.paged_mla_decode(
+            jnp.asarray(q_eff), jnp.asarray(q_rope), jnp.asarray(ckv),
+            jnp.asarray(kr), jnp.asarray(bt), jnp.asarray(pos), **kw))
+        cf, kf = torch.from_numpy(ckv), torch.from_numpy(kr)
+    for splits in (1, 2, 3, 5):
+        got = _split_mla_decode(
+            torch.from_numpy(q_eff), torch.from_numpy(q_rope), cf, kf,
+            torch.from_numpy(bt), torch.from_numpy(pos), lanes,
+            splits=splits, scale=SCALE, nj=n_lp,
+            page_size=page_size).numpy()
+        assert np.max(np.abs(got - ref)) < TOL, splits
+
+
+@pytest.mark.parametrize("sms", [1, 8, 132])
+def test_mla_decode_splits_cover_every_page(sms):
+    """``mla_decode_splits`` (host integers only): 1 to 8 blocks a cluster,
+    at most one per page of the bucket; the kernel's runs
+    (``_split_tiles``) cover a lane's valid tokens in order, whole 16-token tiles but the
+    last, none overlapping, and differ by at most one tile.  The serve
+    case (4 lanes x 128 heads: 32 clusters on 132 SMs, two blocks an SM)
+    takes 7 blocks a cluster, so that all 224 blocks are resident at
+    once."""
+    for nj in range(1, 130):
+        for b, h in ((1, 5), (4, 128), (3, 12), (32, 128)):
+            splits = paged_attn.mla_decode_splits(nj, b, h, sms)
+            assert 1 <= splits <= min(8, nj)
+    for n_valid in range(0, 300):
+        for splits in range(1, 9):
+            runs = _split_tiles(n_valid, splits)
+            assert runs[0][0] == 0 and runs[-1][1] == n_valid
+            tiles = []
+            for (a, b_), (c, _) in zip(runs, runs[1:] + [(n_valid, 0)]):
+                assert a <= b_ and b_ == c and a % 16 == 0
+                tiles.append(-(-(b_ - a) // 16))
+            assert max(tiles) - min(tiles) <= 1
+    assert paged_attn.mla_decode_splits(32, 4, 128, 132) == 7
+    assert paged_attn.mla_decode_splits(64, 4, 128, 132) == 7
