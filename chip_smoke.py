@@ -282,6 +282,8 @@ B1_SHAPES = [(1536, 1536, "q4_k", "q_proj, o_proj"),
              (1536, 152064, "q4_k", "tied head"),
              (7168, 18432, "q4_k", "DeepSeek dense gate, up"),
              (18432, 7168, "q6_k", "DeepSeek dense down"),
+             (7168, 576, "q6_k", "DeepSeek attn_kv_a_mqa"),
+             (7168, 129280, "q6_k", "DeepSeek output"),
              (7168, 2048, "q3_k", "q3_k at an expert's shape, one weight"),
              (7168, 1536, "q3_k", "DeepSeek attn_q_a, Q3_K_M"),
              (18432, 7168, "q5_k", "DeepSeek dense down, Q3_K_M"),
@@ -664,37 +666,60 @@ def kernels_mla(torch, summary: dict, detail: list, gen, live, n_lp,
     mla_decode_horizon(torch, gen, cases, tok_bytes, per_pair)
 
     # prefill: one 128-token chunk per lane ending at its frontier, lane 0's
-    # chunk short (padded rows have qpos = -1), as the GQA case
-    qe = torch.randn((B, C, H, R), generator=gen, device=dev).to(
-        torch.bfloat16)
-    qr = torch.randn((B, C, H, DR), generator=gen, device=dev).to(
-        torch.bfloat16)
+    # chunk short (padded rows have qpos = -1), as the GQA case; queries
+    # drawn in f32 (so the f32 case runs all three bf16 terms of each), the
+    # serve's bf16 queries the same values rounded
+    q32 = {torch.float32: (
+        torch.randn((B, C, H, R), generator=gen, device=dev),
+        torch.randn((B, C, H, DR), generator=gen, device=dev))}
+    q32[torch.bfloat16] = tuple(t.to(torch.bfloat16)
+                                for t in q32[torch.float32])
     valid_q = (qp >= 0).sum(dim=1).cpu()
     keys = sum(int(v) * (int(p) + 1) - int(v) * (int(v) - 1) // 2
                for v, p in zip(valid_q, live - 1))      # causal pairs
-    for name, modes in (("paged_mla_prefill_quant", Q8),
-                        ("paged_mla_prefill_quant_q4_0", Q4),
-                        ("paged_mla_prefill_quant_q8_0_q4_0", MIXED)):
+    # the tensor-core kernel: the function's operations bound it at the
+    # bf16 peak; beside that bound, the former f32 CUDA-core one and the
+    # mma passes it runs over its whole tiles of heads and keys (the scores
+    # with f32 queries as three bf16 terms, P . c_kv as three)
+    ops = per_pair * H * keys
+    for name, modes, qdt in (
+            ("paged_mla_prefill_quant", Q8, torch.bfloat16),
+            ("paged_mla_prefill_quant", Q8, torch.float32),
+            ("paged_mla_prefill_quant_q4_0", Q4, torch.bfloat16),
+            ("paged_mla_prefill_quant_q8_0_q4_0", MIXED, torch.bfloat16)):
         kv = pools(modes)
         kw = dict(scale=scale, latent_mode=modes[0], rope_mode=modes[1])
+        qa, qb = q32[qdt]
 
         def plain():
-            return pa.mla_prefill_plain(qe, qr, kv, bt, qp, scale=scale,
+            return pa.mla_prefill_plain(qa, qb, kv, bt, qp, scale=scale,
                                         nj=nj, quant=modes)
-        y = pa.paged_mla_prefill_quant(qe, qr, *kv, bt, qp, **kw)
+        y = pa.paged_mla_prefill_quant(qa, qb, *kv, bt, qp, **kw)
         ref = plain()
         torch.cuda.synchronize()
         ms = device_ms(torch, lambda: pa.paged_mla_prefill_quant(
-            qe, qr, *kv, bt, qp, **kw), iters=5)
+            qa, qb, *kv, bt, qp, **kw), iters=5)
         plain_ms = device_ms(torch, plain, iters=3)
-        moved = (n_live * tok_bytes[modes] + nbytes(qe, qr, qp)
+        moved = (n_live * tok_bytes[modes] + nbytes(qa, qb, qp)
                  + visited * 4 + B * C * H * R * 4)
+        q_terms = 3 if qdt == torch.float32 else 1
+        head_tiles, key_tiles = pa.mla_prefill_tiles(qp, H, page_size=P,
+                                                     nj=nj, q_dtype=qdt)
+        rows = head_tiles * pa._MLA_PREFILL_ROWS[qdt]
+        tiled = rows * int(key_tiles.sum()) * pa._MLA_PREFILL_KEYS
+        mma_ops = tiled * (2.0 * (R + DR) * q_terms + 3 * 2.0 * R)
+        qname = str(qdt).split(".")[-1]
         res = case(f"B={B} C={C} H={H} R={R} Dr={DR} P={P} live "
                    f"{live.tolist()} table {nj} wide, {'/'.join(modes)} "
-                   "pools", y, ref, ATTN_TOL, "max_abs_err", ms, plain_ms,
-                   moved, per_pair * H * keys, "float32")
-        summary[name] = kernel_entry(name, **res)
-        detail.append(dict(res, kernel=name))
+                   f"pools, {qname} queries", y, ref, ATTN_TOL,
+                   "max_abs_err", ms, plain_ms, moved, ops, "bfloat16")
+        if qdt == torch.bfloat16:      # the serve passes bf16 queries
+            summary[name] = kernel_entry(name, **res)
+        # the other bounds go on the detail line only
+        detail.append(dict(res, kernel=name,
+                           bound_f32_ms=ops / PEAK_OPS["float32"] * 1e3,
+                           mma_pass_ms=mma_ops / PEAK_OPS["bfloat16"] * 1e3,
+                           bytes_ms=moved / HBM_BYTES_S * 1e3))
 
 
 def mla_decode_horizon(torch, gen, cases, tok_bytes, per_pair) -> None:
@@ -905,7 +930,8 @@ def short_name(key: str) -> str:
 
 
 # kernel families of a traced decode step: qmatmul_kernel<T, rows, format,
-# experts>, qmatmul_q4k_decode_kernel (q4_k's 2-D form at M <= 4) and
+# experts>, qmatmul_q4k_decode_kernel and qmatmul_q6k_decode_kernel (the
+# 2-D forms of q4_k and q6_k at M <= 4) and
 # qmatmul_experts_kernel<T, rows, format, copy bytes> (format ids as in
 # csrc/qmatmul.cu), the split-K reduction, and the attention kernels (the
 # MLA decode and prefill kernels both "B6/B7 paged_mla")
@@ -921,7 +947,7 @@ def family(key: str) -> str:
     if m:
         return (f"B1 experts {B1_FORMATS[m.group(1)]}" if m.group(2) == "true"
                 else "B1 dense")
-    if "splitk" in key or "qmatmul_q4k_decode_kernel" in key:
+    if "splitk" in key or re.search(r"qmatmul_q[46]k_decode_kernel", key):
         return "B1 dense"
     if "paged_mla" in key:
         return "B6/B7 paged_mla"

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Ablations of the MLA decode and q4_k decode kernels on one CUDA card.
+"""Ablations of the MLA decode and prefill kernels and of the q4_k and q6_k
+decode forms on one CUDA card.
 
     python3 scripts/decode_ablation.py            # prints JSON lines
+    python3 scripts/decode_ablation.py --only q6k_decode,mla_prefill
 
 Builds variants of ``csrc/paged_mla.cu`` (``paged_mla_decode_kernel``) and
 of ``csrc/qmatmul.cu`` for q4_k (``qmatmul_q4k_decode_kernel``), each the
@@ -17,6 +19,17 @@ kernel) at ``chip_smoke.py``'s shapes:
                and merge only), no scores, no p . c_kv, no conversion of
                the stage; and how many clusters of each size are resident
                at once (cudaOccupancyMaxActiveClusters).
+  MLA prefill  ``chip_smoke.py``'s case (4 lanes of a 128-token chunk
+               ending at 100/217/333/400 tokens, lane 0's chunk 60 tokens,
+               128 heads, 16-token pages, q8_0 pools, bf16 queries);
+               variants: the kernel (``paged_mla_prefill_kernel``), no mma
+               (the operands still made), no conversion of the stage, no
+               scores, no p . c_kv, no query tile, the page stream alone.
+  q6_k decode  M = 4 bf16 at 8960->1536, 18432->7168, 1536->256,
+               7168->576, 7168->129280 (``qmatmul_q6k_decode_kernel`` at
+               its ``decode_ksplit_q6k``); variants: the kernel, no mma (the
+               operands still made), no conversion (codes not made into
+               bf16 pairs), no x staging, the weight stream alone.
   q4_k decode  M = 4 bf16 at 1536->1536, 1536->8960, 1536->152064,
                7168->18432, 16384->7168, 1536->24576, each at its K split
                (``decode_ksplit``) and at the other divisors of its
@@ -33,6 +46,7 @@ Needs ``nvcc`` (``CUDA_HOME``, ``/usr/local/cuda`` or the ``PATH``).
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import math
@@ -99,8 +113,10 @@ NO_COMPUTE = ("    q4k_stage_rows4(ring + slot * STAGE, xs + s * QK, xstride, "
               "xsum + 8 * s,\n                    nsb * 8, w, l, acc);", "")
 NO_X = ("  for (int g0 = tid; g0 < nload; g0 += XB * NTHREADS) {",
         "  for (int g0 = tid; g0 < 0; g0 += XB * NTHREADS) {")
-NO_MERGE = ("  const int lo = n_out * rank / ks, hi = n_out * (rank + 1) / ks;",
-            "  const int lo = 0, hi = 0;")
+NO_MERGE = ("  const int lo = n_out * rank / ks, hi = n_out * (rank + 1) / ks;\n"
+            "  for (int idx = lo + tid; idx < hi; idx += NTHREADS) {",
+            "  const int lo = 0, hi = 0;\n"
+            "  for (int idx = lo + tid; idx < hi; idx += NTHREADS) {")
 NO_BARRIER = ("    __syncthreads();  // everyone's; stage s - 1 is consumed "
               "(and xsum made)", "")
 Q4_VARIANTS = {
@@ -109,6 +125,58 @@ Q4_VARIANTS = {
     "no x, no merge": [NO_X, NO_MERGE],
     "weight stream only": [NO_COMPUTE, NO_X, NO_MERGE],
     "no barrier a stage": [NO_BARRIER],
+}
+
+
+# the q6_k decode kernel: its mma, its code conversion, its x staging
+Q6_NO_MMA = ("      for (int u = 0; u < NT; ++u) mma_bf16(d, a, b[u][0], b[u][1]);",
+             "      for (int u = 0; u < NT; ++u) d[u & 3] += __uint_as_float("
+             "(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[u][0] ^ b[u][1]) & 0x3FFFFFFFu);")
+Q6_NO_CONVERSION = [
+    ("      const uint32_t a[4] = {q6_pair(w[0][0][k], sel), "
+     "q6_pair(w[0][1][k], sel),\n"
+     "                             q6_pair(w[1][0][k], sel), "
+     "q6_pair(w[1][1][k], sel)};",
+     "      const uint32_t a[4] = {w[0][0][k] ^ sel, w[0][1][k], w[1][0][k], "
+     "w[1][1][k]};")]
+Q6_NO_X = ("    const bool in = xr < M && k < K;", "    const bool in = false;")
+Q6_NO_COMPUTE = ("    q6k_stage_mma<T>(stage, reinterpret_cast<const T*>(stage + "
+                 "Q6_W), half,\n                     j0, g, t, acc);", "")
+Q6_NO_MERGE = ("  const int lo = n_out * rank / ks, hi = n_out * (rank + 1) / ks;\n"
+               "  for (int idx = lo + tid; idx < hi; idx += Q6_THREADS) {",
+               "  const int lo = 0, hi = 0;\n"
+               "  for (int idx = lo + tid; idx < hi; idx += Q6_THREADS) {")
+Q6_VARIANTS = {
+    "kernel": [],
+    "no mma": [Q6_NO_MMA],
+    "no conversion": Q6_NO_CONVERSION,
+    "no x staging": [Q6_NO_X],
+    "weight stream only": [Q6_NO_COMPUTE, Q6_NO_X, Q6_NO_MERGE],
+}
+# the MLA prefill kernel
+PF_NO_MMA = [
+    ("                mma_bf16(d[j], qf[u], kf[2 * jt], kf[2 * jt + 1]);",
+     "                d[j][u & 3] += __uint_as_float((qf[u][0] ^ qf[u][3] ^ "
+     "kf[2 * jt] ^ kf[2 * jt + 1]) & 0x3FFFFFFFu);"),
+    ("              mma_bf16(d, pf[kk][u], vf[kk][2 * jt], vf[kk][2 * jt + "
+     "1]);",
+     "              d[u & 3] += __uint_as_float((pf[kk][u][0] ^ pf[kk][u][3] "
+     "^ vf[kk][2 * jt] ^ vf[kk][2 * jt + 1]) & 0x3FFFFFFFu);")]
+PF_NO_CONVERSION = ("      for (int r = w; r < PKT; r += PNT / 32) {",
+                    "      for (int r = w; r < 0; r += PNT / 32) {")
+PF_NO_SCORES = ("    scores(0, nkc, sc);\n    scores(nkc, nkc + nkr, sr);", "")
+PF_NO_PV = ("    for (int cp = 0; cp < MAXP; ++cp) {\n      if (p0 + cp < p1) {",
+            "    for (int cp = 0; cp < 0; ++cp) {\n      if (p0 + cp < p1) {")
+PF_NO_Q = [("  if (!QF32 && a.qcopy) {", "  if (false) {"),
+           ("  if (QF32 || !a.qcopy) {", "  if (false) {")]
+PF_VARIANTS = {
+    "kernel": [],
+    "no mma": PF_NO_MMA,
+    "no conversion": [PF_NO_CONVERSION],
+    "no scores": [PF_NO_SCORES],
+    "no p.c_kv": [PF_NO_PV],
+    "no query tile": PF_NO_Q,
+    "page stream only": [PF_NO_CONVERSION, PF_NO_SCORES, PF_NO_PV, *PF_NO_Q],
 }
 
 
@@ -129,7 +197,7 @@ def start_build(source: str, name: str, subs, flags=(), append: str = ""):
     lib = os.path.join(OUT, f"lib{name}.so")
     cmd = [build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", *flags,
-           "-o", lib, src]
+           "-I", CSRC, "-o", lib, src]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), lib
 
@@ -262,28 +330,126 @@ def q4k(libs, gen) -> dict:
     return res
 
 
+def q6k(libs, gen) -> dict:
+    v, i = ctypes.c_void_p, ctypes.c_int
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {}
+    for k, n in ((8960, 1536), (18432, 7168), (1536, 256), (7168, 576),
+                 (7168, 129280)):
+        w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+        qt = quantize(w, "q6_k")
+        del w
+        copies = [qt] + [QTensor({a: b.clone() for a, b in qt.fields.items()},
+                                 qt.fmt, qt.shape)
+                         for _ in range(math.ceil(120e6 / qt.packed_bytes())
+                                        - 1)]
+        ptrs = [(v * 4)(*[c.fields[f].data_ptr()
+                          for f in qm.FIELDS["q6_k"]]) for c in copies]
+        x = torch.randn((4, k), generator=gen, device=dev).to(torch.bfloat16)
+        out = torch.empty((4, n), dtype=torch.bfloat16, device=dev)
+        chosen = qm.decode_ksplit_q6k(n, k, build.sm_count(dev))
+        for name, lib in libs.items():
+            fn = lib.qmatmul
+            fn.argtypes = [i, i, v, ctypes.POINTER(v), i, v, v] + [i] * 5 + [v]
+            # the kernel also at the portable cluster size, 8
+            for ks in sorted({chosen, min(8, chosen)}) if name == "kernel" \
+                    else (chosen,):
+                it = [0]
+
+                def call():
+                    it[0] = (it[0] + 1) % len(ptrs)
+                    return fn(1, 1, x.data_ptr(), ptrs[it[0]], 4, None,
+                              out.data_ptr(), 1, 4, k, n, ks, stream)
+                if call() != 0:
+                    raise SystemExit(f"q6_k {name} refused")
+                mark = " (decode_ksplit)" if ks == chosen else ""
+                res[f"{k}->{n} ks={ks}{mark} {name}"] = device_ms(call)
+        del copies, qt, ptrs
+        torch.cuda.empty_cache()
+    return res
+
+
+def mla_prefill(libs, gen) -> dict:
+    v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    B, C, H, R, DR, P, nj = 4, 128, 128, 512, 64, 16, 64
+    live = [100, 217, 333, 400]
+    bt = torch.full((B, nj), paged.GARBAGE_PAGE, dtype=torch.int32)
+    nxt = 2
+    for b in range(B):
+        for j in range(-(-live[b] // P)):
+            bt[b, j] = nxt
+            nxt += 1
+    qp = torch.stack([torch.arange(n - C, n) for n in live]).to(torch.int32)
+    qp[0, :C - 60] = -1
+    cq, cd = paged.quantize_rows(
+        torch.randn((nxt, P, R), generator=gen, device=dev), "q8_0")
+    kq, kd = paged.quantize_rows(
+        torch.randn((nxt, P, DR), generator=gen, device=dev), "q8_0")
+    qe = torch.randn((B, C, H, R), generator=gen, device=dev).to(
+        torch.bfloat16)
+    qr = torch.randn((B, C, H, DR), generator=gen, device=dev).to(
+        torch.bfloat16)
+    bt, qp = bt.to(dev), qp.to(dev)
+    out = torch.empty((B, C, H, R), device=dev)
+    res = {}
+    for name, lib in libs.items():
+        fn = lib.paged_mla_prefill
+        fn.argtypes = [i, i, i] + [v] * 9 + [i] * 8 + [f, v]
+
+        def call():
+            return fn(2, 2, 1, qe.data_ptr(), qr.data_ptr(), cq.data_ptr(),
+                      kq.data_ptr(), cd.data_ptr(), kd.data_ptr(),
+                      bt.data_ptr(), qp.data_ptr(), out.data_ptr(), B, C, H,
+                      R, DR, P, nj, nj, 192 ** -0.5, stream)
+        if call() != 0:
+            raise SystemExit(f"MLA prefill {name} refused")
+        res[name] = device_ms(call, iters=5)
+    return res
+
+
+# group -> (source, library name prefix, variants, nvcc flags, run)
+GROUPS = {
+    "mla_decode": ("paged_mla.cu", "mla_", MLA_VARIANTS, (), mla),
+    "q4k_decode": ("qmatmul.cu", "q4k_", Q4_VARIANTS,
+                   ("-DQMATMUL_FMT=0",), q4k),
+    "q6k_decode": ("qmatmul.cu", "q6k_", Q6_VARIANTS,
+                   ("-DQMATMUL_FMT=1",), q6k),
+    "mla_prefill": ("paged_mla.cu", "mlap_", PF_VARIANTS, (), mla_prefill),
+}
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help=f"comma-separated subset of {','.join(GROUPS)}")
+    groups = [g for g in ap.parse_args().only.split(",") if g]
+    if set(groups) - set(GROUPS):
+        raise SystemExit(f"decode_ablation: unknown group in {groups}")
     if not torch.cuda.is_available():
         raise SystemExit("decode_ablation: needs a CUDA card")
-    jobs = {("mla", name): start_build(
-        "paged_mla.cu", "mla_" + str(j), subs,
-        append=OCCUPANCY if name == "kernel" else "")
-        for j, (name, subs) in enumerate(MLA_VARIANTS.items())}
-    jobs.update({("q4k", name): start_build(
-        "qmatmul.cu", "q4k_" + str(j), subs, flags=("-DQMATMUL_FMT=0",))
-        for j, (name, subs) in enumerate(Q4_VARIANTS.items())})
-    libs = {"mla": {}, "q4k": {}}
-    for (which, name), (proc, lib) in jobs.items():
+    jobs = {}
+    for group in groups:
+        source, prefix, variants, flags, _ = GROUPS[group]
+        for j, (name, subs) in enumerate(variants.items()):
+            append = OCCUPANCY if (group, name) == ("mla_decode",
+                                                    "kernel") else ""
+            jobs[group, name] = start_build(source, prefix + str(j), subs,
+                                            flags=flags, append=append)
+    libs = {group: {} for group in groups}
+    for (group, name), (proc, lib) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise SystemExit(f"nvcc failed for {which} {name}:\n{log}")
-        libs[which][name] = ctypes.CDLL(lib)
+            raise SystemExit(f"nvcc failed for {group} {name}:\n{log}")
+        libs[group][name] = ctypes.CDLL(lib)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    print(json.dumps({"ablation": "mla_decode", "ms": mla(libs["mla"], gen)}),
-          flush=True)
-    print(json.dumps({"ablation": "q4k_decode", "ms": q4k(libs["q4k"], gen)}),
-          flush=True)
+    for group in groups:
+        print(json.dumps({"ablation": group,
+                          "ms": GROUPS[group][4](libs[group], gen)}),
+              flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 

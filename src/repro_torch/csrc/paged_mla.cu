@@ -19,9 +19,10 @@
 // ~2 (2R + Dr) flops per head per token, 128 heads: ~240 flops per byte in
 // bf16, so its bound is the f32 FMAs (4 lanes of 100-400 tokens: 0.0044 ms
 // at the 67 TFLOP/s CUDA-core peak), and the latent pages of a step are a
-// few MB that sit in L2.  Prefill (C = 128 queries x 128 heads per lane) is
-// bound by its f32 FMAs too (~28 GFLOP per layer per chunk at ~200 keys per
-// query: >= 0.4 ms).
+// few MB that sit in L2.  Prefill (C = 128 queries x 128 heads per lane,
+// ~28 GFLOP per layer per chunk at ~200 keys per query) is bound by its
+// operations: >= 0.4 ms as f32 FMAs, ~0.03 ms at the bf16 tensor-core
+// peak.
 //
 // Decode design (paged_mla_decode_kernel).  The TPU grid (lane, logical
 // page) runs in order and carries (m, l, acc) in VMEM across page steps.
@@ -59,249 +60,58 @@
 // alive until all have read it.  A block whose run holds no valid token
 // keeps the empty partial (m = NEG_INF, l = 0, acc = 0).
 //
-// Prefill design (paged_mla_kernel).  Every head of a lane reads the same
-// latent page, so a block owns one lane and a tile of NW x RW query rows
-// (RW = 4 rows per warp), stages each page sub-tile (TP tokens x (R + Dr)
-// latents, as f32 through the tile loaders) in shared memory once, and
-// every warp scores its rows against it: a lane holds 1/32 of each row's
-// query and of its accumulator (R / 32 values) in registers, partial dot
-// products are summed across the warp with shuffles, lane t keeps token
-// t's score, and the online softmax (m, l) runs warp-wide.  The page loop
-// stops at the last page any of the block's rows can see; fully masked
-// pages are exact no-ops.
+// Prefill design (paged_mla_prefill_kernel), on tensor cores.  The former
+// CUDA-core kernel (4 warps x 4 query rows a warp, every lane 1/32 of a
+// row, four five-step warp sums a token, all f32 FMAs) ran 8-9x over its
+// f32 bound; the bf16 tensor cores' peak is 15x the f32 CUDA cores'.  The
+// codes are exact bf16 values (int8, sign-extended int4) and the serve's
+// queries are bf16 already, so the products are the CUDA-core kernel's;
+// only the order of the sums changes.  A block owns one query token of a
+// lane and a tile of its heads (64 with bf16 queries, 32 with f32), which
+// share the token's mask, so its page loop stops at the token's position.
+// Per tile of 32 keys (tokens of any page size, mapped one by one through
+// the block table):
+//  - the stored rows (int8 codes, or q4_0 nibbles, and their f32 token
+//    scales) come into one of two stages by cp.async while the previous
+//    tile is used (byte copies for rows of an odd size, such as a q4_0 rope
+//    row of 7 bytes), and are converted once into a bf16 key tile [c_kv |
+//    0 | k_rope | 0], rows 16 bytes longer than a multiple of 32 so that
+//    ldmatrix reads it without bank conflicts;
+//  - S = Q . [c_kv | k_rope]^T by mma.sync.m16n8k16 (bf16, f32
+//    accumulation): the warps of a row group (16 query rows) split the 32
+//    keys, the latent and rope parts apart, four k16 steps accumulating
+//    in the tensor core before f32 registers; then each key's column is
+//    multiplied by its token scale, and by ``scale``, and the row group's
+//    warps exchange their scores through shared memory (a named barrier).
+//    f32 queries are held as three bf16 terms (hi + mid + lo);
+//  - the online softmax runs in registers, four lanes a row;
+//  - acc += P . c_kv by mma: each key's latent scale is folded into its
+//    column of P, which is split into three bf16 terms, and the c_kv
+//    columns are read from the key tile by ldmatrix.trans.  The f32
+//    accumulator (rows x R) is split over the warps along R: 8 warps hold
+//    4 row groups x 2 column halves (f32 queries: 2 x 4).
+// Fixed order, no atomics: bitwise repeatable.  It is bound by the tensor
+// cores' operations (the chip_smoke case: ~55 GFLOP of mma with P's three
+// terms, ~0.06 ms at the bf16 peak) before its bytes.
 //
 // The reference's numerics are kept by both: NEG_INF = -2e38 is a finite
 // sentinel, so masked probabilities are set to 0 explicitly, and l is
 // clamped at 1e-30 before the divide (a row with no valid key, such as a
-// padded prefill row, gives zeros).  All arithmetic is f32 FMAs on CUDA
-// cores.
+// padded prefill row, gives zeros).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
-// prefill (paged_mla_kernel)
-constexpr int NW = 4;                // warps per block
-constexpr int NT = 32 * NW;          // threads per block
-constexpr int RW = 4;                // query rows per warp
-constexpr int TP = 16;               // tokens per page sub-tile
-constexpr int RMAX = 512;            // latent width the registers hold
-constexpr int DMAX = 64;             // rope width the registers hold
-constexpr int RK = RMAX / 32;        // latent values per lane
-constexpr int DK = DMAX / 32;        // rope values per lane
+constexpr int RMAX = 512;            // latent width the kernels take
+constexpr int DMAX = 64;             // rope width the kernels take
 constexpr float NEG_INF = -2.0e38f;
 constexpr unsigned FULL = 0xffffffffu;
-
-// The prefill kernel's arguments.
-struct Args {
-  const float* q_eff;      // (B, C, H, R) f32
-  const float* q_rope;     // (B, C, H, Dr) f32
-  const void* ckv;         // (NP, P, R) f32 | bf16 | int8 (q4_0: R/2)
-  const void* krope;       // (NP, P, Dr)                  (q4_0: Dr/2)
-  const float* cd;         // (NP, P) quantized token scales (else null)
-  const float* kd;
-  const int* block_table;  // (B, nbt)
-  const int* qpos;         // (B, C) query positions, -1 = padded row
-  float* out;              // (B, C, H, R)
-  int B, C, H, R, Dr, P, nbt, nj;
-  float scale;
-};
-
-// Tile loaders of the prefill kernel: element d of token row ``row`` (=
-// page * P + token) as f32.
-struct Q8Loader {
-  __device__ __forceinline__ static float load(const void* pool,
-                                               const float* scales, size_t row,
-                                               int width, int d) {
-    return (float)static_cast<const int8_t*>(pool)[row * width + d] *
-           scales[row];
-  }
-};
-
-// q4_0: a token row of ``width`` values is width / 2 bytes, element d in the
-// low (d even) or high (d odd) nibble of byte d / 2, two's complement: the
-// (n ^ 8) - 8 sign extension gives what the plain version's (b << 4) >> 4
-// and b >> 4 give.
-struct Q4Loader {
-  __device__ __forceinline__ static float load(const void* pool,
-                                               const float* scales, size_t row,
-                                               int width, int d) {
-    const unsigned b = static_cast<const uint8_t*>(
-        pool)[row * (size_t)(width >> 1) + (d >> 1)];
-    const unsigned n = (d & 1) ? (b >> 4) : (b & 15u);
-    return (float)((int)(n ^ 8u) - 8) * scales[row];
-  }
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-// LC loads the latent leaf, LK the rope leaf.
-template <typename LC, typename LK>
-__global__ void __launch_bounds__(NT) paged_mla_kernel(Args a) {
-  extern __shared__ float smem[];
-  float* cs = smem;                      // TP x R latents
-  float* ks = cs + TP * a.R;             // TP x Dr rope keys
-  __shared__ int max_qpos;
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int R = a.R, Dr = a.Dr;
-  const int rows = a.C * a.H;
-  const int row0 = (blockIdx.y * NW + warp) * RW;
-
-  float q[RW][RK], qr[RW][DK], acc[RW][RK], m[RW], l[RW];
-  int qp[RW];
-#pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    const int row = row0 + i;
-    const bool live = row < rows;
-    qp[i] = live ? a.qpos[(size_t)b * a.C + row / a.H] : -1;
-    const float* qe = a.q_eff + ((size_t)b * rows + row) * R;
-    const float* qo = a.q_rope + ((size_t)b * rows + row) * Dr;
-#pragma unroll
-    for (int k = 0; k < RK; ++k) {
-      const int r = lane + 32 * k;
-      q[i][k] = (live && r < R) ? qe[r] : 0.f;
-      acc[i][k] = 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < DK; ++k) {
-      const int d = lane + 32 * k;
-      qr[i][k] = (live && d < Dr) ? qo[d] : 0.f;
-    }
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-  }
-  if (tid == 0) max_qpos = -1;
-  __syncthreads();
-  if (lane == 0) {
-    int mx = -1;
-#pragma unroll
-    for (int i = 0; i < RW; ++i) mx = max(mx, qp[i]);
-    atomicMax(&max_qpos, mx);
-  }
-  __syncthreads();
-
-  const int jmax = max_qpos < 0 ? 0 : min(a.nj, max_qpos / a.P + 1);
-
-  for (int j = 0; j < jmax; ++j) {
-    const int page = a.block_table[(size_t)b * a.nbt + j];
-    for (int t0 = 0; t0 < a.P; t0 += TP) {
-      const int nt = min(TP, a.P - t0);
-      const size_t tok0 = (size_t)page * a.P + t0;
-      __syncthreads();                   // every warp is done with the tile
-      for (int idx = tid; idx < nt * R; idx += NT) {
-        const int t = idx / R, r = idx % R;
-        cs[t * R + r] = LC::load(a.ckv, a.cd, tok0 + t, R, r);
-      }
-      for (int idx = tid; idx < nt * Dr; idx += NT) {
-        const int t = idx / Dr, d = idx % Dr;
-        ks[t * Dr + d] = LK::load(a.krope, a.kd, tok0 + t, Dr, d);
-      }
-      __syncthreads();
-
-      // scores: lane t keeps token t's score of every row
-      float s[RW];
-#pragma unroll
-      for (int i = 0; i < RW; ++i) s[i] = NEG_INF;
-      for (int t = 0; t < nt; ++t) {
-        float part[RW];
-#pragma unroll
-        for (int i = 0; i < RW; ++i) part[i] = 0.f;
-#pragma unroll
-        for (int k = 0; k < RK; ++k) {
-          const int r = lane + 32 * k;
-          if (r < R) {
-            const float cv = cs[t * R + r];
-#pragma unroll
-            for (int i = 0; i < RW; ++i) part[i] = fmaf(q[i][k], cv, part[i]);
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < DK; ++k) {
-          const int d = lane + 32 * k;
-          if (d < Dr) {
-            const float kv = ks[t * Dr + d];
-#pragma unroll
-            for (int i = 0; i < RW; ++i) part[i] = fmaf(qr[i][k], kv, part[i]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < RW; ++i) {
-          const float dot = warp_sum(part[i]);
-          if (lane == t) s[i] = dot * a.scale;
-        }
-      }
-
-      // online softmax over the sub-tile, warp-wide per row
-      const int kidx = j * a.P + t0 + lane;      // lane's token
-      float p[RW], corr[RW];
-#pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        const bool ok = lane < nt && kidx <= qp[i];
-        const float sv = ok ? s[i] : NEG_INF;
-        const float m_new = fmaxf(m[i], warp_max(sv));
-        p[i] = ok ? expf(sv - m_new) : 0.f;
-        corr[i] = expf(m[i] - m_new);
-        l[i] = l[i] * corr[i] + warp_sum(p[i]);
-        m[i] = m_new;
-#pragma unroll
-        for (int k = 0; k < RK; ++k) acc[i][k] *= corr[i];
-      }
-      // acc += p . c_kv
-      for (int t = 0; t < nt; ++t) {
-        float pt[RW];
-#pragma unroll
-        for (int i = 0; i < RW; ++i) pt[i] = __shfl_sync(FULL, p[i], t);
-#pragma unroll
-        for (int k = 0; k < RK; ++k) {
-          const int r = lane + 32 * k;
-          if (r < R) {
-            const float cv = cs[t * R + r];
-#pragma unroll
-            for (int i = 0; i < RW; ++i)
-              acc[i][k] = fmaf(pt[i], cv, acc[i][k]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    const int row = row0 + i;
-    if (row >= rows) break;
-    float* o = a.out + ((size_t)b * rows + row) * R;
-    const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int k = 0; k < RK; ++k) {
-      const int r = lane + 32 * k;
-      if (r < R) o[r] = acc[i][k] * inv_l;
-    }
-  }
-}
-
-template <typename LC, typename LK>
-int launch(const Args& a, cudaStream_t stream) {
-  const size_t bytes = (size_t)TP * (a.R + a.Dr) * sizeof(float);
-  const int per_block = NW * RW;
-  const dim3 grid(a.B, (a.C * a.H + per_block - 1) / per_block);
-  paged_mla_kernel<LC, LK><<<grid, NT, bytes, stream>>>(a);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // Decode: paged_mla_decode_kernel (see the header)
@@ -392,27 +202,6 @@ inline int copy_width(int row_bytes, const void* pool) {
   if (row_bytes % 16 == 0 && p % 16 == 0) return 16;
   if (row_bytes % 4 == 0 && p % 4 == 0) return 4;
   return 1;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-template <int BYTES>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src) {
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(src)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-                 "l"(src)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Element e of a stored row as f32 (quantized kinds times the row's scale,
@@ -636,7 +425,7 @@ __global__ void __launch_bounds__(DNT, 2)
 
   for (int i = 0; i < ntiles; ++i) {
     const int nt = min(TT, ntok - i * TT);
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();      // tile i's rows landed; tile i - 1 is consumed
 
     // the stage as f32 rows, warp w converting rows w, w + DNW
@@ -759,7 +548,7 @@ __global__ void __launch_bounds__(DNT, 2)
 
   // this block's partial: (m, l) per head and acc as HT x R in place of the
   // f32 tile
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();
   float* red = c_s;
   if (4 * r4 < R) {
@@ -853,6 +642,494 @@ int launch_decode(const DecodeArgs& a, int splits, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Prefill on tensor cores: paged_mla_prefill_kernel (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int PNT = 256;             // threads a prefill block (8 warps)
+constexpr int PKT = 32;              // tokens a key tile
+
+// A block's query rows (heads of one token), their row groups of 16 (one
+// warp's mma rows), the warps that split the latent columns of a row
+// group's accumulator, and the bf16 terms the queries are held as (bf16
+// queries: one, as passed; f32: three, hi + mid + lo).
+template <bool QF32>
+struct PrefillTile {
+  static constexpr int ROWS = QF32 ? 32 : 64;
+  static constexpr int RG = ROWS / 16;
+  static constexpr int RS = 8 / RG;
+  static constexpr int NQ = QF32 ? 3 : 1;
+  static constexpr int MAXP = RMAX / 16 / RS;   // 16-column pairs a warp
+};
+
+// Shared memory of a prefill block (byte offsets).  Query and key rows are
+// bf16 [c_kv | 0 | k_rope | 0] of kw = rp + dp elements (rp, dp: R and Dr
+// rounded up to 16), ``pitch`` = 2 kw + 16 bytes apart, so that the eight
+// 16-byte rows of an ldmatrix fall in distinct banks.
+struct PrefillSmem {
+  int rp, dp, kw, pitch;
+  int lrb, krb, lrs, krs;      // bytes of a stored latent / rope row; in the stage
+  int st_k, st_cd, st_kd, st_bytes;
+  int q, k, stage, dsc, dsk, sx, total;
+};
+
+// scores a row group's warps exchange: 16 rows x PKT keys, rows SXP floats
+// apart (the 8-byte accesses of a warp's 8 rows x 4 lanes hit 32 banks)
+constexpr int SXP = PKT + 4;
+
+__host__ __device__ inline PrefillSmem prefill_smem(int lk, int kk, int R,
+                                                    int Dr, int nq, int rows) {
+  PrefillSmem L{};
+  L.rp = align16(R);
+  L.dp = align16(Dr);
+  L.kw = L.rp + L.dp;
+  L.pitch = 2 * L.kw + 16;
+  L.lrb = kind_bytes(lk, R);
+  L.krb = kind_bytes(kk, Dr);
+  L.lrs = align16(L.lrb);
+  L.krs = align16(L.krb);
+  L.st_k = PKT * L.lrs;
+  L.st_cd = L.st_k + PKT * L.krs;
+  L.st_kd = L.st_cd + PKT * 4;
+  L.st_bytes = align16(L.st_kd + PKT * 4);
+  int off = 0;
+  L.q = off;      off += nq * rows * L.pitch;      // query planes
+  L.k = off;      off += PKT * L.pitch;            // the key tile, bf16 codes
+  L.stage = off;  off += 2 * L.st_bytes;           // two stages, as stored
+  L.dsc = off;    off += PKT * 4;                  // the tile's token scales
+  L.dsk = off;    off += PKT * 4;
+  L.sx = off;     off += rows * SXP * 4;           // the tile's scores
+  L.total = off;
+  return L;
+}
+
+struct PrefillArgs {
+  const void* q_eff;       // (B, C, H, R) f32 or bf16
+  const void* q_rope;      // (B, C, H, Dr), the same type
+  const uint8_t* ckv;      // (NP, P, R) int8 (q4_0: R/2 bytes)
+  const uint8_t* krope;    // (NP, P, Dr)     (q4_0: Dr/2)
+  const float* cd;         // (NP, P) token scales
+  const float* kd;
+  const int* block_table;  // (B, nbt)
+  const int* qpos;         // (B, C) query positions, -1 = padded row
+  float* out;              // (B, C, H, R)
+  int B, C, H, R, Dr, P, nbt, nj;
+  int lv, kv;              // copy widths of the latent / rope rows: 16, 4, 1
+  int qcopy;               // 1: bf16 query rows copied as they are (16 B)
+  float scale;
+};
+
+// Codes e .. e + 3 (e a multiple of 4) of a stored quantized row of
+// ``width`` elements as f32 (exact), zeros past it: an int8 code as 2^23 +
+// 128 + q by one byte permute and one FADD, a q4_0 nibble as 2^23 + (n ^
+// 8) by a shift and a mask, no int-to-float instruction.
+template <int KIND>
+__device__ __forceinline__ float4 codes4(const uint8_t* row, int e,
+                                         int width) {
+  constexpr float kMagic = 8388608.f;   // 2^23
+  float v[4];
+  if (e + 4 <= width) {
+    if constexpr (KIND == 2) {
+      const uint32_t u = *reinterpret_cast<const uint32_t*>(row + e) ^
+                         0x80808080u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | i)) -
+               (kMagic + 128.f);
+    } else {
+      const uint32_t u = *reinterpret_cast<const uint16_t*>(row + e / 2);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = __uint_as_float(0x4B000000u | (((u >> (4 * i)) & 15u) ^ 8u)) -
+               (kMagic + 8.f);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = e + i < width ? elem<KIND>(row, e + i, 1.f) : 0.f;
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Four elements as bf16 at ``dst`` (8 bytes): one plane, or (f32 values)
+// the three planes ``plane`` bytes apart.
+template <int NQ>
+__device__ __forceinline__ void store_bf16x4(uint8_t* dst, float4 v,
+                                             int plane) {
+  if constexpr (NQ == 1) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(bf16x2(v.x, v.y),
+                                                bf16x2(v.z, v.w));
+  } else {
+    uint32_t h[2], m[2], o[2];
+    split3(v.x, v.y, h[0], m[0], o[0]);
+    split3(v.z, v.w, h[1], m[1], o[1]);
+    *reinterpret_cast<uint2*>(dst) = make_uint2(h[0], h[1]);
+    *reinterpret_cast<uint2*>(dst + plane) = make_uint2(m[0], m[1]);
+    *reinterpret_cast<uint2*>(dst + 2 * plane) = make_uint2(o[0], o[1]);
+  }
+}
+
+// A barrier of the ``n`` threads of a block that use barrier ``id`` (1..15).
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// LK: the latent leaf's kind, KK: the rope leaf's (2 q8_0, 3 q4_0);
+// QF32: f32 queries (else bf16).
+template <int LK, int KK, bool QF32>
+__global__ void __launch_bounds__(PNT, 1)
+    paged_mla_prefill_kernel(PrefillArgs a) {
+  using Tile = PrefillTile<QF32>;
+  constexpr int ROWS = Tile::ROWS, RS = Tile::RS, NQ = Tile::NQ;
+  constexpr int MAXP = Tile::MAXP;
+  extern __shared__ __align__(16) uint8_t psmem[];
+  const int R = a.R, Dr = a.Dr, P = a.P;
+  const PrefillSmem L = prefill_smem(LK, KK, R, Dr, NQ, ROWS);
+  uint8_t* q_s = psmem + L.q;
+  uint8_t* k_s = psmem + L.k;
+  float* dsc = reinterpret_cast<float*>(psmem + L.dsc);
+  float* dsk = reinterpret_cast<float*>(psmem + L.dsk);
+
+  const int c = blockIdx.x, h0 = blockIdx.y * ROWS, b = blockIdx.z;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = w / RS, rh = w % RS;
+  const int nh = min(ROWS, a.H - h0);
+  const size_t row0 = ((size_t)b * a.C + c) * a.H + h0;   // (b, c, h0)
+  const int qp = a.qpos[(size_t)b * a.C + c];
+  if (qp < 0) {
+    // a padded row: no valid key, zeros (the plain version's result)
+    for (int i = tid; i < nh * R; i += PNT) a.out[row0 * R + i] = 0.f;
+    return;
+  }
+  // keys with logical index <= qp among the first nj pages
+  const int nvalid = min(qp + 1, a.nj * P);
+  const int ntiles = (nvalid + PKT - 1) / PKT;
+
+  // lane t's token row in the pool for row t of key tile i (a global load,
+  // made a tile ahead of its use)
+  auto token_row = [&](int i) {
+    const int u = i * PKT + lane;
+    if (i >= ntiles || u >= nvalid) return 0;
+    const int pg = u / P;
+    return a.block_table[(size_t)b * a.nbt + pg] * P + (u - pg * P);
+  };
+  // start the copies of key tile i into stage i % 2, as stored
+  auto issue = [&](int i, int grow) {
+    uint8_t* st = psmem + L.stage + (i & 1) * L.st_bytes;
+    const int nt = min(PKT, nvalid - i * PKT);
+    copy_leaf(st, a.ckv, L.lrb, L.lrs, a.lv, nt, grow, w, lane);
+    copy_leaf(st + L.st_k, a.krope, L.krb, L.krs, a.kv, nt, grow, w, lane);
+    if (w == 0 && lane < nt)
+      cp_async<4>(smem_u32(st + L.st_cd + 4 * lane), a.cd + grow);
+    if (w == 1 && lane < nt)
+      cp_async<4>(smem_u32(st + L.st_kd + 4 * lane), a.kd + grow);
+  };
+  issue(0, token_row(0));
+  // the query tile: rows h0 .. h0 + ROWS - 1 of token (b, c) as bf16
+  // [q_eff | 0 | q_rope | 0] (f32 queries: three planes), zero past H.
+  // bf16 rows of whole 16-byte pieces (R, Dr multiples of 16) are copied
+  // as they are, in the first tile's group
+  if (!QF32 && a.qcopy) {
+    const int pl = R / 8, np = pl + Dr / 8;            // 16-byte pieces
+    for (int idx = tid; idx < ROWS * np; idx += PNT) {
+      const int r = idx / np, pc = idx - r * np;
+      const uint8_t* src =
+          pc < pl ? static_cast<const uint8_t*>(a.q_eff) +
+                        ((row0 + r) * R + 8 * pc) * 2
+                  : static_cast<const uint8_t*>(a.q_rope) +
+                        ((row0 + r) * Dr + 8 * (pc - pl)) * 2;
+      cp_async_zfill(smem_u32(q_s + r * L.pitch) +
+                         (pc < pl ? 16 * pc : 2 * L.rp + 16 * (pc - pl)),
+                     r < nh ? src : a.q_eff, r < nh ? 16 : 0);
+    }
+  }
+  cp_async_commit();
+  int grow_next = token_row(1);
+
+  // other queries: a thread's loads of a batch are all issued before its
+  // stores
+  if (QF32 || !a.qcopy) {
+    const int ncl = L.rp / 4, nch = ncl + L.dp / 4;   // 4-element chunks
+    const int qsize = QF32 ? 4 : 2;
+    const int plane = ROWS * L.pitch;
+    constexpr int QB = 6;                              // loads a batch
+    for (int i0 = tid; i0 < ROWS * nch; i0 += QB * PNT) {
+      float4 v[QB];
+#pragma unroll
+      for (int u = 0; u < QB; ++u) {
+        const int idx = i0 + u * PNT, r = idx / nch, ch = idx - r * nch;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (idx < ROWS * nch && r < nh)
+          v[u] = ch < ncl
+                     ? q_elems4(static_cast<const uint8_t*>(a.q_eff) +
+                                    (row0 + r) * R * qsize,
+                                4 * ch, R, !QF32)
+                     : q_elems4(static_cast<const uint8_t*>(a.q_rope) +
+                                    (row0 + r) * Dr * qsize,
+                                4 * (ch - ncl), Dr, !QF32);
+      }
+#pragma unroll
+      for (int u = 0; u < QB; ++u) {
+        const int idx = i0 + u * PNT, r = idx / nch, ch = idx - r * nch;
+        const int e = ch < ncl ? 4 * ch : L.rp + 4 * (ch - ncl);
+        if (idx < ROWS * nch)
+          store_bf16x4<NQ>(q_s + r * L.pitch + 2 * e, v[u], plane);
+      }
+    }
+  }
+
+  // softmax state of rows g and g + 8 of this warp's row group (l: this
+  // lane's share, summed over the row's four lanes at the end)
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  // acc: the row group's latent columns of 16-column pairs [p0, p1), pair
+  // p0 + cp in acc[2 cp], acc[2 cp + 1] (8 columns each)
+  const int npair = L.rp / 16;
+  const int p0 = npair * rh / RS, p1 = npair * (rh + 1) / RS;
+  float acc[2 * MAXP][4];
+#pragma unroll
+  for (int j = 0; j < 2 * MAXP; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[j][v] = 0.f;
+  const int nkc = L.rp / 16, nkr = L.dp / 16;   // k16 steps of c_kv, k_rope
+  // ldmatrix row addresses: lane i gives row i % 8 of matrix i / 8
+  const int mi = lane >> 3, mr = lane & 7;
+  const uint32_t qa = smem_u32(q_s) +
+                      (16 * rg + (mi & 1) * 8 + mr) * L.pitch + (mi >> 1) * 16;
+  const uint32_t ka = smem_u32(k_s) + ((mi >> 1) * 8 + mr) * L.pitch +
+                      (mi & 1) * 16;
+  const uint32_t va = smem_u32(k_s) + ((mi & 1) * 8 + mr) * L.pitch +
+                      (mi >> 1) * 16;
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int nt = min(PKT, nvalid - i * PKT);
+    cp_async_wait<0>();
+    __syncthreads();   // tile i's rows landed; the key tile is consumed
+    if (i + 1 < ntiles) issue(i + 1, grow_next);
+    cp_async_commit();
+    grow_next = token_row(i + 2);
+
+    // the stage as bf16 codes (exact: int8 and int4 values), the token
+    // scales beside them; rows past nt zero.  Warp w converts rows w, w +
+    // 8, .., its lanes along the row.
+    {
+      const uint8_t* st = psmem + L.stage + (i & 1) * L.st_bytes;
+      const float* cd_s = reinterpret_cast<const float*>(st + L.st_cd);
+      const float* kd_s = reinterpret_cast<const float*>(st + L.st_kd);
+      const int ncl = L.rp / 4, nch = ncl + L.dp / 4;
+      for (int r = w; r < PKT; r += PNT / 32) {
+        for (int ch = lane; ch < nch; ch += 32) {
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (r < nt)
+            v = ch < ncl ? codes4<LK>(st + r * L.lrs, 4 * ch, R)
+                         : codes4<KK>(st + L.st_k + r * L.krs,
+                                      4 * (ch - ncl), Dr);
+          const int e = ch < ncl ? 4 * ch : L.rp + 4 * (ch - ncl);
+          store_bf16x4<1>(k_s + r * L.pitch + 2 * e, v, 0);
+        }
+      }
+      if (tid < PKT) {
+        dsc[tid] = tid < nt ? cd_s[tid] : 0.f;
+        dsk[tid] = tid < nt ? kd_s[tid] : 0.f;
+      }
+    }
+    __syncthreads();   // the key tile is whole
+
+    // S = Q . [c_kv | k_rope]^T, the two parts apart (each has its own
+    // token scale): the RS warps of a row group split the tile's 32 keys
+    // (KTW 8-key column tiles each) and exchange their scores through
+    // shared memory
+    constexpr int KTW = 4 / RS;
+    const int kt0 = rh * KTW;
+    float sc[KTW][4], sr[KTW][4];
+#pragma unroll
+    for (int j = 0; j < KTW; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) sc[j][v] = sr[j][v] = 0.f;
+    auto scores = [&](int k0, int k1, float (&s)[KTW][4]) {
+      // four k16 steps (64 columns) accumulate in the tensor core, then in
+      // f32 registers
+      for (int kg = k0; kg < k1; kg += 4) {
+        float d[KTW][4];
+#pragma unroll
+        for (int j = 0; j < KTW; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) d[j][v] = 0.f;
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {
+          const int ks = kg + kq;
+          if (ks < k1) {
+            uint32_t qf[NQ][4], kf[4];
+#pragma unroll
+            for (int u = 0; u < NQ; ++u)
+              ldmatrix_x4<false>(qf[u], qa + u * ROWS * L.pitch + ks * 32);
+            // the 16 keys of column tiles kt0 & ~1 and its neighbour
+            ldmatrix_x4<false>(kf, ka + (kt0 >> 1) * 16 * L.pitch + ks * 32);
+#pragma unroll
+            for (int j = 0; j < KTW; ++j) {
+              const int jt = (kt0 + j) & 1;
+#pragma unroll
+              for (int u = 0; u < NQ; ++u)
+                mma_bf16(d[j], qf[u], kf[2 * jt], kf[2 * jt + 1]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < KTW; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) s[j][v] += d[j][v];
+      }
+    };
+    scores(0, nkc, sc);
+    scores(nkc, nkc + nkr, sr);
+    float* sxg = reinterpret_cast<float*>(psmem + L.sx) + rg * 16 * SXP;
+#pragma unroll
+    for (int j = 0; j < KTW; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = 8 * (kt0 + j) + 2 * t;
+        float2 sv;
+        sv.x = key < nt ? (dsc[key] * sc[j][2 * h] + dsk[key] * sr[j][2 * h]) *
+                              a.scale
+                        : NEG_INF;
+        sv.y = key + 1 < nt ? (dsc[key + 1] * sc[j][2 * h + 1] +
+                               dsk[key + 1] * sr[j][2 * h + 1]) *
+                                  a.scale
+                            : NEG_INF;
+        *reinterpret_cast<float2*>(sxg + (g + 8 * h) * SXP + key) = sv;
+      }
+    }
+    named_sync(1 + rg, RS * 32);   // the row group's scores
+
+    // online softmax: lane (g, t) holds keys 8j + 2t, + 1 of rows g (v < 2)
+    // and g + 8 (v >= 2)
+    float p[4][4], mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 sv = *reinterpret_cast<const float2*>(
+            sxg + (g + 8 * h) * SXP + 8 * j + 2 * t);
+        p[j][2 * h] = sv.x;
+        p[j][2 * h + 1] = sv.y;
+        mx[h] = fmaxf(mx[h], fmaxf(sv.x, sv.y));
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int key = 8 * j + 2 * t + (v & 1);
+        const float pv = key < nt ? expf(p[j][v] - m[v >> 1]) : 0.f;
+        l[v >> 1] += pv;
+        p[j][v] = pv * dsc[key];    // the latent token's scale, folded in
+      }
+    }
+    // (a row group whose maxima all stayed keeps its accumulator as is)
+    if (__any_sync(FULL, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < 2 * MAXP; ++j) {
+        acc[j][0] *= corr[0];
+        acc[j][1] *= corr[0];
+        acc[j][2] *= corr[1];
+        acc[j][3] *= corr[1];
+      }
+    }
+
+    // acc += P . c_kv: P (16 rows x 32 keys) as three bf16 terms, the A
+    // fragments of the two k16 steps straight from S's layout; both steps
+    // accumulate in the tensor core, then in f32 registers
+    uint32_t pf[2][3][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      split3(p[2 * kk][0], p[2 * kk][1], pf[kk][0][0], pf[kk][1][0],
+             pf[kk][2][0]);
+      split3(p[2 * kk][2], p[2 * kk][3], pf[kk][0][1], pf[kk][1][1],
+             pf[kk][2][1]);
+      split3(p[2 * kk + 1][0], p[2 * kk + 1][1], pf[kk][0][2], pf[kk][1][2],
+             pf[kk][2][2]);
+      split3(p[2 * kk + 1][2], p[2 * kk + 1][3], pf[kk][0][3], pf[kk][1][3],
+             pf[kk][2][3]);
+    }
+#pragma unroll
+    for (int cp = 0; cp < MAXP; ++cp) {
+      if (p0 + cp < p1) {
+        uint32_t vf[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          ldmatrix_x4<true>(vf[kk], va + kk * 16 * L.pitch + (p0 + cp) * 32);
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+            for (int u = 0; u < 3; ++u)
+              mma_bf16(d, pf[kk][u], vf[kk][2 * jt], vf[kk][2 * jt + 1]);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[2 * cp + jt][v] += d[v];
+        }
+      }
+    }
+  }
+
+  // out = acc / l, l summed over the row's four lanes and clamped
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(FULL, l[h], 1);
+    l[h] += __shfl_xor_sync(FULL, l[h], 2);
+    l[h] = 1.f / fmaxf(l[h], 1e-30f);
+  }
+#pragma unroll
+  for (int cp = 0; cp < MAXP; ++cp) {
+    if (p0 + cp < p1) {
+#pragma unroll
+      for (int jt = 0; jt < 2; ++jt) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int r = 16 * rg + g + 8 * (v >> 1);
+          const int col = 16 * (p0 + cp) + 8 * jt + 2 * t + (v & 1);
+          if (r < nh && col < R)
+            a.out[(row0 + r) * R + col] = acc[2 * cp + jt][v] * l[v >> 1];
+        }
+      }
+    }
+  }
+}
+
+template <int LK, int KK, bool QF32>
+int launch_prefill(const PrefillArgs& a, cudaStream_t stream) {
+  auto kernel = paged_mla_prefill_kernel<LK, KK, QF32>;
+  using Tile = PrefillTile<QF32>;
+  const PrefillSmem L = prefill_smem(LK, KK, a.R, a.Dr, Tile::NQ, Tile::ROWS);
+  static int configured = 48 * 1024;   // the largest size allowed so far
+  if (L.total > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (e != cudaSuccess) return (int)e;
+    configured = L.total;
+  }
+  const dim3 grid(a.C, (a.H + Tile::ROWS - 1) / Tile::ROWS, a.B);
+  kernel<<<grid, PNT, L.total, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int LK, int KK>
+int launch_prefill_q(const PrefillArgs& a, bool q_bf16, cudaStream_t st) {
+  return q_bf16 ? launch_prefill<LK, KK, false>(a, st)
+                : launch_prefill<LK, KK, true>(a, st);
+}
+
 }  // namespace
 
 // latent_kind / rope_kind: 0 = float32 pools, 1 = bfloat16 pools, 2 = q8_0
@@ -861,26 +1138,36 @@ int launch_decode(const DecodeArgs& a, int splits, cudaStream_t stream) {
 // (2, 3), the "dq" policy's q8_0 latents and q4_0 rope keys; prefill takes
 // the quantized ones.  R <= 512 and Dr <= 64 (logical widths).
 
-// Chunked prefill (paged_mla_kernel): qpos (B, C) query positions, -1 for
-// padded rows.  Returns cudaGetLastError() after the launch.
-extern "C" int paged_mla_prefill(int latent_kind, int rope_kind,
-                                 const float* q_eff, const float* q_rope,
+// Chunked prefill (paged_mla_prefill_kernel): q_eff / q_rope float32
+// (q_bf16 = 0) or bfloat16 (q_bf16 = 1); qpos (B, C) query positions, -1
+// for padded rows.  Returns cudaGetLastError() after the launch.
+extern "C" int paged_mla_prefill(int latent_kind, int rope_kind, int q_bf16,
+                                 const void* q_eff, const void* q_rope,
                                  const void* ckv, const void* krope,
                                  const float* cd, const float* kd,
                                  const int* block_table, const int* qpos,
                                  float* out, int B, int C, int H, int R,
                                  int Dr, int P, int nbt, int nj, float scale,
                                  void* stream) {
-  if (R > RMAX || Dr > DMAX) return (int)cudaErrorInvalidValue;
+  if (R < 1 || R > RMAX || Dr < 1 || Dr > DMAX || P < 1 || nj < 1 ||
+      (q_bf16 != 0 && q_bf16 != 1))
+    return (int)cudaErrorInvalidValue;
   if ((latent_kind == 3 && (R & 1)) || (rope_kind == 3 && (Dr & 1)))
     return (int)cudaErrorInvalidValue;
-  Args a{q_eff, q_rope, ckv, krope, cd, kd, block_table, qpos, out,
-         B, C, H, R, Dr, P, nbt, nj, scale};
+  const int lrb = kind_bytes(latent_kind, R), krb = kind_bytes(rope_kind, Dr);
+  PrefillArgs a{q_eff, q_rope, static_cast<const uint8_t*>(ckv),
+                static_cast<const uint8_t*>(krope), cd, kd, block_table,
+                qpos, out, B, C, H, R, Dr, P, nbt, nj,
+                copy_width(lrb, ckv), copy_width(krb, krope),
+                q_bf16 && R % 16 == 0 && Dr % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(q_eff) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(q_rope) % 16 == 0,
+                scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (latent_kind * 4 + rope_kind) {
-    case 10: return launch<Q8Loader, Q8Loader>(a, st);
-    case 15: return launch<Q4Loader, Q4Loader>(a, st);
-    case 11: return launch<Q8Loader, Q4Loader>(a, st);
+    case 10: return launch_prefill_q<2, 2>(a, q_bf16, st);
+    case 15: return launch_prefill_q<3, 3>(a, q_bf16, st);
+    case 11: return launch_prefill_q<2, 3>(a, q_bf16, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

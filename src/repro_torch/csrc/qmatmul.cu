@@ -110,6 +110,31 @@
 // distributed shared memory: one launch, deterministic.  A zero row of x
 // gives +0, as the plain version does.
 //
+// q6_k's 2-D form at M <= 4 on tensor cores (qmatmul_q6k_decode_kernel<T,
+// V>), on qmatmul_kernel + splitk_reduce the largest B1 family left (qwen2's
+// down, attn_k, attn_v; DeepSeek's output, attn_kv_a_mqa and dense downs):
+// the same restaging, conversions and second launch held it back, and a
+// copy of q4_k's CUDA-core design would stop at the same issue wall (q6_k's
+// codes cost more integer ops).  A code q - 32 is exact in bf16 and so is
+// bf16 x, so one bf16 mma.sync.m16n8k16 with f32 accumulation computes a
+// 16-element sub-block's products for 16 columns exactly as FMAs would;
+// only the summation order changes.  The codes become bf16 pairs without
+// an int-to-float instruction (byte permutes place a code under the
+// exponent byte of 128, one bf16x2 FMA subtracts 160), each sub-block's
+// product is scaled in f32 by its int8 scale (made a float by a byte
+// permute) and each superblock's by its d; f32 x is three bf16 terms (hi +
+// mid + lo), three mmas.  A block of 8 warps owns 128 columns; the weight
+// tiles come through a 3-stage ring of cp.async copies (StageCopies, rows
+// padded by 16 bytes so that a warp's 4-byte loads of eight columns in four
+// rows hit 32 banks) with x's rows of the superblock in the same stage (no
+// K limit from shared memory); the superblocks are split over a cluster of
+// up to 16 blocks (decode_ksplit_q6k: the most whose clusters are all
+// resident at once) whose sums are added in rank order through distributed
+// shared memory.  One launch; a zero row of x gives +0.  Within a block it is
+// bound by the latency of each stage's ~430 instructions a warp (~3.4 a
+// weight), not by the issue rate, so at decode's few blocks a stage's
+// products take longer than its bytes (scripts/decode_ablation.py).
+//
 // Built once per format: -DQMATMUL_FMT=<id> instantiates that format's
 // kernels only (kernels/build.py builds the six libraries in parallel).
 
@@ -118,6 +143,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -656,10 +683,13 @@ __host__ __device__ constexpr int xf_esz(int fmt, int g) {
   return field_layout(fmt, g).esz;
 }
 // where field g of a stage (128 columns) starts (a loop rather than
-// recursion, which nvcc did not fold at every call site)
-__host__ __device__ constexpr int xf_off(int fmt, int g) {
+// recursion, which nvcc did not fold at every call site), when each of a
+// field's rows is ``pad`` bytes longer in shared memory than its 128
+// columns (pad = 0 everywhere but q6_k's decode form)
+__host__ __device__ constexpr int xf_off(int fmt, int g, int pad = 0) {
   int off = 0;
-  for (int i = 0; i < g; ++i) off += xf_rows(fmt, i) * COLS * xf_esz(fmt, i);
+  for (int i = 0; i < g; ++i)
+    off += xf_rows(fmt, i) * (COLS * xf_esz(fmt, i) + pad);
   return off;
 }
 __host__ __device__ constexpr int stage_bytes(int fmt) {
@@ -671,28 +701,6 @@ __host__ __device__ constexpr int xsums(int fmt) {
   return fmt == 4 ? 16 : fmt == 0 ? 8 : 0;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-template <int BYTES>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src) {
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(src)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-                 "l"(src)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
 // A thread's share of the copies of one stage of the block's 128 columns,
 // V bytes a copy (16 when N is a multiple of 16, else 4): in field g its
 // chunks are ``step`` rows apart, at the same column in every row, so
@@ -700,7 +708,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // each one.  A chunk past N is not copied, nor (q8_0) a block past the
 // expert's last: its slab holds ceil(K / 32) blocks, not a whole number of
 // stages.
-template <int FMT, int V>
+template <int FMT, int V, int PAD = 0,
+          int STAGE = xf_off(FMT, num_fields(FMT), PAD)>
 struct StageCopies {
   static constexpr int NF = num_fields(FMT);
   const uint8_t* src[NF];
@@ -721,7 +730,8 @@ struct StageCopies {
       row[g] = r0;
       on[g] = r0 < R && n0 + b / ES < N;
       src[g] = f.p[g] + ((blk0 * RB + r0) * N + n0) * ES + b;
-      dst[g] = smem_addr(ring) + xf_off(FMT, g) + r0 * COLS * ES + b;
+      dst[g] = smem_u32(ring) + xf_off(FMT, g, PAD) + r0 * (COLS * ES + PAD) +
+               b;
     }
   }
   // start the copies of the next stage, whose first ``nvalid`` format
@@ -737,7 +747,7 @@ struct StageCopies {
         for (int i = 0; i < (R + step - 1) / step; ++i)
           if (stage_blocks(FMT) == 1 || row[g] + i * step < nvalid * RB)
             cp_async<V>(
-                dst[g] + slot * stage_bytes(FMT) + i * step * COLS * ES,
+                dst[g] + slot * STAGE + i * step * (COLS * ES + PAD),
                 src[g] + (size_t)i * step * N * ES);
       }
       src[g] += (size_t)R * N * ES;
@@ -1672,33 +1682,347 @@ __global__ void __launch_bounds__(NTHREADS)
   cluster.sync();   // each block's shared memory stays until all have read it
 }
 
+// ---------------------------------------------------------------------------
+// q6_k's 2-D form at M <= 4 on tensor cores: qmatmul_q6k_decode_kernel (see
+// the header).  A cluster of ``ks`` blocks (up to 16, a non-portable
+// size) owns 128 columns; block ``rank`` walks its share of the
+// superblocks.  Warp w (of 8) takes the 64 columns of half w % 2 and
+// sub-block group w / 2 of every superblock, group j being sub-blocks j, j
+// + 4, j + 8, j + 12 (elements r + 64p, r = 16 j .. 16 j + 15: one ql row
+// pair and one qh row give them).  One
+// mma.sync.m16n8k16 a (sub-block, 16 columns): A is the weight tile (16
+// columns x 16 elements, codes q - 32 as bf16), B the sub-block's x (16
+// elements x 8 rows, rows past DROWS zero), D (columns x rows) is scaled in
+// f32 by the sub-block's int8 scale and, once a superblock, by its d.  mma
+// row g (g + 8) of tile c is column 4g + c (32 + 4g + c) of the warp's 64,
+// so that one 4-byte shared load of a byte row gives a row's codes for all
+// four tiles.
+// ---------------------------------------------------------------------------
+
+constexpr int Q6_THREADS = 256;  // 8 warps: 2 column halves x 4 groups
+constexpr int Q6_PAD = 16;       // bytes a staged byte row is longer than 128
+constexpr int Q6_PITCH = COLS + Q6_PAD;
+constexpr int Q6_STAGES = 3;     // stages in the ring (two blocks an SM)
+constexpr int Q6_MAX_KSPLIT = 16;   // blocks a cluster (non-portable)
+constexpr int Q6_XPITCH = QK + 8;   // elements of a staged row of x
+constexpr int Q6_W = xf_off(1, num_fields(1), Q6_PAD);   // weights a stage
+
+// a stage: the weights, then x's DROWS rows of the superblock
+template <typename T>
+__host__ __device__ constexpr int q6_stage_bytes() {
+  return Q6_W + DROWS * Q6_XPITCH * (int)sizeof(T);
+}
+template <typename T>
+__host__ __device__ constexpr size_t q6k_decode_smem() {
+  return (size_t)Q6_STAGES * q6_stage_bytes<T>();
+}
+
+// Two 6-bit codes (bytes 0 and 1 of the selected pair of ``w``, ``sel`` a
+// byte permute taking them to bytes 0 and 2) as the bf16 pair (qa - 32, qb
+// - 32), exactly: the exponent byte 0x43 above a code makes 128 + q, and
+// one bf16x2 FMA subtracts 160.
+__device__ __forceinline__ uint32_t q6_pair(uint32_t w, uint32_t sel) {
+  const uint32_t v = __byte_perm(w, 0x43434343u, sel);
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(r)
+      : "r"(v), "r"(0x3F803F80u), "r"(0xC320C320u));
+  return r;
+}
+
+template <typename T>
+__host__ __device__ constexpr int x_terms() {
+  return sizeof(T) == 4 ? 3 : 1;
+}
+
+// The B fragments of sub-block i: lane (g, t) holds x[g][16i + 2t, + 1] and
+// x[g][16i + 2t + 8, + 9] (bf16: as staged; f32: its three terms); g >=
+// DROWS gives zeros (those lanes read row g - 4, a broadcast).
+template <typename T>
+__device__ __forceinline__ void q6_xfrag(const T* xs, int i, int g, int t,
+                                         uint32_t (&b)[x_terms<T>()][2]) {
+  const T* row = xs + (g & (DROWS - 1)) * Q6_XPITCH + 16 * i + 2 * t;
+  const bool live = g < DROWS;
+  if constexpr (sizeof(T) == 2) {
+    const uint32_t v0 = *reinterpret_cast<const uint32_t*>(row);
+    const uint32_t v1 = *reinterpret_cast<const uint32_t*>(row + 8);
+    b[0][0] = live ? v0 : 0u;
+    b[0][1] = live ? v1 : 0u;
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 v = *reinterpret_cast<const float2*>(row + 8 * h);
+      split3(v.x, v.y, b[0][h], b[1][h], b[2][h]);
+#pragma unroll
+      for (int u = 0; u < 3; ++u) b[u][h] = live ? b[u][h] : 0u;
+    }
+  }
+}
+
+// One stage (a superblock of 128 columns) of warp (half, j0): see above.
+template <typename T>
+__device__ __forceinline__ void q6k_stage_mma(const uint8_t* stage,
+                                              const T* xs, int half, int j0,
+                                              int g, int t,
+                                              float (&acc)[4][4]) {
+  constexpr int NT = x_terms<T>();
+  const int col = half * 64 + 4 * g;      // + 32 for mma rows g + 8
+  const uint8_t* ql = stage + col;
+  const uint8_t* qh = stage + xf_off(1, 1, Q6_PAD) + col;
+  const uint8_t* sc = stage + xf_off(1, 2, Q6_PAD) + col;
+  // the codes of elements 16 j0 + 2t + 8h (+ 1) + 64p of the four columns
+  // of mma row g (cg = 0) and g + 8 (cg = 1), the two elements' bytes of a
+  // column side by side: w[h][cg][p] holds columns 0, 1, w[..][4 + p]
+  // columns 2, 3
+  uint32_t w[2][2][8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * j0 + 2 * t + 8 * h;
+#pragma unroll
+    for (int cg = 0; cg < 2; ++cg) {
+      const uint8_t* lp = ql + r * Q6_PITCH + 32 * cg;
+      const uint8_t* hp = qh + r * Q6_PITCH + 32 * cg;
+      uint32_t ta[4], tb[4];
+      q6k_codes(*reinterpret_cast<const uint32_t*>(lp),
+                *reinterpret_cast<const uint32_t*>(lp + 64 * Q6_PITCH),
+                *reinterpret_cast<const uint32_t*>(hp), ta);
+      q6k_codes(*reinterpret_cast<const uint32_t*>(lp + Q6_PITCH),
+                *reinterpret_cast<const uint32_t*>(lp + 65 * Q6_PITCH),
+                *reinterpret_cast<const uint32_t*>(hp + Q6_PITCH), tb);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        w[h][cg][p] = __byte_perm(ta[p], tb[p], 0x5140);
+        w[h][cg][4 + p] = __byte_perm(ta[p], tb[p], 0x7362);
+      }
+    }
+  }
+  float part[4][4];    // sum over the stage's sub-blocks of sc x D
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) part[c][v] = 0.f;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int i = j0 + 4 * p;   // the sub-block
+    uint32_t b[NT][2];
+    q6_xfrag<T>(xs, i, g, t, b);
+    // the int8 scales of rows g, g + 8 as 2^23 + 128 + sc (one XOR a word,
+    // one byte permute a scale, no int-to-float)
+    const uint32_t s0 =
+        *reinterpret_cast<const uint32_t*>(sc + i * Q6_PITCH) ^ 0x80808080u;
+    const uint32_t s1 =
+        *reinterpret_cast<const uint32_t*>(sc + i * Q6_PITCH + 32) ^
+        0x80808080u;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      // tile c: the pair of bytes c of a column's two elements
+      const int k = (c >> 1) * 4 + p;
+      const uint32_t sel = c & 1 ? 0x4342 : 0x4140;
+      const uint32_t a[4] = {q6_pair(w[0][0][k], sel), q6_pair(w[0][1][k], sel),
+                             q6_pair(w[1][0][k], sel), q6_pair(w[1][1][k], sel)};
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int u = 0; u < NT; ++u) mma_bf16(d, a, b[u][0], b[u][1]);
+      const float e0 = code_f32(s0, c) - (kMagic + 128.f);
+      const float e1 = code_f32(s1, c) - (kMagic + 128.f);
+      part[c][0] = fmaf(e0, d[0], part[c][0]);
+      part[c][1] = fmaf(e0, d[1], part[c][1]);
+      part[c][2] = fmaf(e1, d[2], part[c][2]);
+      part[c][3] = fmaf(e1, d[3], part[c][3]);
+    }
+  }
+  float d0[4], d1[4];
+  const __half* dd = as_half(stage + xf_off(1, 3, Q6_PAD)) + col;
+  load4_half(dd, d0);
+  load4_half(dd + 32, d1);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    acc[c][0] = fmaf(d0[c], part[c][0], acc[c][0]);
+    acc[c][1] = fmaf(d0[c], part[c][1], acc[c][1]);
+    acc[c][2] = fmaf(d1[c], part[c][2], acc[c][2]);
+    acc[c][3] = fmaf(d1[c], part[c][3], acc[c][3]);
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(Q6_THREADS, 2)
+    qmatmul_q6k_decode_kernel(const T* __restrict__ x, Fields f,
+                              T* __restrict__ out, int M, int K, int N) {
+  constexpr int STAGE = q6_stage_bytes<T>();
+  extern __shared__ __align__(16) uint8_t smem_q6[];
+  uint8_t* ring = smem_q6;
+
+  const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
+  const int g = l >> 2, t = l & 3, half = w & 1, j0 = w >> 1;
+  const int n0 = blockIdx.x * COLS;
+  const int rank = blockIdx.y, ks = gridDim.y;
+  const int S = (K + QK - 1) / QK;
+  const int s0 = (int)((long long)S * rank / ks);
+  const int nsb = (int)((long long)S * (rank + 1) / ks) - s0;
+
+  // x's rows of a superblock go into its stage beside the weights (rows
+  // past M and elements past K zero), 16 bytes of a row a piece, one piece
+  // each for the first DROWS x 256 / XV threads: by cp.async in the stage's
+  // group where the rows are 16-byte aligned; else loaded a stage ahead
+  // into registers and stored after the stage's products
+  constexpr int XV = 16 / sizeof(T);
+  constexpr int XPR = QK / XV;                 // pieces a row
+  const bool vec = K % XV == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool xon = tid < DROWS * XPR;
+  const int xr = tid / XPR, xk = (tid % XPR) * XV;
+  const uint32_t xdst = smem_u32(ring) + Q6_W +
+                        (xr * Q6_XPITCH + xk) * (int)sizeof(T);
+  auto issue_x = [&](int s, int slot) {
+    const int k = (s0 + s) * QK + xk;
+    const bool in = xr < M && k < K;
+    cp_async_zfill(xdst + slot * STAGE, in ? x + (size_t)xr * K + k : x,
+                   in ? 16 : 0);
+  };
+  float xv[XV];
+  auto load_xs = [&](int s) {
+    if (xon && xr < M) {
+      load_x<T>(x + (size_t)xr * K, (s0 + s) * QK + xk, K, vec, xv);
+    } else {
+#pragma unroll
+      for (int i = 0; i < XV; ++i) xv[i] = 0.f;
+    }
+  };
+  auto store_xs = [&](int slot) {
+    if (!xon) return;
+    T* dst = reinterpret_cast<T*>(ring + slot * STAGE + Q6_W) +
+             xr * Q6_XPITCH + xk;
+    if constexpr (sizeof(T) == 2) {
+      uint4 u;
+      uint32_t* p = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 h2 =
+            __floats2bfloat162_rn(xv[2 * i], xv[2 * i + 1]);
+        p[i] = *reinterpret_cast<const uint32_t*>(&h2);
+      }
+      *reinterpret_cast<uint4*>(dst) = u;
+    } else {
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(xv[0], xv[1], xv[2], xv[3]);
+    }
+  };
+
+  // the first NTHREADS threads copy the weight stages
+  const bool copier = tid < NTHREADS;
+  StageCopies<1, V, Q6_PAD, STAGE> copies(f, (size_t)s0, N, n0, ring,
+                                          tid & (NTHREADS - 1));
+#pragma unroll
+  for (int st = 0; st < Q6_STAGES - 1; ++st) {
+    if (st < nsb) {
+      if (copier) copies.issue(st, N, 1);
+      if (vec && xon) issue_x(st, st);
+    }
+    cp_async_commit();
+  }
+  if (!vec && nsb > 0) {
+    load_xs(0);
+    store_xs(0);
+  }
+
+  float acc[4][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[c][v] = 0.f;
+  int slot = 0, fill = Q6_STAGES - 1;
+  for (int s = 0; s < nsb; ++s) {
+    if (!vec && s + 1 < nsb) load_xs(s + 1);
+    cp_async_wait<Q6_STAGES - 2>();  // this thread's copies of stage s
+    __syncthreads();  // everyone's, and x of stage s; stage s - 1 consumed
+    if (s + Q6_STAGES - 1 < nsb) {
+      if (copier) copies.issue(fill, N, 1);
+      if (vec && xon) issue_x(s + Q6_STAGES - 1, fill);
+    }
+    cp_async_commit();
+    const uint8_t* stage = ring + slot * STAGE;
+    q6k_stage_mma<T>(stage, reinterpret_cast<const T*>(stage + Q6_W), half,
+                     j0, g, t, acc);
+    // the next stage's slot: its x region was last read at stage s + 1 -
+    // Q6_STAGES, before this stage's barrier
+    if (!vec && s + 1 < nsb) store_xs(slot == Q6_STAGES - 1 ? 0 : slot + 1);
+    slot = slot == Q6_STAGES - 1 ? 0 : slot + 1;
+    fill = fill == Q6_STAGES - 1 ? 0 : fill + 1;
+  }
+
+  // the block's column sums: the four warps of each half added in a fixed
+  // order; lanes t < 2 hold rows 2t, 2t + 1 (D columns past DROWS are the
+  // zero rows of B)
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);   // 3 x 2 halves x 32 x 16
+  float* blk = red + 3 * 2 * 32 * 16;            // DROWS x COLS
+  if (j0 > 0) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        red[(((j0 - 1) * 2 + half) * 32 + l) * 16 + 4 * c + v] = acc[c][v];
+  }
+  __syncthreads();
+  if (j0 == 0 && t < 2) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        float val = acc[c][v];
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          val += red[((j * 2 + half) * 32 + l) * 16 + 4 * c + v];
+        const int r = 2 * t + (v & 1);
+        const int cl = half * 64 + (v >= 2 ? 32 : 0) + 4 * g + c;
+        if (ks == 1) {
+          if (r < M && n0 + cl < N)
+            out[(size_t)r * N + n0 + cl] = from_f32<T>(val);
+        } else {
+          blk[r * COLS + cl] = val;
+        }
+      }
+    }
+  }
+  if (ks == 1) return;
+
+  // the cluster's blocks add their sums in rank order, each writing a slice
+  // of the 128 columns' outputs
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int n_out = DROWS * COLS;
+  const int lo = n_out * rank / ks, hi = n_out * (rank + 1) / ks;
+  for (int idx = lo + tid; idx < hi; idx += Q6_THREADS) {
+    const int r = idx / COLS, n = n0 + idx % COLS;
+    float part[Q6_MAX_KSPLIT];
+#pragma unroll
+    for (int sp = 0; sp < Q6_MAX_KSPLIT; ++sp)
+      if (sp < ks) part[sp] = cluster.map_shared_rank(blk, sp)[idx];
+    float v = 0.f;
+#pragma unroll
+    for (int sp = 0; sp < Q6_MAX_KSPLIT; ++sp)
+      if (sp < ks) v += part[sp];
+    if (r < M && n < N) out[(size_t)r * N + n] = from_f32<T>(v);
+  }
+  cluster.sync();   // each block's shared memory stays until all have read it
+}
+
 // launches of qmatmul_experts_kernel and qmatmul_q4k_decode_kernel, and of
 // splitk_reduce, made by this library
 long long g_experts_launches = 0;
 long long g_decode_launches = 0;
 long long g_splitk_launches = 0;
 
-template <typename T, int V>
-cudaError_t launch_q4k_decode(const void* x, const Fields& f, void* out,
-                              int M, int K, int N, int ks,
-                              cudaStream_t stream) {
-  auto kernel = qmatmul_q4k_decode_kernel<T, V>;
-  const int S = (K + QK - 1) / QK;
-  const size_t smem = decode_smem((S + ks - 1) / ks);
-  static size_t configured = 0;   // the largest size allowed so far
-  if (smem > configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-          (int)cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return err;
-    configured = smem;
-  }
+// One launch of a decode form: the column tiles along x, a cluster of
+// ``ks`` blocks along y that split the superblocks.
+template <typename T, typename Kernel>
+cudaError_t launch_cluster(Kernel kernel, int threads, size_t smem,
+                           const void* x, const Fields& f, void* out, int M,
+                           int K, int N, int ks, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((N + COLS - 1) / COLS, ks);
-  cfg.blockDim = dim3(NTHREADS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -1714,6 +2038,59 @@ cudaError_t launch_q4k_decode(const void* x, const Fields& f, void* out,
   if (err != cudaSuccess) return err;
   ++g_decode_launches;
   return cudaSuccess;
+}
+
+// q4_k's decode form: a cluster of 1..MAX_KSPLIT blocks, each staging x's
+// rows of its superblocks whole
+template <typename T, int V>
+cudaError_t launch_q4k_decode(const void* x, const Fields& f, void* out,
+                              int M, int K, int N, int ks,
+                              cudaStream_t stream) {
+  auto kernel = qmatmul_q4k_decode_kernel<T, V>;
+  const int S = (K + QK - 1) / QK;
+  const size_t smem = decode_smem((S + ks - 1) / ks);
+  if (ks < 1 || ks > MAX_KSPLIT || smem > 227 * 1024)
+    return cudaErrorInvalidValue;
+  static size_t configured = 0;   // the largest size allowed so far
+  if (smem > configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    configured = smem;
+  }
+  return launch_cluster<T>(kernel, NTHREADS, smem, x, f, out, M, K, N, ks,
+                           stream);
+}
+
+// q6_k's decode form: a cluster of 1..Q6_MAX_KSPLIT blocks (a non-portable
+// size past 8), each with its fixed ring of stages
+template <typename T, int V>
+cudaError_t launch_q6k_decode(const void* x, const Fields& f, void* out,
+                              int M, int K, int N, int ks,
+                              cudaStream_t stream) {
+  auto kernel = qmatmul_q6k_decode_kernel<T, V>;
+  constexpr size_t smem = q6k_decode_smem<T>();
+  if (ks < 1 || ks > Q6_MAX_KSPLIT) return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  return launch_cluster<T>(kernel, Q6_THREADS, smem, x, f, out, M, K, N, ks,
+                           stream);
 }
 
 template <typename T, int ROWS, int FMT, int V>
@@ -1794,9 +2171,10 @@ void launch_rows(const void* x, const Fields& f, void* partial, void* out,
 #error "build with -DQMATMUL_FMT=<format id>"
 #endif
 
-// whether q4_k's (K, N) weight at M rows takes qmatmul_q4k_decode_kernel
+// whether a q4_k or q6_k (K, N) weight at M rows takes its decode form
+// (qmatmul_q4k_decode_kernel, qmatmul_q6k_decode_kernel)
 constexpr bool decode_form(int fmt, int E, int M, int K) {
-  return fmt == 0 && E == 1 && M <= DROWS && K <= DECODE_MAX_K;
+  return (fmt == 0 || fmt == 1) && E == 1 && M <= DROWS && K <= DECODE_MAX_K;
 }
 
 template <typename T>
@@ -1820,6 +2198,16 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
       return (int)cudaGetLastError();
     }
   }
+  if constexpr (QMATMUL_FMT == 1) {
+    if (decode_form(QMATMUL_FMT, E, M, K)) {
+      const cudaError_t err =
+          N % 16 == 0
+              ? launch_q6k_decode<T, 16>(x, f, out, M, K, N, splits, st)
+              : launch_q6k_decode<T, 4>(x, f, out, M, K, N, splits, st);
+      if (err != cudaSuccess) return (int)err;
+      return (int)cudaGetLastError();
+    }
+  }
   launch_rows<T, QMATMUL_FMT>(x, f, partial, out, E, M, K, N, splits, st);
   return (int)cudaGetLastError();
 }
@@ -1832,9 +2220,10 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
 // of x and out: 0 = float32, 1 = bfloat16.  E experts: x (E, M, K), fields
 // with a leading E, out (E, M, N); E = 1 for one weight.  q4_k, q6_k,
 // q3_k, q2_k and q8_0 experts (E > 1) go to qmatmul_experts_kernel; one
-// q4_k weight at M <= 4 (K <= 65536) to qmatmul_q4k_decode_kernel, its
-// superblocks split over a cluster of ``splits`` blocks (1..8, ``partial``
-// unused); every other weight to qmatmul_kernel.
+// q4_k or q6_k weight at M <= 4 (K <= 65536) to its decode form
+// (qmatmul_q4k_decode_kernel, qmatmul_q6k_decode_kernel), its superblocks
+// split over a cluster of ``splits`` blocks (q4_k 1..8, q6_k 1..16,
+// ``partial`` unused); every other weight to qmatmul_kernel.
 // N must be a multiple of 4; there ``partial`` holds splits x M x N floats
 // when splits > 1 (E = 1 only; splits count 256-row tiles).  Returns
 // cudaGetLastError() after the launches.
@@ -1845,10 +2234,6 @@ extern "C" int qmatmul(int fmt, int dtype, const void* x,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (fmt != QMATMUL_FMT || nfields != num_fields(fmt) || E < 1 ||
       (E > 1 && splits != 1))
-    return (int)cudaErrorInvalidValue;
-  if (decode_form(fmt, E, M, K) &&
-      (splits < 1 || splits > MAX_KSPLIT ||
-       decode_smem(((K + QK - 1) / QK + splits - 1) / splits) > 227 * 1024))
     return (int)cudaErrorInvalidValue;
   Fields f{};
   for (int i = 0; i < nfields; ++i)
@@ -1862,8 +2247,8 @@ extern "C" int qmatmul(int fmt, int dtype, const void* x,
 }
 
 // How many times this library launched qmatmul_experts_kernel (0 for the
-// formats that have none), qmatmul_q4k_decode_kernel (q4_k only) and
-// splitk_reduce: the card tests read them to see which kernels ran.
+// formats that have none), its decode form (qmatmul_q4k_decode_kernel or
+// qmatmul_q6k_decode_kernel; q4_k and q6_k only) and splitk_reduce: the card tests read them to see which kernels ran.
 extern "C" long long qmatmul_experts_kernel_launches(void) {
   return g_experts_launches;
 }

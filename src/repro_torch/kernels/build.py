@@ -2,11 +2,12 @@
 
 Each ``csrc/<source>.cu`` has a plain C interface (no PyTorch headers), so
 ``nvcc`` builds it in seconds into ``_build/lib<library>-<hash>.so`` next
-to this package, at first use; the hash covers the source and the flags,
-so a changed source rebuilds and an unchanged one loads the library
-already built.  ``csrc/qmatmul.cu`` is built once per weight format
-(``-DQMATMUL_FMT=<id>``, one library each), so that its 56 kernels compile
-in six processes at once.  Pointers and the stream cross as
+to this package, at first use; the hash covers the source, the headers
+of ``csrc/`` (``mma.cuh``) and the flags, so a changed source rebuilds
+and an unchanged one loads the library already built.
+``csrc/qmatmul.cu`` is built once per weight format (``-DQMATMUL_FMT=<id>``,
+one library each), so that its 56 kernels compile in six processes at
+once.  Pointers and the stream cross as
 ``ctypes.c_void_p``, and every C entry point returns ``cudaGetLastError()``
 after its launch — the wrappers raise on anything but 0 (a refused launch
 never runs, and a later synchronise would not report it).
@@ -58,7 +59,9 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     source, flags = LIBRARIES[name]
-    src = (CSRC / f"{source}.cu").read_bytes()
+    # the source and the headers it may include
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{source}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS + flags).encode()
                          ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"

@@ -473,7 +473,7 @@ def mla_prefill_plain(q_eff, q_rope, kv, block_table, qpos, *, scale: float,
 def _mla_prefill_entry():
     v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return build.bind("paged_mla", "paged_mla_prefill",
-                      [i, i, v, v, v, v, v, v, v, v, v,
+                      [i, i, i, v, v, v, v, v, v, v, v, v,
                        i, i, i, i, i, i, i, i, f, v])
 
 
@@ -506,14 +506,32 @@ def mla_decode_splits(nj: int, b: int, h: int, sms: int) -> int:
     return max(1, min(want, _MAX_SPLITS, nj))
 
 
+# csrc/paged_mla.cu's prefill kernel: query rows (heads of one token) a
+# block holds, by query type, and the keys of a tile
+_MLA_PREFILL_ROWS = {torch.bfloat16: 64, torch.float32: 32}
+_MLA_PREFILL_KEYS = 32
+
+
+def mla_prefill_tiles(qpos: torch.Tensor, h: int, *, page_size: int,
+                      nj: int, q_dtype) -> tuple[int, torch.Tensor]:
+    """The prefill kernel's work from host integers: its head tiles per
+    query token (a block each), and per token (B, C) the key tiles its
+    blocks walk, ``ceil(min(qpos + 1, nj * P) / 32)`` (0 for a padded
+    row).  bf16 queries take 64-head tiles, others 32."""
+    rows = _MLA_PREFILL_ROWS[torch.bfloat16 if q_dtype == torch.bfloat16
+                             else torch.float32]
+    keys = torch.clamp(qpos.to(torch.int64) + 1, 0, nj * page_size)
+    return -(-h // rows), -(-keys // _MLA_PREFILL_KEYS)
+
+
 def _mla_operands(q_eff, q_rope, ckv, krope, cd, kd, block_table, qpos,
-                  lane_pages, keep_bf16: bool = False):
+                  lane_pages):
     """The checks both MLA kernels share; q_eff / q_rope (any float type)
-    come back contiguous, as f32 unless both are bf16 and ``keep_bf16``
-    (the decode kernel reads bf16 queries itself)."""
+    come back contiguous, as f32 unless both are bf16 (the kernels read
+    bf16 queries as they are)."""
     dev = q_eff.device
     r, dr = q_eff.shape[-1], q_rope.shape[-1]
-    dt = (torch.bfloat16 if keep_bf16 and q_eff.dtype == torch.bfloat16
+    dt = (torch.bfloat16 if q_eff.dtype == torch.bfloat16
           and q_rope.dtype == torch.bfloat16 else torch.float32)
     q_eff = q_eff.to(dt).contiguous()
     q_rope = q_rope.to(dt).contiguous()
@@ -538,15 +556,16 @@ def _mla_operands(q_eff, q_rope, ckv, krope, cd, kd, block_table, qpos,
 def _mla_prefill_launch(kinds: tuple, q_eff, q_rope, ckv, krope, cd, kd,
                         block_table, qpos, *, nj: int,
                         scale: float) -> torch.Tensor:
-    """``paged_mla_kernel``: q_eff (B, C, H, R) / q_rope (B, C, H, Dr);
-    ``kinds``: the latent and rope leaves' loader ids.  Returns (B, C, H,
-    R) f32."""
+    """``paged_mla_prefill_kernel``: q_eff (B, C, H, R) / q_rope (B, C, H,
+    Dr) in any float type (read as f32; bf16 ones as they are); ``kinds``:
+    the latent and rope leaves' loader ids.  Returns (B, C, H, R) f32."""
     q_eff, q_rope = _mla_operands(q_eff, q_rope, ckv, krope, cd, kd,
                                   block_table, qpos, None)
     b, c, h, r = q_eff.shape
     out = torch.empty((b, c, h, r), dtype=torch.float32, device=q_eff.device)
     err = _mla_prefill_entry()(
-        kinds[0], kinds[1], q_eff.data_ptr(), q_rope.data_ptr(),
+        kinds[0], kinds[1], int(q_eff.dtype == torch.bfloat16),
+        q_eff.data_ptr(), q_rope.data_ptr(),
         ckv.data_ptr(), krope.data_ptr(), build.ptr(cd), build.ptr(kd),
         block_table.data_ptr(), qpos.data_ptr(), out.data_ptr(), b, c, h, r,
         q_rope.shape[-1], ckv.shape[1], block_table.shape[1], nj,
@@ -562,8 +581,7 @@ def _mla_decode_launch(kinds: tuple, q_eff, q_rope, ckv, krope, cd, kd,
     any float type (read as f32; bf16 ones as they are), pos (B,).
     Returns (B, H, R) f32."""
     q_eff, q_rope = _mla_operands(q_eff, q_rope, ckv, krope, cd, kd,
-                                  block_table, pos, lane_pages,
-                                  keep_bf16=True)
+                                  block_table, pos, lane_pages)
     dev = q_eff.device
     b, h, r = q_eff.shape
     splits = mla_decode_splits(nj, b, h, build.sm_count(dev))

@@ -28,12 +28,17 @@ reads every expert.
 
 One q4_k weight at M <= 4 rows (decode) takes ``qmatmul_q4k_decode_kernel``
 (:func:`decode_form`): the same code conversion and factored scales with
-up to four rows of x, and where the column tiles alone would leave SMs
-idle, the superblocks split over the blocks of a thread-block cluster
-(:func:`decode_ksplit`) whose sums are added in rank order in the same
-launch: no partial buffer and no second kernel.  Every other 2-D call
-keeps ``qmatmul_kernel``, with a split-K pass (``splitk_reduce``) where its
-column tiles are few.
+up to four rows of x.  One q6_k weight at M <= 4 takes
+``qmatmul_q6k_decode_kernel``, on tensor cores: one bf16
+``mma.sync.m16n8k16`` a 16-element sub-block and 16 columns, its codes
+made exact bf16 values by byte permutes, x (bf16, or f32 as three bf16
+terms) the other operand, each product scaled in f32 by the sub-block's
+scale.  In both, where the column tiles alone would leave SMs idle, the
+superblocks split over the blocks of a thread-block cluster
+(:func:`decode_ksplit`, :func:`decode_ksplit_q6k`) whose sums are added in
+rank order in the same launch: no partial buffer and no second kernel.
+Every other 2-D call keeps ``qmatmul_kernel``, with a split-K pass
+(``splitk_reduce``) where its column tiles are few.
 """
 
 from __future__ import annotations
@@ -65,6 +70,8 @@ _DECODE_ROWS = 4
 _DECODE_MAX_K = 65536
 _MAX_KSPLIT = 8
 _DECODE_MAX_SB = 32
+_Q6_MAX_KSPLIT = 16   # q6_k's decode form: a non-portable cluster size
+_GPC_SMS = 16         # SMs a GPC holds at least (an H100's: 16-18)
 
 
 def expert(qt: QTensor, e: int) -> QTensor:
@@ -99,9 +106,10 @@ def _splits(device: torch.device, n: int, row_tiles: int, s: int) -> int:
 
 
 def decode_form(fmt: str, e: int, m: int, k: int) -> bool:
-    """Whether a call takes ``qmatmul_q4k_decode_kernel``: one q4_k weight
-    (``e == 1``) at M <= 4 rows, K <= 65536."""
-    return (fmt == "q4_k" and e == 1 and m <= _DECODE_ROWS
+    """Whether a call takes its format's decode form
+    (``qmatmul_q4k_decode_kernel`` or ``qmatmul_q6k_decode_kernel``): one
+    q4_k or q6_k weight (``e == 1``) at M <= 4 rows, K <= 65536."""
+    return (fmt in _DECODE_KSPLIT and e == 1 and m <= _DECODE_ROWS
             and k <= _DECODE_MAX_K)
 
 
@@ -119,6 +127,25 @@ def decode_ksplit(n: int, k: int, sms: int) -> int:
     if not even:
         return max(lo, min(hi, want))
     return next((d for d in even if d >= want), even[-1])
+
+
+def decode_ksplit_q6k(n: int, k: int, sms: int) -> int:
+    """Blocks of a cluster that split the ``s = ceil(k / 256)`` superblocks
+    of q6_k's decode form (x staged a superblock at a time), from host
+    integers: the most, up to ``min(16, s)`` (16 is a non-portable cluster
+    size), with which the ``ceil(n / 128)`` column tiles' clusters are all
+    resident at once, a block an SM, on GPCs of 16 SMs (an H100's hold
+    16-18), else 1.  On an H100 SXM this was the fastest split at every
+    shape timed (8960->1536: 8, 7168->576: 16, 18432->7168: 2; see
+    ``PERF.md``)."""
+    s = -(-k // _TILE)
+    tiles, gpcs = -(-n // _COLS), max(1, sms // _GPC_SMS)
+    return next((ks for ks in range(min(_Q6_MAX_KSPLIT, s), 0, -1)
+                 if tiles <= gpcs * (_GPC_SMS // ks)), 1)
+
+
+# the formats with a decode form, and how each splits its superblocks
+_DECODE_KSPLIT = {"q4_k": decode_ksplit, "q6_k": decode_ksplit_q6k}
 
 
 def _field_ptrs(qt: QTensor, device: torch.device) -> ctypes.Array:
@@ -150,7 +177,8 @@ def _launch(x: torch.Tensor, qt: QTensor, e: int, counter) -> torch.Tensor:
         return out
     if decode_form(qt.fmt, e, m, k):
         # one launch: the K split merges inside the cluster
-        splits, partial = decode_ksplit(n, k, build.sm_count(dev)), None
+        splits = _DECODE_KSPLIT[qt.fmt](n, k, build.sm_count(dev))
+        partial = None
     else:
         # (qmatmul_experts_kernel's row tiles, 1 or 20 rows, are never more)
         row_tiles = -(-m // _ROWS[m <= 4])
@@ -235,9 +263,9 @@ def _entry(fmt: str):
 def library_launches(fmt: str, kernel: str = "experts") -> int:
     """Launches made by ``fmt``'s library of ``qmatmul_experts_kernel``
     (``kernel="experts"``; 0 for q5_k, whose expert form is
-    ``qmatmul_kernel``), ``qmatmul_q4k_decode_kernel`` (``"decode"``, q4_k
-    only) or ``splitk_reduce`` (``"splitk"``): which kernels a call ran, for
-    the card tests."""
+    ``qmatmul_kernel``), its decode form (``"decode"``, q4_k and q6_k
+    only) or ``splitk_reduce`` (``"splitk"``): which kernels a call ran,
+    for the card tests."""
     name = {"experts": "qmatmul_experts_kernel_launches",
             "decode": "qmatmul_decode_kernel_launches",
             "splitk": "qmatmul_splitk_reduce_launches"}[kernel]

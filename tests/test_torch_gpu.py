@@ -203,6 +203,44 @@ def test_qmatmul_q4k_decode_form(cuda, m, k, n, dtype):
                            torch.zeros_like(y[m - 2]).view(bits))
 
 
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("k,n", [(1000, 388), (700, 260), (1536, 256),
+                                 (8960, 1536), (7168, 576), (18432, 7168)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_qmatmul_q6k_decode_form(cuda, m, k, n, dtype):
+    """q6_k's 2-D form at M <= 4 runs qmatmul_q6k_decode_kernel on tensor
+    cores: one device launch a call and no splitk_reduce, two calls
+    bitwise equal, within B1's limits of the plain version (f32 x as three
+    bf16 terms: 1e-5 of max|y|); ragged K (1000, 700), N % 16 != 0 (388,
+    260: 4-byte copies), the shapes of qwen2 (attn_k/v 1536->256, down
+    8960->1536) and DeepSeek (attn_kv_a_mqa 7168->576, dense down
+    18432->7168), K split over a cluster, and a zero row gives +0."""
+    rng = np.random.default_rng(m * 17 + k + n)
+    qt = quantize(torch.from_numpy(_np(rng, (k, n))).to(cuda), "q6_k")
+    x = torch.from_numpy(_np(rng, (m, k))).to(cuda).to(dtype)
+    if m > 1:
+        x[m - 2] = 0
+    kern = qmatmul.qmatmul_q6_k
+    before = kern.launches
+    dec, red = (qmatmul.library_launches("q6_k", w)
+                for w in ("decode", "splitk"))
+    y = kern(x, qt)
+    y2 = kern(x, qt)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    assert qmatmul.library_launches("q6_k", "decode") == dec + 2
+    assert qmatmul.library_launches("q6_k", "splitk") == red
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(y.view(bits), y2.view(bits))
+    ref = qmatmul.qmatmul_plain(x, qt).float()
+    tol = TOL if dtype == torch.float32 else 2 ** -8
+    assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
+    if m > 1:
+        assert torch.equal(y[m - 2].view(bits),
+                           torch.zeros_like(y[m - 2]).view(bits))
+
+
 def test_qmatmul_kernel_raises_on_what_it_does_not_take(cuda):
     qt = quantize(torch.randn(256, 130, device=cuda), "q4_k")
     with pytest.raises(ValueError, match="N % 4"):
@@ -554,6 +592,85 @@ def test_paged_mla_prefill_kernel_matches_plain(cuda, page_size, active, c,
     ref = paged_attn.mla_prefill_plain(
         q_eff, q_rope, pools, bt, qpos, scale=0.1,
         nj=paged_attn._n_active(bt, active), quant=modes)
+    assert bool((y[1, -2:] == 0).all())
+    assert (y - ref).abs().max() < TOL
+
+
+@pytest.mark.parametrize("kv", ["q8_0", "q4_0", "q8_0+q4_0"])
+@pytest.mark.parametrize("page_size", [16, 64])
+@pytest.mark.parametrize("c,h,qdt", [(20, 12, torch.bfloat16),
+                                     (20, 12, torch.float32),
+                                     (128, 70, torch.bfloat16),
+                                     (128, 70, torch.float32)],
+                         ids=["short-bf16", "short-f32", "full-bf16",
+                              "full-f32"])
+def test_paged_mla_prefill_tensor_cores(cuda, kv, page_size, c, h, qdt):
+    """The tensor-core MLA prefill kernel over every loader pair, page
+    sizes 16 and 64, a short chunk (20 tokens, its last rows padded) and a
+    full one (128), bf16 queries read as passed and f32 ones as three bf16
+    terms, 70 heads (two or three head tiles): one launch a call, padded
+    rows zero, two calls bitwise equal, the plain version's result within
+    1e-5."""
+    rng = np.random.default_rng(page_size + c + h + len(kv))
+    b, r, dr = 2, 512, 64
+    n_lp = -(-(400 + c) // page_size)
+    live = [400, 137]
+    ckv, kr, bt = (torch.from_numpy(a).to(cuda) for a in _latent_pools(
+        rng, b, n_lp, page_size, r, dr, [page_size * n_lp] * b))
+    qpos = torch.stack([torch.arange(x - c, x) for x in live]).to(
+        torch.int32)
+    qpos[1, -3:] = -1
+    qpos = qpos.to(cuda)
+    q_eff = torch.from_numpy(_np(rng, (b, c, h, r))).to(cuda).to(qdt)
+    q_rope = torch.from_numpy(_np(rng, (b, c, h, dr))).to(cuda).to(qdt)
+    modes = MLA_KV[kv]
+    pools = _mla_quant_pools(ckv, kr, modes)
+    counter = paged_attn.paged_mla_prefill_quant.loaders[modes]
+    kw = dict(scale=192 ** -0.5, latent_mode=modes[0], rope_mode=modes[1])
+    before = counter.launches
+    y = paged_attn.paged_mla_prefill_quant(q_eff, q_rope, *pools, bt, qpos,
+                                           **kw)
+    y2 = paged_attn.paged_mla_prefill_quant(q_eff, q_rope, *pools, bt, qpos,
+                                            **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert torch.equal(y.view(torch.int32), y2.view(torch.int32))
+    ref = paged_attn.mla_prefill_plain(q_eff, q_rope, pools, bt, qpos,
+                                       scale=kw["scale"], nj=n_lp,
+                                       quant=modes)
+    assert y.shape == (b, c, h, r) and torch.isfinite(y).all()
+    assert bool((y[1, -3:] == 0).all())
+    assert (y - ref).abs().max() < TOL
+
+
+@pytest.mark.parametrize("kv", ["q4_0", "q8_0+q4_0"])
+@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_paged_mla_prefill_tensor_cores_odd_rows(cuda, kv, qdt):
+    """Widths that are not multiples of 16 (R = 48, Dr = 14: a q4_0 rope
+    row is 7 bytes, copied byte by byte) and a page size of 5."""
+    rng = np.random.default_rng(len(kv) + (qdt == torch.float32))
+    b, c, h, r, dr, page_size, n_lp = 2, 9, 5, 48, 14, 5, 8
+    live = [33, 12]
+    ckv, kr, bt = (torch.from_numpy(a).to(cuda) for a in _latent_pools(
+        rng, b, n_lp, page_size, r, dr, [page_size * n_lp] * b))
+    qpos = torch.stack([torch.arange(x - c, x) for x in live]).to(
+        torch.int32)
+    qpos[1, -2:] = -1
+    qpos = qpos.to(cuda)
+    q_eff = torch.from_numpy(_np(rng, (b, c, h, r))).to(cuda).to(qdt)
+    q_rope = torch.from_numpy(_np(rng, (b, c, h, dr))).to(cuda).to(qdt)
+    modes = MLA_KV[kv]
+    pools = _mla_quant_pools(ckv, kr, modes)
+    counter = paged_attn.paged_mla_prefill_quant.loaders[modes]
+    before = counter.launches
+    y = paged_attn.paged_mla_prefill_quant(
+        q_eff, q_rope, *pools, bt, qpos, scale=0.1, active_pages=7,
+        latent_mode=modes[0], rope_mode=modes[1])
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref = paged_attn.mla_prefill_plain(q_eff, q_rope, pools, bt, qpos,
+                                       scale=0.1, nj=7, quant=modes)
     assert bool((y[1, -2:] == 0).all())
     assert (y - ref).abs().max() < TOL
 

@@ -25,6 +25,7 @@ from repro_torch.convert import from_jax_params
 from repro_torch.core.qtensor import QTensor, quantize
 from repro_torch.kernels import build, ops, paged_attn, qmatmul
 from repro_torch.models import paged
+from bf16_terms import bf16_terms
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
@@ -140,12 +141,111 @@ def test_q4k_factored_decode_matches_pallas(m):
                                    atol=TOL * np.abs(ref).max())
     assert qmatmul.decode_form("q4_k", 1, m, k)
     assert not qmatmul.decode_form("q4_k", 1, 5, k)
-    assert not qmatmul.decode_form("q6_k", 1, m, k)
+    assert qmatmul.decode_form("q6_k", 1, m, k)
     assert not qmatmul.decode_form("q4_k", 8, m, k)
     for kk, nn in ((700, 256), (1536, 8960), (7168, 18432), (65536, 7168)):
         s = -(-kk // 256)
         ks = qmatmul.decode_ksplit(nn, kk, 132)
         assert 1 <= ks <= min(8, s) and -(-s // ks) <= 32
+
+
+def _q6k_tensor_core(x, fields, ks):
+    """q6_k's decode form written out (``qmatmul_q6k_decode_kernel``): per
+    16-element sub-block and column, the exact products of bf16 x terms
+    (one for bf16 x, three for f32) and the codes q - 32, summed (the
+    tensor core; f64 here) and rounded to f32, scaled by the sub-block's
+    int8 scale and summed over the four sub-blocks a warp takes (j, j + 4,
+    j + 8, j + 12), times the superblock's d into the warp's accumulator;
+    the four warps' sums added in order, and the superblocks split over
+    ``ks`` blocks whose sums are added in rank order.  x (M, K), zeros past
+    K."""
+    ql, qh, sc, d = (fields[n] for n in qmatmul.FIELDS["q6_k"])
+    s_blocks, _, n = ql.shape
+    m, k = x.shape
+    ql, qh = ql.to(torch.int32), qh.to(torch.int32)
+    # element e of a superblock: ql row e % 128's nibble e // 128 (row e %
+    # 64 + 64 ((e // 64) % 2)), qh row e % 64's bit-pair e // 64
+    e = torch.arange(256)
+    lo = (ql[:, e % 128] >> (4 * (e // 128))[None, :, None]) & 15
+    hi = (qh[:, e % 64] >> (2 * (e // 64))[None, :, None]) & 3
+    w = ((lo | (hi << 4)) - 32).to(torch.float64)          # (S, 256, N)
+    xp = torch.zeros(m, s_blocks * 256)
+    xp[:, :k] = x.to(torch.float32)
+    nt = 3 if x.dtype == torch.float32 else 1
+    xs = sum(t.to(torch.float64) for t in bf16_terms(xp, nt))
+    prod = torch.einsum("msji,sjin->msjn", xs.reshape(m, s_blocks, 16, 16),
+                        w.reshape(s_blocks, 16, 16, n)).to(torch.float32)
+    scale = sc.to(torch.float32)                           # (S, 16, N)
+    dd = d.to(torch.float32)                               # (S, N)
+    out = torch.zeros(m, n)
+    for r in range(ks):                                    # rank order
+        blk = torch.zeros(m, n)
+        for j0 in range(4):                                # warp order
+            acc = torch.zeros(m, n)
+            for sb in range(s_blocks * r // ks, s_blocks * (r + 1) // ks):
+                part = torch.zeros(m, n)
+                for p in range(4):
+                    i = j0 + 4 * p
+                    part = part + scale[sb, i] * prod[:, sb, i]
+                acc = acc + dd[sb] * part
+            blk = blk + acc
+        out = out + blk
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_q6k_tensor_core_decode_matches_pallas(m, dtype):
+    """The arithmetic of q6_k's tensor-core decode form (bf16 codes, f32
+    per-sub-block scales, f32 x as three bf16 terms) with a ragged K (700:
+    the last superblock holds 188 rows) split over 1, 2 and 3 blocks and
+    merged in rank order, against the reference's fused Pallas kernel
+    (interpret mode): f32 within 1e-5 of max|y|, bf16 within one bf16 step
+    (2^-8) of max|y|; a zero row of x gives +0."""
+    k, n = 700, 256
+    jq, tq = _qt_pair("q6_k", k, n, seed=m + 60)
+    x = np.random.default_rng(m + 70).normal(size=(m, k)).astype(np.float32)
+    if m > 1:
+        x[m - 2] = 0
+    xt = torch.from_numpy(x).to(dtype)
+    xj = jnp.asarray(xt.to(torch.float32).numpy())
+    if dtype == torch.bfloat16:
+        xj = xj.astype(jnp.bfloat16)
+    ref = np.asarray(jax_ops.qmatmul(xj, jq, impl="pallas"), np.float32)
+    tol = TOL if dtype == torch.float32 else 2 ** -8
+    for ks in (1, 2, 3):
+        got = _q6k_tensor_core(xt, tq.fields, ks)
+        np.testing.assert_allclose(got.to(torch.float32).numpy(), ref,
+                                   rtol=0, atol=tol * np.abs(ref).max())
+        if m > 1:
+            assert not got[m - 2].to(torch.float32).numpy().view(
+                np.int32).any()                            # +0, not -0
+
+
+@pytest.mark.parametrize("k,n", [(700, 256), (1536, 256), (8960, 1536),
+                                 (7168, 576), (18432, 7168), (7168, 129280),
+                                 (65536, 128)])
+def test_q6k_decode_ksplit_sizes_the_cluster(k, n):
+    """q6_k's K split, from host integers only: 1..16 blocks (a
+    non-portable cluster size), at most the superblocks, the most with
+    which the ``ceil(n / 128)`` column tiles' clusters all fit at once, a
+    block an SM, on GPCs of 16 SMs."""
+    s, tiles = -(-k // 256), -(-n // 128)
+    assert qmatmul.decode_form("q6_k", 1, 4, k)
+    assert not qmatmul.decode_form("q6_k", 1, 5, k)
+    assert not qmatmul.decode_form("q6_k", 2, 1, k)
+    for sms in (132, 114, 8):
+        ks = qmatmul.decode_ksplit_q6k(n, k, sms)
+        gpcs = max(1, sms // 16)
+        assert 1 <= ks <= min(16, s)
+        assert ks == 1 or tiles <= gpcs * (16 // ks)
+        assert ks == min(16, s) or tiles > gpcs * (16 // (ks + 1))
+    # the fastest splits timed on an H100 SXM (PERF.md)
+    assert qmatmul.decode_ksplit_q6k(1536, 8960, 132) == 8
+    assert qmatmul.decode_ksplit_q6k(576, 7168, 132) == 16
+    assert qmatmul.decode_ksplit_q6k(7168, 18432, 132) == 2
+    assert qmatmul.decode_ksplit_q6k(7168, 2048, 132) == 2
 
 
 def test_qgather_columns_bitwise():

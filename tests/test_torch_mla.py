@@ -23,6 +23,7 @@ from repro.kernels import paged_attn as jax_pa
 
 from repro_torch.kernels import paged_attn
 from repro_torch.models import paged
+from bf16_terms import bf16_terms
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
@@ -295,3 +296,114 @@ def test_mla_decode_splits_cover_every_page(sms):
             assert max(tiles) - min(tiles) <= 1
     assert paged_attn.mla_decode_splits(32, 4, 128, 132) == 7
     assert paged_attn.mla_decode_splits(64, 4, 128, 132) == 7
+
+
+def _mla_prefill_tensor_cores(q_eff, q_rope, pools, bt, qpos, *, modes,
+                              scale, nj, page_size):
+    """The MLA prefill kernel's arithmetic written out
+    (``paged_mla_prefill_kernel``): per query token, its keys (logical
+    index <= qpos, within the first ``nj`` pages) in 32-key tiles; the
+    scores' latent and rope parts as exact products of bf16 query terms
+    (one for bf16 queries, three for f32) and the stored codes (f64 here,
+    the tensor core), each times its token's scale, then ``scale``; the
+    online softmax over the tiles; P times each key's latent scale, split
+    into three bf16 terms, times the latent codes.  A padded row (qpos =
+    -1) gives zeros."""
+    cq, cd, kq, kd = pools
+    cc = (paged_attn.unpack_q4_rows(cq) if modes[0] == "q4_0" else cq)
+    kc = (paged_attn.unpack_q4_rows(kq) if modes[1] == "q4_0" else kq)
+    b, c, h, r = q_eff.shape
+    nq = 1 if q_eff.dtype == torch.bfloat16 else 3
+    neg = paged_attn.NEG_INF
+    out = torch.zeros(b, c, h, r)
+    _, key_tiles = paged_attn.mla_prefill_tiles(
+        qpos, h, page_size=page_size, nj=nj, q_dtype=q_eff.dtype)
+    for i in range(b):
+        for ci in range(c):
+            qp = int(qpos[i, ci])
+            if qp < 0:
+                continue
+            n_valid = min(qp + 1, nj * page_size)
+            assert int(key_tiles[i, ci]) == -(-n_valid // 32)
+            rows = [int(bt[i, u // page_size]) * page_size + u % page_size
+                    for u in range(n_valid)]
+            codes_c = cc.reshape(-1, r)[rows].to(torch.float64)
+            codes_k = kc.reshape(-1, q_rope.shape[-1])[rows].to(
+                torch.float64)
+            dc = cd.reshape(-1)[rows].to(torch.float32)
+            dk = kd.reshape(-1)[rows].to(torch.float32)
+            qe = sum(t.to(torch.float64) for t in bf16_terms(
+                q_eff[i, ci].to(torch.float32), nq))
+            qr = sum(t.to(torch.float64) for t in bf16_terms(
+                q_rope[i, ci].to(torch.float32), nq))
+            m = torch.full((h, 1), neg)
+            l = torch.zeros(h, 1)
+            acc = torch.zeros(h, r)
+            for u in range(0, n_valid, 32):
+                sl = slice(u, min(u + 32, n_valid))
+                s_c = (qe @ codes_c[sl].T).to(torch.float32)
+                s_r = (qr @ codes_k[sl].T).to(torch.float32)
+                s = (dc[sl] * s_c + dk[sl] * s_r) * scale
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                p = torch.exp(s - m_new)
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(-1, keepdim=True)
+                pv = sum(t.to(torch.float64) for t in bf16_terms(
+                    p * dc[sl], 3))
+                acc = acc * corr + (pv @ codes_c[sl]).to(torch.float32)
+                m = m_new
+            out[i, ci] = acc / torch.clamp(l, min=1e-30)
+    return out
+
+
+@pytest.mark.parametrize("modes", [("q8_0", "q8_0"), ("q4_0", "q4_0"),
+                                   ("q8_0", "q4_0")],
+                         ids=["q8_0", "q4_0", "q8_0+q4_0"])
+@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_mla_prefill_tensor_core_rule_matches_pallas(modes, qdt):
+    """The tensor-core prefill's arithmetic (per-token scales on S and
+    folded into P, P as three bf16 terms, f32 queries as three, the online
+    softmax over 32-key tiles: up to three tiles here), with padded rows,
+    every (latent, rope) mode pair and a bounded page loop, against the
+    reference's ``_mla_prefill_core`` (Pallas, interpret mode) within
+    1e-5."""
+    rng = np.random.default_rng(len(modes[0]) + len(modes[1]) + (
+        qdt == torch.float32))
+    b, c, h, r, dr, n_lp, page_size = 2, 4, 3, 32, 16, 20, 4
+    live = [75, 37]
+    ckv, kr, bt = _latent_pools(rng, b, n_lp, page_size, r, dr,
+                                [page_size * n_lp] * b)
+    qpos = np.stack([np.arange(x - c, x) for x in live]).astype(np.int32)
+    qpos[1, -2:] = -1
+    q_eff = torch.from_numpy(rng.normal(size=(b, c, h, r)).astype(
+        np.float32)).to(qdt)
+    q_rope = torch.from_numpy(rng.normal(size=(b, c, h, dr)).astype(
+        np.float32)).to(qdt)
+    jpools = (*JAX_QUANTIZE[modes[0]](jnp.asarray(ckv)),
+              *JAX_QUANTIZE[modes[1]](jnp.asarray(kr)))
+    ref = np.asarray(jax_pa.paged_mla_prefill_quant(
+        jnp.asarray(q_eff.to(torch.float32).numpy()),
+        jnp.asarray(q_rope.to(torch.float32).numpy()), *jpools,
+        jnp.asarray(bt), jnp.asarray(qpos), scale=SCALE, active_pages=18,
+        latent_mode=modes[0], rope_mode=modes[1], impl="pallas",
+        interpret=True))
+    got = _mla_prefill_tensor_cores(
+        q_eff, q_rope, [torch.from_numpy(np.array(a)) for a in jpools],
+        torch.from_numpy(bt), torch.from_numpy(qpos), modes=modes,
+        scale=SCALE, nj=18, page_size=page_size).numpy()
+    assert np.all(got[1, -2:] == 0.0) and np.all(ref[1, -2:] == 0.0)
+    assert np.max(np.abs(got - ref)) < TOL
+
+
+def test_mla_prefill_tiles_from_host_integers():
+    """``mla_prefill_tiles``: a block per 64 heads of a token with bf16
+    queries (32 with f32), and ceil(min(qpos + 1, nj P) / 32) key tiles a
+    token, 0 for a padded row."""
+    qpos = torch.tensor([[-1, 0, 31, 32], [99, 399, 1000, 5]])
+    for dt, rows in ((torch.bfloat16, 64), (torch.float32, 32)):
+        for h in (1, 5, 64, 65, 128):
+            ht, kt = paged_attn.mla_prefill_tiles(qpos, h, page_size=16,
+                                                  nj=40, q_dtype=dt)
+            assert ht == -(-h // rows)
+            assert kt.tolist() == [[0, 1, 1, 2], [4, 13, 20, 1]]
