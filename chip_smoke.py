@@ -16,7 +16,9 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 every expert form also with the decode's routing, 32 of
                 256 experts live, where every kernel but q5_k's reads no
                 empty expert), with times, the roofline bound and the
-                stated tolerance; the GQA and MLA decodes also at the
+                stated tolerance (B1's M = 512 lines also carry
+                ``gemm_ms``, a bf16 torch.matmul by the weight already
+                dequantized, for context); the GQA and MLA decodes also at the
                 engine's horizon (4 lanes x 1,000 tokens, a 64-page
                 bucket), each on a line of its own.
   3. parity   — full width, f32, weights from one seed, card (kernels)
@@ -36,8 +38,10 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 Every
                 kernel of each path must have been launched in its run,
                 and the DeepSeek weights must pack to the reference size
-                calculator's bytes; one traced decode step per path and
-                pool kind (q8_0, bf16, dq) says where the time goes.
+                calculator's bytes; one traced 4 x 128-token prefill
+                chunk (``prefill_profile``) and one traced decode step
+                (``decode_profile``) per path and pool kind (q8_0, bf16,
+                dq) say where the time goes.
 
 The last three lines are the ``{"kernels": [...]}`` summary, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -162,6 +166,12 @@ KERNELS = {
                      "src/repro/kernels/common.py:82"),
     "qmatmul_q6_k": ("src/repro_torch/csrc/qmatmul.cu",
                      "src/repro/kernels/common.py:82"),
+    # the same wrappers' prefill form (qmatmul_prefill_kernel, M > 4): its
+    # launches are its library's count, not the wrapper's
+    "qmatmul_q4_k_prefill": ("src/repro_torch/csrc/qmatmul.cu",
+                             "src/repro/kernels/common.py:82"),
+    "qmatmul_q6_k_prefill": ("src/repro_torch/csrc/qmatmul.cu",
+                             "src/repro/kernels/common.py:82"),
     "qmatmul_q3_k": ("src/repro_torch/csrc/qmatmul.cu",
                      "src/repro/kernels/q3_k.py:27"),
     "qmatmul_q5_k": ("src/repro_torch/csrc/qmatmul.cu",
@@ -235,6 +245,8 @@ def launch_counters() -> dict:
 
     out = {}
     for name in KERNELS:
+        if name.endswith("_prefill"):
+            continue
         if name in LOADER_ROWS:
             fn, key = LOADER_ROWS[name]
             out[name] = getattr(pa, fn).loaders[key]
@@ -281,6 +293,7 @@ B1_SHAPES = [(1536, 1536, "q4_k", "q_proj, o_proj"),
              (8960, 1536, "q6_k", "down"),
              (1536, 152064, "q4_k", "tied head"),
              (7168, 18432, "q4_k", "DeepSeek dense gate, up"),
+             (16384, 7168, "q4_k", "DeepSeek attn_output"),
              (18432, 7168, "q6_k", "DeepSeek dense down"),
              (7168, 576, "q6_k", "DeepSeek attn_kv_a_mqa"),
              (7168, 129280, "q6_k", "DeepSeek output"),
@@ -295,7 +308,9 @@ B1_SHAPES = [(1536, 1536, "q4_k", "q_proj, o_proj"),
 B1_ROWS = (1, 4, 512)
 # the case that stands for each format in the summary line: the decode
 # shape (M = 4, bf16) that moves most of the format's weight bytes per step
-# on its path
+# on its path; for the prefill form of q4_k and q6_k, qwen2's chunk shape
+# (M = 512, bf16) with the most device time a chunk
+B1_PREFILL_SUMMARY = {"q4_k": (512, 1536, 8960), "q6_k": (512, 8960, 1536)}
 B1_SUMMARY = {"q4_k": (4, 1536, 8960), "q6_k": (4, 8960, 1536),
               "q3_k": (4, 7168, 1536), "q5_k": (4, 18432, 7168),
               "q2_k": (4, 7168, 18432), "q8_0": (4, 7168, 18432)}
@@ -372,9 +387,22 @@ def phase_kernels(torch, summary: dict) -> None:
                     "max_rel_err", ms, plain_ms,
                     wbytes + nbytes(x) + m * n * x.element_size(),
                     2.0 * m * k * n, dt_name)
-                detail.append(dict(res, kernel=name))
+                extra = {}
+                if m == max(B1_ROWS):
+                    # context only: a bf16 GEMM of x by the weight already
+                    # dequantized to bf16 (no function of the port)
+                    wb = qt.dequantize(torch.bfloat16)
+                    xb = x.to(torch.bfloat16)
+                    extra["gemm_ms"] = device_ms(
+                        torch, lambda: torch.matmul(xb, wb))
+                    del wb, xb
+                detail.append(dict(res, kernel=name, **extra))
                 if (m, k, n) == B1_SUMMARY.get(fmt) and dt == torch.bfloat16:
                     summary[name] = kernel_entry(name, **res)
+                if ((m, k, n) == B1_PREFILL_SUMMARY.get(fmt)
+                        and dt == torch.bfloat16):
+                    summary[f"{name}_prefill"] = kernel_entry(
+                        f"{name}_prefill", **res)
         del copies, qt
         torch.cuda.empty_cache()
 
@@ -929,9 +957,10 @@ def short_name(key: str) -> str:
                                             "").split("(")[0]
 
 
-# kernel families of a traced decode step: qmatmul_kernel<T, rows, format,
-# experts>, qmatmul_q4k_decode_kernel and qmatmul_q6k_decode_kernel (the
-# 2-D forms of q4_k and q6_k at M <= 4) and
+# kernel families of a traced decode step or prefill chunk:
+# qmatmul_kernel<T, rows, format, experts>, qmatmul_q4k_decode_kernel and
+# qmatmul_q6k_decode_kernel (the 2-D forms of q4_k and q6_k at M <= 4),
+# qmatmul_prefill_kernel (theirs at M > 4) and
 # qmatmul_experts_kernel<T, rows, format, copy bytes> (format ids as in
 # csrc/qmatmul.cu), the split-K reduction, and the attention kernels (the
 # MLA decode and prefill kernels both "B6/B7 paged_mla")
@@ -947,7 +976,8 @@ def family(key: str) -> str:
     if m:
         return (f"B1 experts {B1_FORMATS[m.group(1)]}" if m.group(2) == "true"
                 else "B1 dense")
-    if "splitk" in key or re.search(r"qmatmul_q[46]k_decode_kernel", key):
+    if "splitk" in key or re.search(
+            r"qmatmul_(q[46]k_decode|prefill)_kernel", key):
         return "B1 dense"
     if "paged_mla" in key:
         return "B6/B7 paged_mla"
@@ -957,10 +987,12 @@ def family(key: str) -> str:
 
 
 def profile_decode(torch, model, qparams, kv_quant, lanes=4, live=256,
-                   steps=5) -> dict:
-    """Where one batched decode step's time goes: ``lanes`` lanes with
-    ``live`` cached tokens each (built by two 128-token prefill chunks),
-    then ``steps`` decode steps, timed on the host clock and then traced.
+                   steps=5) -> tuple:
+    """Where one 4 x 128-token prefill chunk's time goes, and one batched
+    decode step's: ``lanes`` lanes with ``live`` cached tokens each (built
+    by two 128-token prefill chunks, the second run again on the host
+    clock and then traced: the ``prefill_profile`` line), then ``steps``
+    decode steps, timed on the host clock and then traced.
     Device time is summed by kernel family; the idle share is 1 - device
     time / wall time; the host side is the count of kernels launched per
     step and the operators with the most host time (profiler self time,
@@ -978,15 +1010,57 @@ def profile_decode(torch, model, qparams, kv_quant, lanes=4, live=256,
                                    kv_quant=kv_quant, device=dev)
     gen = torch.Generator(device=dev).manual_seed(2)
     C = 128
+    chunk_args = []
     for c0 in range(0, live, C):
         toks = torch.randint(4, model.cfg.vocab_size, (lanes, C),
                              generator=gen, device=dev, dtype=torch.int32)
         start = torch.full((lanes,), c0, dtype=torch.int32, device=dev)
         clen = torch.full((lanes,), C, dtype=torch.int32, device=dev)
-        logits, cache = model.prefill_chunk(
+        chunk_args.append((toks, start, clen, paged.pages_for(c0 + C, P)))
+
+    def chunk(i):
+        nonlocal cache
+        toks, start, clen, pages = chunk_args[i]
+        out, cache = model.prefill_chunk(
             qparams, cache, toks, start, clen, max_len=max_len,
             block_tables={"full": bt}, page_size=P, kv_quant=kv_quant,
-            active_pages=(paged.pages_for(c0 + C, P), 0))
+            active_pages=(pages, 0))
+        return out
+
+    for i in range(len(chunk_args)):
+        logits = chunk(i)
+    # the last chunk again (it writes the same pages with the same values),
+    # on the host clock and then traced: a 4 x 128-token prefill chunk
+    last = len(chunk_args) - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk(last)
+    torch.cuda.synchronize()
+    chunk_wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        chunk(last)
+        torch.cuda.synchronize()
+    pfams: dict[str, float] = {}
+    p_kernels, p_counts, p_launches = {}, {}, 0
+    for key, (ms, cnt) in kernel_ms(torch, prof, 1).items():
+        p_kernels[key] = ms
+        p_counts[key] = cnt
+        p_launches += cnt
+        pfams[family(key)] = pfams.get(family(key), 0.0) + ms
+    p_busy = sum(pfams.values()) or None
+    prefill = {"phase": "prefill_profile", "arch": model.cfg.name,
+               "layers": model.cfg.n_layers, "kv": kv_quant or "bf16",
+               "lanes": lanes, "chunk_tokens": C, "chunk_wall_ms": chunk_wall,
+               "device_ms": p_busy,
+               "idle_share": p_busy and max(0.0, 1 - p_busy / chunk_wall),
+               "by_family_ms": pfams, "kernels_per_chunk": p_launches,
+               "port_kernels_ms": {short_name(k): v
+                                   for k, v in p_kernels.items()
+                                   if family(k) != "other"},
+               "port_kernel_launches": {short_name(k): v
+                                        for k, v in p_counts.items()
+                                        if family(k) != "other"}}
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     pos_h = [live] * lanes
 
@@ -1033,7 +1107,7 @@ def profile_decode(torch, model, qparams, kv_quant, lanes=4, live=256,
     top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
     ours = {short_name(k): v for k, v in per_kernel.items()
             if family(k) != "other"}
-    return {"phase": "decode_profile", "arch": model.cfg.name,
+    return prefill, {"phase": "decode_profile", "arch": model.cfg.name,
             "layers": model.cfg.n_layers, "kv": kv_quant or "bf16",
             "lanes": lanes, "live_tokens": live, "step_wall_ms": wall,
             "device_ms": busy,
@@ -1063,9 +1137,21 @@ DEEPSEEK_B1 = {"DQ3_K_M": (("q4_k", "q6_k"), ("q3_k", "q4_k", "q6_k")),
                "Q4_K_M": (("q4_k", "q6_k"), ("q4_k", "q6_k"))}
 
 
+# the formats whose one-weight calls at M > 4 take qmatmul_prefill_kernel,
+# and those of them each path multiplies at a prefill chunk's 512 rows
+# (qwen2 under DQ3_K_M; the DeepSeek cut per policy: under Q3_K_M q6_k is
+# only the output head, which takes one row a lane, and Q2_K_L has no
+# q4_k)
+PREFILL_FORMS = ("q4_k", "q6_k")
+QWEN2_PREFILL = ("q4_k", "q6_k")
+DEEPSEEK_PREFILL = {"DQ3_K_M": ("q4_k", "q6_k"), "Q4_K_M": ("q4_k", "q6_k"),
+                    "Q3_K_M": ("q4_k",), "Q2_K_L": ("q6_k",), "Q8_0": ()}
+
+
 def b1_path(policy: str) -> tuple:
     dense, experts = DEEPSEEK_B1[policy]
     return (tuple(f"qmatmul_{f}" for f in dense)
+            + tuple(f"qmatmul_{f}_prefill" for f in DEEPSEEK_PREFILL[policy])
             + tuple(f"qmatmul_experts_{f}" for f in experts))
 
 
@@ -1073,8 +1159,9 @@ def phase_serve(torch, summary: dict) -> None:
     from repro_torch.configs import get_config
 
     counters = launch_counters()
-    totals = {k: 0 for k in counters}
-    dense = ("qmatmul_q4_k", "qmatmul_q6_k")
+    totals = {k: 0 for k in KERNELS}
+    dense = ("qmatmul_q4_k", "qmatmul_q6_k") + tuple(
+        f"qmatmul_{f}_prefill" for f in QWEN2_PREFILL)
     gqa_q8 = ("paged_attn_decode_quant", "paged_attn_prefill_quant")
     gqa_q4 = ("paged_attn_decode_quant_q4_0", "paged_attn_prefill_quant_q4_0")
     # dq: the quant probe's shadow bf16 pools decode through B2
@@ -1104,7 +1191,7 @@ def phase_serve(torch, summary: dict) -> None:
     for policy in ("Q4_K_M", "Q3_K_M", "Q2_K_L", "Q8_0"):
         serve_model(torch, deepseek, policy, counters, totals,
                     {"q8_0": b1_path(policy) + mla_q8}, profiled=("q8_0",))
-    for name in counters:
+    for name in KERNELS:
         summary.setdefault(name, kernel_entry(name))["launches"] = totals[name]
 
 
@@ -1119,6 +1206,7 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
     include them).  One decode step per pool kind of ``profiled`` is
     traced."""
     from repro_torch.core import QTensor, get_policy, init_quantized_params
+    from repro_torch.kernels import qmatmul as qm
     from repro_torch.launch.serve import build_requests
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import Engine
@@ -1152,9 +1240,14 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
             c.launches = 0
+        # the prefill form's count is its library's, read before and after
+        forms = {f: qm.library_launches(f, "prefill") for f in PREFILL_FORMS}
         done = engine.serve(reqs, slots=4, seed=0)
         torch.cuda.synchronize()
         launches = {k: c.launches for k, c in counters.items()}
+        launches.update({f"qmatmul_{f}_prefill":
+                         qm.library_launches(f, "prefill") - n
+                         for f, n in forms.items()})
         st = engine.last_stats
         label = kv_quant or "bf16"
         res = {"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
@@ -1206,8 +1299,9 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
         for k, v in launches.items():
             totals[k] += v
     for kv_quant in profiled:
-        emit(dict(profile_decode(torch, model, qparams, kv_quant,
-                                 steps=3 if cfg.mla else 5), policy=policy))
+        for line in profile_decode(torch, model, qparams, kv_quant,
+                                   steps=3 if cfg.mla else 5):
+            emit(dict(line, policy=policy))
     del qparams, model, engine
     torch.cuda.empty_cache()
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Ablations of the MLA decode and prefill kernels and of the q4_k and q6_k
-decode forms on one CUDA card.
+decode and prefill forms on one CUDA card.
 
     python3 scripts/decode_ablation.py            # prints JSON lines
     python3 scripts/decode_ablation.py --only q6k_decode,mla_prefill
+    python3 scripts/decode_ablation.py --only q4k_prefill,q6k_prefill
 
 Builds variants of ``csrc/paged_mla.cu`` (``paged_mla_decode_kernel``) and
 of ``csrc/qmatmul.cu`` for q4_k (``qmatmul_q4k_decode_kernel``), each the
@@ -38,8 +39,19 @@ kernel) at ``chip_smoke.py``'s shapes:
                a stage; and the expert kernel (``qmatmul_experts_kernel``,
                C = 1) streaming the same fields of two 7168->9216 experts.
 
+  q4_k, q6_k prefill  M = 512 (bf16 x; f32 x also at the first shape) at
+               qwen2's and DeepSeek's 2-D shapes of the format
+               (``qmatmul_prefill_kernel`` at its ``prefill_ksplit``, and
+               at the other split sizes where the tiles are few); variants
+               (of the bf16 path; the f32 one keeps its own):
+               the kernel, 128-row tiles only, 64-row tiles of 4 x 2
+               warps (16 x 64 each) instead of 2 x 4, the sub-blocks not
+               unrolled, no scaling (each sub-block's
+               products straight into the accumulators), no mma, the
+               copies alone; each variant's ptxas registers and spills.
+
 A variant that leaves work out computes a wrong result: only its time is
-read.  Weights rotate over copies of more than 120 MB, so that each call
+read (the prefill groups print each variant's error beside its time).  Weights rotate over copies of more than 120 MB, so that each call
 reads them from HBM.  The builds go to ``src/repro_torch/_build/ablation``.
 Needs ``nvcc`` (``CUDA_HOME``, ``/usr/local/cuda`` or the ``PATH``).
 """
@@ -133,10 +145,10 @@ Q6_NO_MMA = ("      for (int u = 0; u < NT; ++u) mma_bf16(d, a, b[u][0], b[u][1]
              "      for (int u = 0; u < NT; ++u) d[u & 3] += __uint_as_float("
              "(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[u][0] ^ b[u][1]) & 0x3FFFFFFFu);")
 Q6_NO_CONVERSION = [
-    ("      const uint32_t a[4] = {q6_pair(w[0][0][k], sel), "
-     "q6_pair(w[0][1][k], sel),\n"
-     "                             q6_pair(w[1][0][k], sel), "
-     "q6_pair(w[1][1][k], sel)};",
+    ("      const uint32_t a[4] = {code_pair(w[0][0][k], sel, Q6_BIAS),\n"
+     "                             code_pair(w[0][1][k], sel, Q6_BIAS),\n"
+     "                             code_pair(w[1][0][k], sel, Q6_BIAS),\n"
+     "                             code_pair(w[1][1][k], sel, Q6_BIAS)};",
      "      const uint32_t a[4] = {w[0][0][k] ^ sel, w[0][1][k], w[1][0][k], "
      "w[1][1][k]};")]
 Q6_NO_X = ("    const bool in = xr < M && k < K;", "    const bool in = false;")
@@ -178,6 +190,44 @@ PF_VARIANTS = {
     "no query tile": PF_NO_Q,
     "page stream only": [PF_NO_CONVERSION, PF_NO_SCORES, PF_NO_PV, *PF_NO_Q],
 }
+
+
+# the prefill form (qmatmul_prefill_kernel): its warp layout, the unroll of
+# a stage's sub-blocks, and parts taken out
+PRE_NO_MMA = ("          mma_bf16(d[nt], a[0], b[kk][nt][0], b[kk][nt][1]);",
+              "          d[nt][kk] += __uint_as_float((a[0][0] ^ a[0][3] ^ "
+              "b[kk][nt][0] ^ b[kk][nt][1]) & 0x3FFFFFFFu);")
+PRE_NO_CONVERT = ("      if (s + 1 < nst)\n        pf_convert<T, FMT, ROWS>(",
+                  "      if (false)\n        pf_convert<T, FMT, ROWS>(")
+PRE_NO_MULTIPLY = ("      pf_stage_mma<T, FMT, ROWS>(ring + slot * SLOT, wbufs + "
+                   "(s & 1) * WBUF,\n                                 wm, wn, "
+                   "l, acc);", "")
+WARPS64 = [("static constexpr int WN = ROWS == 128 ? 2 : 4;",
+            "static constexpr int WN = 2;")]
+# each sub-block's products straight into the accumulators, unscaled
+PRE_NO_SCALE = [
+    ("          mma_bf16(d[nt], a[0], b[kk][nt][0], b[kk][nt][1]);",
+     "          mma_bf16(acc[mt][nt], a[0], b[kk][nt][0], b[kk][nt][1]);"),
+    ("      for (int nt = 0; nt < NT8; ++nt) {\n        float (&o)[4]",
+     "      for (int nt = 0; nt < 0; ++nt) {\n        float (&o)[4]")]
+ROWS128 = [("  return pf_rows_for(M, N) == 64\n", "  return false\n")]
+UNROLL1 = [("constexpr int PF_UNROLL = 2;", "constexpr int PF_UNROLL = 1;")]
+PRE_VARIANTS = {
+    "kernel": [],
+    "128-row tiles": ROWS128,
+    "64-row tiles of 4 x 2 warps": WARPS64,
+    "sub-blocks not unrolled": UNROLL1,
+    "no scaling": PRE_NO_SCALE,
+    "no mma": [PRE_NO_MMA],
+    "copies only": [PRE_NO_CONVERT, PRE_NO_MULTIPLY],
+}
+# the variants whose cluster size is scanned at the shapes of few tiles
+PRE_SCAN = ("kernel", "128-row tiles")
+# (K, N) at M = 512: qwen2's and DeepSeek's 2-D weights of the format
+PRE_SHAPES = {"q4_k": ((1536, 1536), (1536, 8960), (7168, 18432),
+                       (16384, 7168)),
+              "q6_k": ((1536, 256), (8960, 1536), (7168, 576),
+                       (18432, 7168))}
 
 
 def start_build(source: str, name: str, subs, flags=(), append: str = ""):
@@ -410,6 +460,67 @@ def mla_prefill(libs, gen) -> dict:
     return res
 
 
+def prefill(fmt: str):
+    """The prefill form of ``fmt`` at M = 512 (bf16 x; f32 x at the first
+    shape), each shape at its ``prefill_ksplit``: every variant's time and
+    its largest error relative to max|y| of the plain version (a variant
+    that leaves work out is wrong by design)."""
+    def run(libs, gen) -> dict:
+        v, i = ctypes.c_void_p, ctypes.c_int
+        dev = torch.device("cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        nf = len(qm.FIELDS[fmt])
+        fid = build.QMATMUL_FORMATS.index(fmt)
+        res = {}
+        for j, (k, n) in enumerate(PRE_SHAPES[fmt]):
+            w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+            qt = quantize(w, fmt)
+            del w
+            copies = [qt] + [
+                QTensor({a: b.clone() for a, b in qt.fields.items()},
+                        qt.fmt, qt.shape)
+                for _ in range(math.ceil(120e6 / qt.packed_bytes()) - 1)]
+            ptrs = [(v * nf)(*[c.fields[f].data_ptr()
+                               for f in qm.FIELDS[fmt]]) for c in copies]
+            ks0 = qm.prefill_ksplit(n, 512, k, build.sm_count(dev))
+            halves = 2 * -(-k // 256)
+            for dt in (torch.bfloat16, torch.float32) if j == 0 else (
+                    torch.bfloat16,):
+                x = torch.randn((512, k), generator=gen, device=dev).to(dt)
+                ref = qm.qmatmul_plain(x, qt).float()
+                out = torch.empty((512, n), dtype=dt, device=dev)
+                did = 1 if dt == torch.bfloat16 else 0
+                for name, lib in libs.items():
+                    fn = lib.qmatmul
+                    fn.argtypes = [i, i, v, ctypes.POINTER(v), i, v, v] + \
+                        [i] * 5 + [v]
+                    scan = (ks0,)
+                    if name in PRE_SCAN and n <= 1536:
+                        scan = sorted({ks0} | {c for c in (1, 2, 3, 4, 6, 8)
+                                               if c <= halves})
+                    for ks in scan:
+                        it = [0]
+
+                        def call():
+                            it[0] = (it[0] + 1) % len(ptrs)
+                            return fn(fid, did, x.data_ptr(), ptrs[it[0]],
+                                      nf, None, out.data_ptr(), 1, 512, k, n,
+                                      ks, stream)
+                        it[0] = len(ptrs) - 1
+                        if call() != 0:
+                            raise SystemExit(f"{fmt} prefill {name} refused")
+                        torch.cuda.synchronize()
+                        err = ((out.float() - ref).abs().max()
+                               / ref.abs().max()).item()
+                        mark = " (prefill_ksplit)" if ks == ks0 else ""
+                        key = f"{k}->{n} ks={ks}{mark} {str(dt)[6:]} {name}"
+                        res[key] = {"ms": device_ms(call), "rel_err": err}
+            del copies, qt, ptrs
+            torch.cuda.empty_cache()
+        return res
+    return run
+
+
 # group -> (source, library name prefix, variants, nvcc flags, run)
 GROUPS = {
     "mla_decode": ("paged_mla.cu", "mla_", MLA_VARIANTS, (), mla),
@@ -418,6 +529,10 @@ GROUPS = {
     "q6k_decode": ("qmatmul.cu", "q6k_", Q6_VARIANTS,
                    ("-DQMATMUL_FMT=1",), q6k),
     "mla_prefill": ("paged_mla.cu", "mlap_", PF_VARIANTS, (), mla_prefill),
+    "q4k_prefill": ("qmatmul.cu", "q4kp_", PRE_VARIANTS,
+                    ("-DQMATMUL_FMT=0", "-Xptxas", "-v"), prefill("q4_k")),
+    "q6k_prefill": ("qmatmul.cu", "q6kp_", PRE_VARIANTS,
+                    ("-DQMATMUL_FMT=1", "-Xptxas", "-v"), prefill("q6_k")),
 }
 
 
@@ -444,6 +559,13 @@ def main() -> int:
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {group} {name}:\n{log}")
         libs[group][name] = ctypes.CDLL(lib)
+        if group.endswith("_prefill"):
+            lines = log.splitlines()
+            regs = [lines[j + 2].strip() + " " + lines[j + 3].strip()
+                    for j, line in enumerate(lines[:-3])
+                    if "Compiling entry" in line and "prefill" in line]
+            print(json.dumps({"ptxas": f"{group} {name}", "kernels": regs}),
+                  flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     for group in groups:

@@ -18,7 +18,8 @@
 // qwen2-1.5b decode step streams ~0.99 GB of packed q4_k/q6_k fields:
 // ~0.30 ms at 3.35 TB/s; one DeepSeek-V3 MoE layer's experts are ~5.7 GB,
 // ~1.7 ms).  At prefill (M = slots x chunk, or the experts' capacity) it is
-// bound by the f32 FMAs of its CUDA-core inner loop.
+// bound by operations: the f32 FMAs of the CUDA-core inner loops, and for
+// q4_k and q6_k the tensor cores' products and their f32 scaling.
 //
 // Design.  Fields are structure-of-arrays (S, X, N) with N last, so a
 // thread owns 4 neighbouring output columns and reads 4 neighbouring bytes
@@ -33,7 +34,8 @@
 // order.  Where the column tiles alone give too few blocks to fill the
 // card, the tiles are split over gridDim.y and a second kernel adds the
 // per-split partials in a fixed order (deterministic split-K, no atomics;
-// every 2-D form but q4_k's at M <= 4, below).
+// the 2-D forms of q3_k, q5_k, q2_k and q8_0; q4_k and q6_k have forms of
+// their own, below).
 // K that is not a multiple of 256 reads x as zero past K, and q8_0 blocks
 // past the last one are not read at all.  The dequantized weights are the
 // same f32 values as the plain version's (q6_k: (q-32) * (sc*d); q3_k:
@@ -135,6 +137,72 @@
 // weight), not by the issue rate, so at decode's few blocks a stage's
 // products take longer than its bytes (scripts/decode_ablation.py).
 //
+// q4_k's and q6_k's 2-D form at M > 4 on tensor cores
+// (qmatmul_prefill_kernel<T, FMT, V, ROWS>): every prefill chunk of the
+// engine is 4 x 128 = 512 rows, where qmatmul_kernel ran at ~25 TFLOP/s
+// (2.5 % of the bf16 peak): its 16-row tile decoded each weight again for
+// every 16 rows, with an int-to-float conversion and 16 f32 FMAs a weight,
+// and x was restaged a superblock at a time behind two barriers with no
+// weight bytes in flight.  Here a block of 8 warps owns a ROWS x 128 tile
+// of the output (128 rows: 4 x 2 warps of 32 x 64; 64 rows, where the
+// 128-row tiles would be at most 8: 2 x 4 warps of 32 x 32) in f32
+// registers and walks K in stages of half a superblock (bf16 x; a quarter
+// for f32 x), each stage a whole number of the fields' byte rows and
+// sub-blocks (see the section below).  Per stage:
+//  - the fields' rows and x's rows of the stage's elements (bf16 or f32, as
+//    the model passes it) come in through a ring of 3 slots by cp.async,
+//    16-byte copies (4-byte ones for the fields when N % 16 != 0; x
+//    zero-filled past M and K, or loaded and stored by the threads when its
+//    rows are not 16-byte aligned);
+//  - the codes become a bf16 tile in shared memory, once per block (once
+//    per 128 rows of x, 4 times a call at M = 512, against 32), by byte
+//    permutes under the exponent of 128 and one bf16x2 FMA of -128 (q4_k)
+//    or -160 (q6_k) a pair: exact, no int-to-float; each sub-block's sc * d
+//    (q4_k also -m * dmin) is made once per column in f32, laid out so that
+//    a lane reads its columns' scales in 16-byte loads;
+//  - the products are bf16 mma.sync.m16n8k16 with f32 accumulation, x the
+//    A operand (ldmatrix), the code tile B (ldmatrix.trans; rows padded 16
+//    bytes, so that eight rows of a fragment hit 32 banks); the codes and
+//    bf16 x are exact, so they compute the products FMAs would, in another
+//    order.  The scales
+//    are applied in f32 outside the product, design (a): each sub-block's
+//    products go to accumulators zeroed for it and are added into the
+//    output accumulators times sc * d (4 FMAs a thread an mma for q6_k's
+//    16-element sub-blocks, 2 for q4_k's 32), and q4_k's min term -m *
+//    dmin * sum x with them, the sub-block's sums of x's rows made by one
+//    more mma against a B of ones.  Design (b), the integer product code x
+//    scale as two exact bf16 terms, would double the mmas and the
+//    conversion and was not built;
+//  - a stage is multiplied while the next is converted (two tile buffers)
+//    and the one after is copied: one barrier a stage.
+// f32 x (the card-vs-CPU parity runs and the f32 tests) computes the plain
+// version's function to f32 rounding instead: each weight dequantized as
+// qmatmul_plain does it (each product and difference rounded to f32) and
+// split, like x (split3), into three bf16 terms, six mmas a product (the
+// three term products below f32 precision dropped), each k16 step's sum
+// added in f32; one tile buffer (three terms' tiles), two barriers a
+// stage.  The factored scales of the bf16 path moved an f32 run far enough
+// from the CPU's that a q4_0 KV code of the parity phase came out a step
+// apart (run M2, PR 20); with the plain version's weights the card and the
+// CPU differ in summation order only, as cuBLAS's f32 product does.
+// Shared memory (one block an SM, at most 227 KB): the ring's slots hold x
+// (128 rows x 256 bytes, padded: 34.0 KB, f32 36.0 KB; half that at 64
+// rows) and the stage's fields (q4_k 9.5 KB, q6_k 13.25 KB; f32 5.0 /
+// 6.75 KB), the two buffers the code tile (34.0 KB) and the scales (5 KB)
+// (f32: one buffer of three 17.0 KB tiles): at most 219.75 KB (q6_k, bf16,
+// 128 rows).  A fourth slot would not fit, so one stage is in flight while one
+// is converted and one multiplied; a ring of 5-7 quarter-superblock stages
+// (more bytes in flight) measured 7-12 % slower.  Where the tiles are
+// fewer than the SMs, the half superblocks split over a cluster of up to 8
+// blocks (prefill_ksplit, host integers) whose sums are added in rank
+// order through distributed shared memory: one launch, no partial buffer.
+// Rows past M are read as zero and not written; a zero row of x gives +0;
+// the order of every sum is fixed.  On an H100 it runs at ~130-150
+// TFLOP/s at the large shapes, bound by each block's instruction stream at
+// two warps a scheduler (the scale FMAs alone cost a third of the time,
+// the mmas a fifth; scripts/decode_ablation.py), and at the smallest by
+// the launch, the first stage's copies and the cluster merge.
+//
 // Built once per format: -DQMATMUL_FMT=<id> instantiates that format's
 // kernels only (kernels/build.py builds the six libraries in parallel).
 
@@ -198,95 +266,6 @@ __device__ __forceinline__ void fma_rows(float (&acc)[MT][4], const float* xs,
     const float xv = xs[m * QK + k];
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xv, w[c], acc[m][c]);
-  }
-}
-
-// q4_k: qs (S,128,N) u8, scales (S,8,N) u8, mins (S,8,N) u8, d/dmin (S,N) f16
-template <int MT>
-__device__ __forceinline__ void q4k_superblock(
-    const uint8_t* __restrict__ qs, const uint8_t* __restrict__ scales,
-    const uint8_t* __restrict__ mins, const __half* __restrict__ d,
-    const __half* __restrict__ dmin, int s, int N, int n0, int w,
-    const float* xs, float (&acc)[MT][4]) {
-  float dd[4], dm[4];
-  load4_half(d + (size_t)s * N + n0, dd);
-  load4_half(dmin + (size_t)s * N + n0, dm);
-  const uint32_t sl = load4_u8(scales + ((size_t)s * 8 + w) * N + n0);
-  const uint32_t sh = load4_u8(scales + ((size_t)s * 8 + w + 4) * N + n0);
-  const uint32_t ml = load4_u8(mins + ((size_t)s * 8 + w) * N + n0);
-  const uint32_t mh = load4_u8(mins + ((size_t)s * 8 + w + 4) * N + n0);
-  float es_lo[4], em_lo[4], es_hi[4], em_hi[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    es_lo[c] = (float)byte_of(sl, c) * dd[c];
-    es_hi[c] = (float)byte_of(sh, c) * dd[c];
-    em_lo[c] = (float)byte_of(ml, c) * dm[c];
-    em_hi[c] = (float)byte_of(mh, c) * dm[c];
-  }
-  const uint8_t* row = qs + ((size_t)s * 128 + 32 * w) * N + n0;
-  uint32_t b[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) b[j] = load4_u8(row + (size_t)j * N);
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    float wl[4], wh[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const uint32_t byte = byte_of(b[j], c);
-      wl[c] = (float)(byte & 15u) * es_lo[c] - em_lo[c];
-      wh[c] = (float)(byte >> 4) * es_hi[c] - em_hi[c];
-    }
-    fma_rows<MT>(acc, xs, 32 * w + j, wl);
-    fma_rows<MT>(acc, xs, 128 + 32 * w + j, wh);
-  }
-}
-
-// q6_k: ql (S,128,N) u8, qh (S,64,N) u8, scales (S,16,N) i8, d (S,N) f16
-template <int MT>
-__device__ __forceinline__ void q6k_superblock(
-    const uint8_t* __restrict__ ql, const uint8_t* __restrict__ qh,
-    const int8_t* __restrict__ scales, const __half* __restrict__ d, int s,
-    int N, int n0, int w, const float* xs, float (&acc)[MT][4]) {
-  float dd[4];
-  load4_half(d + (size_t)s * N + n0, dd);
-  // sub-blocks of 16: elements 32w+j use 2w + j/16, elements 128+32w+j use
-  // 8 + 2w + j/16
-  const int sub[4] = {2 * w, 2 * w + 1, 8 + 2 * w, 9 + 2 * w};
-  float eff[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t sc = load4_u8(reinterpret_cast<const uint8_t*>(scales) +
-                                 ((size_t)s * 16 + sub[i]) * N + n0);
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      eff[i][c] = (float)(int8_t)byte_of(sc, c) * dd[c];
-  }
-  // element i's high 2 bits: qh byte i % 64, bit-pair i / 64
-  const int sh_lo = 2 * (w >> 1);
-  const int sh_hi = 2 * (2 + (w >> 1));
-  const uint8_t* lrow = ql + ((size_t)s * 128 + 32 * w) * N + n0;
-  const uint8_t* hrow = qh + ((size_t)s * 64 + 32 * (w & 1)) * N + n0;
-  uint32_t bl[32], bh[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    bl[j] = load4_u8(lrow + (size_t)j * N);
-    bh[j] = load4_u8(hrow + (size_t)j * N);
-  }
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const int half = j >> 4;
-    float wl[4], wh[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const uint32_t lq = byte_of(bl[j], c);
-      const uint32_t hq = byte_of(bh[j], c);
-      const int q_lo = (int)((lq & 15u) | (((hq >> sh_lo) & 3u) << 4)) - 32;
-      const int q_hi = (int)((lq >> 4) | (((hq >> sh_hi) & 3u) << 4)) - 32;
-      wl[c] = (float)q_lo * eff[half][c];
-      wh[c] = (float)q_hi * eff[2 + half][c];
-    }
-    fma_rows<MT>(acc, xs, 32 * w + j, wl);
-    fma_rows<MT>(acc, xs, 128 + 32 * w + j, wh);
   }
 }
 
@@ -540,6 +519,7 @@ __global__ void __launch_bounds__(NTHREADS)
     qmatmul_kernel(const T* __restrict__ x, Fields f,
                    float* __restrict__ partial, T* __restrict__ out, int M,
                    int K, int N, int splits, int row_tiles) {
+  static_assert(FMT >= 2, "q4_k and q6_k have forms of their own");
   constexpr int XS = MT * QK;
   constexpr int RED = (TY - 1) * MT * COLS;
   __shared__ float smem[XS > RED ? XS : RED];
@@ -578,13 +558,7 @@ __global__ void __launch_bounds__(NTHREADS)
     }
     __syncthreads();
     if (col_ok) {
-      if constexpr (FMT == 0)
-        q4k_superblock<MT>(f.p[0], f.p[1], f.p[2], as_half(f.p[3]),
-                           as_half(f.p[4]), s, N, n0, w, smem, acc);
-      else if constexpr (FMT == 1)
-        q6k_superblock<MT>(f.p[0], f.p[1], as_i8(f.p[2]), as_half(f.p[3]), s,
-                           N, n0, w, smem, acc);
-      else if constexpr (FMT == 2)
+      if constexpr (FMT == 2)
         q3k_superblock<MT>(f.p[0], f.p[1], as_i8(f.p[2]), as_half(f.p[3]), s,
                            N, n0, w, smem, acc);
       else if constexpr (FMT == 3)
@@ -1717,16 +1691,19 @@ __host__ __device__ constexpr size_t q6k_decode_smem() {
   return (size_t)Q6_STAGES * q6_stage_bytes<T>();
 }
 
-// Two 6-bit codes (bytes 0 and 1 of the selected pair of ``w``, ``sel`` a
-// byte permute taking them to bytes 0 and 2) as the bf16 pair (qa - 32, qb
-// - 32), exactly: the exponent byte 0x43 above a code makes 128 + q, and
-// one bf16x2 FMA subtracts 160.
-__device__ __forceinline__ uint32_t q6_pair(uint32_t w, uint32_t sel) {
+// Two codes of at most 7 bits (the bytes of ``w`` that ``sel``, a byte
+// permute, takes to bytes 0 and 2) as a bf16 pair less ``bias``, exactly:
+// the exponent byte 0x43 above a code makes 128 + q, and one bf16x2 FMA
+// adds ``bias`` (Q6_BIAS: q - 32 for q6_k; Q4_BIAS: q for q4_k).
+constexpr uint32_t Q6_BIAS = 0xC320C320u;   // bf16 (-160, -160)
+constexpr uint32_t Q4_BIAS = 0xC300C300u;   // bf16 (-128, -128)
+__device__ __forceinline__ uint32_t code_pair(uint32_t w, uint32_t sel,
+                                              uint32_t bias) {
   const uint32_t v = __byte_perm(w, 0x43434343u, sel);
   uint32_t r;
   asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
       : "=r"(r)
-      : "r"(v), "r"(0x3F803F80u), "r"(0xC320C320u));
+      : "r"(v), "r"(0x3F803F80u), "r"(bias));
   return r;
 }
 
@@ -1818,8 +1795,10 @@ __device__ __forceinline__ void q6k_stage_mma(const uint8_t* stage,
       // tile c: the pair of bytes c of a column's two elements
       const int k = (c >> 1) * 4 + p;
       const uint32_t sel = c & 1 ? 0x4342 : 0x4140;
-      const uint32_t a[4] = {q6_pair(w[0][0][k], sel), q6_pair(w[0][1][k], sel),
-                             q6_pair(w[1][0][k], sel), q6_pair(w[1][1][k], sel)};
+      const uint32_t a[4] = {code_pair(w[0][0][k], sel, Q6_BIAS),
+                             code_pair(w[0][1][k], sel, Q6_BIAS),
+                             code_pair(w[1][0][k], sel, Q6_BIAS),
+                             code_pair(w[1][1][k], sel, Q6_BIAS)};
       float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int u = 0; u < NT; ++u) mma_bf16(d, a, b[u][0], b[u][1]);
@@ -2008,10 +1987,695 @@ __global__ void __launch_bounds__(Q6_THREADS, 2)
   cluster.sync();   // each block's shared memory stays until all have read it
 }
 
-// launches of qmatmul_experts_kernel and qmatmul_q4k_decode_kernel, and of
-// splitk_reduce, made by this library
+// ---------------------------------------------------------------------------
+// q4_k's and q6_k's 2-D form at M > 4 on tensor cores:
+// qmatmul_prefill_kernel<T, FMT, V, ROWS> (see the header).  A block of 8
+// warps owns ROWS rows of x and 128 columns, each warp a part of the
+// output in f32 registers (PfWarps).  K is
+// walked a stage at a time: a part of a superblock (PARTS = 2 halves of
+// 128 elements for bf16 x, 4 quarters of 64 for f32 x), in an order of
+// the superblock's elements that makes a part whole byte rows of the
+// fields.  q4_k part q: qs rows q * QR .. + QR - 1 (QR = 128 / PARTS),
+// whose low nibbles are elements q * QR + r (stage row r) and high ones
+// 128 + q * QR + r (stage row QR + r).  q6_k part q: ql rows q * QR + r and
+// 64 + q * QR + r and qh row q * QR + r (QR = 64 / PARTS), elements q * QR
+// + r + 64 p (stage row p * QR + r).  Either way a part's sub-blocks are
+// whole, and stage row u's sub-block is the part's row u / 32 (q4_k) or u
+// / 16 (q6_k) of its scale fields, copied in that order.
+// ---------------------------------------------------------------------------
+
+constexpr int PF_WARPS = 8;
+constexpr int PF_THREADS = 32 * PF_WARPS;
+constexpr int PF_ROWS = 128;        // rows of x a block (64 for few tiles)
+constexpr int PF_STAGES = 3;        // slots of the ring of copies
+// sub-blocks of a bf16 stage unrolled (3-7 % faster than 1 on an H100 SXM)
+constexpr int PF_UNROLL = 2;
+// The warp layout of a ROWS x 128 tile: WM warps along its rows and WN
+// along its columns (128 rows: 4 x 2 warps of 32 x 64; 64 rows: 2 x 4 of
+// 32 x 32), MT m16 and NT n8 tiles a warp; and where a sub-block's f32
+// scales lie in shared memory: lane t of the warps of column group wn
+// reads its 2 NT (columns 8 nt + 2t, + 1 of each n8 tile) as NT / 2
+// 16-byte loads, the lanes' runs padded to SLANE floats so that the four
+// of a load hit distinct banks.
+template <int ROWS>
+struct PfWarps {
+  static constexpr int WN = ROWS == 128 ? 2 : 4;
+  static constexpr int WM = PF_WARPS / WN;
+  static constexpr int MT = ROWS / WM / 16;
+  static constexpr int NT = COLS / WN / 8;
+  static constexpr int SLANE = 2 * NT + 4;
+  static constexpr int SROW = WN * 4 * SLANE;   // floats a sub-block
+  __host__ __device__ static constexpr int spos(int n) {
+    return ((n / (8 * NT)) * 4 + (n % 8) / 2) * SLANE +
+           ((n % (8 * NT)) / 8) * 2 + n % 2;
+  }
+};
+constexpr int PF_MAX_KSPLIT = 8;    // blocks a cluster (the portable size)
+constexpr int PF_WPITCH = 2 * COLS + 16;   // bytes of a converted weight row
+constexpr int PF_RED_PITCH = COLS + 8;     // floats of a row of block sums
+
+template <typename T>
+__host__ __device__ constexpr int pf_parts() {
+  return sizeof(T) == 2 ? 2 : 4;
+}
+// elements of K a stage, and bytes of a staged row of x (its 256 bytes,
+// padded so that ldmatrix (bf16) or a warp's 8-byte loads (f32) of eight
+// rows hit 32 banks)
+template <typename T>
+__host__ __device__ constexpr int pf_kst() {
+  return QK / pf_parts<T>();
+}
+template <typename T>
+__host__ __device__ constexpr int pf_xpitch() {
+  return pf_kst<T>() * (int)sizeof(T) + (sizeof(T) == 2 ? 16 : 32);
+}
+// the groups of a field's rows of which each part takes its share: q4_k
+// scales and mins (sub-blocks 0-3 of the low nibbles, 4-7 of the high);
+// q6_k ql (rows 0-63, 64-127) and scales (sub-blocks 4p .. 4p + 3).  A
+// field of one row a superblock (d, dmin) is copied whole every stage.
+__host__ __device__ constexpr int pf_runs(int fmt, int g) {
+  return fmt == 0 ? (g == 1 || g == 2 ? 2 : 1) : (g == 0 ? 2 : g == 2 ? 4 : 1);
+}
+__host__ __device__ constexpr int pf_rows(int fmt, int g, int parts) {
+  return field_layout(fmt, g).rows == 1 ? 1 : field_layout(fmt, g).rows / parts;
+}
+__host__ __device__ constexpr int pf_off(int fmt, int g, int parts) {
+  int off = 0;
+  for (int i = 0; i < g; ++i)
+    off += pf_rows(fmt, i, parts) * COLS * field_layout(fmt, i).esz;
+  return off;
+}
+// sub-blocks a stage: 16 elements each (q6_k) or 32 (q4_k)
+template <typename T, int FMT>
+__host__ __device__ constexpr int pf_nsub() {
+  return pf_kst<T>() / (FMT == 1 ? 16 : 32);
+}
+// Shared memory: the ring of PF_STAGES slots (x's rows of the stage,
+// then the stage's fields), then two buffers (one converted while the
+// other is multiplied) of the bf16 weight tile (stage rows x 128 columns)
+// and its f32 scales (sc * d per sub-block and column; q4_k also -m *
+// dmin).
+template <typename T, int FMT, int ROWS>
+__host__ __device__ constexpr int pf_slot() {
+  return ROWS * pf_xpitch<T>() + pf_off(FMT, num_fields(FMT), pf_parts<T>());
+}
+// bf16 x: a buffer holds the code tile and the scales; f32 x: the three
+// bf16 terms' tiles of the dequantized weights, and one buffer serves
+template <typename T, int FMT, int ROWS>
+__host__ __device__ constexpr int pf_wbuf() {
+  return sizeof(T) == 4
+             ? 3 * pf_kst<T>() * PF_WPITCH
+             : pf_kst<T>() * PF_WPITCH + pf_nsub<T, FMT>() *
+                                             PfWarps<ROWS>::SROW * 4 *
+                                             (FMT == 0 ? 2 : 1);
+}
+template <typename T>
+__host__ __device__ constexpr int pf_wbufs() {
+  return sizeof(T) == 4 ? 1 : 2;
+}
+template <typename T, int FMT, int ROWS>
+__host__ __device__ constexpr size_t pf_smem() {
+  return (size_t)PF_STAGES * pf_slot<T, FMT, ROWS>() +
+         pf_wbufs<T>() * (size_t)pf_wbuf<T, FMT, ROWS>();
+}
+
+// Start the copies of stage ``st`` (superblock sb = st / PARTS, part q =
+// st % PARTS) into ring slot ``slot``: the fields' rows of the part, V
+// bytes a copy, and x's 128 rows of the part's elements, 16 bytes a copy
+// where x's rows are 16-byte aligned (zero past M and K), else loaded and
+// stored here.
+template <typename T, int FMT, int V, int ROWS>
+__device__ __forceinline__ void pf_issue(const T* __restrict__ x,
+                                         const Fields& f, uint8_t* slot,
+                                         int st, int m0, int M, int K, int N,
+                                         int n0, int tid, bool vec) {
+  constexpr int PARTS = pf_parts<T>();
+  constexpr int KST = pf_kst<T>();
+  const int sb = st / PARTS, q = st % PARTS;
+  uint8_t* wdst = slot + ROWS * pf_xpitch<T>();
+#pragma unroll
+  for (int g = 0; g < num_fields(FMT); ++g) {
+    const int R = field_layout(FMT, g).rows, ES = field_layout(FMT, g).esz;
+    const int rows = pf_rows(FMT, g, PARTS);
+    const int L = rows / pf_runs(FMT, g);         // rows a run of a part
+    const int cpr = COLS * ES / V;                // copies a row
+    const int n_copy = rows * cpr;
+#pragma unroll
+    for (int i = 0; i < (n_copy + PF_THREADS - 1) / PF_THREADS; ++i) {
+      const int c = tid + i * PF_THREADS;
+      const int row = c / cpr, b = (c % cpr) * V;
+      if (c < n_copy && n0 + b / ES < N) {
+        const int grow = R == 1 ? 0
+                                : (row / L) * (R / pf_runs(FMT, g)) + q * L +
+                                      row % L;
+        cp_async<V>(smem_u32(wdst + pf_off(FMT, g, PARTS) + row * COLS * ES +
+                             b),
+                    f.p[g] + ((size_t)(sb * R + grow) * N + n0) * ES + b);
+      }
+    }
+  }
+  // x: thread tid copies 16 bytes (XV elements, stage elements u = 16-byte
+  // piece cc) of rows tid / CPR + (PF_THREADS / CPR) i
+  constexpr int XV = 16 / sizeof(T);
+  constexpr int CPR = KST / XV;             // 16-byte pieces a row
+  constexpr int NRX = FMT == 0 ? 2 : 4;     // runs of x a part takes
+  constexpr int RL = KST / NRX;             // elements a run
+  const int cc = tid % CPR, u = cc * XV;
+  const int k = sb * QK + (u / RL) * (QK / NRX) + q * RL + u % RL;
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / PF_THREADS; ++i) {
+    const int m = tid / CPR + (PF_THREADS / CPR) * i;
+    uint8_t* dst = slot + m * pf_xpitch<T>() + cc * 16;
+    const bool in = m0 + m < M && k < K;
+    if (vec) {
+      cp_async_zfill(smem_u32(dst), in ? x + (size_t)(m0 + m) * K + k : x,
+                     in ? 16 : 0);
+    } else {
+      alignas(16) T v[XV];
+#pragma unroll
+      for (int e = 0; e < XV; ++e)
+        v[e] = m0 + m < M && k + e < K ? x[(size_t)(m0 + m) * K + k + e]
+                                       : from_f32<T>(0.f);
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+}
+
+// Convert the fields of the stage in ``slot`` into buffer ``wb``: the codes
+// as the bf16 tile (stage row u, column n), byte permutes and one bf16x2 FMA
+// a pair, no int-to-float; per sub-block and column sc * d (and q4_k's -m *
+// dmin) in f32, each product rounded as the plain version rounds it.
+template <typename T, int FMT, int ROWS>
+__device__ __forceinline__ void pf_convert(const uint8_t* slot, uint8_t* wb,
+                                           int tid) {
+  static_assert(sizeof(T) == 2, "f32 x takes pf_convert_f32");
+  constexpr int PARTS = pf_parts<T>();
+  constexpr int KST = pf_kst<T>();
+  constexpr int NSUB = pf_nsub<T, FMT>();
+  const uint8_t* raw = slot + ROWS * pf_xpitch<T>();
+  // NSUB rows of SROW floats (spos), q4_k then NSUB of -m * dmin
+  using L = PfWarps<ROWS>;
+  float* scl = reinterpret_cast<float*>(wb + KST * PF_WPITCH);
+  const int w = tid >> 5, l = tid & 31;
+  if constexpr (FMT == 0) {
+    constexpr int QR = 128 / PARTS;
+#pragma unroll
+    for (int i = 0; i < QR / PF_WARPS; ++i) {
+      const int r = w + PF_WARPS * i;
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(raw + r * COLS +
+                                                            4 * l);
+      const uint32_t lo = v & 0x0F0F0F0Fu, hi = (v >> 4) & 0x0F0F0F0Fu;
+      *reinterpret_cast<uint2*>(wb + r * PF_WPITCH + 8 * l) =
+          make_uint2(code_pair(lo, 0x4140, Q4_BIAS),
+                     code_pair(lo, 0x4342, Q4_BIAS));
+      *reinterpret_cast<uint2*>(wb + (QR + r) * PF_WPITCH + 8 * l) =
+          make_uint2(code_pair(hi, 0x4140, Q4_BIAS),
+                     code_pair(hi, 0x4342, Q4_BIAS));
+    }
+  } else {
+    constexpr int QR = 64 / PARTS;
+    const uint8_t* qh = raw + pf_off(1, 1, PARTS);
+#pragma unroll
+    for (int i = 0; i < QR / PF_WARPS; ++i) {
+      const int r = w + PF_WARPS * i;
+      uint32_t t[4];
+      q6k_codes(*reinterpret_cast<const uint32_t*>(raw + r * COLS + 4 * l),
+                *reinterpret_cast<const uint32_t*>(raw + (QR + r) * COLS +
+                                                   4 * l),
+                *reinterpret_cast<const uint32_t*>(qh + r * COLS + 4 * l), t);
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        *reinterpret_cast<uint2*>(wb + (p * QR + r) * PF_WPITCH + 8 * l) =
+            make_uint2(code_pair(t[p], 0x4140, Q6_BIAS),
+                       code_pair(t[p], 0x4342, Q6_BIAS));
+    }
+  }
+  // scales: unit (sub-block, four columns); d is field 3 of both formats
+  for (int idx = tid; idx < NSUB * 32; idx += PF_THREADS) {
+    const int s = idx >> 5, c4 = 4 * (idx & 31);
+    float dd[4];
+    load4_half(as_half(raw + pf_off(FMT, 3, PARTS)) + c4, dd);
+    const uint32_t sc = *reinterpret_cast<const uint32_t*>(
+        raw + pf_off(FMT, FMT == 0 ? 1 : 2, PARTS) + s * COLS + c4);
+    float4 e;
+    if constexpr (FMT == 0) {
+      e = make_float4(__fmul_rn(dd[0], (float)byte_of(sc, 0)),
+                      __fmul_rn(dd[1], (float)byte_of(sc, 1)),
+                      __fmul_rn(dd[2], (float)byte_of(sc, 2)),
+                      __fmul_rn(dd[3], (float)byte_of(sc, 3)));
+      float dm[4];
+      load4_half(as_half(raw + pf_off(0, 4, PARTS)) + c4, dm);
+      const uint32_t mn = *reinterpret_cast<const uint32_t*>(
+          raw + pf_off(0, 2, PARTS) + s * COLS + c4);
+      float* nm = scl + (NSUB + s) * L::SROW;
+      *reinterpret_cast<float2*>(nm + L::spos(c4)) =
+          make_float2(-__fmul_rn(dm[0], (float)byte_of(mn, 0)),
+                      -__fmul_rn(dm[1], (float)byte_of(mn, 1)));
+      *reinterpret_cast<float2*>(nm + L::spos(c4 + 2)) =
+          make_float2(-__fmul_rn(dm[2], (float)byte_of(mn, 2)),
+                      -__fmul_rn(dm[3], (float)byte_of(mn, 3)));
+    } else {
+      e = make_float4(__fmul_rn(dd[0], (float)(int8_t)byte_of(sc, 0)),
+                      __fmul_rn(dd[1], (float)(int8_t)byte_of(sc, 1)),
+                      __fmul_rn(dd[2], (float)(int8_t)byte_of(sc, 2)),
+                      __fmul_rn(dd[3], (float)(int8_t)byte_of(sc, 3)));
+    }
+    *reinterpret_cast<float2*>(scl + s * L::SROW + L::spos(c4)) =
+        make_float2(e.x, e.y);
+    *reinterpret_cast<float2*>(scl + s * L::SROW + L::spos(c4 + 2)) =
+        make_float2(e.z, e.w);
+  }
+}
+
+// The A fragment (16 rows x 16 elements of x at row ``row0``, element
+// ``k0`` of the stage) of each of x's bf16 terms: bf16 x by ldmatrix, f32 x
+// as three terms (hi + mid + lo) from its 8-byte pairs.
+template <typename T>
+__device__ __forceinline__ void pf_afrag(const uint8_t* xs, int row0, int k0,
+                                         int l,
+                                         uint32_t (&a)[x_terms<T>()][4]) {
+  if constexpr (sizeof(T) == 2) {
+    ldmatrix_x4<false>(a[0], smem_u32(xs + (row0 + (l & 15)) * pf_xpitch<T>() +
+                                      (k0 + 8 * (l >> 4)) * 2));
+  } else {
+    const int g = l >> 2, t = l & 3;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // a[j]: rows g (j even) or g + 8, elements 2t (j < 2) or 2t + 8
+      const float2 v = *reinterpret_cast<const float2*>(
+          xs + (row0 + g + 8 * (j & 1)) * pf_xpitch<T>() +
+          (k0 + 2 * t + 8 * (j >> 1)) * 4);
+      split3(v.x, v.y, a[0][j], a[1][j], a[2][j]);
+    }
+  }
+}
+
+// The products of one stage for warp (wm, wn): per sub-block the exact
+// products of codes and x summed by the tensor cores (f32, zeroed for each
+// sub-block and row tile), then scaled into the accumulators in f32; for
+// q4_k also the sub-block's sums of x's rows, an mma against a B of ones
+// (bf16 1.0: exact), times -m * dmin.
+template <typename T, int FMT, int ROWS>
+__device__ __forceinline__ void pf_stage_mma(
+    const uint8_t* xs, const uint8_t* wb, int wm, int wn, int l,
+    float (&acc)[PfWarps<ROWS>::MT][PfWarps<ROWS>::NT][4]) {
+  using L = PfWarps<ROWS>;
+  constexpr int MT = L::MT, NT8 = L::NT;
+  static_assert(sizeof(T) == 2, "f32 x takes pf_stage_mma_f32");
+  constexpr int KST = pf_kst<T>();
+  constexpr int NSUB = pf_nsub<T, FMT>();
+  constexpr int KK = FMT == 0 ? 2 : 1;      // k16 steps a sub-block
+  constexpr uint32_t ONES = 0x3F803F80u;    // bf16 (1.0, 1.0)
+  const float* scl = reinterpret_cast<const float*>(wb + KST * PF_WPITCH);
+  const int t = l & 3;
+  // ldmatrix.trans rows of the B fragments: lane l gives row k16 + 8 (l /
+  // 8 % 2) + l % 8 of columns wn * (8 NT8) + 16 np + 8 (l / 16)
+  const uint8_t* bsrc = wb + (8 * ((l >> 3) & 1) + (l & 7)) * PF_WPITCH +
+                        (wn * 8 * NT8 + 8 * (l >> 4)) * 2;
+  static_assert(NSUB % PF_UNROLL == 0, "a stage's sub-blocks in steps");
+#pragma unroll 1
+  for (int s0 = 0; s0 < NSUB; s0 += PF_UNROLL)
+#pragma unroll
+  for (int j = 0; j < PF_UNROLL; ++j) {
+    const int s = s0 + j;   // the sub-block
+    uint32_t b[KK][NT8][2];
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int np = 0; np < NT8 / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4<true>(r, smem_u32(bsrc + (16 * (KK * s + kk)) * PF_WPITCH +
+                                      32 * np));
+        b[kk][2 * np][0] = r[0];
+        b[kk][2 * np][1] = r[1];
+        b[kk][2 * np + 1][0] = r[2];
+        b[kk][2 * np + 1][1] = r[3];
+      }
+    // the sub-block's scales of this lane's columns (q4_k also -m * dmin)
+    float2 e[NT8], nm[FMT == 0 ? NT8 : 1];
+    const float* sp = scl + s * L::SROW + (wn * 4 + t) * L::SLANE;
+#pragma unroll
+    for (int j = 0; j < NT8 / 2; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(sp + 4 * j);
+      e[2 * j] = make_float2(v.x, v.y);
+      e[2 * j + 1] = make_float2(v.z, v.w);
+      if constexpr (FMT == 0) {
+        const float4 u =
+            *reinterpret_cast<const float4*>(sp + NSUB * L::SROW + 4 * j);
+        nm[2 * j] = make_float2(u.x, u.y);
+        nm[2 * j + 1] = make_float2(u.z, u.w);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int row0 = (wm * MT + mt) * 16;
+      float d[NT8][4], xd[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) d[nt][v] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        uint32_t a[1][4];
+        pf_afrag<T>(xs, row0, 16 * (KK * s + kk), l, a);
+#pragma unroll
+        for (int nt = 0; nt < NT8; ++nt)
+          mma_bf16(d[nt], a[0], b[kk][nt][0], b[kk][nt][1]);
+        if constexpr (FMT == 0) mma_bf16(xd, a[0], ONES, ONES);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt) {
+        float (&o)[4] = acc[mt][nt];
+        o[0] = fmaf(e[nt].x, d[nt][0], o[0]);
+        o[1] = fmaf(e[nt].y, d[nt][1], o[1]);
+        o[2] = fmaf(e[nt].x, d[nt][2], o[2]);
+        o[3] = fmaf(e[nt].y, d[nt][3], o[3]);
+        if constexpr (FMT == 0) {
+          // xd: rows g (xd[0]) and g + 8 (xd[2]), the same in every column
+          o[0] = fmaf(nm[nt].x, xd[0], o[0]);
+          o[1] = fmaf(nm[nt].y, xd[0], o[1]);
+          o[2] = fmaf(nm[nt].x, xd[2], o[2]);
+          o[3] = fmaf(nm[nt].y, xd[2], o[3]);
+        }
+      }
+    }
+  }
+}
+
+// f32 x (the parity and test path): the plain version's function to f32
+// rounding.  Each weight of the stage is dequantized as qmatmul_plain does
+// it (q4_k: q * (sc * d) - m * dmin, q6_k: (q - 32) * (sc * d), each
+// product and difference rounded to f32) and split, like x, into three
+// bf16 terms (split3); ``wb`` holds the terms' tiles one after the other.
+template <int FMT, int ROWS>
+__device__ __forceinline__ void pf_convert_f32(const uint8_t* slot,
+                                               uint8_t* wb, int tid) {
+  constexpr int PARTS = pf_parts<float>();
+  constexpr int TILE = pf_kst<float>() * PF_WPITCH;
+  const uint8_t* raw = slot + ROWS * pf_xpitch<float>();
+  const int w = tid >> 5, l = tid & 31, c4 = 4 * l;
+  // a thread's four columns of stage row r, as three bf16 terms
+  auto put = [&](int r, const float (&v)[4]) {
+    uint32_t h0, m0, l0, h1, m1, l1;
+    split3(v[0], v[1], h0, m0, l0);
+    split3(v[2], v[3], h1, m1, l1);
+    uint8_t* p = wb + r * PF_WPITCH + 8 * l;
+    *reinterpret_cast<uint2*>(p) = make_uint2(h0, h1);
+    *reinterpret_cast<uint2*>(p + TILE) = make_uint2(m0, m1);
+    *reinterpret_cast<uint2*>(p + 2 * TILE) = make_uint2(l0, l1);
+  };
+  float dd[4];
+  load4_half(as_half(raw + pf_off(FMT, 3, PARTS)) + c4, dd);
+  if constexpr (FMT == 0) {
+    // stage rows r (low nibbles) and QR + r (high ones) lie in the part's
+    // sub-blocks of row 0 and row 1 of its scale fields
+    constexpr int QR = 128 / PARTS;
+    float dm[4], e[2][4], mn[2][4];
+    load4_half(as_half(raw + pf_off(0, 4, PARTS)) + c4, dm);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t sc = *reinterpret_cast<const uint32_t*>(
+          raw + pf_off(0, 1, PARTS) + h * COLS + c4);
+      const uint32_t m = *reinterpret_cast<const uint32_t*>(
+          raw + pf_off(0, 2, PARTS) + h * COLS + c4);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        e[h][c] = __fmul_rn(dd[c], (float)byte_of(sc, c));
+        mn[h][c] = __fmul_rn(dm[c], (float)byte_of(m, c));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < QR / PF_WARPS; ++i) {
+      const int r = w + PF_WARPS * i;
+      const uint32_t v =
+          *reinterpret_cast<const uint32_t*>(raw + r * COLS + c4);
+      const uint32_t q[2] = {v & 0x0F0F0F0Fu, (v >> 4) & 0x0F0F0F0Fu};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float wv[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          wv[c] = __fsub_rn(__fmul_rn(code_f32(q[h], c) - kMagic, e[h][c]),
+                            mn[h][c]);
+        put(h * QR + r, wv);
+      }
+    }
+  } else {
+    // stage row p * QR + r lies in the sub-block of row p of the part's
+    // scales
+    constexpr int QR = 64 / PARTS;
+    const uint8_t* qh = raw + pf_off(1, 1, PARTS);
+    float e[4][4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const uint32_t sc = *reinterpret_cast<const uint32_t*>(
+          raw + pf_off(1, 2, PARTS) + p * COLS + c4);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        e[p][c] = __fmul_rn(dd[c], (float)(int8_t)byte_of(sc, c));
+    }
+#pragma unroll
+    for (int i = 0; i < QR / PF_WARPS; ++i) {
+      const int r = w + PF_WARPS * i;
+      uint32_t t[4];
+      q6k_codes(*reinterpret_cast<const uint32_t*>(raw + r * COLS + c4),
+                *reinterpret_cast<const uint32_t*>(raw + (QR + r) * COLS +
+                                                   c4),
+                *reinterpret_cast<const uint32_t*>(qh + r * COLS + c4), t);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        float wv[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          wv[c] = __fmul_rn(code_f32(t[p], c) - (kMagic + 32.f), e[p][c]);
+        put(p * QR + r, wv);
+      }
+    }
+  }
+}
+
+// The products of one f32 stage for warp (wm, wn): per k16 step the six
+// products of x's and the weights' terms whose sum carries f32 precision
+// (the three below it dropped), smallest first, summed by the tensor cores
+// and added into the accumulators in f32.
+template <int ROWS>
+__device__ __forceinline__ void pf_stage_mma_f32(
+    const uint8_t* xs, const uint8_t* wb, int wm, int wn, int l,
+    float (&acc)[PfWarps<ROWS>::MT][PfWarps<ROWS>::NT][4]) {
+  using L = PfWarps<ROWS>;
+  constexpr int MT = L::MT, NT8 = L::NT;
+  constexpr int TILE = pf_kst<float>() * PF_WPITCH;
+  const uint8_t* bsrc = wb + (8 * ((l >> 3) & 1) + (l & 7)) * PF_WPITCH +
+                        (wn * 8 * NT8 + 8 * (l >> 4)) * 2;
+#pragma unroll 1
+  for (int kk = 0; kk < pf_kst<float>() / 16; ++kk) {
+    uint32_t b[3][NT8][2];   // the weights' hi, mid and lo terms
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int np = 0; np < NT8 / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4<true>(r, smem_u32(bsrc + j * TILE +
+                                      16 * kk * PF_WPITCH + 32 * np));
+        b[j][2 * np][0] = r[0];
+        b[j][2 * np][1] = r[1];
+        b[j][2 * np + 1][0] = r[2];
+        b[j][2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      uint32_t a[3][4];   // x's hi, mid and lo terms
+      pf_afrag<float>(xs, (wm * MT + mt) * 16, 16 * kk, l, a);
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(d, a[2], b[0][nt][0], b[0][nt][1]);   // x lo, w hi
+        mma_bf16(d, a[1], b[1][nt][0], b[1][nt][1]);   // mid, mid
+        mma_bf16(d, a[0], b[2][nt][0], b[2][nt][1]);   // hi, lo
+        mma_bf16(d, a[1], b[0][nt][0], b[0][nt][1]);   // mid, hi
+        mma_bf16(d, a[0], b[1][nt][0], b[1][nt][1]);   // hi, mid
+        mma_bf16(d, a[0], b[0][nt][0], b[0][nt][1]);   // hi, hi
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[mt][nt][v] += d[v];
+      }
+    }
+  }
+}
+
+template <typename T, int FMT, int V, int ROWS>
+__global__ void __launch_bounds__(PF_THREADS, 1)
+    qmatmul_prefill_kernel(const T* __restrict__ x, Fields f,
+                           T* __restrict__ out, int M, int K, int N) {
+  using L = PfWarps<ROWS>;
+  constexpr int MT = L::MT, NT8 = L::NT;
+  constexpr int SLOT = pf_slot<T, FMT, ROWS>();
+  constexpr int WBUF = pf_wbuf<T, FMT, ROWS>();
+  constexpr int PARTS = pf_parts<T>();
+  constexpr int NST = PF_STAGES;
+  static_assert(NST >= 3, "a stage multiplied, one converted, one copied");
+  static_assert(ROWS * PF_RED_PITCH * 4 <= NST * SLOT,
+                "the block's sums must fit in the ring");
+  extern __shared__ __align__(16) uint8_t smem_pf[];
+  uint8_t* ring = smem_pf;
+  uint8_t* wbufs = smem_pf + NST * SLOT;
+
+  const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
+  const int wm = w / L::WN, wn = w % L::WN;
+  const int n0 = blockIdx.x * COLS, m0 = blockIdx.y * ROWS;
+  // the cluster's blocks split the K dimension's half superblocks: block
+  // ``rank`` takes stages st0 .. st0 + nst - 1
+  const int rank = blockIdx.z, ks = gridDim.z;
+  const int halves = 2 * ((K + QK - 1) / QK);
+  const int h0 = (int)((long long)halves * rank / ks);
+  const int st0 = h0 * (PARTS / 2);
+  const int nst = ((int)((long long)halves * (rank + 1) / ks) - h0) *
+                  (PARTS / 2);
+  const bool vec = K % (16 / (int)sizeof(T)) == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+
+  // stages 0 .. NST - 2 in flight
+#pragma unroll
+  for (int st = 0; st < NST - 1; ++st) {
+    if (st < nst)
+      pf_issue<T, FMT, V, ROWS>(x, f, ring + st * SLOT, st0 + st, m0, M, K,
+                                N, n0, tid, vec);
+    cp_async_commit();
+  }
+  float acc[MT][NT8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.f;
+
+  int slot = 0;
+  if constexpr (sizeof(T) == 2) {
+    // Stage s is multiplied while stage s + 1 is converted and stages s + 2
+    // .. s + NST - 1 are copied: one barrier a stage.
+    if (nst > 0) {
+      cp_async_wait<NST - 2>();
+      __syncthreads();
+      pf_convert<T, FMT, ROWS>(ring, wbufs, tid);   // stage 0, buffer 0
+    }
+    for (int s = 0; s < nst; ++s) {
+      cp_async_wait<NST - 3>();   // this thread's copies of stage s + 1
+      __syncthreads();  // everyone's; stage s converted, s - 1 multiplied
+      const int next = slot == NST - 1 ? 0 : slot + 1;
+      const int fill = slot == 0 ? NST - 1 : slot - 1;   // stage s - 1's
+      if (s + NST - 1 < nst)
+        pf_issue<T, FMT, V, ROWS>(x, f, ring + fill * SLOT,
+                                  st0 + s + NST - 1, m0, M, K, N, n0, tid,
+                                  vec);
+      cp_async_commit();
+      if (s + 1 < nst)
+        pf_convert<T, FMT, ROWS>(ring + next * SLOT,
+                                 wbufs + ((s + 1) & 1) * WBUF, tid);
+      pf_stage_mma<T, FMT, ROWS>(ring + slot * SLOT, wbufs + (s & 1) * WBUF,
+                                 wm, wn, l, acc);
+      slot = next;
+    }
+  } else {
+    // f32 x: stage s is converted into the one buffer, then multiplied,
+    // behind a barrier each, while stages s + 1 .. s + NST - 1 are copied
+    for (int s = 0; s < nst; ++s) {
+      cp_async_wait<NST - 2>();   // this thread's copies of stage s
+      __syncthreads();  // everyone's; stage s - 1 multiplied
+      const int next = slot == NST - 1 ? 0 : slot + 1;
+      const int fill = slot == 0 ? NST - 1 : slot - 1;   // stage s - 1's
+      if (s + NST - 1 < nst)
+        pf_issue<T, FMT, V, ROWS>(x, f, ring + fill * SLOT,
+                                  st0 + s + NST - 1, m0, M, K, N, n0, tid,
+                                  vec);
+      cp_async_commit();
+      pf_convert_f32<FMT, ROWS>(ring + slot * SLOT, wbufs, tid);
+      __syncthreads();
+      pf_stage_mma_f32<ROWS>(ring + slot * SLOT, wbufs, wm, wn, l, acc);
+      slot = next;
+    }
+  }
+
+  // acc[mt][nt]: rows m0 + (wm * MT + mt) * 16 + g (+ 8), columns n0 +
+  // (wn * NT8 + nt) * 8 + 2t (+ 1)
+  const int g = l >> 2, t = l & 3;
+  if (ks == 1) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt) {
+        const int n = n0 + (wn * NT8 + nt) * 8 + 2 * t;
+        if (n >= N) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + (wm * MT + mt) * 16 + g + 8 * h;
+          if (m >= M) continue;
+          const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+          if constexpr (sizeof(T) == 2)
+            *reinterpret_cast<uint32_t*>(out + (size_t)m * N + n) =
+                bf16x2(v0, v1);
+          else
+            *reinterpret_cast<float2*>(out + (size_t)m * N + n) =
+                make_float2(v0, v1);
+        }
+      }
+    return;
+  }
+
+  // the cluster's blocks add their sums in rank order, each writing a slice
+  // of the tile, four columns a load
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);   // 128 x PF_RED_PITCH
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(
+            red + ((wm * MT + mt) * 16 + g + 8 * h) * PF_RED_PITCH +
+            (wn * NT8 + nt) * 8 + 2 * t) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  constexpr int NG = ROWS * COLS / 4;     // groups of four columns
+  const int lo = NG * rank / ks, hi = NG * (rank + 1) / ks;
+  for (int idx = lo + tid; idx < hi; idx += PF_THREADS) {
+    const int r = idx / (COLS / 4), c = 4 * (idx % (COLS / 4));
+    const int off = r * PF_RED_PITCH + c;
+    float4 part[PF_MAX_KSPLIT];
+#pragma unroll
+    for (int sp = 0; sp < PF_MAX_KSPLIT; ++sp)
+      if (sp < ks)
+        part[sp] = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(red, sp) + off);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int sp = 0; sp < PF_MAX_KSPLIT; ++sp)
+      if (sp < ks) {
+        v.x += part[sp].x;
+        v.y += part[sp].y;
+        v.z += part[sp].z;
+        v.w += part[sp].w;
+      }
+    if (m0 + r < M && n0 + c < N) {   // N % 4 == 0: all four columns
+      T* o = out + (size_t)(m0 + r) * N + n0 + c;
+      if constexpr (sizeof(T) == 2)
+        *reinterpret_cast<uint2*>(o) = make_uint2(bf16x2(v.x, v.y),
+                                                  bf16x2(v.z, v.w));
+      else
+        *reinterpret_cast<float4*>(o) = v;
+    }
+  }
+  cluster.sync();   // each block's shared memory stays until all have read it
+}
+
+// launches of qmatmul_experts_kernel, of the decode forms, of the prefill
+// form and of splitk_reduce, made by this library
 long long g_experts_launches = 0;
 long long g_decode_launches = 0;
+long long g_prefill_launches = 0;
 long long g_splitk_launches = 0;
 
 // One launch of a decode form: the column tiles along x, a cluster of
@@ -2093,6 +2757,70 @@ cudaError_t launch_q6k_decode(const void* x, const Fields& f, void* out,
                            stream);
 }
 
+// Rows of x a tile of the prefill form: 64 where 128-row tiles would be
+// at most PF_FEW_TILES (the smallest weights: more blocks, each half the
+// products), else 128.
+constexpr int PF_FEW_TILES = 8;
+__host__ __device__ constexpr int pf_rows_for(int M, int N) {
+  return ((N + COLS - 1) / COLS) * ((M + PF_ROWS - 1) / PF_ROWS) <=
+                 PF_FEW_TILES
+             ? 64
+             : PF_ROWS;
+}
+
+// q4_k's or q6_k's prefill form: ROWS x 128 output tiles, each a cluster
+// of 1..PF_MAX_KSPLIT blocks along z that split its half superblocks
+template <typename T, int FMT, int V, int ROWS>
+cudaError_t launch_prefill_rows(const void* x, const Fields& f, void* out,
+                                int M, int K, int N, int ks,
+                                cudaStream_t stream) {
+  auto kernel = qmatmul_prefill_kernel<T, FMT, V, ROWS>;
+  constexpr size_t smem = pf_smem<T, FMT, ROWS>();
+  static_assert(smem <= 227 * 1024, "a block's shared memory");
+  const int row_tiles = (M + ROWS - 1) / ROWS;
+  if (ks < 1 || ks > PF_MAX_KSPLIT || row_tiles > 65535)
+    return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + COLS - 1) / COLS, row_tiles, ks);
+  cfg.blockDim = dim3(PF_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = ks;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), f,
+                         static_cast<T*>(out), M, K, N);
+  if (err != cudaSuccess) return err;
+  ++g_prefill_launches;
+  return cudaSuccess;
+}
+
+template <typename T, int FMT, int V>
+cudaError_t launch_prefill(const void* x, const Fields& f, void* out, int M,
+                           int K, int N, int ks, cudaStream_t stream) {
+  return pf_rows_for(M, N) == 64
+             ? launch_prefill_rows<T, FMT, V, 64>(x, f, out, M, K, N, ks,
+                                                  stream)
+             : launch_prefill_rows<T, FMT, V, PF_ROWS>(x, f, out, M, K, N, ks,
+                                                       stream);
+}
+
 template <typename T, int ROWS, int FMT, int V>
 cudaError_t launch_experts_rows(const void* x, const Fields& f, void* out,
                                 int E, int M, int K, int N,
@@ -2172,7 +2900,8 @@ void launch_rows(const void* x, const Fields& f, void* partial, void* out,
 #endif
 
 // whether a q4_k or q6_k (K, N) weight at M rows takes its decode form
-// (qmatmul_q4k_decode_kernel, qmatmul_q6k_decode_kernel)
+// (qmatmul_q4k_decode_kernel, qmatmul_q6k_decode_kernel); else one such
+// weight takes its prefill form (qmatmul_prefill_kernel)
 constexpr bool decode_form(int fmt, int E, int M, int K) {
   return (fmt == 0 || fmt == 1) && E == 1 && M <= DROWS && K <= DECODE_MAX_K;
 }
@@ -2188,28 +2917,30 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
       return (int)cudaGetLastError();
     }
   }
-  if constexpr (QMATMUL_FMT == 0) {
-    if (decode_form(QMATMUL_FMT, E, M, K)) {
-      const cudaError_t err =
-          N % 16 == 0
-              ? launch_q4k_decode<T, 16>(x, f, out, M, K, N, splits, st)
-              : launch_q4k_decode<T, 4>(x, f, out, M, K, N, splits, st);
-      if (err != cudaSuccess) return (int)err;
-      return (int)cudaGetLastError();
+  if constexpr (QMATMUL_FMT == 0 || QMATMUL_FMT == 1) {
+    // one q4_k or q6_k weight: the decode form, else the prefill form
+    constexpr int F = QMATMUL_FMT;
+    cudaError_t err;
+    if (decode_form(F, E, M, K)) {
+      if constexpr (F == 0)
+        err = N % 16 == 0
+                  ? launch_q4k_decode<T, 16>(x, f, out, M, K, N, splits, st)
+                  : launch_q4k_decode<T, 4>(x, f, out, M, K, N, splits, st);
+      else
+        err = N % 16 == 0
+                  ? launch_q6k_decode<T, 16>(x, f, out, M, K, N, splits, st)
+                  : launch_q6k_decode<T, 4>(x, f, out, M, K, N, splits, st);
+    } else {
+      err = N % 16 == 0
+                ? launch_prefill<T, F, 16>(x, f, out, M, K, N, splits, st)
+                : launch_prefill<T, F, 4>(x, f, out, M, K, N, splits, st);
     }
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  } else {
+    launch_rows<T, QMATMUL_FMT>(x, f, partial, out, E, M, K, N, splits, st);
+    return (int)cudaGetLastError();
   }
-  if constexpr (QMATMUL_FMT == 1) {
-    if (decode_form(QMATMUL_FMT, E, M, K)) {
-      const cudaError_t err =
-          N % 16 == 0
-              ? launch_q6k_decode<T, 16>(x, f, out, M, K, N, splits, st)
-              : launch_q6k_decode<T, 4>(x, f, out, M, K, N, splits, st);
-      if (err != cudaSuccess) return (int)err;
-      return (int)cudaGetLastError();
-    }
-  }
-  launch_rows<T, QMATMUL_FMT>(x, f, partial, out, E, M, K, N, splits, st);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -2223,7 +2954,9 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
 // q4_k or q6_k weight at M <= 4 (K <= 65536) to its decode form
 // (qmatmul_q4k_decode_kernel, qmatmul_q6k_decode_kernel), its superblocks
 // split over a cluster of ``splits`` blocks (q4_k 1..8, q6_k 1..16,
-// ``partial`` unused); every other weight to qmatmul_kernel.
+// ``partial`` unused), and at any other M or K to its prefill form
+// (qmatmul_prefill_kernel, a cluster of 1..8 blocks a tile, ``partial``
+// unused); every other weight to qmatmul_kernel.
 // N must be a multiple of 4; there ``partial`` holds splits x M x N floats
 // when splits > 1 (E = 1 only; splits count 256-row tiles).  Returns
 // cudaGetLastError() after the launches.
@@ -2248,12 +2981,17 @@ extern "C" int qmatmul(int fmt, int dtype, const void* x,
 
 // How many times this library launched qmatmul_experts_kernel (0 for the
 // formats that have none), its decode form (qmatmul_q4k_decode_kernel or
-// qmatmul_q6k_decode_kernel; q4_k and q6_k only) and splitk_reduce: the card tests read them to see which kernels ran.
+// qmatmul_q6k_decode_kernel; q4_k and q6_k only), its prefill form
+// (qmatmul_prefill_kernel; q4_k and q6_k only) and splitk_reduce: the card
+// tests read them to see which kernels ran.
 extern "C" long long qmatmul_experts_kernel_launches(void) {
   return g_experts_launches;
 }
 extern "C" long long qmatmul_decode_kernel_launches(void) {
   return g_decode_launches;
+}
+extern "C" long long qmatmul_prefill_kernel_launches(void) {
+  return g_prefill_launches;
 }
 extern "C" long long qmatmul_splitk_reduce_launches(void) {
   return g_splitk_launches;

@@ -6,7 +6,7 @@ to this package, at first use; the hash covers the source, the headers
 of ``csrc/`` (``mma.cuh``) and the flags, so a changed source rebuilds
 and an unchanged one loads the library already built.
 ``csrc/qmatmul.cu`` is built once per weight format (``-DQMATMUL_FMT=<id>``,
-one library each), so that its 56 kernels compile in six processes at
+one library each), so that its 64 kernels compile in six processes at
 once.  Pointers and the stream cross as
 ``ctypes.c_void_p``, and every C entry point returns ``cudaGetLastError()``
 after its launch — the wrappers raise on anything but 0 (a refused launch

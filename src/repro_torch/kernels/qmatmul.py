@@ -37,8 +37,22 @@ scale.  In both, where the column tiles alone would leave SMs idle, the
 superblocks split over the blocks of a thread-block cluster
 (:func:`decode_ksplit`, :func:`decode_ksplit_q6k`) whose sums are added in
 rank order in the same launch: no partial buffer and no second kernel.
-Every other 2-D call keeps ``qmatmul_kernel``, with a split-K pass
-(``splitk_reduce``) where its column tiles are few.
+
+One q4_k or q6_k weight at M > 4 rows (every prefill chunk: 4 x 128 = 512
+rows) takes ``qmatmul_prefill_kernel`` (:func:`prefill_form`), on tensor
+cores: a block owns 128 rows of x (64 where such tiles are few,
+:func:`prefill_rows`) and 128 columns, converts each stage's codes once
+into an exact bf16 tile in shared memory (byte permutes, no
+int-to-float), multiplies it with bf16 ``mma.sync.m16n8k16`` against bf16
+x, and applies each sub-block's scale (and q4_k's min term, from x's sums
+per sub-block) in f32 to the sub-block's products.  f32 x takes the plain
+version's dequantized weights and x as three bf16 terms each (six mmas a
+product), so that it differs from the plain version in summation order
+only.  Where the tiles are fewer than the SMs, the half superblocks split
+over a cluster (:func:`prefill_ksplit`) merged in rank order, in the same
+launch.  Every other 2-D call keeps
+``qmatmul_kernel``, with a split-K pass (``splitk_reduce``) where its
+column tiles are few.
 """
 
 from __future__ import annotations
@@ -72,6 +86,10 @@ _MAX_KSPLIT = 8
 _DECODE_MAX_SB = 32
 _Q6_MAX_KSPLIT = 16   # q6_k's decode form: a non-portable cluster size
 _GPC_SMS = 16         # SMs a GPC holds at least (an H100's: 16-18)
+# qmatmul_prefill_kernel: rows of x a block, and the count of such tiles
+# at or below which it takes 64-row tiles instead
+_PF_ROWS = 128
+_PF_FEW_TILES = 8
 
 
 def expert(qt: QTensor, e: int) -> QTensor:
@@ -148,6 +166,41 @@ def decode_ksplit_q6k(n: int, k: int, sms: int) -> int:
 _DECODE_KSPLIT = {"q4_k": decode_ksplit, "q6_k": decode_ksplit_q6k}
 
 
+def prefill_form(fmt: str, e: int, m: int, k: int) -> bool:
+    """Whether a call takes its format's prefill form
+    (``qmatmul_prefill_kernel``): one q4_k or q6_k weight (``e == 1``) that
+    does not take its decode form, i.e. at M > 4 rows (or K > 65536)."""
+    return (fmt in _DECODE_KSPLIT and e == 1
+            and not decode_form(fmt, e, m, k))
+
+
+def prefill_rows(n: int, m: int) -> int:
+    """Rows of x a block of the prefill form takes: 64 where 128-row
+    tiles would be at most 8 (the smallest weights, e.g. qwen2's k and v
+    at a 512-row chunk: more blocks, each half the products), else 128
+    (``pf_rows_for`` in ``csrc/qmatmul.cu``)."""
+    few = -(-n // _COLS) * -(-m // _PF_ROWS) <= _PF_FEW_TILES
+    return 64 if few else _PF_ROWS
+
+
+def prefill_ksplit(n: int, m: int, k: int, sms: int) -> int:
+    """Blocks of a cluster that split the ``2 ceil(k / 256)`` half
+    superblocks of the prefill form, from host integers: the most, up to
+    8 (the portable cluster size) and the halves, with which the output
+    tiles' (:func:`prefill_rows` x 128) clusters are all resident at once,
+    a block an SM (its shared memory takes one), on GPCs of 16 SMs (an
+    H100's hold 16-18), and fill at most four fifths of the SMs; else 1.
+    On an H100 SXM it was the fastest split at every shape scanned
+    (``PERF.md``, PR 20): clusters of 8 filling 128 SMs ran 1.8x slower
+    than clusters of 6 filling 96."""
+    halves = 2 * -(-k // _TILE)
+    tiles = -(-n // _COLS) * -(-m // prefill_rows(n, m))
+    gpcs = max(1, sms // _GPC_SMS)
+    return next((ks for ks in range(min(_MAX_KSPLIT, halves), 1, -1)
+                 if tiles <= gpcs * (_GPC_SMS // ks)
+                 and tiles * ks <= sms * 4 // 5), 1)
+
+
 def _field_ptrs(qt: QTensor, device: torch.device) -> ctypes.Array:
     """The C entry point's field pointers, as a C array."""
     ptrs = []
@@ -178,6 +231,9 @@ def _launch(x: torch.Tensor, qt: QTensor, e: int, counter) -> torch.Tensor:
     if decode_form(qt.fmt, e, m, k):
         # one launch: the K split merges inside the cluster
         splits = _DECODE_KSPLIT[qt.fmt](n, k, build.sm_count(dev))
+        partial = None
+    elif prefill_form(qt.fmt, e, m, k):
+        splits = prefill_ksplit(n, m, k, build.sm_count(dev))
         partial = None
     else:
         # (qmatmul_experts_kernel's row tiles, 1 or 20 rows, are never more)
@@ -264,10 +320,12 @@ def library_launches(fmt: str, kernel: str = "experts") -> int:
     """Launches made by ``fmt``'s library of ``qmatmul_experts_kernel``
     (``kernel="experts"``; 0 for q5_k, whose expert form is
     ``qmatmul_kernel``), its decode form (``"decode"``, q4_k and q6_k
-    only) or ``splitk_reduce`` (``"splitk"``): which kernels a call ran,
-    for the card tests."""
+    only), its prefill form (``"prefill"``, q4_k and q6_k only) or
+    ``splitk_reduce`` (``"splitk"``): which kernels a call ran, for the
+    card tests."""
     name = {"experts": "qmatmul_experts_kernel_launches",
             "decode": "qmatmul_decode_kernel_launches",
+            "prefill": "qmatmul_prefill_kernel_launches",
             "splitk": "qmatmul_splitk_reduce_launches"}[kernel]
     f = getattr(build.library(f"qmatmul_{fmt}"), name)
     f.restype = ctypes.c_longlong

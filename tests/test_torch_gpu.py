@@ -10,7 +10,8 @@ Inputs are made with numpy from fixed seeds.  Tolerances: f32 outputs
 1e-5 (absolute for attention's O(1) outputs, relative to max|y| for the
 matmul) — summation order and the online softmax differ, nothing else;
 bf16 matmul outputs one bf16 step (2^-8) of max|y|, since both sides
-round an f32 accumulator to bf16.  The attention kernels' q4_0 loaders
+round an f32 accumulator to bf16 (the prefill form's test: ``B1_TOL_BF16``,
+one step of the top binade).  The attention kernels' q4_0 loaders
 (B5) dequantize each element bitwise as the plain version does, so they
 are held to the same 1e-5.
 """
@@ -30,6 +31,12 @@ from repro_torch.models import paged
 from repro_torch.models.model import Model
 
 TOL = 1e-5
+# bf16 outputs of B1 forms whose f32 sums run in another order than the
+# plain version's (the tensor-core forms at M > 4): chip_smoke.py's
+# B1_TOL, one bf16 step of the top binade of max|y| (2^-8 of max|y| is
+# less than one step when max|y| lies low in its binade, so a sum that
+# rounds to the neighbouring bf16 value there would exceed it)
+B1_TOL_BF16 = 8e-3
 
 pytestmark = pytest.mark.gpu
 
@@ -241,14 +248,56 @@ def test_qmatmul_q6k_decode_form(cuda, m, k, n, dtype):
                            torch.zeros_like(y[m - 2]).view(bits))
 
 
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
+@pytest.mark.parametrize("m", [5, 16, 77, 512, 600])
+@pytest.mark.parametrize("k,n", [(700, 260), (1536, 384), (8960, 1536)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_qmatmul_prefill_form(cuda, fmt, m, k, n, dtype):
+    """q4_k's and q6_k's 2-D form at M > 4 runs qmatmul_prefill_kernel on
+    tensor cores: one launch of it a call, no qmatmul_kernel and no
+    splitk_reduce, two calls bitwise equal, within B1's limits of the
+    plain version (f32 x as three bf16 terms: 1e-5 of max|y|; bf16:
+    B1_TOL_BF16); rows past a
+    128-row tile (M = 5, 77, 600), ragged K (700: x's bf16 rows are not
+    16-byte aligned), N % 16 != 0 (260: 4-byte copies), a K split over a
+    cluster (1536 -> 384, 8960 -> 1536), and zero rows give +0."""
+    rng = np.random.default_rng(m * 19 + k + n + len(fmt))
+    qt = quantize(torch.from_numpy(_np(rng, (k, n))).to(cuda), fmt)
+    x = torch.from_numpy(_np(rng, (m, k))).to(cuda)
+    zero = [1, m - 2]
+    x[zero] = 0
+    x = x.to(dtype)
+    kern = qmatmul.KERNELS[fmt]
+    before = kern.launches
+    pre, dec, red = (qmatmul.library_launches(fmt, w)
+                     for w in ("prefill", "decode", "splitk"))
+    y = kern(x, qt)
+    y2 = kern(x, qt)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    assert qmatmul.library_launches(fmt, "prefill") == pre + 2
+    assert qmatmul.library_launches(fmt, "decode") == dec
+    assert qmatmul.library_launches(fmt, "splitk") == red
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(y.view(bits), y2.view(bits))
+    ref = qmatmul.qmatmul_plain(x, qt).float()
+    tol = TOL if dtype == torch.float32 else B1_TOL_BF16
+    assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
+    assert not y[zero].view(bits).any()                  # +0, not -0
+
+
 def test_qmatmul_kernel_raises_on_what_it_does_not_take(cuda):
-    qt = quantize(torch.randn(256, 130, device=cuda), "q4_k")
-    with pytest.raises(ValueError, match="N % 4"):
-        qmatmul.qmatmul_q4_k(torch.randn(2, 256, device=cuda), qt)
-    qt = quantize(torch.randn(256, 128, device=cuda), "q4_k")
-    with pytest.raises(TypeError):
-        qmatmul.qmatmul_q4_k(torch.randn(2, 256, device=cuda,
-                                         dtype=torch.float16), qt)
+    """Every 2-D form (M = 2: q4_k's decode form; M = 8: the prefill form)
+    raises on N % 4 != 0 and on x that is neither f32 nor bf16."""
+    for m in (2, 8):
+        qt = quantize(torch.randn(256, 130, device=cuda), "q4_k")
+        with pytest.raises(ValueError, match="N % 4"):
+            qmatmul.qmatmul_q4_k(torch.randn(m, 256, device=cuda), qt)
+        qt = quantize(torch.randn(256, 128, device=cuda), "q4_k")
+        with pytest.raises(TypeError):
+            qmatmul.qmatmul_q4_k(torch.randn(m, 256, device=cuda,
+                                             dtype=torch.float16), qt)
 
 
 def _pools(rng, b, n_lp, page_size, hkv, d, live):

@@ -22,6 +22,7 @@ from repro.kernels import ops as jax_ops
 from repro.kernels import paged_attn as jax_pa
 
 from repro_torch.convert import from_jax_params
+from repro_torch.core.formats import FORMATS
 from repro_torch.core.qtensor import QTensor, quantize
 from repro_torch.kernels import build, ops, paged_attn, qmatmul
 from repro_torch.models import paged
@@ -246,6 +247,178 @@ def test_q6k_decode_ksplit_sizes_the_cluster(k, n):
     assert qmatmul.decode_ksplit_q6k(576, 7168, 132) == 16
     assert qmatmul.decode_ksplit_q6k(7168, 18432, 132) == 2
     assert qmatmul.decode_ksplit_q6k(7168, 2048, 132) == 2
+
+
+def _fma32(a, b, c):
+    """fmaf(a, b, c) on f32 tensors: one rounding (the f64 product of two
+    f32 values is exact)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _prefill_tensor_core(x, fields, fmt, ks):
+    """q4_k's and q6_k's prefill form written out
+    (``qmatmul_prefill_kernel``).  Rows padded to 128-row tiles (zeros).
+    A superblock is staged in parts (2 for bf16 x, 4 for f32), each a
+    whole number of sub-blocks taken in the stage's order: q4_k part q
+    sub-blocks 4 j + q * 4 / parts + i (j = 0, 1: low, high nibbles), q6_k
+    4 p + q * 4 / parts + i (p = 0..3).  bf16 x: per sub-block the tensor
+    cores sum 16 exact products of x and the codes (q4_k q, q6_k q - 32) a
+    k16 step (q4_k two) into a sum zeroed for the sub-block; the sum times
+    sc * d (f32) is added into the accumulator by one FMA, and for q4_k
+    -m * dmin times the sum of x over the sub-block (the tensor cores' f32
+    sum against a B of ones; in order here) by another.  f32 x: per k16
+    step of the stage, the six products of x's and the plain version's
+    dequantized weights' three bf16 terms whose sum carries f32 precision,
+    smallest first, summed into a zeroed f32 sum that is added into the
+    accumulator.  The half superblocks split over ``ks`` blocks whose
+    accumulators are added in rank order.  x (M, K), zeros past K; a zero
+    row gives +0."""
+    names = qmatmul.FIELDS[fmt]
+    f = {n: fields[n] for n in names}
+    s_blocks, n = f["d"].shape
+    m, k = x.shape
+    mp = -(-m // 128) * 128
+    xp = torch.zeros(mp, s_blocks * 256)
+    xp[:m, :k] = x.to(torch.float32)
+    e = torch.arange(256)
+    if fmt == "q4_k":
+        qs = f["qs"].to(torch.int32)
+        codes = (qs[:, e % 128] >> (4 * (e // 128))[None, :, None]) & 15
+        scale = f["d"].float()[:, None] * f["scales"].float()   # (S, 8, N)
+        nmin = -(f["dmin"].float()[:, None] * f["mins"].float())
+        sub_len, runs = 32, 2
+    else:
+        ql, qh = f["ql"].to(torch.int32), f["qh"].to(torch.int32)
+        lo = (ql[:, e % 128] >> (4 * (e // 128))[None, :, None]) & 15
+        hi = (qh[:, e % 64] >> (2 * (e // 64))[None, :, None]) & 3
+        codes = (lo | (hi << 4)) - 32
+        scale = f["d"].float()[:, None] * f["scales"].float()   # (S, 16, N)
+        sub_len, runs = 16, 4
+    codes = codes.double()                                  # (S, 256, N)
+    if x.dtype == torch.float32:
+        # the plain version's weights (each product and difference rounded
+        # to f32), as three bf16 terms; x as three
+        w = FORMATS[fmt].dequantize(f).reshape(s_blocks * 256, n)
+        wt = [t.double() for t in bf16_terms(w, 3)]
+        xt = [t.double() for t in bf16_terms(xp, 3)]
+        pairs = [(2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)]
+    parts = 2 if x.dtype == torch.bfloat16 else 4
+    per = 4 // parts                # sub-blocks of a run a part takes
+    # half superblock h: superblock h // 2, parts q with q // (parts / 2)
+    # == h % 2, each its sub-blocks run by run
+    halves = [[(h // 2, r * 4 + q * per + i)
+               for q in range(parts) if q // (parts // 2) == h % 2
+               for r in range(runs) for i in range(per)]
+              for h in range(2 * s_blocks)]
+    out = torch.zeros(mp, n)
+    for r in range(ks):                                     # rank order
+        acc = torch.zeros(mp, n)
+        for h in range(2 * s_blocks * r // ks, 2 * s_blocks * (r + 1) // ks):
+            for sb, sub in halves[h]:
+                if x.dtype == torch.float32:
+                    for kk in range(sub_len // 16):
+                        k0 = sb * 256 + sub * sub_len + 16 * kk
+                        d = torch.zeros(mp, n)
+                        for i, j in pairs:
+                            d = (d.double() + xt[i][:, k0:k0 + 16]
+                                 @ wt[j][k0:k0 + 16]).float()
+                        acc = acc + d
+                    continue
+                d = torch.zeros(mp, n)
+                for kk in range(sub_len // 16):
+                    k0 = sb * 256 + sub * sub_len + 16 * kk
+                    w = codes[sb, k0 - sb * 256:k0 - sb * 256 + 16]
+                    d = (d.double() + xp[:, k0:k0 + 16].double() @ w).float()
+                acc = _fma32(scale[sb, sub][None], d, acc)
+                if fmt == "q4_k":
+                    xs = torch.zeros(mp)
+                    k0 = sb * 256 + sub * 32
+                    for j in range(32):                     # in order, f32
+                        xs = xs + xp[:, k0 + j]
+                    acc = _fma32(nmin[sb, sub][None], xs[:, None], acc)
+        out = out + acc if ks > 1 else acc
+    return out[:m].to(x.dtype)
+
+
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
+@pytest.mark.parametrize("m,k,n", [(5, 700, 256), (77, 1536, 384),
+                                   (128, 700, 384), (300, 1536, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_q4k_q6k_prefill_tensor_core_rule_matches_pallas(fmt, m, k, n,
+                                                         dtype):
+    """The arithmetic of the prefill form (bf16 x: exact bf16 codes in the
+    fragments' K order, design (a): each sub-block's tensor-core sum
+    scaled in f32 by sc * d, q4_k's min term from x's sums per sub-block;
+    f32 x: the plain version's weights and x as three bf16 terms each, six
+    products a k16 step; row tiles of 128 with padded rows, ragged K =
+    700, the half superblocks split over 1, 2 and 3 blocks merged in rank
+    order) against the reference's fused Pallas kernel (interpret mode,
+    which takes N % 128 == 0; the card test has N = 260): f32 within 1e-5
+    of max|y|, bf16 within one bf16 step (2^-8) of max|y|; zero rows give
+    +0."""
+    jq, tq = _qt_pair(fmt, k, n, seed=m + k + len(fmt))
+    x = np.random.default_rng(m + n).normal(size=(m, k)).astype(np.float32)
+    x[[1, m - 2]] = 0
+    xt = torch.from_numpy(x).to(dtype)
+    xj = jnp.asarray(xt.to(torch.float32).numpy())
+    if dtype == torch.bfloat16:
+        xj = xj.astype(jnp.bfloat16)
+    ref = np.asarray(jax_ops.qmatmul(xj, jq, impl="pallas"), np.float32)
+    tol = TOL if dtype == torch.float32 else 2 ** -8
+    assert qmatmul.prefill_form(fmt, 1, m, k)
+    for ks in (1, 2, 3):
+        got = _prefill_tensor_core(xt, tq.fields, fmt, ks)
+        np.testing.assert_allclose(got.to(torch.float32).numpy(), ref,
+                                   rtol=0, atol=tol * np.abs(ref).max())
+        assert not got[[1, m - 2]].to(torch.float32).numpy().view(
+            np.int32).any()                                # +0, not -0
+
+
+# every q4_k / q6_k 2-D weight a prefill chunk of the served models
+# multiplies (K, N): qwen2-1.5b's q/o, gate/up, k/v, down; DeepSeek-V3's
+# attn_q_a, attn_q_b, attn_kv_a_mqa, attn_output, dense gate/up and down,
+# shared experts
+PREFILL_SHAPES = [(1536, 1536), (1536, 8960), (1536, 256), (8960, 1536),
+                  (7168, 1536), (1536, 24576), (7168, 576), (16384, 7168),
+                  (7168, 18432), (18432, 7168), (7168, 2048), (2048, 7168)]
+
+
+@pytest.mark.parametrize("k,n", PREFILL_SHAPES)
+def test_prefill_ksplit_from_host_integers(k, n):
+    """The prefill form's tiles and K split, from host integers only: 64-row
+    tiles where 128-row ones would be at most 8; 1..8 blocks a cluster (the
+    portable size), at most the half superblocks, the most with which the
+    tiles' clusters are all resident at once (a block an SM, GPCs of 16
+    SMs) and fill at most four fifths of the SMs."""
+    halves = 2 * -(-k // 256)
+    for fmt in ("q4_k", "q6_k"):
+        assert qmatmul.prefill_form(fmt, 1, 512, k)
+        assert qmatmul.prefill_form(fmt, 1, 5, k)
+        assert not qmatmul.prefill_form(fmt, 1, 4, k)
+        assert not qmatmul.prefill_form(fmt, 8, 512, k)
+    assert not qmatmul.prefill_form("q8_0", 1, 512, k)
+
+    def fits(tiles, ks, sms):
+        return (tiles <= max(1, sms // 16) * (16 // ks)
+                and tiles * ks <= sms * 4 // 5)
+    for m in (5, 512, 600):
+        rows = qmatmul.prefill_rows(n, m)
+        assert rows == (64 if -(-n // 128) * -(-m // 128) <= 8 else 128)
+        tiles = -(-n // 128) * -(-m // rows)
+        for sms in (132, 114, 8):
+            ks = qmatmul.prefill_ksplit(n, m, k, sms)
+            assert 1 <= ks <= min(8, halves)
+            assert ks == 1 or fits(tiles, ks, sms)
+            assert ks == min(8, halves) or not any(
+                fits(tiles, c, sms) for c in range(ks + 1, min(8, halves) + 1))
+    # the fastest splits scanned on an H100 SXM (PERF.md, PR 20)
+    assert qmatmul.prefill_rows(256, 512) == 64
+    assert qmatmul.prefill_ksplit(256, 512, 1536, 132) == 6
+    assert qmatmul.prefill_ksplit(1536, 512, 1536, 132) == 2
+    assert qmatmul.prefill_ksplit(1536, 512, 8960, 132) == 2
+    assert qmatmul.prefill_ksplit(576, 512, 7168, 132) == 5
+    assert qmatmul.prefill_ksplit(18432, 512, 7168, 132) == 1
 
 
 def test_qgather_columns_bitwise():
