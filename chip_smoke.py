@@ -16,11 +16,12 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 every expert form also with the decode's routing, 32 of
                 256 experts live, where every kernel but q5_k's reads no
                 empty expert), with times, the roofline bound and the
-                stated tolerance (B1's M = 512 lines also carry
-                ``gemm_ms``, a bf16 torch.matmul by the weight already
-                dequantized, for context); the GQA and MLA decodes also at the
-                engine's horizon (4 lanes x 1,000 tokens, a 64-page
-                bucket), each on a line of its own.
+                stated tolerance (B1 also at every 2-D shape the DeepSeek
+                cut multiplies by q3_k or q8_0 at a chunk's 512 rows; B1's
+                M = 512 lines also carry ``gemm_ms``, a bf16 torch.matmul
+                by the weight already dequantized, for context); the GQA
+                and MLA decodes also at the engine's horizon (4 lanes x
+                1,000 tokens, a 64-page bucket), each on a line of its own.
   3. parity   — full width, f32, weights from one seed, card (kernels)
                 against CPU (plain versions): qwen2-1.5b at depth 2 (a
                 64-token prefill chunk, 4 decode steps) under DQ3_K_M with
@@ -172,6 +173,10 @@ KERNELS = {
                              "src/repro/kernels/common.py:82"),
     "qmatmul_q6_k_prefill": ("src/repro_torch/csrc/qmatmul.cu",
                              "src/repro/kernels/common.py:82"),
+    "qmatmul_q3_k_prefill": ("src/repro_torch/csrc/qmatmul.cu",
+                             "src/repro/kernels/q3_k.py:27"),
+    "qmatmul_q8_0_prefill": ("src/repro_torch/csrc/qmatmul.cu",
+                             "src/repro/kernels/q8_0.py:23"),
     "qmatmul_q3_k": ("src/repro_torch/csrc/qmatmul.cu",
                      "src/repro/kernels/q3_k.py:27"),
     "qmatmul_q5_k": ("src/repro_torch/csrc/qmatmul.cu",
@@ -297,7 +302,7 @@ B1_SHAPES = [(1536, 1536, "q4_k", "q_proj, o_proj"),
              (18432, 7168, "q6_k", "DeepSeek dense down"),
              (7168, 576, "q6_k", "DeepSeek attn_kv_a_mqa"),
              (7168, 129280, "q6_k", "DeepSeek output"),
-             (7168, 2048, "q3_k", "q3_k at an expert's shape, one weight"),
+             (7168, 2048, "q3_k", "DeepSeek shexp gate, up, Q3_K_M"),
              (7168, 1536, "q3_k", "DeepSeek attn_q_a, Q3_K_M"),
              (18432, 7168, "q5_k", "DeepSeek dense down, Q3_K_M"),
              (8960, 1536, "q5_k", "qwen2 down, Q3_K_M"),
@@ -306,11 +311,31 @@ B1_SHAPES = [(1536, 1536, "q4_k", "q_proj, o_proj"),
              (1536, 8960, "q8_0", "qwen2 gate, up, Q8_0"),
              (7168, 18432, "q8_0", "DeepSeek dense gate, up, Q8_0")]
 B1_ROWS = (1, 4, 512)
+# the other 2-D weights that the DeepSeek cut multiplies by the prefill
+# form's q3_k (Q3_K_M, Q2_K_L) and q8_0 (Q8_0) at a chunk's 512 rows, timed
+# at M = 512 only (their M <= 4 form is the one timed above)
+B1_PREFILL_SHAPES = [
+    (1536, 24576, "q3_k", "DeepSeek attn_q_b, Q3_K_M"),
+    (7168, 576, "q3_k", "DeepSeek attn_kv_a_mqa, Q3_K_M"),
+    (7168, 18432, "q3_k", "DeepSeek dense gate, up, Q3_K_M"),
+    (16384, 7168, "q3_k", "DeepSeek attn_output, Q2_K_L"),
+    (18432, 7168, "q3_k", "DeepSeek dense down, Q2_K_L"),
+    (2048, 7168, "q3_k", "DeepSeek shexp down, Q2_K_L"),
+    (7168, 1536, "q8_0", "DeepSeek attn_q_a, Q8_0"),
+    (1536, 24576, "q8_0", "DeepSeek attn_q_b, Q8_0"),
+    (7168, 576, "q8_0", "DeepSeek attn_kv_a_mqa, Q8_0"),
+    (16384, 7168, "q8_0", "DeepSeek attn_output, Q8_0"),
+    (18432, 7168, "q8_0", "DeepSeek dense down, Q8_0"),
+    (7168, 2048, "q8_0", "DeepSeek shexp gate, up, Q8_0"),
+    (2048, 7168, "q8_0", "DeepSeek shexp down, Q8_0")]
 # the case that stands for each format in the summary line: the decode
 # shape (M = 4, bf16) that moves most of the format's weight bytes per step
-# on its path; for the prefill form of q4_k and q6_k, qwen2's chunk shape
-# (M = 512, bf16) with the most device time a chunk
-B1_PREFILL_SUMMARY = {"q4_k": (512, 1536, 8960), "q6_k": (512, 8960, 1536)}
+# on its path; for the prefill form, the chunk shape (M = 512, bf16) with
+# the most device time a chunk: qwen2's for q4_k and q6_k, the DeepSeek
+# cut's dense gate/up for q3_k (Q3_K_M) and q8_0 (Q8_0)
+B1_PREFILL_SUMMARY = {"q4_k": (512, 1536, 8960), "q6_k": (512, 8960, 1536),
+                      "q3_k": (512, 7168, 18432),
+                      "q8_0": (512, 7168, 18432)}
 B1_SUMMARY = {"q4_k": (4, 1536, 8960), "q6_k": (4, 8960, 1536),
               "q3_k": (4, 7168, 1536), "q5_k": (4, 18432, 7168),
               "q2_k": (4, 7168, 18432), "q8_0": (4, 7168, 18432)}
@@ -351,7 +376,9 @@ def phase_kernels(torch, summary: dict) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     detail = []
-    for k, n, fmt, use in B1_SHAPES:
+    for k, n, fmt, use, rows in (
+            [(*c, B1_ROWS) for c in B1_SHAPES]
+            + [(*c, (max(B1_ROWS),)) for c in B1_PREFILL_SHAPES]):
         name = f"qmatmul_{fmt}"
         w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
         qt = quantize(w, fmt)
@@ -363,7 +390,7 @@ def phase_kernels(torch, summary: dict) -> None:
                                   qt.fields.items()}, qt.fmt, qt.shape)
                          for _ in range(math.ceil(120e6 / wbytes) - 1)]
         kern = qm.KERNELS[fmt]
-        for m in B1_ROWS:
+        for m in rows:
             for dt in (torch.bfloat16, torch.float32) if m == 4 else (
                     torch.bfloat16,):
                 dt_name = str(dt).split(".")[-1]
@@ -960,7 +987,7 @@ def short_name(key: str) -> str:
 # kernel families of a traced decode step or prefill chunk:
 # qmatmul_kernel<T, rows, format, experts>, qmatmul_q4k_decode_kernel and
 # qmatmul_q6k_decode_kernel (the 2-D forms of q4_k and q6_k at M <= 4),
-# qmatmul_prefill_kernel (theirs at M > 4) and
+# qmatmul_prefill_kernel (theirs, q3_k's and q8_0's at M > 4) and
 # qmatmul_experts_kernel<T, rows, format, copy bytes> (format ids as in
 # csrc/qmatmul.cu), the split-K reduction, and the attention kernels (the
 # MLA decode and prefill kernels both "B6/B7 paged_mla")
@@ -1140,12 +1167,13 @@ DEEPSEEK_B1 = {"DQ3_K_M": (("q4_k", "q6_k"), ("q3_k", "q4_k", "q6_k")),
 # the formats whose one-weight calls at M > 4 take qmatmul_prefill_kernel,
 # and those of them each path multiplies at a prefill chunk's 512 rows
 # (qwen2 under DQ3_K_M; the DeepSeek cut per policy: under Q3_K_M q6_k is
-# only the output head, which takes one row a lane, and Q2_K_L has no
-# q4_k)
-PREFILL_FORMS = ("q4_k", "q6_k")
+# only the output head, which takes one row a lane, as the Q8_0 head does,
+# and Q2_K_L has no q4_k)
+PREFILL_FORMS = ("q4_k", "q6_k", "q3_k", "q8_0")
 QWEN2_PREFILL = ("q4_k", "q6_k")
 DEEPSEEK_PREFILL = {"DQ3_K_M": ("q4_k", "q6_k"), "Q4_K_M": ("q4_k", "q6_k"),
-                    "Q3_K_M": ("q4_k",), "Q2_K_L": ("q6_k",), "Q8_0": ()}
+                    "Q3_K_M": ("q4_k", "q3_k"), "Q2_K_L": ("q6_k", "q3_k"),
+                    "Q8_0": ("q8_0",)}
 
 
 def b1_path(policy: str) -> tuple:

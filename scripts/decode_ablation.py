@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Ablations of the MLA decode and prefill kernels and of the q4_k and q6_k
-decode and prefill forms on one CUDA card.
+"""Ablations of the MLA decode and prefill kernels, of the q4_k and q6_k
+decode forms and of the prefill form (q4_k, q6_k, q3_k, q8_0) on one CUDA
+card.
 
     python3 scripts/decode_ablation.py            # prints JSON lines
     python3 scripts/decode_ablation.py --only q6k_decode,mla_prefill
     python3 scripts/decode_ablation.py --only q4k_prefill,q6k_prefill
+    python3 scripts/decode_ablation.py --only q3k_prefill,q8_0_prefill
 
 Builds variants of ``csrc/paged_mla.cu`` (``paged_mla_decode_kernel``) and
 of ``csrc/qmatmul.cu`` for q4_k (``qmatmul_q4k_decode_kernel``), each the
@@ -39,16 +41,17 @@ kernel) at ``chip_smoke.py``'s shapes:
                a stage; and the expert kernel (``qmatmul_experts_kernel``,
                C = 1) streaming the same fields of two 7168->9216 experts.
 
-  q4_k, q6_k prefill  M = 512 (bf16 x; f32 x also at the first shape) at
-               qwen2's and DeepSeek's 2-D shapes of the format
-               (``qmatmul_prefill_kernel`` at its ``prefill_ksplit``, and
-               at the other split sizes where the tiles are few); variants
-               (of the bf16 path; the f32 one keeps its own):
-               the kernel, 128-row tiles only, 64-row tiles of 4 x 2
-               warps (16 x 64 each) instead of 2 x 4, the sub-blocks not
-               unrolled, no scaling (each sub-block's
-               products straight into the accumulators), no mma, the
-               copies alone; each variant's ptxas registers and spills.
+  q4_k, q6_k, q3_k, q8_0 prefill  M = 512 (bf16 x; f32 x also at the
+               first shape) at qwen2's and DeepSeek's 2-D shapes of the
+               format (``qmatmul_prefill_kernel`` at its
+               ``prefill_ksplit``, and at the other split sizes where the
+               128-row tiles are fewer than the SMs); variants (of the
+               bf16 path; the f32 one keeps its own): the kernel,
+               128-row tiles only, 64-row tiles only, 64-row tiles of 4 x
+               2 warps (16 x 64 each) instead of 2 x 4, the sub-blocks
+               not unrolled, no scaling (each sub-block's products
+               straight into the accumulators), no mma, the copies alone;
+               each variant's ptxas registers and spills.
 
 A variant that leaves work out computes a wrong result: only its time is
 read (the prefill groups print each variant's error beside its time).  Weights rotate over copies of more than 120 MB, so that each call
@@ -211,10 +214,12 @@ PRE_NO_SCALE = [
     ("      for (int nt = 0; nt < NT8; ++nt) {\n        float (&o)[4]",
      "      for (int nt = 0; nt < 0; ++nt) {\n        float (&o)[4]")]
 ROWS128 = [("  return pf_rows_for(M, N) == 64\n", "  return false\n")]
+ROWS64 = [("  return pf_rows_for(M, N) == 64\n", "  return true\n")]
 UNROLL1 = [("constexpr int PF_UNROLL = 2;", "constexpr int PF_UNROLL = 1;")]
 PRE_VARIANTS = {
     "kernel": [],
     "128-row tiles": ROWS128,
+    "64-row tiles": ROWS64,
     "64-row tiles of 4 x 2 warps": WARPS64,
     "sub-blocks not unrolled": UNROLL1,
     "no scaling": PRE_NO_SCALE,
@@ -222,12 +227,19 @@ PRE_VARIANTS = {
     "copies only": [PRE_NO_CONVERT, PRE_NO_MULTIPLY],
 }
 # the variants whose cluster size is scanned at the shapes of few tiles
-PRE_SCAN = ("kernel", "128-row tiles")
+# (fewer 128-row tiles at M = 512 than SMs)
+PRE_SCAN = ("kernel", "128-row tiles", "64-row tiles")
 # (K, N) at M = 512: qwen2's and DeepSeek's 2-D weights of the format
+# (q3_k: the DeepSeek cut's under Q3_K_M and Q2_K_L; q8_0: qwen2's gate/up
+# and the cut's under Q8_0)
 PRE_SHAPES = {"q4_k": ((1536, 1536), (1536, 8960), (7168, 18432),
-                       (16384, 7168)),
+                       (16384, 7168), (7168, 2048)),
               "q6_k": ((1536, 256), (8960, 1536), (7168, 576),
-                       (18432, 7168))}
+                       (18432, 7168)),
+              "q3_k": ((7168, 1536), (7168, 576), (7168, 18432),
+                       (18432, 7168), (7168, 2048)),
+              "q8_0": ((1536, 8960), (7168, 576), (7168, 18432),
+                       (18432, 7168), (7168, 2048))}
 
 
 def start_build(source: str, name: str, subs, flags=(), append: str = ""):
@@ -495,7 +507,8 @@ def prefill(fmt: str):
                     fn.argtypes = [i, i, v, ctypes.POINTER(v), i, v, v] + \
                         [i] * 5 + [v]
                     scan = (ks0,)
-                    if name in PRE_SCAN and n <= 1536:
+                    if (name in PRE_SCAN and -(-n // 128) * 4
+                            < build.sm_count(dev)):
                         scan = sorted({ks0} | {c for c in (1, 2, 3, 4, 6, 8)
                                                if c <= halves})
                     for ks in scan:
@@ -533,6 +546,10 @@ GROUPS = {
                     ("-DQMATMUL_FMT=0", "-Xptxas", "-v"), prefill("q4_k")),
     "q6k_prefill": ("qmatmul.cu", "q6kp_", PRE_VARIANTS,
                     ("-DQMATMUL_FMT=1", "-Xptxas", "-v"), prefill("q6_k")),
+    "q3k_prefill": ("qmatmul.cu", "q3kp_", PRE_VARIANTS,
+                    ("-DQMATMUL_FMT=2", "-Xptxas", "-v"), prefill("q3_k")),
+    "q8_0_prefill": ("qmatmul.cu", "q80p_", PRE_VARIANTS,
+                     ("-DQMATMUL_FMT=5", "-Xptxas", "-v"), prefill("q8_0")),
 }
 
 

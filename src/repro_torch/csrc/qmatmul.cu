@@ -137,7 +137,7 @@
 // weight), not by the issue rate, so at decode's few blocks a stage's
 // products take longer than its bytes (scripts/decode_ablation.py).
 //
-// q4_k's and q6_k's 2-D form at M > 4 on tensor cores
+// The 2-D form at M > 4 of q4_k, q6_k, q3_k and q8_0 on tensor cores
 // (qmatmul_prefill_kernel<T, FMT, V, ROWS>): every prefill chunk of the
 // engine is 4 x 128 = 512 rows, where qmatmul_kernel ran at ~25 TFLOP/s
 // (2.5 % of the bf16 peak): its 16-row tile decoded each weight again for
@@ -156,10 +156,17 @@
 //    rows are not 16-byte aligned);
 //  - the codes become a bf16 tile in shared memory, once per block (once
 //    per 128 rows of x, 4 times a call at M = 512, against 32), by byte
-//    permutes under the exponent of 128 and one bf16x2 FMA of -128 (q4_k)
-//    or -160 (q6_k) a pair: exact, no int-to-float; each sub-block's sc * d
-//    (q4_k also -m * dmin) is made once per column in f32, laid out so that
-//    a lane reads its columns' scales in 16-byte loads;
+//    permutes under the exponent of 128 and one bf16x2 FMA of -128 (q4_k),
+//    -160 (q6_k) or -132 (q3_k, whose code is first assembled from a
+//    bit-pair of qs and a bit of hmask) a pair: exact, no int-to-float.
+//    q8_0's int8 code takes 8 bits, one more than fits under the exponent:
+//    its low 7 bits go there, and the FMA's bias pair is -128 or -256 by
+//    the code's sign bit, that bit placed under the exponent byte of -128
+//    by one more byte permute a pair (2 instructions a code; 2^23 + (q +
+//    128) as an f32, one FADD and a conversion to bf16 would take 2.75);
+//    each sub-block's sc * d (q4_k also -m * dmin; q8_0 each block's d) is
+//    made once per column in f32, laid out so that a lane reads its
+//    columns' scales in 16-byte loads;
 //  - the products are bf16 mma.sync.m16n8k16 with f32 accumulation, x the
 //    A operand (ldmatrix), the code tile B (ldmatrix.trans; rows padded 16
 //    bytes, so that eight rows of a fragment hit 32 banks); the codes and
@@ -167,8 +174,9 @@
 //    order.  The scales
 //    are applied in f32 outside the product, design (a): each sub-block's
 //    products go to accumulators zeroed for it and are added into the
-//    output accumulators times sc * d (4 FMAs a thread an mma for q6_k's
-//    16-element sub-blocks, 2 for q4_k's 32), and q4_k's min term -m *
+//    output accumulators times sc * d (4 FMAs a thread an mma for the
+//    16-element sub-blocks of q6_k and q3_k, 2 for the 32 of q4_k and
+//    q8_0's blocks), and q4_k's min term -m *
 //    dmin * sum x with them, the sub-block's sums of x's rows made by one
 //    more mma against a B of ones.  Design (b), the integer product code x
 //    scale as two exact bf16 terms, would double the mmas and the
@@ -187,11 +195,14 @@
 // CPU differ in summation order only, as cuBLAS's f32 product does.
 // Shared memory (one block an SM, at most 227 KB): the ring's slots hold x
 // (128 rows x 256 bytes, padded: 34.0 KB, f32 36.0 KB; half that at 64
-// rows) and the stage's fields (q4_k 9.5 KB, q6_k 13.25 KB; f32 5.0 /
-// 6.75 KB), the two buffers the code tile (34.0 KB) and the scales (5 KB)
-// (f32: one buffer of three 17.0 KB tiles): at most 219.75 KB (q6_k, bf16,
-// 128 rows).  A fourth slot would not fit, so one stage is in flight while one
-// is converted and one multiplied; a ring of 5-7 quarter-superblock stages
+// rows) and the stage's fields (q4_k 9.5 KB, q6_k 13.25 KB, q3_k 9.25 KB
+// with all 32 hmask rows, q8_0 17.0 KB; f32 5.0 / 6.75 / 6.75 / 8.5 KB),
+// the two buffers the code tile (34.0 KB) and the scales (2.5-5 KB) (f32:
+// one buffer of three 17.0 KB tiles): at most 226.0 KB (q8_0, bf16, 128
+// rows; launch_prefill_rows checks each instance at compile time), so q8_0
+// keeps the others' stage of half a superblock.  A fourth slot would not
+// fit, so one stage is in flight while one is converted and one
+// multiplied; a ring of 5-7 quarter-superblock stages
 // (more bytes in flight) measured 7-12 % slower.  Where the tiles are
 // fewer than the SMs, the half superblocks split over a cluster of up to 8
 // blocks (prefill_ksplit, host integers) whose sums are added in rank
@@ -201,7 +212,11 @@
 // TFLOP/s at the large shapes, bound by each block's instruction stream at
 // two warps a scheduler (the scale FMAs alone cost a third of the time,
 // the mmas a fifth; scripts/decode_ablation.py), and at the smallest by
-// the launch, the first stage's copies and the cluster merge.
+// the launch, the first stage's copies and the cluster merge.  The q3_k
+// instances are bound as q6_k's are (the same 4 scale FMAs an mma; the
+// code assembly is once per block); q8_0's as q4_k's less its min term (2
+// scale FMAs an mma, no mma against ones), with 17 KB of fields a stage
+// to copy against q4_k's 9.5.
 //
 // Built once per format: -DQMATMUL_FMT=<id> instantiates that format's
 // kernels only (kernels/build.py builds the six libraries in parallel).
@@ -1694,9 +1709,11 @@ __host__ __device__ constexpr size_t q6k_decode_smem() {
 // Two codes of at most 7 bits (the bytes of ``w`` that ``sel``, a byte
 // permute, takes to bytes 0 and 2) as a bf16 pair less ``bias``, exactly:
 // the exponent byte 0x43 above a code makes 128 + q, and one bf16x2 FMA
-// adds ``bias`` (Q6_BIAS: q - 32 for q6_k; Q4_BIAS: q for q4_k).
+// adds ``bias`` (Q6_BIAS: q - 32 for q6_k; Q4_BIAS: q for q4_k; Q3_BIAS:
+// q - 4 for q3_k).
 constexpr uint32_t Q6_BIAS = 0xC320C320u;   // bf16 (-160, -160)
 constexpr uint32_t Q4_BIAS = 0xC300C300u;   // bf16 (-128, -128)
+constexpr uint32_t Q3_BIAS = 0xC304C304u;   // bf16 (-132, -132)
 __device__ __forceinline__ uint32_t code_pair(uint32_t w, uint32_t sel,
                                               uint32_t bias) {
   const uint32_t v = __byte_perm(w, 0x43434343u, sel);
@@ -1988,7 +2005,7 @@ __global__ void __launch_bounds__(Q6_THREADS, 2)
 }
 
 // ---------------------------------------------------------------------------
-// q4_k's and q6_k's 2-D form at M > 4 on tensor cores:
+// The 2-D form at M > 4 of q4_k, q6_k, q3_k and q8_0 on tensor cores:
 // qmatmul_prefill_kernel<T, FMT, V, ROWS> (see the header).  A block of 8
 // warps owns ROWS rows of x and 128 columns, each warp a part of the
 // output in f32 registers (PfWarps).  K is
@@ -1999,9 +2016,15 @@ __global__ void __launch_bounds__(Q6_THREADS, 2)
 // whose low nibbles are elements q * QR + r (stage row r) and high ones
 // 128 + q * QR + r (stage row QR + r).  q6_k part q: ql rows q * QR + r and
 // 64 + q * QR + r and qh row q * QR + r (QR = 64 / PARTS), elements q * QR
-// + r + 64 p (stage row p * QR + r).  Either way a part's sub-blocks are
-// whole, and stage row u's sub-block is the part's row u / 32 (q4_k) or u
-// / 16 (q6_k) of its scale fields, copied in that order.
+// + r + 64 p (stage row p * QR + r).  q3_k takes q6_k's order: qs row q *
+// QR + r holds elements q * QR + r + 64 p in bit-pair p, and their high
+// bits are bits (q * QR) / 32 + 2 p of hmask row (q * QR + r) % 32, so all
+// 32 hmask rows are copied every stage.  q8_0 part q: the superblock's
+// elements q * KST .. + KST - 1 in order (its blocks q * KST / 32 ..),
+// blocks past the field's last (K % 256 != 0) zero.  Every way a part's
+// sub-blocks are whole, and stage row u's sub-block is the part's row u /
+// 32 (q4_k, q8_0) or u / 16 (q6_k, q3_k) of its scale fields (q8_0: of
+// d), copied in that order.
 // ---------------------------------------------------------------------------
 
 constexpr int PF_WARPS = 8;
@@ -2051,13 +2074,21 @@ __host__ __device__ constexpr int pf_xpitch() {
 }
 // the groups of a field's rows of which each part takes its share: q4_k
 // scales and mins (sub-blocks 0-3 of the low nibbles, 4-7 of the high);
-// q6_k ql (rows 0-63, 64-127) and scales (sub-blocks 4p .. 4p + 3).  A
-// field of one row a superblock (d, dmin) is copied whole every stage.
+// q6_k ql (rows 0-63, 64-127) and the scales of q6_k and q3_k (sub-blocks
+// 4p .. 4p + 3).  A field of one row a superblock (d, dmin) and q3_k's
+// hmask are copied whole every stage.
 __host__ __device__ constexpr int pf_runs(int fmt, int g) {
-  return fmt == 0 ? (g == 1 || g == 2 ? 2 : 1) : (g == 0 ? 2 : g == 2 ? 4 : 1);
+  return fmt == 0   ? (g == 1 || g == 2 ? 2 : 1)
+         : fmt == 1 ? (g == 0 ? 2 : g == 2 ? 4 : 1)
+         : fmt == 2 ? (g == 2 ? 4 : 1)
+                    : 1;
+}
+__host__ __device__ constexpr bool pf_whole(int fmt, int g) {
+  return field_layout(fmt, g).rows == 1 || (fmt == 2 && g == 1);
 }
 __host__ __device__ constexpr int pf_rows(int fmt, int g, int parts) {
-  return field_layout(fmt, g).rows == 1 ? 1 : field_layout(fmt, g).rows / parts;
+  return pf_whole(fmt, g) ? field_layout(fmt, g).rows
+                          : field_layout(fmt, g).rows / parts;
 }
 __host__ __device__ constexpr int pf_off(int fmt, int g, int parts) {
   int off = 0;
@@ -2065,16 +2096,24 @@ __host__ __device__ constexpr int pf_off(int fmt, int g, int parts) {
     off += pf_rows(fmt, i, parts) * COLS * field_layout(fmt, i).esz;
   return off;
 }
-// sub-blocks a stage: 16 elements each (q6_k) or 32 (q4_k)
+// elements of a sub-block, the unit of a scale (q8_0: of a d): 16 (q6_k,
+// q3_k) or 32 (q4_k, q8_0); and the sub-blocks of a stage
+__host__ __device__ constexpr int pf_sub(int fmt) {
+  return fmt == 1 || fmt == 2 ? 16 : 32;
+}
 template <typename T, int FMT>
 __host__ __device__ constexpr int pf_nsub() {
-  return pf_kst<T>() / (FMT == 1 ? 16 : 32);
+  return pf_kst<T>() / pf_sub(FMT);
+}
+// the formats that have this form
+__host__ __device__ constexpr bool has_prefill_form(int fmt) {
+  return fmt == 0 || fmt == 1 || fmt == 2 || fmt == Q8_0;
 }
 // Shared memory: the ring of PF_STAGES slots (x's rows of the stage,
 // then the stage's fields), then two buffers (one converted while the
 // other is multiplied) of the bf16 weight tile (stage rows x 128 columns)
-// and its f32 scales (sc * d per sub-block and column; q4_k also -m *
-// dmin).
+// and its f32 scales (sc * d per sub-block and column, q8_0 d; q4_k also
+// -m * dmin).
 template <typename T, int FMT, int ROWS>
 __host__ __device__ constexpr int pf_slot() {
   return ROWS * pf_xpitch<T>() + pf_off(FMT, num_fields(FMT), pf_parts<T>());
@@ -2101,9 +2140,10 @@ __host__ __device__ constexpr size_t pf_smem() {
 
 // Start the copies of stage ``st`` (superblock sb = st / PARTS, part q =
 // st % PARTS) into ring slot ``slot``: the fields' rows of the part, V
-// bytes a copy, and x's 128 rows of the part's elements, 16 bytes a copy
-// where x's rows are 16-byte aligned (zero past M and K), else loaded and
-// stored here.
+// bytes a copy (q8_0 rows of blocks past the field's last stored as
+// zeros), and x's 128 rows of the part's elements, 16 bytes a copy where
+// x's rows are 16-byte aligned (zero past M and K), else loaded and stored
+// here.
 template <typename T, int FMT, int V, int ROWS>
 __device__ __forceinline__ void pf_issue(const T* __restrict__ x,
                                          const Fields& f, uint8_t* slot,
@@ -2125,12 +2165,24 @@ __device__ __forceinline__ void pf_issue(const T* __restrict__ x,
       const int c = tid + i * PF_THREADS;
       const int row = c / cpr, b = (c % cpr) * V;
       if (c < n_copy && n0 + b / ES < N) {
-        const int grow = R == 1 ? 0
-                                : (row / L) * (R / pf_runs(FMT, g)) + q * L +
-                                      row % L;
-        cp_async<V>(smem_u32(wdst + pf_off(FMT, g, PARTS) + row * COLS * ES +
-                             b),
-                    f.p[g] + ((size_t)(sb * R + grow) * N + n0) * ES + b);
+        const int grow = pf_whole(FMT, g)
+                             ? row
+                             : (row / L) * (R / pf_runs(FMT, g)) + q * L +
+                                   row % L;
+        uint8_t* dst = wdst + pf_off(FMT, g, PARTS) + row * COLS * ES + b;
+        // (q8_0: a block is R / 8 rows of the field, ceil(K / 32) blocks)
+        bool present = true;
+        if constexpr (FMT == Q8_0)
+          present = (sb * R + grow) / (R / 8) < (K + 31) / 32;
+        if (!present) {
+          if constexpr (V == 16)
+            *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+          else
+            *reinterpret_cast<uint32_t*>(dst) = 0u;
+        } else {
+          cp_async<V>(smem_u32(dst),
+                      f.p[g] + ((size_t)(sb * R + grow) * N + n0) * ES + b);
+        }
       }
     }
   }
@@ -2138,7 +2190,9 @@ __device__ __forceinline__ void pf_issue(const T* __restrict__ x,
   // piece cc) of rows tid / CPR + (PF_THREADS / CPR) i
   constexpr int XV = 16 / sizeof(T);
   constexpr int CPR = KST / XV;             // 16-byte pieces a row
-  constexpr int NRX = FMT == 0 ? 2 : 4;     // runs of x a part takes
+  // runs of x a part takes (q4_k: low and high nibbles; q6_k, q3_k: four
+  // bit-pairs; q8_0: its elements in order)
+  constexpr int NRX = FMT == 0 ? 2 : FMT == Q8_0 ? 1 : 4;
   constexpr int RL = KST / NRX;             // elements a run
   const int cc = tid % CPR, u = cc * XV;
   const int k = sb * QK + (u / RL) * (QK / NRX) + q * RL + u % RL;
@@ -2161,13 +2215,26 @@ __device__ __forceinline__ void pf_issue(const T* __restrict__ x,
   }
 }
 
-// Convert the fields of the stage in ``slot`` into buffer ``wb``: the codes
-// as the bf16 tile (stage row u, column n), byte permutes and one bf16x2 FMA
-// a pair, no int-to-float; per sub-block and column sc * d (and q4_k's -m *
-// dmin) in f32, each product rounded as the plain version rounds it.
+// q3_k: the four columns' codes of elements part * QR + r + 64 p (t[p],
+// one code a byte, in bits 0-2), from qs row part * QR + r (``q``, its
+// bit-pair p) and hmask row (part * QR + r) % 32 shifted right by (part *
+// QR) / 32 (``h``, its bit 2 p)
+__device__ __forceinline__ void q3k_pf_codes(uint32_t q, uint32_t h,
+                                             uint32_t (&t)[4]) {
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+    t[p] = ((q >> (2 * p)) & 0x03030303u) |
+           (((h >> (2 * p)) & 0x01010101u) << 2);
+}
+
+// Convert the fields of the stage in ``slot`` (part ``part`` of its
+// superblock) into buffer ``wb``: the codes as the bf16 tile (stage row u,
+// column n), byte permutes and one bf16x2 FMA a pair, no int-to-float; per
+// sub-block and column sc * d (q4_k also -m * dmin; q8_0 d) in f32, each
+// product rounded as the plain version rounds it.
 template <typename T, int FMT, int ROWS>
 __device__ __forceinline__ void pf_convert(const uint8_t* slot, uint8_t* wb,
-                                           int tid) {
+                                           int tid, int part) {
   static_assert(sizeof(T) == 2, "f32 x takes pf_convert_f32");
   constexpr int PARTS = pf_parts<T>();
   constexpr int KST = pf_kst<T>();
@@ -2192,53 +2259,84 @@ __device__ __forceinline__ void pf_convert(const uint8_t* slot, uint8_t* wb,
           make_uint2(code_pair(hi, 0x4140, Q4_BIAS),
                      code_pair(hi, 0x4342, Q4_BIAS));
     }
-  } else {
+  } else if constexpr (FMT == 1 || FMT == 2) {
     constexpr int QR = 64 / PARTS;
-    const uint8_t* qh = raw + pf_off(1, 1, PARTS);
+    // q6_k: qh; q3_k: hmask, its rows from (part * QR) % 32, its bits from
+    // (part * QR) / 32
+    const uint8_t* hf = raw + pf_off(FMT, 1, PARTS) +
+                        (FMT == 2 ? part * QR % 32 : 0) * COLS + 4 * l;
+    const int hb = FMT == 2 ? part * QR / 32 : 0;
 #pragma unroll
     for (int i = 0; i < QR / PF_WARPS; ++i) {
       const int r = w + PF_WARPS * i;
       uint32_t t[4];
-      q6k_codes(*reinterpret_cast<const uint32_t*>(raw + r * COLS + 4 * l),
-                *reinterpret_cast<const uint32_t*>(raw + (QR + r) * COLS +
-                                                   4 * l),
-                *reinterpret_cast<const uint32_t*>(qh + r * COLS + 4 * l), t);
+      const uint32_t h = *reinterpret_cast<const uint32_t*>(hf + r * COLS);
+      if constexpr (FMT == 1)
+        q6k_codes(*reinterpret_cast<const uint32_t*>(raw + r * COLS + 4 * l),
+                  *reinterpret_cast<const uint32_t*>(raw + (QR + r) * COLS +
+                                                     4 * l),
+                  h, t);
+      else
+        q3k_pf_codes(
+            *reinterpret_cast<const uint32_t*>(raw + r * COLS + 4 * l),
+            h >> hb, t);
+      constexpr uint32_t BIAS = FMT == 1 ? Q6_BIAS : Q3_BIAS;
 #pragma unroll
       for (int p = 0; p < 4; ++p)
         *reinterpret_cast<uint2*>(wb + (p * QR + r) * PF_WPITCH + 8 * l) =
-            make_uint2(code_pair(t[p], 0x4140, Q6_BIAS),
-                       code_pair(t[p], 0x4342, Q6_BIAS));
+            make_uint2(code_pair(t[p], 0x4140, BIAS),
+                       code_pair(t[p], 0x4342, BIAS));
+    }
+  } else {
+    // q8_0: an int8 code as 128 + its low 7 bits (code_pair) plus a bias
+    // of -128, or -256 where its sign bit is set: the bias pair's low
+    // bytes are the codes' sign bits under the exponent byte 0xC3
+#pragma unroll
+    for (int i = 0; i < KST / PF_WARPS; ++i) {
+      const int r = w + PF_WARPS * i;
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(raw + r * COLS +
+                                                            4 * l);
+      const uint32_t mag = v & 0x7F7F7F7Fu, sgn = v & 0x80808080u;
+      *reinterpret_cast<uint2*>(wb + r * PF_WPITCH + 8 * l) = make_uint2(
+          code_pair(mag, 0x4140, __byte_perm(sgn, 0xC3C3C3C3u, 0x4140)),
+          code_pair(mag, 0x4342, __byte_perm(sgn, 0xC3C3C3C3u, 0x4342)));
     }
   }
-  // scales: unit (sub-block, four columns); d is field 3 of both formats
+  // scales: unit (sub-block, four columns); d is field 3 of q4_k, q6_k and
+  // q3_k, field 1 of q8_0 (a row a block)
   for (int idx = tid; idx < NSUB * 32; idx += PF_THREADS) {
     const int s = idx >> 5, c4 = 4 * (idx & 31);
     float dd[4];
-    load4_half(as_half(raw + pf_off(FMT, 3, PARTS)) + c4, dd);
-    const uint32_t sc = *reinterpret_cast<const uint32_t*>(
-        raw + pf_off(FMT, FMT == 0 ? 1 : 2, PARTS) + s * COLS + c4);
     float4 e;
-    if constexpr (FMT == 0) {
-      e = make_float4(__fmul_rn(dd[0], (float)byte_of(sc, 0)),
-                      __fmul_rn(dd[1], (float)byte_of(sc, 1)),
-                      __fmul_rn(dd[2], (float)byte_of(sc, 2)),
-                      __fmul_rn(dd[3], (float)byte_of(sc, 3)));
-      float dm[4];
-      load4_half(as_half(raw + pf_off(0, 4, PARTS)) + c4, dm);
-      const uint32_t mn = *reinterpret_cast<const uint32_t*>(
-          raw + pf_off(0, 2, PARTS) + s * COLS + c4);
-      float* nm = scl + (NSUB + s) * L::SROW;
-      *reinterpret_cast<float2*>(nm + L::spos(c4)) =
-          make_float2(-__fmul_rn(dm[0], (float)byte_of(mn, 0)),
-                      -__fmul_rn(dm[1], (float)byte_of(mn, 1)));
-      *reinterpret_cast<float2*>(nm + L::spos(c4 + 2)) =
-          make_float2(-__fmul_rn(dm[2], (float)byte_of(mn, 2)),
-                      -__fmul_rn(dm[3], (float)byte_of(mn, 3)));
+    if constexpr (FMT == Q8_0) {
+      load4_half(as_half(raw + pf_off(FMT, 1, PARTS)) + s * COLS + c4, dd);
+      e = make_float4(dd[0], dd[1], dd[2], dd[3]);
     } else {
-      e = make_float4(__fmul_rn(dd[0], (float)(int8_t)byte_of(sc, 0)),
-                      __fmul_rn(dd[1], (float)(int8_t)byte_of(sc, 1)),
-                      __fmul_rn(dd[2], (float)(int8_t)byte_of(sc, 2)),
-                      __fmul_rn(dd[3], (float)(int8_t)byte_of(sc, 3)));
+      load4_half(as_half(raw + pf_off(FMT, 3, PARTS)) + c4, dd);
+      const uint32_t sc = *reinterpret_cast<const uint32_t*>(
+          raw + pf_off(FMT, FMT == 0 ? 1 : 2, PARTS) + s * COLS + c4);
+      if constexpr (FMT == 0) {
+        e = make_float4(__fmul_rn(dd[0], (float)byte_of(sc, 0)),
+                        __fmul_rn(dd[1], (float)byte_of(sc, 1)),
+                        __fmul_rn(dd[2], (float)byte_of(sc, 2)),
+                        __fmul_rn(dd[3], (float)byte_of(sc, 3)));
+        float dm[4];
+        load4_half(as_half(raw + pf_off(0, 4, PARTS)) + c4, dm);
+        const uint32_t mn = *reinterpret_cast<const uint32_t*>(
+            raw + pf_off(0, 2, PARTS) + s * COLS + c4);
+        float* nm = scl + (NSUB + s) * L::SROW;
+        *reinterpret_cast<float2*>(nm + L::spos(c4)) =
+            make_float2(-__fmul_rn(dm[0], (float)byte_of(mn, 0)),
+                        -__fmul_rn(dm[1], (float)byte_of(mn, 1)));
+        *reinterpret_cast<float2*>(nm + L::spos(c4 + 2)) =
+            make_float2(-__fmul_rn(dm[2], (float)byte_of(mn, 2)),
+                        -__fmul_rn(dm[3], (float)byte_of(mn, 3)));
+      } else {
+        e = make_float4(__fmul_rn(dd[0], (float)(int8_t)byte_of(sc, 0)),
+                        __fmul_rn(dd[1], (float)(int8_t)byte_of(sc, 1)),
+                        __fmul_rn(dd[2], (float)(int8_t)byte_of(sc, 2)),
+                        __fmul_rn(dd[3], (float)(int8_t)byte_of(sc, 3)));
+      }
     }
     *reinterpret_cast<float2*>(scl + s * L::SROW + L::spos(c4)) =
         make_float2(e.x, e.y);
@@ -2270,11 +2368,11 @@ __device__ __forceinline__ void pf_afrag(const uint8_t* xs, int row0, int k0,
   }
 }
 
-// The products of one stage for warp (wm, wn): per sub-block the exact
-// products of codes and x summed by the tensor cores (f32, zeroed for each
-// sub-block and row tile), then scaled into the accumulators in f32; for
-// q4_k also the sub-block's sums of x's rows, an mma against a B of ones
-// (bf16 1.0: exact), times -m * dmin.
+// The products of one stage for warp (wm, wn): per sub-block (q8_0: per
+// block) the exact products of codes and x summed by the tensor cores (f32,
+// zeroed for each sub-block and row tile), then scaled into the
+// accumulators in f32; for q4_k also the sub-block's sums of x's rows, an
+// mma against a B of ones (bf16 1.0: exact), times -m * dmin.
 template <typename T, int FMT, int ROWS>
 __device__ __forceinline__ void pf_stage_mma(
     const uint8_t* xs, const uint8_t* wb, int wm, int wn, int l,
@@ -2284,7 +2382,7 @@ __device__ __forceinline__ void pf_stage_mma(
   static_assert(sizeof(T) == 2, "f32 x takes pf_stage_mma_f32");
   constexpr int KST = pf_kst<T>();
   constexpr int NSUB = pf_nsub<T, FMT>();
-  constexpr int KK = FMT == 0 ? 2 : 1;      // k16 steps a sub-block
+  constexpr int KK = pf_sub(FMT) / 16;      // k16 steps a sub-block
   constexpr uint32_t ONES = 0x3F803F80u;    // bf16 (1.0, 1.0)
   const float* scl = reinterpret_cast<const float*>(wb + KST * PF_WPITCH);
   const int t = l & 3;
@@ -2363,15 +2461,18 @@ __device__ __forceinline__ void pf_stage_mma(
 }
 
 // f32 x (the parity and test path): the plain version's function to f32
-// rounding.  Each weight of the stage is dequantized as qmatmul_plain does
-// it (q4_k: q * (sc * d) - m * dmin, q6_k: (q - 32) * (sc * d), each
+// rounding.  Each weight of the stage (part ``part`` of its superblock) is
+// dequantized as qmatmul_plain does it (q4_k: q * (sc * d) - m * dmin,
+// q6_k: (q - 32) * (sc * d), q3_k: (q - 4) * (sc * d), q8_0: q * d, each
 // product and difference rounded to f32) and split, like x, into three
 // bf16 terms (split3); ``wb`` holds the terms' tiles one after the other.
 template <int FMT, int ROWS>
 __device__ __forceinline__ void pf_convert_f32(const uint8_t* slot,
-                                               uint8_t* wb, int tid) {
+                                               uint8_t* wb, int tid,
+                                               int part) {
   constexpr int PARTS = pf_parts<float>();
-  constexpr int TILE = pf_kst<float>() * PF_WPITCH;
+  constexpr int KST = pf_kst<float>();
+  constexpr int TILE = KST * PF_WPITCH;
   const uint8_t* raw = slot + ROWS * pf_xpitch<float>();
   const int w = tid >> 5, l = tid & 31, c4 = 4 * l;
   // a thread's four columns of stage row r, as three bf16 terms
@@ -2384,13 +2485,34 @@ __device__ __forceinline__ void pf_convert_f32(const uint8_t* slot,
     *reinterpret_cast<uint2*>(p + TILE) = make_uint2(m0, m1);
     *reinterpret_cast<uint2*>(p + 2 * TILE) = make_uint2(l0, l1);
   };
-  float dd[4];
-  load4_half(as_half(raw + pf_off(FMT, 3, PARTS)) + c4, dd);
-  if constexpr (FMT == 0) {
+  if constexpr (FMT == Q8_0) {
+    // stage row r lies in the part's block r / 32 (row r / 32 of its d);
+    // a code as 2^23 + (q + 128) in one XOR and one byte permute, less
+    // 2^23 + 128 exactly
+    float dd[KST / 32][4];
+#pragma unroll
+    for (int b = 0; b < KST / 32; ++b)
+      load4_half(as_half(raw + pf_off(Q8_0, 1, PARTS)) + b * COLS + c4,
+                 dd[b]);
+#pragma unroll
+    for (int i = 0; i < KST / PF_WARPS; ++i) {
+      const int r = w + PF_WARPS * i;
+      const uint32_t u =
+          *reinterpret_cast<const uint32_t*>(raw + r * COLS + c4) ^
+          0x80808080u;
+      float wv[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        wv[c] = __fmul_rn(code_f32(u, c) - (kMagic + 128.f),
+                          dd[PF_WARPS * i / 32][c]);
+      put(r, wv);
+    }
+  } else if constexpr (FMT == 0) {
     // stage rows r (low nibbles) and QR + r (high ones) lie in the part's
     // sub-blocks of row 0 and row 1 of its scale fields
     constexpr int QR = 128 / PARTS;
-    float dm[4], e[2][4], mn[2][4];
+    float dd[4], dm[4], e[2][4], mn[2][4];
+    load4_half(as_half(raw + pf_off(0, 3, PARTS)) + c4, dd);
     load4_half(as_half(raw + pf_off(0, 4, PARTS)) + c4, dm);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -2421,15 +2543,18 @@ __device__ __forceinline__ void pf_convert_f32(const uint8_t* slot,
       }
     }
   } else {
-    // stage row p * QR + r lies in the sub-block of row p of the part's
-    // scales
+    // q6_k and q3_k: stage row p * QR + r lies in the sub-block of row p
+    // of the part's scales
     constexpr int QR = 64 / PARTS;
-    const uint8_t* qh = raw + pf_off(1, 1, PARTS);
-    float e[4][4];
+    const uint8_t* hf = raw + pf_off(FMT, 1, PARTS) +
+                        (FMT == 2 ? part * QR % 32 : 0) * COLS + c4;
+    const int hb = FMT == 2 ? part * QR / 32 : 0;
+    float dd[4], e[4][4];
+    load4_half(as_half(raw + pf_off(FMT, 3, PARTS)) + c4, dd);
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
       const uint32_t sc = *reinterpret_cast<const uint32_t*>(
-          raw + pf_off(1, 2, PARTS) + p * COLS + c4);
+          raw + pf_off(FMT, 2, PARTS) + p * COLS + c4);
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         e[p][c] = __fmul_rn(dd[c], (float)(int8_t)byte_of(sc, c));
@@ -2438,16 +2563,23 @@ __device__ __forceinline__ void pf_convert_f32(const uint8_t* slot,
     for (int i = 0; i < QR / PF_WARPS; ++i) {
       const int r = w + PF_WARPS * i;
       uint32_t t[4];
-      q6k_codes(*reinterpret_cast<const uint32_t*>(raw + r * COLS + c4),
-                *reinterpret_cast<const uint32_t*>(raw + (QR + r) * COLS +
-                                                   c4),
-                *reinterpret_cast<const uint32_t*>(qh + r * COLS + c4), t);
+      const uint32_t h = *reinterpret_cast<const uint32_t*>(hf + r * COLS);
+      if constexpr (FMT == 1)
+        q6k_codes(*reinterpret_cast<const uint32_t*>(raw + r * COLS + c4),
+                  *reinterpret_cast<const uint32_t*>(raw + (QR + r) * COLS +
+                                                     c4),
+                  h, t);
+      else
+        q3k_pf_codes(*reinterpret_cast<const uint32_t*>(raw + r * COLS + c4),
+                     h >> hb, t);
+      // the code's offset: q6_k 32, q3_k 4
+      constexpr float OFF = kMagic + (FMT == 1 ? 32.f : 4.f);
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
         float wv[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          wv[c] = __fmul_rn(code_f32(t[p], c) - (kMagic + 32.f), e[p][c]);
+          wv[c] = __fmul_rn(code_f32(t[p], c) - OFF, e[p][c]);
         put(p * QR + r, wv);
       }
     }
@@ -2556,7 +2688,8 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
     if (nst > 0) {
       cp_async_wait<NST - 2>();
       __syncthreads();
-      pf_convert<T, FMT, ROWS>(ring, wbufs, tid);   // stage 0, buffer 0
+      // stage 0 (part st0 % PARTS), buffer 0
+      pf_convert<T, FMT, ROWS>(ring, wbufs, tid, st0 % PARTS);
     }
     for (int s = 0; s < nst; ++s) {
       cp_async_wait<NST - 3>();   // this thread's copies of stage s + 1
@@ -2570,7 +2703,8 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
       cp_async_commit();
       if (s + 1 < nst)
         pf_convert<T, FMT, ROWS>(ring + next * SLOT,
-                                 wbufs + ((s + 1) & 1) * WBUF, tid);
+                                 wbufs + ((s + 1) & 1) * WBUF, tid,
+                                 (st0 + s + 1) % PARTS);
       pf_stage_mma<T, FMT, ROWS>(ring + slot * SLOT, wbufs + (s & 1) * WBUF,
                                  wm, wn, l, acc);
       slot = next;
@@ -2588,7 +2722,8 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
                                   st0 + s + NST - 1, m0, M, K, N, n0, tid,
                                   vec);
       cp_async_commit();
-      pf_convert_f32<FMT, ROWS>(ring + slot * SLOT, wbufs, tid);
+      pf_convert_f32<FMT, ROWS>(ring + slot * SLOT, wbufs, tid,
+                                (st0 + s) % PARTS);
       __syncthreads();
       pf_stage_mma_f32<ROWS>(ring + slot * SLOT, wbufs, wm, wn, l, acc);
       slot = next;
@@ -2768,7 +2903,8 @@ __host__ __device__ constexpr int pf_rows_for(int M, int N) {
              : PF_ROWS;
 }
 
-// q4_k's or q6_k's prefill form: ROWS x 128 output tiles, each a cluster
+// The prefill form (q4_k, q6_k, q3_k, q8_0): ROWS x 128 output tiles, each
+// a cluster
 // of 1..PF_MAX_KSPLIT blocks along z that split its half superblocks
 template <typename T, int FMT, int V, int ROWS>
 cudaError_t launch_prefill_rows(const void* x, const Fields& f, void* out,
@@ -2900,10 +3036,17 @@ void launch_rows(const void* x, const Fields& f, void* partial, void* out,
 #endif
 
 // whether a q4_k or q6_k (K, N) weight at M rows takes its decode form
-// (qmatmul_q4k_decode_kernel, qmatmul_q6k_decode_kernel); else one such
-// weight takes its prefill form (qmatmul_prefill_kernel)
+// (qmatmul_q4k_decode_kernel, qmatmul_q6k_decode_kernel)
 constexpr bool decode_form(int fmt, int E, int M, int K) {
   return (fmt == 0 || fmt == 1) && E == 1 && M <= DROWS && K <= DECODE_MAX_K;
+}
+// whether a (K, N) weight takes the prefill form (qmatmul_prefill_kernel):
+// q4_k and q6_k where they do not take their decode form, q3_k and q8_0 at
+// M > 4 (at M <= 4 they keep qmatmul_kernel)
+constexpr bool prefill_form(int fmt, int E, int M, int K) {
+  return E == 1 && (fmt == 0 || fmt == 1   ? !decode_form(fmt, E, M, K)
+                    : fmt == 2 || fmt == Q8_0 ? M > DROWS
+                                              : false);
 }
 
 template <typename T>
@@ -2917,11 +3060,11 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
       return (int)cudaGetLastError();
     }
   }
-  if constexpr (QMATMUL_FMT == 0 || QMATMUL_FMT == 1) {
-    // one q4_k or q6_k weight: the decode form, else the prefill form
-    constexpr int F = QMATMUL_FMT;
-    cudaError_t err;
+  constexpr int F = QMATMUL_FMT;
+  if constexpr (F == 0 || F == 1) {
+    // one q4_k or q6_k weight at M <= 4: the decode form
     if (decode_form(F, E, M, K)) {
+      cudaError_t err;
       if constexpr (F == 0)
         err = N % 16 == 0
                   ? launch_q4k_decode<T, 16>(x, f, out, M, K, N, splits, st)
@@ -2930,15 +3073,25 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
         err = N % 16 == 0
                   ? launch_q6k_decode<T, 16>(x, f, out, M, K, N, splits, st)
                   : launch_q6k_decode<T, 4>(x, f, out, M, K, N, splits, st);
-    } else {
-      err = N % 16 == 0
-                ? launch_prefill<T, F, 16>(x, f, out, M, K, N, splits, st)
-                : launch_prefill<T, F, 4>(x, f, out, M, K, N, splits, st);
+      if (err != cudaSuccess) return (int)err;
+      return (int)cudaGetLastError();
     }
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+  }
+  if constexpr (has_prefill_form(F)) {
+    if (prefill_form(F, E, M, K)) {
+      const cudaError_t err =
+          N % 16 == 0
+              ? launch_prefill<T, F, 16>(x, f, out, M, K, N, splits, st)
+              : launch_prefill<T, F, 4>(x, f, out, M, K, N, splits, st);
+      if (err != cudaSuccess) return (int)err;
+      return (int)cudaGetLastError();
+    }
+  }
+  if constexpr (F == 0 || F == 1) {
+    return (int)cudaErrorInvalidValue;   // (every call took a form above)
   } else {
-    launch_rows<T, QMATMUL_FMT>(x, f, partial, out, E, M, K, N, splits, st);
+    // q3_k and q8_0 at M <= 4, q5_k and q2_k
+    launch_rows<T, F>(x, f, partial, out, E, M, K, N, splits, st);
     return (int)cudaGetLastError();
   }
 }
@@ -2954,9 +3107,10 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
 // q4_k or q6_k weight at M <= 4 (K <= 65536) to its decode form
 // (qmatmul_q4k_decode_kernel, qmatmul_q6k_decode_kernel), its superblocks
 // split over a cluster of ``splits`` blocks (q4_k 1..8, q6_k 1..16,
-// ``partial`` unused), and at any other M or K to its prefill form
-// (qmatmul_prefill_kernel, a cluster of 1..8 blocks a tile, ``partial``
-// unused); every other weight to qmatmul_kernel.
+// ``partial`` unused), and at any other M or K, like one q3_k or q8_0
+// weight at M > 4, to the prefill form (qmatmul_prefill_kernel, a cluster
+// of 1..8 blocks a tile, ``partial`` unused); every other weight to
+// qmatmul_kernel.
 // N must be a multiple of 4; there ``partial`` holds splits x M x N floats
 // when splits > 1 (E = 1 only; splits count 256-row tiles).  Returns
 // cudaGetLastError() after the launches.
@@ -2982,8 +3136,8 @@ extern "C" int qmatmul(int fmt, int dtype, const void* x,
 // How many times this library launched qmatmul_experts_kernel (0 for the
 // formats that have none), its decode form (qmatmul_q4k_decode_kernel or
 // qmatmul_q6k_decode_kernel; q4_k and q6_k only), its prefill form
-// (qmatmul_prefill_kernel; q4_k and q6_k only) and splitk_reduce: the card
-// tests read them to see which kernels ran.
+// (qmatmul_prefill_kernel; q4_k, q6_k, q3_k and q8_0 only) and
+// splitk_reduce: the card tests read them to see which kernels ran.
 extern "C" long long qmatmul_experts_kernel_launches(void) {
   return g_experts_launches;
 }

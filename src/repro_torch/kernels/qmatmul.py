@@ -38,19 +38,21 @@ superblocks split over the blocks of a thread-block cluster
 (:func:`decode_ksplit`, :func:`decode_ksplit_q6k`) whose sums are added in
 rank order in the same launch: no partial buffer and no second kernel.
 
-One q4_k or q6_k weight at M > 4 rows (every prefill chunk: 4 x 128 = 512
-rows) takes ``qmatmul_prefill_kernel`` (:func:`prefill_form`), on tensor
-cores: a block owns 128 rows of x (64 where such tiles are few,
-:func:`prefill_rows`) and 128 columns, converts each stage's codes once
-into an exact bf16 tile in shared memory (byte permutes, no
-int-to-float), multiplies it with bf16 ``mma.sync.m16n8k16`` against bf16
-x, and applies each sub-block's scale (and q4_k's min term, from x's sums
-per sub-block) in f32 to the sub-block's products.  f32 x takes the plain
-version's dequantized weights and x as three bf16 terms each (six mmas a
-product), so that it differs from the plain version in summation order
-only.  Where the tiles are fewer than the SMs, the half superblocks split
-over a cluster (:func:`prefill_ksplit`) merged in rank order, in the same
-launch.  Every other 2-D call keeps
+One q4_k, q6_k, q3_k or q8_0 weight at M > 4 rows (every prefill chunk:
+4 x 128 = 512 rows) takes ``qmatmul_prefill_kernel``
+(:func:`prefill_form`), on tensor cores: a block owns 128 rows of x (64
+where such tiles are few, :func:`prefill_rows`) and 128 columns, converts
+each stage's codes once into an exact bf16 tile in shared memory (byte
+permutes, no int-to-float; q8_0's 8-bit codes as their low 7 bits and a
+bias chosen by the sign bit), multiplies it with bf16 ``mma.sync.m16n8k16``
+against bf16 x, and applies each sub-block's scale (q8_0: each block's d;
+q4_k also its min term, from x's sums per sub-block) in f32 to the
+sub-block's products.  f32 x takes the plain version's dequantized weights
+and x as three bf16 terms each (six mmas a product), so that it differs
+from the plain version in summation order only.  Where the tiles are fewer
+than the SMs, the half superblocks split over a cluster
+(:func:`prefill_ksplit`) merged in rank order, in the same launch.  Every
+other 2-D call (q5_k and q2_k, and q3_k and q8_0 at M <= 4) keeps
 ``qmatmul_kernel``, with a split-K pass (``splitk_reduce``) where its
 column tiles are few.
 """
@@ -164,14 +166,21 @@ def decode_ksplit_q6k(n: int, k: int, sms: int) -> int:
 
 # the formats with a decode form, and how each splits its superblocks
 _DECODE_KSPLIT = {"q4_k": decode_ksplit, "q6_k": decode_ksplit_q6k}
+# the formats with a prefill form (``qmatmul_prefill_kernel``)
+PREFILL_FORMATS = ("q4_k", "q6_k", "q3_k", "q8_0")
 
 
 def prefill_form(fmt: str, e: int, m: int, k: int) -> bool:
-    """Whether a call takes its format's prefill form
-    (``qmatmul_prefill_kernel``): one q4_k or q6_k weight (``e == 1``) that
-    does not take its decode form, i.e. at M > 4 rows (or K > 65536)."""
-    return (fmt in _DECODE_KSPLIT and e == 1
-            and not decode_form(fmt, e, m, k))
+    """Whether a call takes the prefill form (``qmatmul_prefill_kernel``):
+    one weight (``e == 1``) at M > 4 rows of q4_k, q6_k, q3_k or q8_0, and
+    of q4_k or q6_k also at K > 65536 (any call that does not take their
+    decode form); q3_k and q8_0 at M <= 4 keep ``qmatmul_kernel``
+    (``prefill_form`` in ``csrc/qmatmul.cu``)."""
+    if fmt not in PREFILL_FORMATS or e != 1:
+        return False
+    if fmt in _DECODE_KSPLIT:
+        return not decode_form(fmt, e, m, k)
+    return m > _DECODE_ROWS
 
 
 def prefill_rows(n: int, m: int) -> int:
@@ -189,16 +198,18 @@ def prefill_ksplit(n: int, m: int, k: int, sms: int) -> int:
     8 (the portable cluster size) and the halves, with which the output
     tiles' (:func:`prefill_rows` x 128) clusters are all resident at once,
     a block an SM (its shared memory takes one), on GPCs of 16 SMs (an
-    H100's hold 16-18), and fill at most four fifths of the SMs; else 1.
-    On an H100 SXM it was the fastest split at every shape scanned
-    (``PERF.md``, PR 20): clusters of 8 filling 128 SMs ran 1.8x slower
-    than clusters of 6 filling 96."""
+    H100's hold 16-18), and, for clusters of more than 2 blocks, fill at
+    most four fifths of the SMs; else 1.  On an H100 SXM it was the
+    fastest split at every shape scanned (``PERF.md``): clusters of 8
+    filling 128 SMs ran 1.8x slower than clusters of 6 filling 96, while
+    clusters of 2 filling 128 SMs (7168->2048) ran 1.9x faster than one
+    block a tile filling 64."""
     halves = 2 * -(-k // _TILE)
     tiles = -(-n // _COLS) * -(-m // prefill_rows(n, m))
     gpcs = max(1, sms // _GPC_SMS)
     return next((ks for ks in range(min(_MAX_KSPLIT, halves), 1, -1)
                  if tiles <= gpcs * (_GPC_SMS // ks)
-                 and tiles * ks <= sms * 4 // 5), 1)
+                 and (ks == 2 or tiles * ks <= sms * 4 // 5)), 1)
 
 
 def _field_ptrs(qt: QTensor, device: torch.device) -> ctypes.Array:
@@ -320,7 +331,8 @@ def library_launches(fmt: str, kernel: str = "experts") -> int:
     """Launches made by ``fmt``'s library of ``qmatmul_experts_kernel``
     (``kernel="experts"``; 0 for q5_k, whose expert form is
     ``qmatmul_kernel``), its decode form (``"decode"``, q4_k and q6_k
-    only), its prefill form (``"prefill"``, q4_k and q6_k only) or
+    only), its prefill form (``"prefill"``, the formats of
+    :data:`PREFILL_FORMATS` only) or
     ``splitk_reduce`` (``"splitk"``): which kernels a call ran, for the
     card tests."""
     name = {"experts": "qmatmul_experts_kernel_launches",

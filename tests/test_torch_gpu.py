@@ -248,20 +248,21 @@ def test_qmatmul_q6k_decode_form(cuda, m, k, n, dtype):
                            torch.zeros_like(y[m - 2]).view(bits))
 
 
-@pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q3_k", "q8_0"])
 @pytest.mark.parametrize("m", [5, 16, 77, 512, 600])
 @pytest.mark.parametrize("k,n", [(700, 260), (1536, 384), (8960, 1536)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_qmatmul_prefill_form(cuda, fmt, m, k, n, dtype):
-    """q4_k's and q6_k's 2-D form at M > 4 runs qmatmul_prefill_kernel on
-    tensor cores: one launch of it a call, no qmatmul_kernel and no
-    splitk_reduce, two calls bitwise equal, within B1's limits of the
-    plain version (f32 x as three bf16 terms: 1e-5 of max|y|; bf16:
-    B1_TOL_BF16); rows past a
-    128-row tile (M = 5, 77, 600), ragged K (700: x's bf16 rows are not
-    16-byte aligned), N % 16 != 0 (260: 4-byte copies), a K split over a
-    cluster (1536 -> 384, 8960 -> 1536), and zero rows give +0."""
+    """The 2-D form at M > 4 of q4_k, q6_k, q3_k and q8_0 runs
+    qmatmul_prefill_kernel on tensor cores: one launch of it a call, no
+    qmatmul_kernel and no splitk_reduce, two calls bitwise equal, within
+    B1's limits of the plain version (f32 x as three bf16 terms: 1e-5 of
+    max|y|; bf16: B1_TOL_BF16); rows past a 128-row tile (M = 5, 77, 600),
+    ragged K (700: x's bf16 rows are not 16-byte aligned; q8_0's 22 blocks
+    leave its last superblock 6 of 8), N % 16 != 0 (260: 4-byte copies), a
+    K split over a cluster (1536 -> 384, 8960 -> 1536), and zero rows give
+    +0."""
     rng = np.random.default_rng(m * 19 + k + n + len(fmt))
     qt = quantize(torch.from_numpy(_np(rng, (k, n))).to(cuda), fmt)
     x = torch.from_numpy(_np(rng, (m, k))).to(cuda)
@@ -285,6 +286,35 @@ def test_qmatmul_prefill_form(cuda, fmt, m, k, n, dtype):
     tol = TOL if dtype == torch.float32 else B1_TOL_BF16
     assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
     assert not y[zero].view(bits).any()                  # +0, not -0
+
+
+@pytest.mark.parametrize("fmt", ["q3_k", "q8_0"])
+@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("k,n", [(7168, 1536), (256, 260)])
+def test_qmatmul_q3k_q8_0_decode_rows_keep_qmatmul_kernel(cuda, fmt, m, k,
+                                                          n):
+    """q3_k and q8_0 have no decode form: at M <= 4 one weight still runs
+    qmatmul_kernel, with splitk_reduce after it where the column tiles are
+    few (7168 -> 1536) and none at one superblock (256 -> 260), and no
+    prefill form; within B1's limits of the plain version (bf16 x, 2^-8 of
+    max|y|)."""
+    rng = np.random.default_rng(m * 23 + k + len(fmt))
+    qt = quantize(torch.from_numpy(_np(rng, (k, n))).to(cuda), fmt)
+    x = torch.from_numpy(_np(rng, (m, k))).to(cuda).to(torch.bfloat16)
+    kern = qmatmul.KERNELS[fmt]
+    before = kern.launches
+    counts = {w: qmatmul.library_launches(fmt, w)
+              for w in ("prefill", "decode", "splitk", "experts")}
+    y = kern(x, qt)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    splits = qmatmul._splits(cuda, n, 1, -(-k // 256))
+    assert (splits > 1) == (k == 7168)
+    assert {w: qmatmul.library_launches(fmt, w) - c
+            for w, c in counts.items()} == {
+        "prefill": 0, "decode": 0, "splitk": int(splits > 1), "experts": 0}
+    ref = qmatmul.qmatmul_plain(x, qt).float()
+    assert (y.float() - ref).abs().max() <= 2 ** -8 * ref.abs().max()
 
 
 def test_qmatmul_kernel_raises_on_what_it_does_not_take(cuda):

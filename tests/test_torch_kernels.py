@@ -256,26 +256,37 @@ def _fma32(a, b, c):
 
 
 def _prefill_tensor_core(x, fields, fmt, ks):
-    """q4_k's and q6_k's prefill form written out
+    """The prefill form of q4_k, q6_k, q3_k and q8_0 written out
     (``qmatmul_prefill_kernel``).  Rows padded to 128-row tiles (zeros).
-    A superblock is staged in parts (2 for bf16 x, 4 for f32), each a
-    whole number of sub-blocks taken in the stage's order: q4_k part q
-    sub-blocks 4 j + q * 4 / parts + i (j = 0, 1: low, high nibbles), q6_k
-    4 p + q * 4 / parts + i (p = 0..3).  bf16 x: per sub-block the tensor
-    cores sum 16 exact products of x and the codes (q4_k q, q6_k q - 32) a
-    k16 step (q4_k two) into a sum zeroed for the sub-block; the sum times
-    sc * d (f32) is added into the accumulator by one FMA, and for q4_k
-    -m * dmin times the sum of x over the sub-block (the tensor cores' f32
-    sum against a B of ones; in order here) by another.  f32 x: per k16
-    step of the stage, the six products of x's and the plain version's
-    dequantized weights' three bf16 terms whose sum carries f32 precision,
-    smallest first, summed into a zeroed f32 sum that is added into the
-    accumulator.  The half superblocks split over ``ks`` blocks whose
-    accumulators are added in rank order.  x (M, K), zeros past K; a zero
-    row gives +0."""
+    A superblock (q8_0: 8 blocks of 32, those past the field's last zero)
+    is staged in parts (2 for bf16 x, 4 for f32), each a whole number of
+    sub-blocks taken in the stage's order: q4_k part q sub-blocks 4 j + q *
+    4 / parts + i (j = 0, 1: low, high nibbles), q6_k and q3_k 4 p + q * 4
+    / parts + i (p = 0..3), q8_0 blocks q * 8 / parts + i.  bf16 x: per
+    sub-block the tensor cores sum 16 exact products of x and the codes
+    (q4_k q, q6_k q - 32, q3_k q - 4 with q a bit-pair of qs and a bit of
+    hmask, q8_0 its int8 q) a k16 step (q4_k, q8_0 two) into a sum zeroed
+    for the sub-block; the sum times sc * d (q8_0 d; f32) is added into the
+    accumulator by one FMA, and for q4_k -m * dmin times the sum of x over
+    the sub-block (the tensor cores' f32 sum against a B of ones; in order
+    here) by another.  f32 x: per k16 step of the stage, the six products
+    of x's and the plain version's dequantized weights' three bf16 terms
+    whose sum carries f32 precision, smallest first, summed into a zeroed
+    f32 sum that is added into the accumulator.  The half superblocks split
+    over ``ks`` blocks whose accumulators are added in rank order.  x (M,
+    K), zeros past K; a zero row gives +0."""
     names = qmatmul.FIELDS[fmt]
     f = {n: fields[n] for n in names}
-    s_blocks, n = f["d"].shape
+    n = f["d"].shape[-1]
+    if fmt == "q8_0":
+        # blocks past the field's last (K % 256 != 0) staged as zeros
+        nblk = f["d"].shape[0]
+        s_blocks = -(-nblk // 8)
+        f = {a: torch.cat([b, torch.zeros((s_blocks * 8 - nblk, *b.shape[1:]),
+                                          dtype=b.dtype)])
+             for a, b in f.items()}
+    else:
+        s_blocks = f["d"].shape[0]
     m, k = x.shape
     mp = -(-m // 128) * 128
     xp = torch.zeros(mp, s_blocks * 256)
@@ -287,13 +298,24 @@ def _prefill_tensor_core(x, fields, fmt, ks):
         scale = f["d"].float()[:, None] * f["scales"].float()   # (S, 8, N)
         nmin = -(f["dmin"].float()[:, None] * f["mins"].float())
         sub_len, runs = 32, 2
-    else:
+    elif fmt == "q6_k":
         ql, qh = f["ql"].to(torch.int32), f["qh"].to(torch.int32)
         lo = (ql[:, e % 128] >> (4 * (e // 128))[None, :, None]) & 15
         hi = (qh[:, e % 64] >> (2 * (e // 64))[None, :, None]) & 3
         codes = (lo | (hi << 4)) - 32
         scale = f["d"].float()[:, None] * f["scales"].float()   # (S, 16, N)
         sub_len, runs = 16, 4
+    elif fmt == "q3_k":
+        qs, hm = f["qs"].to(torch.int32), f["hmask"].to(torch.int32)
+        lo = (qs[:, e % 64] >> (2 * (e // 64))[None, :, None]) & 3
+        hi = (hm[:, e % 32] >> (e // 32)[None, :, None]) & 1
+        codes = (lo | (hi << 2)) - 4
+        scale = f["d"].float()[:, None] * f["scales"].float()   # (S, 16, N)
+        sub_len, runs = 16, 4
+    else:
+        codes = f["qs"].to(torch.int32).reshape(s_blocks, 256, n)
+        scale = f["d"].float().reshape(s_blocks, 8, n)          # (S, 8, N)
+        sub_len, runs = 32, 1
     codes = codes.double()                                  # (S, 256, N)
     if x.dtype == torch.float32:
         # the plain version's weights (each product and difference rounded
@@ -303,10 +325,11 @@ def _prefill_tensor_core(x, fields, fmt, ks):
         xt = [t.double() for t in bf16_terms(xp, 3)]
         pairs = [(2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)]
     parts = 2 if x.dtype == torch.bfloat16 else 4
-    per = 4 // parts                # sub-blocks of a run a part takes
+    run_len = 256 // sub_len // runs    # sub-blocks a run
+    per = run_len // parts              # sub-blocks of a run a part takes
     # half superblock h: superblock h // 2, parts q with q // (parts / 2)
     # == h % 2, each its sub-blocks run by run
-    halves = [[(h // 2, r * 4 + q * per + i)
+    halves = [[(h // 2, r * run_len + q * per + i)
                for q in range(parts) if q // (parts // 2) == h % 2
                for r in range(runs) for i in range(per)]
               for h in range(2 * s_blocks)]
@@ -340,23 +363,24 @@ def _prefill_tensor_core(x, fields, fmt, ks):
     return out[:m].to(x.dtype)
 
 
-@pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q3_k", "q8_0"])
 @pytest.mark.parametrize("m,k,n", [(5, 700, 256), (77, 1536, 384),
                                    (128, 700, 384), (300, 1536, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_q4k_q6k_prefill_tensor_core_rule_matches_pallas(fmt, m, k, n,
                                                          dtype):
-    """The arithmetic of the prefill form (bf16 x: exact bf16 codes in the
-    fragments' K order, design (a): each sub-block's tensor-core sum
-    scaled in f32 by sc * d, q4_k's min term from x's sums per sub-block;
-    f32 x: the plain version's weights and x as three bf16 terms each, six
-    products a k16 step; row tiles of 128 with padded rows, ragged K =
-    700, the half superblocks split over 1, 2 and 3 blocks merged in rank
-    order) against the reference's fused Pallas kernel (interpret mode,
-    which takes N % 128 == 0; the card test has N = 260): f32 within 1e-5
-    of max|y|, bf16 within one bf16 step (2^-8) of max|y|; zero rows give
-    +0."""
+    """The arithmetic of the prefill form, for each of its formats (bf16
+    x: exact bf16 codes in the fragments' K order, design (a): each
+    sub-block's (q8_0: block's) tensor-core sum scaled in f32 by sc * d (q8_0
+    d), q4_k's min term from x's sums per sub-block; f32 x: the plain
+    version's weights and x as three bf16 terms each, six products a k16
+    step; row tiles of 128 with padded rows, ragged K = 700 (q8_0: 22
+    blocks, so its last superblock has 6 of its 8), the half superblocks
+    split over 1, 2 and 3 blocks merged in rank order) against the
+    reference's fused Pallas kernel (interpret mode, which takes N % 128 ==
+    0; the card test has N = 260): f32 within 1e-5 of max|y|, bf16 within
+    one bf16 step (2^-8) of max|y|; zero rows give +0."""
     jq, tq = _qt_pair(fmt, k, n, seed=m + k + len(fmt))
     x = np.random.default_rng(m + n).normal(size=(m, k)).astype(np.float32)
     x[[1, m - 2]] = 0
@@ -375,10 +399,13 @@ def test_q4k_q6k_prefill_tensor_core_rule_matches_pallas(fmt, m, k, n,
             np.int32).any()                                # +0, not -0
 
 
-# every q4_k / q6_k 2-D weight a prefill chunk of the served models
-# multiplies (K, N): qwen2-1.5b's q/o, gate/up, k/v, down; DeepSeek-V3's
-# attn_q_a, attn_q_b, attn_kv_a_mqa, attn_output, dense gate/up and down,
-# shared experts
+# every 2-D weight of the prefill form's formats a prefill chunk of the
+# served models multiplies (K, N): qwen2-1.5b's q/o, gate/up, k/v, down;
+# DeepSeek-V3's attn_q_a, attn_q_b, attn_kv_a_mqa, attn_output, dense
+# gate/up and down, shared experts (under DQ3_K_M and Q4_K_M q4_k and q6_k;
+# under Q3_K_M q3_k on attn_q_a, attn_q_b, attn_kv_a_mqa, dense and shared
+# gate/up; under Q2_K_L on attn_output, dense and shared down; under Q8_0
+# q8_0 on all of them)
 PREFILL_SHAPES = [(1536, 1536), (1536, 8960), (1536, 256), (8960, 1536),
                   (7168, 1536), (1536, 24576), (7168, 576), (16384, 7168),
                   (7168, 18432), (18432, 7168), (7168, 2048), (2048, 7168)]
@@ -390,18 +417,25 @@ def test_prefill_ksplit_from_host_integers(k, n):
     tiles where 128-row ones would be at most 8; 1..8 blocks a cluster (the
     portable size), at most the half superblocks, the most with which the
     tiles' clusters are all resident at once (a block an SM, GPCs of 16
-    SMs) and fill at most four fifths of the SMs."""
+    SMs) and, for clusters of more than 2 blocks, fill at most four fifths
+    of the SMs."""
     halves = 2 * -(-k // 256)
-    for fmt in ("q4_k", "q6_k"):
+    for fmt in ("q4_k", "q6_k", "q3_k", "q8_0"):
         assert qmatmul.prefill_form(fmt, 1, 512, k)
         assert qmatmul.prefill_form(fmt, 1, 5, k)
         assert not qmatmul.prefill_form(fmt, 1, 4, k)
+        assert not qmatmul.prefill_form(fmt, 1, 1, k)
         assert not qmatmul.prefill_form(fmt, 8, 512, k)
-    assert not qmatmul.prefill_form("q8_0", 1, 512, k)
+    # q3_k and q8_0 have no decode form: at M <= 4 they keep qmatmul_kernel
+    for fmt in ("q3_k", "q8_0"):
+        assert not qmatmul.decode_form(fmt, 1, 4, k)
+    for fmt in ("q2_k", "q5_k"):
+        assert not qmatmul.prefill_form(fmt, 1, 512, k)
+        assert not qmatmul.prefill_form(fmt, 1, 4, k)
 
     def fits(tiles, ks, sms):
         return (tiles <= max(1, sms // 16) * (16 // ks)
-                and tiles * ks <= sms * 4 // 5)
+                and (ks == 2 or tiles * ks <= sms * 4 // 5))
     for m in (5, 512, 600):
         rows = qmatmul.prefill_rows(n, m)
         assert rows == (64 if -(-n // 128) * -(-m // 128) <= 8 else 128)
@@ -419,6 +453,8 @@ def test_prefill_ksplit_from_host_integers(k, n):
     assert qmatmul.prefill_ksplit(1536, 512, 8960, 132) == 2
     assert qmatmul.prefill_ksplit(576, 512, 7168, 132) == 5
     assert qmatmul.prefill_ksplit(18432, 512, 7168, 132) == 1
+    # clusters of 2 may fill the card (PERF.md): 64 tiles at 7168->2048
+    assert qmatmul.prefill_ksplit(2048, 512, 7168, 132) == 2
 
 
 def test_qgather_columns_bitwise():
