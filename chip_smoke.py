@@ -175,6 +175,8 @@ KERNELS = {
                              "src/repro/kernels/common.py:82"),
     "qmatmul_q3_k_prefill": ("src/repro_torch/csrc/qmatmul.cu",
                              "src/repro/kernels/q3_k.py:27"),
+    "qmatmul_q2_k_prefill": ("src/repro_torch/csrc/qmatmul.cu",
+                             "src/repro/kernels/q2_k.py:26"),
     "qmatmul_q8_0_prefill": ("src/repro_torch/csrc/qmatmul.cu",
                              "src/repro/kernels/q8_0.py:23"),
     "qmatmul_q3_k": ("src/repro_torch/csrc/qmatmul.cu",
@@ -312,8 +314,8 @@ B1_SHAPES = [(1536, 1536, "q4_k", "q_proj, o_proj"),
              (7168, 18432, "q8_0", "DeepSeek dense gate, up, Q8_0")]
 B1_ROWS = (1, 4, 512)
 # the other 2-D weights that the DeepSeek cut multiplies by the prefill
-# form's q3_k (Q3_K_M, Q2_K_L) and q8_0 (Q8_0) at a chunk's 512 rows, timed
-# at M = 512 only (their M <= 4 form is the one timed above)
+# form's q3_k (Q3_K_M, Q2_K_L), q2_k (Q2_K_L) and q8_0 (Q8_0) at a chunk's
+# 512 rows, timed at M = 512 only (their M <= 4 form is the one timed above)
 B1_PREFILL_SHAPES = [
     (1536, 24576, "q3_k", "DeepSeek attn_q_b, Q3_K_M"),
     (7168, 576, "q3_k", "DeepSeek attn_kv_a_mqa, Q3_K_M"),
@@ -321,6 +323,8 @@ B1_PREFILL_SHAPES = [
     (16384, 7168, "q3_k", "DeepSeek attn_output, Q2_K_L"),
     (18432, 7168, "q3_k", "DeepSeek dense down, Q2_K_L"),
     (2048, 7168, "q3_k", "DeepSeek shexp down, Q2_K_L"),
+    (7168, 1536, "q2_k", "DeepSeek attn_q_a, Q2_K_L"),
+    (7168, 2048, "q2_k", "DeepSeek shexp gate, up, Q2_K_L"),
     (7168, 1536, "q8_0", "DeepSeek attn_q_a, Q8_0"),
     (1536, 24576, "q8_0", "DeepSeek attn_q_b, Q8_0"),
     (7168, 576, "q8_0", "DeepSeek attn_kv_a_mqa, Q8_0"),
@@ -332,9 +336,10 @@ B1_PREFILL_SHAPES = [
 # shape (M = 4, bf16) that moves most of the format's weight bytes per step
 # on its path; for the prefill form, the chunk shape (M = 512, bf16) with
 # the most device time a chunk: qwen2's for q4_k and q6_k, the DeepSeek
-# cut's dense gate/up for q3_k (Q3_K_M) and q8_0 (Q8_0)
+# cut's dense gate/up for q3_k (Q3_K_M), q2_k (Q2_K_L) and q8_0 (Q8_0)
 B1_PREFILL_SUMMARY = {"q4_k": (512, 1536, 8960), "q6_k": (512, 8960, 1536),
                       "q3_k": (512, 7168, 18432),
+                      "q2_k": (512, 7168, 18432),
                       "q8_0": (512, 7168, 18432)}
 B1_SUMMARY = {"q4_k": (4, 1536, 8960), "q6_k": (4, 8960, 1536),
               "q3_k": (4, 7168, 1536), "q5_k": (4, 18432, 7168),
@@ -489,22 +494,41 @@ def phase_kernels(torch, summary: dict) -> None:
     decode_horizon(torch, gen, cases[1:])
 
     # prefill: a 128-token chunk per lane, ending at each lane's frontier;
-    # lane 0's chunk is short (padded rows have qpos = -1)
+    # lane 0's chunk is short (padded rows have qpos = -1); queries drawn in
+    # f32 (so the f32 case runs all three bf16 terms of each), the serve's
+    # bf16 queries the same values rounded
     C = 128
     qp = torch.stack([torch.arange(int(p) - C + 1, int(p) + 1) for p in live - 1])
     qp[0, :C - 60] = -1
     qp = qp.to(torch.int32).to(dev)
     qc = torch.randn((B, C, H, D), generator=gen, device=dev)
+    queries = {torch.float32: qc, torch.bfloat16: qc.to(torch.bfloat16)}
     valid_q = (qp >= 0).sum(dim=1).cpu()
     keys = sum(int(v) * (int(p) + 1) - int(v) * (int(v) - 1) // 2
                for v, p in zip(valid_q, live - 1))      # causal pairs
-    for name, mode in (("paged_attn_prefill_quant", "q8_0"),
-                       ("paged_attn_prefill_quant_q4_0", "q4_0")):
-        args = (qc, *quantized[mode], pos_pool, bt, qp)
+    # the tensor-core kernel: the function's operations bound it at the
+    # bf16 peak (its bytes bound it first); beside that bound, the former
+    # f32 CUDA-core one and the mma passes it runs over its whole tiles of
+    # (query, rep head) rows and keys (the scores with f32 queries as three
+    # bf16 terms, P . V as three), each row tile walking the keys up to its
+    # rows' largest position
+    ops = 4.0 * H * D * keys
+    rep, rows, kt = H // HKV, pa._PREFILL_ROWS, pa._PREFILL_KEYS
+    qmax = torch.stack([qp[:, r0 // rep:min(C, -(-(r0 + rows) // rep))]
+                        .amax(dim=1) for r0 in range(0, C * rep, rows)])
+    key_tiles = int((torch.clamp(qmax.to(torch.int64) + 1, 0, nj * P)
+                     + kt - 1).div(kt, rounding_mode="floor").sum()) * HKV
+    for name, mode, qdt in (
+            ("paged_attn_prefill_quant", "q8_0", torch.bfloat16),
+            ("paged_attn_prefill_quant", "q8_0", torch.float32),
+            ("paged_attn_prefill_quant_q4_0", "q4_0", torch.bfloat16),
+            ("paged_attn_prefill_quant_q4_0", "q4_0", torch.float32)):
+        qq = queries[qdt]
+        args = (qq, *quantized[mode], pos_pool, bt, qp)
 
         def plain():
             return pa.attn_prefill_plain(
-                qc, quantized[mode], pos_pool, bt, qp, window=0,
+                qq, quantized[mode], pos_pool, bt, qp, window=0,
                 softcap=0.0, scale=D ** -0.5, nj=nj, quant=mode)
         y = pa.paged_attn_prefill_quant(*args, mode=mode)
         ref = plain()
@@ -512,15 +536,23 @@ def phase_kernels(torch, summary: dict) -> None:
         ms = device_ms(torch, lambda: pa.paged_attn_prefill_quant(
             *args, mode=mode))
         plain_ms = device_ms(torch, plain, iters=5)
-        moved = (int(live.sum()) * tok_bytes[mode] + nbytes(qc, qp)
+        moved = (int(live.sum()) * tok_bytes[mode] + nbytes(qq, qp)
                  + visited * (4 + P * 4) + B * C * H * D * 4)
+        q_terms = 3 if qdt == torch.float32 else 1
+        mma_ops = key_tiles * rows * kt * (2.0 * D * q_terms + 3 * 2.0 * D)
+        qname = str(qdt).split(".")[-1]
         res = case(f"B={B} C={C} H={H} Hkv={HKV} D={D} P={P} live "
-                   f"{live.tolist()} table {nj} wide, {mode} pages", y, ref,
-                   ATTN_TOL, "max_abs_err", ms, plain_ms, moved,
-                   4.0 * H * D * keys, "float32")
-        summary[name] = kernel_entry(name, **res)
-        detail.append(dict(res, kernel=name))
-    del kf, vf, quantized, qc
+                   f"{live.tolist()} table {nj} wide, {mode} pages, {qname} "
+                   f"queries", y, ref, ATTN_TOL, "max_abs_err", ms, plain_ms,
+                   moved, ops, "bfloat16")
+        if qdt == torch.bfloat16:      # the serve passes bf16 queries
+            summary[name] = kernel_entry(name, **res)
+        # the other bounds go on the detail line only
+        detail.append(dict(res, kernel=name,
+                           bound_f32_ms=ops / PEAK_OPS["float32"] * 1e3,
+                           mma_pass_ms=mma_ops / PEAK_OPS["bfloat16"] * 1e3,
+                           bytes_ms=moved / HBM_BYTES_S * 1e3))
+    del kf, vf, quantized, qc, queries
     kernels_experts(torch, summary, detail, gen)
     kernels_mla(torch, summary, detail, gen, live, n_lp, num_pages, bt, pos,
                 lane_pages, active, nj, qp)
@@ -1169,11 +1201,11 @@ DEEPSEEK_B1 = {"DQ3_K_M": (("q4_k", "q6_k"), ("q3_k", "q4_k", "q6_k")),
 # (qwen2 under DQ3_K_M; the DeepSeek cut per policy: under Q3_K_M q6_k is
 # only the output head, which takes one row a lane, as the Q8_0 head does,
 # and Q2_K_L has no q4_k)
-PREFILL_FORMS = ("q4_k", "q6_k", "q3_k", "q8_0")
+PREFILL_FORMS = ("q4_k", "q6_k", "q3_k", "q2_k", "q8_0")
 QWEN2_PREFILL = ("q4_k", "q6_k")
 DEEPSEEK_PREFILL = {"DQ3_K_M": ("q4_k", "q6_k"), "Q4_K_M": ("q4_k", "q6_k"),
-                    "Q3_K_M": ("q4_k", "q3_k"), "Q2_K_L": ("q6_k", "q3_k"),
-                    "Q8_0": ("q8_0",)}
+                    "Q3_K_M": ("q4_k", "q3_k"),
+                    "Q2_K_L": ("q6_k", "q3_k", "q2_k"), "Q8_0": ("q8_0",)}
 
 
 def b1_path(policy: str) -> tuple:

@@ -4,10 +4,11 @@ one CUDA card, for the port found under ``--root``.
 
     python3 scripts/b1_prefill_times.py                  # this checkout
     python3 scripts/b1_prefill_times.py --root DIR       # another checkout
+    python3 scripts/b1_prefill_times.py --formats q2_k   # one format's shapes
 
 Times ``qmatmul_<fmt>`` at every 2-D shape (K, N) that the DeepSeek-V3 cut
-multiplies by q3_k (under Q3_K_M and Q2_K_L) or q8_0 (under Q8_0) at 512
-rows, and qwen2-1.5b's q8_0 gate/up, with CUDA events (10 calls queued
+multiplies by q3_k (under Q3_K_M and Q2_K_L), q2_k (under Q2_K_L) or q8_0
+(under Q8_0) at 512 rows, and qwen2-1.5b's q8_0 gate/up, with CUDA events (10 calls queued
 behind a spin kernel, the weights rotating over copies of more than 120 MB
 so that each call reads them from HBM, as ``chip_smoke.py`` does).  Each
 line says which kernel ran (the library's count of prefill-form launches
@@ -40,6 +41,10 @@ SHAPES = [
     (16384, 7168, "q3_k", "attn_output, Q2_K_L"),
     (18432, 7168, "q3_k", "dense down, Q2_K_L"),
     (2048, 7168, "q3_k", "shexp down, Q2_K_L"),
+    (7168, 1536, "q2_k", "attn_q_a, Q2_K_L"),
+    (1536, 24576, "q2_k", "attn_q_b, Q2_K_L"),
+    (7168, 18432, "q2_k", "dense gate, up, Q2_K_L"),
+    (7168, 2048, "q2_k", "shexp gate, up, Q2_K_L"),
     (7168, 1536, "q8_0", "attn_q_a, Q8_0"),
     (1536, 24576, "q8_0", "attn_q_b, Q8_0"),
     (7168, 576, "q8_0", "attn_kv_a_mqa, Q8_0"),
@@ -71,7 +76,10 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose src/ is timed")
     ap.add_argument("--label", default="", help="printed on every line")
+    ap.add_argument("--formats", default="q3_k,q2_k,q8_0",
+                    help="comma-separated formats whose shapes are timed")
     args = ap.parse_args()
+    formats = args.formats.split(",")
     root = os.path.abspath(args.root)
     sys.path.insert(0, os.path.join(root, "src"))
     import torch
@@ -89,7 +97,7 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    for k, n, fmt, use in SHAPES:
+    for k, n, fmt, use in (c for c in SHAPES if c[2] in formats):
         w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
         qt = quantize(w, fmt)
         del w

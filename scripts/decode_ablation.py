@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Ablations of the MLA decode and prefill kernels, of the q4_k and q6_k
-decode forms and of the prefill form (q4_k, q6_k, q3_k, q8_0) on one CUDA
-card.
+"""Ablations of the MLA decode and prefill kernels, of the GQA prefill
+kernel, of the q4_k and q6_k decode forms and of the prefill form (q4_k,
+q6_k, q3_k, q2_k, q8_0) on one CUDA card.
 
     python3 scripts/decode_ablation.py            # prints JSON lines
     python3 scripts/decode_ablation.py --only q6k_decode,mla_prefill
     python3 scripts/decode_ablation.py --only q4k_prefill,q6k_prefill
     python3 scripts/decode_ablation.py --only q3k_prefill,q8_0_prefill
+    python3 scripts/decode_ablation.py --only q2k_prefill,gqa_prefill
 
 Builds variants of ``csrc/paged_mla.cu`` (``paged_mla_decode_kernel``) and
 of ``csrc/qmatmul.cu`` for q4_k (``qmatmul_q4k_decode_kernel``), each the
@@ -28,6 +29,14 @@ kernel) at ``chip_smoke.py``'s shapes:
                variants: the kernel (``paged_mla_prefill_kernel``), no mma
                (the operands still made), no conversion of the stage, no
                scores, no p . c_kv, no query tile, the page stream alone.
+  GQA prefill  ``chip_smoke.py``'s case (4 lanes of a 128-token chunk
+               ending at 100/217/333/400 tokens, lane 0's chunk 60 tokens,
+               12 / 2 heads, D = 128, 16-token pages, bf16 queries), q8_0
+               and q4_0 pools; variants: the kernel
+               (``paged_attn_prefill_kernel``, also at clusters of 1, 2, 3,
+               4, 6 and 8 blocks), no mma (the operands still made), no
+               conversion of the stage, no scores, no p . V, no query
+               tile, the page stream alone.
   q6_k decode  M = 4 bf16 at 8960->1536, 18432->7168, 1536->256,
                7168->576, 7168->129280 (``qmatmul_q6k_decode_kernel`` at
                its ``decode_ksplit_q6k``); variants: the kernel, no mma (the
@@ -41,7 +50,7 @@ kernel) at ``chip_smoke.py``'s shapes:
                a stage; and the expert kernel (``qmatmul_experts_kernel``,
                C = 1) streaming the same fields of two 7168->9216 experts.
 
-  q4_k, q6_k, q3_k, q8_0 prefill  M = 512 (bf16 x; f32 x also at the
+  q4_k, q6_k, q3_k, q2_k, q8_0 prefill  M = 512 (bf16 x; f32 x also at the
                first shape) at qwen2's and DeepSeek's 2-D shapes of the
                format (``qmatmul_prefill_kernel`` at its
                ``prefill_ksplit``, and at the other split sizes where the
@@ -76,7 +85,7 @@ import torch  # noqa: E402
 
 from repro_torch.core.apply import quantize_in_groups  # noqa: E402
 from repro_torch.core.qtensor import QTensor, quantize  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import build, paged_attn  # noqa: E402
 from repro_torch.kernels import qmatmul as qm  # noqa: E402
 from repro_torch.models import paged  # noqa: E402
 
@@ -195,6 +204,37 @@ PF_VARIANTS = {
 }
 
 
+# the GQA prefill kernel
+GQ_NO_MMA = [
+    ("            } else {\n"
+     "              mma_bf16(d[j], qf[0], k[0][h][c], k[0][h][c + 1]);",
+     "            } else {\n"
+     "              d[j][c] += __uint_as_float((qf[0][0] ^ qf[0][3] ^ "
+     "k[0][h][c] ^ k[0][h][c + 1]) & 0x3FFFFFFFu);"),
+    ("                mma_bf16(d, pf[kk][u], vf[0][kk][c], vf[0][kk][c + 1]);",
+     "                d[u] += __uint_as_float((pf[kk][u][0] ^ pf[kk][u][3] "
+     "^ vf[0][kk][c] ^ vf[0][kk][c + 1]) & 0x3FFFFFFFu);")]
+GQ_NO_CONVERSION = ("      for (int r = w; r < PKT; r += PNT / 32) {\n"
+                    "        for (int ch = lane; ch < nck + ncv; ch += 32) {",
+                    "      for (int r = w; r < 0; r += PNT / 32) {\n"
+                    "        for (int ch = lane; ch < nck + ncv; ch += 32) {")
+GQ_NO_SCORES = ("    for (int kg = 0; kg < nkd; kg += KG) {",
+                "    for (int kg = 0; kg < 0; kg += KG) {")
+GQ_NO_PV = ("    for (int cp = 0; cp < NV / 2; ++cp) {\n      if (cp < nvp) {\n"
+            "        uint32_t vf[NQ][2][4];",
+            "    for (int cp = 0; cp < 0; ++cp) {\n      if (cp < nvp) {\n"
+            "        uint32_t vf[NQ][2][4];")
+GQ_VARIANTS = {
+    "kernel": [],
+    "no mma": GQ_NO_MMA,
+    "no conversion": [GQ_NO_CONVERSION],
+    "no scores": [GQ_NO_SCORES],
+    "no p.V": [GQ_NO_PV],
+    "no query tile": PF_NO_Q,
+    "page stream only": [GQ_NO_CONVERSION, GQ_NO_SCORES, GQ_NO_PV, *PF_NO_Q],
+}
+
+
 # the prefill form (qmatmul_prefill_kernel): its warp layout, the unroll of
 # a stage's sub-blocks, and parts taken out
 PRE_NO_MMA = ("          mma_bf16(d[nt], a[0], b[kk][nt][0], b[kk][nt][1]);",
@@ -230,14 +270,16 @@ PRE_VARIANTS = {
 # (fewer 128-row tiles at M = 512 than SMs)
 PRE_SCAN = ("kernel", "128-row tiles", "64-row tiles")
 # (K, N) at M = 512: qwen2's and DeepSeek's 2-D weights of the format
-# (q3_k: the DeepSeek cut's under Q3_K_M and Q2_K_L; q8_0: qwen2's gate/up
-# and the cut's under Q8_0)
+# (q3_k: the DeepSeek cut's under Q3_K_M and Q2_K_L; q2_k: the cut's under
+# Q2_K_L; q8_0: qwen2's gate/up and the cut's under Q8_0)
 PRE_SHAPES = {"q4_k": ((1536, 1536), (1536, 8960), (7168, 18432),
                        (16384, 7168), (7168, 2048)),
               "q6_k": ((1536, 256), (8960, 1536), (7168, 576),
                        (18432, 7168)),
               "q3_k": ((7168, 1536), (7168, 576), (7168, 18432),
                        (18432, 7168), (7168, 2048)),
+              "q2_k": ((7168, 1536), (1536, 24576), (7168, 18432),
+                       (7168, 2048)),
               "q8_0": ((1536, 8960), (7168, 576), (7168, 18432),
                        (18432, 7168), (7168, 2048))}
 
@@ -472,6 +514,56 @@ def mla_prefill(libs, gen) -> dict:
     return res
 
 
+def gqa_prefill(libs, gen) -> dict:
+    v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    B, C, H, HKV, D, P, nj = 4, 128, 12, 2, 128, 16, 64
+    live = [100, 217, 333, 400]
+    bt = torch.full((B, nj), paged.GARBAGE_PAGE, dtype=torch.int32)
+    pos_pool = torch.full((2 + sum(-(-n // P) for n in live), P), -1,
+                          dtype=torch.int32)
+    nxt = 2
+    for b in range(B):
+        for j in range(-(-live[b] // P)):
+            bt[b, j] = nxt
+            hi = min(P, live[b] - j * P)
+            pos_pool[nxt, :hi] = torch.arange(j * P, j * P + hi)
+            nxt += 1
+    qp = torch.stack([torch.arange(n - C, n) for n in live]).to(torch.int32)
+    qp[0, :C - 60] = -1
+    q = torch.randn((B, C, H, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    bt, qp, pos_pool = bt.to(dev), qp.to(dev), pos_pool.to(dev)
+    out = torch.empty((B, C, H, D), device=dev)
+    chosen = paged_attn.attn_prefill_tiles(B, C, H, HKV, nj=nj, page_size=P,
+                                           sms=build.sm_count(dev))[1]
+    res = {}
+    for mode in ("q8_0", "q4_0"):
+        kq, kd = paged.quantize_rows(torch.randn(
+            (nxt, P, HKV, D), generator=gen, device=dev), mode)
+        vq, vd = paged.quantize_rows(torch.randn(
+            (nxt, P, HKV, D), generator=gen, device=dev), mode)
+        kind = 2 if mode == "q8_0" else 3
+        for name, lib in libs.items():
+            fn = lib.paged_attn_prefill
+            fn.argtypes = [i, i] + [v] * 9 + [i] * 11 + [f, f, v]
+            for splits in (1, 2, 3, 4, 6, 8) if name == "kernel" else (
+                    chosen,):
+                def call():
+                    return fn(kind, 1, q.data_ptr(), kq.data_ptr(),
+                              vq.data_ptr(), kd.data_ptr(), vd.data_ptr(),
+                              pos_pool.data_ptr(), bt.data_ptr(),
+                              qp.data_ptr(), out.data_ptr(), B, C, H, HKV, D,
+                              D, P, nj, nj, splits, 0, D ** -0.5, 0.0,
+                              stream)
+                if call() != 0:
+                    raise SystemExit(f"GQA prefill {name} refused")
+                mark = " (attn_prefill_tiles)" if splits == chosen else ""
+                res[f"{mode} splits={splits}{mark} {name}"] = device_ms(call)
+    return res
+
+
 def prefill(fmt: str):
     """The prefill form of ``fmt`` at M = 512 (bf16 x; f32 x at the first
     shape), each shape at its ``prefill_ksplit``: every variant's time and
@@ -542,12 +634,16 @@ GROUPS = {
     "q6k_decode": ("qmatmul.cu", "q6k_", Q6_VARIANTS,
                    ("-DQMATMUL_FMT=1",), q6k),
     "mla_prefill": ("paged_mla.cu", "mlap_", PF_VARIANTS, (), mla_prefill),
+    "gqa_prefill": ("paged_attn.cu", "gqap_", GQ_VARIANTS,
+                    ("-Xptxas", "-v"), gqa_prefill),
     "q4k_prefill": ("qmatmul.cu", "q4kp_", PRE_VARIANTS,
                     ("-DQMATMUL_FMT=0", "-Xptxas", "-v"), prefill("q4_k")),
     "q6k_prefill": ("qmatmul.cu", "q6kp_", PRE_VARIANTS,
                     ("-DQMATMUL_FMT=1", "-Xptxas", "-v"), prefill("q6_k")),
     "q3k_prefill": ("qmatmul.cu", "q3kp_", PRE_VARIANTS,
                     ("-DQMATMUL_FMT=2", "-Xptxas", "-v"), prefill("q3_k")),
+    "q2k_prefill": ("qmatmul.cu", "q2kp_", PRE_VARIANTS,
+                    ("-DQMATMUL_FMT=4", "-Xptxas", "-v"), prefill("q2_k")),
     "q8_0_prefill": ("qmatmul.cu", "q80p_", PRE_VARIANTS,
                      ("-DQMATMUL_FMT=5", "-Xptxas", "-v"), prefill("q8_0")),
 }

@@ -5,7 +5,7 @@
 // (body :321-362; entries paged_attn_decode :183, paged_attn_decode_quant
 // :728, paged_attn_decode_q8 :761) with its f32, q8_0 and q4_0 tile loaders
 // (q4_0: _dequant :217 -> unpack_q4_rows :692), and ::_attn_prefill_core
-// (body :880-919; entry paged_attn_prefill_quant :784) with the q8_0 and
+// (body :880-940; entry paged_attn_prefill_quant :784) with the q8_0 and
 // q4_0 loaders.
 //
 // What bounds decode on an H100: the page bytes it streams (each live K/V
@@ -13,6 +13,11 @@
 // 3.35 TB/s) and ~2 * rep flops per K/V element — far below either peak,
 // so a launch is bound by latency: the dependent loads (lane bound and
 // block table, then the pages) and the length of the longest serial walk.
+// So is prefill: a 4 x 128-token chunk of qwen2-1.5b (12 / 2 heads, D =
+// 128) over lanes of 100-400 tokens is ~0.1 M causal (query, key) pairs a
+// head, ~0.06 GFLOP (~0.0006 ms at the bf16 peak) and ~7 MB with q and the
+// output (~0.002 ms at 3.35 TB/s); what costs is each block's walk over up
+// to 13 key tiles one after the other.
 //
 // Decode design (paged_attn_decode_kernel).  The TPU grid (slot,
 // logical_page) runs in order and carries the online softmax (m, l, acc) in
@@ -45,222 +50,66 @@
 //  - p @ V: a thread owns 4 output columns of every row and a strided share
 //    of the tile's tokens (so acc stays in registers), and the shares are
 //    summed in a fixed order once, at the end of the run.
-// The reference's numerics are kept: NEG_INF = -2e38 is a finite sentinel,
-// so the probabilities of masked keys are set to exactly 0, a window and a
-// softcap apply as there, and l is clamped at 1e-30 before the divide (a
-// row with no valid key gives zeros).
 //
-// Prefill design (paged_attn_kernel).  One block owns (lane, kv head, query
-// tile) and the page walk is a loop inside the block, with (m, l, acc) in
-// shared memory.  The block reads its own block-table entry per page, loads
-// one page sub-tile (TP tokens) of K and V into shared memory as f32 (q8_0
-// pages as int8 x the row's f32 scale, q4_0 pages as the row's
-// sign-extended nibble x its f32 scale: one f32 multiply, as the plain
-// version's), scores the block's query rows against it, folds the
-// tile into the online softmax and accumulates p @ V.  It stops after the
-// last page any of the tile's queries can see (pages past it are fully
-// masked, and a fully masked tile is an exact no-op).
+// Prefill design (paged_attn_prefill_kernel), on tensor cores.  The former
+// CUDA-core kernel (a block per lane, kv head and 32 // rep queries, so
+// ~26 blocks re-read and re-converted the same pages; f32 K/V sub-tiles of
+// 16 tokens, one FMA chain per (row, token), one thread per row for the
+// softmax) ran slower than its plain PyTorch version.  The codes are exact
+// bf16 values (int8, sign-extended int4) and the serve's queries are bf16,
+// so the tensor cores compute the products FMAs would; only the order of
+// the sums changes.  A block owns 64 query rows of one (lane, kv head), the
+// (query, rep head) pairs laid out (c, r) as the reference's (Hkv, C, rep)
+// rows, so one key tile serves every rep head of its kv head; its 4 warps
+// hold 16 rows each, and its walk stops after the last key tile any of its
+// rows can see (the rows' largest position).  Per tile of 32 keys (tokens
+// of any page size, mapped one by one through the block table, a tile
+// ahead of their use):
+//  - the stored K and V rows (int8 codes, or q4_0 nibbles), their f32 row
+//    scales and the tokens' positions come into one of two stages by
+//    cp.async while the previous tile is used, and are converted once into
+//    bf16 key and value tiles (rows past the tile's keys zero), rows 16
+//    bytes longer than a multiple of 32 so that ldmatrix reads them without
+//    bank conflicts;
+//  - each warp computes S = Q . K^T for its 16 rows and the 32 keys by
+//    mma.sync.m16n8k16 (bf16, f32 accumulation; four k16 steps accumulate
+//    in the tensor core, then in f32 registers), bf16 queries as passed;
+//    then each key's column times its row scale and ``scale``, the
+//    softcap, and the mask;
+//  - the online softmax runs in registers, four lanes a row;
+//  - acc += P . V by mma: each key's value scale is folded into its column
+//    of P, which is split into three bf16 terms, and V's columns are read
+//    from the value tile by ldmatrix.trans; a warp's 16 x Dv accumulator
+//    stays in registers.
+// f32 queries (the parity runs, the f32 tests) take the plain version's
+// function to f32 rounding instead: q * scale and the keys and values
+// dequantized as it rounds them, each as three bf16 terms (hi + mid + lo),
+// six mmas a k16 step smallest first (see the kernel).
+// Where the blocks (lanes x kv heads x row tiles) are fewer than twice the
+// SMs, a cluster of ``splits`` blocks (attn_prefill_tiles, host integers)
+// splits each row tile's run of key tiles evenly (on one H100 80GB HBM3
+// at 700 W a 4 x 128-token qwen2 chunk ran 0.123 ms at one block a row
+// tile, 0.060 at clusters of 3); after cluster.sync() every block merges
+// a slice of the outputs from all the blocks' partial (m, l, acc), read
+// through distributed shared memory and summed in rank order.  Fixed
+// order, no atomics: bitwise repeatable.
+//
+// Both keep the reference's numerics: NEG_INF = -2e38 is a finite
+// sentinel, so the probabilities of masked keys are set to exactly 0; a key
+// is valid iff written (pos >= 0), causal (pos <= the query's position),
+// inside the window when one applies (prefill: and its logical index <=
+// the query's position); the softcap applies to the scores before the
+// mask; l is clamped at 1e-30 before the divide (a row with no valid key,
+// such as a padded prefill row, gives zeros).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+#include "paged_tiles.cuh"
+
 namespace {
-
-constexpr int NT = 128;           // threads per prefill block
-constexpr int TP = 16;            // tokens per page sub-tile
-constexpr float NEG_INF = -2.0e38f;
-
-// The prefill kernel's arguments.  Its body is the one-block-a-lane design
-// that decode also ran before paged_attn_decode_kernel; the entry point
-// passes lane_pages = null and logical_mask = 1.
-struct Args {
-  const float* q;          // (B, C, H, D) f32
-  const void* k;           // (NP, P, Hkv, D) int8 (q4_0: D/2)
-  const void* v;           // (NP, P, Hkv, Dv)                  (q4_0: Dv/2)
-  const float* kd;         // (NP, P, Hkv) quantized row scales (else null)
-  const float* vd;
-  const int* pos_pool;     // (NP, P)
-  const int* block_table;  // (B, nbt)
-  const int* qpos;         // (B, C) query positions, -1 = padded row
-  const int* lane_pages;   // (B,) page bound per lane, or null
-  float* out;              // (B, C, H, Dv)
-  int B, C, H, Hkv, D, Dv, P, nbt, nj, ct, window, logical_mask;  // D, Dv:
-  float scale, softcap;                                  // logical widths
-};
-
-// Tile loaders: element d of the K or V row ``row`` (= (page * P + token) *
-// Hkv + kv head) as f32; ``width`` is the row's logical width.
-struct Q8Loader {
-  __device__ __forceinline__ static float load(const void* pool,
-                                               const float* scales, size_t row,
-                                               int width, int d) {
-    return (float)static_cast<const int8_t*>(pool)[row * width + d] *
-           scales[row];
-  }
-};
-
-// q4_0: a row of ``width`` values is width / 2 bytes, element d in the low
-// (d even) or high (d odd) nibble of byte d / 2, two's complement: the
-// (n ^ 8) - 8 sign extension gives what the plain version's (b << 4) >> 4
-// and b >> 4 give.
-struct Q4Loader {
-  __device__ __forceinline__ static float load(const void* pool,
-                                               const float* scales, size_t row,
-                                               int width, int d) {
-    const unsigned b = static_cast<const uint8_t*>(
-        pool)[row * (size_t)(width >> 1) + (d >> 1)];
-    const unsigned n = (d & 1) ? (b >> 4) : (b & 15u);
-    return (float)((int)(n ^ 8u) - 8) * scales[row];
-  }
-};
-
-template <typename L>
-__global__ void __launch_bounds__(NT) paged_attn_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, hkv = blockIdx.y, c0 = blockIdx.z * a.ct;
-  const int rep = a.H / a.Hkv;
-  const int ct = min(a.ct, a.C - c0);
-  const int R = ct * rep;                 // query rows: r = ci * rep + ri
-  const int D = a.D, Dv = a.Dv, DP = a.D + 1;
-  const int tid = threadIdx.x;
-
-  float* qs = smem;                       // R x (D+1), scaled queries
-  float* ks = qs + R * DP;                // TP x (D+1)
-  float* vs = ks + TP * DP;               // TP x Dv
-  float* ps = vs + TP * Dv;               // R x TP scores, then probs
-  float* m = ps + R * TP;                 // R
-  float* l = m + R;                       // R
-  float* corr = l + R;                    // R
-  float* acc = corr + R;                  // R x Dv
-  int* tpos = reinterpret_cast<int*>(acc + R * Dv);   // TP
-  int* rowpos = tpos + TP;                // ct
-  uint8_t* valid = reinterpret_cast<uint8_t*>(rowpos + a.ct);  // R x TP
-  __shared__ int max_qpos;
-
-  for (int idx = tid; idx < R * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    const int h = hkv * rep + r % rep, c = c0 + r / rep;
-    qs[r * DP + d] = a.q[(((size_t)b * a.C + c) * a.H + h) * D + d] * a.scale;
-  }
-  for (int idx = tid; idx < R * Dv; idx += NT) acc[idx] = 0.f;
-  for (int r = tid; r < R; r += NT) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-  }
-  if (tid == 0) {
-    int mx = -1;
-    for (int ci = 0; ci < ct; ++ci) {
-      rowpos[ci] = a.qpos[(size_t)b * a.C + c0 + ci];
-      mx = max(mx, rowpos[ci]);
-    }
-    max_qpos = mx;
-  }
-  __syncthreads();
-
-  int jmax = a.nj;
-  if (a.lane_pages != nullptr) jmax = min(max(a.lane_pages[b], 1), a.nj);
-  if (a.logical_mask) jmax = max_qpos < 0 ? 0 : min(jmax, max_qpos / a.P + 1);
-
-  for (int j = 0; j < jmax; ++j) {
-    const int page = a.block_table[(size_t)b * a.nbt + j];
-    for (int t0 = 0; t0 < a.P; t0 += TP) {
-      const int nt = min(TP, a.P - t0);
-      const size_t row0 = ((size_t)page * a.P + t0) * a.Hkv + hkv;
-      for (int idx = tid; idx < nt * D; idx += NT) {
-        const int t = idx / D, d = idx % D;
-        ks[t * DP + d] = L::load(a.k, a.kd, row0 + (size_t)t * a.Hkv, D, d);
-      }
-      for (int idx = tid; idx < nt * Dv; idx += NT) {
-        const int t = idx / Dv, d = idx % Dv;
-        vs[t * Dv + d] = L::load(a.v, a.vd, row0 + (size_t)t * a.Hkv, Dv, d);
-      }
-      if (tid < nt) tpos[tid] = a.pos_pool[(size_t)page * a.P + t0 + tid];
-      __syncthreads();
-
-      // scores of every (row, token) pair of the sub-tile
-      for (int idx = tid; idx < R * TP; idx += NT) {
-        const int r = idx / TP, t = idx % TP;
-        float s = NEG_INF;
-        bool ok = false;
-        if (t < nt) {
-          const float* qr = qs + r * DP;
-          const float* kr = ks + t * DP;
-          float dot = 0.f;
-          for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-          if (a.softcap != 0.f) dot = a.softcap * tanhf(dot / a.softcap);
-          const int tp = tpos[t], qp = rowpos[r / rep];
-          ok = tp >= 0 && tp <= qp;
-          if (a.window) ok = ok && tp > qp - a.window;
-          if (a.logical_mask) ok = ok && (j * a.P + t0 + t) <= qp;
-          s = ok ? dot : NEG_INF;
-        }
-        ps[idx] = s;
-        valid[idx] = ok;
-      }
-      __syncthreads();
-
-      // online softmax, one thread per row
-      for (int r = tid; r < R; r += NT) {
-        const float m_prev = m[r];
-        float mx = NEG_INF;
-        for (int t = 0; t < TP; ++t) mx = fmaxf(mx, ps[r * TP + t]);
-        const float m_new = fmaxf(m_prev, mx);
-        float sum = 0.f;
-        for (int t = 0; t < TP; ++t) {
-          const float p = valid[r * TP + t] ? expf(ps[r * TP + t] - m_new) : 0.f;
-          ps[r * TP + t] = p;
-          sum += p;
-        }
-        const float cr = expf(m_prev - m_new);
-        l[r] = l[r] * cr + sum;
-        m[r] = m_new;
-        corr[r] = cr;
-      }
-      __syncthreads();
-
-      // acc = acc * corr + p @ V, one thread per output dim
-      for (int d = tid; d < Dv; d += NT) {
-        for (int r = 0; r < R; ++r) {
-          float pv = 0.f;
-          for (int t = 0; t < nt; ++t) pv = fmaf(ps[r * TP + t], vs[t * Dv + d], pv);
-          acc[r * Dv + d] = acc[r * Dv + d] * corr[r] + pv;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  for (int idx = tid; idx < R * Dv; idx += NT) {
-    const int r = idx / Dv, d = idx % Dv;
-    const int h = hkv * rep + r % rep, c = c0 + r / rep;
-    a.out[(((size_t)b * a.C + c) * a.H + h) * Dv + d] =
-        acc[idx] / fmaxf(l[r], 1e-30f);
-  }
-}
-
-size_t smem_bytes(const Args& a) {
-  const int R = a.ct * (a.H / a.Hkv);
-  const size_t floats = (size_t)R * (a.D + 1) + (size_t)TP * (a.D + 1) +
-                        (size_t)TP * a.Dv + (size_t)R * TP + 3 * (size_t)R +
-                        (size_t)R * a.Dv;
-  const size_t ints = TP + a.ct;
-  return floats * sizeof(float) + ints * sizeof(int) + (size_t)R * TP;
-}
-
-template <typename L>
-int launch(const Args& a, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(a);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid(a.B, a.Hkv, (a.C + a.ct - 1) / a.ct);
-  paged_attn_kernel<L><<<grid, NT, bytes, stream>>>(a);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // Decode: paged_attn_decode_kernel (see the header)
@@ -276,15 +125,6 @@ constexpr int CMAX = 4;              // 8-element K chunks a lane holds: D <= 25
 constexpr int TILE_TOKENS = 32;      // a tile: the fewest whole pages holding this many
 constexpr int NSTAGE = 3;            // tiles in the ring
 constexpr int MAX_SPLITS = 8;        // blocks a cluster (the portable size)
-constexpr unsigned FULL = 0xffffffffu;
-
-// kv kinds: 0 f32, 1 bf16, 2 q8_0 (int8 + f32 row scale), 3 q4_0 (two
-// nibbles a byte + f32 row scale).  Bytes of ``n`` stored elements.
-__host__ __device__ constexpr int kind_bytes(int kind, int n) {
-  return kind == 0 ? 4 * n : kind == 1 ? 2 * n : kind == 2 ? n : n / 2;
-}
-
-__host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
 
 // Dynamic shared memory of a decode block: byte offsets, from the shapes.
 struct DecodeSmem {
@@ -336,28 +176,6 @@ struct DecodeArgs {
   int B, H, Hkv, D, Dv, P, nbt, nj, pps, npt, window;
   float scale, softcap;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-template <int BYTES>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src) {
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(src)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-                 "l"(src)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
 
 // N (4 or 8) consecutive elements of a stored row, from shared memory at
 // ``p`` (the first one's byte), as f32: quantized kinds times the row's
@@ -803,31 +621,664 @@ int launch_decode_kind(const DecodeArgs& a, int splits, int v16,
              : launch_decode<KIND, 4>(a, splits, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Prefill on tensor cores: paged_attn_prefill_kernel (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int PNT = 128;             // threads a prefill block (4 warps)
+constexpr int PROWS = 64;            // query rows a block, 16 a warp
+constexpr int PKT = 32;              // keys a tile
+static_assert(PROWS == 16 * (PNT / 32) && PROWS == 64,
+              "a warp's 16 rows; the rows' positions are two warps' loads");
+
+// Shared memory of a prefill block (byte offsets).  Query and key rows are
+// bf16 of dp elements (D rounded up to 16), value rows of vp (Dv), each
+// ``pitch`` = 2 width + 16 bytes apart, so that the eight 16-byte rows of
+// an ldmatrix fall in distinct banks; ``nq`` planes of the key and value
+// tiles (bf16 queries: one, the codes; f32: three, the terms hi, mid, lo
+// of the dequantized keys and values).  f32 queries are kept as f32 rows
+// (4 width + 32 bytes apart), so that a q8_0 block fits twice an SM.
+// After the walk, a split block's partial (acc, m, l) and its merge
+// weights overlay the front.
+struct PrefillSmem {
+  int dp, vp, qpitch, vpitch, qfpitch;
+  int krb, vrb, krs, vrs;      // bytes of a stored K / V row; in the stage
+  int st_v, st_kd, st_vd, st_pos, st_bytes;
+  int q, k, v, stage, kd, vd, tpos, rpos, qmax;
+  int red, rm, rl, wts, lsum, total;
+};
+
+__host__ __device__ inline PrefillSmem prefill_smem(int kind, int D, int Dv,
+                                                    int nq) {
+  PrefillSmem L{};
+  L.dp = align16(D);
+  L.vp = align16(Dv);
+  L.qpitch = 2 * L.dp + 16;
+  L.qfpitch = 4 * L.dp + 32;
+  L.vpitch = 2 * L.vp + 16;
+  L.krb = kind_bytes(kind, D);
+  L.vrb = kind_bytes(kind, Dv);
+  L.krs = align16(L.krb);
+  L.vrs = align16(L.vrb);
+  L.st_v = PKT * L.krs;
+  L.st_kd = L.st_v + PKT * L.vrs;
+  L.st_vd = L.st_kd + PKT * 4;
+  L.st_pos = L.st_vd + PKT * 4;
+  L.st_bytes = align16(L.st_pos + PKT * 4);
+  int off = 0;
+  // the query tile: bf16 rows, or (f32 queries) f32 rows of q * scale,
+  // split into their three terms as the mma fragments are read
+  L.q = off;      off += PROWS * (nq == 1 ? L.qpitch : L.qfpitch);
+  L.k = off;      off += nq * PKT * L.qpitch;     // the key tile's planes
+  L.v = off;      off += nq * PKT * L.vpitch;     // the value tile's
+  L.stage = off;  off += 2 * L.st_bytes;          // two stages, as stored
+  L.kd = off;     off += PKT * 4;                 // the tile's row scales
+  L.vd = off;     off += PKT * 4;
+  L.tpos = off;   off += PKT * 4;                 // its keys' positions
+  L.rpos = off;   off += PROWS * 4;               // the rows' query positions
+  L.qmax = off;   off += 16;
+  int merge = 0;
+  L.red = merge;  merge += PROWS * Dv * 4;        // acc, rows Dv floats apart
+  L.rm = merge;   merge += PROWS * 4;
+  L.rl = merge;   merge += PROWS * 4;
+  L.wts = merge;  merge += MAX_SPLITS * PROWS * 4;
+  L.lsum = merge; merge += PROWS * 4;
+  L.total = off > merge ? off : merge;
+  return L;
+}
+
+struct PrefillArgs {
+  const void* q;           // (B, C, H, D) f32 or bf16
+  const uint8_t* k;        // (NP, P, Hkv, D) int8 (q4_0: D/2 bytes)
+  const uint8_t* v;        // (NP, P, Hkv, Dv)     (q4_0: Dv/2)
+  const float* kd;         // (NP, P, Hkv) row scales
+  const float* vd;
+  const int* pos_pool;     // (NP, P)
+  const int* block_table;  // (B, nbt)
+  const int* qpos;         // (B, C) query positions, -1 = padded row
+  float* out;              // (B, C, H, Dv)
+  int B, C, H, Hkv, D, Dv, P, nbt, nj, window;
+  int kw, vw;              // copy widths of the K / V rows: 16, 4, 1
+  int qcopy;               // 1: bf16 query rows copied as they are (16 B)
+  float scale, softcap;
+};
+
+// KIND: the pools' kind (2 q8_0, 3 q4_0); QF32: f32 queries (else bf16);
+// NV: the n8 tiles of Dv a warp's accumulator holds (16: Dv <= 128, 32:
+// Dv <= 256).  bf16 queries (the serve's): the tiles hold the exact codes,
+// each key's row scale is applied in f32 to its column of S and folded
+// into its column of P.  f32 queries (the parity runs and the f32 tests):
+// the plain version's function to f32 rounding instead, as the f32 path of
+// qmatmul_prefill_kernel computes it: q * scale and the keys and values
+// dequantized as the plain version rounds them (code * row scale), each
+// as three bf16 terms, six mmas a k16 step smallest first into a sum
+// zeroed for the step (the three term products below f32 precision
+// dropped).  Factoring the scales out of the sums moved a q4_0 KV code of
+// a later layer a step from the CPU's in the parity run.
+template <int KIND, bool QF32, int NV>
+__global__ void __launch_bounds__(PNT)
+    paged_attn_prefill_kernel(PrefillArgs a) {
+  constexpr int NQ = QF32 ? 3 : 1;
+  extern __shared__ __align__(16) uint8_t psmem[];
+  const int D = a.D, Dv = a.Dv, P = a.P;
+  const PrefillSmem L = prefill_smem(KIND, D, Dv, NQ);
+  uint8_t* q_s = psmem + L.q;
+  uint8_t* k_s = psmem + L.k;
+  uint8_t* v_s = psmem + L.v;
+  float* kd_s = reinterpret_cast<float*>(psmem + L.kd);
+  float* vd_s = reinterpret_cast<float*>(psmem + L.vd);
+  int* tpos_s = reinterpret_cast<int*>(psmem + L.tpos);
+  int* rpos_s = reinterpret_cast<int*>(psmem + L.rpos);
+  int* qmax_s = reinterpret_cast<int*>(psmem + L.qmax);
+
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int rep = a.H / a.Hkv, nrows = a.C * rep;
+  const int row_tiles = (nrows + PROWS - 1) / PROWS;
+  const int hkv = blockIdx.y / row_tiles;
+  const int R0 = (blockIdx.y - hkv * row_tiles) * PROWS;   // first row
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  // row i is (query c, rep head r) = ((R0 + i) / rep, (R0 + i) % rep): its
+  // position (-1 past the chunk's rows), and the rows' largest
+  if (tid < PROWS) {
+    const int row = R0 + tid;
+    int qp = row < nrows ? a.qpos[(size_t)b * a.C + row / rep] : -1;
+    rpos_s[tid] = qp;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) qp = max(qp, __shfl_xor_sync(FULL, qp, o));
+    if (lane == 0) qmax_s[w] = qp;
+  }
+  __syncthreads();
+  // the keys any row can see: logical index <= the largest position, in
+  // the first nj pages; this block's run of their tiles [i0, i1)
+  const int qmax = max(qmax_s[0], qmax_s[1]);
+  const int nvalid = qmax < 0 ? 0 : min(qmax + 1, a.nj * P);
+  const int ntiles = (nvalid + PKT - 1) / PKT;
+  const int i0 = ntiles * split / splits, i1 = ntiles * (split + 1) / splits;
+
+  const uint8_t* kpool = a.k + (size_t)hkv * L.krb;
+  const uint8_t* vpool = a.v + (size_t)hkv * L.vrb;
+  const size_t kstride = (size_t)a.Hkv * L.krb, vstride = (size_t)a.Hkv * L.vrb;
+  // lane t's token row for key t of tile i (a global load, made a tile
+  // ahead of its use)
+  auto token_row = [&](int i) {
+    const int u = i * PKT + lane;
+    if (i >= i1 || u >= nvalid) return 0;
+    const int pg = u / P;
+    return a.block_table[(size_t)b * a.nbt + pg] * P + (u - pg * P);
+  };
+  // start the copies of tile i into stage (i - i0) % 2, as stored
+  auto issue = [&](int i, int grow) {
+    uint8_t* st = psmem + L.stage + ((i - i0) & 1) * L.st_bytes;
+    const int nt = min(PKT, nvalid - i * PKT);
+    copy_leaf<PNT / 32>(st, kpool, L.krb, L.krs, kstride, a.kw, nt, grow, w,
+                        lane);
+    copy_leaf<PNT / 32>(st + L.st_v, vpool, L.vrb, L.vrs, vstride, a.vw, nt,
+                        grow, w, lane);
+    if (lane < nt) {
+      const size_t hrow = (size_t)grow * a.Hkv + hkv;
+      if (w == 0) cp_async<4>(smem_u32(st + L.st_kd + 4 * lane), a.kd + hrow);
+      if (w == 1) cp_async<4>(smem_u32(st + L.st_vd + 4 * lane), a.vd + hrow);
+      if (w == 2)
+        cp_async<4>(smem_u32(st + L.st_pos + 4 * lane), a.pos_pool + grow);
+    }
+  };
+  if (i0 < i1) issue(i0, token_row(i0));
+
+  // the query tile: row i's head hkv * rep + r as bf16, zero past D and
+  // past the chunk's rows (f32 queries: q * scale as f32).
+  // bf16 rows of whole 16-byte pieces are copied as they are, in the
+  // first tile's group.
+  constexpr int QSIZE = QF32 ? 4 : 2;
+  auto q_row = [&](int i) -> const uint8_t* {
+    const int row = R0 + i;
+    if (row >= nrows) return nullptr;
+    const int h = hkv * rep + row % rep;
+    return static_cast<const uint8_t*>(a.q) +
+           (((size_t)b * a.C + row / rep) * a.H + h) * D * QSIZE;
+  };
+  if (!QF32 && a.qcopy) {
+    const int np = L.dp / 8;                           // 16-byte pieces
+    for (int idx = tid; idx < PROWS * np; idx += PNT) {
+      const int r = idx / np, pc = idx - r * np;
+      const uint8_t* src = q_row(r);
+      const bool in = src != nullptr && 8 * pc < D;
+      cp_async_zfill(smem_u32(q_s + r * L.qpitch + 16 * pc),
+                     in ? src + 16 * pc : a.q, in ? 16 : 0);
+    }
+  }
+  cp_async_commit();
+  int grow_next = token_row(i0 + 1);
+  if (QF32 || !a.qcopy) {
+    // a thread's loads of a batch are all issued before its stores
+    const int nch = L.dp / 4;                          // 4-element chunks
+    constexpr int QB = 4;
+    for (int j0 = tid; j0 < PROWS * nch; j0 += QB * PNT) {
+      float4 v[QB];
+#pragma unroll
+      for (int u = 0; u < QB; ++u) {
+        const int idx = j0 + u * PNT, r = idx / nch, ch = idx - r * nch;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        const uint8_t* src = idx < PROWS * nch ? q_row(r) : nullptr;
+        if (src != nullptr) v[u] = q_elems4(src, 4 * ch, D, !QF32);
+        if constexpr (QF32)
+          v[u] = make_float4(__fmul_rn(v[u].x, a.scale),
+                             __fmul_rn(v[u].y, a.scale),
+                             __fmul_rn(v[u].z, a.scale),
+                             __fmul_rn(v[u].w, a.scale));
+      }
+#pragma unroll
+      for (int u = 0; u < QB; ++u) {
+        const int idx = j0 + u * PNT, r = idx / nch, ch = idx - r * nch;
+        if (idx < PROWS * nch) {
+          if constexpr (QF32)
+            *reinterpret_cast<float4*>(q_s + r * L.qfpitch + 16 * ch) = v[u];
+          else
+            store_bf16x4<1>(q_s + r * L.qpitch + 8 * ch, v[u], 0);
+        }
+      }
+    }
+  }
+
+  // this lane's rows g and g + 8 of the warp's 16: their positions and
+  // softmax state (l: this lane's share, summed over the row's four lanes
+  // at the end); acc: the rows' Dv columns, n8 tile j in acc[j]
+  const int qp0 = rpos_s[16 * w + g], qp1 = rpos_s[16 * w + g + 8];
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[NV][4];
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[j][v] = 0.f;
+  const int nkd = L.dp / 16, nvp = L.vp / 16;   // k16 steps of D; Dv pairs
+  // ldmatrix row addresses: lane i gives row i % 8 of matrix i / 8
+  const int mi = lane >> 3, mr = lane & 7;
+  const uint32_t qa = smem_u32(q_s) +
+                      (16 * w + (mi & 1) * 8 + mr) * L.qpitch + (mi >> 1) * 16;
+  const uint32_t ka = smem_u32(k_s) + ((mi >> 1) * 8 + mr) * L.qpitch +
+                      (mi & 1) * 16;
+  const uint32_t va = smem_u32(v_s) + ((mi & 1) * 8 + mr) * L.vpitch +
+                      (mi >> 1) * 16;
+
+  for (int i = i0; i < i1; ++i) {
+    const int nt = min(PKT, nvalid - i * PKT);
+    cp_async_wait<0>();
+    __syncthreads();   // tile i's rows landed; the tiles are consumed
+    if (i + 1 < i1) issue(i + 1, grow_next);
+    cp_async_commit();
+    grow_next = token_row(i + 2);
+
+    // the stage as bf16 codes (exact: int8 and int4 values; f32 queries:
+    // code * row scale as three terms), rows past nt zero; its row scales
+    // and positions beside them (past nt: 0 and -1).  Warp w converts rows
+    // w, w + 4, .., its lanes along the K and V rows.
+    {
+      const uint8_t* st = psmem + L.stage + ((i - i0) & 1) * L.st_bytes;
+      const float* st_kd = reinterpret_cast<const float*>(st + L.st_kd);
+      const float* st_vd = reinterpret_cast<const float*>(st + L.st_vd);
+      const int nck = L.dp / 4, ncv = L.vp / 4;
+      for (int r = w; r < PKT; r += PNT / 32) {
+        for (int ch = lane; ch < nck + ncv; ch += 32) {
+          const bool isk = ch < nck;
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (r < nt) {
+            v = isk ? codes4<KIND>(st + r * L.krs, 4 * ch, D)
+                    : codes4<KIND>(st + L.st_v + r * L.vrs, 4 * (ch - nck),
+                                   Dv);
+            if constexpr (QF32) {
+              const float sc = isk ? st_kd[r] : st_vd[r];
+              v = make_float4(__fmul_rn(v.x, sc), __fmul_rn(v.y, sc),
+                              __fmul_rn(v.z, sc), __fmul_rn(v.w, sc));
+            }
+          }
+          if (isk)
+            store_bf16x4<NQ>(k_s + r * L.qpitch + 8 * ch, v,
+                             PKT * L.qpitch);
+          else
+            store_bf16x4<NQ>(v_s + r * L.vpitch + 8 * (ch - nck), v,
+                             PKT * L.vpitch);
+        }
+      }
+      if (tid < PKT) {
+        const bool in = tid < nt;
+        kd_s[tid] = in ? st_kd[tid] : 0.f;
+        vd_s[tid] = in ? st_vd[tid] : 0.f;
+        tpos_s[tid] = in ? reinterpret_cast<const int*>(st + L.st_pos)[tid] : -1;
+      }
+    }
+    __syncthreads();   // the tiles are whole
+
+    // S = Q . K^T for the warp's 16 rows and the tile's 32 keys.  bf16
+    // queries: four k16 steps (64 elements of D) accumulate in the tensor
+    // core, then in f32 registers; f32: each k16 step's six term products,
+    // smallest first, then in f32.  s[j]: keys 8 j + 2t, + 1 of rows g
+    // (s[j][0..1]) and g + 8 (s[j][2..3]).
+    float s[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) s[j][v] = 0.f;
+    constexpr int KG = QF32 ? 1 : 4;   // k16 steps a tensor-core sum
+    for (int kg = 0; kg < nkd; kg += KG) {
+      float d[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) d[j][v] = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < KG; ++kq) {
+        const int ks = kg + kq;
+        if (ks < nkd) {
+          // qf[u]: the queries' term u (bf16: the queries); kf[u][h]: key
+          // plane u, keys 16 h ..
+          uint32_t qf[NQ][4], kf[NQ][2][4];
+          if constexpr (QF32) {
+            // a[j]: rows g (j even) or g + 8, elements 2t (j < 2) or 2t + 8
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float2 v = *reinterpret_cast<const float2*>(
+                  q_s + (16 * w + g + 8 * (j & 1)) * L.qfpitch +
+                  (16 * ks + 2 * t + 8 * (j >> 1)) * 4);
+              split3(v.x, v.y, qf[0][j], qf[1][j], qf[2][j]);
+            }
+          } else {
+            ldmatrix_x4<false>(qf[0], qa + ks * 32);
+          }
+#pragma unroll
+          for (int u = 0; u < NQ; ++u)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              ldmatrix_x4<false>(kf[u][h], ka + (u * PKT + 16 * h) *
+                                                    L.qpitch + ks * 32);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t(&k)[NQ][2][4] = kf;
+            const int h = j >> 1, c = 2 * (j & 1);
+            if constexpr (QF32) {
+              mma_bf16(d[j], qf[2], k[0][h][c], k[0][h][c + 1]);
+              mma_bf16(d[j], qf[1], k[1][h][c], k[1][h][c + 1]);
+              mma_bf16(d[j], qf[0], k[2][h][c], k[2][h][c + 1]);
+              mma_bf16(d[j], qf[1], k[0][h][c], k[0][h][c + 1]);
+              mma_bf16(d[j], qf[0], k[1][h][c], k[1][h][c + 1]);
+              mma_bf16(d[j], qf[0], k[0][h][c], k[0][h][c + 1]);
+            } else {
+              mma_bf16(d[j], qf[0], k[0][h][c], k[0][h][c + 1]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) s[j][v] += d[j][v];
+    }
+
+    // (bf16 queries: each key's column times its row scale and ``scale``)
+    // the softcap, then the mask: a key is valid for a row iff written (pos
+    // >= 0), causal (pos <= qpos), inside the window, and its logical index
+    // <= qpos
+    float mx[2] = {NEG_INF, NEG_INF};
+    unsigned valid = 0;   // bit 4 j + v
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int key = 8 * j + 2 * t + (v & 1);
+        const int qp = v < 2 ? qp0 : qp1, tp = tpos_s[key];
+        float x = QF32 ? s[j][v] : s[j][v] * kd_s[key] * a.scale;
+        if (a.softcap != 0.f) x = a.softcap * tanhf(x / a.softcap);
+        s[j][v] = x;
+        if (tp >= 0 && tp <= qp && i * PKT + key <= qp &&
+            (a.window == 0 || tp > qp - a.window)) {
+          valid |= 1u << (4 * j + v);
+          mx[v >> 1] = fmaxf(mx[v >> 1], x);
+        }
+      }
+    }
+    // online softmax in registers, four lanes a row; masked keys'
+    // probabilities are 0
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int key = 8 * j + 2 * t + (v & 1);
+        const float pv =
+            (valid >> (4 * j + v)) & 1u ? expf(s[j][v] - m[v >> 1]) : 0.f;
+        l[v >> 1] += pv;
+        // (bf16 queries: the value row's scale, folded in)
+        s[j][v] = QF32 ? pv : pv * vd_s[key];
+      }
+    }
+    // (a warp whose rows' maxima all stayed keeps its accumulator as is)
+    if (__any_sync(FULL, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        acc[j][0] *= corr[0];
+        acc[j][1] *= corr[0];
+        acc[j][2] *= corr[1];
+        acc[j][3] *= corr[1];
+      }
+    }
+
+    // acc += P . V: P (16 rows x 32 keys) as three bf16 terms, the A
+    // fragments of the two k16 steps straight from S's layout; V's columns
+    // by ldmatrix.trans.  bf16 queries: both steps and the three terms
+    // accumulate in the tensor core, then in f32 registers; f32: each
+    // step's six term products (P's by the values'), smallest first, then
+    // in f32.
+    uint32_t pf[2][3][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      split3(s[2 * kk][0], s[2 * kk][1], pf[kk][0][0], pf[kk][1][0],
+             pf[kk][2][0]);
+      split3(s[2 * kk][2], s[2 * kk][3], pf[kk][0][1], pf[kk][1][1],
+             pf[kk][2][1]);
+      split3(s[2 * kk + 1][0], s[2 * kk + 1][1], pf[kk][0][2], pf[kk][1][2],
+             pf[kk][2][2]);
+      split3(s[2 * kk + 1][2], s[2 * kk + 1][3], pf[kk][0][3], pf[kk][1][3],
+             pf[kk][2][3]);
+    }
+#pragma unroll
+    for (int cp = 0; cp < NV / 2; ++cp) {
+      if (cp < nvp) {
+        uint32_t vf[NQ][2][4];   // value plane u, keys 16 kk ..
+#pragma unroll
+        for (int u = 0; u < NQ; ++u)
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+            ldmatrix_x4<true>(vf[u][kk], va + (u * PKT + kk * 16) *
+                                                  L.vpitch + cp * 32);
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt) {
+          const int c = 2 * jt;
+          if constexpr (QF32) {
+#pragma unroll
+            for (int kk = 0; kk < 2; ++kk) {
+              const uint32_t(&p)[3][4] = pf[kk];
+              float d[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_bf16(d, p[2], vf[0][kk][c], vf[0][kk][c + 1]);
+              mma_bf16(d, p[1], vf[1][kk][c], vf[1][kk][c + 1]);
+              mma_bf16(d, p[0], vf[2][kk][c], vf[2][kk][c + 1]);
+              mma_bf16(d, p[1], vf[0][kk][c], vf[0][kk][c + 1]);
+              mma_bf16(d, p[0], vf[1][kk][c], vf[1][kk][c + 1]);
+              mma_bf16(d, p[0], vf[0][kk][c], vf[0][kk][c + 1]);
+#pragma unroll
+              for (int v = 0; v < 4; ++v) acc[2 * cp + jt][v] += d[v];
+            }
+          } else {
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+              for (int u = 0; u < 3; ++u)
+                mma_bf16(d, pf[kk][u], vf[0][kk][c], vf[0][kk][c + 1]);
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[2 * cp + jt][v] += d[v];
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // l summed over the row's four lanes
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(FULL, l[h], 1);
+    l[h] += __shfl_xor_sync(FULL, l[h], 2);
+  }
+  // (b, query, head) of block row r, as an offset into out
+  auto out_row = [&](int r) {
+    const int row = R0 + r;
+    return (((size_t)b * a.C + row / rep) * a.H + hkv * rep + row % rep) *
+           (size_t)Dv;
+  };
+  if (splits == 1) {
+    // out = acc / l, l clamped (a row with no valid key gives zeros)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int cp = 0; cp < NV / 2; ++cp) {
+      if (cp < nvp) {
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt) {
+          const int col = 16 * cp + 8 * jt + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * w + g + 8 * h;
+            if (col < Dv && R0 + r < nrows)
+              *reinterpret_cast<float2*>(a.out + out_row(r) + col) =
+                  make_float2(acc[2 * cp + jt][2 * h] / l[h],
+                              acc[2 * cp + jt][2 * h + 1] / l[h]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the cluster's blocks split the key tiles: each leaves its partial (acc,
+  // m, l) in shared memory, and every block merges a slice of the outputs
+  // from all the blocks' partials, in rank order
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  __syncthreads();   // every warp is done with the tiles
+  float* red = reinterpret_cast<float*>(psmem + L.red);
+  float* rm = reinterpret_cast<float*>(psmem + L.rm);
+  float* rl = reinterpret_cast<float*>(psmem + L.rl);
+#pragma unroll
+  for (int cp = 0; cp < NV / 2; ++cp) {
+    if (cp < nvp) {
+#pragma unroll
+      for (int jt = 0; jt < 2; ++jt) {
+        const int col = 16 * cp + 8 * jt + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (col < Dv)
+            *reinterpret_cast<float2*>(red + (16 * w + g + 8 * h) * Dv +
+                                       col) =
+                make_float2(acc[2 * cp + jt][2 * h],
+                            acc[2 * cp + jt][2 * h + 1]);
+      }
+    }
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rm[16 * w + g + 8 * h] = m[h];
+      rl[16 * w + g + 8 * h] = l[h];
+    }
+  }
+  cluster.sync();
+  float* wts = reinterpret_cast<float*>(psmem + L.wts);   // splits x PROWS
+  float* lsum = reinterpret_cast<float*>(psmem + L.lsum);
+  if (tid < PROWS) {
+    float ms[MAX_SPLITS], ls[MAX_SPLITS];
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPLITS; ++sp) {
+      if (sp < splits) {
+        ms[sp] = cluster.map_shared_rank(rm, sp)[tid];
+        ls[sp] = cluster.map_shared_rank(rl, sp)[tid];
+      }
+    }
+    float mxs = NEG_INF;
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPLITS; ++sp)
+      if (sp < splits) mxs = fmaxf(mxs, ms[sp]);
+    float lt = 0.f;
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPLITS; ++sp) {
+      if (sp < splits) {
+        const float e = expf(ms[sp] - mxs);
+        wts[sp * PROWS + tid] = e;
+        lt += ls[sp] * e;
+      }
+    }
+    lsum[tid] = fmaxf(lt, 1e-30f);
+  }
+  __syncthreads();
+  const int n_out = PROWS * Dv, rank = (int)cluster.block_rank();
+  const int lo = n_out * rank / splits, hi = n_out * (rank + 1) / splits;
+  for (int idx = lo + tid; idx < hi; idx += PNT) {
+    const int r = idx / Dv;
+    float part[MAX_SPLITS];
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPLITS; ++sp)
+      if (sp < splits) part[sp] = cluster.map_shared_rank(red, sp)[idx];
+    float o = 0.f;
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPLITS; ++sp)
+      if (sp < splits) o += part[sp] * wts[sp * PROWS + r];
+    if (R0 + r < nrows) a.out[out_row(r) + idx - r * Dv] = o / lsum[r];
+  }
+  cluster.sync();   // each block's shared memory stays until all have read it
+}
+
+template <int KIND, bool QF32, int NV>
+int launch_prefill(const PrefillArgs& a, int splits, cudaStream_t stream) {
+  auto kernel = paged_attn_prefill_kernel<KIND, QF32, NV>;
+  const PrefillSmem L = prefill_smem(KIND, a.D, a.Dv, QF32 ? 3 : 1);
+  static int configured = 48 * 1024;   // the largest size allowed so far
+  if (L.total > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (e != cudaSuccess) return (int)e;
+    configured = L.total;
+  }
+  const int row_tiles = (a.C * (a.H / a.Hkv) + PROWS - 1) / PROWS;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, a.Hkv * row_tiles, a.B);
+  cfg.blockDim = dim3(PNT);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int KIND>
+int launch_prefill_kind(const PrefillArgs& a, bool q_bf16, int splits,
+                        cudaStream_t st) {
+  if (a.Dv <= 128)
+    return q_bf16 ? launch_prefill<KIND, false, 16>(a, splits, st)
+                  : launch_prefill<KIND, true, 16>(a, splits, st);
+  return q_bf16 ? launch_prefill<KIND, false, 32>(a, splits, st)
+                : launch_prefill<KIND, true, 32>(a, splits, st);
+}
+
 }  // namespace
 
-// Chunked prefill (paged_attn_kernel): kv_kind 2 = q8_0 (int8 + f32 row
-// scales), 3 = q4_0 (two int4 a byte + f32 row scales; D and Dv are the
-// logical widths, even).  A key is masked past the query's position by its
-// logical index too.  ct = queries per block.  Returns cudaGetLastError()
-// after the launch.
-extern "C" int paged_attn_prefill(int kv_kind, const float* q, const void* k,
-                                  const void* v, const float* kd,
-                                  const float* vd, const int* pos_pool,
-                                  const int* block_table, const int* qpos,
-                                  float* out, int B, int C, int H, int Hkv,
-                                  int D, int Dv, int P, int nbt, int nj,
-                                  int ct, int window, float scale,
-                                  float softcap, void* stream) {
-  Args a{q, k, v, kd, vd, pos_pool, block_table, qpos, nullptr, out,
-         B, C, H, Hkv, D, Dv, P, nbt, nj, ct, window, 1, scale, softcap};
+// Chunked prefill (paged_attn_prefill_kernel): kv_kind 2 = q8_0 (int8 + f32
+// row scales), 3 = q4_0 (two int4 a byte + f32 row scales; D and Dv are
+// the logical widths); q float32 (q_bf16 = 0) or bfloat16 (q_bf16 = 1),
+// (B, C, H, D); qpos (B, C) the query positions, -1 for padded rows.  A key
+// is masked past the query's position by its logical index too.  D and Dv
+// are multiples of 8, at most 256.  A block holds 64 (query, rep head) rows
+// of one kv head; ``splits`` (1..8) blocks a cluster split its key tiles.
+// Returns the launch's error code.
+extern "C" int paged_attn_prefill(int kv_kind, int q_bf16, const void* q,
+                                  const void* k, const void* v,
+                                  const float* kd, const float* vd,
+                                  const int* pos_pool, const int* block_table,
+                                  const int* qpos, float* out, int B, int C,
+                                  int H, int Hkv, int D, int Dv, int P,
+                                  int nbt, int nj, int splits, int window,
+                                  float scale, float softcap, void* stream) {
+  if ((kv_kind != 2 && kv_kind != 3) || (q_bf16 != 0 && q_bf16 != 1) ||
+      D < 8 || Dv < 8 || D % 8 || Dv % 8 || D > 256 || Dv > 256 || P < 1 ||
+      nj < 1 || Hkv < 1 || H % Hkv || splits < 1 || splits > MAX_SPLITS)
+    return (int)cudaErrorInvalidValue;
+  if (prefill_smem(kv_kind, D, Dv, q_bf16 ? 1 : 3).total > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const int krb = kind_bytes(kv_kind, D), vrb = kind_bytes(kv_kind, Dv);
+  PrefillArgs a{q, static_cast<const uint8_t*>(k),
+                static_cast<const uint8_t*>(v), kd, vd, pos_pool,
+                block_table, qpos, out, B, C, H, Hkv, D, Dv, P, nbt, nj,
+                window, copy_width(krb, k), copy_width(vrb, v),
+                q_bf16 && reinterpret_cast<uintptr_t>(q) % 16 == 0, scale,
+                softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kv_kind) {
-    case 2: return launch<Q8Loader>(a, st);
-    case 3:
-      if ((D | Dv) & 1) return (int)cudaErrorInvalidValue;
-      return launch<Q4Loader>(a, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return kv_kind == 2 ? launch_prefill_kind<2>(a, q_bf16, splits, st)
+                      : launch_prefill_kind<3>(a, q_bf16, splits, st);
 }
 
 // One-token decode (paged_attn_decode_kernel): kv_kind 0 = float32 pages,

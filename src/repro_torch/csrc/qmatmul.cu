@@ -34,8 +34,8 @@
 // order.  Where the column tiles alone give too few blocks to fill the
 // card, the tiles are split over gridDim.y and a second kernel adds the
 // per-split partials in a fixed order (deterministic split-K, no atomics;
-// the 2-D forms of q3_k, q5_k, q2_k and q8_0; q4_k and q6_k have forms of
-// their own, below).
+// the 2-D forms of q5_k, and of q3_k, q2_k and q8_0 at M <= 4; q4_k and
+// q6_k have forms of their own, below).
 // K that is not a multiple of 256 reads x as zero past K, and q8_0 blocks
 // past the last one are not read at all.  The dequantized weights are the
 // same f32 values as the plain version's (q6_k: (q-32) * (sc*d); q3_k:
@@ -137,7 +137,7 @@
 // weight), not by the issue rate, so at decode's few blocks a stage's
 // products take longer than its bytes (scripts/decode_ablation.py).
 //
-// The 2-D form at M > 4 of q4_k, q6_k, q3_k and q8_0 on tensor cores
+// The 2-D form at M > 4 of q4_k, q6_k, q3_k, q2_k and q8_0 on tensor cores
 // (qmatmul_prefill_kernel<T, FMT, V, ROWS>): every prefill chunk of the
 // engine is 4 x 128 = 512 rows, where qmatmul_kernel ran at ~25 TFLOP/s
 // (2.5 % of the bf16 peak): its 16-row tile decoded each weight again for
@@ -156,15 +156,17 @@
 //    rows are not 16-byte aligned);
 //  - the codes become a bf16 tile in shared memory, once per block (once
 //    per 128 rows of x, 4 times a call at M = 512, against 32), by byte
-//    permutes under the exponent of 128 and one bf16x2 FMA of -128 (q4_k),
-//    -160 (q6_k) or -132 (q3_k, whose code is first assembled from a
-//    bit-pair of qs and a bit of hmask) a pair: exact, no int-to-float.
+//    permutes under the exponent of 128 and one bf16x2 FMA of -128 (q4_k,
+//    and q2_k, whose code is a bit-pair of qs), -160 (q6_k) or -132 (q3_k,
+//    whose code is first assembled from a bit-pair of qs and a bit of
+//    hmask) a pair: exact, no int-to-float.
 //    q8_0's int8 code takes 8 bits, one more than fits under the exponent:
 //    its low 7 bits go there, and the FMA's bias pair is -128 or -256 by
 //    the code's sign bit, that bit placed under the exponent byte of -128
 //    by one more byte permute a pair (2 instructions a code; 2^23 + (q +
 //    128) as an f32, one FADD and a conversion to bf16 would take 2.75);
-//    each sub-block's sc * d (q4_k also -m * dmin; q8_0 each block's d) is
+//    each sub-block's sc * d (q4_k and q2_k also -m * dmin; q8_0 each
+//    block's d) is
 //    made once per column in f32, laid out so that a lane reads its
 //    columns' scales in 16-byte loads;
 //  - the products are bf16 mma.sync.m16n8k16 with f32 accumulation, x the
@@ -175,10 +177,11 @@
 //    are applied in f32 outside the product, design (a): each sub-block's
 //    products go to accumulators zeroed for it and are added into the
 //    output accumulators times sc * d (4 FMAs a thread an mma for the
-//    16-element sub-blocks of q6_k and q3_k, 2 for the 32 of q4_k and
-//    q8_0's blocks), and q4_k's min term -m *
-//    dmin * sum x with them, the sub-block's sums of x's rows made by one
-//    more mma against a B of ones.  Design (b), the integer product code x
+//    16-element sub-blocks of q6_k, q3_k and q2_k, 2 for the 32 of q4_k
+//    and q8_0's blocks), and the min term -m * dmin * sum x of q4_k and
+//    q2_k with them, the sub-block's sums of x's rows made by one more mma
+//    against a B of ones (one a k16 step: q2_k's 16-element sub-blocks
+//    take one, q4_k's two).  Design (b), the integer product code x
 //    scale as two exact bf16 terms, would double the mmas and the
 //    conversion and was not built;
 //  - a stage is multiplied while the next is converted (two tile buffers)
@@ -196,8 +199,9 @@
 // Shared memory (one block an SM, at most 227 KB): the ring's slots hold x
 // (128 rows x 256 bytes, padded: 34.0 KB, f32 36.0 KB; half that at 64
 // rows) and the stage's fields (q4_k 9.5 KB, q6_k 13.25 KB, q3_k 9.25 KB
-// with all 32 hmask rows, q8_0 17.0 KB; f32 5.0 / 6.75 / 6.75 / 8.5 KB),
-// the two buffers the code tile (34.0 KB) and the scales (2.5-5 KB) (f32:
+// with all 32 hmask rows, q2_k 5.5 KB, q8_0 17.0 KB; f32 5.0 / 6.75 /
+// 6.75 / 3.0 / 8.5 KB), the two buffers the code tile (34.0 KB) and the
+// scales (2.5-5 KB) (f32:
 // one buffer of three 17.0 KB tiles): at most 226.0 KB (q8_0, bf16, 128
 // rows; launch_prefill_rows checks each instance at compile time), so q8_0
 // keeps the others' stage of half a superblock.  A fourth slot would not
@@ -216,7 +220,8 @@
 // instances are bound as q6_k's are (the same 4 scale FMAs an mma; the
 // code assembly is once per block); q8_0's as q4_k's less its min term (2
 // scale FMAs an mma, no mma against ones), with 17 KB of fields a stage
-// to copy against q4_k's 9.5.
+// to copy against q4_k's 9.5; q2_k's as q3_k's plus q4_k's min term at
+// twice its rate (an mma against ones and 4 more FMAs a sub-block).
 //
 // Built once per format: -DQMATMUL_FMT=<id> instantiates that format's
 // kernels only (kernels/build.py builds the six libraries in parallel).
@@ -2005,7 +2010,7 @@ __global__ void __launch_bounds__(Q6_THREADS, 2)
 }
 
 // ---------------------------------------------------------------------------
-// The 2-D form at M > 4 of q4_k, q6_k, q3_k and q8_0 on tensor cores:
+// The 2-D form at M > 4 of q4_k, q6_k, q3_k, q2_k and q8_0 on tensor cores:
 // qmatmul_prefill_kernel<T, FMT, V, ROWS> (see the header).  A block of 8
 // warps owns ROWS rows of x and 128 columns, each warp a part of the
 // output in f32 registers (PfWarps).  K is
@@ -2019,12 +2024,14 @@ __global__ void __launch_bounds__(Q6_THREADS, 2)
 // + r + 64 p (stage row p * QR + r).  q3_k takes q6_k's order: qs row q *
 // QR + r holds elements q * QR + r + 64 p in bit-pair p, and their high
 // bits are bits (q * QR) / 32 + 2 p of hmask row (q * QR + r) % 32, so all
-// 32 hmask rows are copied every stage.  q8_0 part q: the superblock's
-// elements q * KST .. + KST - 1 in order (its blocks q * KST / 32 ..),
-// blocks past the field's last (K % 256 != 0) zero.  Every way a part's
-// sub-blocks are whole, and stage row u's sub-block is the part's row u /
-// 32 (q4_k, q8_0) or u / 16 (q6_k, q3_k) of its scale fields (q8_0: of
-// d), copied in that order.
+// 32 hmask rows are copied every stage.  q2_k takes q3_k's order without
+// hmask: qs row q * QR + r holds elements q * QR + r + 64 p in bit-pair p,
+// so a part copies its own QR rows of qs (not all 64).  q8_0 part q: the
+// superblock's elements q * KST .. + KST - 1 in order (its blocks q * KST
+// / 32 ..), blocks past the field's last (K % 256 != 0) zero.  Every way a
+// part's sub-blocks are whole, and stage row u's sub-block is the part's
+// row u / 32 (q4_k, q8_0) or u / 16 (q6_k, q3_k, q2_k) of its scale fields
+// (q8_0: of d; q2_k: of sm, scale and min), copied in that order.
 // ---------------------------------------------------------------------------
 
 constexpr int PF_WARPS = 8;
@@ -2074,13 +2081,14 @@ __host__ __device__ constexpr int pf_xpitch() {
 }
 // the groups of a field's rows of which each part takes its share: q4_k
 // scales and mins (sub-blocks 0-3 of the low nibbles, 4-7 of the high);
-// q6_k ql (rows 0-63, 64-127) and the scales of q6_k and q3_k (sub-blocks
-// 4p .. 4p + 3).  A field of one row a superblock (d, dmin) and q3_k's
-// hmask are copied whole every stage.
+// q6_k ql (rows 0-63, 64-127) and the scales of q6_k, q3_k and q2_k
+// (sub-blocks 4p .. 4p + 3).  A field of one row a superblock (d, dmin)
+// and q3_k's hmask are copied whole every stage.
 __host__ __device__ constexpr int pf_runs(int fmt, int g) {
   return fmt == 0   ? (g == 1 || g == 2 ? 2 : 1)
          : fmt == 1 ? (g == 0 ? 2 : g == 2 ? 4 : 1)
          : fmt == 2 ? (g == 2 ? 4 : 1)
+         : fmt == 4 ? (g == 1 ? 4 : 1)
                     : 1;
 }
 __host__ __device__ constexpr bool pf_whole(int fmt, int g) {
@@ -2097,23 +2105,26 @@ __host__ __device__ constexpr int pf_off(int fmt, int g, int parts) {
   return off;
 }
 // elements of a sub-block, the unit of a scale (q8_0: of a d): 16 (q6_k,
-// q3_k) or 32 (q4_k, q8_0); and the sub-blocks of a stage
+// q3_k, q2_k) or 32 (q4_k, q8_0); and the sub-blocks of a stage
 __host__ __device__ constexpr int pf_sub(int fmt) {
-  return fmt == 1 || fmt == 2 ? 16 : 32;
+  return fmt == 1 || fmt == 2 || fmt == 4 ? 16 : 32;
 }
 template <typename T, int FMT>
 __host__ __device__ constexpr int pf_nsub() {
   return pf_kst<T>() / pf_sub(FMT);
 }
-// the formats that have this form
+// the formats that have this form, and those with a min term (-m * dmin)
 __host__ __device__ constexpr bool has_prefill_form(int fmt) {
-  return fmt == 0 || fmt == 1 || fmt == 2 || fmt == Q8_0;
+  return fmt == 0 || fmt == 1 || fmt == 2 || fmt == 4 || fmt == Q8_0;
+}
+__host__ __device__ constexpr bool pf_mins(int fmt) {
+  return fmt == 0 || fmt == 4;
 }
 // Shared memory: the ring of PF_STAGES slots (x's rows of the stage,
 // then the stage's fields), then two buffers (one converted while the
 // other is multiplied) of the bf16 weight tile (stage rows x 128 columns)
-// and its f32 scales (sc * d per sub-block and column, q8_0 d; q4_k also
-// -m * dmin).
+// and its f32 scales (sc * d per sub-block and column, q8_0 d; q4_k and
+// q2_k also -m * dmin).
 template <typename T, int FMT, int ROWS>
 __host__ __device__ constexpr int pf_slot() {
   return ROWS * pf_xpitch<T>() + pf_off(FMT, num_fields(FMT), pf_parts<T>());
@@ -2126,7 +2137,7 @@ __host__ __device__ constexpr int pf_wbuf() {
              ? 3 * pf_kst<T>() * PF_WPITCH
              : pf_kst<T>() * PF_WPITCH + pf_nsub<T, FMT>() *
                                              PfWarps<ROWS>::SROW * 4 *
-                                             (FMT == 0 ? 2 : 1);
+                                             (pf_mins(FMT) ? 2 : 1);
 }
 template <typename T>
 __host__ __device__ constexpr int pf_wbufs() {
@@ -2190,8 +2201,8 @@ __device__ __forceinline__ void pf_issue(const T* __restrict__ x,
   // piece cc) of rows tid / CPR + (PF_THREADS / CPR) i
   constexpr int XV = 16 / sizeof(T);
   constexpr int CPR = KST / XV;             // 16-byte pieces a row
-  // runs of x a part takes (q4_k: low and high nibbles; q6_k, q3_k: four
-  // bit-pairs; q8_0: its elements in order)
+  // runs of x a part takes (q4_k: low and high nibbles; q6_k, q3_k, q2_k:
+  // four bit-pairs; q8_0: its elements in order)
   constexpr int NRX = FMT == 0 ? 2 : FMT == Q8_0 ? 1 : 4;
   constexpr int RL = KST / NRX;             // elements a run
   const int cc = tid % CPR, u = cc * XV;
@@ -2230,8 +2241,8 @@ __device__ __forceinline__ void q3k_pf_codes(uint32_t q, uint32_t h,
 // Convert the fields of the stage in ``slot`` (part ``part`` of its
 // superblock) into buffer ``wb``: the codes as the bf16 tile (stage row u,
 // column n), byte permutes and one bf16x2 FMA a pair, no int-to-float; per
-// sub-block and column sc * d (q4_k also -m * dmin; q8_0 d) in f32, each
-// product rounded as the plain version rounds it.
+// sub-block and column sc * d (q4_k and q2_k also -m * dmin; q8_0 d) in
+// f32, each product rounded as the plain version rounds it.
 template <typename T, int FMT, int ROWS>
 __device__ __forceinline__ void pf_convert(const uint8_t* slot, uint8_t* wb,
                                            int tid, int part) {
@@ -2259,10 +2270,10 @@ __device__ __forceinline__ void pf_convert(const uint8_t* slot, uint8_t* wb,
           make_uint2(code_pair(hi, 0x4140, Q4_BIAS),
                      code_pair(hi, 0x4342, Q4_BIAS));
     }
-  } else if constexpr (FMT == 1 || FMT == 2) {
+  } else if constexpr (FMT == 1 || FMT == 2 || FMT == 4) {
     constexpr int QR = 64 / PARTS;
     // q6_k: qh; q3_k: hmask, its rows from (part * QR) % 32, its bits from
-    // (part * QR) / 32
+    // (part * QR) / 32; q2_k: none
     const uint8_t* hf = raw + pf_off(FMT, 1, PARTS) +
                         (FMT == 2 ? part * QR % 32 : 0) * COLS + 4 * l;
     const int hb = FMT == 2 ? part * QR / 32 : 0;
@@ -2270,17 +2281,22 @@ __device__ __forceinline__ void pf_convert(const uint8_t* slot, uint8_t* wb,
     for (int i = 0; i < QR / PF_WARPS; ++i) {
       const int r = w + PF_WARPS * i;
       uint32_t t[4];
-      const uint32_t h = *reinterpret_cast<const uint32_t*>(hf + r * COLS);
-      if constexpr (FMT == 1)
-        q6k_codes(*reinterpret_cast<const uint32_t*>(raw + r * COLS + 4 * l),
+      const uint32_t q = *reinterpret_cast<const uint32_t*>(raw + r * COLS +
+                                                            4 * l);
+      if constexpr (FMT == 1) {
+        q6k_codes(q,
                   *reinterpret_cast<const uint32_t*>(raw + (QR + r) * COLS +
                                                      4 * l),
-                  h, t);
-      else
-        q3k_pf_codes(
-            *reinterpret_cast<const uint32_t*>(raw + r * COLS + 4 * l),
-            h >> hb, t);
-      constexpr uint32_t BIAS = FMT == 1 ? Q6_BIAS : Q3_BIAS;
+                  *reinterpret_cast<const uint32_t*>(hf + r * COLS), t);
+      } else if constexpr (FMT == 2) {
+        q3k_pf_codes(q, *reinterpret_cast<const uint32_t*>(hf + r * COLS) >> hb,
+                     t);
+      } else {
+#pragma unroll
+        for (int p = 0; p < 4; ++p) t[p] = (q >> (2 * p)) & 0x03030303u;
+      }
+      constexpr uint32_t BIAS =
+          FMT == 1 ? Q6_BIAS : FMT == 2 ? Q3_BIAS : Q4_BIAS;
 #pragma unroll
       for (int p = 0; p < 4; ++p)
         *reinterpret_cast<uint2*>(wb + (p * QR + r) * PF_WPITCH + 8 * l) =
@@ -2303,7 +2319,7 @@ __device__ __forceinline__ void pf_convert(const uint8_t* slot, uint8_t* wb,
     }
   }
   // scales: unit (sub-block, four columns); d is field 3 of q4_k, q6_k and
-  // q3_k, field 1 of q8_0 (a row a block)
+  // q3_k, field 1 of q8_0 (a row a block), field 2 of q2_k (dmin 3)
   for (int idx = tid; idx < NSUB * 32; idx += PF_THREADS) {
     const int s = idx >> 5, c4 = 4 * (idx & 31);
     float dd[4];
@@ -2311,6 +2327,24 @@ __device__ __forceinline__ void pf_convert(const uint8_t* slot, uint8_t* wb,
     if constexpr (FMT == Q8_0) {
       load4_half(as_half(raw + pf_off(FMT, 1, PARTS)) + s * COLS + c4, dd);
       e = make_float4(dd[0], dd[1], dd[2], dd[3]);
+    } else if constexpr (FMT == 4) {
+      // sm: the scale code in the low nibble, the min code in the high one
+      float dm[4];
+      load4_half(as_half(raw + pf_off(4, 2, PARTS)) + c4, dd);
+      load4_half(as_half(raw + pf_off(4, 3, PARTS)) + c4, dm);
+      const uint32_t sm = *reinterpret_cast<const uint32_t*>(
+          raw + pf_off(4, 1, PARTS) + s * COLS + c4);
+      e = make_float4(__fmul_rn(dd[0], (float)(byte_of(sm, 0) & 15u)),
+                      __fmul_rn(dd[1], (float)(byte_of(sm, 1) & 15u)),
+                      __fmul_rn(dd[2], (float)(byte_of(sm, 2) & 15u)),
+                      __fmul_rn(dd[3], (float)(byte_of(sm, 3) & 15u)));
+      float* nm = scl + (NSUB + s) * L::SROW;
+      *reinterpret_cast<float2*>(nm + L::spos(c4)) =
+          make_float2(-__fmul_rn(dm[0], (float)(byte_of(sm, 0) >> 4)),
+                      -__fmul_rn(dm[1], (float)(byte_of(sm, 1) >> 4)));
+      *reinterpret_cast<float2*>(nm + L::spos(c4 + 2)) =
+          make_float2(-__fmul_rn(dm[2], (float)(byte_of(sm, 2) >> 4)),
+                      -__fmul_rn(dm[3], (float)(byte_of(sm, 3) >> 4)));
     } else {
       load4_half(as_half(raw + pf_off(FMT, 3, PARTS)) + c4, dd);
       const uint32_t sc = *reinterpret_cast<const uint32_t*>(
@@ -2371,8 +2405,9 @@ __device__ __forceinline__ void pf_afrag(const uint8_t* xs, int row0, int k0,
 // The products of one stage for warp (wm, wn): per sub-block (q8_0: per
 // block) the exact products of codes and x summed by the tensor cores (f32,
 // zeroed for each sub-block and row tile), then scaled into the
-// accumulators in f32; for q4_k also the sub-block's sums of x's rows, an
-// mma against a B of ones (bf16 1.0: exact), times -m * dmin.
+// accumulators in f32; for q4_k and q2_k also the sub-block's sums of x's
+// rows, an mma against a B of ones (bf16 1.0: exact) a k16 step, times -m
+// * dmin.
 template <typename T, int FMT, int ROWS>
 __device__ __forceinline__ void pf_stage_mma(
     const uint8_t* xs, const uint8_t* wb, int wm, int wn, int l,
@@ -2383,6 +2418,7 @@ __device__ __forceinline__ void pf_stage_mma(
   constexpr int KST = pf_kst<T>();
   constexpr int NSUB = pf_nsub<T, FMT>();
   constexpr int KK = pf_sub(FMT) / 16;      // k16 steps a sub-block
+  constexpr bool MINS = pf_mins(FMT);
   constexpr uint32_t ONES = 0x3F803F80u;    // bf16 (1.0, 1.0)
   const float* scl = reinterpret_cast<const float*>(wb + KST * PF_WPITCH);
   const int t = l & 3;
@@ -2409,15 +2445,16 @@ __device__ __forceinline__ void pf_stage_mma(
         b[kk][2 * np + 1][0] = r[2];
         b[kk][2 * np + 1][1] = r[3];
       }
-    // the sub-block's scales of this lane's columns (q4_k also -m * dmin)
-    float2 e[NT8], nm[FMT == 0 ? NT8 : 1];
+    // the sub-block's scales of this lane's columns (q4_k and q2_k also -m
+    // * dmin)
+    float2 e[NT8], nm[MINS ? NT8 : 1];
     const float* sp = scl + s * L::SROW + (wn * 4 + t) * L::SLANE;
 #pragma unroll
     for (int j = 0; j < NT8 / 2; ++j) {
       const float4 v = *reinterpret_cast<const float4*>(sp + 4 * j);
       e[2 * j] = make_float2(v.x, v.y);
       e[2 * j + 1] = make_float2(v.z, v.w);
-      if constexpr (FMT == 0) {
+      if constexpr (MINS) {
         const float4 u =
             *reinterpret_cast<const float4*>(sp + NSUB * L::SROW + 4 * j);
         nm[2 * j] = make_float2(u.x, u.y);
@@ -2439,7 +2476,7 @@ __device__ __forceinline__ void pf_stage_mma(
 #pragma unroll
         for (int nt = 0; nt < NT8; ++nt)
           mma_bf16(d[nt], a[0], b[kk][nt][0], b[kk][nt][1]);
-        if constexpr (FMT == 0) mma_bf16(xd, a[0], ONES, ONES);
+        if constexpr (MINS) mma_bf16(xd, a[0], ONES, ONES);
       }
 #pragma unroll
       for (int nt = 0; nt < NT8; ++nt) {
@@ -2448,7 +2485,7 @@ __device__ __forceinline__ void pf_stage_mma(
         o[1] = fmaf(e[nt].y, d[nt][1], o[1]);
         o[2] = fmaf(e[nt].x, d[nt][2], o[2]);
         o[3] = fmaf(e[nt].y, d[nt][3], o[3]);
-        if constexpr (FMT == 0) {
+        if constexpr (MINS) {
           // xd: rows g (xd[0]) and g + 8 (xd[2]), the same in every column
           o[0] = fmaf(nm[nt].x, xd[0], o[0]);
           o[1] = fmaf(nm[nt].y, xd[0], o[1]);
@@ -2462,9 +2499,9 @@ __device__ __forceinline__ void pf_stage_mma(
 
 // f32 x (the parity and test path): the plain version's function to f32
 // rounding.  Each weight of the stage (part ``part`` of its superblock) is
-// dequantized as qmatmul_plain does it (q4_k: q * (sc * d) - m * dmin,
-// q6_k: (q - 32) * (sc * d), q3_k: (q - 4) * (sc * d), q8_0: q * d, each
-// product and difference rounded to f32) and split, like x, into three
+// dequantized as qmatmul_plain does it (q4_k and q2_k: q * (sc * d) - m *
+// dmin, q6_k: (q - 32) * (sc * d), q3_k: (q - 4) * (sc * d), q8_0: q * d,
+// each product and difference rounded to f32) and split, like x, into three
 // bf16 terms (split3); ``wb`` holds the terms' tiles one after the other.
 template <int FMT, int ROWS>
 __device__ __forceinline__ void pf_convert_f32(const uint8_t* slot,
@@ -2540,6 +2577,39 @@ __device__ __forceinline__ void pf_convert_f32(const uint8_t* slot,
           wv[c] = __fsub_rn(__fmul_rn(code_f32(q[h], c) - kMagic, e[h][c]),
                             mn[h][c]);
         put(h * QR + r, wv);
+      }
+    }
+  } else if constexpr (FMT == 4) {
+    // q2_k: stage row p * QR + r (bit-pair p of qs row r) lies in the
+    // sub-block of row p of the part's sm
+    constexpr int QR = 64 / PARTS;
+    float dd[4], dm[4], e[4][4], mn[4][4];
+    load4_half(as_half(raw + pf_off(4, 2, PARTS)) + c4, dd);
+    load4_half(as_half(raw + pf_off(4, 3, PARTS)) + c4, dm);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const uint32_t sm = *reinterpret_cast<const uint32_t*>(
+          raw + pf_off(4, 1, PARTS) + p * COLS + c4);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        e[p][c] = __fmul_rn(dd[c], (float)(byte_of(sm, c) & 15u));
+        mn[p][c] = __fmul_rn(dm[c], (float)(byte_of(sm, c) >> 4));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < QR / PF_WARPS; ++i) {
+      const int r = w + PF_WARPS * i;
+      const uint32_t v =
+          *reinterpret_cast<const uint32_t*>(raw + r * COLS + c4);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const uint32_t q = (v >> (2 * p)) & 0x03030303u;
+        float wv[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          wv[c] = __fsub_rn(__fmul_rn(code_f32(q, c) - kMagic, e[p][c]),
+                            mn[p][c]);
+        put(p * QR + r, wv);
       }
     }
   } else {
@@ -2903,9 +2973,9 @@ __host__ __device__ constexpr int pf_rows_for(int M, int N) {
              : PF_ROWS;
 }
 
-// The prefill form (q4_k, q6_k, q3_k, q8_0): ROWS x 128 output tiles, each
-// a cluster
-// of 1..PF_MAX_KSPLIT blocks along z that split its half superblocks
+// The prefill form (q4_k, q6_k, q3_k, q2_k, q8_0): ROWS x 128 output
+// tiles, each a cluster of 1..PF_MAX_KSPLIT blocks along z that split its
+// half superblocks
 template <typename T, int FMT, int V, int ROWS>
 cudaError_t launch_prefill_rows(const void* x, const Fields& f, void* out,
                                 int M, int K, int N, int ks,
@@ -3041,12 +3111,12 @@ constexpr bool decode_form(int fmt, int E, int M, int K) {
   return (fmt == 0 || fmt == 1) && E == 1 && M <= DROWS && K <= DECODE_MAX_K;
 }
 // whether a (K, N) weight takes the prefill form (qmatmul_prefill_kernel):
-// q4_k and q6_k where they do not take their decode form, q3_k and q8_0 at
-// M > 4 (at M <= 4 they keep qmatmul_kernel)
+// q4_k and q6_k where they do not take their decode form, q3_k, q2_k and
+// q8_0 at M > 4 (at M <= 4 they keep qmatmul_kernel)
 constexpr bool prefill_form(int fmt, int E, int M, int K) {
-  return E == 1 && (fmt == 0 || fmt == 1   ? !decode_form(fmt, E, M, K)
-                    : fmt == 2 || fmt == Q8_0 ? M > DROWS
-                                              : false);
+  return E == 1 && (fmt == 0 || fmt == 1 ? !decode_form(fmt, E, M, K)
+                    : has_prefill_form(fmt) ? M > DROWS
+                                            : false);
 }
 
 template <typename T>
@@ -3090,7 +3160,7 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
   if constexpr (F == 0 || F == 1) {
     return (int)cudaErrorInvalidValue;   // (every call took a form above)
   } else {
-    // q3_k and q8_0 at M <= 4, q5_k and q2_k
+    // q3_k, q2_k and q8_0 at M <= 4, q5_k
     launch_rows<T, F>(x, f, partial, out, E, M, K, N, splits, st);
     return (int)cudaGetLastError();
   }
@@ -3107,8 +3177,8 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
 // q4_k or q6_k weight at M <= 4 (K <= 65536) to its decode form
 // (qmatmul_q4k_decode_kernel, qmatmul_q6k_decode_kernel), its superblocks
 // split over a cluster of ``splits`` blocks (q4_k 1..8, q6_k 1..16,
-// ``partial`` unused), and at any other M or K, like one q3_k or q8_0
-// weight at M > 4, to the prefill form (qmatmul_prefill_kernel, a cluster
+// ``partial`` unused), and at any other M or K, like one q3_k, q2_k or
+// q8_0 weight at M > 4, to the prefill form (qmatmul_prefill_kernel, a cluster
 // of 1..8 blocks a tile, ``partial`` unused); every other weight to
 // qmatmul_kernel.
 // N must be a multiple of 4; there ``partial`` holds splits x M x N floats
@@ -3136,7 +3206,7 @@ extern "C" int qmatmul(int fmt, int dtype, const void* x,
 // How many times this library launched qmatmul_experts_kernel (0 for the
 // formats that have none), its decode form (qmatmul_q4k_decode_kernel or
 // qmatmul_q6k_decode_kernel; q4_k and q6_k only), its prefill form
-// (qmatmul_prefill_kernel; q4_k, q6_k, q3_k and q8_0 only) and
+// (qmatmul_prefill_kernel; q4_k, q6_k, q3_k, q2_k and q8_0 only) and
 // splitk_reduce: the card tests read them to see which kernels ran.
 extern "C" long long qmatmul_experts_kernel_launches(void) {
   return g_experts_launches;

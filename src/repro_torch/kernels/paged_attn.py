@@ -17,7 +17,13 @@ Both decode kernels (GQA and MLA) split each lane's page walk over the
 blocks of a thread-block cluster and merge their partial softmax states in
 one launch (:func:`decode_splits` and :func:`mla_decode_splits` size the
 split from host integers only, so a decode step stays free of host
-syncs).
+syncs).  Both prefill kernels run on tensor cores: each 32-key tile is
+converted once into exact bf16 codes, S and P . V are bf16
+``mma.sync.m16n8k16`` products with the tokens' scales applied in f32 (the
+GQA one's f32 queries: the dequantized values as three bf16 terms, the
+plain version's function to f32 rounding), and the GQA one splits its key
+walk over a cluster the same way where its blocks are few
+(:func:`attn_prefill_tiles`).
 
 Layouts are the reference's: GQA pools ``(num_pages, P, Hkv, D)``,
 quantized row scales ``(num_pages, P, Hkv)``, ``pos_pool (num_pages, P)``
@@ -49,7 +55,6 @@ KV_MODES = tuple(_QUANT_KIND)
 # the (latent, rope) mode pairs csrc/paged_mla.cu instantiates: uniform
 # pools, and "dq"'s q8_0 latents beside q4_0 rope keys
 MLA_MODE_PAIRS = (("q8_0", "q8_0"), ("q4_0", "q4_0"), ("q8_0", "q4_0"))
-_ROWS_PER_BLOCK = 32      # prefill query rows (queries x rep) per block
 
 
 class Launches:
@@ -181,7 +186,7 @@ def attn_prefill_plain(q, kv, pos_pool, block_table, qpos, *, window: int,
 def _prefill_entry():
     v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return build.bind("paged_attn", "paged_attn_prefill",
-                      [i, v, v, v, v, v, v, v, v, v,
+                      [i, i, v, v, v, v, v, v, v, v, v,
                        i, i, i, i, i, i, i, i, i, i, i, f, f, v])
 
 
@@ -221,7 +226,8 @@ def decode_splits(nj: int, blocks: int, sms: int) -> tuple[int, int]:
 def _check_gqa(q, k, v, kd, vd, pos_pool, block_table, qpos, lane_pages,
                dv: int) -> None:
     """The operand checks of both GQA kernels; ``qpos`` holds the query
-    positions ((B,) at decode, (B, C) at prefill)."""
+    positions ((B,) at decode, (B, C) at prefill); q is f32 (prefill: or
+    bf16)."""
     dev = q.device
     h, d, hkv = q.shape[-2], q.shape[-1], k.shape[2]
     indices = [t for t in (pos_pool, block_table, qpos, lane_pages)
@@ -235,7 +241,7 @@ def _check_gqa(q, k, v, kd, vd, pos_pool, block_table, qpos, lane_pages,
     _require(d <= 256 and dv <= 256, "head_dim must be <= 256")
     _require(k.shape[:3] == v.shape[:3], "K and V pools differ in layout")
     _require(pos_pool.shape == k.shape[:2], "pos_pool is not (num_pages, P)")
-    _require(q.dtype == torch.float32, "q must be float32")
+    _require(q.dtype in _KV_KIND, "q must be float32 or bfloat16")
     _require(all(t.dtype == torch.int32 for t in indices),
              "indices must be int32")
 
@@ -270,20 +276,52 @@ def _launch_decode(kind: int, q, k, v, kd, vd, pos_pool, block_table, pos,
     return out
 
 
+# csrc/paged_attn.cu's prefill kernel: (query, rep head) rows a block
+# holds, and the keys of a tile
+_PREFILL_ROWS = 64
+_PREFILL_KEYS = 32
+
+
+def attn_prefill_tiles(b: int, c: int, h: int, hkv: int, *, nj: int,
+                       page_size: int, sms: int) -> tuple[int, int]:
+    """The GQA prefill kernel's grid from host integers: its row tiles per
+    (lane, kv head) (64 of the ``c * h / hkv`` (query, rep head) rows
+    each, a block each), and the blocks of a cluster that split each row
+    tile's key tiles: enough for about two blocks per SM over the ``b *
+    hkv * row_tiles`` clusters, at most 8 (the portable cluster size) and
+    the 32-key tiles of ``nj`` pages.  The kernel walks a row tile's keys
+    up to its rows' largest position (read on the card) and splits those
+    tiles evenly, in rank order (``csrc/paged_attn.cu``).  On one H100
+    80GB HBM3 at 700 W qwen2's 4 x 128-token chunk (96 clusters) ran
+    0.060 ms at clusters of 3 blocks, 0.077 at 2 and 0.123 at 1
+    (``PERF.md``)."""
+    tiles = -(-c * (h // hkv) // _PREFILL_ROWS)
+    want = -(-2 * sms // max(b * hkv * tiles, 1))
+    keys = -(-nj * page_size // _PREFILL_KEYS)
+    return tiles, max(1, min(want, _MAX_SPLITS, keys))
+
+
 def _launch_prefill(kind: int, q, k, v, kd, vd, pos_pool, block_table,
-                    qpos, *, dv: int, c: int, nj: int, ct: int, window: int,
-                    scale: float, softcap: float) -> torch.Tensor:
-    """``paged_attn_kernel``: q (B, C, H, D) -> (B, C, H, Dv)."""
+                    qpos, *, dv: int, nj: int, window: int, scale: float,
+                    softcap: float) -> torch.Tensor:
+    """``paged_attn_prefill_kernel``: q (B, C, H, D), f32 or bf16 (read
+    as it is) -> (B, C, H, Dv) f32."""
     _check_gqa(q, k, v, kd, vd, pos_pool, block_table, qpos, None, dv)
     dev = q.device
-    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    b, c, h, d = q.shape
     hkv, tp = k.shape[2], k.shape[1]
+    _require(d % 8 == 0 and dv % 8 == 0,
+             f"the prefill kernel takes head widths that are multiples of "
+             f"8, got D={d}, Dv={dv}")
+    _, splits = attn_prefill_tiles(b, c, h, hkv, nj=nj, page_size=tp,
+                                   sms=build.sm_count(dev))
     out = torch.empty((b, c, h, dv), dtype=torch.float32, device=dev)
-    err = _prefill_entry()(kind, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    err = _prefill_entry()(kind, int(q.dtype == torch.bfloat16),
+                           q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            build.ptr(kd), build.ptr(vd), pos_pool.data_ptr(),
                            block_table.data_ptr(), qpos.data_ptr(),
                            out.data_ptr(), b, c, h, hkv, d, dv, tp,
-                           block_table.shape[1], nj, ct, int(window),
+                           block_table.shape[1], nj, splits, int(window),
                            float(scale), float(softcap),
                            build.stream_ptr(dev))
     build.check(err, "paged_attn_prefill")
@@ -388,10 +426,11 @@ def paged_attn_prefill_quant(q, k_qs, k_d, v_qs, v_d, pos_pool, block_table,
     """Write-then-attend chunked prefill over q8_0 (B4) or q4_0 (B5)
     pools.
 
-    q: (B, C, H, D); qpos: (B, C) int32 query positions, -1 for padded
-    rows (their outputs are zeros).  A key row is attendable for query
-    (b, c) iff written, causal (``pos <= qpos``), inside the window when
-    one applies, and its logical index is ``<= qpos``.  Returns
+    q: (B, C, H, D), any float type (the kernel reads bf16 queries as
+    they are, others as f32); qpos: (B, C) int32 query positions, -1 for
+    padded rows (their outputs are zeros).  A key row is attendable for
+    query (b, c) iff written, causal (``pos <= qpos``), inside the window
+    when one applies, and its logical index is ``<= qpos``.  Returns
     (B, C, H, Dv) f32.
     """
     _check_mode(mode)
@@ -403,13 +442,11 @@ def paged_attn_prefill_quant(q, k_qs, k_d, v_qs, v_d, pos_pool, block_table,
                                   window=window, softcap=softcap, scale=scale,
                                   nj=nj, quant=mode)
     kind, k, kd, v, vd, dv = _quant_kv(q, kv, mode)
-    rep = q.shape[2] // k.shape[2]
-    ct = max(1, min(q.shape[1], _ROWS_PER_BLOCK // max(rep, 1)))
-    out = _launch_prefill(kind, q.to(torch.float32).contiguous(), k, v, kd,
-                          vd, pos_pool, block_table,
-                          qpos.to(torch.int32).contiguous(), dv=dv,
-                          c=q.shape[1], nj=nj, ct=ct, window=window,
-                          scale=scale, softcap=softcap)
+    qt = q if q.dtype == torch.bfloat16 else q.to(torch.float32)
+    out = _launch_prefill(kind, qt.contiguous(), k, v, kd, vd, pos_pool,
+                          block_table, qpos.to(torch.int32).contiguous(),
+                          dv=dv, nj=nj, window=window, scale=scale,
+                          softcap=softcap)
     _count(paged_attn_prefill_quant, mode)
     return out
 

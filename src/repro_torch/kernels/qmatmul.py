@@ -38,21 +38,21 @@ superblocks split over the blocks of a thread-block cluster
 (:func:`decode_ksplit`, :func:`decode_ksplit_q6k`) whose sums are added in
 rank order in the same launch: no partial buffer and no second kernel.
 
-One q4_k, q6_k, q3_k or q8_0 weight at M > 4 rows (every prefill chunk:
-4 x 128 = 512 rows) takes ``qmatmul_prefill_kernel``
+One q4_k, q6_k, q3_k, q2_k or q8_0 weight at M > 4 rows (every prefill
+chunk: 4 x 128 = 512 rows) takes ``qmatmul_prefill_kernel``
 (:func:`prefill_form`), on tensor cores: a block owns 128 rows of x (64
 where such tiles are few, :func:`prefill_rows`) and 128 columns, converts
 each stage's codes once into an exact bf16 tile in shared memory (byte
 permutes, no int-to-float; q8_0's 8-bit codes as their low 7 bits and a
 bias chosen by the sign bit), multiplies it with bf16 ``mma.sync.m16n8k16``
 against bf16 x, and applies each sub-block's scale (q8_0: each block's d;
-q4_k also its min term, from x's sums per sub-block) in f32 to the
-sub-block's products.  f32 x takes the plain version's dequantized weights
+q4_k and q2_k also their min term, from x's sums per sub-block) in f32 to
+the sub-block's products.  f32 x takes the plain version's dequantized weights
 and x as three bf16 terms each (six mmas a product), so that it differs
 from the plain version in summation order only.  Where the tiles are fewer
 than the SMs, the half superblocks split over a cluster
 (:func:`prefill_ksplit`) merged in rank order, in the same launch.  Every
-other 2-D call (q5_k and q2_k, and q3_k and q8_0 at M <= 4) keeps
+other 2-D call (q5_k, and q3_k, q2_k and q8_0 at M <= 4) keeps
 ``qmatmul_kernel``, with a split-K pass (``splitk_reduce``) where its
 column tiles are few.
 """
@@ -167,15 +167,15 @@ def decode_ksplit_q6k(n: int, k: int, sms: int) -> int:
 # the formats with a decode form, and how each splits its superblocks
 _DECODE_KSPLIT = {"q4_k": decode_ksplit, "q6_k": decode_ksplit_q6k}
 # the formats with a prefill form (``qmatmul_prefill_kernel``)
-PREFILL_FORMATS = ("q4_k", "q6_k", "q3_k", "q8_0")
+PREFILL_FORMATS = ("q4_k", "q6_k", "q3_k", "q2_k", "q8_0")
 
 
 def prefill_form(fmt: str, e: int, m: int, k: int) -> bool:
     """Whether a call takes the prefill form (``qmatmul_prefill_kernel``):
-    one weight (``e == 1``) at M > 4 rows of q4_k, q6_k, q3_k or q8_0, and
-    of q4_k or q6_k also at K > 65536 (any call that does not take their
-    decode form); q3_k and q8_0 at M <= 4 keep ``qmatmul_kernel``
-    (``prefill_form`` in ``csrc/qmatmul.cu``)."""
+    one weight (``e == 1``) at M > 4 rows of q4_k, q6_k, q3_k, q2_k or
+    q8_0, and of q4_k or q6_k also at K > 65536 (any call that does not
+    take their decode form); q3_k, q2_k and q8_0 at M <= 4 keep
+    ``qmatmul_kernel`` (``prefill_form`` in ``csrc/qmatmul.cu``)."""
     if fmt not in PREFILL_FORMATS or e != 1:
         return False
     if fmt in _DECODE_KSPLIT:

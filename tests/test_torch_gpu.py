@@ -248,13 +248,13 @@ def test_qmatmul_q6k_decode_form(cuda, m, k, n, dtype):
                            torch.zeros_like(y[m - 2]).view(bits))
 
 
-@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q3_k", "q8_0"])
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q3_k", "q2_k", "q8_0"])
 @pytest.mark.parametrize("m", [5, 16, 77, 512, 600])
 @pytest.mark.parametrize("k,n", [(700, 260), (1536, 384), (8960, 1536)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_qmatmul_prefill_form(cuda, fmt, m, k, n, dtype):
-    """The 2-D form at M > 4 of q4_k, q6_k, q3_k and q8_0 runs
+    """The 2-D form at M > 4 of q4_k, q6_k, q3_k, q2_k and q8_0 runs
     qmatmul_prefill_kernel on tensor cores: one launch of it a call, no
     qmatmul_kernel and no splitk_reduce, two calls bitwise equal, within
     B1's limits of the plain version (f32 x as three bf16 terms: 1e-5 of
@@ -288,16 +288,16 @@ def test_qmatmul_prefill_form(cuda, fmt, m, k, n, dtype):
     assert not y[zero].view(bits).any()                  # +0, not -0
 
 
-@pytest.mark.parametrize("fmt", ["q3_k", "q8_0"])
+@pytest.mark.parametrize("fmt", ["q3_k", "q2_k", "q8_0"])
 @pytest.mark.parametrize("m", [1, 4])
 @pytest.mark.parametrize("k,n", [(7168, 1536), (256, 260)])
 def test_qmatmul_q3k_q8_0_decode_rows_keep_qmatmul_kernel(cuda, fmt, m, k,
                                                           n):
-    """q3_k and q8_0 have no decode form: at M <= 4 one weight still runs
-    qmatmul_kernel, with splitk_reduce after it where the column tiles are
-    few (7168 -> 1536) and none at one superblock (256 -> 260), and no
-    prefill form; within B1's limits of the plain version (bf16 x, 2^-8 of
-    max|y|)."""
+    """q3_k, q2_k and q8_0 have no decode form: at M <= 4 one weight
+    still runs qmatmul_kernel, with splitk_reduce after it where the column
+    tiles are few (7168 -> 1536) and none at one superblock (256 -> 260),
+    and no prefill form; within B1's limits of the plain version (bf16 x,
+    2^-8 of max|y|)."""
     rng = np.random.default_rng(m * 23 + k + len(fmt))
     qt = quantize(torch.from_numpy(_np(rng, (k, n))).to(cuda), fmt)
     x = torch.from_numpy(_np(rng, (m, k))).to(cuda).to(torch.bfloat16)
@@ -489,34 +489,58 @@ def test_paged_decode_kernel_row_tiles(cuda, kv):
     assert (y - ref).abs().max() < TOL
 
 
+PREFILL_CASES = [
+    # page_size, active_pages, C, H, Hkv, table width, window, softcap
+    (3, None, 5, 12, 2, 6, 0, 0.0),
+    (5, 3, 5, 12, 2, 6, 0, 0.0),        # active_pages < table width
+    (16, None, 40, 12, 2, 6, 0, 0.0),
+    (16, None, 40, 4, 4, 6, 0, 0.0),    # rep 1: a group of one
+    (7, None, 33, 12, 2, 8, 20, 30.0),  # window + softcap
+    (16, None, 128, 12, 2, 64, 0, 0.0),  # a 64-page lane, a full chunk
+]
+
+
 @pytest.mark.parametrize("mode", ["q8_0", "q4_0"])
-@pytest.mark.parametrize("page_size,active,c", [(3, None, 5), (5, 3, 5),
-                                                (16, None, 40)])
-def test_paged_prefill_kernel_matches_plain(cuda, page_size, active, c,
-                                            mode):
-    """Write-then-attend prefill over q8_0 (B4) and q4_0 (B5) pools, with
-    padded query rows (qpos = -1 -> zeros) and stale rows past a lane's
-    frontier."""
-    rng = np.random.default_rng(page_size + c)
-    b, h, hkv, d, n_lp = 2, 12, 2, 128, 6
+@pytest.mark.parametrize("case", PREFILL_CASES, ids=[
+    "p3", "p5-active", "p16", "rep1", "window-softcap", "64-pages"])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_prefill_kernel_matches_plain(cuda, case, mode, qdt):
+    """Write-then-attend prefill over q8_0 (B4) and q4_0 (B5) pools on
+    tensor cores: f32 queries (three bf16 terms) and bf16 ones read as
+    passed, rep 6 and 1, a window with a softcap, a 64-page lane (its key
+    walk split over a cluster), padded query rows (qpos = -1 -> zeros) and
+    stale rows past a lane's frontier; one launch a call, two calls
+    bitwise equal, the plain version's result within 1e-5."""
+    page_size, active, c, h, hkv, n_lp, window, softcap = case
+    rng = np.random.default_rng(page_size + c + h + hkv + window)
+    b, d = 2, 128
     live = [min(page_size * 2 + 2 + c, page_size * n_lp), page_size + c]
+    if n_lp == 64:
+        live[0] = page_size * n_lp - 5
     k, v, pos_pool, bt = (torch.from_numpy(a).to(cuda) for a in _pools(
         rng, b, n_lp, page_size, hkv, d, live))
     qpos = torch.stack([torch.arange(x - c, x) for x in live]).to(
         torch.int32)
     qpos[1, -2:] = -1
     qpos = qpos.to(cuda)
-    q = torch.from_numpy(_np(rng, (b, c, h, d))).to(cuda)
+    q = torch.from_numpy(_np(rng, (b, c, h, d))).to(cuda).to(qdt)
     pools = (*QUANTIZE[mode](k), *QUANTIZE[mode](v))
     counter = paged_attn.paged_attn_prefill_quant.loaders[mode]
+    kw = dict(mode=mode, active_pages=active, window=window,
+              softcap=softcap)
     before = counter.launches
     y = paged_attn.paged_attn_prefill_quant(q, *pools, pos_pool, bt, qpos,
-                                            mode=mode, active_pages=active)
+                                            **kw)
+    y2 = paged_attn.paged_attn_prefill_quant(q, *pools, pos_pool, bt, qpos,
+                                             **kw)
     torch.cuda.synchronize()
-    assert counter.launches == before + 1
+    assert counter.launches == before + 2
+    assert torch.equal(y.view(torch.int32), y2.view(torch.int32))
     ref = paged_attn.attn_prefill_plain(
-        q, pools, pos_pool, bt, qpos, window=0, softcap=0.0,
+        q, pools, pos_pool, bt, qpos, window=window, softcap=softcap,
         scale=d ** -0.5, nj=paged_attn._n_active(bt, active), quant=mode)
+    assert y.shape == (b, c, h, d) and torch.isfinite(y).all()
     assert bool((y[1, -2:] == 0).all())
     assert (y - ref).abs().max() < TOL
 

@@ -256,20 +256,21 @@ def _fma32(a, b, c):
 
 
 def _prefill_tensor_core(x, fields, fmt, ks):
-    """The prefill form of q4_k, q6_k, q3_k and q8_0 written out
+    """The prefill form of q4_k, q6_k, q3_k, q2_k and q8_0 written out
     (``qmatmul_prefill_kernel``).  Rows padded to 128-row tiles (zeros).
     A superblock (q8_0: 8 blocks of 32, those past the field's last zero)
     is staged in parts (2 for bf16 x, 4 for f32), each a whole number of
     sub-blocks taken in the stage's order: q4_k part q sub-blocks 4 j + q *
-    4 / parts + i (j = 0, 1: low, high nibbles), q6_k and q3_k 4 p + q * 4
-    / parts + i (p = 0..3), q8_0 blocks q * 8 / parts + i.  bf16 x: per
-    sub-block the tensor cores sum 16 exact products of x and the codes
+    4 / parts + i (j = 0, 1: low, high nibbles), q6_k, q3_k and q2_k 4 p +
+    q * 4 / parts + i (p = 0..3), q8_0 blocks q * 8 / parts + i.  bf16 x:
+    per sub-block the tensor cores sum 16 exact products of x and the codes
     (q4_k q, q6_k q - 32, q3_k q - 4 with q a bit-pair of qs and a bit of
-    hmask, q8_0 its int8 q) a k16 step (q4_k, q8_0 two) into a sum zeroed
-    for the sub-block; the sum times sc * d (q8_0 d; f32) is added into the
-    accumulator by one FMA, and for q4_k -m * dmin times the sum of x over
-    the sub-block (the tensor cores' f32 sum against a B of ones; in order
-    here) by another.  f32 x: per k16 step of the stage, the six products
+    hmask, q2_k q a bit-pair of qs, q8_0 its int8 q) a k16 step (q4_k, q8_0
+    two) into a sum zeroed for the sub-block; the sum times sc * d (q8_0 d;
+    f32) is added into the accumulator by one FMA, and for q4_k and q2_k -m
+    * dmin times the sum of x over the sub-block (32 or 16 elements: the
+    tensor cores' f32 sum against a B of ones; in order here) by
+    another.  f32 x: per k16 step of the stage, the six products
     of x's and the plain version's dequantized weights' three bf16 terms
     whose sum carries f32 precision, smallest first, summed into a zeroed
     f32 sum that is added into the accumulator.  The half superblocks split
@@ -312,6 +313,12 @@ def _prefill_tensor_core(x, fields, fmt, ks):
         codes = (lo | (hi << 2)) - 4
         scale = f["d"].float()[:, None] * f["scales"].float()   # (S, 16, N)
         sub_len, runs = 16, 4
+    elif fmt == "q2_k":
+        qs, sm = f["qs"].to(torch.int32), f["sm"].to(torch.int32)
+        codes = (qs[:, e % 64] >> (2 * (e // 64))[None, :, None]) & 3
+        scale = f["d"].float()[:, None] * (sm & 15).float()    # (S, 16, N)
+        nmin = -(f["dmin"].float()[:, None] * (sm >> 4).float())
+        sub_len, runs = 16, 4
     else:
         codes = f["qs"].to(torch.int32).reshape(s_blocks, 256, n)
         scale = f["d"].float().reshape(s_blocks, 8, n)          # (S, 8, N)
@@ -353,17 +360,17 @@ def _prefill_tensor_core(x, fields, fmt, ks):
                     w = codes[sb, k0 - sb * 256:k0 - sb * 256 + 16]
                     d = (d.double() + xp[:, k0:k0 + 16].double() @ w).float()
                 acc = _fma32(scale[sb, sub][None], d, acc)
-                if fmt == "q4_k":
+                if fmt in ("q4_k", "q2_k"):
                     xs = torch.zeros(mp)
-                    k0 = sb * 256 + sub * 32
-                    for j in range(32):                     # in order, f32
+                    k0 = sb * 256 + sub * sub_len
+                    for j in range(sub_len):                # in order, f32
                         xs = xs + xp[:, k0 + j]
                     acc = _fma32(nmin[sb, sub][None], xs[:, None], acc)
         out = out + acc if ks > 1 else acc
     return out[:m].to(x.dtype)
 
 
-@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q3_k", "q8_0"])
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q3_k", "q2_k", "q8_0"])
 @pytest.mark.parametrize("m,k,n", [(5, 700, 256), (77, 1536, 384),
                                    (128, 700, 384), (300, 1536, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -373,7 +380,8 @@ def test_q4k_q6k_prefill_tensor_core_rule_matches_pallas(fmt, m, k, n,
     """The arithmetic of the prefill form, for each of its formats (bf16
     x: exact bf16 codes in the fragments' K order, design (a): each
     sub-block's (q8_0: block's) tensor-core sum scaled in f32 by sc * d (q8_0
-    d), q4_k's min term from x's sums per sub-block; f32 x: the plain
+    d), the min term of q4_k and q2_k from x's sums per 32- or 16-element
+    sub-block; f32 x: the plain
     version's weights and x as three bf16 terms each, six products a k16
     step; row tiles of 128 with padded rows, ragged K = 700 (q8_0: 22
     blocks, so its last superblock has 6 of its 8), the half superblocks
@@ -404,8 +412,9 @@ def test_q4k_q6k_prefill_tensor_core_rule_matches_pallas(fmt, m, k, n,
 # DeepSeek-V3's attn_q_a, attn_q_b, attn_kv_a_mqa, attn_output, dense
 # gate/up and down, shared experts (under DQ3_K_M and Q4_K_M q4_k and q6_k;
 # under Q3_K_M q3_k on attn_q_a, attn_q_b, attn_kv_a_mqa, dense and shared
-# gate/up; under Q2_K_L on attn_output, dense and shared down; under Q8_0
-# q8_0 on all of them)
+# gate/up; under Q2_K_L q3_k on attn_output, dense and shared down, q2_k on
+# attn_q_a, attn_q_b, dense and shared gate/up; under Q8_0 q8_0 on all of
+# them)
 PREFILL_SHAPES = [(1536, 1536), (1536, 8960), (1536, 256), (8960, 1536),
                   (7168, 1536), (1536, 24576), (7168, 576), (16384, 7168),
                   (7168, 18432), (18432, 7168), (7168, 2048), (2048, 7168)]
@@ -420,18 +429,19 @@ def test_prefill_ksplit_from_host_integers(k, n):
     SMs) and, for clusters of more than 2 blocks, fill at most four fifths
     of the SMs."""
     halves = 2 * -(-k // 256)
-    for fmt in ("q4_k", "q6_k", "q3_k", "q8_0"):
+    for fmt in ("q4_k", "q6_k", "q3_k", "q2_k", "q8_0"):
         assert qmatmul.prefill_form(fmt, 1, 512, k)
         assert qmatmul.prefill_form(fmt, 1, 5, k)
         assert not qmatmul.prefill_form(fmt, 1, 4, k)
         assert not qmatmul.prefill_form(fmt, 1, 1, k)
         assert not qmatmul.prefill_form(fmt, 8, 512, k)
-    # q3_k and q8_0 have no decode form: at M <= 4 they keep qmatmul_kernel
-    for fmt in ("q3_k", "q8_0"):
+    # q3_k, q2_k and q8_0 have no decode form: at M <= 4 they keep
+    # qmatmul_kernel; q5_k has neither form
+    for fmt in ("q3_k", "q2_k", "q8_0"):
         assert not qmatmul.decode_form(fmt, 1, 4, k)
-    for fmt in ("q2_k", "q5_k"):
-        assert not qmatmul.prefill_form(fmt, 1, 512, k)
-        assert not qmatmul.prefill_form(fmt, 1, 4, k)
+    for m in (1, 4, 5, 512):
+        assert not qmatmul.prefill_form("q5_k", 1, m, k)
+        assert not qmatmul.decode_form("q5_k", 1, m, k)
 
     def fits(tiles, ks, sms):
         return (tiles <= max(1, sms // 16) * (16 // ks)
@@ -677,6 +687,185 @@ def test_paged_prefill_plain_matches_pallas(page_size, active):
     assert got.shape == (b, c, h, d)
     assert np.all(got[1, -2:] == 0.0)
     assert np.max(np.abs(got - ref)) < TOL
+
+
+def _gqa_prefill_tensor_cores(q, pools, pos_pool, bt, qpos, *, mode, scale,
+                              nj, page_size, window, softcap, splits):
+    """The GQA prefill kernel's arithmetic written out
+    (``paged_attn_prefill_kernel``): per (lane, kv head), its (query, rep
+    head) rows laid out (c, r) in blocks of 64; a block's keys (logical
+    index <= its rows' largest position, within the first ``nj`` pages) in
+    32-key tiles, split evenly over ``splits`` runs; per tile, bf16
+    queries: the scores as exact products of the queries and the stored
+    codes (f64 here, the tensor core), times each key's row scale, then
+    ``scale``; P times each key's value scale, split into three bf16
+    terms, times the value codes.  f32 queries: q * scale and the keys and
+    values dequantized as the plain version rounds them, each as three
+    bf16 terms, the six term products whose sum carries f32 precision, for
+    S and for P . V (P as three terms).  Then the softcap, the mask
+    (written, causal, window, logical index) and the online softmax.  The
+    runs' (m, l, acc) are merged in run order.  A padded row (qpos = -1)
+    gives zeros."""
+    kq, kd, vq, vd = pools
+    kc = paged_attn.unpack_q4_rows(kq) if mode == "q4_0" else kq
+    vc = paged_attn.unpack_q4_rows(vq) if mode == "q4_0" else vq
+    b, c, h, d = q.shape
+    hkv, dv = kc.shape[2], vc.shape[-1]
+    rep, nq = h // hkv, 1 if q.dtype == torch.bfloat16 else 3
+    rows_a_block = paged_attn._PREFILL_ROWS
+    keys_a_tile = paged_attn._PREFILL_KEYS
+    neg = paged_attn.NEG_INF
+    kc = kc.reshape(-1, hkv, d).to(torch.float32)
+    vc = vc.reshape(-1, hkv, dv).to(torch.float32)
+    kd, vd = kd.reshape(-1, hkv), vd.reshape(-1, hkv)
+    pairs = [(2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)]
+
+    def prod(a, b):
+        """a @ b.T as the tensor cores give it: bf16 queries, exact; f32,
+        the six products of the two operands' three bf16 terms."""
+        if nq == 1:
+            return (a.double() @ b.double().T).to(torch.float32)
+        at, bt_ = bf16_terms(a, 3), bf16_terms(b, 3)
+        return sum(at[i].double() @ bt_[j].double().T
+                   for i, j in pairs).to(torch.float32)
+    tpos = pos_pool.reshape(-1)
+    out = torch.zeros(b, c, h, dv)
+    for i in range(b):
+        for hk in range(hkv):
+            for r0 in range(0, c * rep, rows_a_block):
+                rows = torch.arange(r0, min(r0 + rows_a_block, c * rep))
+                rc, rh = rows // rep, hk * rep + rows % rep
+                qp = qpos[i, rc].to(torch.int64)
+                qmax = int(qp.max())
+                n_valid = 0 if qmax < 0 else min(qmax + 1, nj * page_size)
+                ntiles = -(-n_valid // keys_a_tile)
+                qe = q[i, rc, rh].to(torch.float32)
+                if nq == 3:
+                    qe = qe * scale
+                runs = []
+                for sp in range(splits):
+                    m = torch.full((len(rows),), neg)
+                    l = torch.zeros(len(rows))
+                    acc = torch.zeros(len(rows), dv)
+                    for tile in range(ntiles * sp // splits,
+                                      ntiles * (sp + 1) // splits):
+                        u = torch.arange(tile * keys_a_tile,
+                                         min((tile + 1) * keys_a_tile,
+                                             n_valid))
+                        tok = (bt[i, u // page_size].to(torch.int64)
+                               * page_size + u % page_size)
+                        if nq == 1:
+                            s = prod(qe, kc[tok, hk]) * kd[tok, hk] * scale
+                        else:
+                            s = prod(qe, kc[tok, hk] * kd[tok, hk][:, None])
+                        if softcap:
+                            s = softcap * torch.tanh(s / softcap)
+                        tp = tpos[tok]
+                        ok = ((tp >= 0) & (tp <= qp[:, None])
+                              & (u <= qp[:, None]))
+                        if window:
+                            ok &= tp > qp[:, None] - window
+                        mx = torch.where(ok, s, torch.full_like(
+                            s, neg)).amax(-1)
+                        m_new = torch.maximum(m, mx)
+                        corr = torch.exp(m - m_new)
+                        p = torch.where(ok, torch.exp(s - m_new[:, None]),
+                                        torch.zeros_like(s))
+                        l = l * corr + p.sum(-1)
+                        if nq == 1:
+                            pv = sum(t.double() for t in bf16_terms(
+                                p * vd[tok, hk], 3))
+                            pv = (pv @ vc[tok, hk].double()).to(torch.float32)
+                        else:
+                            pv = prod(p, (vc[tok, hk]
+                                          * vd[tok, hk][:, None]).T)
+                        acc = acc * corr[:, None] + pv
+                        m = m_new
+                    runs.append((m, l, acc))
+                mx = torch.stack([r[0] for r in runs]).amax(0)
+                lsum = torch.zeros(len(rows))
+                osum = torch.zeros(len(rows), dv)
+                for m, l, acc in runs:                  # fixed run order
+                    e = torch.exp(m - mx)
+                    lsum = lsum + l * e
+                    osum = osum + acc * e[:, None]
+                out[i, rc, rh] = osum / torch.clamp(lsum, min=1e-30)[:, None]
+    return out
+
+
+GQA_PREFILL_CASES = [
+    # mode, query dtype, H, Hkv, page size, window, softcap
+    ("q8_0", torch.float32, 12, 2, 4, 0, 0.0),
+    ("q8_0", torch.bfloat16, 12, 2, 4, 0, 0.0),
+    ("q4_0", torch.float32, 12, 2, 16, 0, 0.0),
+    ("q4_0", torch.bfloat16, 12, 2, 16, 0, 0.0),
+    ("q8_0", torch.bfloat16, 3, 3, 5, 0, 0.0),       # rep 1: a group of one
+    ("q4_0", torch.float32, 3, 3, 5, 0, 0.0),
+    ("q8_0", torch.float32, 12, 2, 4, 9, 20.0),      # window + softcap
+]
+
+
+@pytest.mark.parametrize("case", GQA_PREFILL_CASES, ids=[
+    "q8_0-f32", "q8_0-bf16", "q4_0-f32", "q4_0-bf16", "q8_0-rep1",
+    "q4_0-rep1", "window-softcap"])
+def test_gqa_prefill_tensor_core_rule_matches_pallas(case):
+    """The tensor-core GQA prefill's arithmetic (bf16 queries: 32-key
+    tiles of exact bf16 codes, per-key row scales on S and folded into P,
+    P as three bf16 terms; f32 queries: the plain version's dequantized
+    values and q * scale as three bf16 terms, six products a k16 step; the
+    online softmax per tile, blocks of 64 (query, rep head) rows that stop
+    at their rows' last visible tile, the tiles split over 1, 2 and 3 runs
+    merged in order) with padded rows and stale rows past a lane's
+    frontier, against the reference's ``paged_attn_prefill_quant``
+    (Pallas, interpret mode) within 1e-5."""
+    mode, qdt, h, hkv, page_size, window, softcap = case
+    rng = np.random.default_rng(h + hkv + page_size + window)
+    b, c, d, n_lp = 2, 12, 16, -(-80 // page_size) + 1
+    live = [75, c + 2]                       # 3 key tiles, and 1
+    k, v, pos_pool, bt = _pools(rng, b, n_lp, page_size, hkv, d, live)
+    qpos = np.stack([np.arange(x - c, x) for x in live]).astype(np.int32)
+    qpos[1, -3:] = -1                        # padded rows of a short chunk
+    q = torch.from_numpy(rng.normal(size=(b, c, h, d)).astype(
+        np.float32)).to(qdt)
+    jq = {"q8_0": jax_pa.quantize_kv_page_pool,
+          "q4_0": jax_pa.quantize_kv_page_pool_q4}[mode]
+    jpools = (*jq(jnp.asarray(k)), *jq(jnp.asarray(v)))
+    qj = jnp.asarray(q.to(torch.float32).numpy())
+    ref = np.asarray(jax_pa.paged_attn_prefill_quant(
+        qj.astype(jnp.bfloat16) if qdt == torch.bfloat16 else qj, *jpools,
+        jnp.asarray(pos_pool), jnp.asarray(bt), jnp.asarray(qpos), mode=mode,
+        window=window, softcap=softcap, impl="pallas", interpret=True))
+    assert np.all(ref[1, -3:] == 0.0)
+    for splits in (1, 2, 3):
+        got = _gqa_prefill_tensor_cores(
+            q, [torch.from_numpy(np.array(a)) for a in jpools],
+            torch.from_numpy(pos_pool), torch.from_numpy(bt),
+            torch.from_numpy(qpos), mode=mode, scale=d ** -0.5, nj=n_lp,
+            page_size=page_size, window=window, softcap=softcap,
+            splits=splits).numpy()
+        assert np.all(got[1, -3:] == 0.0)
+        assert np.max(np.abs(got - ref)) < TOL, splits
+
+
+def test_attn_prefill_tiles_from_host_integers():
+    """``attn_prefill_tiles``: 64 (query, rep head) rows a block, and a
+    cluster of 1..8 blocks, at most the key tiles of ``nj`` pages, enough
+    for about two blocks per SM (qwen2's 4 x 128-token chunk: 12 row tiles
+    a kv head, 96 clusters, 3 blocks each on 132 SMs, the fastest split an
+    H100 80GB HBM3 at 700 W ran but for 6, 2 % faster; PERF.md)."""
+    assert paged_attn.attn_prefill_tiles(4, 128, 12, 2, nj=64, page_size=16,
+                                         sms=132) == (12, 3)
+    for b, c, h, hkv in ((1, 5, 12, 2), (2, 40, 3, 3), (4, 128, 12, 2),
+                         (1, 1, 1, 1), (3, 77, 28, 4)):
+        for nj, page_size in ((1, 3), (6, 16), (64, 16), (2, 128)):
+            for sms in (1, 8, 132):
+                tiles, splits = paged_attn.attn_prefill_tiles(
+                    b, c, h, hkv, nj=nj, page_size=page_size, sms=sms)
+                assert tiles == -(-c * (h // hkv) // 64)
+                blocks = b * hkv * tiles
+                assert 1 <= splits <= min(8, -(-nj * page_size // 32))
+                assert splits == min(8, -(-nj * page_size // 32),
+                                     max(1, -(-2 * sms // blocks)))
 
 
 def test_paged_q8_rows_and_scatters_bitwise():
