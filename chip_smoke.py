@@ -17,7 +17,8 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 256 experts live, where every kernel but q5_k's reads no
                 empty expert), with times, the roofline bound and the
                 stated tolerance (B1 also at every 2-D shape the DeepSeek
-                cut multiplies by q3_k or q8_0 at a chunk's 512 rows; B1's
+                cut multiplies by q3_k, q2_k or q8_0 at a chunk's 512 rows,
+                and by q3_k at a decode step's 1 and 4 rows; B1's
                 M = 512 lines also carry ``gemm_ms``, a bf16 torch.matmul
                 by the weight already dequantized, for context); the GQA
                 and MLA decodes also at the engine's horizon (4 lanes x
@@ -37,7 +38,9 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 bf16, q4_0 and dq pools (dq with the quant probe), and the
                 cut under Q4_K_M, Q3_K_M, Q2_K_L and Q8_0 with q8_0 pools.
                 Every
-                kernel of each path must have been launched in its run,
+                kernel of each path must have been launched in its run
+                (and each 2-D format with a decode form, q4_k, q6_k or
+                q3_k, must have taken it and never qmatmul_kernel),
                 and the DeepSeek weights must pack to the reference size
                 calculator's bytes; one traced 4 x 128-token prefill
                 chunk (``prefill_profile``) and one traced decode step
@@ -175,6 +178,8 @@ KERNELS = {
                              "src/repro/kernels/common.py:82"),
     "qmatmul_q3_k_prefill": ("src/repro_torch/csrc/qmatmul.cu",
                              "src/repro/kernels/q3_k.py:27"),
+    "qmatmul_q5_k_prefill": ("src/repro_torch/csrc/qmatmul.cu",
+                             "src/repro/kernels/q5_k.py:25"),
     "qmatmul_q2_k_prefill": ("src/repro_torch/csrc/qmatmul.cu",
                              "src/repro/kernels/q2_k.py:26"),
     "qmatmul_q8_0_prefill": ("src/repro_torch/csrc/qmatmul.cu",
@@ -313,6 +318,17 @@ B1_SHAPES = [(1536, 1536, "q4_k", "q_proj, o_proj"),
              (1536, 8960, "q8_0", "qwen2 gate, up, Q8_0"),
              (7168, 18432, "q8_0", "DeepSeek dense gate, up, Q8_0")]
 B1_ROWS = (1, 4, 512)
+# the other 2-D weights that the DeepSeek cut multiplies by q3_k's decode
+# form at a decode step (Q3_K_M, Q2_K_L), timed at M = 1 and 4 only (their
+# M = 512 form is timed below)
+B1_DECODE_SHAPES = [
+    (7168, 576, "q3_k", "DeepSeek attn_kv_a_mqa, Q3_K_M"),
+    (1536, 24576, "q3_k", "DeepSeek attn_q_b, Q3_K_M"),
+    (7168, 18432, "q3_k", "DeepSeek dense gate, up, Q3_K_M"),
+    (2048, 7168, "q3_k", "DeepSeek shexp down, Q2_K_L"),
+    (16384, 7168, "q3_k", "DeepSeek attn_output, Q2_K_L"),
+    (18432, 7168, "q3_k", "DeepSeek dense down, Q2_K_L")]
+B1_DECODE_ROWS = (1, 4)
 # the other 2-D weights that the DeepSeek cut multiplies by the prefill
 # form's q3_k (Q3_K_M, Q2_K_L), q2_k (Q2_K_L) and q8_0 (Q8_0) at a chunk's
 # 512 rows, timed at M = 512 only (their M <= 4 form is the one timed above)
@@ -336,9 +352,11 @@ B1_PREFILL_SHAPES = [
 # shape (M = 4, bf16) that moves most of the format's weight bytes per step
 # on its path; for the prefill form, the chunk shape (M = 512, bf16) with
 # the most device time a chunk: qwen2's for q4_k and q6_k, the DeepSeek
-# cut's dense gate/up for q3_k (Q3_K_M), q2_k (Q2_K_L) and q8_0 (Q8_0)
+# cut's dense gate/up for q3_k (Q3_K_M), q2_k (Q2_K_L) and q8_0 (Q8_0), its
+# dense down for q5_k (Q3_K_M)
 B1_PREFILL_SUMMARY = {"q4_k": (512, 1536, 8960), "q6_k": (512, 8960, 1536),
                       "q3_k": (512, 7168, 18432),
+                      "q5_k": (512, 18432, 7168),
                       "q2_k": (512, 7168, 18432),
                       "q8_0": (512, 7168, 18432)}
 B1_SUMMARY = {"q4_k": (4, 1536, 8960), "q6_k": (4, 8960, 1536),
@@ -383,6 +401,7 @@ def phase_kernels(torch, summary: dict) -> None:
     detail = []
     for k, n, fmt, use, rows in (
             [(*c, B1_ROWS) for c in B1_SHAPES]
+            + [(*c, B1_DECODE_ROWS) for c in B1_DECODE_SHAPES]
             + [(*c, (max(B1_ROWS),)) for c in B1_PREFILL_SHAPES]):
         name = f"qmatmul_{fmt}"
         w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
@@ -1018,8 +1037,8 @@ def short_name(key: str) -> str:
 
 # kernel families of a traced decode step or prefill chunk:
 # qmatmul_kernel<T, rows, format, experts>, qmatmul_q4k_decode_kernel and
-# qmatmul_q6k_decode_kernel (the 2-D forms of q4_k and q6_k at M <= 4),
-# qmatmul_prefill_kernel (theirs, q3_k's and q8_0's at M > 4) and
+# qmatmul_mma_decode_kernel (the 2-D forms of q4_k, q6_k and q3_k at M <=
+# 4), qmatmul_prefill_kernel (every format's at M > 4) and
 # qmatmul_experts_kernel<T, rows, format, copy bytes> (format ids as in
 # csrc/qmatmul.cu), the split-K reduction, and the attention kernels (the
 # MLA decode and prefill kernels both "B6/B7 paged_mla")
@@ -1036,7 +1055,7 @@ def family(key: str) -> str:
         return (f"B1 experts {B1_FORMATS[m.group(1)]}" if m.group(2) == "true"
                 else "B1 dense")
     if "splitk" in key or re.search(
-            r"qmatmul_(q[46]k_decode|prefill)_kernel", key):
+            r"qmatmul_(q4k_decode|mma_decode|prefill)_kernel", key):
         return "B1 dense"
     if "paged_mla" in key:
         return "B6/B7 paged_mla"
@@ -1196,16 +1215,20 @@ DEEPSEEK_B1 = {"DQ3_K_M": (("q4_k", "q6_k"), ("q3_k", "q4_k", "q6_k")),
                "Q4_K_M": (("q4_k", "q6_k"), ("q4_k", "q6_k"))}
 
 
-# the formats whose one-weight calls at M > 4 take qmatmul_prefill_kernel,
-# and those of them each path multiplies at a prefill chunk's 512 rows
-# (qwen2 under DQ3_K_M; the DeepSeek cut per policy: under Q3_K_M q6_k is
-# only the output head, which takes one row a lane, as the Q8_0 head does,
-# and Q2_K_L has no q4_k)
-PREFILL_FORMS = ("q4_k", "q6_k", "q3_k", "q2_k", "q8_0")
+# the formats whose one-weight calls at M > 4 take qmatmul_prefill_kernel
+# (all), and those of them each path multiplies at a prefill chunk's 512
+# rows (qwen2 under DQ3_K_M; the DeepSeek cut per policy: under Q3_K_M q6_k
+# is only the output head, which takes one row a lane, as the Q8_0 head
+# does, and Q2_K_L has no q4_k); and the formats whose one-weight calls at
+# M <= 4 take a decode form, never qmatmul_kernel
+PREFILL_FORMS = ("q4_k", "q6_k", "q3_k", "q5_k", "q2_k", "q8_0")
 QWEN2_PREFILL = ("q4_k", "q6_k")
 DEEPSEEK_PREFILL = {"DQ3_K_M": ("q4_k", "q6_k"), "Q4_K_M": ("q4_k", "q6_k"),
-                    "Q3_K_M": ("q4_k", "q3_k"),
+                    "Q3_K_M": ("q4_k", "q3_k", "q5_k"),
                     "Q2_K_L": ("q6_k", "q3_k", "q2_k"), "Q8_0": ("q8_0",)}
+
+
+DECODE_FORMS = ("q4_k", "q6_k", "q3_k")
 
 
 def b1_path(policy: str) -> tuple:
@@ -1300,14 +1323,16 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
             c.launches = 0
-        # the prefill form's count is its library's, read before and after
-        forms = {f: qm.library_launches(f, "prefill") for f in PREFILL_FORMS}
+        # the forms' counts are their libraries', read before and after
+        lib = [(f, w) for f in qm.FIELDS
+               for w in ("decode", "prefill", "kernel")]
+        forms = {fw: qm.library_launches(*fw) for fw in lib}
         done = engine.serve(reqs, slots=4, seed=0)
         torch.cuda.synchronize()
+        forms = {fw: qm.library_launches(*fw) - n for fw, n in forms.items()}
         launches = {k: c.launches for k, c in counters.items()}
-        launches.update({f"qmatmul_{f}_prefill":
-                         qm.library_launches(f, "prefill") - n
-                         for f, n in forms.items()})
+        launches.update({f"qmatmul_{f}_prefill": forms[f, "prefill"]
+                         for f in PREFILL_FORMS})
         st = engine.last_stats
         label = kv_quant or "bf16"
         res = {"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
@@ -1331,7 +1356,9 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
                "dense_cache_bytes": st.dense_cache_bytes,
                "kv_bytes_per_decoded_token": st.kv_bytes_per_decoded_token,
                "page_bytes": st.page_bytes,
-               "launches": {k: v for k, v in launches.items() if v}}
+               "launches": {k: v for k, v in launches.items() if v},
+               "library_launches": {f"{f} {w}": v
+                                    for (f, w), v in forms.items() if v}}
         if engine.quant_probe:
             res["quant_probe_steps"] = st.quant_probe_steps
             res["quant_logit_gap_per_lane"] = st.quant_logit_gap_per_lane
@@ -1350,6 +1377,15 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
         missing = [k for k in path_kernels[kv_quant] if launches[k] <= 0]
         if missing:
             fail(f"{what}: kernels never launched: {missing}")
+        # the path's 2-D formats with a decode form: their decode steps
+        # take it, and no call of theirs runs qmatmul_kernel
+        for f in DECODE_FORMS:
+            if f"qmatmul_{f}" not in path_kernels[kv_quant]:
+                continue
+            if forms[f, "decode"] <= 0 or forms[f, "kernel"]:
+                fail(f"{what}: {f} took its decode form "
+                     f"{forms[f, 'decode']} times and qmatmul_kernel "
+                     f"{forms[f, 'kernel']} times")
         gaps = st.quant_logit_gap_per_lane
         if engine.quant_probe and not (
                 st.quant_probe_steps and gaps

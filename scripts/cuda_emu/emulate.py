@@ -4,6 +4,7 @@
     python3 scripts/cuda_emu/emulate.py attn               # GQA attention
     python3 scripts/cuda_emu/emulate.py mla                # MLA attention
     python3 scripts/cuda_emu/emulate.py prefill q2_k,q4_k  # B1 prefill form
+    python3 scripts/cuda_emu/emulate.py decode q3_k,q6_k   # B1 mma decode form
 
 Copies a source with its headers into ``src/repro_torch/_build/emu/``,
 rewrites it for g++ (``mma.cuh`` replaced by this directory's emulated
@@ -303,20 +304,81 @@ def prefill(formats: list[str], sms: int) -> bool:
     return ok
 
 
+# M, K, N, x dtype, blocks a cluster: M = 1..4, ragged K, N % 16 != 0,
+# clusters of 1..16 (the largest a non-portable size)
+DECODE_FORM_CASES = [(1, 700, 256, torch.bfloat16, 1),
+                     (2, 700, 260, torch.float32, 3),
+                     (3, 1000, 388, torch.bfloat16, 4),
+                     (4, 1000, 388, torch.float32, 2),
+                     (4, 1536, 256, torch.bfloat16, 6),
+                     (2, 2048, 132, torch.float32, 8),
+                     (4, 4096, 128, torch.bfloat16, 16),
+                     (1, 4096, 260, torch.float32, 16)]
+
+
+def decode(formats: list[str], sms: int) -> bool:
+    """B1's tensor-core decode form (``qmatmul_mma_decode_kernel``) at
+    each cluster size of DECODE_FORM_CASES, forced through the wrapper's
+    split rule: one launch of it, no qmatmul_kernel or splitk_reduce, two
+    calls bitwise equal, a zero row +0."""
+    libs = {f"qmatmul_{fmt}": emulated_library(
+        "qmatmul", (f"-DQMATMUL_FMT={build.QMATMUL_FORMATS.index(fmt)}",))
+        for fmt in formats}
+    build.library = lambda name: libs[name]
+    qm._entry.cache_clear()
+    rules = dict(qm.DECODE_KSPLIT)
+    ok = True
+    for fmt in formats:
+        for m, k, n, dt, ks in DECODE_FORM_CASES:
+            qm.DECODE_KSPLIT[fmt] = lambda n_, k_, sms_, ks=ks: ks
+            rng = np.random.default_rng(m + k + n + ks)
+            qt = quantize(torch.from_numpy(rng.normal(size=(k, n)).astype(
+                np.float32)), fmt)
+            x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+            if m > 1:
+                x[m - 2] = 0
+            x = x.to(dt)
+            before = {w: qm.library_launches(fmt, w)
+                      for w in ("decode", "kernel", "splitk", "prefill")}
+            y = qm._launch(x, qt, 1, qm.KERNELS[fmt]).reshape(m, n)
+            ran = {w: qm.library_launches(fmt, w) - c
+                   for w, c in before.items()}
+            y2 = qm._launch(x, qt, 1, qm.KERNELS[fmt]).reshape(m, n)
+            ref = qm.qmatmul_plain(x, qt).float()
+            err = ((y.float() - ref).abs().max() / ref.abs().max()).item()
+            tol = 1e-5 if dt == torch.float32 else 8e-3
+            bits = torch.int32 if dt == torch.float32 else torch.int16
+            good = (ran == {"decode": 1, "kernel": 0, "splitk": 0,
+                            "prefill": 0}
+                    and err <= tol and torch.equal(y.view(bits),
+                                                   y2.view(bits))
+                    and (m == 1 or not y[m - 2].view(bits).any()))
+            print(f"decode form {fmt} M={m} K={k} N={n} {str(dt)[6:]} "
+                  f"ks={ks}: rel err {err:.1e} {'ok' if good else 'FAILED'}",
+                  flush=True)
+            ok &= good
+        qm.DECODE_KSPLIT[fmt] = rules[fmt]
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("attn", "mla", "prefill"))
-    ap.add_argument("formats", nargs="?", default="q4_k,q6_k,q3_k,q2_k,q8_0",
-                    help="B1 formats of the prefill form")
+    ap.add_argument("what", choices=("attn", "mla", "prefill", "decode"))
+    ap.add_argument("formats", nargs="?", default=None,
+                    help="B1 formats of the prefill form (default: all) or "
+                         "of the tensor-core decode form (q3_k,q6_k)")
     ap.add_argument("--sms", type=int, default=132)
     args = ap.parse_args()
     if shutil.which("g++") is None:
         raise SystemExit("emulate: needs g++ (C++20)")
     build.stream_ptr = lambda dev: 0
     build.sm_count = lambda dev: args.sms
+    formats = (args.formats or ("q3_k,q6_k" if args.what == "decode" else
+                                ",".join(qm.FIELDS))).split(",")
     ok = (attn(args.sms) if args.what == "attn"
           else mla(args.sms) if args.what == "mla"
-          else prefill(args.formats.split(","), args.sms))
+          else prefill(formats, args.sms) if args.what == "prefill"
+          else decode(formats, args.sms))
     print("all cases ok" if ok else "FAILED")
     return 0 if ok else 1
 

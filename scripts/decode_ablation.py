@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Ablations of the MLA decode and prefill kernels, of the GQA prefill
-kernel, of the q4_k and q6_k decode forms and of the prefill form (q4_k,
-q6_k, q3_k, q2_k, q8_0) on one CUDA card.
+kernel, of the q4_k, q6_k and q3_k decode forms and of the prefill form
+(q4_k, q6_k, q3_k, q2_k, q8_0) on one CUDA card.
 
     python3 scripts/decode_ablation.py            # prints JSON lines
     python3 scripts/decode_ablation.py --only q6k_decode,mla_prefill
     python3 scripts/decode_ablation.py --only q4k_prefill,q6k_prefill
     python3 scripts/decode_ablation.py --only q3k_prefill,q8_0_prefill
     python3 scripts/decode_ablation.py --only q2k_prefill,gqa_prefill
+    python3 scripts/decode_ablation.py --only q3k_decode
 
 Builds variants of ``csrc/paged_mla.cu`` (``paged_mla_decode_kernel``) and
 of ``csrc/qmatmul.cu`` for q4_k (``qmatmul_q4k_decode_kernel``), each the
@@ -38,10 +39,16 @@ kernel) at ``chip_smoke.py``'s shapes:
                conversion of the stage, no scores, no p . V, no query
                tile, the page stream alone.
   q6_k decode  M = 4 bf16 at 8960->1536, 18432->7168, 1536->256,
-               7168->576, 7168->129280 (``qmatmul_q6k_decode_kernel`` at
+               7168->576, 7168->129280 (``qmatmul_mma_decode_kernel`` at
                its ``decode_ksplit_q6k``); variants: the kernel, no mma (the
                operands still made), no conversion (codes not made into
                bf16 pairs), no x staging, the weight stream alone.
+  q3_k decode  M = 4 bf16 at the DeepSeek cut's eight q3_k shapes (the
+               same kernel's q3_k instance at ``decode_ksplit_q3k``);
+               variants: the kernel, no mma, no conversion, the weight
+               stream alone, and 3 or 4 blocks an SM asked of ptxas
+               (``__launch_bounds__``); each variant's registers and
+               spills.
   q4_k decode  M = 4 bf16 at 1536->1536, 1536->8960, 1536->152064,
                7168->18432, 16384->7168, 1536->24576, each at its K split
                (``decode_ksplit``) and at the other divisors of its
@@ -152,30 +159,44 @@ Q4_VARIANTS = {
 }
 
 
-# the q6_k decode kernel: its mma, its code conversion, its x staging
+# the q6_k decode kernel (qmatmul_mma_decode_kernel<T, 1, V>): its mma, its
+# code conversion, its x staging
 Q6_NO_MMA = ("      for (int u = 0; u < NT; ++u) mma_bf16(d, a, b[u][0], b[u][1]);",
              "      for (int u = 0; u < NT; ++u) d[u & 3] += __uint_as_float("
              "(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[u][0] ^ b[u][1]) & 0x3FFFFFFFu);")
 Q6_NO_CONVERSION = [
-    ("      const uint32_t a[4] = {code_pair(w[0][0][k], sel, Q6_BIAS),\n"
-     "                             code_pair(w[0][1][k], sel, Q6_BIAS),\n"
-     "                             code_pair(w[1][0][k], sel, Q6_BIAS),\n"
-     "                             code_pair(w[1][1][k], sel, Q6_BIAS)};",
+    ("      const uint32_t a[4] = {code_pair(w[0][0][k], sel, bias),\n"
+     "                             code_pair(w[0][1][k], sel, bias),\n"
+     "                             code_pair(w[1][0][k], sel, bias),\n"
+     "                             code_pair(w[1][1][k], sel, bias)};",
      "      const uint32_t a[4] = {w[0][0][k] ^ sel, w[0][1][k], w[1][0][k], "
      "w[1][1][k]};")]
 Q6_NO_X = ("    const bool in = xr < M && k < K;", "    const bool in = false;")
-Q6_NO_COMPUTE = ("    q6k_stage_mma<T>(stage, reinterpret_cast<const T*>(stage + "
-                 "Q6_W), half,\n                     j0, g, t, acc);", "")
+Q6_NO_COMPUTE = ("    mma_decode_stage<T, FMT>(stage, reinterpret_cast<const "
+                 "T*>(stage + W),\n                             half, j0, g, "
+                 "t, acc);", "")
 Q6_NO_MERGE = ("  const int lo = n_out * rank / ks, hi = n_out * (rank + 1) / ks;\n"
-               "  for (int idx = lo + tid; idx < hi; idx += Q6_THREADS) {",
+               "  for (int idx = lo + tid; idx < hi; idx += MD_THREADS) {",
                "  const int lo = 0, hi = 0;\n"
-               "  for (int idx = lo + tid; idx < hi; idx += Q6_THREADS) {")
+               "  for (int idx = lo + tid; idx < hi; idx += MD_THREADS) {")
 Q6_VARIANTS = {
     "kernel": [],
     "no mma": [Q6_NO_MMA],
     "no conversion": Q6_NO_CONVERSION,
     "no x staging": [Q6_NO_X],
     "weight stream only": [Q6_NO_COMPUTE, Q6_NO_X, Q6_NO_MERGE],
+}
+# the same kernel's q3_k instance (qmatmul_mma_decode_kernel<T, 2, V>), also
+# with 3 or 4 blocks an SM asked of the register allocator
+MD_BOUNDS = ("__global__ void __launch_bounds__(MD_THREADS, 2)\n"
+             "    qmatmul_mma_decode_kernel(")
+Q3_VARIANTS = {
+    "kernel": [],
+    "no mma": [Q6_NO_MMA],
+    "no conversion": Q6_NO_CONVERSION,
+    "weight stream only": [Q6_NO_COMPUTE, Q6_NO_X, Q6_NO_MERGE],
+    "3 blocks an SM": [(MD_BOUNDS, MD_BOUNDS.replace(", 2)", ", 3)"))],
+    "4 blocks an SM": [(MD_BOUNDS, MD_BOUNDS.replace(", 2)", ", 4)"))],
 }
 # the MLA prefill kernel
 PF_NO_MMA = [
@@ -435,24 +456,38 @@ def q4k(libs, gen) -> dict:
 
 
 def q6k(libs, gen) -> dict:
+    return mma_decode(libs, gen, "q6_k", (
+        (8960, 1536), (18432, 7168), (1536, 256), (7168, 576),
+        (7168, 129280)))
+
+
+def q3k(libs, gen) -> dict:
+    return mma_decode(libs, gen, "q3_k", (
+        (7168, 576), (7168, 1536), (1536, 24576), (7168, 2048), (2048, 7168),
+        (7168, 18432), (16384, 7168), (18432, 7168)))
+
+
+def mma_decode(libs, gen, fmt: str, shapes) -> dict:
+    """q6_k's or q3_k's decode form at M = 4, bf16, at its split rule's
+    cluster size (the kernel also at 8, the portable size)."""
     v, i = ctypes.c_void_p, ctypes.c_int
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    fid, nf = build.QMATMUL_FORMATS.index(fmt), len(qm.FIELDS[fmt])
     res = {}
-    for k, n in ((8960, 1536), (18432, 7168), (1536, 256), (7168, 576),
-                 (7168, 129280)):
+    for k, n in shapes:
         w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
-        qt = quantize(w, "q6_k")
+        qt = quantize(w, fmt)
         del w
         copies = [qt] + [QTensor({a: b.clone() for a, b in qt.fields.items()},
                                  qt.fmt, qt.shape)
                          for _ in range(math.ceil(120e6 / qt.packed_bytes())
                                         - 1)]
-        ptrs = [(v * 4)(*[c.fields[f].data_ptr()
-                          for f in qm.FIELDS["q6_k"]]) for c in copies]
+        ptrs = [(v * nf)(*[c.fields[f].data_ptr()
+                           for f in qm.FIELDS[fmt]]) for c in copies]
         x = torch.randn((4, k), generator=gen, device=dev).to(torch.bfloat16)
         out = torch.empty((4, n), dtype=torch.bfloat16, device=dev)
-        chosen = qm.decode_ksplit_q6k(n, k, build.sm_count(dev))
+        chosen = qm.DECODE_KSPLIT[fmt](n, k, build.sm_count(dev))
         for name, lib in libs.items():
             fn = lib.qmatmul
             fn.argtypes = [i, i, v, ctypes.POINTER(v), i, v, v] + [i] * 5 + [v]
@@ -463,10 +498,10 @@ def q6k(libs, gen) -> dict:
 
                 def call():
                     it[0] = (it[0] + 1) % len(ptrs)
-                    return fn(1, 1, x.data_ptr(), ptrs[it[0]], 4, None,
+                    return fn(fid, 1, x.data_ptr(), ptrs[it[0]], nf, None,
                               out.data_ptr(), 1, 4, k, n, ks, stream)
                 if call() != 0:
-                    raise SystemExit(f"q6_k {name} refused")
+                    raise SystemExit(f"{fmt} {name} refused")
                 mark = " (decode_ksplit)" if ks == chosen else ""
                 res[f"{k}->{n} ks={ks}{mark} {name}"] = device_ms(call)
         del copies, qt, ptrs
@@ -633,6 +668,8 @@ GROUPS = {
                    ("-DQMATMUL_FMT=0",), q4k),
     "q6k_decode": ("qmatmul.cu", "q6k_", Q6_VARIANTS,
                    ("-DQMATMUL_FMT=1",), q6k),
+    "q3k_decode": ("qmatmul.cu", "q3k_", Q3_VARIANTS,
+                   ("-DQMATMUL_FMT=2", "-Xptxas", "-v"), q3k),
     "mla_prefill": ("paged_mla.cu", "mlap_", PF_VARIANTS, (), mla_prefill),
     "gqa_prefill": ("paged_attn.cu", "gqap_", GQ_VARIANTS,
                     ("-Xptxas", "-v"), gqa_prefill),
@@ -672,11 +709,12 @@ def main() -> int:
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {group} {name}:\n{log}")
         libs[group][name] = ctypes.CDLL(lib)
-        if group.endswith("_prefill"):
+        if group.endswith("_prefill") or group == "q3k_decode":
             lines = log.splitlines()
+            key = "mma_decode" if group == "q3k_decode" else "prefill"
             regs = [lines[j + 2].strip() + " " + lines[j + 3].strip()
                     for j, line in enumerate(lines[:-3])
-                    if "Compiling entry" in line and "prefill" in line]
+                    if "Compiling entry" in line and key in line]
             print(json.dumps({"ptxas": f"{group} {name}", "kernels": regs}),
                   flush=True)
     gen = torch.Generator(device="cuda")

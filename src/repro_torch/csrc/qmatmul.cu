@@ -18,8 +18,8 @@
 // qwen2-1.5b decode step streams ~0.99 GB of packed q4_k/q6_k fields:
 // ~0.30 ms at 3.35 TB/s; one DeepSeek-V3 MoE layer's experts are ~5.7 GB,
 // ~1.7 ms).  At prefill (M = slots x chunk, or the experts' capacity) it is
-// bound by operations: the f32 FMAs of the CUDA-core inner loops, and for
-// q4_k and q6_k the tensor cores' products and their f32 scaling.
+// bound by operations: the tensor cores' products and their f32 scaling
+// (one weight), the f32 FMAs of the CUDA-core inner loops (experts).
 //
 // Design.  Fields are structure-of-arrays (S, X, N) with N last, so a
 // thread owns 4 neighbouring output columns and reads 4 neighbouring bytes
@@ -34,15 +34,13 @@
 // order.  Where the column tiles alone give too few blocks to fill the
 // card, the tiles are split over gridDim.y and a second kernel adds the
 // per-split partials in a fixed order (deterministic split-K, no atomics;
-// the 2-D forms of q5_k, and of q3_k, q2_k and q8_0 at M <= 4; q4_k and
-// q6_k have forms of their own, below).
+// the 2-D forms of q5_k, q2_k and q8_0 at M <= 4, and q5_k's expert form,
+// which no policy serves; the other calls have forms of their own, below).
 // K that is not a multiple of 256 reads x as zero past K, and q8_0 blocks
 // past the last one are not read at all.  The dequantized weights are the
-// same f32 values as the plain version's (q6_k: (q-32) * (sc*d); q3_k:
-// (q-4) * (sc*d); q5_k and q2_k: q * (sc*d) - (m*dmin), product rounded
-// before the subtraction as the plain version does; q8_0: q * d); q4_k's
-// q * (sc*d) - (m*dmin) may be contracted into one FMA by the compiler,
-// which gives the same value, since q * (sc*d) is exact.  Expert weights
+// same f32 values as the plain version's (q5_k and q2_k: q * (sc*d) -
+// (m*dmin), product rounded before the subtraction as the plain version
+// does; q8_0: q * d).  Expert weights
 // are never split over K: E column-tile rows already give thousands of
 // blocks.  The expert kernel below holds at C = 1 a sum, not each weight,
 // to the plain version's values (see there).
@@ -112,8 +110,9 @@
 // distributed shared memory: one launch, deterministic.  A zero row of x
 // gives +0, as the plain version does.
 //
-// q6_k's 2-D form at M <= 4 on tensor cores (qmatmul_q6k_decode_kernel<T,
-// V>), on qmatmul_kernel + splitk_reduce the largest B1 family left (qwen2's
+// q6_k's and q3_k's 2-D forms at M <= 4 on tensor cores
+// (qmatmul_mma_decode_kernel<T, FMT, V>), for q6_k on qmatmul_kernel +
+// splitk_reduce the largest B1 family left (qwen2's
 // down, attn_k, attn_v; DeepSeek's output, attn_kv_a_mqa and dense downs):
 // the same restaging, conversions and second launch held it back, and a
 // copy of q4_k's CUDA-core design would stop at the same issue wall (q6_k's
@@ -136,8 +135,23 @@
 // bound by the latency of each stage's ~430 instructions a warp (~3.4 a
 // weight), not by the issue rate, so at decode's few blocks a stage's
 // products take longer than its bytes (scripts/decode_ablation.py).
+// q3_k takes the same kernel (FMT 2): its codes come in q6_k's element
+// order (qs row r holds elements r + 64p in bit-pair p, hmask row r % 32
+// their high bits), so the stage loop, the fragments and the cluster merge
+// are shared; a code is assembled by q3k_codes (the expert form's: bit-pair
+// p at bit q3_shift(p) of its byte, ~0.45 integer ops a code) and made
+// (q - 4) 2^q3_shift(p) in bf16 by code_pair's FMA, the 2^-q3_shift(p)
+// folded into the scale's conversion (an exact FMA in place of the FADD).
+// A q3_k stage is 16.0 KB of fields against q6_k's 29.5, so the stage's
+// fixed cost (a barrier, x's rows, d) weighs twice as much a byte; its K
+// split (decode_ksplit_q3k) was fitted to it by a scan of its own.  On an
+// H100 at 18432 -> 7168 (ks 4) the weight stream alone, with its waits and
+// barriers, takes 0.026 of the kernel's 0.042 ms against a bytes bound of
+// 0.018; the code conversion 17 % of it and the mmas 11 %; three or four
+// blocks an SM (80 or 64 registers, with spills) ran 3-10 % and 5-31 %
+// slower at the eight DeepSeek shapes (scripts/decode_ablation.py).
 //
-// The 2-D form at M > 4 of q4_k, q6_k, q3_k, q2_k and q8_0 on tensor cores
+// The 2-D form at M > 4 of every format on tensor cores
 // (qmatmul_prefill_kernel<T, FMT, V, ROWS>): every prefill chunk of the
 // engine is 4 x 128 = 512 rows, where qmatmul_kernel ran at ~25 TFLOP/s
 // (2.5 % of the bf16 peak): its 16-row tile decoded each weight again for
@@ -157,16 +171,17 @@
 //  - the codes become a bf16 tile in shared memory, once per block (once
 //    per 128 rows of x, 4 times a call at M = 512, against 32), by byte
 //    permutes under the exponent of 128 and one bf16x2 FMA of -128 (q4_k,
-//    and q2_k, whose code is a bit-pair of qs), -160 (q6_k) or -132 (q3_k,
-//    whose code is first assembled from a bit-pair of qs and a bit of
-//    hmask) a pair: exact, no int-to-float.
+//    q2_k, whose code is a bit-pair of qs, and q5_k, whose code is a nibble
+//    of qs and a bit of qh above it), -160 (q6_k) or -132 (q3_k, whose
+//    code is first assembled from a bit-pair of qs and a bit of hmask) a
+//    pair: exact, no int-to-float.
 //    q8_0's int8 code takes 8 bits, one more than fits under the exponent:
 //    its low 7 bits go there, and the FMA's bias pair is -128 or -256 by
 //    the code's sign bit, that bit placed under the exponent byte of -128
 //    by one more byte permute a pair (2 instructions a code; 2^23 + (q +
 //    128) as an f32, one FADD and a conversion to bf16 would take 2.75);
-//    each sub-block's sc * d (q4_k and q2_k also -m * dmin; q8_0 each
-//    block's d) is
+//    each sub-block's sc * d (q4_k, q5_k and q2_k also -m * dmin; q8_0
+//    each block's d) is
 //    made once per column in f32, laid out so that a lane reads its
 //    columns' scales in 16-byte loads;
 //  - the products are bf16 mma.sync.m16n8k16 with f32 accumulation, x the
@@ -178,10 +193,10 @@
 //    products go to accumulators zeroed for it and are added into the
 //    output accumulators times sc * d (4 FMAs a thread an mma for the
 //    16-element sub-blocks of q6_k, q3_k and q2_k, 2 for the 32 of q4_k
-//    and q8_0's blocks), and the min term -m * dmin * sum x of q4_k and
-//    q2_k with them, the sub-block's sums of x's rows made by one more mma
-//    against a B of ones (one a k16 step: q2_k's 16-element sub-blocks
-//    take one, q4_k's two).  Design (b), the integer product code x
+//    and q5_k and q8_0's blocks), and the min term -m * dmin * sum x of
+//    q4_k, q5_k and q2_k with them, the sub-block's sums of x's rows made
+//    by one more mma against a B of ones (one a k16 step: q2_k's
+//    16-element sub-blocks take one, q4_k's and q5_k's two).  Design (b), the integer product code x
 //    scale as two exact bf16 terms, would double the mmas and the
 //    conversion and was not built;
 //  - a stage is multiplied while the next is converted (two tile buffers)
@@ -199,8 +214,9 @@
 // Shared memory (one block an SM, at most 227 KB): the ring's slots hold x
 // (128 rows x 256 bytes, padded: 34.0 KB, f32 36.0 KB; half that at 64
 // rows) and the stage's fields (q4_k 9.5 KB, q6_k 13.25 KB, q3_k 9.25 KB
-// with all 32 hmask rows, q2_k 5.5 KB, q8_0 17.0 KB; f32 5.0 / 6.75 /
-// 6.75 / 3.0 / 8.5 KB), the two buffers the code tile (34.0 KB) and the
+// with all 32 hmask rows, q5_k 13.5 KB with all 32 qh rows, q2_k 5.5 KB,
+// q8_0 17.0 KB; f32 5.0 / 6.75 / 6.75 / 9.0 / 3.0 / 8.5 KB), the two
+// buffers the code tile (34.0 KB) and the
 // scales (2.5-5 KB) (f32:
 // one buffer of three 17.0 KB tiles): at most 226.0 KB (q8_0, bf16, 128
 // rows; launch_prefill_rows checks each instance at compile time), so q8_0
@@ -221,7 +237,9 @@
 // code assembly is once per block); q8_0's as q4_k's less its min term (2
 // scale FMAs an mma, no mma against ones), with 17 KB of fields a stage
 // to copy against q4_k's 9.5; q2_k's as q3_k's plus q4_k's min term at
-// twice its rate (an mma against ones and 4 more FMAs a sub-block).
+// twice its rate (an mma against ones and 4 more FMAs a sub-block); q5_k's
+// as q4_k's, with 13.5 KB of fields a stage and its code assembled from
+// two fields (a qh word shifted and masked into each nibble's bit 4).
 //
 // Built once per format: -DQMATMUL_FMT=<id> instantiates that format's
 // kernels only (kernels/build.py builds the six libraries in parallel).
@@ -286,55 +304,6 @@ __device__ __forceinline__ void fma_rows(float (&acc)[MT][4], const float* xs,
     const float xv = xs[m * QK + k];
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xv, w[c], acc[m][c]);
-  }
-}
-
-// q3_k: qs (S,64,N) u8 (byte k holds elements k+64p in bit-pair p), hmask
-// (S,32,N) u8 (byte k holds the high bit of element k+32b in bit b), scales
-// (S,16,N) i8, d (S,N) f16.  Warp w decodes elements 64w..64w+63: bit-pair w
-// of every qs byte and bits 2w, 2w+1 of every hmask byte; sub-blocks
-// 4w..4w+3.
-template <int MT>
-__device__ __forceinline__ void q3k_superblock(
-    const uint8_t* __restrict__ qs, const uint8_t* __restrict__ hmask,
-    const int8_t* __restrict__ scales, const __half* __restrict__ d, int s,
-    int N, int n0, int w, const float* xs, float (&acc)[MT][4]) {
-  float dd[4];
-  load4_half(d + (size_t)s * N + n0, dd);
-  float eff[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t sc = load4_u8(reinterpret_cast<const uint8_t*>(scales) +
-                                 ((size_t)s * 16 + 4 * w + i) * N + n0);
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      eff[i][c] = (float)(int8_t)byte_of(sc, c) * dd[c];
-  }
-  const uint8_t* hrow = hmask + (size_t)s * 32 * N + n0;
-  uint32_t bh[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) bh[j] = load4_u8(hrow + (size_t)j * N);
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    // element 64w + 32hh + j: qs byte 32hh + j, hmask byte j bit 2w + hh,
-    // sub-block 4w + 2hh + j/16
-    const uint8_t* qrow = qs + ((size_t)s * 64 + 32 * hh) * N + n0;
-    uint32_t bq[32];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) bq[j] = load4_u8(qrow + (size_t)j * N);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      // the four columns' 3-bit codes at once, one per byte (2w + 1 <= 7
-      // and 2w + hh <= 7: no bit crosses into the next byte's field)
-      const uint32_t q4 = ((bq[j] >> (2 * w)) & 0x03030303u) |
-                          (((bh[j] >> (2 * w + hh)) & 0x01010101u) << 2);
-      const int sub = 2 * hh + (j >> 4);
-      float wv[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        wv[c] = ((float)byte_of(q4, c) - 4.f) * eff[sub][c];
-      fma_rows<MT>(acc, xs, 64 * w + 32 * hh + j, wv);
-    }
   }
 }
 
@@ -539,7 +508,7 @@ __global__ void __launch_bounds__(NTHREADS)
     qmatmul_kernel(const T* __restrict__ x, Fields f,
                    float* __restrict__ partial, T* __restrict__ out, int M,
                    int K, int N, int splits, int row_tiles) {
-  static_assert(FMT >= 2, "q4_k and q6_k have forms of their own");
+  static_assert(FMT >= 3, "q4_k, q6_k and q3_k have forms of their own");
   constexpr int XS = MT * QK;
   constexpr int RED = (TY - 1) * MT * COLS;
   __shared__ float smem[XS > RED ? XS : RED];
@@ -578,10 +547,7 @@ __global__ void __launch_bounds__(NTHREADS)
     }
     __syncthreads();
     if (col_ok) {
-      if constexpr (FMT == 2)
-        q3k_superblock<MT>(f.p[0], f.p[1], as_i8(f.p[2]), as_half(f.p[3]), s,
-                           N, n0, w, smem, acc);
-      else if constexpr (FMT == 3)
+      if constexpr (FMT == 3)
         q5k_superblock<MT>(f.p[0], f.p[1], f.p[2], f.p[3], as_half(f.p[4]),
                            as_half(f.p[5]), s, N, n0, w, smem, acc);
       else if constexpr (FMT == 4)
@@ -1677,48 +1643,65 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 // ---------------------------------------------------------------------------
-// q6_k's 2-D form at M <= 4 on tensor cores: qmatmul_q6k_decode_kernel (see
-// the header).  A cluster of ``ks`` blocks (up to 16, a non-portable
-// size) owns 128 columns; block ``rank`` walks its share of the
-// superblocks.  Warp w (of 8) takes the 64 columns of half w % 2 and
-// sub-block group w / 2 of every superblock, group j being sub-blocks j, j
-// + 4, j + 8, j + 12 (elements r + 64p, r = 16 j .. 16 j + 15: one ql row
-// pair and one qh row give them).  One
-// mma.sync.m16n8k16 a (sub-block, 16 columns): A is the weight tile (16
-// columns x 16 elements, codes q - 32 as bf16), B the sub-block's x (16
-// elements x 8 rows, rows past DROWS zero), D (columns x rows) is scaled in
-// f32 by the sub-block's int8 scale and, once a superblock, by its d.  mma
-// row g (g + 8) of tile c is column 4g + c (32 + 4g + c) of the warp's 64,
-// so that one 4-byte shared load of a byte row gives a row's codes for all
-// four tiles.
+// q6_k's and q3_k's 2-D forms at M <= 4 on tensor cores:
+// qmatmul_mma_decode_kernel<T, FMT, V> (see the header).  A cluster of
+// ``ks`` blocks (up to 16, a non-portable size) owns 128 columns; block
+// ``rank`` walks its share of the superblocks.  Warp w (of 8) takes the 64
+// columns of half w % 2 and sub-block group w / 2 of every superblock, group
+// j being sub-blocks j, j + 4, j + 8, j + 12 (elements r + 64p, r = 16 j ..
+// 16 j + 15: q6_k's ql rows r and r + 64 and qh row r give them, q3_k's qs
+// row r (bit-pair p) and hmask row r % 32 (bit r / 32 + 2p), so that both
+// formats share the fragment mapping below).  One mma.sync.m16n8k16 a
+// (sub-block, 16 columns): A is the weight tile (16 columns x 16 elements,
+// codes q - 32 (q6_k) or (q - 4) 2^q3_shift(p) (q3_k) as bf16), B the
+// sub-block's x (16 elements x 8 rows, rows past DROWS zero), D (columns x
+// rows) is scaled in f32 by the sub-block's int8 scale (q3_k: times
+// 2^-q3_shift(p), folded into the scale's conversion) and, once a
+// superblock, by its d.  mma row g (g + 8) of tile c is column 4g + c (32 +
+// 4g + c) of the warp's 64, so that one 4-byte shared load of a byte row
+// gives a row's codes for all four tiles.
 // ---------------------------------------------------------------------------
 
-constexpr int Q6_THREADS = 256;  // 8 warps: 2 column halves x 4 groups
-constexpr int Q6_PAD = 16;       // bytes a staged byte row is longer than 128
-constexpr int Q6_PITCH = COLS + Q6_PAD;
-constexpr int Q6_STAGES = 3;     // stages in the ring (two blocks an SM)
-constexpr int Q6_MAX_KSPLIT = 16;   // blocks a cluster (non-portable)
-constexpr int Q6_XPITCH = QK + 8;   // elements of a staged row of x
-constexpr int Q6_W = xf_off(1, num_fields(1), Q6_PAD);   // weights a stage
+constexpr int MD_THREADS = 256;  // 8 warps: 2 column halves x 4 groups
+constexpr int MD_PAD = 16;       // bytes a staged byte row is longer than 128
+constexpr int MD_PITCH = COLS + MD_PAD;
+constexpr int MD_STAGES = 3;     // stages in the ring (two blocks an SM)
+constexpr int MD_MAX_KSPLIT = 16;   // blocks a cluster (non-portable)
+constexpr int MD_XPITCH = QK + 8;   // elements of a staged row of x
 
-// a stage: the weights, then x's DROWS rows of the superblock
-template <typename T>
-__host__ __device__ constexpr int q6_stage_bytes() {
-  return Q6_W + DROWS * Q6_XPITCH * (int)sizeof(T);
+// the formats of this form, and a stage: the superblock's weights (q6_k
+// 29.5 KB, q3_k 16.0 KB with their rows padded), then x's DROWS rows of it
+__host__ __device__ constexpr bool has_mma_decode(int fmt) {
+  return fmt == 1 || fmt == 2;
 }
-template <typename T>
-__host__ __device__ constexpr size_t q6k_decode_smem() {
-  return (size_t)Q6_STAGES * q6_stage_bytes<T>();
+template <int FMT>
+__host__ __device__ constexpr int md_w() {
+  return xf_off(FMT, num_fields(FMT), MD_PAD);
+}
+template <typename T, int FMT>
+__host__ __device__ constexpr int md_stage_bytes() {
+  return md_w<FMT>() + DROWS * MD_XPITCH * (int)sizeof(T);
+}
+template <typename T, int FMT>
+__host__ __device__ constexpr size_t md_smem() {
+  return (size_t)MD_STAGES * md_stage_bytes<T, FMT>();
 }
 
 // Two codes of at most 7 bits (the bytes of ``w`` that ``sel``, a byte
 // permute, takes to bytes 0 and 2) as a bf16 pair less ``bias``, exactly:
 // the exponent byte 0x43 above a code makes 128 + q, and one bf16x2 FMA
-// adds ``bias`` (Q6_BIAS: q - 32 for q6_k; Q4_BIAS: q for q4_k; Q3_BIAS:
-// q - 4 for q3_k).
+// adds ``bias`` (Q6_BIAS: q - 32 for q6_k; Q4_BIAS: q for q4_k and q5_k;
+// Q3_BIAS: q - 4 for q3_k; q3_k's decode form, whose code of bit-pair p
+// stands at bit q3_shift(p) of its byte (q3k_codes), (q - 4) 2^q3_shift(p):
+// q3_bias(p)).
 constexpr uint32_t Q6_BIAS = 0xC320C320u;   // bf16 (-160, -160)
 constexpr uint32_t Q4_BIAS = 0xC300C300u;   // bf16 (-128, -128)
 constexpr uint32_t Q3_BIAS = 0xC304C304u;   // bf16 (-132, -132)
+__device__ __forceinline__ constexpr uint32_t q3_bias(int p) {
+  return p == 0 ? Q3_BIAS                   // 128 + q - 132
+         : p == 1 ? 0xC310C310u             // 128 + 4q - 144, bf16 -144
+                  : 0xC340C340u;            // 128 + 16q - 192, bf16 -192
+}
 __device__ __forceinline__ uint32_t code_pair(uint32_t w, uint32_t sel,
                                               uint32_t bias) {
   const uint32_t v = __byte_perm(w, 0x43434343u, sel);
@@ -1738,9 +1721,9 @@ __host__ __device__ constexpr int x_terms() {
 // x[g][16i + 2t + 8, + 9] (bf16: as staged; f32: its three terms); g >=
 // DROWS gives zeros (those lanes read row g - 4, a broadcast).
 template <typename T>
-__device__ __forceinline__ void q6_xfrag(const T* xs, int i, int g, int t,
+__device__ __forceinline__ void md_xfrag(const T* xs, int i, int g, int t,
                                          uint32_t (&b)[x_terms<T>()][2]) {
-  const T* row = xs + (g & (DROWS - 1)) * Q6_XPITCH + 16 * i + 2 * t;
+  const T* row = xs + (g & (DROWS - 1)) * MD_XPITCH + 16 * i + 2 * t;
   const bool live = g < DROWS;
   if constexpr (sizeof(T) == 2) {
     const uint32_t v0 = *reinterpret_cast<const uint32_t*>(row);
@@ -1759,16 +1742,18 @@ __device__ __forceinline__ void q6_xfrag(const T* xs, int i, int g, int t,
 }
 
 // One stage (a superblock of 128 columns) of warp (half, j0): see above.
-template <typename T>
-__device__ __forceinline__ void q6k_stage_mma(const uint8_t* stage,
-                                              const T* xs, int half, int j0,
-                                              int g, int t,
-                                              float (&acc)[4][4]) {
+template <typename T, int FMT>
+__device__ __forceinline__ void mma_decode_stage(const uint8_t* stage,
+                                                 const T* xs, int half,
+                                                 int j0, int g, int t,
+                                                 float (&acc)[4][4]) {
+  static_assert(has_mma_decode(FMT), "q6_k or q3_k");
   constexpr int NT = x_terms<T>();
   const int col = half * 64 + 4 * g;      // + 32 for mma rows g + 8
+  // q6_k: ql, qh; q3_k: qs, hmask
   const uint8_t* ql = stage + col;
-  const uint8_t* qh = stage + xf_off(1, 1, Q6_PAD) + col;
-  const uint8_t* sc = stage + xf_off(1, 2, Q6_PAD) + col;
+  const uint8_t* qh = stage + xf_off(FMT, 1, MD_PAD) + col;
+  const uint8_t* sc = stage + xf_off(FMT, 2, MD_PAD) + col;
   // the codes of elements 16 j0 + 2t + 8h (+ 1) + 64p of the four columns
   // of mma row g (cg = 0) and g + 8 (cg = 1), the two elements' bytes of a
   // column side by side: w[h][cg][p] holds columns 0, 1, w[..][4 + p]
@@ -1779,15 +1764,26 @@ __device__ __forceinline__ void q6k_stage_mma(const uint8_t* stage,
     const int r = 16 * j0 + 2 * t + 8 * h;
 #pragma unroll
     for (int cg = 0; cg < 2; ++cg) {
-      const uint8_t* lp = ql + r * Q6_PITCH + 32 * cg;
-      const uint8_t* hp = qh + r * Q6_PITCH + 32 * cg;
+      const uint8_t* lp = ql + r * MD_PITCH + 32 * cg;
       uint32_t ta[4], tb[4];
-      q6k_codes(*reinterpret_cast<const uint32_t*>(lp),
-                *reinterpret_cast<const uint32_t*>(lp + 64 * Q6_PITCH),
-                *reinterpret_cast<const uint32_t*>(hp), ta);
-      q6k_codes(*reinterpret_cast<const uint32_t*>(lp + Q6_PITCH),
-                *reinterpret_cast<const uint32_t*>(lp + 65 * Q6_PITCH),
-                *reinterpret_cast<const uint32_t*>(hp + Q6_PITCH), tb);
+      if constexpr (FMT == 1) {
+        const uint8_t* hp = qh + r * MD_PITCH + 32 * cg;
+        q6k_codes(*reinterpret_cast<const uint32_t*>(lp),
+                  *reinterpret_cast<const uint32_t*>(lp + 64 * MD_PITCH),
+                  *reinterpret_cast<const uint32_t*>(hp), ta);
+        q6k_codes(*reinterpret_cast<const uint32_t*>(lp + MD_PITCH),
+                  *reinterpret_cast<const uint32_t*>(lp + 65 * MD_PITCH),
+                  *reinterpret_cast<const uint32_t*>(hp + MD_PITCH), tb);
+      } else {
+        // hmask rows r % 32 and r % 32 + 1, bits r / 32 + 2p (r / 32 =
+        // j0 / 2 for all of the warp's rows)
+        const uint8_t* hp = qh + (r & 31) * MD_PITCH + 32 * cg;
+        q3k_codes(*reinterpret_cast<const uint32_t*>(lp),
+                  *reinterpret_cast<const uint32_t*>(hp), j0 >> 1, ta);
+        q3k_codes(*reinterpret_cast<const uint32_t*>(lp + MD_PITCH),
+                  *reinterpret_cast<const uint32_t*>(hp + MD_PITCH), j0 >> 1,
+                  tb);
+      }
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
         w[h][cg][p] = __byte_perm(ta[p], tb[p], 0x5140);
@@ -1804,28 +1800,38 @@ __device__ __forceinline__ void q6k_stage_mma(const uint8_t* stage,
   for (int p = 0; p < 4; ++p) {
     const int i = j0 + 4 * p;   // the sub-block
     uint32_t b[NT][2];
-    q6_xfrag<T>(xs, i, g, t, b);
+    md_xfrag<T>(xs, i, g, t, b);
     // the int8 scales of rows g, g + 8 as 2^23 + 128 + sc (one XOR a word,
     // one byte permute a scale, no int-to-float)
     const uint32_t s0 =
-        *reinterpret_cast<const uint32_t*>(sc + i * Q6_PITCH) ^ 0x80808080u;
+        *reinterpret_cast<const uint32_t*>(sc + i * MD_PITCH) ^ 0x80808080u;
     const uint32_t s1 =
-        *reinterpret_cast<const uint32_t*>(sc + i * Q6_PITCH + 32) ^
+        *reinterpret_cast<const uint32_t*>(sc + i * MD_PITCH + 32) ^
         0x80808080u;
+    constexpr uint32_t BIAS = FMT == 1 ? Q6_BIAS : 0u;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       // tile c: the pair of bytes c of a column's two elements
       const int k = (c >> 1) * 4 + p;
       const uint32_t sel = c & 1 ? 0x4342 : 0x4140;
-      const uint32_t a[4] = {code_pair(w[0][0][k], sel, Q6_BIAS),
-                             code_pair(w[0][1][k], sel, Q6_BIAS),
-                             code_pair(w[1][0][k], sel, Q6_BIAS),
-                             code_pair(w[1][1][k], sel, Q6_BIAS)};
+      const uint32_t bias = FMT == 1 ? BIAS : q3_bias(p);
+      const uint32_t a[4] = {code_pair(w[0][0][k], sel, bias),
+                             code_pair(w[0][1][k], sel, bias),
+                             code_pair(w[1][0][k], sel, bias),
+                             code_pair(w[1][1][k], sel, bias)};
       float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int u = 0; u < NT; ++u) mma_bf16(d, a, b[u][0], b[u][1]);
-      const float e0 = code_f32(s0, c) - (kMagic + 128.f);
-      const float e1 = code_f32(s1, c) - (kMagic + 128.f);
+      float e0, e1;
+      if constexpr (FMT == 1) {
+        e0 = code_f32(s0, c) - (kMagic + 128.f);
+        e1 = code_f32(s1, c) - (kMagic + 128.f);
+      } else {
+        // sc 2^-q3_shift(p), exactly: D carries the codes' 2^q3_shift(p)
+        const float sh = p == 0 ? 1.f : p == 1 ? 0.25f : 0.0625f;
+        e0 = fmaf(code_f32(s0, c), sh, -(kMagic + 128.f) * sh);
+        e1 = fmaf(code_f32(s1, c), sh, -(kMagic + 128.f) * sh);
+      }
       part[c][0] = fmaf(e0, d[0], part[c][0]);
       part[c][1] = fmaf(e0, d[1], part[c][1]);
       part[c][2] = fmaf(e1, d[2], part[c][2]);
@@ -1833,7 +1839,7 @@ __device__ __forceinline__ void q6k_stage_mma(const uint8_t* stage,
     }
   }
   float d0[4], d1[4];
-  const __half* dd = as_half(stage + xf_off(1, 3, Q6_PAD)) + col;
+  const __half* dd = as_half(stage + xf_off(FMT, 3, MD_PAD)) + col;
   load4_half(dd, d0);
   load4_half(dd + 32, d1);
 #pragma unroll
@@ -1845,13 +1851,14 @@ __device__ __forceinline__ void q6k_stage_mma(const uint8_t* stage,
   }
 }
 
-template <typename T, int V>
-__global__ void __launch_bounds__(Q6_THREADS, 2)
-    qmatmul_q6k_decode_kernel(const T* __restrict__ x, Fields f,
+template <typename T, int FMT, int V>
+__global__ void __launch_bounds__(MD_THREADS, 2)
+    qmatmul_mma_decode_kernel(const T* __restrict__ x, Fields f,
                               T* __restrict__ out, int M, int K, int N) {
-  constexpr int STAGE = q6_stage_bytes<T>();
-  extern __shared__ __align__(16) uint8_t smem_q6[];
-  uint8_t* ring = smem_q6;
+  constexpr int STAGE = md_stage_bytes<T, FMT>();
+  constexpr int W = md_w<FMT>();
+  extern __shared__ __align__(16) uint8_t smem_md[];
+  uint8_t* ring = smem_md;
 
   const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
   const int g = l >> 2, t = l & 3, half = w & 1, j0 = w >> 1;
@@ -1871,8 +1878,8 @@ __global__ void __launch_bounds__(Q6_THREADS, 2)
   const bool vec = K % XV == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const bool xon = tid < DROWS * XPR;
   const int xr = tid / XPR, xk = (tid % XPR) * XV;
-  const uint32_t xdst = smem_u32(ring) + Q6_W +
-                        (xr * Q6_XPITCH + xk) * (int)sizeof(T);
+  const uint32_t xdst = smem_u32(ring) + W +
+                        (xr * MD_XPITCH + xk) * (int)sizeof(T);
   auto issue_x = [&](int s, int slot) {
     const int k = (s0 + s) * QK + xk;
     const bool in = xr < M && k < K;
@@ -1890,8 +1897,8 @@ __global__ void __launch_bounds__(Q6_THREADS, 2)
   };
   auto store_xs = [&](int slot) {
     if (!xon) return;
-    T* dst = reinterpret_cast<T*>(ring + slot * STAGE + Q6_W) +
-             xr * Q6_XPITCH + xk;
+    T* dst = reinterpret_cast<T*>(ring + slot * STAGE + W) +
+             xr * MD_XPITCH + xk;
     if constexpr (sizeof(T) == 2) {
       uint4 u;
       uint32_t* p = reinterpret_cast<uint32_t*>(&u);
@@ -1910,10 +1917,10 @@ __global__ void __launch_bounds__(Q6_THREADS, 2)
 
   // the first NTHREADS threads copy the weight stages
   const bool copier = tid < NTHREADS;
-  StageCopies<1, V, Q6_PAD, STAGE> copies(f, (size_t)s0, N, n0, ring,
-                                          tid & (NTHREADS - 1));
+  StageCopies<FMT, V, MD_PAD, STAGE> copies(f, (size_t)s0, N, n0, ring,
+                                            tid & (NTHREADS - 1));
 #pragma unroll
-  for (int st = 0; st < Q6_STAGES - 1; ++st) {
+  for (int st = 0; st < MD_STAGES - 1; ++st) {
     if (st < nsb) {
       if (copier) copies.issue(st, N, 1);
       if (vec && xon) issue_x(st, st);
@@ -1930,24 +1937,24 @@ __global__ void __launch_bounds__(Q6_THREADS, 2)
   for (int c = 0; c < 4; ++c)
 #pragma unroll
     for (int v = 0; v < 4; ++v) acc[c][v] = 0.f;
-  int slot = 0, fill = Q6_STAGES - 1;
+  int slot = 0, fill = MD_STAGES - 1;
   for (int s = 0; s < nsb; ++s) {
     if (!vec && s + 1 < nsb) load_xs(s + 1);
-    cp_async_wait<Q6_STAGES - 2>();  // this thread's copies of stage s
+    cp_async_wait<MD_STAGES - 2>();  // this thread's copies of stage s
     __syncthreads();  // everyone's, and x of stage s; stage s - 1 consumed
-    if (s + Q6_STAGES - 1 < nsb) {
+    if (s + MD_STAGES - 1 < nsb) {
       if (copier) copies.issue(fill, N, 1);
-      if (vec && xon) issue_x(s + Q6_STAGES - 1, fill);
+      if (vec && xon) issue_x(s + MD_STAGES - 1, fill);
     }
     cp_async_commit();
     const uint8_t* stage = ring + slot * STAGE;
-    q6k_stage_mma<T>(stage, reinterpret_cast<const T*>(stage + Q6_W), half,
-                     j0, g, t, acc);
+    mma_decode_stage<T, FMT>(stage, reinterpret_cast<const T*>(stage + W),
+                             half, j0, g, t, acc);
     // the next stage's slot: its x region was last read at stage s + 1 -
-    // Q6_STAGES, before this stage's barrier
-    if (!vec && s + 1 < nsb) store_xs(slot == Q6_STAGES - 1 ? 0 : slot + 1);
-    slot = slot == Q6_STAGES - 1 ? 0 : slot + 1;
-    fill = fill == Q6_STAGES - 1 ? 0 : fill + 1;
+    // MD_STAGES, before this stage's barrier
+    if (!vec && s + 1 < nsb) store_xs(slot == MD_STAGES - 1 ? 0 : slot + 1);
+    slot = slot == MD_STAGES - 1 ? 0 : slot + 1;
+    fill = fill == MD_STAGES - 1 ? 0 : fill + 1;
   }
 
   // the block's column sums: the four warps of each half added in a fixed
@@ -1994,15 +2001,15 @@ __global__ void __launch_bounds__(Q6_THREADS, 2)
   cluster.sync();
   const int n_out = DROWS * COLS;
   const int lo = n_out * rank / ks, hi = n_out * (rank + 1) / ks;
-  for (int idx = lo + tid; idx < hi; idx += Q6_THREADS) {
+  for (int idx = lo + tid; idx < hi; idx += MD_THREADS) {
     const int r = idx / COLS, n = n0 + idx % COLS;
-    float part[Q6_MAX_KSPLIT];
+    float part[MD_MAX_KSPLIT];
 #pragma unroll
-    for (int sp = 0; sp < Q6_MAX_KSPLIT; ++sp)
+    for (int sp = 0; sp < MD_MAX_KSPLIT; ++sp)
       if (sp < ks) part[sp] = cluster.map_shared_rank(blk, sp)[idx];
     float v = 0.f;
 #pragma unroll
-    for (int sp = 0; sp < Q6_MAX_KSPLIT; ++sp)
+    for (int sp = 0; sp < MD_MAX_KSPLIT; ++sp)
       if (sp < ks) v += part[sp];
     if (r < M && n < N) out[(size_t)r * N + n] = from_f32<T>(v);
   }
@@ -2010,7 +2017,7 @@ __global__ void __launch_bounds__(Q6_THREADS, 2)
 }
 
 // ---------------------------------------------------------------------------
-// The 2-D form at M > 4 of q4_k, q6_k, q3_k, q2_k and q8_0 on tensor cores:
+// The 2-D form at M > 4 of every format on tensor cores:
 // qmatmul_prefill_kernel<T, FMT, V, ROWS> (see the header).  A block of 8
 // warps owns ROWS rows of x and 128 columns, each warp a part of the
 // output in f32 registers (PfWarps).  K is
@@ -2019,7 +2026,10 @@ __global__ void __launch_bounds__(Q6_THREADS, 2)
 // the superblock's elements that makes a part whole byte rows of the
 // fields.  q4_k part q: qs rows q * QR .. + QR - 1 (QR = 128 / PARTS),
 // whose low nibbles are elements q * QR + r (stage row r) and high ones
-// 128 + q * QR + r (stage row QR + r).  q6_k part q: ql rows q * QR + r and
+// 128 + q * QR + r (stage row QR + r).  q5_k takes q4_k's order: the high
+// bits of its elements q * QR + r and 128 + q * QR + r are bits (q * QR +
+// r) / 32 and 4 above it of qh row r % 32, so all 32 qh rows are copied
+// every stage.  q6_k part q: ql rows q * QR + r and
 // 64 + q * QR + r and qh row q * QR + r (QR = 64 / PARTS), elements q * QR
 // + r + 64 p (stage row p * QR + r).  q3_k takes q6_k's order: qs row q *
 // QR + r holds elements q * QR + r + 64 p in bit-pair p, and their high
@@ -2030,7 +2040,7 @@ __global__ void __launch_bounds__(Q6_THREADS, 2)
 // superblock's elements q * KST .. + KST - 1 in order (its blocks q * KST
 // / 32 ..), blocks past the field's last (K % 256 != 0) zero.  Every way a
 // part's sub-blocks are whole, and stage row u's sub-block is the part's
-// row u / 32 (q4_k, q8_0) or u / 16 (q6_k, q3_k, q2_k) of its scale fields
+// row u / 32 (q4_k, q5_k, q8_0) or u / 16 (q6_k, q3_k, q2_k) of its scale fields
 // (q8_0: of d; q2_k: of sm, scale and min), copied in that order.
 // ---------------------------------------------------------------------------
 
@@ -2079,20 +2089,21 @@ template <typename T>
 __host__ __device__ constexpr int pf_xpitch() {
   return pf_kst<T>() * (int)sizeof(T) + (sizeof(T) == 2 ? 16 : 32);
 }
-// the groups of a field's rows of which each part takes its share: q4_k
-// scales and mins (sub-blocks 0-3 of the low nibbles, 4-7 of the high);
-// q6_k ql (rows 0-63, 64-127) and the scales of q6_k, q3_k and q2_k
-// (sub-blocks 4p .. 4p + 3).  A field of one row a superblock (d, dmin)
-// and q3_k's hmask are copied whole every stage.
+// the groups of a field's rows of which each part takes its share: q4_k's
+// and q5_k's scales and mins (sub-blocks 0-3 of the low nibbles, 4-7 of the
+// high); q6_k ql (rows 0-63, 64-127) and the scales of q6_k, q3_k and q2_k
+// (sub-blocks 4p .. 4p + 3).  A field of one row a superblock (d, dmin),
+// q3_k's hmask and q5_k's qh are copied whole every stage.
 __host__ __device__ constexpr int pf_runs(int fmt, int g) {
   return fmt == 0   ? (g == 1 || g == 2 ? 2 : 1)
          : fmt == 1 ? (g == 0 ? 2 : g == 2 ? 4 : 1)
          : fmt == 2 ? (g == 2 ? 4 : 1)
+         : fmt == 3 ? (g == 2 || g == 3 ? 2 : 1)
          : fmt == 4 ? (g == 1 ? 4 : 1)
                     : 1;
 }
 __host__ __device__ constexpr bool pf_whole(int fmt, int g) {
-  return field_layout(fmt, g).rows == 1 || (fmt == 2 && g == 1);
+  return field_layout(fmt, g).rows == 1 || ((fmt == 2 || fmt == 3) && g == 1);
 }
 __host__ __device__ constexpr int pf_rows(int fmt, int g, int parts) {
   return pf_whole(fmt, g) ? field_layout(fmt, g).rows
@@ -2105,7 +2116,7 @@ __host__ __device__ constexpr int pf_off(int fmt, int g, int parts) {
   return off;
 }
 // elements of a sub-block, the unit of a scale (q8_0: of a d): 16 (q6_k,
-// q3_k, q2_k) or 32 (q4_k, q8_0); and the sub-blocks of a stage
+// q3_k, q2_k) or 32 (q4_k, q5_k, q8_0); and the sub-blocks of a stage
 __host__ __device__ constexpr int pf_sub(int fmt) {
   return fmt == 1 || fmt == 2 || fmt == 4 ? 16 : 32;
 }
@@ -2113,18 +2124,20 @@ template <typename T, int FMT>
 __host__ __device__ constexpr int pf_nsub() {
   return pf_kst<T>() / pf_sub(FMT);
 }
-// the formats that have this form, and those with a min term (-m * dmin)
-__host__ __device__ constexpr bool has_prefill_form(int fmt) {
-  return fmt == 0 || fmt == 1 || fmt == 2 || fmt == 4 || fmt == Q8_0;
-}
+// the formats with a min term (-m * dmin)
 __host__ __device__ constexpr bool pf_mins(int fmt) {
-  return fmt == 0 || fmt == 4;
+  return fmt == 0 || fmt == 3 || fmt == 4;
+}
+// field g of q4_k's list (qs, scales, mins, d, dmin) in q5_k's, which has
+// qh at 1
+__host__ __device__ constexpr int pf_nib_field(int fmt, int g) {
+  return fmt == 3 && g > 0 ? g + 1 : g;
 }
 // Shared memory: the ring of PF_STAGES slots (x's rows of the stage,
 // then the stage's fields), then two buffers (one converted while the
 // other is multiplied) of the bf16 weight tile (stage rows x 128 columns)
-// and its f32 scales (sc * d per sub-block and column, q8_0 d; q4_k and
-// q2_k also -m * dmin).
+// and its f32 scales (sc * d per sub-block and column, q8_0 d; q4_k, q5_k
+// and q2_k also -m * dmin).
 template <typename T, int FMT, int ROWS>
 __host__ __device__ constexpr int pf_slot() {
   return ROWS * pf_xpitch<T>() + pf_off(FMT, num_fields(FMT), pf_parts<T>());
@@ -2201,9 +2214,9 @@ __device__ __forceinline__ void pf_issue(const T* __restrict__ x,
   // piece cc) of rows tid / CPR + (PF_THREADS / CPR) i
   constexpr int XV = 16 / sizeof(T);
   constexpr int CPR = KST / XV;             // 16-byte pieces a row
-  // runs of x a part takes (q4_k: low and high nibbles; q6_k, q3_k, q2_k:
-  // four bit-pairs; q8_0: its elements in order)
-  constexpr int NRX = FMT == 0 ? 2 : FMT == Q8_0 ? 1 : 4;
+  // runs of x a part takes (q4_k, q5_k: low and high nibbles; q6_k, q3_k,
+  // q2_k: four bit-pairs; q8_0: its elements in order)
+  constexpr int NRX = FMT == 0 || FMT == 3 ? 2 : FMT == Q8_0 ? 1 : 4;
   constexpr int RL = KST / NRX;             // elements a run
   const int cc = tid % CPR, u = cc * XV;
   const int k = sb * QK + (u / RL) * (QK / NRX) + q * RL + u % RL;
@@ -2241,7 +2254,7 @@ __device__ __forceinline__ void q3k_pf_codes(uint32_t q, uint32_t h,
 // Convert the fields of the stage in ``slot`` (part ``part`` of its
 // superblock) into buffer ``wb``: the codes as the bf16 tile (stage row u,
 // column n), byte permutes and one bf16x2 FMA a pair, no int-to-float; per
-// sub-block and column sc * d (q4_k and q2_k also -m * dmin; q8_0 d) in
+// sub-block and column sc * d (q4_k, q5_k and q2_k also -m * dmin; q8_0 d) in
 // f32, each product rounded as the plain version rounds it.
 template <typename T, int FMT, int ROWS>
 __device__ __forceinline__ void pf_convert(const uint8_t* slot, uint8_t* wb,
@@ -2255,14 +2268,25 @@ __device__ __forceinline__ void pf_convert(const uint8_t* slot, uint8_t* wb,
   using L = PfWarps<ROWS>;
   float* scl = reinterpret_cast<float*>(wb + KST * PF_WPITCH);
   const int w = tid >> 5, l = tid & 31;
-  if constexpr (FMT == 0) {
+  if constexpr (FMT == 0 || FMT == 3) {
     constexpr int QR = 128 / PARTS;
+    // q5_k: the high bit of element part * QR + r (stage row r) is bit
+    // (part * QR + r) / 32 of qh row r % 32, of element 128 + part * QR + r
+    // (stage row QR + r) bit 4 above it
+    const uint8_t* hf = raw + pf_off(FMT, 1, PARTS) + 4 * l;
 #pragma unroll
     for (int i = 0; i < QR / PF_WARPS; ++i) {
       const int r = w + PF_WARPS * i;
       const uint32_t v = *reinterpret_cast<const uint32_t*>(raw + r * COLS +
                                                             4 * l);
-      const uint32_t lo = v & 0x0F0F0F0Fu, hi = (v >> 4) & 0x0F0F0F0Fu;
+      uint32_t lo = v & 0x0F0F0F0Fu, hi = (v >> 4) & 0x0F0F0F0Fu;
+      if constexpr (FMT == 3) {
+        const uint32_t h =
+            *reinterpret_cast<const uint32_t*>(hf + (r & 31) * COLS) >>
+            ((part * QR + r) >> 5);
+        lo |= (h & 0x01010101u) << 4;
+        hi |= h & 0x10101010u;
+      }
       *reinterpret_cast<uint2*>(wb + r * PF_WPITCH + 8 * l) =
           make_uint2(code_pair(lo, 0x4140, Q4_BIAS),
                      code_pair(lo, 0x4342, Q4_BIAS));
@@ -2319,7 +2343,8 @@ __device__ __forceinline__ void pf_convert(const uint8_t* slot, uint8_t* wb,
     }
   }
   // scales: unit (sub-block, four columns); d is field 3 of q4_k, q6_k and
-  // q3_k, field 1 of q8_0 (a row a block), field 2 of q2_k (dmin 3)
+  // q3_k, field 4 of q5_k, field 1 of q8_0 (a row a block), field 2 of q2_k
+  // (dmin 3)
   for (int idx = tid; idx < NSUB * 32; idx += PF_THREADS) {
     const int s = idx >> 5, c4 = 4 * (idx & 31);
     float dd[4];
@@ -2346,18 +2371,25 @@ __device__ __forceinline__ void pf_convert(const uint8_t* slot, uint8_t* wb,
           make_float2(-__fmul_rn(dm[2], (float)(byte_of(sm, 2) >> 4)),
                       -__fmul_rn(dm[3], (float)(byte_of(sm, 3) >> 4)));
     } else {
-      load4_half(as_half(raw + pf_off(FMT, 3, PARTS)) + c4, dd);
+      // q4_k and q5_k: scales, mins, d and dmin at pf_nib_field 1-4
+      constexpr bool NIB = FMT == 0 || FMT == 3;
+      load4_half(as_half(raw + pf_off(FMT, pf_nib_field(FMT, 3), PARTS)) +
+                     c4,
+                 dd);
       const uint32_t sc = *reinterpret_cast<const uint32_t*>(
-          raw + pf_off(FMT, FMT == 0 ? 1 : 2, PARTS) + s * COLS + c4);
-      if constexpr (FMT == 0) {
+          raw + pf_off(FMT, NIB ? pf_nib_field(FMT, 1) : 2, PARTS) +
+          s * COLS + c4);
+      if constexpr (NIB) {
         e = make_float4(__fmul_rn(dd[0], (float)byte_of(sc, 0)),
                         __fmul_rn(dd[1], (float)byte_of(sc, 1)),
                         __fmul_rn(dd[2], (float)byte_of(sc, 2)),
                         __fmul_rn(dd[3], (float)byte_of(sc, 3)));
         float dm[4];
-        load4_half(as_half(raw + pf_off(0, 4, PARTS)) + c4, dm);
+        load4_half(as_half(raw + pf_off(FMT, pf_nib_field(FMT, 4), PARTS)) +
+                       c4,
+                   dm);
         const uint32_t mn = *reinterpret_cast<const uint32_t*>(
-            raw + pf_off(0, 2, PARTS) + s * COLS + c4);
+            raw + pf_off(FMT, pf_nib_field(FMT, 2), PARTS) + s * COLS + c4);
         float* nm = scl + (NSUB + s) * L::SROW;
         *reinterpret_cast<float2*>(nm + L::spos(c4)) =
             make_float2(-__fmul_rn(dm[0], (float)byte_of(mn, 0)),
@@ -2405,7 +2437,7 @@ __device__ __forceinline__ void pf_afrag(const uint8_t* xs, int row0, int k0,
 // The products of one stage for warp (wm, wn): per sub-block (q8_0: per
 // block) the exact products of codes and x summed by the tensor cores (f32,
 // zeroed for each sub-block and row tile), then scaled into the
-// accumulators in f32; for q4_k and q2_k also the sub-block's sums of x's
+// accumulators in f32; for q4_k, q5_k and q2_k also the sub-block's sums of x's
 // rows, an mma against a B of ones (bf16 1.0: exact) a k16 step, times -m
 // * dmin.
 template <typename T, int FMT, int ROWS>
@@ -2445,7 +2477,7 @@ __device__ __forceinline__ void pf_stage_mma(
         b[kk][2 * np + 1][0] = r[2];
         b[kk][2 * np + 1][1] = r[3];
       }
-    // the sub-block's scales of this lane's columns (q4_k and q2_k also -m
+    // the sub-block's scales of this lane's columns (q4_k, q5_k, q2_k also -m
     // * dmin)
     float2 e[NT8], nm[MINS ? NT8 : 1];
     const float* sp = scl + s * L::SROW + (wn * 4 + t) * L::SLANE;
@@ -2499,8 +2531,8 @@ __device__ __forceinline__ void pf_stage_mma(
 
 // f32 x (the parity and test path): the plain version's function to f32
 // rounding.  Each weight of the stage (part ``part`` of its superblock) is
-// dequantized as qmatmul_plain does it (q4_k and q2_k: q * (sc * d) - m *
-// dmin, q6_k: (q - 32) * (sc * d), q3_k: (q - 4) * (sc * d), q8_0: q * d,
+// dequantized as qmatmul_plain does it (q4_k, q5_k and q2_k: q * (sc * d) -
+// m * dmin, q6_k: (q - 32) * (sc * d), q3_k: (q - 4) * (sc * d), q8_0: q * d,
 // each product and difference rounded to f32) and split, like x, into three
 // bf16 terms (split3); ``wb`` holds the terms' tiles one after the other.
 template <int FMT, int ROWS>
@@ -2544,19 +2576,22 @@ __device__ __forceinline__ void pf_convert_f32(const uint8_t* slot,
                           dd[PF_WARPS * i / 32][c]);
       put(r, wv);
     }
-  } else if constexpr (FMT == 0) {
+  } else if constexpr (FMT == 0 || FMT == 3) {
     // stage rows r (low nibbles) and QR + r (high ones) lie in the part's
-    // sub-blocks of row 0 and row 1 of its scale fields
+    // sub-blocks of row 0 and row 1 of its scale fields; q5_k's high bits
+    // as in pf_convert
     constexpr int QR = 128 / PARTS;
     float dd[4], dm[4], e[2][4], mn[2][4];
-    load4_half(as_half(raw + pf_off(0, 3, PARTS)) + c4, dd);
-    load4_half(as_half(raw + pf_off(0, 4, PARTS)) + c4, dm);
+    load4_half(as_half(raw + pf_off(FMT, pf_nib_field(FMT, 3), PARTS)) + c4,
+               dd);
+    load4_half(as_half(raw + pf_off(FMT, pf_nib_field(FMT, 4), PARTS)) + c4,
+               dm);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const uint32_t sc = *reinterpret_cast<const uint32_t*>(
-          raw + pf_off(0, 1, PARTS) + h * COLS + c4);
+          raw + pf_off(FMT, pf_nib_field(FMT, 1), PARTS) + h * COLS + c4);
       const uint32_t m = *reinterpret_cast<const uint32_t*>(
-          raw + pf_off(0, 2, PARTS) + h * COLS + c4);
+          raw + pf_off(FMT, pf_nib_field(FMT, 2), PARTS) + h * COLS + c4);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         e[h][c] = __fmul_rn(dd[c], (float)byte_of(sc, c));
@@ -2568,7 +2603,15 @@ __device__ __forceinline__ void pf_convert_f32(const uint8_t* slot,
       const int r = w + PF_WARPS * i;
       const uint32_t v =
           *reinterpret_cast<const uint32_t*>(raw + r * COLS + c4);
-      const uint32_t q[2] = {v & 0x0F0F0F0Fu, (v >> 4) & 0x0F0F0F0Fu};
+      uint32_t q[2] = {v & 0x0F0F0F0Fu, (v >> 4) & 0x0F0F0F0Fu};
+      if constexpr (FMT == 3) {
+        const uint32_t hb =
+            *reinterpret_cast<const uint32_t*>(raw + pf_off(3, 1, PARTS) +
+                                               (r & 31) * COLS + c4) >>
+            ((part * QR + r) >> 5);
+        q[0] |= (hb & 0x01010101u) << 4;
+        q[1] |= hb & 0x10101010u;
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float wv[4];
@@ -2877,10 +2920,11 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
 }
 
 // launches of qmatmul_experts_kernel, of the decode forms, of the prefill
-// form and of splitk_reduce, made by this library
+// form, of qmatmul_kernel and of splitk_reduce, made by this library
 long long g_experts_launches = 0;
 long long g_decode_launches = 0;
 long long g_prefill_launches = 0;
+long long g_kernel_launches = 0;
 long long g_splitk_launches = 0;
 
 // One launch of a decode form: the column tiles along x, a cluster of
@@ -2935,15 +2979,15 @@ cudaError_t launch_q4k_decode(const void* x, const Fields& f, void* out,
                            stream);
 }
 
-// q6_k's decode form: a cluster of 1..Q6_MAX_KSPLIT blocks (a non-portable
-// size past 8), each with its fixed ring of stages
-template <typename T, int V>
-cudaError_t launch_q6k_decode(const void* x, const Fields& f, void* out,
+// q6_k's and q3_k's decode form: a cluster of 1..MD_MAX_KSPLIT blocks (a
+// non-portable size past 8), each with its fixed ring of stages
+template <typename T, int FMT, int V>
+cudaError_t launch_mma_decode(const void* x, const Fields& f, void* out,
                               int M, int K, int N, int ks,
                               cudaStream_t stream) {
-  auto kernel = qmatmul_q6k_decode_kernel<T, V>;
-  constexpr size_t smem = q6k_decode_smem<T>();
-  if (ks < 1 || ks > Q6_MAX_KSPLIT) return cudaErrorInvalidValue;
+  auto kernel = qmatmul_mma_decode_kernel<T, FMT, V>;
+  constexpr size_t smem = md_smem<T, FMT>();
+  if (ks < 1 || ks > MD_MAX_KSPLIT) return cudaErrorInvalidValue;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -2958,7 +3002,7 @@ cudaError_t launch_q6k_decode(const void* x, const Fields& f, void* out,
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  return launch_cluster<T>(kernel, Q6_THREADS, smem, x, f, out, M, K, N, ks,
+  return launch_cluster<T>(kernel, MD_THREADS, smem, x, f, out, M, K, N, ks,
                            stream);
 }
 
@@ -2973,7 +3017,7 @@ __host__ __device__ constexpr int pf_rows_for(int M, int N) {
              : PF_ROWS;
 }
 
-// The prefill form (q4_k, q6_k, q3_k, q2_k, q8_0): ROWS x 128 output
+// The prefill form (every format): ROWS x 128 output
 // tiles, each a cluster of 1..PF_MAX_KSPLIT blocks along z that split its
 // half superblocks
 template <typename T, int FMT, int V, int ROWS>
@@ -3084,6 +3128,7 @@ void launch(const void* x, const Fields& f, void* partial, void* out, int E,
   kernel<<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), f, static_cast<float*>(partial),
       static_cast<T*>(out), M, K, N, splits, row_tiles);
+  ++g_kernel_launches;
   if (splits > 1) {
     const long long mn = (long long)M * N;
     splitk_reduce<T><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
@@ -3105,18 +3150,21 @@ void launch_rows(const void* x, const Fields& f, void* partial, void* out,
 #error "build with -DQMATMUL_FMT=<format id>"
 #endif
 
-// whether a q4_k or q6_k (K, N) weight at M rows takes its decode form
-// (qmatmul_q4k_decode_kernel, qmatmul_q6k_decode_kernel)
+// the formats with a decode form (q4_k: qmatmul_q4k_decode_kernel; q6_k and
+// q3_k: qmatmul_mma_decode_kernel), and whether a (K, N) weight at M rows
+// takes it
+constexpr bool has_decode_form(int fmt) {
+  return fmt == 0 || has_mma_decode(fmt);
+}
 constexpr bool decode_form(int fmt, int E, int M, int K) {
-  return (fmt == 0 || fmt == 1) && E == 1 && M <= DROWS && K <= DECODE_MAX_K;
+  return has_decode_form(fmt) && E == 1 && M <= DROWS && K <= DECODE_MAX_K;
 }
 // whether a (K, N) weight takes the prefill form (qmatmul_prefill_kernel):
-// q4_k and q6_k where they do not take their decode form, q3_k, q2_k and
-// q8_0 at M > 4 (at M <= 4 they keep qmatmul_kernel)
+// q4_k, q6_k and q3_k where they do not take their decode form, q5_k, q2_k
+// and q8_0 at M > 4 (at M <= 4 they keep qmatmul_kernel)
 constexpr bool prefill_form(int fmt, int E, int M, int K) {
-  return E == 1 && (fmt == 0 || fmt == 1 ? !decode_form(fmt, E, M, K)
-                    : has_prefill_form(fmt) ? M > DROWS
-                                            : false);
+  return E == 1 && (has_decode_form(fmt) ? !decode_form(fmt, E, M, K)
+                                         : M > DROWS);
 }
 
 template <typename T>
@@ -3131,8 +3179,8 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
     }
   }
   constexpr int F = QMATMUL_FMT;
-  if constexpr (F == 0 || F == 1) {
-    // one q4_k or q6_k weight at M <= 4: the decode form
+  if constexpr (has_decode_form(F)) {
+    // one q4_k, q6_k or q3_k weight at M <= 4: the decode form
     if (decode_form(F, E, M, K)) {
       cudaError_t err;
       if constexpr (F == 0)
@@ -3141,26 +3189,26 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
                   : launch_q4k_decode<T, 4>(x, f, out, M, K, N, splits, st);
       else
         err = N % 16 == 0
-                  ? launch_q6k_decode<T, 16>(x, f, out, M, K, N, splits, st)
-                  : launch_q6k_decode<T, 4>(x, f, out, M, K, N, splits, st);
+                  ? launch_mma_decode<T, F, 16>(x, f, out, M, K, N, splits,
+                                                st)
+                  : launch_mma_decode<T, F, 4>(x, f, out, M, K, N, splits,
+                                               st);
       if (err != cudaSuccess) return (int)err;
       return (int)cudaGetLastError();
     }
   }
-  if constexpr (has_prefill_form(F)) {
-    if (prefill_form(F, E, M, K)) {
-      const cudaError_t err =
-          N % 16 == 0
-              ? launch_prefill<T, F, 16>(x, f, out, M, K, N, splits, st)
-              : launch_prefill<T, F, 4>(x, f, out, M, K, N, splits, st);
-      if (err != cudaSuccess) return (int)err;
-      return (int)cudaGetLastError();
-    }
+  if (prefill_form(F, E, M, K)) {
+    const cudaError_t err =
+        N % 16 == 0
+            ? launch_prefill<T, F, 16>(x, f, out, M, K, N, splits, st)
+            : launch_prefill<T, F, 4>(x, f, out, M, K, N, splits, st);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
   }
-  if constexpr (F == 0 || F == 1) {
+  if constexpr (has_decode_form(F)) {
     return (int)cudaErrorInvalidValue;   // (every call took a form above)
   } else {
-    // q3_k, q2_k and q8_0 at M <= 4, q5_k
+    // q5_k, q2_k and q8_0 at M <= 4, and q5_k's experts
     launch_rows<T, F>(x, f, partial, out, E, M, K, N, splits, st);
     return (int)cudaGetLastError();
   }
@@ -3174,13 +3222,13 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
 // of x and out: 0 = float32, 1 = bfloat16.  E experts: x (E, M, K), fields
 // with a leading E, out (E, M, N); E = 1 for one weight.  q4_k, q6_k,
 // q3_k, q2_k and q8_0 experts (E > 1) go to qmatmul_experts_kernel; one
-// q4_k or q6_k weight at M <= 4 (K <= 65536) to its decode form
-// (qmatmul_q4k_decode_kernel, qmatmul_q6k_decode_kernel), its superblocks
-// split over a cluster of ``splits`` blocks (q4_k 1..8, q6_k 1..16,
-// ``partial`` unused), and at any other M or K, like one q3_k, q2_k or
-// q8_0 weight at M > 4, to the prefill form (qmatmul_prefill_kernel, a cluster
-// of 1..8 blocks a tile, ``partial`` unused); every other weight to
-// qmatmul_kernel.
+// q4_k, q6_k or q3_k weight at M <= 4 (K <= 65536) to its decode form
+// (qmatmul_q4k_decode_kernel, qmatmul_mma_decode_kernel), its superblocks
+// split over a cluster of ``splits`` blocks (q4_k 1..8, q6_k and q3_k
+// 1..16, ``partial`` unused), and at any other M or K, like one q5_k, q2_k
+// or q8_0 weight at M > 4, to the prefill form (qmatmul_prefill_kernel, a
+// cluster of 1..8 blocks a tile, ``partial`` unused); every other weight
+// (q5_k, q2_k and q8_0 at M <= 4, q5_k's experts) to qmatmul_kernel.
 // N must be a multiple of 4; there ``partial`` holds splits x M x N floats
 // when splits > 1 (E = 1 only; splits count 256-row tiles).  Returns
 // cudaGetLastError() after the launches.
@@ -3205,9 +3253,10 @@ extern "C" int qmatmul(int fmt, int dtype, const void* x,
 
 // How many times this library launched qmatmul_experts_kernel (0 for the
 // formats that have none), its decode form (qmatmul_q4k_decode_kernel or
-// qmatmul_q6k_decode_kernel; q4_k and q6_k only), its prefill form
-// (qmatmul_prefill_kernel; q4_k, q6_k, q3_k, q2_k and q8_0 only) and
-// splitk_reduce: the card tests read them to see which kernels ran.
+// qmatmul_mma_decode_kernel; q4_k, q6_k and q3_k only), its prefill form
+// (qmatmul_prefill_kernel; every format), qmatmul_kernel (q5_k, q2_k and
+// q8_0 only) and splitk_reduce: the card tests and chip_smoke.py read them
+// to see which kernels ran.
 extern "C" long long qmatmul_experts_kernel_launches(void) {
   return g_experts_launches;
 }
@@ -3216,6 +3265,9 @@ extern "C" long long qmatmul_decode_kernel_launches(void) {
 }
 extern "C" long long qmatmul_prefill_kernel_launches(void) {
   return g_prefill_launches;
+}
+extern "C" long long qmatmul_kernel_launches(void) {
+  return g_kernel_launches;
 }
 extern "C" long long qmatmul_splitk_reduce_launches(void) {
   return g_splitk_launches;

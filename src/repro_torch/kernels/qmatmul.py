@@ -28,33 +28,35 @@ reads every expert.
 
 One q4_k weight at M <= 4 rows (decode) takes ``qmatmul_q4k_decode_kernel``
 (:func:`decode_form`): the same code conversion and factored scales with
-up to four rows of x.  One q6_k weight at M <= 4 takes
-``qmatmul_q6k_decode_kernel``, on tensor cores: one bf16
+up to four rows of x.  One q6_k or q3_k weight at M <= 4 takes
+``qmatmul_mma_decode_kernel``, on tensor cores: one bf16
 ``mma.sync.m16n8k16`` a 16-element sub-block and 16 columns, its codes
-made exact bf16 values by byte permutes, x (bf16, or f32 as three bf16
-terms) the other operand, each product scaled in f32 by the sub-block's
-scale.  In both, where the column tiles alone would leave SMs idle, the
-superblocks split over the blocks of a thread-block cluster
-(:func:`decode_ksplit`, :func:`decode_ksplit_q6k`) whose sums are added in
-rank order in the same launch: no partial buffer and no second kernel.
+made exact bf16 values by byte permutes (q3_k's assembled from a bit-pair
+of qs and a bit of hmask), x (bf16, or f32 as three bf16 terms) the other
+operand, each product scaled in f32 by the sub-block's scale.  In both,
+where the column tiles alone would leave SMs idle, the superblocks split
+over the blocks of a thread-block cluster (:func:`decode_ksplit`,
+:func:`decode_ksplit_q6k`, :func:`decode_ksplit_q3k`) whose sums are added
+in rank order in the same launch: no partial buffer and no second kernel.
 
-One q4_k, q6_k, q3_k, q2_k or q8_0 weight at M > 4 rows (every prefill
-chunk: 4 x 128 = 512 rows) takes ``qmatmul_prefill_kernel``
+One weight of any format at M > 4 rows (every prefill chunk: 4 x 128 =
+512 rows) takes ``qmatmul_prefill_kernel``
 (:func:`prefill_form`), on tensor cores: a block owns 128 rows of x (64
 where such tiles are few, :func:`prefill_rows`) and 128 columns, converts
 each stage's codes once into an exact bf16 tile in shared memory (byte
 permutes, no int-to-float; q8_0's 8-bit codes as their low 7 bits and a
-bias chosen by the sign bit), multiplies it with bf16 ``mma.sync.m16n8k16``
-against bf16 x, and applies each sub-block's scale (q8_0: each block's d;
-q4_k and q2_k also their min term, from x's sums per sub-block) in f32 to
-the sub-block's products.  f32 x takes the plain version's dequantized weights
+bias chosen by the sign bit; q5_k's 5-bit codes as a nibble of qs and a
+bit of qh), multiplies it with bf16 ``mma.sync.m16n8k16`` against bf16 x,
+and applies each sub-block's scale (q8_0: each block's d; q4_k, q5_k and
+q2_k also their min term, from x's sums per sub-block) in f32 to the
+sub-block's products.  f32 x takes the plain version's dequantized weights
 and x as three bf16 terms each (six mmas a product), so that it differs
 from the plain version in summation order only.  Where the tiles are fewer
 than the SMs, the half superblocks split over a cluster
-(:func:`prefill_ksplit`) merged in rank order, in the same launch.  Every
-other 2-D call (q5_k, and q3_k, q2_k and q8_0 at M <= 4) keeps
-``qmatmul_kernel``, with a split-K pass (``splitk_reduce``) where its
-column tiles are few.
+(:func:`prefill_ksplit`) merged in rank order, in the same launch.  The
+2-D calls of q5_k, q2_k and q8_0 at M <= 4, and q5_k's expert form (which
+no policy serves), keep ``qmatmul_kernel``, with a split-K pass
+(``splitk_reduce``) where its column tiles are few.
 """
 
 from __future__ import annotations
@@ -86,7 +88,7 @@ _DECODE_ROWS = 4
 _DECODE_MAX_K = 65536
 _MAX_KSPLIT = 8
 _DECODE_MAX_SB = 32
-_Q6_MAX_KSPLIT = 16   # q6_k's decode form: a non-portable cluster size
+_Q6_MAX_KSPLIT = 16   # q6_k's and q3_k's decode form: a non-portable size
 _GPC_SMS = 16         # SMs a GPC holds at least (an H100's: 16-18)
 # qmatmul_prefill_kernel: rows of x a block, and the count of such tiles
 # at or below which it takes 64-row tiles instead
@@ -127,9 +129,10 @@ def _splits(device: torch.device, n: int, row_tiles: int, s: int) -> int:
 
 def decode_form(fmt: str, e: int, m: int, k: int) -> bool:
     """Whether a call takes its format's decode form
-    (``qmatmul_q4k_decode_kernel`` or ``qmatmul_q6k_decode_kernel``): one
-    q4_k or q6_k weight (``e == 1``) at M <= 4 rows, K <= 65536."""
-    return (fmt in _DECODE_KSPLIT and e == 1 and m <= _DECODE_ROWS
+    (``qmatmul_q4k_decode_kernel``, or ``qmatmul_mma_decode_kernel`` for
+    q6_k and q3_k): one q4_k, q6_k or q3_k weight (``e == 1``) at M <= 4
+    rows, K <= 65536."""
+    return (fmt in DECODE_KSPLIT and e == 1 and m <= _DECODE_ROWS
             and k <= _DECODE_MAX_K)
 
 
@@ -164,21 +167,45 @@ def decode_ksplit_q6k(n: int, k: int, sms: int) -> int:
                  if tiles <= gpcs * (_GPC_SMS // ks)), 1)
 
 
+def decode_ksplit_q3k(n: int, k: int, sms: int) -> int:
+    """Blocks of a cluster that split the ``s = ceil(k / 256)`` superblocks
+    of q3_k's decode form, from host integers (at most ``min(16, s)``; 16
+    is a non-portable cluster size).  A q3_k stage is half a q6_k one, and
+    its time is set by the latency of each stage's instructions, not by its
+    bytes, so the split is fitted to the shapes rather than to residency:
+    where the ``ceil(n / 128)`` column tiles are at most a quarter of the
+    SMs, about 8/11 of the SMs' worth of blocks (96 on an H100's 132);
+    else 4 where a block keeps at least 4 superblocks (s >= 16), 2 where s
+    >= 8 and the tiles are fewer than the SMs, else 1.  On an H100 SXM this
+    was the fastest of 1, 2, 3, 4, 6, 8, 12 and 16 at each of the eight
+    q3_k shapes of the DeepSeek cut (``PERF.md``)."""
+    s = -(-k // _TILE)
+    tiles = -(-n // _COLS)
+    if 4 * tiles <= sms:
+        ks = (8 * sms // 11) // tiles
+    elif s >= 16:
+        ks = 4
+    elif s >= 8 and tiles < sms:
+        ks = 2
+    else:
+        ks = 1
+    return max(1, min(_Q6_MAX_KSPLIT, s, ks))
+
+
 # the formats with a decode form, and how each splits its superblocks
-_DECODE_KSPLIT = {"q4_k": decode_ksplit, "q6_k": decode_ksplit_q6k}
-# the formats with a prefill form (``qmatmul_prefill_kernel``)
-PREFILL_FORMATS = ("q4_k", "q6_k", "q3_k", "q2_k", "q8_0")
+DECODE_KSPLIT = {"q4_k": decode_ksplit, "q6_k": decode_ksplit_q6k,
+                 "q3_k": decode_ksplit_q3k}
 
 
 def prefill_form(fmt: str, e: int, m: int, k: int) -> bool:
     """Whether a call takes the prefill form (``qmatmul_prefill_kernel``):
-    one weight (``e == 1``) at M > 4 rows of q4_k, q6_k, q3_k, q2_k or
-    q8_0, and of q4_k or q6_k also at K > 65536 (any call that does not
-    take their decode form); q3_k, q2_k and q8_0 at M <= 4 keep
-    ``qmatmul_kernel`` (``prefill_form`` in ``csrc/qmatmul.cu``)."""
-    if fmt not in PREFILL_FORMATS or e != 1:
+    one weight (``e == 1``) at M > 4 rows, and of q4_k, q6_k or q3_k also
+    at K > 65536 (any call that does not take their decode form); q5_k,
+    q2_k and q8_0 at M <= 4 keep ``qmatmul_kernel`` (``prefill_form`` in
+    ``csrc/qmatmul.cu``)."""
+    if e != 1:
         return False
-    if fmt in _DECODE_KSPLIT:
+    if fmt in DECODE_KSPLIT:
         return not decode_form(fmt, e, m, k)
     return m > _DECODE_ROWS
 
@@ -241,7 +268,7 @@ def _launch(x: torch.Tensor, qt: QTensor, e: int, counter) -> torch.Tensor:
         return out
     if decode_form(qt.fmt, e, m, k):
         # one launch: the K split merges inside the cluster
-        splits = _DECODE_KSPLIT[qt.fmt](n, k, build.sm_count(dev))
+        splits = DECODE_KSPLIT[qt.fmt](n, k, build.sm_count(dev))
         partial = None
     elif prefill_form(qt.fmt, e, m, k):
         splits = prefill_ksplit(n, m, k, build.sm_count(dev))
@@ -330,14 +357,15 @@ def _entry(fmt: str):
 def library_launches(fmt: str, kernel: str = "experts") -> int:
     """Launches made by ``fmt``'s library of ``qmatmul_experts_kernel``
     (``kernel="experts"``; 0 for q5_k, whose expert form is
-    ``qmatmul_kernel``), its decode form (``"decode"``, q4_k and q6_k
-    only), its prefill form (``"prefill"``, the formats of
-    :data:`PREFILL_FORMATS` only) or
-    ``splitk_reduce`` (``"splitk"``): which kernels a call ran, for the
-    card tests."""
+    ``qmatmul_kernel``), its decode form (``"decode"``, q4_k, q6_k and q3_k
+    only), its prefill form (``"prefill"``), ``qmatmul_kernel``
+    (``"kernel"``; 0 for q4_k, q6_k and q3_k, whose every call takes
+    another form) or ``splitk_reduce`` (``"splitk"``): which kernels a call
+    ran, for the card tests and ``chip_smoke.py``."""
     name = {"experts": "qmatmul_experts_kernel_launches",
             "decode": "qmatmul_decode_kernel_launches",
             "prefill": "qmatmul_prefill_kernel_launches",
+            "kernel": "qmatmul_kernel_launches",
             "splitk": "qmatmul_splitk_reduce_launches"}[kernel]
     f = getattr(build.library(f"qmatmul_{fmt}"), name)
     f.restype = ctypes.c_longlong

@@ -248,15 +248,56 @@ def test_qmatmul_q6k_decode_form(cuda, m, k, n, dtype):
                            torch.zeros_like(y[m - 2]).view(bits))
 
 
-@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q3_k", "q2_k", "q8_0"])
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("k,n", [(1000, 388), (700, 260), (7168, 576),
+                                 (7168, 2048), (2048, 7168), (18432, 7168)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_qmatmul_q3k_decode_form(cuda, m, k, n, dtype):
+    """q3_k's 2-D form at M <= 4 runs qmatmul_mma_decode_kernel on tensor
+    cores, as q6_k's does: one device launch a call, no qmatmul_kernel and
+    no splitk_reduce, two calls bitwise equal, within B1's limits of the
+    plain version (f32 x as three bf16 terms: 1e-5 of max|y|; bf16:
+    B1_TOL_BF16); ragged K (1000, 700), N % 16 != 0 (388, 260: 4-byte
+    copies), DeepSeek's served shapes (attn_kv_a_mqa 7168->576, shexp
+    gate/up 7168->2048 and down 2048->7168, dense down 18432->7168), K split
+    over a cluster, and a zero row gives +0."""
+    rng = np.random.default_rng(m * 29 + k + n)
+    qt = quantize(torch.from_numpy(_np(rng, (k, n))).to(cuda), "q3_k")
+    x = torch.from_numpy(_np(rng, (m, k))).to(cuda).to(dtype)
+    if m > 1:
+        x[m - 2] = 0
+    kern = qmatmul.qmatmul_q3_k
+    before = kern.launches
+    counts = {w: qmatmul.library_launches("q3_k", w)
+              for w in ("decode", "prefill", "kernel", "splitk")}
+    y = kern(x, qt)
+    y2 = kern(x, qt)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    assert {w: qmatmul.library_launches("q3_k", w) - c
+            for w, c in counts.items()} == {
+        "decode": 2, "prefill": 0, "kernel": 0, "splitk": 0}
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(y.view(bits), y2.view(bits))
+    ref = qmatmul.qmatmul_plain(x, qt).float()
+    tol = TOL if dtype == torch.float32 else B1_TOL_BF16
+    assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
+    if m > 1:
+        assert torch.equal(y[m - 2].view(bits),
+                           torch.zeros_like(y[m - 2]).view(bits))
+
+
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q3_k", "q5_k", "q2_k",
+                                 "q8_0"])
 @pytest.mark.parametrize("m", [5, 16, 77, 512, 600])
 @pytest.mark.parametrize("k,n", [(700, 260), (1536, 384), (8960, 1536)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_qmatmul_prefill_form(cuda, fmt, m, k, n, dtype):
-    """The 2-D form at M > 4 of q4_k, q6_k, q3_k, q2_k and q8_0 runs
-    qmatmul_prefill_kernel on tensor cores: one launch of it a call, no
-    qmatmul_kernel and no splitk_reduce, two calls bitwise equal, within
+    """The 2-D form at M > 4 of every format runs qmatmul_prefill_kernel
+    on tensor cores: one launch of it a call, no qmatmul_kernel and no
+    splitk_reduce, two calls bitwise equal, within
     B1's limits of the plain version (f32 x as three bf16 terms: 1e-5 of
     max|y|; bf16: B1_TOL_BF16); rows past a 128-row tile (M = 5, 77, 600),
     ragged K (700: x's bf16 rows are not 16-byte aligned; q8_0's 22 blocks
@@ -271,8 +312,8 @@ def test_qmatmul_prefill_form(cuda, fmt, m, k, n, dtype):
     x = x.to(dtype)
     kern = qmatmul.KERNELS[fmt]
     before = kern.launches
-    pre, dec, red = (qmatmul.library_launches(fmt, w)
-                     for w in ("prefill", "decode", "splitk"))
+    pre, dec, red, old = (qmatmul.library_launches(fmt, w)
+                          for w in ("prefill", "decode", "splitk", "kernel"))
     y = kern(x, qt)
     y2 = kern(x, qt)
     torch.cuda.synchronize()
@@ -280,6 +321,7 @@ def test_qmatmul_prefill_form(cuda, fmt, m, k, n, dtype):
     assert qmatmul.library_launches(fmt, "prefill") == pre + 2
     assert qmatmul.library_launches(fmt, "decode") == dec
     assert qmatmul.library_launches(fmt, "splitk") == red
+    assert qmatmul.library_launches(fmt, "kernel") == old
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     assert torch.equal(y.view(bits), y2.view(bits))
     ref = qmatmul.qmatmul_plain(x, qt).float()
@@ -288,12 +330,12 @@ def test_qmatmul_prefill_form(cuda, fmt, m, k, n, dtype):
     assert not y[zero].view(bits).any()                  # +0, not -0
 
 
-@pytest.mark.parametrize("fmt", ["q3_k", "q2_k", "q8_0"])
+@pytest.mark.parametrize("fmt", ["q5_k", "q2_k", "q8_0"])
 @pytest.mark.parametrize("m", [1, 4])
 @pytest.mark.parametrize("k,n", [(7168, 1536), (256, 260)])
 def test_qmatmul_q3k_q8_0_decode_rows_keep_qmatmul_kernel(cuda, fmt, m, k,
                                                           n):
-    """q3_k, q2_k and q8_0 have no decode form: at M <= 4 one weight
+    """q5_k, q2_k and q8_0 have no decode form: at M <= 4 one weight
     still runs qmatmul_kernel, with splitk_reduce after it where the column
     tiles are few (7168 -> 1536) and none at one superblock (256 -> 260),
     and no prefill form; within B1's limits of the plain version (bf16 x,
@@ -304,7 +346,7 @@ def test_qmatmul_q3k_q8_0_decode_rows_keep_qmatmul_kernel(cuda, fmt, m, k,
     kern = qmatmul.KERNELS[fmt]
     before = kern.launches
     counts = {w: qmatmul.library_launches(fmt, w)
-              for w in ("prefill", "decode", "splitk", "experts")}
+              for w in ("prefill", "decode", "kernel", "splitk", "experts")}
     y = kern(x, qt)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
@@ -312,7 +354,8 @@ def test_qmatmul_q3k_q8_0_decode_rows_keep_qmatmul_kernel(cuda, fmt, m, k,
     assert (splits > 1) == (k == 7168)
     assert {w: qmatmul.library_launches(fmt, w) - c
             for w, c in counts.items()} == {
-        "prefill": 0, "decode": 0, "splitk": int(splits > 1), "experts": 0}
+        "prefill": 0, "decode": 0, "kernel": 1, "splitk": int(splits > 1),
+        "experts": 0}
     ref = qmatmul.qmatmul_plain(x, qt).float()
     assert (y.float() - ref).abs().max() <= 2 ** -8 * ref.abs().max()
 

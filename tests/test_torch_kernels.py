@@ -150,34 +150,45 @@ def test_q4k_factored_decode_matches_pallas(m):
         assert 1 <= ks <= min(8, s) and -(-s // ks) <= 32
 
 
-def _q6k_tensor_core(x, fields, ks):
-    """q6_k's decode form written out (``qmatmul_q6k_decode_kernel``): per
-    16-element sub-block and column, the exact products of bf16 x terms
-    (one for bf16 x, three for f32) and the codes q - 32, summed (the
-    tensor core; f64 here) and rounded to f32, scaled by the sub-block's
-    int8 scale and summed over the four sub-blocks a warp takes (j, j + 4,
-    j + 8, j + 12), times the superblock's d into the warp's accumulator;
-    the four warps' sums added in order, and the superblocks split over
-    ``ks`` blocks whose sums are added in rank order.  x (M, K), zeros past
-    K."""
-    ql, qh, sc, d = (fields[n] for n in qmatmul.FIELDS["q6_k"])
-    s_blocks, _, n = ql.shape
+def _mma_decode(x, fields, fmt, ks):
+    """The tensor-core decode form of q6_k and q3_k written out
+    (``qmatmul_mma_decode_kernel``): per 16-element sub-block and column,
+    the exact products of bf16 x terms (one for bf16 x, three for f32) and
+    the codes (q6_k q - 32; q3_k q - 4, q a bit-pair of qs and a bit of
+    hmask), summed (the tensor core; f64 here) and rounded to f32, scaled by
+    the sub-block's int8 scale and summed over the four sub-blocks a warp
+    takes (j, j + 4, j + 8, j + 12), times the superblock's d into the
+    warp's accumulator; the four warps' sums added in order, and the
+    superblocks split over ``ks`` blocks whose sums are added in rank
+    order.  (The card's q3_k codes carry a factor 2^q3_shift(p) that its
+    scale takes back exactly: no value changes.)  x (M, K), zeros past K."""
+    f = {a: fields[a] for a in qmatmul.FIELDS[fmt]}
+    s_blocks, _, n = f["scales"].shape
     m, k = x.shape
-    ql, qh = ql.to(torch.int32), qh.to(torch.int32)
-    # element e of a superblock: ql row e % 128's nibble e // 128 (row e %
-    # 64 + 64 ((e // 64) % 2)), qh row e % 64's bit-pair e // 64
     e = torch.arange(256)
-    lo = (ql[:, e % 128] >> (4 * (e // 128))[None, :, None]) & 15
-    hi = (qh[:, e % 64] >> (2 * (e // 64))[None, :, None]) & 3
-    w = ((lo | (hi << 4)) - 32).to(torch.float64)          # (S, 256, N)
+    if fmt == "q6_k":
+        ql, qh = f["ql"].to(torch.int32), f["qh"].to(torch.int32)
+        # element e of a superblock: ql row e % 128's nibble e // 128 (row
+        # e % 64 + 64 ((e // 64) % 2)), qh row e % 64's bit-pair e // 64
+        lo = (ql[:, e % 128] >> (4 * (e // 128))[None, :, None]) & 15
+        hi = (qh[:, e % 64] >> (2 * (e // 64))[None, :, None]) & 3
+        codes = (lo | (hi << 4)) - 32
+    else:
+        # element e: qs row e % 64's bit-pair e // 64, hmask row e % 32's
+        # bit e // 32
+        qs, hm = f["qs"].to(torch.int32), f["hmask"].to(torch.int32)
+        lo = (qs[:, e % 64] >> (2 * (e // 64))[None, :, None]) & 3
+        hi = (hm[:, e % 32] >> (e // 32)[None, :, None]) & 1
+        codes = (lo | (hi << 2)) - 4
+    w = codes.to(torch.float64)                            # (S, 256, N)
     xp = torch.zeros(m, s_blocks * 256)
     xp[:, :k] = x.to(torch.float32)
     nt = 3 if x.dtype == torch.float32 else 1
     xs = sum(t.to(torch.float64) for t in bf16_terms(xp, nt))
     prod = torch.einsum("msji,sjin->msjn", xs.reshape(m, s_blocks, 16, 16),
                         w.reshape(s_blocks, 16, 16, n)).to(torch.float32)
-    scale = sc.to(torch.float32)                           # (S, 16, N)
-    dd = d.to(torch.float32)                               # (S, N)
+    scale = f["scales"].to(torch.float32)                  # (S, 16, N)
+    dd = f["d"].to(torch.float32)                          # (S, N)
     out = torch.zeros(m, n)
     for r in range(ks):                                    # rank order
         blk = torch.zeros(m, n)
@@ -194,19 +205,16 @@ def _q6k_tensor_core(x, fields, ks):
     return out.to(x.dtype)
 
 
-@pytest.mark.parametrize("m", [1, 2, 3, 4])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-def test_q6k_tensor_core_decode_matches_pallas(m, dtype):
-    """The arithmetic of q6_k's tensor-core decode form (bf16 codes, f32
-    per-sub-block scales, f32 x as three bf16 terms) with a ragged K (700:
-    the last superblock holds 188 rows) split over 1, 2 and 3 blocks and
-    merged in rank order, against the reference's fused Pallas kernel
-    (interpret mode): f32 within 1e-5 of max|y|, bf16 within one bf16 step
-    (2^-8) of max|y|; a zero row of x gives +0."""
+def _mma_decode_matches_pallas(fmt, m, dtype, seed):
+    """``_mma_decode`` with a ragged K (700: the last superblock holds 188
+    rows) split over 1, 2 and 3 blocks and merged in rank order, against
+    the reference's fused Pallas kernel (interpret mode): f32 within 1e-5
+    of max|y|, bf16 within one bf16 step (2^-8) of max|y|; a zero row of x
+    gives +0."""
     k, n = 700, 256
-    jq, tq = _qt_pair("q6_k", k, n, seed=m + 60)
-    x = np.random.default_rng(m + 70).normal(size=(m, k)).astype(np.float32)
+    jq, tq = _qt_pair(fmt, k, n, seed=m + seed)
+    x = np.random.default_rng(m + seed + 10).normal(size=(m, k)).astype(
+        np.float32)
     if m > 1:
         x[m - 2] = 0
     xt = torch.from_numpy(x).to(dtype)
@@ -215,13 +223,70 @@ def test_q6k_tensor_core_decode_matches_pallas(m, dtype):
         xj = xj.astype(jnp.bfloat16)
     ref = np.asarray(jax_ops.qmatmul(xj, jq, impl="pallas"), np.float32)
     tol = TOL if dtype == torch.float32 else 2 ** -8
+    assert qmatmul.decode_form(fmt, 1, m, k)
+    assert not qmatmul.prefill_form(fmt, 1, m, k)
     for ks in (1, 2, 3):
-        got = _q6k_tensor_core(xt, tq.fields, ks)
+        got = _mma_decode(xt, tq.fields, fmt, ks)
         np.testing.assert_allclose(got.to(torch.float32).numpy(), ref,
                                    rtol=0, atol=tol * np.abs(ref).max())
         if m > 1:
             assert not got[m - 2].to(torch.float32).numpy().view(
                 np.int32).any()                            # +0, not -0
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_q6k_tensor_core_decode_matches_pallas(m, dtype):
+    """The arithmetic of q6_k's tensor-core decode form (bf16 codes, f32
+    per-sub-block scales, f32 x as three bf16 terms, the rank-order K
+    split) against the Pallas reference (``_mma_decode_matches_pallas``)."""
+    _mma_decode_matches_pallas("q6_k", m, dtype, seed=60)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_q3k_tensor_core_decode_matches_pallas(m, dtype):
+    """The same decode form with q3_k's codes (a bit-pair of qs and a bit
+    of hmask, less 4) and int8 scales, against the Pallas reference
+    (``_mma_decode_matches_pallas``)."""
+    _mma_decode_matches_pallas("q3_k", m, dtype, seed=160)
+
+
+# every 2-D q3_k weight the DeepSeek cut multiplies at a decode step (K,
+# N): under Q3_K_M attn_kv_a_mqa, attn_q_a, attn_q_b, shared and dense
+# gate/up; under Q2_K_L shared down, attn_output and dense down; and the
+# CPU tests' (700, 256)
+Q3K_DECODE_SHAPES = [(7168, 576), (7168, 1536), (1536, 24576), (7168, 2048),
+                     (2048, 7168), (7168, 18432), (16384, 7168),
+                     (18432, 7168), (700, 256)]
+
+
+@pytest.mark.parametrize("k,n", Q3K_DECODE_SHAPES)
+def test_q3k_decode_ksplit_from_host_integers(k, n):
+    """q3_k's K split, from host integers only: 1..16 blocks (a
+    non-portable cluster size), at most the superblocks; about 8/11 of the
+    SMs' worth of blocks where the column tiles are at most a quarter of
+    the SMs, else 4, 2 or 1 by the superblocks a block keeps; at the
+    DeepSeek shapes the fastest split timed on an H100 SXM (PERF.md)."""
+    s, tiles = -(-k // 256), -(-n // 128)
+    assert qmatmul.decode_form("q3_k", 1, 4, k)
+    assert not qmatmul.decode_form("q3_k", 1, 5, k)
+    assert not qmatmul.decode_form("q3_k", 2, 1, k)
+    for sms in (132, 114, 8):
+        ks = qmatmul.decode_ksplit_q3k(n, k, sms)
+        assert 1 <= ks <= min(16, s)
+        if 4 * tiles <= sms:
+            assert ks == min(16, s, max(1, (8 * sms // 11) // tiles))
+        else:
+            assert ks == min(s, 4 if s >= 16 else
+                             2 if s >= 8 and tiles < sms else 1)
+    fastest = {(7168, 576): 16, (7168, 1536): 8, (1536, 24576): 1,
+               (7168, 2048): 6, (2048, 7168): 2, (7168, 18432): 4,
+               (16384, 7168): 4, (18432, 7168): 4}
+    if (k, n) in fastest:
+        assert qmatmul.decode_ksplit_q3k(n, k, 132) == fastest[k, n]
 
 
 @pytest.mark.parametrize("k,n", [(700, 256), (1536, 256), (8960, 1536),
@@ -256,18 +321,20 @@ def _fma32(a, b, c):
 
 
 def _prefill_tensor_core(x, fields, fmt, ks):
-    """The prefill form of q4_k, q6_k, q3_k, q2_k and q8_0 written out
+    """The prefill form of every format written out
     (``qmatmul_prefill_kernel``).  Rows padded to 128-row tiles (zeros).
     A superblock (q8_0: 8 blocks of 32, those past the field's last zero)
     is staged in parts (2 for bf16 x, 4 for f32), each a whole number of
-    sub-blocks taken in the stage's order: q4_k part q sub-blocks 4 j + q *
-    4 / parts + i (j = 0, 1: low, high nibbles), q6_k, q3_k and q2_k 4 p +
+    sub-blocks taken in the stage's order: q4_k and q5_k part q sub-blocks
+    4 j + q * 4 / parts + i (j = 0, 1: low, high nibbles), q6_k, q3_k and
+    q2_k 4 p +
     q * 4 / parts + i (p = 0..3), q8_0 blocks q * 8 / parts + i.  bf16 x:
     per sub-block the tensor cores sum 16 exact products of x and the codes
     (q4_k q, q6_k q - 32, q3_k q - 4 with q a bit-pair of qs and a bit of
-    hmask, q2_k q a bit-pair of qs, q8_0 its int8 q) a k16 step (q4_k, q8_0
-    two) into a sum zeroed for the sub-block; the sum times sc * d (q8_0 d;
-    f32) is added into the accumulator by one FMA, and for q4_k and q2_k -m
+    hmask, q5_k q a nibble of qs and a bit of qh, q2_k q a bit-pair of qs,
+    q8_0 its int8 q) a k16 step (q4_k, q5_k, q8_0 two) into a sum zeroed
+    for the sub-block; the sum times sc * d (q8_0 d; f32) is added into the
+    accumulator by one FMA, and for q4_k, q5_k and q2_k -m
     * dmin times the sum of x over the sub-block (32 or 16 elements: the
     tensor cores' f32 sum against a B of ones; in order here) by
     another.  f32 x: per k16 step of the stage, the six products
@@ -296,6 +363,16 @@ def _prefill_tensor_core(x, fields, fmt, ks):
     if fmt == "q4_k":
         qs = f["qs"].to(torch.int32)
         codes = (qs[:, e % 128] >> (4 * (e // 128))[None, :, None]) & 15
+        scale = f["d"].float()[:, None] * f["scales"].float()   # (S, 8, N)
+        nmin = -(f["dmin"].float()[:, None] * f["mins"].float())
+        sub_len, runs = 32, 2
+    elif fmt == "q5_k":
+        # element e: qs row e % 128's nibble e // 128, qh row e % 32's bit
+        # e // 32 above it
+        qs, qh = f["qs"].to(torch.int32), f["qh"].to(torch.int32)
+        lo = (qs[:, e % 128] >> (4 * (e // 128))[None, :, None]) & 15
+        hi = (qh[:, e % 32] >> (e // 32)[None, :, None]) & 1
+        codes = lo | (hi << 4)
         scale = f["d"].float()[:, None] * f["scales"].float()   # (S, 8, N)
         nmin = -(f["dmin"].float()[:, None] * f["mins"].float())
         sub_len, runs = 32, 2
@@ -360,7 +437,7 @@ def _prefill_tensor_core(x, fields, fmt, ks):
                     w = codes[sb, k0 - sb * 256:k0 - sb * 256 + 16]
                     d = (d.double() + xp[:, k0:k0 + 16].double() @ w).float()
                 acc = _fma32(scale[sb, sub][None], d, acc)
-                if fmt in ("q4_k", "q2_k"):
+                if fmt in ("q4_k", "q5_k", "q2_k"):
                     xs = torch.zeros(mp)
                     k0 = sb * 256 + sub * sub_len
                     for j in range(sub_len):                # in order, f32
@@ -370,7 +447,8 @@ def _prefill_tensor_core(x, fields, fmt, ks):
     return out[:m].to(x.dtype)
 
 
-@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q3_k", "q2_k", "q8_0"])
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q3_k", "q5_k", "q2_k",
+                                 "q8_0"])
 @pytest.mark.parametrize("m,k,n", [(5, 700, 256), (77, 1536, 384),
                                    (128, 700, 384), (300, 1536, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -380,8 +458,8 @@ def test_q4k_q6k_prefill_tensor_core_rule_matches_pallas(fmt, m, k, n,
     """The arithmetic of the prefill form, for each of its formats (bf16
     x: exact bf16 codes in the fragments' K order, design (a): each
     sub-block's (q8_0: block's) tensor-core sum scaled in f32 by sc * d (q8_0
-    d), the min term of q4_k and q2_k from x's sums per 32- or 16-element
-    sub-block; f32 x: the plain
+    d), the min term of q4_k, q5_k and q2_k from x's sums per 32- or
+    16-element sub-block; f32 x: the plain
     version's weights and x as three bf16 terms each, six products a k16
     step; row tiles of 128 with padded rows, ragged K = 700 (q8_0: 22
     blocks, so its last superblock has 6 of its 8), the half superblocks
@@ -412,7 +490,7 @@ def test_q4k_q6k_prefill_tensor_core_rule_matches_pallas(fmt, m, k, n,
 # DeepSeek-V3's attn_q_a, attn_q_b, attn_kv_a_mqa, attn_output, dense
 # gate/up and down, shared experts (under DQ3_K_M and Q4_K_M q4_k and q6_k;
 # under Q3_K_M q3_k on attn_q_a, attn_q_b, attn_kv_a_mqa, dense and shared
-# gate/up; under Q2_K_L q3_k on attn_output, dense and shared down, q2_k on
+# gate/up, q5_k on the dense down (and qwen2's down); under Q2_K_L q3_k on attn_output, dense and shared down, q2_k on
 # attn_q_a, attn_q_b, dense and shared gate/up; under Q8_0 q8_0 on all of
 # them)
 PREFILL_SHAPES = [(1536, 1536), (1536, 8960), (1536, 256), (8960, 1536),
@@ -429,19 +507,19 @@ def test_prefill_ksplit_from_host_integers(k, n):
     SMs) and, for clusters of more than 2 blocks, fill at most four fifths
     of the SMs."""
     halves = 2 * -(-k // 256)
-    for fmt in ("q4_k", "q6_k", "q3_k", "q2_k", "q8_0"):
+    for fmt in ("q4_k", "q6_k", "q3_k", "q5_k", "q2_k", "q8_0"):
         assert qmatmul.prefill_form(fmt, 1, 512, k)
         assert qmatmul.prefill_form(fmt, 1, 5, k)
         assert not qmatmul.prefill_form(fmt, 1, 4, k)
         assert not qmatmul.prefill_form(fmt, 1, 1, k)
         assert not qmatmul.prefill_form(fmt, 8, 512, k)
-    # q3_k, q2_k and q8_0 have no decode form: at M <= 4 they keep
-    # qmatmul_kernel; q5_k has neither form
-    for fmt in ("q3_k", "q2_k", "q8_0"):
-        assert not qmatmul.decode_form(fmt, 1, 4, k)
-    for m in (1, 4, 5, 512):
-        assert not qmatmul.prefill_form("q5_k", 1, m, k)
-        assert not qmatmul.decode_form("q5_k", 1, m, k)
+    # q4_k, q6_k and q3_k take their decode form at M <= 4; q5_k, q2_k and
+    # q8_0 have none: at M <= 4 they keep qmatmul_kernel
+    for fmt in ("q4_k", "q6_k", "q3_k"):
+        assert qmatmul.decode_form(fmt, 1, 4, k)
+    for fmt in ("q5_k", "q2_k", "q8_0"):
+        for m in (1, 4, 5, 512):
+            assert not qmatmul.decode_form(fmt, 1, m, k)
 
     def fits(tiles, ks, sms):
         return (tiles <= max(1, sms // 16) * (16 // ks)
