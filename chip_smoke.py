@@ -18,7 +18,7 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 empty expert), with times, the roofline bound and the
                 stated tolerance (B1 also at every 2-D shape the DeepSeek
                 cut multiplies by q3_k, q2_k or q8_0 at a chunk's 512 rows,
-                and by q3_k at a decode step's 1 and 4 rows; B1's
+                and at a decode step's 1 and 4 rows; B1's
                 M = 512 lines also carry ``gemm_ms``, a bf16 torch.matmul
                 by the weight already dequantized, for context); the GQA
                 and MLA decodes also at the engine's horizon (4 lanes x
@@ -39,8 +39,8 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 cut under Q4_K_M, Q3_K_M, Q2_K_L and Q8_0 with q8_0 pools.
                 Every
                 kernel of each path must have been launched in its run
-                (and each 2-D format with a decode form, q4_k, q6_k or
-                q3_k, must have taken it and never qmatmul_kernel),
+                (and each 2-D format with a decode form, every one but
+                q5_k, must have taken it and never qmatmul_kernel),
                 and the DeepSeek weights must pack to the reference size
                 calculator's bytes; one traced 4 x 128-token prefill
                 chunk (``prefill_profile``) and one traced decode step
@@ -318,16 +318,27 @@ B1_SHAPES = [(1536, 1536, "q4_k", "q_proj, o_proj"),
              (1536, 8960, "q8_0", "qwen2 gate, up, Q8_0"),
              (7168, 18432, "q8_0", "DeepSeek dense gate, up, Q8_0")]
 B1_ROWS = (1, 4, 512)
-# the other 2-D weights that the DeepSeek cut multiplies by q3_k's decode
-# form at a decode step (Q3_K_M, Q2_K_L), timed at M = 1 and 4 only (their
-# M = 512 form is timed below)
+# the other 2-D weights that the DeepSeek cut multiplies by the decode form
+# of q3_k (Q3_K_M, Q2_K_L), q2_k (Q2_K_L) or q8_0 (Q8_0, the output head
+# included) at a decode step, timed at M = 1 and 4 only (their M = 512 form
+# is timed below)
 B1_DECODE_SHAPES = [
     (7168, 576, "q3_k", "DeepSeek attn_kv_a_mqa, Q3_K_M"),
     (1536, 24576, "q3_k", "DeepSeek attn_q_b, Q3_K_M"),
     (7168, 18432, "q3_k", "DeepSeek dense gate, up, Q3_K_M"),
     (2048, 7168, "q3_k", "DeepSeek shexp down, Q2_K_L"),
     (16384, 7168, "q3_k", "DeepSeek attn_output, Q2_K_L"),
-    (18432, 7168, "q3_k", "DeepSeek dense down, Q2_K_L")]
+    (18432, 7168, "q3_k", "DeepSeek dense down, Q2_K_L"),
+    (7168, 1536, "q2_k", "DeepSeek attn_q_a, Q2_K_L"),
+    (7168, 2048, "q2_k", "DeepSeek shexp gate, up, Q2_K_L"),
+    (7168, 1536, "q8_0", "DeepSeek attn_q_a, Q8_0"),
+    (1536, 24576, "q8_0", "DeepSeek attn_q_b, Q8_0"),
+    (7168, 576, "q8_0", "DeepSeek attn_kv_a_mqa, Q8_0"),
+    (16384, 7168, "q8_0", "DeepSeek attn_output, Q8_0"),
+    (18432, 7168, "q8_0", "DeepSeek dense down, Q8_0"),
+    (7168, 2048, "q8_0", "DeepSeek shexp gate, up, Q8_0"),
+    (2048, 7168, "q8_0", "DeepSeek shexp down, Q8_0"),
+    (7168, 129280, "q8_0", "DeepSeek output, Q8_0")]
 B1_DECODE_ROWS = (1, 4)
 # the other 2-D weights that the DeepSeek cut multiplies by the prefill
 # form's q3_k (Q3_K_M, Q2_K_L), q2_k (Q2_K_L) and q8_0 (Q8_0) at a chunk's
@@ -1037,7 +1048,7 @@ def short_name(key: str) -> str:
 
 # kernel families of a traced decode step or prefill chunk:
 # qmatmul_kernel<T, rows, format, experts>, qmatmul_q4k_decode_kernel and
-# qmatmul_mma_decode_kernel (the 2-D forms of q4_k, q6_k and q3_k at M <=
+# qmatmul_mma_decode_kernel (the 2-D forms of every format but q5_k at M <=
 # 4), qmatmul_prefill_kernel (every format's at M > 4) and
 # qmatmul_experts_kernel<T, rows, format, copy bytes> (format ids as in
 # csrc/qmatmul.cu), the split-K reduction, and the attention kernels (the
@@ -1220,7 +1231,7 @@ DEEPSEEK_B1 = {"DQ3_K_M": (("q4_k", "q6_k"), ("q3_k", "q4_k", "q6_k")),
 # rows (qwen2 under DQ3_K_M; the DeepSeek cut per policy: under Q3_K_M q6_k
 # is only the output head, which takes one row a lane, as the Q8_0 head
 # does, and Q2_K_L has no q4_k); and the formats whose one-weight calls at
-# M <= 4 take a decode form, never qmatmul_kernel
+# M <= 4 take a decode form, never qmatmul_kernel (all but q5_k)
 PREFILL_FORMS = ("q4_k", "q6_k", "q3_k", "q5_k", "q2_k", "q8_0")
 QWEN2_PREFILL = ("q4_k", "q6_k")
 DEEPSEEK_PREFILL = {"DQ3_K_M": ("q4_k", "q6_k"), "Q4_K_M": ("q4_k", "q6_k"),
@@ -1228,7 +1239,7 @@ DEEPSEEK_PREFILL = {"DQ3_K_M": ("q4_k", "q6_k"), "Q4_K_M": ("q4_k", "q6_k"),
                     "Q2_K_L": ("q6_k", "q3_k", "q2_k"), "Q8_0": ("q8_0",)}
 
 
-DECODE_FORMS = ("q4_k", "q6_k", "q3_k")
+DECODE_FORMS = ("q4_k", "q6_k", "q3_k", "q2_k", "q8_0")
 
 
 def b1_path(policy: str) -> tuple:

@@ -13,8 +13,8 @@ At 512 rows (bf16 x) it times ``qmatmul_<fmt>`` at every 2-D shape (K, N)
 that the DeepSeek-V3 cut multiplies by q3_k (under Q3_K_M and Q2_K_L),
 q5_k (Q3_K_M's dense down), q2_k (under Q2_K_L) or q8_0 (under Q8_0), and
 qwen2-1.5b's q5_k down and q8_0 gate/up; at 4 rows, every shape that the
-cut multiplies by q3_k at a decode step, and the q6_k shapes of
-``chip_smoke.py``'s kernels phase.  CUDA events time 10 calls queued behind
+cut multiplies by q3_k, q2_k or q8_0 at a decode step, and the q6_k shapes
+of ``chip_smoke.py``'s kernels phase.  CUDA events time 10 calls queued behind
 a spin kernel, the weights rotating over copies of more than 120 MB so
 that each call reads them from HBM, as ``chip_smoke.py`` does.  Each line
 says which kernels ran (the library's counts of its forms' launches before
@@ -68,7 +68,9 @@ SHAPES = [
 ]
 # at a decode step's 4 rows: q3_k's served shapes (Q3_K_M's attn_kv_a_mqa,
 # attn_q_a, attn_q_b, dense and shared gate/up; Q2_K_L's attn_output, dense
-# and shared down) and the q6_k shapes of chip_smoke.py's kernels phase
+# and shared down), q2_k's (Q2_K_L's attn_q_a, attn_q_b, dense and shared
+# gate/up), q8_0's (every 2-D weight of the cut under Q8_0, the output
+# head included) and the q6_k shapes of chip_smoke.py's kernels phase
 DECODE_SHAPES = [
     (7168, 576, "q3_k", "attn_kv_a_mqa, Q3_K_M"),
     (7168, 1536, "q3_k", "attn_q_a, Q3_K_M"),
@@ -83,6 +85,19 @@ DECODE_SHAPES = [
     (18432, 7168, "q6_k", "dense down"),
     (7168, 576, "q6_k", "attn_kv_a_mqa"),
     (7168, 129280, "q6_k", "output"),
+    (7168, 1536, "q2_k", "attn_q_a, Q2_K_L"),
+    (1536, 24576, "q2_k", "attn_q_b, Q2_K_L"),
+    (7168, 18432, "q2_k", "dense gate, up, Q2_K_L"),
+    (7168, 2048, "q2_k", "shexp gate, up, Q2_K_L"),
+    (7168, 1536, "q8_0", "attn_q_a, Q8_0"),
+    (1536, 24576, "q8_0", "attn_q_b, Q8_0"),
+    (7168, 576, "q8_0", "attn_kv_a_mqa, Q8_0"),
+    (16384, 7168, "q8_0", "attn_output, Q8_0"),
+    (7168, 18432, "q8_0", "dense gate, up, Q8_0"),
+    (18432, 7168, "q8_0", "dense down, Q8_0"),
+    (7168, 2048, "q8_0", "shexp gate, up, Q8_0"),
+    (2048, 7168, "q8_0", "shexp down, Q8_0"),
+    (7168, 129280, "q8_0", "output, Q8_0"),
 ]
 FORMS = ("decode", "prefill", "kernel", "splitk")
 
@@ -166,7 +181,7 @@ def main() -> int:
         ref = qm.qmatmul_plain(x, qt).float()
         for ks in splits:
             if ks is not None:
-                if ks > -(-k // 256):
+                if ks > qm.decode_stages(fmt, k):
                     continue
                 qm.DECODE_KSPLIT[fmt] = lambda n_, k_, sms_, ks=ks: ks
             before = launches(qm, fmt)

@@ -4,7 +4,7 @@
     python3 scripts/cuda_emu/emulate.py attn               # GQA attention
     python3 scripts/cuda_emu/emulate.py mla                # MLA attention
     python3 scripts/cuda_emu/emulate.py prefill q2_k,q4_k  # B1 prefill form
-    python3 scripts/cuda_emu/emulate.py decode q3_k,q6_k   # B1 mma decode form
+    python3 scripts/cuda_emu/emulate.py decode q2_k,q8_0   # B1 mma decode form
 
 Copies a source with its headers into ``src/repro_torch/_build/emu/``,
 rewrites it for g++ (``mma.cuh`` replaced by this directory's emulated
@@ -366,15 +366,17 @@ def main() -> int:
     ap.add_argument("what", choices=("attn", "mla", "prefill", "decode"))
     ap.add_argument("formats", nargs="?", default=None,
                     help="B1 formats of the prefill form (default: all) or "
-                         "of the tensor-core decode form (q3_k,q6_k)")
+                         "of the tensor-core decode form (default: "
+                         "q2_k,q3_k,q6_k,q8_0)")
     ap.add_argument("--sms", type=int, default=132)
     args = ap.parse_args()
     if shutil.which("g++") is None:
         raise SystemExit("emulate: needs g++ (C++20)")
     build.stream_ptr = lambda dev: 0
     build.sm_count = lambda dev: args.sms
-    formats = (args.formats or ("q3_k,q6_k" if args.what == "decode" else
-                                ",".join(qm.FIELDS))).split(",")
+    every = ("q2_k,q3_k,q6_k,q8_0" if args.what == "decode"
+             else ",".join(qm.FIELDS))
+    formats = (args.formats or every).split(",")
     ok = (attn(args.sms) if args.what == "attn"
           else mla(args.sms) if args.what == "mla"
           else prefill(formats, args.sms) if args.what == "prefill"

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Ablations of the MLA decode and prefill kernels, of the GQA prefill
-kernel, of the q4_k, q6_k and q3_k decode forms and of the prefill form
+kernel, of the q4_k, q6_k, q3_k, q2_k and q8_0 decode forms and of the prefill form
 (q4_k, q6_k, q3_k, q2_k, q8_0) on one CUDA card.
 
     python3 scripts/decode_ablation.py            # prints JSON lines
@@ -9,6 +9,7 @@ kernel, of the q4_k, q6_k and q3_k decode forms and of the prefill form
     python3 scripts/decode_ablation.py --only q3k_prefill,q8_0_prefill
     python3 scripts/decode_ablation.py --only q2k_prefill,gqa_prefill
     python3 scripts/decode_ablation.py --only q3k_decode
+    python3 scripts/decode_ablation.py --only q2k_decode,q8_0_decode
 
 Builds variants of ``csrc/paged_mla.cu`` (``paged_mla_decode_kernel``) and
 of ``csrc/qmatmul.cu`` for q4_k (``qmatmul_q4k_decode_kernel``), each the
@@ -49,6 +50,19 @@ kernel) at ``chip_smoke.py``'s shapes:
                stream alone, and 3 or 4 blocks an SM asked of ptxas
                (``__launch_bounds__``); each variant's registers and
                spills.
+  q2_k decode  M = 4 bf16 at the DeepSeek cut's four q2_k shapes (the
+               kernel's q2_k instance at ``decode_ksplit_q2k``); variants:
+               the kernel, the min term by one more mma a sub-block (in
+               place of the sums of x from the B fragments), two
+               superblocks a stage, four stages in the ring, no mma, no
+               conversion, the weight stream alone; the variants that
+               change the stage also at every cluster size of KS_SCAN;
+               each variant's registers and spills.
+  q8_0 decode  M = 4 bf16 at the cut's nine q8_0 shapes (the output head
+               included); variants: the kernel (4 blocks a stage, 3
+               stages), 4 blocks x 4 stages, 8 blocks x 2 and x 3 stages
+               (each also at every cluster size of KS_SCAN), no mma, no
+               conversion, the weight stream alone.
   q4_k decode  M = 4 bf16 at 1536->1536, 1536->8960, 1536->152064,
                7168->18432, 16384->7168, 1536->24576, each at its K split
                (``decode_ksplit``) and at the other divisors of its
@@ -171,10 +185,11 @@ Q6_NO_CONVERSION = [
      "                             code_pair(w[1][1][k], sel, bias)};",
      "      const uint32_t a[4] = {w[0][0][k] ^ sel, w[0][1][k], w[1][0][k], "
      "w[1][1][k]};")]
-Q6_NO_X = ("    const bool in = xr < M && k < K;", "    const bool in = false;")
+Q6_NO_X = ("      const bool in = xr < M && k < K;",
+           "      const bool in = false;")
 Q6_NO_COMPUTE = ("    mma_decode_stage<T, FMT>(stage, reinterpret_cast<const "
-                 "T*>(stage + W),\n                             half, j0, g, "
-                 "t, acc);", "")
+                 "T*>(stage + W),\n                             valid(s), "
+                 "half, j0, g, t, acc);", "")
 Q6_NO_MERGE = ("  const int lo = n_out * rank / ks, hi = n_out * (rank + 1) / ks;\n"
                "  for (int idx = lo + tid; idx < hi; idx += MD_THREADS) {",
                "  const int lo = 0, hi = 0;\n"
@@ -198,6 +213,68 @@ Q3_VARIANTS = {
     "3 blocks an SM": [(MD_BOUNDS, MD_BOUNDS.replace(", 2)", ", 3)"))],
     "4 blocks an SM": [(MD_BOUNDS, MD_BOUNDS.replace(", 2)", ", 4)"))],
 }
+# the same kernel's q2_k instance (FMT 4): two superblocks a stage, four
+# stages in the ring, and its min term as one more mma a sub-block (A the
+# column's m in every element, summed in the tensor core) in place of the
+# sums of x from the B fragments
+Q2_MIN_MMA = [
+    ("    if constexpr (FMT == 4) md_xsums<T>(b, t, xs0, xs1);", ""),
+    ("        const float ma = code_f32(m0, c) - kMagic;\n"
+     "        const float mb = code_f32(m1, c) - kMagic;\n"
+     "        pmin[c][0] = fmaf(ma, xs0, pmin[c][0]);\n"
+     "        pmin[c][1] = fmaf(ma, xs1, pmin[c][1]);\n"
+     "        pmin[c][2] = fmaf(mb, xs0, pmin[c][2]);\n"
+     "        pmin[c][3] = fmaf(mb, xs1, pmin[c][3]);",
+     "        const uint32_t msel = 0x4040u | (c << 8) | c;\n"
+     "        const uint32_t lo = code_pair(m0, msel, Q4_BIAS);\n"
+     "        const uint32_t hi = code_pair(m1, msel, Q4_BIAS);\n"
+     "        const uint32_t am[4] = {lo, hi, lo, hi};\n"
+     "#pragma unroll\n"
+     "        for (int u = 0; u < NT; ++u) mma_bf16(pmin[c], am, b[u][0], "
+     "b[u][1]);")]
+Q2_TWO_SB = ("constexpr int MD_Q2_SUPERBLOCKS = 1;",
+             "constexpr int MD_Q2_SUPERBLOCKS = 2;")
+MD_RING = "constexpr int MD_STAGES = 3;"
+Q2_VARIANTS = {
+    "kernel": [],
+    "min term by an mma": Q2_MIN_MMA,
+    "two superblocks a stage": [Q2_TWO_SB],
+    "four stages": [(MD_RING, MD_RING.replace("3;", "4;"))],
+    "no mma": [Q6_NO_MMA],
+    "no conversion": Q6_NO_CONVERSION,
+    "weight stream only": [Q6_NO_COMPUTE, Q6_NO_X, Q6_NO_MERGE],
+}
+# its q8_0 instance (FMT 5): blocks a stage and stages in the ring (4 x 3:
+# 128 rows, 62 KB at bf16; 4 x 4; 8 x 2: 256 rows, 81 KB; 8 x 3: one block
+# an SM), and parts taken out
+Q8_BLOCKS = "constexpr int MD_Q8_BLOCKS = 4;"
+Q8_VARIANTS = {
+    "kernel": [],
+    "4 blocks x 4 stages": [(MD_RING, MD_RING.replace("3;", "4;"))],
+    "8 blocks x 2 stages": [(Q8_BLOCKS, Q8_BLOCKS.replace("4;", "8;")),
+                            (MD_RING, MD_RING.replace("3;", "2;"))],
+    "8 blocks x 3 stages": [(Q8_BLOCKS, Q8_BLOCKS.replace("4;", "8;"))],
+    "no mma": [(
+        "        for (int u = 0; u < NT; ++u) mma_bf16(d[c], a, b[u][0], "
+        "b[u][1]);",
+        "        for (int u = 0; u < NT; ++u) d[c][u & 3] += __uint_as_float("
+        "(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[u][0] ^ b[u][1]) & 0x3FFFFFFFu);")],
+    "no conversion": [(
+        "        const uint32_t a[4] = {q8_pair(mag[0][0][q], sgn[0][0][q], "
+        "sel),",
+        "        const uint32_t a[4] = {mag[0][0][q] ^ sel, mag[0][1][q], "
+        "mag[1][0][q], mag[1][1][q]};\n        const uint32_t a_[4] = "
+        "{q8_pair(mag[0][0][q], sgn[0][0][q], sel),")],
+    "weight stream only": [Q6_NO_COMPUTE, Q6_NO_X, Q6_NO_MERGE],
+}
+# the variants of the q2_k and q8_0 groups that change the stage, whose
+# cluster size is scanned (the rules were fitted to the kernel's stage)
+STAGE_SCAN = ("kernel", "two superblocks a stage", "four stages",
+              "4 blocks x 4 stages", "8 blocks x 2 stages",
+              "8 blocks x 3 stages")
+KS_SCAN = (1, 2, 3, 4, 6, 8, 12, 16)
+
+
 # the MLA prefill kernel
 PF_NO_MMA = [
     ("                mma_bf16(d[j], qf[u], kf[2 * jt], kf[2 * jt + 1]);",
@@ -467,9 +544,24 @@ def q3k(libs, gen) -> dict:
         (7168, 18432), (16384, 7168), (18432, 7168)))
 
 
-def mma_decode(libs, gen, fmt: str, shapes) -> dict:
-    """q6_k's or q3_k's decode form at M = 4, bf16, at its split rule's
-    cluster size (the kernel also at 8, the portable size)."""
+def q2k(libs, gen) -> dict:
+    return mma_decode(libs, gen, "q2_k", (
+        (7168, 1536), (1536, 24576), (7168, 18432), (7168, 2048)),
+        scan=STAGE_SCAN)
+
+
+def q80(libs, gen) -> dict:
+    return mma_decode(libs, gen, "q8_0", (
+        (7168, 1536), (1536, 24576), (7168, 576), (16384, 7168),
+        (7168, 18432), (18432, 7168), (7168, 2048), (2048, 7168),
+        (7168, 129280)), scan=STAGE_SCAN)
+
+
+def mma_decode(libs, gen, fmt: str, shapes, scan=()) -> dict:
+    """The tensor-core decode form of ``fmt`` at M = 4, bf16, at its split
+    rule's cluster size (the kernel also at 8, the portable size); the
+    variants named in ``scan`` at every size of KS_SCAN up to the stages of
+    the kernel (or of twice its stage, a variant that doubles it)."""
     v, i = ctypes.c_void_p, ctypes.c_int
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
@@ -492,8 +584,12 @@ def mma_decode(libs, gen, fmt: str, shapes) -> dict:
             fn = lib.qmatmul
             fn.argtypes = [i, i, v, ctypes.POINTER(v), i, v, v] + [i] * 5 + [v]
             # the kernel also at the portable cluster size, 8
-            for ks in sorted({chosen, min(8, chosen)}) if name == "kernel" \
-                    else (chosen,):
+            sizes = ({chosen, min(8, chosen)} if name == "kernel"
+                     else {chosen})
+            if name in scan:
+                sizes |= {c for c in KS_SCAN
+                          if c <= qm.decode_stages(fmt, k)}
+            for ks in sorted(sizes):
                 it = [0]
 
                 def call():
@@ -670,6 +766,10 @@ GROUPS = {
                    ("-DQMATMUL_FMT=1",), q6k),
     "q3k_decode": ("qmatmul.cu", "q3k_", Q3_VARIANTS,
                    ("-DQMATMUL_FMT=2", "-Xptxas", "-v"), q3k),
+    "q2k_decode": ("qmatmul.cu", "q2k_", Q2_VARIANTS,
+                   ("-DQMATMUL_FMT=4", "-Xptxas", "-v"), q2k),
+    "q8_0_decode": ("qmatmul.cu", "q80_", Q8_VARIANTS,
+                    ("-DQMATMUL_FMT=5", "-Xptxas", "-v"), q80),
     "mla_prefill": ("paged_mla.cu", "mlap_", PF_VARIANTS, (), mla_prefill),
     "gqa_prefill": ("paged_attn.cu", "gqap_", GQ_VARIANTS,
                     ("-Xptxas", "-v"), gqa_prefill),
@@ -684,6 +784,10 @@ GROUPS = {
     "q8_0_prefill": ("qmatmul.cu", "q80p_", PRE_VARIANTS,
                      ("-DQMATMUL_FMT=5", "-Xptxas", "-v"), prefill("q8_0")),
 }
+
+
+# the groups whose ptxas lines of qmatmul_mma_decode_kernel are printed
+MMA_DECODE_GROUPS = ("q3k_decode", "q2k_decode", "q8_0_decode")
 
 
 def main() -> int:
@@ -709,9 +813,9 @@ def main() -> int:
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {group} {name}:\n{log}")
         libs[group][name] = ctypes.CDLL(lib)
-        if group.endswith("_prefill") or group == "q3k_decode":
+        if group.endswith("_prefill") or group in MMA_DECODE_GROUPS:
             lines = log.splitlines()
-            key = "mma_decode" if group == "q3k_decode" else "prefill"
+            key = "mma_decode" if group in MMA_DECODE_GROUPS else "prefill"
             regs = [lines[j + 2].strip() + " " + lines[j + 3].strip()
                     for j, line in enumerate(lines[:-3])
                     if "Compiling entry" in line and key in line]

@@ -24,9 +24,10 @@
 // Design.  Fields are structure-of-arrays (S, X, N) with N last, so a
 // thread owns 4 neighbouring output columns and reads 4 neighbouring bytes
 // of each field row with one 32-bit load: a warp reads 128 contiguous bytes.
-// A block (32 x 4 threads) owns 128 columns and one tile of MT rows; its
-// four warps split each 256-row tile of K (one superblock; eight q8_0
-// blocks), each decoder's header says how, so the packed tile is decoded in
+// The first draft, qmatmul_kernel, now serves q5_k alone (its 2-D form at
+// M <= 4 and its expert form): a block (32 x 4 threads) owns 128 columns
+// and one tile of MT rows; its four warps split each superblock (the
+// decoder's header says how), so the packed tile is decoded in
 // registers, never written back, and each warp prefetches its byte-rows
 // before it decodes.  The activation tile x[MT, 256] sits in shared memory
 // as f32 and every lane of a warp reads the same element (a broadcast).
@@ -34,15 +35,12 @@
 // order.  Where the column tiles alone give too few blocks to fill the
 // card, the tiles are split over gridDim.y and a second kernel adds the
 // per-split partials in a fixed order (deterministic split-K, no atomics;
-// the 2-D forms of q5_k, q2_k and q8_0 at M <= 4, and q5_k's expert form,
-// which no policy serves; the other calls have forms of their own, below).
-// K that is not a multiple of 256 reads x as zero past K, and q8_0 blocks
-// past the last one are not read at all.  The dequantized weights are the
-// same f32 values as the plain version's (q5_k and q2_k: q * (sc*d) -
+// the 2-D form of q5_k at M <= 4 only: its expert form, which no policy
+// serves, is never split; every other call has a form of its own, below).
+// K that is not a multiple of 256 reads x as zero past K.  The dequantized
+// weights are the same f32 values as the plain version's (q * (sc*d) -
 // (m*dmin), product rounded before the subtraction as the plain version
-// does; q8_0: q * d).  Expert weights
-// are never split over K: E column-tile rows already give thousands of
-// blocks.  The expert kernel below holds at C = 1 a sum, not each weight,
+// does).  The expert kernel below holds at C = 1 a sum, not each weight,
 // to the plain version's values (see there).
 //
 // The expert form of q4_k, q6_k, q3_k, q2_k and q8_0
@@ -110,7 +108,7 @@
 // distributed shared memory: one launch, deterministic.  A zero row of x
 // gives +0, as the plain version does.
 //
-// q6_k's and q3_k's 2-D forms at M <= 4 on tensor cores
+// q6_k's, q3_k's, q2_k's and q8_0's 2-D forms at M <= 4 on tensor cores
 // (qmatmul_mma_decode_kernel<T, FMT, V>), for q6_k on qmatmul_kernel +
 // splitk_reduce the largest B1 family left (qwen2's
 // down, attn_k, attn_v; DeepSeek's output, attn_kv_a_mqa and dense downs):
@@ -150,6 +148,23 @@
 // 0.018; the code conversion 17 % of it and the mmas 11 %; three or four
 // blocks an SM (80 or 64 registers, with spills) ran 3-10 % and 5-31 %
 // slower at the eight DeepSeek shapes (scripts/decode_ablation.py).
+// q2_k (FMT 4) takes q3_k's element order without hmask: qs row r holds
+// elements r + 64p in bit-pair p; the two rows of a fragment are
+// interleaved first and each bit-pair then masked in place (bit q3_shift(p),
+// ~0.4 integer ops a code), q 2^q3_shift(p) in bf16 by code_pair, the scale
+// (sm's low nibble) times 2^-q3_shift(p) exactly.  Its min term, dmin m sum
+// x a sub-block: each lane's sub-block sums of x's rows come from the x
+// fragments by shuffles, and four FMAs a tile add m (sm's high nibble) times
+// them into a second accumulator, scaled once a superblock by -dmin (one
+// more mma a sub-block, A the column's m, ran 1-2 % slower).  q8_0 (FMT 5)
+// has no sub-blocks: a stage is MD_Q8_BLOCKS = 4 blocks of 32 rows, warp
+// group j0 takes block j0 (two mmas into one D, scaled once by the block's
+// fp16 d), an int8 code is its low 7 bits through code_pair with a bias of
+// -128, or -256 where its sign bit is set (the prefill form's conversion),
+// and a block past the field's last (K % 128 != 0) is neither copied nor
+// read: its stale d could be an Inf, and 0 x Inf is NaN.  Both keep the
+// block's shape, the x fragments and the cluster merge, so q6_k's and
+// q3_k's instances compute their former bits.
 //
 // The 2-D form at M > 4 of every format on tensor cores
 // (qmatmul_prefill_kernel<T, FMT, V, ROWS>): every prefill chunk of the
@@ -359,89 +374,6 @@ __device__ __forceinline__ void q5k_superblock(
   }
 }
 
-// q2_k: qs (S,64,N) u8 (byte k holds elements k+64p in bit-pair p), sm
-// (S,16,N) u8 (sub-block i of 16 elements: scale code in the low nibble,
-// min code in the high one), d/dmin (S,N) f16.  Warp w takes qs byte rows
-// 16w..16w+15 whole: their bit-pairs p are elements 64p+16w+j, sub-blocks
-// w+4p.  Chosen over q3_k's split (warp w takes bit-pair w of all 64 rows)
-// because every byte of the superblock is then loaded by one warp only: 16
-// words and 4 scale words a warp instead of 64 and 4.  The bit-pairs are
-// decoded one after the other, each with only its own sub-block's scale
-// and min live: with all four live the 16-row tile spills to local memory
-// (its prefill shapes ran 1.3-1.4x slower; at M = 1..4 the two orders are
-// within 4 %).
-template <int MT>
-__device__ __forceinline__ void q2k_superblock(
-    const uint8_t* __restrict__ qs, const uint8_t* __restrict__ sm,
-    const __half* __restrict__ d, const __half* __restrict__ dmin, int s,
-    int N, int n0, int w, const float* xs, float (&acc)[MT][4]) {
-  float dd[4], dm[4];
-  load4_half(d + (size_t)s * N + n0, dd);
-  load4_half(dmin + (size_t)s * N + n0, dm);
-  uint32_t v[4];
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-    v[p] = load4_u8(sm + ((size_t)s * 16 + w + 4 * p) * N + n0);
-  const uint8_t* row = qs + ((size_t)s * 64 + 16 * w) * N + n0;
-  uint32_t b[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) b[j] = load4_u8(row + (size_t)j * N);
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    float es[4], em[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      es[c] = (float)(byte_of(v[p], c) & 15u) * dd[c];
-      em[c] = (float)(byte_of(v[p], c) >> 4) * dm[c];
-    }
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const uint32_t q4 = (b[j] >> (2 * p)) & 0x03030303u;
-      float wv[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        wv[c] = __fsub_rn(__fmul_rn((float)byte_of(q4, c), es[c]), em[c]);
-      fma_rows<MT>(acc, xs, 64 * p + 16 * w + j, wv);
-    }
-  }
-}
-
-// q8_0: qs (S,32,N) i8, d (S,N) f16, S = ceil(K/32) blocks of 32 rows.  The
-// 256-row tile s holds blocks 8s..8s+7; warp w takes blocks 8s+w and
-// 8s+w+4 (tile rows 32w.. and 128+32w..) and loads both before it decodes.
-// When S is not a multiple of 8 the last tile's missing blocks have no
-// fields: the warps they fall to skip them (x is zero there anyway).
-template <int MT>
-__device__ __forceinline__ void q8_0_tile(
-    const int8_t* __restrict__ qs, const __half* __restrict__ d, int nblk,
-    int s, int N, int n0, int w, const float* xs, float (&acc)[MT][4]) {
-  float dd[2][4];
-  uint32_t q[2][32];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int blk = 8 * s + w + 4 * h;
-    if (blk < nblk) {
-      load4_half(d + (size_t)blk * N + n0, dd[h]);
-      const uint8_t* row =
-          reinterpret_cast<const uint8_t*>(qs) + (size_t)blk * 32 * N + n0;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) q[h][j] = load4_u8(row + (size_t)j * N);
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (8 * s + w + 4 * h >= nblk) continue;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      float wv[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        wv[c] = (float)(int8_t)byte_of(q[h][j], c) * dd[h][c];
-      fma_rows<MT>(acc, xs, 128 * h + 32 * w + j, wv);
-    }
-  }
-}
-
 // Formats: 0 q4_k, 1 q6_k, 2 q3_k, 3 q5_k, 4 q2_k, 5 q8_0.  Their fields,
 // in the order the C entry point takes them, each as its byte rows per 256
 // rows of K (a row holds one element per output column) and the bytes of
@@ -499,16 +431,13 @@ struct Fields {
 __device__ __forceinline__ const __half* as_half(const uint8_t* p) {
   return reinterpret_cast<const __half*>(p);
 }
-__device__ __forceinline__ const int8_t* as_i8(const uint8_t* p) {
-  return reinterpret_cast<const int8_t*>(p);
-}
 
 template <typename T, int MT, int FMT, bool EXPERTS>
 __global__ void __launch_bounds__(NTHREADS)
     qmatmul_kernel(const T* __restrict__ x, Fields f,
                    float* __restrict__ partial, T* __restrict__ out, int M,
                    int K, int N, int splits, int row_tiles) {
-  static_assert(FMT >= 3, "q4_k, q6_k and q3_k have forms of their own");
+  static_assert(FMT == 3, "every format but q5_k has forms of its own");
   constexpr int XS = MT * QK;
   constexpr int RED = (TY - 1) * MT * COLS;
   __shared__ float smem[XS > RED ? XS : RED];
@@ -517,12 +446,11 @@ __global__ void __launch_bounds__(NTHREADS)
   const int n0 = blockIdx.x * COLS + tx * 4;
   const int split = blockIdx.y;
   const int m0 = (EXPERTS ? blockIdx.z % row_tiles : blockIdx.z) * MT;
-  // 256-row tiles of K, and the format's blocks along K (the fields' S)
+  // 256-row tiles of K (the fields' S)
   const int tiles = (K + QK - 1) / QK;
-  const int nblk = FMT == Q8_0 ? (K + 31) / 32 : tiles;
   if (EXPERTS) {
     // expert e's slices of x, out and every field
-    const size_t e = blockIdx.z / row_tiles, sn = (size_t)nblk * N;
+    const size_t e = blockIdx.z / row_tiles, sn = (size_t)tiles * N;
     x += e * M * K;
     out += e * M * N;
 #pragma unroll
@@ -546,17 +474,9 @@ __global__ void __launch_bounds__(NTHREADS)
                                         : 0.f;
     }
     __syncthreads();
-    if (col_ok) {
-      if constexpr (FMT == 3)
-        q5k_superblock<MT>(f.p[0], f.p[1], f.p[2], f.p[3], as_half(f.p[4]),
-                           as_half(f.p[5]), s, N, n0, w, smem, acc);
-      else if constexpr (FMT == 4)
-        q2k_superblock<MT>(f.p[0], f.p[1], as_half(f.p[2]), as_half(f.p[3]),
-                           s, N, n0, w, smem, acc);
-      else
-        q8_0_tile<MT>(as_i8(f.p[0]), as_half(f.p[1]), nblk, s, N, n0, w, smem,
-                      acc);
-    }
+    if (col_ok)
+      q5k_superblock<MT>(f.p[0], f.p[1], f.p[2], f.p[3], as_half(f.p[4]),
+                         as_half(f.p[5]), s, N, n0, w, smem, acc);
   }
 
   // fixed-order reduction of the four warps' partial sums
@@ -628,28 +548,35 @@ constexpr int XWHOLE_MAX = 64 * 1024;  // bytes of x a C = 1 block keeps
 // shared-memory and FMA latencies, and as many bytes in flight.
 constexpr int Q8_STAGE_BLOCKS = 4;
 
-// format blocks a stage, and rows of K a stage
+// rows of K a format block (q8_0 32, else a superblock), format blocks a
+// stage, and rows of K a stage
+__host__ __device__ constexpr int block_k(int fmt) {
+  return fmt == Q8_0 ? 32 : QK;
+}
 __host__ __device__ constexpr int stage_blocks(int fmt) {
   return fmt == Q8_0 ? Q8_STAGE_BLOCKS : 1;
 }
 __host__ __device__ constexpr int stage_k(int fmt) {
-  return fmt == Q8_0 ? 32 * Q8_STAGE_BLOCKS : QK;
+  return block_k(fmt) * stage_blocks(fmt);
 }
-// field g's byte rows per stage, and their element bytes (field_layout)
-__host__ __device__ constexpr int xf_rows(int fmt, int g) {
-  return field_layout(fmt, g).rows * stage_k(fmt) / QK;
+// field g's byte rows per stage of ``sk`` rows of K (0: stage_k), and
+// their element bytes (field_layout)
+__host__ __device__ constexpr int xf_rows(int fmt, int g, int sk = 0) {
+  return field_layout(fmt, g).rows * (sk ? sk : stage_k(fmt)) / QK;
 }
 __host__ __device__ constexpr int xf_esz(int fmt, int g) {
   return field_layout(fmt, g).esz;
 }
-// where field g of a stage (128 columns) starts (a loop rather than
-// recursion, which nvcc did not fold at every call site), when each of a
-// field's rows is ``pad`` bytes longer in shared memory than its 128
-// columns (pad = 0 everywhere but q6_k's decode form)
-__host__ __device__ constexpr int xf_off(int fmt, int g, int pad = 0) {
+// where field g of a stage (128 columns, ``sk`` rows of K; 0: stage_k)
+// starts (a loop rather than recursion, which nvcc did not fold at every
+// call site), when each of a field's rows is ``pad`` bytes longer in shared
+// memory than its 128 columns (pad = 0 everywhere but the tensor-core
+// decode form)
+__host__ __device__ constexpr int xf_off(int fmt, int g, int pad = 0,
+                                         int sk = 0) {
   int off = 0;
   for (int i = 0; i < g; ++i)
-    off += xf_rows(fmt, i) * (COLS * xf_esz(fmt, i) + pad);
+    off += xf_rows(fmt, i, sk) * (COLS * xf_esz(fmt, i) + pad);
   return off;
 }
 __host__ __device__ constexpr int stage_bytes(int fmt) {
@@ -661,17 +588,18 @@ __host__ __device__ constexpr int xsums(int fmt) {
   return fmt == 4 ? 16 : fmt == 0 ? 8 : 0;
 }
 
-// A thread's share of the copies of one stage of the block's 128 columns,
-// V bytes a copy (16 when N is a multiple of 16, else 4): in field g its
-// chunks are ``step`` rows apart, at the same column in every row, so
-// their addresses are set once per block and advanced by a stage after
-// each one.  A chunk past N is not copied, nor (q8_0) a block past the
-// expert's last: its slab holds ceil(K / 32) blocks, not a whole number of
-// stages.
-template <int FMT, int V, int PAD = 0,
-          int STAGE = xf_off(FMT, num_fields(FMT), PAD)>
+// A thread's share of the copies of one stage (SK rows of K) of the
+// block's 128 columns, V bytes a copy (16 when N is a multiple of 16, else
+// 4): in field g its chunks are ``step`` rows apart, at the same column in
+// every row, so their addresses are set once per block and advanced by a
+// stage after each one.  A chunk past N is not copied, nor a format block
+// past the field's last where a stage holds more than one: a field holds
+// ceil(K / block_k) blocks, not a whole number of stages.
+template <int FMT, int V, int PAD = 0, int SK = stage_k(FMT),
+          int STAGE = xf_off(FMT, num_fields(FMT), PAD, SK)>
 struct StageCopies {
   static constexpr int NF = num_fields(FMT);
+  static constexpr int SB = SK / block_k(FMT);   // format blocks a stage
   const uint8_t* src[NF];
   uint32_t dst[NF];
   int row[NF];
@@ -683,15 +611,15 @@ struct StageCopies {
                                          int tid) {
 #pragma unroll
     for (int g = 0; g < NF; ++g) {
-      const int R = xf_rows(FMT, g), ES = xf_esz(FMT, g);
-      const int RB = R / stage_blocks(FMT);  // byte rows a format block
+      const int R = xf_rows(FMT, g, SK), ES = xf_esz(FMT, g);
+      const int RB = R / SB;          // byte rows a format block
       const int cpr = COLS * ES / V;  // chunks a row: divides NTHREADS
       const int r0 = tid / cpr, b = (tid % cpr) * V;
       row[g] = r0;
       on[g] = r0 < R && n0 + b / ES < N;
       src[g] = f.p[g] + ((blk0 * RB + r0) * N + n0) * ES + b;
-      dst[g] = smem_u32(ring) + xf_off(FMT, g, PAD) + r0 * (COLS * ES + PAD) +
-               b;
+      dst[g] = smem_u32(ring) + xf_off(FMT, g, PAD, SK) +
+               r0 * (COLS * ES + PAD) + b;
     }
   }
   // start the copies of the next stage, whose first ``nvalid`` format
@@ -699,13 +627,13 @@ struct StageCopies {
   __device__ __forceinline__ void issue(int slot, int N, int nvalid) {
 #pragma unroll
     for (int g = 0; g < NF; ++g) {
-      const int R = xf_rows(FMT, g), ES = xf_esz(FMT, g);
-      const int RB = R / stage_blocks(FMT);
+      const int R = xf_rows(FMT, g, SK), ES = xf_esz(FMT, g);
+      const int RB = R / SB;
       const int step = NTHREADS / (COLS * ES / V);
       if (on[g]) {
 #pragma unroll
         for (int i = 0; i < (R + step - 1) / step; ++i)
-          if (stage_blocks(FMT) == 1 || row[g] + i * step < nvalid * RB)
+          if (SB == 1 || row[g] + i * step < nvalid * RB)
             cp_async<V>(
                 dst[g] + slot * STAGE + i * step * (COLS * ES + PAD),
                 src[g] + (size_t)i * step * N * ES);
@@ -1643,23 +1571,31 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 // ---------------------------------------------------------------------------
-// q6_k's and q3_k's 2-D forms at M <= 4 on tensor cores:
+// The 2-D forms of q6_k, q3_k, q2_k and q8_0 at M <= 4 on tensor cores:
 // qmatmul_mma_decode_kernel<T, FMT, V> (see the header).  A cluster of
 // ``ks`` blocks (up to 16, a non-portable size) owns 128 columns; block
-// ``rank`` walks its share of the superblocks.  Warp w (of 8) takes the 64
-// columns of half w % 2 and sub-block group w / 2 of every superblock, group
-// j being sub-blocks j, j + 4, j + 8, j + 12 (elements r + 64p, r = 16 j ..
-// 16 j + 15: q6_k's ql rows r and r + 64 and qh row r give them, q3_k's qs
-// row r (bit-pair p) and hmask row r % 32 (bit r / 32 + 2p), so that both
-// formats share the fragment mapping below).  One mma.sync.m16n8k16 a
-// (sub-block, 16 columns): A is the weight tile (16 columns x 16 elements,
-// codes q - 32 (q6_k) or (q - 4) 2^q3_shift(p) (q3_k) as bf16), B the
-// sub-block's x (16 elements x 8 rows, rows past DROWS zero), D (columns x
-// rows) is scaled in f32 by the sub-block's int8 scale (q3_k: times
+// ``rank`` walks its share of the stages (md_k(FMT) rows of K each: a
+// superblock, MD_Q2_SUPERBLOCKS of q2_k's, or MD_Q8_BLOCKS q8_0 blocks of
+// 32).  Warp w (of 8) takes the 64 columns of half w % 2 and group j0 = w /
+// 2 of every stage:
+//  - q6_k, q3_k, q2_k: sub-blocks j0, j0 + 4, j0 + 8, j0 + 12 of each
+//    superblock (elements r + 64p, r = 16 j0 .. 16 j0 + 15: q6_k's ql rows r
+//    and r + 64 and qh row r give them, q3_k's and q2_k's qs row r
+//    (bit-pair p) and q3_k's hmask row r % 32 (bit r / 32 + 2p), so that
+//    the formats share the fragment mapping below);
+//  - q8_0: blocks j0, j0 + 4, ... of the stage, two 16-element halves each.
+// One mma.sync.m16n8k16 a (16 elements, 16 columns): A is the weight tile
+// (16 columns x 16 elements, the codes as exact bf16: q - 32 (q6_k), (q - 4)
+// 2^q3_shift(p) (q3_k), q 2^q3_shift(p) (q2_k), q (q8_0)), B the elements'
+// x (16 x 8 rows, rows past DROWS zero), D (columns x rows).  q6_k, q3_k,
+// q2_k: D is scaled in f32 by the sub-block's scale (q3_k and q2_k: times
 // 2^-q3_shift(p), folded into the scale's conversion) and, once a
-// superblock, by its d.  mma row g (g + 8) of tile c is column 4g + c (32 +
-// 4g + c) of the warp's 64, so that one 4-byte shared load of a byte row
-// gives a row's codes for all four tiles.
+// superblock, by its d; q2_k's min term dmin m sum x takes the sub-block's
+// sums of x's rows from the B fragments (md_xsums), times each column's m
+// into a second accumulator, scaled once a superblock by -dmin.  q8_0: a
+// block's two mmas accumulate into one D, scaled once by the block's d.  mma row g (g + 8) of tile c is column
+// 4g + c (32 + 4g + c) of the warp's 64, so that one 4-byte shared load of
+// a byte row gives a row's codes for all four tiles.
 // ---------------------------------------------------------------------------
 
 constexpr int MD_THREADS = 256;  // 8 warps: 2 column halves x 4 groups
@@ -1667,33 +1603,57 @@ constexpr int MD_PAD = 16;       // bytes a staged byte row is longer than 128
 constexpr int MD_PITCH = COLS + MD_PAD;
 constexpr int MD_STAGES = 3;     // stages in the ring (two blocks an SM)
 constexpr int MD_MAX_KSPLIT = 16;   // blocks a cluster (non-portable)
-constexpr int MD_XPITCH = QK + 8;   // elements of a staged row of x
+// q2_k's superblocks a stage and q8_0's blocks a stage, from a scan on an
+// H100 SXM (scripts/decode_ablation.py): two q2_k superblocks ran 1-12 %
+// slower; q8_0 stages of 8 blocks ran 1 % faster to 8 % slower in a ring
+// of 2, and in a ring of 3 (one block an SM) 8-9 % faster at the 56-tile
+// shapes (16384 -> 7168, 18432 -> 7168) but 9-13 % slower at 1536 ->
+// 24576 and 7168 -> 18432
+constexpr int MD_Q2_SUPERBLOCKS = 1;
+constexpr int MD_Q8_BLOCKS = 4;
 
-// the formats of this form, and a stage: the superblock's weights (q6_k
-// 29.5 KB, q3_k 16.0 KB with their rows padded), then x's DROWS rows of it
+// the formats of this form, and a stage's format blocks and rows of K; a
+// stage is the weights (q6_k 29.5 KB, q3_k 16.0 KB, q2_k 11.8 KB a
+// superblock, q8_0 19.1 KB for 4 blocks, with their rows padded), then x's
+// DROWS rows of it
 __host__ __device__ constexpr bool has_mma_decode(int fmt) {
-  return fmt == 1 || fmt == 2;
+  return fmt == 1 || fmt == 2 || fmt == 4 || fmt == Q8_0;
 }
+__host__ __device__ constexpr int md_blocks(int fmt) {
+  return fmt == Q8_0 ? MD_Q8_BLOCKS : fmt == 4 ? MD_Q2_SUPERBLOCKS : 1;
+}
+__host__ __device__ constexpr int md_k(int fmt) {
+  return block_k(fmt) * md_blocks(fmt);
+}
+// elements of a staged row of x
+__host__ __device__ constexpr int md_xpitch(int fmt) { return md_k(fmt) + 8; }
 template <int FMT>
 __host__ __device__ constexpr int md_w() {
-  return xf_off(FMT, num_fields(FMT), MD_PAD);
+  return xf_off(FMT, num_fields(FMT), MD_PAD, md_k(FMT));
 }
 template <typename T, int FMT>
 __host__ __device__ constexpr int md_stage_bytes() {
-  return md_w<FMT>() + DROWS * MD_XPITCH * (int)sizeof(T);
+  return md_w<FMT>() + DROWS * md_xpitch(FMT) * (int)sizeof(T);
 }
 template <typename T, int FMT>
 __host__ __device__ constexpr size_t md_smem() {
   return (size_t)MD_STAGES * md_stage_bytes<T, FMT>();
 }
+// where field G's rows of the stage's superblock bb start
+template <int FMT, int G>
+__device__ __forceinline__ const uint8_t* md_field(const uint8_t* stage,
+                                                   int bb) {
+  return stage + xf_off(FMT, G, MD_PAD, md_k(FMT)) +
+         bb * field_layout(FMT, G).rows * (COLS * xf_esz(FMT, G) + MD_PAD);
+}
 
 // Two codes of at most 7 bits (the bytes of ``w`` that ``sel``, a byte
 // permute, takes to bytes 0 and 2) as a bf16 pair less ``bias``, exactly:
 // the exponent byte 0x43 above a code makes 128 + q, and one bf16x2 FMA
-// adds ``bias`` (Q6_BIAS: q - 32 for q6_k; Q4_BIAS: q for q4_k and q5_k;
-// Q3_BIAS: q - 4 for q3_k; q3_k's decode form, whose code of bit-pair p
-// stands at bit q3_shift(p) of its byte (q3k_codes), (q - 4) 2^q3_shift(p):
-// q3_bias(p)).
+// adds ``bias`` (Q6_BIAS: q - 32 for q6_k; Q4_BIAS: q for q4_k, q5_k and
+// q2_k; Q3_BIAS: q - 4 for q3_k; q3_k's decode form, whose
+// code of bit-pair p stands at bit q3_shift(p) of its byte (q3k_codes), (q
+// - 4) 2^q3_shift(p): q3_bias(p)).
 constexpr uint32_t Q6_BIAS = 0xC320C320u;   // bf16 (-160, -160)
 constexpr uint32_t Q4_BIAS = 0xC300C300u;   // bf16 (-128, -128)
 constexpr uint32_t Q3_BIAS = 0xC304C304u;   // bf16 (-132, -132)
@@ -1711,19 +1671,33 @@ __device__ __forceinline__ uint32_t code_pair(uint32_t w, uint32_t sel,
       : "r"(v), "r"(0x3F803F80u), "r"(bias));
   return r;
 }
+// q8_0: two int8 codes (bytes of ``w`` as ``sel`` takes them) as a bf16
+// pair: the low 7 bits by code_pair, the bias -128, or -256 where the sign
+// bit is set (the sign bits of ``w & 0x80808080`` under the exponent byte
+// 0xC3), as the prefill form converts them
+__device__ __forceinline__ uint32_t q8_pair(uint32_t mag, uint32_t sgn,
+                                            uint32_t sel) {
+  return code_pair(mag, sel, __byte_perm(sgn, 0xC3C3C3C3u, sel));
+}
+// q2_k: bit-pair p of a word of code bytes, in place (bits 2p; p = 3 moved
+// to bits 4-5, so that bit 7 stays clear): the code times 2^q3_shift(p)
+__device__ __forceinline__ uint32_t q2k_bits(uint32_t v, int p) {
+  return p == 3 ? (v >> 2) & 0x30303030u : v & (0x03030303u << (2 * p));
+}
 
 template <typename T>
 __host__ __device__ constexpr int x_terms() {
   return sizeof(T) == 4 ? 3 : 1;
 }
 
-// The B fragments of sub-block i: lane (g, t) holds x[g][16i + 2t, + 1] and
-// x[g][16i + 2t + 8, + 9] (bf16: as staged; f32: its three terms); g >=
-// DROWS gives zeros (those lanes read row g - 4, a broadcast).
-template <typename T>
+// The B fragments of the stage's 16 elements 16i ..: lane (g, t) holds
+// x[g][16i + 2t, + 1] and x[g][16i + 2t + 8, + 9] (bf16: as staged; f32:
+// its three terms); g >= DROWS gives zeros (those lanes read row g - 4, a
+// broadcast).  XP: elements of a staged row.
+template <typename T, int XP>
 __device__ __forceinline__ void md_xfrag(const T* xs, int i, int g, int t,
                                          uint32_t (&b)[x_terms<T>()][2]) {
-  const T* row = xs + (g & (DROWS - 1)) * MD_XPITCH + 16 * i + 2 * t;
+  const T* row = xs + (g & (DROWS - 1)) * XP + 16 * i + 2 * t;
   const bool live = g < DROWS;
   if constexpr (sizeof(T) == 2) {
     const uint32_t v0 = *reinterpret_cast<const uint32_t*>(row);
@@ -1741,19 +1715,45 @@ __device__ __forceinline__ void md_xfrag(const T* xs, int i, int g, int t,
   }
 }
 
-// One stage (a superblock of 128 columns) of warp (half, j0): see above.
+// q2_k: the sums over a sub-block of x's rows 2t and 2t + 1 (the D columns
+// of lane (g, t)), from its B fragments ``b``: a row g's 16 elements lie
+// in the four lanes of that g (f32 x: as three bf16 terms), two shuffles
+// add them, two more bring rows 2t and 2t + 1 to lane t (rows past DROWS
+// are B's zero rows).  On an H100 this ran 1-2 % faster than the min term
+// as one more mma a sub-block (A the column's m in every element), which
+// also spilled (scripts/decode_ablation.py).
+template <typename T>
+__device__ __forceinline__ void md_xsums(const uint32_t (&b)[x_terms<T>()][2],
+                                         int t, float& s0, float& s1) {
+  float v = 0.f;
+#pragma unroll
+  for (int u = 0; u < x_terms<T>(); ++u)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      v += __uint_as_float(b[u][h] << 16) +
+           __uint_as_float(b[u][h] & 0xFFFF0000u);
+  v += __shfl_xor_sync(0xFFFFFFFFu, v, 1);
+  v += __shfl_xor_sync(0xFFFFFFFFu, v, 2);
+  s0 = __shfl_sync(0xFFFFFFFFu, v, 8 * t);
+  s1 = __shfl_sync(0xFFFFFFFFu, v, 8 * t + 4);
+}
+
+// Superblock bb of a q6_k, q3_k or q2_k stage (128 columns), warp (half,
+// j0): see above.
 template <typename T, int FMT>
-__device__ __forceinline__ void mma_decode_stage(const uint8_t* stage,
-                                                 const T* xs, int half,
-                                                 int j0, int g, int t,
-                                                 float (&acc)[4][4]) {
-  static_assert(has_mma_decode(FMT), "q6_k or q3_k");
+__device__ __forceinline__ void mma_decode_superblock(const uint8_t* stage,
+                                                      const T* xs, int bb,
+                                                      int half, int j0, int g,
+                                                      int t,
+                                                      float (&acc)[4][4]) {
   constexpr int NT = x_terms<T>();
+  constexpr int XP = md_xpitch(FMT);
+  // the fields: q6_k ql, qh, scales, d; q3_k qs, hmask, scales, d; q2_k
+  // qs, sm (scale and min), d, dmin
+  constexpr int SC = FMT == 4 ? 1 : 2, DF = FMT == 4 ? 2 : 3;
   const int col = half * 64 + 4 * g;      // + 32 for mma rows g + 8
-  // q6_k: ql, qh; q3_k: qs, hmask
-  const uint8_t* ql = stage + col;
-  const uint8_t* qh = stage + xf_off(FMT, 1, MD_PAD) + col;
-  const uint8_t* sc = stage + xf_off(FMT, 2, MD_PAD) + col;
+  const uint8_t* ql = md_field<FMT, 0>(stage, bb) + col;
+  const uint8_t* sc = md_field<FMT, SC>(stage, bb) + col;
   // the codes of elements 16 j0 + 2t + 8h (+ 1) + 64p of the four columns
   // of mma row g (cg = 0) and g + 8 (cg = 1), the two elements' bytes of a
   // column side by side: w[h][cg][p] holds columns 0, 1, w[..][4 + p]
@@ -1765,56 +1765,81 @@ __device__ __forceinline__ void mma_decode_stage(const uint8_t* stage,
 #pragma unroll
     for (int cg = 0; cg < 2; ++cg) {
       const uint8_t* lp = ql + r * MD_PITCH + 32 * cg;
-      uint32_t ta[4], tb[4];
-      if constexpr (FMT == 1) {
-        const uint8_t* hp = qh + r * MD_PITCH + 32 * cg;
-        q6k_codes(*reinterpret_cast<const uint32_t*>(lp),
-                  *reinterpret_cast<const uint32_t*>(lp + 64 * MD_PITCH),
-                  *reinterpret_cast<const uint32_t*>(hp), ta);
-        q6k_codes(*reinterpret_cast<const uint32_t*>(lp + MD_PITCH),
-                  *reinterpret_cast<const uint32_t*>(lp + 65 * MD_PITCH),
-                  *reinterpret_cast<const uint32_t*>(hp + MD_PITCH), tb);
-      } else {
-        // hmask rows r % 32 and r % 32 + 1, bits r / 32 + 2p (r / 32 =
-        // j0 / 2 for all of the warp's rows)
-        const uint8_t* hp = qh + (r & 31) * MD_PITCH + 32 * cg;
-        q3k_codes(*reinterpret_cast<const uint32_t*>(lp),
-                  *reinterpret_cast<const uint32_t*>(hp), j0 >> 1, ta);
-        q3k_codes(*reinterpret_cast<const uint32_t*>(lp + MD_PITCH),
-                  *reinterpret_cast<const uint32_t*>(hp + MD_PITCH), j0 >> 1,
-                  tb);
-      }
+      if constexpr (FMT == 4) {
+        // interleave the two rows' bytes first, then mask each bit-pair
+        const uint32_t qa = *reinterpret_cast<const uint32_t*>(lp);
+        const uint32_t qb = *reinterpret_cast<const uint32_t*>(lp + MD_PITCH);
+        const uint32_t lo = __byte_perm(qa, qb, 0x5140);
+        const uint32_t hi = __byte_perm(qa, qb, 0x7362);
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        w[h][cg][p] = __byte_perm(ta[p], tb[p], 0x5140);
-        w[h][cg][4 + p] = __byte_perm(ta[p], tb[p], 0x7362);
+        for (int p = 0; p < 4; ++p) {
+          w[h][cg][p] = q2k_bits(lo, p);
+          w[h][cg][4 + p] = q2k_bits(hi, p);
+        }
+      } else {
+        const uint8_t* qh = md_field<FMT, 1>(stage, bb) + col;
+        uint32_t ta[4], tb[4];
+        if constexpr (FMT == 1) {
+          const uint8_t* hp = qh + r * MD_PITCH + 32 * cg;
+          q6k_codes(*reinterpret_cast<const uint32_t*>(lp),
+                    *reinterpret_cast<const uint32_t*>(lp + 64 * MD_PITCH),
+                    *reinterpret_cast<const uint32_t*>(hp), ta);
+          q6k_codes(*reinterpret_cast<const uint32_t*>(lp + MD_PITCH),
+                    *reinterpret_cast<const uint32_t*>(lp + 65 * MD_PITCH),
+                    *reinterpret_cast<const uint32_t*>(hp + MD_PITCH), tb);
+        } else {
+          // hmask rows r % 32 and r % 32 + 1, bits r / 32 + 2p (r / 32 =
+          // j0 / 2 for all of the warp's rows)
+          const uint8_t* hp = qh + (r & 31) * MD_PITCH + 32 * cg;
+          q3k_codes(*reinterpret_cast<const uint32_t*>(lp),
+                    *reinterpret_cast<const uint32_t*>(hp), j0 >> 1, ta);
+          q3k_codes(*reinterpret_cast<const uint32_t*>(lp + MD_PITCH),
+                    *reinterpret_cast<const uint32_t*>(hp + MD_PITCH),
+                    j0 >> 1, tb);
+        }
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          w[h][cg][p] = __byte_perm(ta[p], tb[p], 0x5140);
+          w[h][cg][4 + p] = __byte_perm(ta[p], tb[p], 0x7362);
+        }
       }
     }
   }
   float part[4][4];    // sum over the stage's sub-blocks of sc x D
+  float pmin[4][4];    // q2_k: sum over them of m x sum x
 #pragma unroll
   for (int c = 0; c < 4; ++c)
 #pragma unroll
-    for (int v = 0; v < 4; ++v) part[c][v] = 0.f;
+    for (int v = 0; v < 4; ++v) part[c][v] = pmin[c][v] = 0.f;
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
     const int i = j0 + 4 * p;   // the sub-block
     uint32_t b[NT][2];
-    md_xfrag<T>(xs, i, g, t, b);
-    // the int8 scales of rows g, g + 8 as 2^23 + 128 + sc (one XOR a word,
-    // one byte permute a scale, no int-to-float)
-    const uint32_t s0 =
-        *reinterpret_cast<const uint32_t*>(sc + i * MD_PITCH) ^ 0x80808080u;
-    const uint32_t s1 =
-        *reinterpret_cast<const uint32_t*>(sc + i * MD_PITCH + 32) ^
-        0x80808080u;
+    md_xfrag<T, XP>(xs, 16 * bb + i, g, t, b);
+    float xs0 = 0.f, xs1 = 0.f;   // q2_k: the sums of x's rows 2t, 2t + 1
+    if constexpr (FMT == 4) md_xsums<T>(b, t, xs0, xs1);
+    // the scales of rows g, g + 8: q6_k's and q3_k's int8 ones as 2^23 +
+    // 128 + sc (one XOR a word, one byte permute a scale, no
+    // int-to-float), q2_k's low nibbles as 2^23 + sc
+    uint32_t s0 = *reinterpret_cast<const uint32_t*>(sc + i * MD_PITCH);
+    uint32_t s1 = *reinterpret_cast<const uint32_t*>(sc + i * MD_PITCH + 32);
+    uint32_t m0 = 0, m1 = 0;   // q2_k: the min codes (high nibbles)
+    if constexpr (FMT == 4) {
+      m0 = (s0 >> 4) & 0x0F0F0F0Fu;
+      m1 = (s1 >> 4) & 0x0F0F0F0Fu;
+      s0 &= 0x0F0F0F0Fu;
+      s1 &= 0x0F0F0F0Fu;
+    } else {
+      s0 ^= 0x80808080u;
+      s1 ^= 0x80808080u;
+    }
     constexpr uint32_t BIAS = FMT == 1 ? Q6_BIAS : 0u;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       // tile c: the pair of bytes c of a column's two elements
       const int k = (c >> 1) * 4 + p;
       const uint32_t sel = c & 1 ? 0x4342 : 0x4140;
-      const uint32_t bias = FMT == 1 ? BIAS : q3_bias(p);
+      const uint32_t bias = FMT == 1 ? BIAS : FMT == 2 ? q3_bias(p) : Q4_BIAS;
       const uint32_t a[4] = {code_pair(w[0][0][k], sel, bias),
                              code_pair(w[0][1][k], sel, bias),
                              code_pair(w[1][0][k], sel, bias),
@@ -1829,17 +1854,27 @@ __device__ __forceinline__ void mma_decode_stage(const uint8_t* stage,
       } else {
         // sc 2^-q3_shift(p), exactly: D carries the codes' 2^q3_shift(p)
         const float sh = p == 0 ? 1.f : p == 1 ? 0.25f : 0.0625f;
-        e0 = fmaf(code_f32(s0, c), sh, -(kMagic + 128.f) * sh);
-        e1 = fmaf(code_f32(s1, c), sh, -(kMagic + 128.f) * sh);
+        const float off = FMT == 2 ? kMagic + 128.f : kMagic;
+        e0 = fmaf(code_f32(s0, c), sh, -off * sh);
+        e1 = fmaf(code_f32(s1, c), sh, -off * sh);
       }
       part[c][0] = fmaf(e0, d[0], part[c][0]);
       part[c][1] = fmaf(e0, d[1], part[c][1]);
       part[c][2] = fmaf(e1, d[2], part[c][2]);
       part[c][3] = fmaf(e1, d[3], part[c][3]);
+      if constexpr (FMT == 4) {
+        // the min term: columns 4g + c's and 32 + 4g + c's m times the sums
+        const float ma = code_f32(m0, c) - kMagic;
+        const float mb = code_f32(m1, c) - kMagic;
+        pmin[c][0] = fmaf(ma, xs0, pmin[c][0]);
+        pmin[c][1] = fmaf(ma, xs1, pmin[c][1]);
+        pmin[c][2] = fmaf(mb, xs0, pmin[c][2]);
+        pmin[c][3] = fmaf(mb, xs1, pmin[c][3]);
+      }
     }
   }
   float d0[4], d1[4];
-  const __half* dd = as_half(stage + xf_off(FMT, 3, MD_PAD)) + col;
+  const __half* dd = as_half(md_field<FMT, DF>(stage, bb)) + col;
   load4_half(dd, d0);
   load4_half(dd + 32, d1);
 #pragma unroll
@@ -1849,14 +1884,122 @@ __device__ __forceinline__ void mma_decode_stage(const uint8_t* stage,
     acc[c][2] = fmaf(d1[c], part[c][2], acc[c][2]);
     acc[c][3] = fmaf(d1[c], part[c][3], acc[c][3]);
   }
+  if constexpr (FMT == 4) {
+    const __half* dm = as_half(md_field<FMT, 3>(stage, bb)) + col;
+    load4_half(dm, d0);
+    load4_half(dm + 32, d1);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[c][0] = fmaf(-d0[c], pmin[c][0], acc[c][0]);
+      acc[c][1] = fmaf(-d0[c], pmin[c][1], acc[c][1]);
+      acc[c][2] = fmaf(-d1[c], pmin[c][2], acc[c][2]);
+      acc[c][3] = fmaf(-d1[c], pmin[c][3], acc[c][3]);
+    }
+  }
+}
+
+// A q8_0 stage (MD_Q8_BLOCKS blocks of 32 rows, 128 columns), warp (half,
+// j0): blocks j0, j0 + 4, ... of the ``nvalid`` that exist (a block past
+// the field's last was not copied: neither its codes nor its d are read)
+template <typename T>
+__device__ __forceinline__ void mma_decode_q8_0(const uint8_t* stage,
+                                                const T* xs, int nvalid,
+                                                int half, int j0, int g,
+                                                int t, float (&acc)[4][4]) {
+  constexpr int NT = x_terms<T>();
+  constexpr int XP = md_xpitch(Q8_0);
+  const int col = half * 64 + 4 * g;
+  const uint8_t* qs = md_field<Q8_0, 0>(stage, 0) + col;
+#pragma unroll
+  for (int j = j0; j < MD_Q8_BLOCKS; j += 4) {
+    if (j >= nvalid) break;
+    float d[4][4];     // the block's products, both of its k16 steps
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) d[c][v] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      // rows 32 j + 16 kk + 2t + 8h (+ 1) of columns 4g .. (cg = 0) and 32
+      // + 4g .. (cg = 1), interleaved as the K-quants' codes are: a word
+      // each for columns 0, 1 and 2, 3, split into low 7 bits and sign
+      uint32_t mag[2][2][2], sgn[2][2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 32 * j + 16 * kk + 2 * t + 8 * h;
+#pragma unroll
+        for (int cg = 0; cg < 2; ++cg) {
+          const uint8_t* lp = qs + r * MD_PITCH + 32 * cg;
+          const uint32_t qa = *reinterpret_cast<const uint32_t*>(lp);
+          const uint32_t qb =
+              *reinterpret_cast<const uint32_t*>(lp + MD_PITCH);
+          const uint32_t v[2] = {__byte_perm(qa, qb, 0x5140),
+                                 __byte_perm(qa, qb, 0x7362)};
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            mag[h][cg][q] = v[q] & 0x7F7F7F7Fu;
+            sgn[h][cg][q] = v[q] & 0x80808080u;
+          }
+        }
+      }
+      uint32_t b[NT][2];
+      md_xfrag<T, XP>(xs, 2 * j + kk, g, t, b);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int q = c >> 1;
+        const uint32_t sel = c & 1 ? 0x4342 : 0x4140;
+        const uint32_t a[4] = {q8_pair(mag[0][0][q], sgn[0][0][q], sel),
+                               q8_pair(mag[0][1][q], sgn[0][1][q], sel),
+                               q8_pair(mag[1][0][q], sgn[1][0][q], sel),
+                               q8_pair(mag[1][1][q], sgn[1][1][q], sel)};
+#pragma unroll
+        for (int u = 0; u < NT; ++u) mma_bf16(d[c], a, b[u][0], b[u][1]);
+      }
+    }
+    float d0[4], d1[4];
+    const __half* dd = as_half(md_field<Q8_0, 1>(stage, 0) +
+                               j * (2 * COLS + MD_PAD)) + col;
+    load4_half(dd, d0);
+    load4_half(dd + 32, d1);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[c][0] = fmaf(d0[c], d[c][0], acc[c][0]);
+      acc[c][1] = fmaf(d0[c], d[c][1], acc[c][1]);
+      acc[c][2] = fmaf(d1[c], d[c][2], acc[c][2]);
+      acc[c][3] = fmaf(d1[c], d[c][3], acc[c][3]);
+    }
+  }
+}
+
+// One stage of warp (half, j0), of which ``nvalid`` format blocks exist
+template <typename T, int FMT>
+__device__ __forceinline__ void mma_decode_stage(const uint8_t* stage,
+                                                 const T* xs, int nvalid,
+                                                 int half, int j0, int g,
+                                                 int t, float (&acc)[4][4]) {
+  static_assert(has_mma_decode(FMT), "q6_k, q3_k, q2_k or q8_0");
+  if constexpr (FMT == Q8_0) {
+    mma_decode_q8_0<T>(stage, xs, nvalid, half, j0, g, t, acc);
+  } else {
+#pragma unroll
+    for (int bb = 0; bb < md_blocks(FMT); ++bb)
+      if (md_blocks(FMT) == 1 || bb < nvalid)
+        mma_decode_superblock<T, FMT>(stage, xs, bb, half, j0, g, t, acc);
+  }
 }
 
 template <typename T, int FMT, int V>
 __global__ void __launch_bounds__(MD_THREADS, 2)
     qmatmul_mma_decode_kernel(const T* __restrict__ x, Fields f,
                               T* __restrict__ out, int M, int K, int N) {
+  constexpr int SK = md_k(FMT);          // rows of K a stage
+  constexpr int SB = md_blocks(FMT);     // format blocks a stage
+  constexpr int NST = MD_STAGES;         // stages in the ring
   constexpr int STAGE = md_stage_bytes<T, FMT>();
   constexpr int W = md_w<FMT>();
+  constexpr int XP = md_xpitch(FMT);
+  static_assert(md_smem<T, FMT>() >= (3 * 2 * 32 * 16 + DROWS * COLS) * 4,
+                "the ring holds the block's sums at the end");
   extern __shared__ __align__(16) uint8_t smem_md[];
   uint8_t* ring = smem_md;
 
@@ -1864,66 +2007,81 @@ __global__ void __launch_bounds__(MD_THREADS, 2)
   const int g = l >> 2, t = l & 3, half = w & 1, j0 = w >> 1;
   const int n0 = blockIdx.x * COLS;
   const int rank = blockIdx.y, ks = gridDim.y;
-  const int S = (K + QK - 1) / QK;
+  const int S = (K + SK - 1) / SK;
   const int s0 = (int)((long long)S * rank / ks);
   const int nsb = (int)((long long)S * (rank + 1) / ks) - s0;
+  // the fields' format blocks, and those of this block's stage s that exist
+  const int nblk = (K + block_k(FMT) - 1) / block_k(FMT);
+  auto valid = [&](int s) { return min(SB, nblk - (s0 + s) * SB); };
 
-  // x's rows of a superblock go into its stage beside the weights (rows
-  // past M and elements past K zero), 16 bytes of a row a piece, one piece
-  // each for the first DROWS x 256 / XV threads: by cp.async in the stage's
-  // group where the rows are 16-byte aligned; else loaded a stage ahead
-  // into registers and stored after the stage's products
+  // x's rows of a stage go into it beside the weights (rows past M and
+  // elements past K zero), 16 bytes of a row a piece, XN pieces a thread
+  // (pieces past DROWS x SK / XV none): by cp.async in the stage's group
+  // where the rows are 16-byte aligned; else loaded a stage ahead into
+  // registers and stored after the stage's products
   constexpr int XV = 16 / sizeof(T);
-  constexpr int XPR = QK / XV;                 // pieces a row
+  constexpr int XPR = SK / XV;                 // pieces a row
+  constexpr int XN = (DROWS * XPR + MD_THREADS - 1) / MD_THREADS;
   const bool vec = K % XV == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const bool xon = tid < DROWS * XPR;
-  const int xr = tid / XPR, xk = (tid % XPR) * XV;
-  const uint32_t xdst = smem_u32(ring) + W +
-                        (xr * MD_XPITCH + xk) * (int)sizeof(T);
+  auto xon = [&](int i) { return tid + i * MD_THREADS < DROWS * XPR; };
+  auto xrow = [&](int i) { return (tid + i * MD_THREADS) / XPR; };
+  auto xcol = [&](int i) { return ((tid + i * MD_THREADS) % XPR) * XV; };
   auto issue_x = [&](int s, int slot) {
-    const int k = (s0 + s) * QK + xk;
-    const bool in = xr < M && k < K;
-    cp_async_zfill(xdst + slot * STAGE, in ? x + (size_t)xr * K + k : x,
-                   in ? 16 : 0);
-  };
-  float xv[XV];
-  auto load_xs = [&](int s) {
-    if (xon && xr < M) {
-      load_x<T>(x + (size_t)xr * K, (s0 + s) * QK + xk, K, vec, xv);
-    } else {
 #pragma unroll
-      for (int i = 0; i < XV; ++i) xv[i] = 0.f;
+    for (int i = 0; i < XN; ++i) {
+      if (!xon(i)) continue;
+      const int xr = xrow(i), k = (s0 + s) * SK + xcol(i);
+      const bool in = xr < M && k < K;
+      cp_async_zfill(smem_u32(ring) + slot * STAGE + W +
+                         (xr * XP + xcol(i)) * (int)sizeof(T),
+                     in ? x + (size_t)xr * K + k : x, in ? 16 : 0);
+    }
+  };
+  float xv[XN][XV];
+  auto load_xs = [&](int s) {
+#pragma unroll
+    for (int i = 0; i < XN; ++i) {
+      if (xon(i) && xrow(i) < M) {
+        load_x<T>(x + (size_t)xrow(i) * K, (s0 + s) * SK + xcol(i), K, vec,
+                  xv[i]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < XV; ++e) xv[i][e] = 0.f;
+      }
     }
   };
   auto store_xs = [&](int slot) {
-    if (!xon) return;
-    T* dst = reinterpret_cast<T*>(ring + slot * STAGE + W) +
-             xr * MD_XPITCH + xk;
-    if constexpr (sizeof(T) == 2) {
-      uint4 u;
-      uint32_t* p = reinterpret_cast<uint32_t*>(&u);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const __nv_bfloat162 h2 =
-            __floats2bfloat162_rn(xv[2 * i], xv[2 * i + 1]);
-        p[i] = *reinterpret_cast<const uint32_t*>(&h2);
+    for (int i = 0; i < XN; ++i) {
+      if (!xon(i)) continue;
+      T* dst = reinterpret_cast<T*>(ring + slot * STAGE + W) +
+               xrow(i) * XP + xcol(i);
+      if constexpr (sizeof(T) == 2) {
+        uint4 u;
+        uint32_t* p = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat162 h2 =
+              __floats2bfloat162_rn(xv[i][2 * e], xv[i][2 * e + 1]);
+          p[e] = *reinterpret_cast<const uint32_t*>(&h2);
+        }
+        *reinterpret_cast<uint4*>(dst) = u;
+      } else {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(xv[i][0], xv[i][1], xv[i][2], xv[i][3]);
       }
-      *reinterpret_cast<uint4*>(dst) = u;
-    } else {
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(xv[0], xv[1], xv[2], xv[3]);
     }
   };
 
   // the first NTHREADS threads copy the weight stages
   const bool copier = tid < NTHREADS;
-  StageCopies<FMT, V, MD_PAD, STAGE> copies(f, (size_t)s0, N, n0, ring,
-                                            tid & (NTHREADS - 1));
+  StageCopies<FMT, V, MD_PAD, SK, STAGE> copies(
+      f, (size_t)s0 * SB, N, n0, ring, tid & (NTHREADS - 1));
 #pragma unroll
-  for (int st = 0; st < MD_STAGES - 1; ++st) {
+  for (int st = 0; st < NST - 1; ++st) {
     if (st < nsb) {
-      if (copier) copies.issue(st, N, 1);
-      if (vec && xon) issue_x(st, st);
+      if (copier) copies.issue(st, N, valid(st));
+      if (vec) issue_x(st, st);
     }
     cp_async_commit();
   }
@@ -1937,24 +2095,24 @@ __global__ void __launch_bounds__(MD_THREADS, 2)
   for (int c = 0; c < 4; ++c)
 #pragma unroll
     for (int v = 0; v < 4; ++v) acc[c][v] = 0.f;
-  int slot = 0, fill = MD_STAGES - 1;
+  int slot = 0, fill = NST - 1;
   for (int s = 0; s < nsb; ++s) {
     if (!vec && s + 1 < nsb) load_xs(s + 1);
-    cp_async_wait<MD_STAGES - 2>();  // this thread's copies of stage s
+    cp_async_wait<NST - 2>();  // this thread's copies of stage s
     __syncthreads();  // everyone's, and x of stage s; stage s - 1 consumed
-    if (s + MD_STAGES - 1 < nsb) {
-      if (copier) copies.issue(fill, N, 1);
-      if (vec && xon) issue_x(s + MD_STAGES - 1, fill);
+    if (s + NST - 1 < nsb) {
+      if (copier) copies.issue(fill, N, valid(s + NST - 1));
+      if (vec) issue_x(s + NST - 1, fill);
     }
     cp_async_commit();
     const uint8_t* stage = ring + slot * STAGE;
     mma_decode_stage<T, FMT>(stage, reinterpret_cast<const T*>(stage + W),
-                             half, j0, g, t, acc);
+                             valid(s), half, j0, g, t, acc);
     // the next stage's slot: its x region was last read at stage s + 1 -
-    // MD_STAGES, before this stage's barrier
-    if (!vec && s + 1 < nsb) store_xs(slot == MD_STAGES - 1 ? 0 : slot + 1);
-    slot = slot == MD_STAGES - 1 ? 0 : slot + 1;
-    fill = fill == MD_STAGES - 1 ? 0 : fill + 1;
+    // NST, before this stage's barrier
+    if (!vec && s + 1 < nsb) store_xs(slot == NST - 1 ? 0 : slot + 1);
+    slot = slot == NST - 1 ? 0 : slot + 1;
+    fill = fill == NST - 1 ? 0 : fill + 1;
   }
 
   // the block's column sums: the four warps of each half added in a fixed
@@ -2979,8 +3137,9 @@ cudaError_t launch_q4k_decode(const void* x, const Fields& f, void* out,
                            stream);
 }
 
-// q6_k's and q3_k's decode form: a cluster of 1..MD_MAX_KSPLIT blocks (a
-// non-portable size past 8), each with its fixed ring of stages
+// the tensor-core decode form (q6_k, q3_k, q2_k, q8_0): a cluster of
+// 1..MD_MAX_KSPLIT blocks (a non-portable size past 8), each with its fixed
+// ring of stages
 template <typename T, int FMT, int V>
 cudaError_t launch_mma_decode(const void* x, const Fields& f, void* out,
                               int M, int K, int N, int ks,
@@ -3150,9 +3309,9 @@ void launch_rows(const void* x, const Fields& f, void* partial, void* out,
 #error "build with -DQMATMUL_FMT=<format id>"
 #endif
 
-// the formats with a decode form (q4_k: qmatmul_q4k_decode_kernel; q6_k and
-// q3_k: qmatmul_mma_decode_kernel), and whether a (K, N) weight at M rows
-// takes it
+// the formats with a decode form (q4_k: qmatmul_q4k_decode_kernel; q6_k,
+// q3_k, q2_k and q8_0: qmatmul_mma_decode_kernel), and whether a (K, N)
+// weight at M rows takes it
 constexpr bool has_decode_form(int fmt) {
   return fmt == 0 || has_mma_decode(fmt);
 }
@@ -3160,8 +3319,8 @@ constexpr bool decode_form(int fmt, int E, int M, int K) {
   return has_decode_form(fmt) && E == 1 && M <= DROWS && K <= DECODE_MAX_K;
 }
 // whether a (K, N) weight takes the prefill form (qmatmul_prefill_kernel):
-// q4_k, q6_k and q3_k where they do not take their decode form, q5_k, q2_k
-// and q8_0 at M > 4 (at M <= 4 they keep qmatmul_kernel)
+// the formats with a decode form where they do not take it, q5_k at M > 4
+// (at M <= 4 it keeps qmatmul_kernel)
 constexpr bool prefill_form(int fmt, int E, int M, int K) {
   return E == 1 && (has_decode_form(fmt) ? !decode_form(fmt, E, M, K)
                                          : M > DROWS);
@@ -3180,7 +3339,7 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
   }
   constexpr int F = QMATMUL_FMT;
   if constexpr (has_decode_form(F)) {
-    // one q4_k, q6_k or q3_k weight at M <= 4: the decode form
+    // one weight of a format with a decode form at M <= 4: that form
     if (decode_form(F, E, M, K)) {
       cudaError_t err;
       if constexpr (F == 0)
@@ -3208,7 +3367,7 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
   if constexpr (has_decode_form(F)) {
     return (int)cudaErrorInvalidValue;   // (every call took a form above)
   } else {
-    // q5_k, q2_k and q8_0 at M <= 4, and q5_k's experts
+    // q5_k at M <= 4, and q5_k's experts
     launch_rows<T, F>(x, f, partial, out, E, M, K, N, splits, st);
     return (int)cudaGetLastError();
   }
@@ -3222,13 +3381,13 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
 // of x and out: 0 = float32, 1 = bfloat16.  E experts: x (E, M, K), fields
 // with a leading E, out (E, M, N); E = 1 for one weight.  q4_k, q6_k,
 // q3_k, q2_k and q8_0 experts (E > 1) go to qmatmul_experts_kernel; one
-// q4_k, q6_k or q3_k weight at M <= 4 (K <= 65536) to its decode form
-// (qmatmul_q4k_decode_kernel, qmatmul_mma_decode_kernel), its superblocks
-// split over a cluster of ``splits`` blocks (q4_k 1..8, q6_k and q3_k
-// 1..16, ``partial`` unused), and at any other M or K, like one q5_k, q2_k
-// or q8_0 weight at M > 4, to the prefill form (qmatmul_prefill_kernel, a
+// weight of those formats at M <= 4 (K <= 65536) to its decode form
+// (qmatmul_q4k_decode_kernel; qmatmul_mma_decode_kernel for the others),
+// its stages split over a cluster of ``splits`` blocks (q4_k 1..8, the
+// others 1..16, ``partial`` unused), and at any other M or K, like one
+// q5_k weight at M > 4, to the prefill form (qmatmul_prefill_kernel, a
 // cluster of 1..8 blocks a tile, ``partial`` unused); every other weight
-// (q5_k, q2_k and q8_0 at M <= 4, q5_k's experts) to qmatmul_kernel.
+// (q5_k at M <= 4, q5_k's experts) to qmatmul_kernel.
 // N must be a multiple of 4; there ``partial`` holds splits x M x N floats
 // when splits > 1 (E = 1 only; splits count 256-row tiles).  Returns
 // cudaGetLastError() after the launches.
@@ -3253,10 +3412,10 @@ extern "C" int qmatmul(int fmt, int dtype, const void* x,
 
 // How many times this library launched qmatmul_experts_kernel (0 for the
 // formats that have none), its decode form (qmatmul_q4k_decode_kernel or
-// qmatmul_mma_decode_kernel; q4_k, q6_k and q3_k only), its prefill form
-// (qmatmul_prefill_kernel; every format), qmatmul_kernel (q5_k, q2_k and
-// q8_0 only) and splitk_reduce: the card tests and chip_smoke.py read them
-// to see which kernels ran.
+// qmatmul_mma_decode_kernel; every format but q5_k), its prefill form
+// (qmatmul_prefill_kernel; every format), qmatmul_kernel (q5_k only) and
+// splitk_reduce: the card tests and chip_smoke.py read them to see which
+// kernels ran.
 extern "C" long long qmatmul_experts_kernel_launches(void) {
   return g_experts_launches;
 }

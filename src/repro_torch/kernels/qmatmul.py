@@ -28,16 +28,20 @@ reads every expert.
 
 One q4_k weight at M <= 4 rows (decode) takes ``qmatmul_q4k_decode_kernel``
 (:func:`decode_form`): the same code conversion and factored scales with
-up to four rows of x.  One q6_k or q3_k weight at M <= 4 takes
+up to four rows of x.  One q6_k, q3_k, q2_k or q8_0 weight at M <= 4 takes
 ``qmatmul_mma_decode_kernel``, on tensor cores: one bf16
-``mma.sync.m16n8k16`` a 16-element sub-block and 16 columns, its codes
-made exact bf16 values by byte permutes (q3_k's assembled from a bit-pair
-of qs and a bit of hmask), x (bf16, or f32 as three bf16 terms) the other
-operand, each product scaled in f32 by the sub-block's scale.  In both,
-where the column tiles alone would leave SMs idle, the superblocks split
-over the blocks of a thread-block cluster (:func:`decode_ksplit`,
-:func:`decode_ksplit_q6k`, :func:`decode_ksplit_q3k`) whose sums are added
-in rank order in the same launch: no partial buffer and no second kernel.
+``mma.sync.m16n8k16`` a 16-element sub-block (q8_0: half a block) and 16
+columns, its codes made exact bf16 values by byte permutes (q3_k's
+assembled from a bit-pair of qs and a bit of hmask, q2_k's a bit-pair of
+qs, q8_0's int8 code as its low 7 bits and a bias chosen by its sign bit),
+x (bf16, or f32 as three bf16 terms) the other operand, each product
+scaled in f32 by the sub-block's scale (q8_0: each block's d); q2_k's min
+term, ``dmin * m * sum x`` a sub-block, takes the sub-block's sums of x
+from the same operand fragments.  In both kernels, where the
+column tiles alone would leave SMs idle, the stages of K split over the
+blocks of a thread-block cluster (:data:`DECODE_KSPLIT`) whose sums are
+added in rank order in the same launch: no partial buffer and no second
+kernel.
 
 One weight of any format at M > 4 rows (every prefill chunk: 4 x 128 =
 512 rows) takes ``qmatmul_prefill_kernel``
@@ -54,9 +58,9 @@ and x as three bf16 terms each (six mmas a product), so that it differs
 from the plain version in summation order only.  Where the tiles are fewer
 than the SMs, the half superblocks split over a cluster
 (:func:`prefill_ksplit`) merged in rank order, in the same launch.  The
-2-D calls of q5_k, q2_k and q8_0 at M <= 4, and q5_k's expert form (which
-no policy serves), keep ``qmatmul_kernel``, with a split-K pass
-(``splitk_reduce``) where its column tiles are few.
+2-D calls of q5_k at M <= 4, and q5_k's expert form (which no policy
+serves), keep ``qmatmul_kernel``, with a split-K pass (``splitk_reduce``)
+where its column tiles are few.
 """
 
 from __future__ import annotations
@@ -88,7 +92,7 @@ _DECODE_ROWS = 4
 _DECODE_MAX_K = 65536
 _MAX_KSPLIT = 8
 _DECODE_MAX_SB = 32
-_Q6_MAX_KSPLIT = 16   # q6_k's and q3_k's decode form: a non-portable size
+_Q6_MAX_KSPLIT = 16   # the tensor-core decode form: a non-portable size
 _GPC_SMS = 16         # SMs a GPC holds at least (an H100's: 16-18)
 # qmatmul_prefill_kernel: rows of x a block, and the count of such tiles
 # at or below which it takes 64-row tiles instead
@@ -130,8 +134,8 @@ def _splits(device: torch.device, n: int, row_tiles: int, s: int) -> int:
 def decode_form(fmt: str, e: int, m: int, k: int) -> bool:
     """Whether a call takes its format's decode form
     (``qmatmul_q4k_decode_kernel``, or ``qmatmul_mma_decode_kernel`` for
-    q6_k and q3_k): one q4_k, q6_k or q3_k weight (``e == 1``) at M <= 4
-    rows, K <= 65536."""
+    q6_k, q3_k, q2_k and q8_0): one weight (``e == 1``) of a format other
+    than q5_k at M <= 4 rows, K <= 65536."""
     return (fmt in DECODE_KSPLIT and e == 1 and m <= _DECODE_ROWS
             and k <= _DECODE_MAX_K)
 
@@ -169,16 +173,17 @@ def decode_ksplit_q6k(n: int, k: int, sms: int) -> int:
 
 def decode_ksplit_q3k(n: int, k: int, sms: int) -> int:
     """Blocks of a cluster that split the ``s = ceil(k / 256)`` superblocks
-    of q3_k's decode form, from host integers (at most ``min(16, s)``; 16
-    is a non-portable cluster size).  A q3_k stage is half a q6_k one, and
-    its time is set by the latency of each stage's instructions, not by its
-    bytes, so the split is fitted to the shapes rather than to residency:
-    where the ``ceil(n / 128)`` column tiles are at most a quarter of the
-    SMs, about 8/11 of the SMs' worth of blocks (96 on an H100's 132);
-    else 4 where a block keeps at least 4 superblocks (s >= 16), 2 where s
-    >= 8 and the tiles are fewer than the SMs, else 1.  On an H100 SXM this
-    was the fastest of 1, 2, 3, 4, 6, 8, 12 and 16 at each of the eight
-    q3_k shapes of the DeepSeek cut (``PERF.md``)."""
+    of q3_k's decode form, and of q2_k's (:func:`decode_ksplit_q2k`), from
+    host integers (at most ``min(16, s)``; 16 is a non-portable cluster
+    size).  A q3_k stage is half a q6_k one, and its time is set by the
+    latency of each stage's instructions, not by its bytes, so the split is
+    fitted to the shapes rather than to residency: where the ``ceil(n /
+    128)`` column tiles are at most a quarter of the SMs, about 8/11 of the
+    SMs' worth of blocks (96 on an H100's 132); else 4 where a block keeps
+    at least 4 superblocks (s >= 16), 2 where s >= 8 and the tiles are
+    fewer than the SMs, else 1.  On an H100 SXM this was the fastest of 1,
+    2, 3, 4, 6, 8, 12 and 16 at each of the eight q3_k shapes of the
+    DeepSeek cut and at its four q2_k shapes (``PERF.md``)."""
     s = -(-k // _TILE)
     tiles = -(-n // _COLS)
     if 4 * tiles <= sms:
@@ -192,17 +197,51 @@ def decode_ksplit_q3k(n: int, k: int, sms: int) -> int:
     return max(1, min(_Q6_MAX_KSPLIT, s, ks))
 
 
-# the formats with a decode form, and how each splits its superblocks
+# q2_k's stage (11.8 KB) is latency-bound as q3_k's is: q3_k's rule was
+# the fastest split at its four served shapes too
+decode_ksplit_q2k = decode_ksplit_q3k
+
+
+def decode_stages(fmt: str, k: int) -> int:
+    """Stages of K of the tensor-core decode form: superblocks, or 4-block
+    stages (128 rows) of q8_0 (``md_k`` in ``csrc/qmatmul.cu``)."""
+    return -(-k // (128 if fmt == "q8_0" else _TILE))
+
+
+def decode_ksplit_q8_0(n: int, k: int, sms: int) -> int:
+    """Blocks of a cluster that split the ``s`` stages of q8_0's decode
+    form (:func:`decode_stages`), from host integers (at most ``min(16,
+    s)``), fitted to the shapes as q3_k's is: where the ``ceil(n / 128)``
+    column tiles are at most a quarter of the SMs, about 8/11 of the SMs'
+    worth of blocks; else 2 where the tiles are fewer than the SMs, 3 where
+    they are fewer than twice the SMs and K holds at least 32 stages (4096
+    rows), else 1.  On an H100 SXM this was the fastest of 1, 2, 3, 4, 6,
+    8, 12 and 16 (or within 1 % of it) at each of the nine q8_0 shapes of
+    the DeepSeek cut (``PERF.md``)."""
+    s = decode_stages("q8_0", k)
+    tiles = -(-n // _COLS)
+    if 4 * tiles <= sms:
+        ks = (8 * sms // 11) // tiles
+    elif tiles < sms:
+        ks = 2
+    elif tiles < 2 * sms and s >= 32:
+        ks = 3
+    else:
+        ks = 1
+    return max(1, min(_Q6_MAX_KSPLIT, s, ks))
+
+
+# the formats with a decode form, and how each splits its stages of K
 DECODE_KSPLIT = {"q4_k": decode_ksplit, "q6_k": decode_ksplit_q6k,
-                 "q3_k": decode_ksplit_q3k}
+                 "q3_k": decode_ksplit_q3k, "q2_k": decode_ksplit_q2k,
+                 "q8_0": decode_ksplit_q8_0}
 
 
 def prefill_form(fmt: str, e: int, m: int, k: int) -> bool:
     """Whether a call takes the prefill form (``qmatmul_prefill_kernel``):
-    one weight (``e == 1``) at M > 4 rows, and of q4_k, q6_k or q3_k also
-    at K > 65536 (any call that does not take their decode form); q5_k,
-    q2_k and q8_0 at M <= 4 keep ``qmatmul_kernel`` (``prefill_form`` in
-    ``csrc/qmatmul.cu``)."""
+    one weight (``e == 1``) at M > 4 rows, and of a format with a decode
+    form also at K > 65536 (any call that does not take it); q5_k at M <= 4
+    keeps ``qmatmul_kernel`` (``prefill_form`` in ``csrc/qmatmul.cu``)."""
     if e != 1:
         return False
     if fmt in DECODE_KSPLIT:
@@ -357,11 +396,11 @@ def _entry(fmt: str):
 def library_launches(fmt: str, kernel: str = "experts") -> int:
     """Launches made by ``fmt``'s library of ``qmatmul_experts_kernel``
     (``kernel="experts"``; 0 for q5_k, whose expert form is
-    ``qmatmul_kernel``), its decode form (``"decode"``, q4_k, q6_k and q3_k
-    only), its prefill form (``"prefill"``), ``qmatmul_kernel``
-    (``"kernel"``; 0 for q4_k, q6_k and q3_k, whose every call takes
-    another form) or ``splitk_reduce`` (``"splitk"``): which kernels a call
-    ran, for the card tests and ``chip_smoke.py``."""
+    ``qmatmul_kernel``), its decode form (``"decode"``; 0 for q5_k), its
+    prefill form (``"prefill"``), ``qmatmul_kernel`` (``"kernel"``; q5_k
+    only: every call of another format takes another form) or
+    ``splitk_reduce`` (``"splitk"``): which kernels a call ran, for the
+    card tests and ``chip_smoke.py``."""
     name = {"experts": "qmatmul_experts_kernel_launches",
             "decode": "qmatmul_decode_kernel_launches",
             "prefill": "qmatmul_prefill_kernel_launches",

@@ -17,6 +17,7 @@ are held to the same 1e-5.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -288,6 +289,67 @@ def test_qmatmul_q3k_decode_form(cuda, m, k, n, dtype):
                            torch.zeros_like(y[m - 2]).view(bits))
 
 
+# q2_k's and q8_0's shapes of the tensor-core decode form: ragged K (1000,
+# 700: q8_0's 22 blocks leave its last 4-block stage 2 of 4), N % 16 != 0
+# (388, 260: 4-byte copies), and the DeepSeek cut's served shapes (q2_k
+# under Q2_K_L: attn_q_a, attn_q_b, shexp and dense gate/up; q8_0 under
+# Q8_0: attn_kv_a_mqa, attn_output, shexp and dense down, the output head)
+Q2_Q8_DECODE = [("q2_k", 1000, 388), ("q2_k", 700, 260),
+                ("q2_k", 7168, 1536), ("q2_k", 1536, 24576),
+                ("q2_k", 7168, 2048), ("q2_k", 7168, 18432),
+                ("q8_0", 1000, 388), ("q8_0", 700, 260),
+                ("q8_0", 7168, 576), ("q8_0", 16384, 7168),
+                ("q8_0", 2048, 7168), ("q8_0", 18432, 7168),
+                ("q8_0", 7168, 129280)]
+
+
+@functools.cache
+def _decode_weight(fmt, k, n, device):
+    """A (k, n) weight of ``fmt`` from numpy's seeded normal draws, made
+    once for all the cases of its shape (~2.5 GB on the card in all)."""
+    rng = np.random.default_rng(k + n + len(fmt))
+    return quantize(torch.from_numpy(rng.standard_normal(
+        (k, n), dtype=np.float32)).to(device), fmt)
+
+
+@pytest.mark.parametrize("fmt,k,n", Q2_Q8_DECODE)
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_qmatmul_q2k_q8_0_decode_form(cuda, fmt, k, n, m, dtype):
+    """q2_k's and q8_0's 2-D forms at M <= 4 run qmatmul_mma_decode_kernel
+    on tensor cores, as q6_k's and q3_k's do: one device launch a call, no
+    qmatmul_kernel and no splitk_reduce, two calls bitwise equal, within
+    B1's limits of the plain version (f32 x as three bf16 terms: 1e-5 of
+    max|y|; bf16: B1_TOL_BF16), at ``Q2_Q8_DECODE``'s shapes (the served
+    ones with the K split their rule gives, the 7168 -> 129280 head), and
+    a zero row gives +0."""
+    qt = _decode_weight(fmt, k, n, cuda)
+    rng = np.random.default_rng(m * 31 + k + n)
+    x = torch.from_numpy(_np(rng, (m, k))).to(cuda).to(dtype)
+    if m > 1:
+        x[m - 2] = 0
+    kern = qmatmul.KERNELS[fmt]
+    before = kern.launches
+    counts = {w: qmatmul.library_launches(fmt, w)
+              for w in ("decode", "prefill", "kernel", "splitk")}
+    y = kern(x, qt)
+    y2 = kern(x, qt)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    assert {w: qmatmul.library_launches(fmt, w) - c
+            for w, c in counts.items()} == {
+        "decode": 2, "prefill": 0, "kernel": 0, "splitk": 0}
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(y.view(bits), y2.view(bits))
+    ref = qmatmul.qmatmul_plain(x, qt).float()
+    tol = TOL if dtype == torch.float32 else B1_TOL_BF16
+    assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
+    if m > 1:
+        assert torch.equal(y[m - 2].view(bits),
+                           torch.zeros_like(y[m - 2]).view(bits))
+
+
 @pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q3_k", "q5_k", "q2_k",
                                  "q8_0"])
 @pytest.mark.parametrize("m", [5, 16, 77, 512, 600])
@@ -330,16 +392,16 @@ def test_qmatmul_prefill_form(cuda, fmt, m, k, n, dtype):
     assert not y[zero].view(bits).any()                  # +0, not -0
 
 
-@pytest.mark.parametrize("fmt", ["q5_k", "q2_k", "q8_0"])
+@pytest.mark.parametrize("fmt", ["q5_k"])
 @pytest.mark.parametrize("m", [1, 4])
 @pytest.mark.parametrize("k,n", [(7168, 1536), (256, 260)])
 def test_qmatmul_q3k_q8_0_decode_rows_keep_qmatmul_kernel(cuda, fmt, m, k,
                                                           n):
-    """q5_k, q2_k and q8_0 have no decode form: at M <= 4 one weight
-    still runs qmatmul_kernel, with splitk_reduce after it where the column
-    tiles are few (7168 -> 1536) and none at one superblock (256 -> 260),
-    and no prefill form; within B1's limits of the plain version (bf16 x,
-    2^-8 of max|y|)."""
+    """q5_k has no decode form, the only format without one: at M <= 4 one
+    weight still runs qmatmul_kernel, with splitk_reduce after it where
+    the column tiles are few (7168 -> 1536) and none at one superblock (256
+    -> 260), and no prefill form; within B1's limits of the plain version
+    (bf16 x, 2^-8 of max|y|)."""
     rng = np.random.default_rng(m * 23 + k + len(fmt))
     qt = quantize(torch.from_numpy(_np(rng, (k, n))).to(cuda), fmt)
     x = torch.from_numpy(_np(rng, (m, k))).to(cuda).to(torch.bfloat16)

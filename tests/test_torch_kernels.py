@@ -151,21 +151,51 @@ def test_q4k_factored_decode_matches_pallas(m):
 
 
 def _mma_decode(x, fields, fmt, ks):
-    """The tensor-core decode form of q6_k and q3_k written out
-    (``qmatmul_mma_decode_kernel``): per 16-element sub-block and column,
-    the exact products of bf16 x terms (one for bf16 x, three for f32) and
-    the codes (q6_k q - 32; q3_k q - 4, q a bit-pair of qs and a bit of
-    hmask), summed (the tensor core; f64 here) and rounded to f32, scaled by
-    the sub-block's int8 scale and summed over the four sub-blocks a warp
-    takes (j, j + 4, j + 8, j + 12), times the superblock's d into the
-    warp's accumulator; the four warps' sums added in order, and the
-    superblocks split over ``ks`` blocks whose sums are added in rank
-    order.  (The card's q3_k codes carry a factor 2^q3_shift(p) that its
+    """The tensor-core decode form written out
+    (``qmatmul_mma_decode_kernel``).  q6_k, q3_k, q2_k: per 16-element
+    sub-block and column, the exact products of bf16 x terms (one for bf16
+    x, three for f32) and the codes (q6_k q - 32; q3_k q - 4, q a bit-pair
+    of qs and a bit of hmask; q2_k q, a bit-pair of qs), summed (the tensor
+    core; f64 here) and rounded to f32, scaled by the sub-block's scale
+    (int8; q2_k the low nibble of sm) and summed over the four sub-blocks a
+    warp takes (j, j + 4, j + 8, j + 12), times the superblock's d into the
+    warp's accumulator; q2_k also less dmin times the sum over those
+    sub-blocks of m (sm's high nibble) times the sub-block's sum of x (the
+    x terms' sum, f64 here, f32 shuffles on the card).
+    q8_0: per 32-element block and column the products summed (f64) and
+    rounded to f32, times the block's d into the accumulator of warp ``b %
+    4`` (a stage holds 4 blocks; none past the field's last).  The four
+    warps' sums are added in order, and the stages (a superblock; 4 q8_0
+    blocks) split over ``ks`` blocks whose sums are added in rank order.
+    (The card's q3_k and q2_k codes carry a factor 2^q3_shift(p) that their
     scale takes back exactly: no value changes.)  x (M, K), zeros past K."""
     f = {a: fields[a] for a in qmatmul.FIELDS[fmt]}
-    s_blocks, _, n = f["scales"].shape
     m, k = x.shape
+    nt = 3 if x.dtype == torch.float32 else 1
+    if fmt == "q8_0":
+        nblk, _, n = f["qs"].shape
+        xp = torch.zeros(m, nblk * 32)
+        xp[:, :k] = x.to(torch.float32)
+        xs = sum(t.to(torch.float64) for t in bf16_terms(xp, nt))
+        prod = torch.einsum("mbi,bin->mbn", xs.reshape(m, nblk, 32),
+                            f["qs"].to(torch.float64)).to(torch.float32)
+        dd = f["d"].to(torch.float32)                      # (S, N)
+        stages = -(-nblk // 4)
+        out = torch.zeros(m, n)
+        for r in range(ks):                                # rank order
+            blk = torch.zeros(m, n)
+            for j0 in range(4):                            # warp order
+                acc = torch.zeros(m, n)
+                for st in range(stages * r // ks, stages * (r + 1) // ks):
+                    b = 4 * st + j0
+                    if b < nblk:
+                        acc = acc + dd[b] * prod[:, b]
+                blk = blk + acc
+            out = out + blk
+        return out.to(x.dtype)
+    s_blocks, n = f["d"].shape
     e = torch.arange(256)
+    mins = None
     if fmt == "q6_k":
         ql, qh = f["ql"].to(torch.int32), f["qh"].to(torch.int32)
         # element e of a superblock: ql row e % 128's nibble e // 128 (row
@@ -173,21 +203,30 @@ def _mma_decode(x, fields, fmt, ks):
         lo = (ql[:, e % 128] >> (4 * (e // 128))[None, :, None]) & 15
         hi = (qh[:, e % 64] >> (2 * (e // 64))[None, :, None]) & 3
         codes = (lo | (hi << 4)) - 32
-    else:
+        scale = f["scales"].to(torch.float32)              # (S, 16, N)
+    elif fmt == "q3_k":
         # element e: qs row e % 64's bit-pair e // 64, hmask row e % 32's
         # bit e // 32
         qs, hm = f["qs"].to(torch.int32), f["hmask"].to(torch.int32)
         lo = (qs[:, e % 64] >> (2 * (e // 64))[None, :, None]) & 3
         hi = (hm[:, e % 32] >> (e // 32)[None, :, None]) & 1
         codes = (lo | (hi << 2)) - 4
+        scale = f["scales"].to(torch.float32)
+    else:
+        # q2_k: element e is qs row e % 64's bit-pair e // 64; sm row i the
+        # scale (low nibble) and min (high nibble) of sub-block i
+        qs, sm = f["qs"].to(torch.int32), f["sm"].to(torch.int32)
+        codes = (qs[:, e % 64] >> (2 * (e // 64))[None, :, None]) & 3
+        scale = (sm & 15).to(torch.float32)
+        mins = (sm >> 4).to(torch.float64)
     w = codes.to(torch.float64)                            # (S, 256, N)
     xp = torch.zeros(m, s_blocks * 256)
     xp[:, :k] = x.to(torch.float32)
-    nt = 3 if x.dtype == torch.float32 else 1
-    xs = sum(t.to(torch.float64) for t in bf16_terms(xp, nt))
-    prod = torch.einsum("msji,sjin->msjn", xs.reshape(m, s_blocks, 16, 16),
+    xs = sum(t.to(torch.float64) for t in bf16_terms(xp, nt)).reshape(
+        m, s_blocks, 16, 16)
+    prod = torch.einsum("msji,sjin->msjn", xs,
                         w.reshape(s_blocks, 16, 16, n)).to(torch.float32)
-    scale = f["scales"].to(torch.float32)                  # (S, 16, N)
+    xsum = xs.sum(-1)                                      # (M, S, 16)
     dd = f["d"].to(torch.float32)                          # (S, N)
     out = torch.zeros(m, n)
     for r in range(ks):                                    # rank order
@@ -200,6 +239,11 @@ def _mma_decode(x, fields, fmt, ks):
                     i = j0 + 4 * p
                     part = part + scale[sb, i] * prod[:, sb, i]
                 acc = acc + dd[sb] * part
+                if mins is not None:
+                    pmin = sum(mins[sb, j0 + 4 * p] * xsum[:, sb, j0 + 4 * p,
+                                                          None]
+                               for p in range(4)).to(torch.float32)
+                    acc = acc - f["dmin"][sb].to(torch.float32) * pmin
             blk = blk + acc
         out = out + blk
     return out.to(x.dtype)
@@ -254,6 +298,28 @@ def test_q3k_tensor_core_decode_matches_pallas(m, dtype):
     _mma_decode_matches_pallas("q3_k", m, dtype, seed=160)
 
 
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_q2k_tensor_core_decode_matches_pallas(m, dtype):
+    """The same decode form with q2_k's codes (a bit-pair of qs), the
+    scale of sm's low nibble and the min term (sm's high nibble times the
+    sub-block's sum of x), against the Pallas reference
+    (``_mma_decode_matches_pallas``)."""
+    _mma_decode_matches_pallas("q2_k", m, dtype, seed=260)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_q8_0_tensor_core_decode_matches_pallas(m, dtype):
+    """The same decode form with q8_0's int8 codes, each 32-element block's
+    products scaled once by its d, the blocks in stages of 4 (K = 700 is
+    22 blocks: the last stage holds 2), against the Pallas reference
+    (``_mma_decode_matches_pallas``)."""
+    _mma_decode_matches_pallas("q8_0", m, dtype, seed=360)
+
+
 # every 2-D q3_k weight the DeepSeek cut multiplies at a decode step (K,
 # N): under Q3_K_M attn_kv_a_mqa, attn_q_a, attn_q_b, shared and dense
 # gate/up; under Q2_K_L shared down, attn_output and dense down; and the
@@ -287,6 +353,69 @@ def test_q3k_decode_ksplit_from_host_integers(k, n):
                (16384, 7168): 4, (18432, 7168): 4}
     if (k, n) in fastest:
         assert qmatmul.decode_ksplit_q3k(n, k, 132) == fastest[k, n]
+
+
+# every 2-D weight of the DeepSeek cut under Q2_K_L that is q2_k (K, N):
+# attn_q_a, attn_q_b, dense gate/up, shared gate/up; and the CPU tests'
+Q2K_DECODE_SHAPES = [(7168, 1536), (1536, 24576), (7168, 18432),
+                     (7168, 2048), (700, 256)]
+
+
+@pytest.mark.parametrize("k,n", Q2K_DECODE_SHAPES)
+def test_q2k_decode_ksplit_from_host_integers(k, n):
+    """q2_k's K split, from host integers only: q3_k's rule (its stage is
+    latency-bound as q3_k's is), at the DeepSeek shapes the fastest split
+    timed on an H100 SXM (PERF.md)."""
+    assert qmatmul.decode_form("q2_k", 1, 4, k)
+    assert not qmatmul.decode_form("q2_k", 1, 5, k)
+    assert not qmatmul.decode_form("q2_k", 2, 1, k)
+    assert not qmatmul.prefill_form("q2_k", 1, 4, k)
+    for sms in (132, 114, 8):
+        assert (qmatmul.decode_ksplit_q2k(n, k, sms)
+                == qmatmul.decode_ksplit_q3k(n, k, sms))
+    fastest = {(7168, 1536): 8, (1536, 24576): 1, (7168, 18432): 4,
+               (7168, 2048): 6}
+    if (k, n) in fastest:
+        assert qmatmul.decode_ksplit_q2k(n, k, 132) == fastest[k, n]
+
+
+# every 2-D weight of the DeepSeek cut under Q8_0 (K, N): attn_q_a,
+# attn_q_b, attn_kv_a_mqa, attn_output, dense gate/up and down, shared
+# gate/up and down, the output head; and the CPU tests' (22 blocks)
+Q8_0_DECODE_SHAPES = [(7168, 1536), (1536, 24576), (7168, 576),
+                      (16384, 7168), (7168, 18432), (18432, 7168),
+                      (7168, 2048), (2048, 7168), (7168, 129280),
+                      (700, 256)]
+
+
+@pytest.mark.parametrize("k,n", Q8_0_DECODE_SHAPES)
+def test_q8_0_decode_ksplit_from_host_integers(k, n):
+    """q8_0's K split over its 128-row stages (4 blocks), from host
+    integers only: 1..16 blocks, at most the stages; about 8/11 of the SMs'
+    worth of blocks where the column tiles are at most a quarter of the
+    SMs, else 2, 3 or 1 by the tiles and K; at the DeepSeek shapes the
+    fastest split timed on an H100 SXM (PERF.md)."""
+    s, tiles = -(-k // 128), -(-n // 128)
+    assert qmatmul.decode_stages("q8_0", k) == s
+    assert qmatmul.decode_form("q8_0", 1, 4, k)
+    assert not qmatmul.decode_form("q8_0", 1, 5, k)
+    assert not qmatmul.decode_form("q8_0", 2, 1, k)
+    assert not qmatmul.prefill_form("q8_0", 1, 4, k)
+    for sms in (132, 114, 8):
+        ks = qmatmul.decode_ksplit_q8_0(n, k, sms)
+        assert 1 <= ks <= min(16, s)
+        if 4 * tiles <= sms:
+            want = (8 * sms // 11) // tiles
+        elif tiles < sms:
+            want = 2
+        else:
+            want = 3 if tiles < 2 * sms and s >= 32 else 1
+        assert ks == max(1, min(16, s, want))
+    fastest = {(7168, 1536): 8, (1536, 24576): 1, (7168, 576): 16,
+               (16384, 7168): 2, (7168, 18432): 3, (18432, 7168): 2,
+               (7168, 2048): 6, (2048, 7168): 2, (7168, 129280): 1}
+    if (k, n) in fastest:
+        assert qmatmul.decode_ksplit_q8_0(n, k, 132) == fastest[k, n]
 
 
 @pytest.mark.parametrize("k,n", [(700, 256), (1536, 256), (8960, 1536),
@@ -513,13 +642,12 @@ def test_prefill_ksplit_from_host_integers(k, n):
         assert not qmatmul.prefill_form(fmt, 1, 4, k)
         assert not qmatmul.prefill_form(fmt, 1, 1, k)
         assert not qmatmul.prefill_form(fmt, 8, 512, k)
-    # q4_k, q6_k and q3_k take their decode form at M <= 4; q5_k, q2_k and
-    # q8_0 have none: at M <= 4 they keep qmatmul_kernel
-    for fmt in ("q4_k", "q6_k", "q3_k"):
+    # every format but q5_k takes its decode form at M <= 4; q5_k has none:
+    # at M <= 4 it keeps qmatmul_kernel
+    for fmt in ("q4_k", "q6_k", "q3_k", "q2_k", "q8_0"):
         assert qmatmul.decode_form(fmt, 1, 4, k)
-    for fmt in ("q5_k", "q2_k", "q8_0"):
-        for m in (1, 4, 5, 512):
-            assert not qmatmul.decode_form(fmt, 1, m, k)
+    for m in (1, 4, 5, 512):
+        assert not qmatmul.decode_form("q5_k", 1, m, k)
 
     def fits(tiles, ks, sms):
         return (tiles <= max(1, sms // 16) * (16 // ks)
