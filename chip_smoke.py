@@ -14,11 +14,12 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 kernels with each tile loader the serves use (bf16, q8_0,
                 q4_0 pools; MLA also q8_0 latents beside q4_0 rope keys;
                 every expert form also with the decode's routing, 32 of
-                256 experts live, where every kernel but q5_k's reads no
-                empty expert), with times, the roofline bound and the
+                256 experts live, where no expert kernel reads an empty
+                expert), with times, the roofline bound and the
                 stated tolerance (B1 also at every 2-D shape the DeepSeek
                 cut multiplies by q3_k, q2_k or q8_0 at a chunk's 512 rows,
-                and at a decode step's 1 and 4 rows; B1's
+                and at a decode step's 1 and 4 rows, q5_k at both of its
+                served shapes at 1, 4 and 512 rows; B1's
                 M = 512 lines also carry ``gemm_ms``, a bf16 torch.matmul
                 by the weight already dequantized, for context); the GQA
                 and MLA decodes also at the engine's horizon (4 lanes x
@@ -39,8 +40,8 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 cut under Q4_K_M, Q3_K_M, Q2_K_L and Q8_0 with q8_0 pools.
                 Every
                 kernel of each path must have been launched in its run
-                (and each 2-D format with a decode form, every one but
-                q5_k, must have taken it and never qmatmul_kernel),
+                (and each 2-D format of the path, q5_k under Q3_K_M
+                included, must have taken its decode form),
                 and the DeepSeek weights must pack to the reference size
                 calculator's bytes; one traced 4 x 128-token prefill
                 chunk (``prefill_profile``) and one traced decode step
@@ -392,7 +393,7 @@ EXPERT_SUMMARY = {"q3_k": (7168, 2048), "q4_k": (2048, 7168),
 # seeded positions, and the formats whose expert kernel skips empty experts
 # must give them the plain version's +0 bitwise
 LIVE_EXPERTS = 32
-SKIPS_EMPTY = ("q3_k", "q2_k", "q4_k", "q6_k", "q8_0")
+SKIPS_EMPTY = ("q3_k", "q2_k", "q4_k", "q6_k", "q5_k", "q8_0")
 B1_TOL = 8e-3      # bf16 output: one bf16 ulp (2^-8) of the largest value
 B1_TOL_F32 = 1e-5  # f32 output: f32 summation order only
 ATTN_TOL = 1e-5    # f32 output: summation order and the online softmax;
@@ -1047,12 +1048,11 @@ def short_name(key: str) -> str:
 
 
 # kernel families of a traced decode step or prefill chunk:
-# qmatmul_kernel<T, rows, format, experts>, qmatmul_q4k_decode_kernel and
-# qmatmul_mma_decode_kernel (the 2-D forms of every format but q5_k at M <=
-# 4), qmatmul_prefill_kernel (every format's at M > 4) and
+# qmatmul_q4k_decode_kernel and qmatmul_mma_decode_kernel (the 2-D forms
+# at M <= 4), qmatmul_prefill_kernel (the 2-D form at M > 4),
 # qmatmul_experts_kernel<T, rows, format, copy bytes> (format ids as in
-# csrc/qmatmul.cu), the split-K reduction, and the attention kernels (the
-# MLA decode and prefill kernels both "B6/B7 paged_mla")
+# csrc/qmatmul.cu), and the attention kernels (the MLA decode and prefill
+# kernels both "B6/B7 paged_mla")
 B1_FORMATS = {"0": "q4_k", "1": "q6_k", "2": "q3_k", "3": "q5_k", "4": "q2_k",
               "5": "q8_0"}
 
@@ -1061,12 +1061,7 @@ def family(key: str) -> str:
     m = re.search(r"qmatmul_experts_kernel<[^,]+, *\d+, *(\d),", key)
     if m:
         return f"B1 experts {B1_FORMATS[m.group(1)]}"
-    m = re.search(r"qmatmul_kernel<[^,]+, *\d+, *(\d), *(true|false)>", key)
-    if m:
-        return (f"B1 experts {B1_FORMATS[m.group(1)]}" if m.group(2) == "true"
-                else "B1 dense")
-    if "splitk" in key or re.search(
-            r"qmatmul_(q4k_decode|mma_decode|prefill)_kernel", key):
+    if re.search(r"qmatmul_(q4k_decode|mma_decode|prefill)_kernel", key):
         return "B1 dense"
     if "paged_mla" in key:
         return "B6/B7 paged_mla"
@@ -1230,8 +1225,8 @@ DEEPSEEK_B1 = {"DQ3_K_M": (("q4_k", "q6_k"), ("q3_k", "q4_k", "q6_k")),
 # (all), and those of them each path multiplies at a prefill chunk's 512
 # rows (qwen2 under DQ3_K_M; the DeepSeek cut per policy: under Q3_K_M q6_k
 # is only the output head, which takes one row a lane, as the Q8_0 head
-# does, and Q2_K_L has no q4_k); and the formats whose one-weight calls at
-# M <= 4 take a decode form, never qmatmul_kernel (all but q5_k)
+# does, and Q2_K_L has no q4_k); the one-weight calls of every format at
+# M <= 4 take its decode form
 PREFILL_FORMS = ("q4_k", "q6_k", "q3_k", "q5_k", "q2_k", "q8_0")
 QWEN2_PREFILL = ("q4_k", "q6_k")
 DEEPSEEK_PREFILL = {"DQ3_K_M": ("q4_k", "q6_k"), "Q4_K_M": ("q4_k", "q6_k"),
@@ -1239,7 +1234,7 @@ DEEPSEEK_PREFILL = {"DQ3_K_M": ("q4_k", "q6_k"), "Q4_K_M": ("q4_k", "q6_k"),
                     "Q2_K_L": ("q6_k", "q3_k", "q2_k"), "Q8_0": ("q8_0",)}
 
 
-DECODE_FORMS = ("q4_k", "q6_k", "q3_k", "q2_k", "q8_0")
+DECODE_FORMS = ("q4_k", "q6_k", "q3_k", "q5_k", "q2_k", "q8_0")
 
 
 def b1_path(policy: str) -> tuple:
@@ -1335,8 +1330,7 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
         for c in counters.values():
             c.launches = 0
         # the forms' counts are their libraries', read before and after
-        lib = [(f, w) for f in qm.FIELDS
-               for w in ("decode", "prefill", "kernel")]
+        lib = [(f, w) for f in qm.FIELDS for w in ("decode", "prefill")]
         forms = {fw: qm.library_launches(*fw) for fw in lib}
         done = engine.serve(reqs, slots=4, seed=0)
         torch.cuda.synchronize()
@@ -1388,15 +1382,14 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
         missing = [k for k in path_kernels[kv_quant] if launches[k] <= 0]
         if missing:
             fail(f"{what}: kernels never launched: {missing}")
-        # the path's 2-D formats with a decode form: their decode steps
-        # take it, and no call of theirs runs qmatmul_kernel
+        # every 2-D format of the path: its decode steps take its decode
+        # form
         for f in DECODE_FORMS:
             if f"qmatmul_{f}" not in path_kernels[kv_quant]:
                 continue
-            if forms[f, "decode"] <= 0 or forms[f, "kernel"]:
+            if forms[f, "decode"] <= 0:
                 fail(f"{what}: {f} took its decode form "
-                     f"{forms[f, 'decode']} times and qmatmul_kernel "
-                     f"{forms[f, 'kernel']} times")
+                     f"{forms[f, 'decode']} times")
         gaps = st.quant_logit_gap_per_lane
         if engine.quant_probe and not (
                 st.quant_probe_steps and gaps

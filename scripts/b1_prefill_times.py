@@ -13,8 +13,8 @@ At 512 rows (bf16 x) it times ``qmatmul_<fmt>`` at every 2-D shape (K, N)
 that the DeepSeek-V3 cut multiplies by q3_k (under Q3_K_M and Q2_K_L),
 q5_k (Q3_K_M's dense down), q2_k (under Q2_K_L) or q8_0 (under Q8_0), and
 qwen2-1.5b's q5_k down and q8_0 gate/up; at 4 rows, every shape that the
-cut multiplies by q3_k, q2_k or q8_0 at a decode step, and the q6_k shapes
-of ``chip_smoke.py``'s kernels phase.  CUDA events time 10 calls queued behind
+cut multiplies by q3_k, q5_k, q2_k or q8_0 at a decode step, qwen2's q5_k
+down, and the q6_k shapes of ``chip_smoke.py``'s kernels phase.  CUDA events time 10 calls queued behind
 a spin kernel, the weights rotating over copies of more than 120 MB so
 that each call reads them from HBM, as ``chip_smoke.py`` does.  Each line
 says which kernels ran (the library's counts of its forms' launches before
@@ -68,9 +68,10 @@ SHAPES = [
 ]
 # at a decode step's 4 rows: q3_k's served shapes (Q3_K_M's attn_kv_a_mqa,
 # attn_q_a, attn_q_b, dense and shared gate/up; Q2_K_L's attn_output, dense
-# and shared down), q2_k's (Q2_K_L's attn_q_a, attn_q_b, dense and shared
-# gate/up), q8_0's (every 2-D weight of the cut under Q8_0, the output
-# head included) and the q6_k shapes of chip_smoke.py's kernels phase
+# and shared down), q5_k's (Q3_K_M's dense down, qwen2's down), q2_k's
+# (Q2_K_L's attn_q_a, attn_q_b, dense and shared gate/up), q8_0's (every
+# 2-D weight of the cut under Q8_0, the output head included) and the q6_k
+# shapes of chip_smoke.py's kernels phase
 DECODE_SHAPES = [
     (7168, 576, "q3_k", "attn_kv_a_mqa, Q3_K_M"),
     (7168, 1536, "q3_k", "attn_q_a, Q3_K_M"),
@@ -80,6 +81,8 @@ DECODE_SHAPES = [
     (7168, 18432, "q3_k", "dense gate, up, Q3_K_M"),
     (16384, 7168, "q3_k", "attn_output, Q2_K_L"),
     (18432, 7168, "q3_k", "dense down, Q2_K_L"),
+    (18432, 7168, "q5_k", "dense down, Q3_K_M"),
+    (8960, 1536, "q5_k", "qwen2 down, Q3_K_M"),
     (1536, 256, "q6_k", "qwen2 k_proj, v_proj"),
     (8960, 1536, "q6_k", "qwen2 down"),
     (18432, 7168, "q6_k", "dense down"),
@@ -99,7 +102,7 @@ DECODE_SHAPES = [
     (2048, 7168, "q8_0", "shexp down, Q8_0"),
     (7168, 129280, "q8_0", "output, Q8_0"),
 ]
-FORMS = ("decode", "prefill", "kernel", "splitk")
+FORMS = ("decode", "prefill")
 
 
 def device_ms(torch, fn, iters: int = 10) -> float:

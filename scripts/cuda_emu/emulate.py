@@ -5,6 +5,7 @@
     python3 scripts/cuda_emu/emulate.py mla                # MLA attention
     python3 scripts/cuda_emu/emulate.py prefill q2_k,q4_k  # B1 prefill form
     python3 scripts/cuda_emu/emulate.py decode q2_k,q8_0   # B1 mma decode form
+    python3 scripts/cuda_emu/emulate.py experts q5_k       # B1 expert form
 
 Copies a source with its headers into ``src/repro_torch/_build/emu/``,
 rewrites it for g++ (``mma.cuh`` replaced by this directory's emulated
@@ -319,8 +320,8 @@ DECODE_FORM_CASES = [(1, 700, 256, torch.bfloat16, 1),
 def decode(formats: list[str], sms: int) -> bool:
     """B1's tensor-core decode form (``qmatmul_mma_decode_kernel``) at
     each cluster size of DECODE_FORM_CASES, forced through the wrapper's
-    split rule: one launch of it, no qmatmul_kernel or splitk_reduce, two
-    calls bitwise equal, a zero row +0."""
+    split rule: one launch of it and of no other form, two calls bitwise
+    equal, a zero row +0."""
     libs = {f"qmatmul_{fmt}": emulated_library(
         "qmatmul", (f"-DQMATMUL_FMT={build.QMATMUL_FORMATS.index(fmt)}",))
         for fmt in formats}
@@ -339,7 +340,7 @@ def decode(formats: list[str], sms: int) -> bool:
                 x[m - 2] = 0
             x = x.to(dt)
             before = {w: qm.library_launches(fmt, w)
-                      for w in ("decode", "kernel", "splitk", "prefill")}
+                      for w in ("decode", "prefill", "experts")}
             y = qm._launch(x, qt, 1, qm.KERNELS[fmt]).reshape(m, n)
             ran = {w: qm.library_launches(fmt, w) - c
                    for w, c in before.items()}
@@ -348,8 +349,7 @@ def decode(formats: list[str], sms: int) -> bool:
             err = ((y.float() - ref).abs().max() / ref.abs().max()).item()
             tol = 1e-5 if dt == torch.float32 else 8e-3
             bits = torch.int32 if dt == torch.float32 else torch.int16
-            good = (ran == {"decode": 1, "kernel": 0, "splitk": 0,
-                            "prefill": 0}
+            good = (ran == {"decode": 1, "prefill": 0, "experts": 0}
                     and err <= tol and torch.equal(y.view(bits),
                                                    y2.view(bits))
                     and (m == 1 or not y[m - 2].view(bits).any()))
@@ -361,25 +361,81 @@ def decode(formats: list[str], sms: int) -> bool:
     return ok
 
 
+# E, C, K, N, x dtype, live experts: C = 1 (one row, x staged whole; K =
+# 16640 too long to stage whole) and C = 20 (one tile) or more, ragged K,
+# N % 16 != 0 (4-byte copies), experts whose rows are all zero
+EXPERT_CASES = [(4, 1, 700, 256, torch.bfloat16, [0, 2, 3]),
+                (3, 1, 512, 260, torch.float32, [1]),
+                (2, 1, 16640, 128, torch.bfloat16, [1]),
+                (3, 20, 700, 136, torch.bfloat16, [0, 2]),
+                (2, 23, 512, 256, torch.float32, [0, 1]),
+                (2, 7, 1000, 132, torch.float32, [1])]
+
+
+def experts(formats: list[str], sms: int) -> bool:
+    """B1's expert form (``qmatmul_experts_kernel``) at EXPERT_CASES: one
+    launch of it and of no other form, within B1's limits of the plain
+    version, the empty experts' outputs bitwise its +0, and a zero row of
+    a live expert (C > 1) exactly 0."""
+    libs = {f"qmatmul_{fmt}": emulated_library(
+        "qmatmul", (f"-DQMATMUL_FMT={build.QMATMUL_FORMATS.index(fmt)}",))
+        for fmt in formats}
+    build.library = lambda name: libs[name]
+    qm._entry.cache_clear()
+    ok = True
+    for fmt in formats:
+        for e, c, k, n, dt, live in EXPERT_CASES:
+            rng = np.random.default_rng(e + c + k + n)
+            qt = quantize(torch.from_numpy(rng.normal(size=(e, k, n)).astype(
+                np.float32)), fmt)
+            x = torch.zeros((e, c, k))
+            x[live] = torch.from_numpy(rng.normal(size=(len(live), c, k))
+                                       .astype(np.float32))
+            if c > 1:
+                x[live[0], c // 2] = 0
+            x = x.to(dt)
+            before = {w: qm.library_launches(fmt, w)
+                      for w in ("decode", "prefill", "experts")}
+            y = qm._launch(x, qt, e, qm.EXPERT_KERNELS[fmt]).reshape(e, c, n)
+            ran = {w: qm.library_launches(fmt, w) - b
+                   for w, b in before.items()}
+            ref = qm.qmatmul_plain(x, qt)
+            err = ((y.float() - ref.float()).abs().max()
+                   / ref.float().abs().max()).item()
+            tol = 1e-5 if dt == torch.float32 else 2 ** -8
+            bits = torch.int32 if dt == torch.float32 else torch.int16
+            empty = [i for i in range(e) if i not in live]
+            good = (ran == {"decode": 0, "prefill": 0, "experts": 1}
+                    and err <= tol
+                    and torch.equal(y[empty].view(bits), ref[empty].view(bits))
+                    and (c == 1 or not y[live[0], c // 2].view(bits).any()))
+            print(f"expert form {fmt} E={e} C={c} K={k} N={n} {str(dt)[6:]} "
+                  f"live {live}: rel err {err:.1e} "
+                  f"{'ok' if good else 'FAILED'}", flush=True)
+            ok &= good
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("attn", "mla", "prefill", "decode"))
+    ap.add_argument("what", choices=("attn", "mla", "prefill", "decode",
+                                     "experts"))
     ap.add_argument("formats", nargs="?", default=None,
-                    help="B1 formats of the prefill form (default: all) or "
-                         "of the tensor-core decode form (default: "
-                         "q2_k,q3_k,q6_k,q8_0)")
+                    help="B1 formats of the prefill or expert form "
+                         "(default: all) or of the tensor-core decode form "
+                         "(default: all but q4_k)")
     ap.add_argument("--sms", type=int, default=132)
     args = ap.parse_args()
     if shutil.which("g++") is None:
         raise SystemExit("emulate: needs g++ (C++20)")
     build.stream_ptr = lambda dev: 0
     build.sm_count = lambda dev: args.sms
-    every = ("q2_k,q3_k,q6_k,q8_0" if args.what == "decode"
-             else ",".join(qm.FIELDS))
-    formats = (args.formats or every).split(",")
+    every = [f for f in qm.FIELDS if args.what != "decode" or f != "q4_k"]
+    formats = args.formats.split(",") if args.formats else every
     ok = (attn(args.sms) if args.what == "attn"
           else mla(args.sms) if args.what == "mla"
           else prefill(formats, args.sms) if args.what == "prefill"
+          else experts(formats, args.sms) if args.what == "experts"
           else decode(formats, args.sms))
     print("all cases ok" if ok else "FAILED")
     return 0 if ok else 1

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Ablations of the MLA decode and prefill kernels, of the GQA prefill
-kernel, of the q4_k, q6_k, q3_k, q2_k and q8_0 decode forms and of the prefill form
-(q4_k, q6_k, q3_k, q2_k, q8_0) on one CUDA card.
+kernel, of the q4_k, q6_k, q3_k, q5_k, q2_k and q8_0 decode forms and of
+the prefill form (q4_k, q6_k, q3_k, q2_k, q8_0) on one CUDA card.
 
     python3 scripts/decode_ablation.py            # prints JSON lines
     python3 scripts/decode_ablation.py --only q6k_decode,mla_prefill
@@ -10,6 +10,7 @@ kernel, of the q4_k, q6_k, q3_k, q2_k and q8_0 decode forms and of the prefill f
     python3 scripts/decode_ablation.py --only q2k_prefill,gqa_prefill
     python3 scripts/decode_ablation.py --only q3k_decode
     python3 scripts/decode_ablation.py --only q2k_decode,q8_0_decode
+    python3 scripts/decode_ablation.py --only q5k_decode
 
 Builds variants of ``csrc/paged_mla.cu`` (``paged_mla_decode_kernel``) and
 of ``csrc/qmatmul.cu`` for q4_k (``qmatmul_q4k_decode_kernel``), each the
@@ -58,6 +59,12 @@ kernel) at ``chip_smoke.py``'s shapes:
                conversion, the weight stream alone; the variants that
                change the stage also at every cluster size of KS_SCAN;
                each variant's registers and spills.
+  q5_k decode  M = 4 bf16 at its two served shapes (Q3_K_M's dense down
+               18432->7168 and qwen2's down 8960->1536; the kernel's q5_k
+               instance at ``decode_ksplit_q5k``); variants: the kernel
+               (at every cluster size 1..16), no min term
+               (``q5k_min_stage``), no mma, no conversion, the weight
+               stream alone; each variant's registers and spills.
   q8_0 decode  M = 4 bf16 at the cut's nine q8_0 shapes (the output head
                included); variants: the kernel (4 blocks a stage, 3
                stages), 4 blocks x 4 stages, 8 blocks x 2 and x 3 stages
@@ -266,6 +273,17 @@ Q8_VARIANTS = {
         "mag[1][0][q], mag[1][1][q]};\n        const uint32_t a_[4] = "
         "{q8_pair(mag[0][0][q], sgn[0][0][q], sel),")],
     "weight stream only": [Q6_NO_COMPUTE, Q6_NO_X, Q6_NO_MERGE],
+}
+# its q5_k instance (FMT 3): its min term (q5k_min_stage and x's sub-block
+# sums) left out, and parts taken out
+Q5_NO_MIN = [("      if (mr < M)\n        q5k_min_stage<T>(stage,",
+              "      if (false)\n        q5k_min_stage<T>(stage,")]
+Q5_VARIANTS = {
+    "kernel": [],
+    "no min term": Q5_NO_MIN,
+    "no mma": [Q6_NO_MMA],
+    "no conversion": Q6_NO_CONVERSION,
+    "weight stream only": [Q6_NO_COMPUTE, Q6_NO_X, Q6_NO_MERGE, *Q5_NO_MIN],
 }
 # the variants of the q2_k and q8_0 groups that change the stage, whose
 # cluster size is scanned (the rules were fitted to the kernel's stage)
@@ -503,13 +521,13 @@ def q4k(libs, gen) -> dict:
                          and -(-s // d) <= 32} | {chosen})
         for name, lib in libs.items():
             fn = lib.qmatmul
-            fn.argtypes = [i, i, v, ctypes.POINTER(v), i, v, v] + [i] * 5 + [v]
+            fn.argtypes = [i, i, v, ctypes.POINTER(v), i, v] + [i] * 5 + [v]
             for ks in splits if name == "kernel" else (chosen,):
                 it = [0]
 
                 def call():
                     it[0] = (it[0] + 1) % len(ptrs)
-                    return fn(0, 1, x.data_ptr(), ptrs[it[0]], 5, None,
+                    return fn(0, 1, x.data_ptr(), ptrs[it[0]], 5,
                               out.data_ptr(), 1, 4, k, n, ks, stream)
                 if call() != 0:
                     raise SystemExit(f"q4_k {name} refused")
@@ -527,8 +545,8 @@ def q4k(libs, gen) -> dict:
     fn = libs["kernel"].qmatmul
     ptrs = (v * 5)(*[qt.fields[f].data_ptr() for f in qm.FIELDS["q4_k"]])
     res[f"experts E={e} C=1 {k}->{n} ({qt.packed_bytes() / 1e6:.1f} MB)"] = \
-        device_ms(lambda: fn(0, 1, x.data_ptr(), ptrs, 5, None,
-                             out.data_ptr(), e, 1, k, n, 1, stream))
+        device_ms(lambda: fn(0, 1, x.data_ptr(), ptrs, 5, out.data_ptr(), e,
+                             1, k, n, 1, stream))
     return res
 
 
@@ -544,6 +562,11 @@ def q3k(libs, gen) -> dict:
         (7168, 18432), (16384, 7168), (18432, 7168)))
 
 
+def q5k(libs, gen) -> dict:
+    return mma_decode(libs, gen, "q5_k", ((18432, 7168), (8960, 1536)),
+                      scan=("kernel",), sizes=range(1, 17))
+
+
 def q2k(libs, gen) -> dict:
     return mma_decode(libs, gen, "q2_k", (
         (7168, 1536), (1536, 24576), (7168, 18432), (7168, 2048)),
@@ -557,11 +580,12 @@ def q80(libs, gen) -> dict:
         (7168, 129280)), scan=STAGE_SCAN)
 
 
-def mma_decode(libs, gen, fmt: str, shapes, scan=()) -> dict:
+def mma_decode(libs, gen, fmt: str, shapes, scan=(), sizes=KS_SCAN) -> dict:
     """The tensor-core decode form of ``fmt`` at M = 4, bf16, at its split
     rule's cluster size (the kernel also at 8, the portable size); the
-    variants named in ``scan`` at every size of KS_SCAN up to the stages of
-    the kernel (or of twice its stage, a variant that doubles it)."""
+    variants named in ``scan`` at every cluster size of ``sizes`` up to the
+    stages of the kernel (or of twice its stage, a variant that doubles
+    it)."""
     v, i = ctypes.c_void_p, ctypes.c_int
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
@@ -582,19 +606,19 @@ def mma_decode(libs, gen, fmt: str, shapes, scan=()) -> dict:
         chosen = qm.DECODE_KSPLIT[fmt](n, k, build.sm_count(dev))
         for name, lib in libs.items():
             fn = lib.qmatmul
-            fn.argtypes = [i, i, v, ctypes.POINTER(v), i, v, v] + [i] * 5 + [v]
+            fn.argtypes = [i, i, v, ctypes.POINTER(v), i, v] + [i] * 5 + [v]
             # the kernel also at the portable cluster size, 8
-            sizes = ({chosen, min(8, chosen)} if name == "kernel"
-                     else {chosen})
+            ks_set = ({chosen, min(8, chosen)} if name == "kernel"
+                      else {chosen})
             if name in scan:
-                sizes |= {c for c in KS_SCAN
-                          if c <= qm.decode_stages(fmt, k)}
-            for ks in sorted(sizes):
+                ks_set |= {c for c in sizes
+                           if c <= qm.decode_stages(fmt, k)}
+            for ks in sorted(ks_set):
                 it = [0]
 
                 def call():
                     it[0] = (it[0] + 1) % len(ptrs)
-                    return fn(fid, 1, x.data_ptr(), ptrs[it[0]], nf, None,
+                    return fn(fid, 1, x.data_ptr(), ptrs[it[0]], nf,
                               out.data_ptr(), 1, 4, k, n, ks, stream)
                 if call() != 0:
                     raise SystemExit(f"{fmt} {name} refused")
@@ -727,7 +751,7 @@ def prefill(fmt: str):
                 did = 1 if dt == torch.bfloat16 else 0
                 for name, lib in libs.items():
                     fn = lib.qmatmul
-                    fn.argtypes = [i, i, v, ctypes.POINTER(v), i, v, v] + \
+                    fn.argtypes = [i, i, v, ctypes.POINTER(v), i, v] + \
                         [i] * 5 + [v]
                     scan = (ks0,)
                     if (name in PRE_SCAN and -(-n // 128) * 4
@@ -740,8 +764,8 @@ def prefill(fmt: str):
                         def call():
                             it[0] = (it[0] + 1) % len(ptrs)
                             return fn(fid, did, x.data_ptr(), ptrs[it[0]],
-                                      nf, None, out.data_ptr(), 1, 512, k, n,
-                                      ks, stream)
+                                      nf, out.data_ptr(), 1, 512, k, n, ks,
+                                      stream)
                         it[0] = len(ptrs) - 1
                         if call() != 0:
                             raise SystemExit(f"{fmt} prefill {name} refused")
@@ -766,6 +790,8 @@ GROUPS = {
                    ("-DQMATMUL_FMT=1",), q6k),
     "q3k_decode": ("qmatmul.cu", "q3k_", Q3_VARIANTS,
                    ("-DQMATMUL_FMT=2", "-Xptxas", "-v"), q3k),
+    "q5k_decode": ("qmatmul.cu", "q5k_", Q5_VARIANTS,
+                   ("-DQMATMUL_FMT=3", "-Xptxas", "-v"), q5k),
     "q2k_decode": ("qmatmul.cu", "q2k_", Q2_VARIANTS,
                    ("-DQMATMUL_FMT=4", "-Xptxas", "-v"), q2k),
     "q8_0_decode": ("qmatmul.cu", "q80_", Q8_VARIANTS,
@@ -787,7 +813,8 @@ GROUPS = {
 
 
 # the groups whose ptxas lines of qmatmul_mma_decode_kernel are printed
-MMA_DECODE_GROUPS = ("q3k_decode", "q2k_decode", "q8_0_decode")
+MMA_DECODE_GROUPS = ("q3k_decode", "q5k_decode", "q2k_decode",
+                     "q8_0_decode")
 
 
 def main() -> int:

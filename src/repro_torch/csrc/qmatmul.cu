@@ -8,10 +8,8 @@
 // (kernels/q8_0.py:23): every weight format of the paper's policies
 // (DQ3_K_M, Q4_K_M, Q3_K_M, Q2_K_L, UD_Q2_K_XL, Q8_0).  The reference sends
 // expert weights to XLA (repro/kernels/ops.py:39-50, dequantize then
-// einsum); here they run in one launch for all experts: through the same
-// kernel, with the expert index folded into gridDim.z, for q5_k, and
-// through qmatmul_experts_kernel (below) for q4_k, q6_k, q3_k, q2_k and
-// q8_0.
+// einsum); here they run in one launch for all experts, through
+// qmatmul_experts_kernel (below).
 //
 // What bounds it on an H100: at decode (M = 1..8 rows) it streams the packed
 // weights once and does ~2*M flops per weight, so it is memory-bound (one
@@ -24,50 +22,43 @@
 // Design.  Fields are structure-of-arrays (S, X, N) with N last, so a
 // thread owns 4 neighbouring output columns and reads 4 neighbouring bytes
 // of each field row with one 32-bit load: a warp reads 128 contiguous bytes.
-// The first draft, qmatmul_kernel, now serves q5_k alone (its 2-D form at
-// M <= 4 and its expert form): a block (32 x 4 threads) owns 128 columns
-// and one tile of MT rows; its four warps split each superblock (the
-// decoder's header says how), so the packed tile is decoded in
-// registers, never written back, and each warp prefetches its byte-rows
-// before it decodes.  The activation tile x[MT, 256] sits in shared memory
-// as f32 and every lane of a warp reads the same element (a broadcast).
-// Accumulation is f32; the four warps' partial sums are added in a fixed
-// order.  Where the column tiles alone give too few blocks to fill the
-// card, the tiles are split over gridDim.y and a second kernel adds the
-// per-split partials in a fixed order (deterministic split-K, no atomics;
-// the 2-D form of q5_k at M <= 4 only: its expert form, which no policy
-// serves, is never split; every other call has a form of its own, below).
-// K that is not a multiple of 256 reads x as zero past K.  The dequantized
-// weights are the same f32 values as the plain version's (q * (sc*d) -
-// (m*dmin), product rounded before the subtraction as the plain version
-// does).  The expert kernel below holds at C = 1 a sum, not each weight,
-// to the plain version's values (see there).
+// Every call is one launch of one of three kernels (launch_fmt): a stack of
+// expert weights takes qmatmul_experts_kernel; one weight at M <= 4 rows
+// (K <= 65536) its format's decode form, qmatmul_q4k_decode_kernel (q4_k)
+// or qmatmul_mma_decode_kernel (every other format); one weight at any
+// other M or K the prefill form, qmatmul_prefill_kernel.  Each replaced a
+// first draft (one CUDA-core kernel for every form, which restaged x per
+// superblock behind two barriers with no weight bytes in flight, turned
+// each code into a float by an int-to-float conversion, and split K with a
+// second kernel and an f32 buffer); the paragraphs below say what held the
+// draft back in each form and what the redesign does about it.  No kernel
+// takes atomics: every sum is added in a fixed order, and K that is not a
+// multiple of 256 reads x as zero past K.
 //
-// The expert form of q4_k, q6_k, q3_k, q2_k and q8_0
-// (qmatmul_experts_kernel<T, ROWS, FMT, V>), on qmatmul_kernel the
-// largest device-time family of a DeepSeek-V3 decode step under every
-// policy.  At decode C = 1 (4 lanes x top-8 over 256 experts), and
-// qmatmul_kernel there
-// was bound by instructions, not bytes: a 4-row tile (4 FMAs a weight for 1
-// live row), one int-to-float conversion a weight (a quarter-rate pipe), x
-// staged again per superblock behind two barriers, and every expert's
-// weights read, used or not.  The redesign:
+// The expert form (qmatmul_experts_kernel<T, ROWS, FMT, V>), on the first
+// draft the largest device-time family of a DeepSeek-V3 decode step under
+// every policy.  At decode C = 1 (4 lanes x top-8 over 256 experts), and
+// the draft there was bound by instructions, not bytes: a 4-row tile (4
+// FMAs a weight for 1 live row), one int-to-float conversion a weight (a
+// quarter-rate pipe), x staged again per superblock behind two barriers,
+// and every expert's weights read, used or not.  The redesign:
 //  - the row tile follows C: one row at C = 1 (ROWS = 1), else 20 rows
 //    (the capacity of a 4 x 128-token prefill chunk);
 //  - codes become floats in one byte permute each, no int-to-float: q3_k
 //    as 2^23 + (code << shift) and one exact FADD, q6_k as 2^23 + q and
 //    one exact FADD (q - 32), q8_0 as 2^23 + (q + 128) (one XOR a word of
 //    four codes) and one exact FADD; at C = 1
-//    q2_k as 0.5 + code/16 and q4_k as 0.5 + q/32 (the nibble in bits 3-6
-//    of its byte), with no FADD at all.  At C = 1 each sub-block's scale
+//    q2_k as 0.5 + code/16, q4_k as 0.5 + q/32 (the nibble in bits 3-6
+//    of its byte) and q5_k as 0.5 + q/64 (its nibble and qh bit in bits
+//    2-6), with no FADD at all.  At C = 1 each sub-block's scale
 //    is factored out of its sum (q3_k: y += d * sum_sub sc * sum x (q -
 //    4) and q6_k: y += d * sum_sub sc * sum x (q - 32); q2_k (16
-//    elements) and q4_k (32): y += d * sum_sub sc * sum x q - dmin *
+//    elements), q4_k and q5_k (32): y += d * sum_sub sc * sum x q - dmin *
 //    sum_sub m * sum x, the sums of x per sub-block taken once per block;
 //    q8_0: y += sum_blk d * sum x q), so a weight costs one FMA, one
 //    permute and (q3_k, q6_k, q8_0) one FADD, plus ~0.7 (q3_k), ~0.6
-//    (q6_k), ~0.45 (q2_k), 0.5 (q4_k) or 0.25 (q8_0) integer ops of code
-//    assembly.
+//    (q6_k), ~0.45 (q2_k), 0.5 (q4_k), ~1.25 (q5_k) or 0.25 (q8_0) integer
+//    ops of code assembly.
 //    These sums are f32 in another order than the plain version's, not
 //    its dequantized weights (held to the same tolerances).  At C > 1
 //    each weight is dequantized once to the plain version's f32 value,
@@ -76,7 +67,7 @@
 //    one barrier), per stage at C > 1, ordered so that one 16-byte shared
 //    load gives a byte row's four bit-pairs (q3_k, q2_k), the four
 //    elements of two ql rows and a qh row (q6_k), two byte rows' nibbles
-//    (q4_k) or four rows (q8_0);
+//    (q4_k, q5_k) or four rows (q8_0);
 //  - the weight fields come into shared memory through a ring of stages
 //    (2 at C = 1, 3 at C > 1; a stage is a superblock, or 4 q8_0 blocks
 //    of 32 rows) filled by cp.async, 16 bytes a copy (V = 4 when N is not
@@ -89,9 +80,9 @@
 // = 20 by the f32 FMAs.  The warps' partial sums are added in a fixed
 // order, with no atomics.
 //
-// q4_k's 2-D form at M <= 4 (qmatmul_q4k_decode_kernel<T, V>), on
-// qmatmul_kernel + splitk_reduce the largest B1 family of a qwen2 decode
-// step (1536 -> 1536 / 8960 at 12 % of the bytes bound).  There x was
+// q4_k's 2-D form at M <= 4 (qmatmul_q4k_decode_kernel<T, V>), on the
+// first draft the largest B1 family of a qwen2 decode step (1536 -> 1536 /
+// 8960 at 12 % of the bytes bound).  There x was
 // restaged per superblock behind two barriers with no weight bytes in
 // flight, each weight took an int-to-float conversion, each thread had one
 // 4-byte load a field row in flight, and the split over K cost a second
@@ -108,9 +99,9 @@
 // distributed shared memory: one launch, deterministic.  A zero row of x
 // gives +0, as the plain version does.
 //
-// q6_k's, q3_k's, q2_k's and q8_0's 2-D forms at M <= 4 on tensor cores
-// (qmatmul_mma_decode_kernel<T, FMT, V>), for q6_k on qmatmul_kernel +
-// splitk_reduce the largest B1 family left (qwen2's
+// The 2-D forms at M <= 4 of q6_k, q3_k, q5_k, q2_k and q8_0 on tensor
+// cores (qmatmul_mma_decode_kernel<T, FMT, V>), for q6_k on the first draft
+// the largest B1 family left (qwen2's
 // down, attn_k, attn_v; DeepSeek's output, attn_kv_a_mqa and dense downs):
 // the same restaging, conversions and second launch held it back, and a
 // copy of q4_k's CUDA-core design would stop at the same issue wall (q6_k's
@@ -162,13 +153,28 @@
 // fp16 d), an int8 code is its low 7 bits through code_pair with a bias of
 // -128, or -256 where its sign bit is set (the prefill form's conversion),
 // and a block past the field's last (K % 128 != 0) is neither copied nor
-// read: its stale d could be an Inf, and 0 x Inf is NaN.  Both keep the
-// block's shape, the x fragments and the cluster merge, so q6_k's and
-// q3_k's instances compute their former bits.
+// read: its stale d could be an Inf, and 0 x Inf is NaN.  q5_k (FMT 3)
+// takes q6_k's element order: qs rows r and r + 64 give the low nibbles of
+// elements r + 64p as q6_k's ql rows do, and bit r / 32 + 2p of qh row r %
+// 32 their high bits, as q3_k's hmask (q5k_codes: q6k_codes's integer ops
+// and one shift a qh word); a code is at most 31, exact under code_pair's exponent with a bias
+// of -128; the 16-element piece r + 64p is half of the 32-element sub-block
+// j0 / 2 + 2p, whose u8 scale scales D (2^23 + sc, no mask).  Its min
+// term, dmin m sum x a 32-element sub-block, stays off the mma warps'
+// fragments (q2_k's way, sums of x from the B fragments and 16 FMAs a
+// piece and lane, ran 2-10 % slower; one more mma a piece spilled):
+// in each stage warp w takes row w % 4 of x and four sub-blocks, lane l
+// four columns (q5k_min_stage: x's sub-block sums by shuffles, one 4-byte
+// load a mins row, ~70 instructions a thread), and the block's sums less
+// these at the end.  A q5_k stage is 25.3 KB of padded fields
+// (qs 128, qh 32, scales 8 and mins 8 rows, d and dmin): three stages and
+// x's rows, 82 KB (f32 x 88 KB), leave two blocks an SM.  All of them keep the
+// block's shape, the x fragments and the cluster merge, so q6_k's, q3_k's,
+// q2_k's and q8_0's instances compute their former bits.
 //
 // The 2-D form at M > 4 of every format on tensor cores
 // (qmatmul_prefill_kernel<T, FMT, V, ROWS>): every prefill chunk of the
-// engine is 4 x 128 = 512 rows, where qmatmul_kernel ran at ~25 TFLOP/s
+// engine is 4 x 128 = 512 rows, where the first draft ran at ~25 TFLOP/s
 // (2.5 % of the bf16 peak): its 16-row tile decoded each weight again for
 // every 16 rows, with an int-to-float conversion and 16 f32 FMAs a weight,
 // and x was restaged a superblock at a time behind two barriers with no
@@ -303,82 +309,15 @@ __device__ __forceinline__ void load4_half(const __half* p, float (&out)[4]) {
   out[3] = __high2float(b);
 }
 
-__device__ __forceinline__ uint32_t load4_u8(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t byte_of(uint32_t word, int c) {
   return (word >> (8 * c)) & 0xFFu;
-}
-
-template <int MT>
-__device__ __forceinline__ void fma_rows(float (&acc)[MT][4], const float* xs,
-                                         int k, const float (&w)[4]) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const float xv = xs[m * QK + k];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xv, w[c], acc[m][c]);
-  }
-}
-
-// q5_k: qs (S,128,N) u8, qh (S,32,N) u8 (byte k holds the high bit of
-// element k+32b in bit b), scales (S,8,N) u8, mins (S,8,N) u8, d/dmin (S,N)
-// f16.  Warp w takes sub-blocks w and w+4, as q4_k: qs byte rows
-// 32w..32w+31 (element 32w+j in the low nibble, 128+32w+j in the high one)
-// and bits w and w+4 of all 32 qh byte rows.
-template <int MT>
-__device__ __forceinline__ void q5k_superblock(
-    const uint8_t* __restrict__ qs, const uint8_t* __restrict__ qh,
-    const uint8_t* __restrict__ scales, const uint8_t* __restrict__ mins,
-    const __half* __restrict__ d, const __half* __restrict__ dmin, int s,
-    int N, int n0, int w, const float* xs, float (&acc)[MT][4]) {
-  float dd[4], dm[4];
-  load4_half(d + (size_t)s * N + n0, dd);
-  load4_half(dmin + (size_t)s * N + n0, dm);
-  const uint32_t sl = load4_u8(scales + ((size_t)s * 8 + w) * N + n0);
-  const uint32_t sh = load4_u8(scales + ((size_t)s * 8 + w + 4) * N + n0);
-  const uint32_t ml = load4_u8(mins + ((size_t)s * 8 + w) * N + n0);
-  const uint32_t mh = load4_u8(mins + ((size_t)s * 8 + w + 4) * N + n0);
-  float es_lo[4], em_lo[4], es_hi[4], em_hi[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    es_lo[c] = (float)byte_of(sl, c) * dd[c];
-    es_hi[c] = (float)byte_of(sh, c) * dd[c];
-    em_lo[c] = (float)byte_of(ml, c) * dm[c];
-    em_hi[c] = (float)byte_of(mh, c) * dm[c];
-  }
-  const uint8_t* row = qs + ((size_t)s * 128 + 32 * w) * N + n0;
-  const uint8_t* hrow = qh + (size_t)s * 32 * N + n0;
-  uint32_t b[32], h[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    b[j] = load4_u8(row + (size_t)j * N);
-    h[j] = load4_u8(hrow + (size_t)j * N);
-  }
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    // the four columns' 5-bit codes at once, one per byte (w + 4 <= 7: no
-    // bit crosses into the next byte's field)
-    const uint32_t lo = (b[j] & 0x0F0F0F0Fu) | (((h[j] >> w) & 0x01010101u) << 4);
-    const uint32_t hi = ((b[j] >> 4) & 0x0F0F0F0Fu) |
-                        (((h[j] >> (w + 4)) & 0x01010101u) << 4);
-    float wl[4], wh[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      wl[c] = __fsub_rn(__fmul_rn((float)byte_of(lo, c), es_lo[c]), em_lo[c]);
-      wh[c] = __fsub_rn(__fmul_rn((float)byte_of(hi, c), es_hi[c]), em_hi[c]);
-    }
-    fma_rows<MT>(acc, xs, 32 * w + j, wl);
-    fma_rows<MT>(acc, xs, 128 + 32 * w + j, wh);
-  }
 }
 
 // Formats: 0 q4_k, 1 q6_k, 2 q3_k, 3 q5_k, 4 q2_k, 5 q8_0.  Their fields,
 // in the order the C entry point takes them, each as its byte rows per 256
 // rows of K (a row holds one element per output column) and the bytes of
-// one element; {0, 0} past a format's last field.  The field count, the
-// bytes that place an expert's slab and a stage's rows all derive from it.
+// one element; {0, 0} past a format's last field.  The field count and a
+// stage's rows derive from it.
 constexpr int MAXF = 6;
 constexpr int Q8_0 = 5;
 struct FieldLayout {
@@ -417,12 +356,6 @@ __host__ __device__ constexpr int num_fields(int fmt) {
   while (n < MAXF && field_layout(fmt, n).rows > 0) ++n;
   return n;
 }
-// field g's bytes per output column per block of the format (256 rows;
-// q8_0: 32), which place expert e's slab of the field
-__host__ __device__ constexpr int field_bytes(int fmt, int g) {
-  return field_layout(fmt, g).rows * field_layout(fmt, g).esz /
-         (fmt == Q8_0 ? QK / 32 : 1);
-}
 
 struct Fields {
   const uint8_t* p[MAXF];
@@ -430,92 +363,6 @@ struct Fields {
 
 __device__ __forceinline__ const __half* as_half(const uint8_t* p) {
   return reinterpret_cast<const __half*>(p);
-}
-
-template <typename T, int MT, int FMT, bool EXPERTS>
-__global__ void __launch_bounds__(NTHREADS)
-    qmatmul_kernel(const T* __restrict__ x, Fields f,
-                   float* __restrict__ partial, T* __restrict__ out, int M,
-                   int K, int N, int splits, int row_tiles) {
-  static_assert(FMT == 3, "every format but q5_k has forms of its own");
-  constexpr int XS = MT * QK;
-  constexpr int RED = (TY - 1) * MT * COLS;
-  __shared__ float smem[XS > RED ? XS : RED];
-
-  const int tx = threadIdx.x, w = threadIdx.y, tid = w * TX + tx;
-  const int n0 = blockIdx.x * COLS + tx * 4;
-  const int split = blockIdx.y;
-  const int m0 = (EXPERTS ? blockIdx.z % row_tiles : blockIdx.z) * MT;
-  // 256-row tiles of K (the fields' S)
-  const int tiles = (K + QK - 1) / QK;
-  if (EXPERTS) {
-    // expert e's slices of x, out and every field
-    const size_t e = blockIdx.z / row_tiles, sn = (size_t)tiles * N;
-    x += e * M * K;
-    out += e * M * N;
-#pragma unroll
-    for (int i = 0; i < MAXF; ++i) f.p[i] += e * sn * field_bytes(FMT, i);
-  }
-  const int s_begin = (int)((long long)tiles * split / splits);
-  const int s_end = (int)((long long)tiles * (split + 1) / splits);
-  const bool col_ok = n0 < N;
-
-  float acc[MT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
-
-  for (int s = s_begin; s < s_end; ++s) {
-    __syncthreads();
-    for (int idx = tid; idx < XS; idx += NTHREADS) {
-      const int m = idx / QK, k = s * QK + idx % QK;
-      smem[idx] = (m0 + m < M && k < K) ? to_f32<T>(x[(size_t)(m0 + m) * K + k])
-                                        : 0.f;
-    }
-    __syncthreads();
-    if (col_ok)
-      q5k_superblock<MT>(f.p[0], f.p[1], f.p[2], f.p[3], as_half(f.p[4]),
-                         as_half(f.p[5]), s, N, n0, w, smem, acc);
-  }
-
-  // fixed-order reduction of the four warps' partial sums
-  __syncthreads();
-  if (w > 0 && col_ok) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        smem[((w - 1) * MT + m) * COLS + tx * 4 + c] = acc[m][c];
-  }
-  __syncthreads();
-  if (w == 0 && col_ok) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const int gm = m0 + m;
-      if (gm >= M) break;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float v = acc[m][c];
-#pragma unroll
-        for (int r = 0; r < TY - 1; ++r) v += smem[(r * MT + m) * COLS + tx * 4 + c];
-        if (splits == 1)
-          out[(size_t)gm * N + n0 + c] = from_f32<T>(v);
-        else
-          partial[((size_t)split * M + gm) * N + n0 + c] = v;
-      }
-    }
-  }
-}
-
-template <typename T>
-__global__ void splitk_reduce(const float* __restrict__ partial,
-                              T* __restrict__ out, long long mn, int splits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float v = 0.f;
-  for (int sp = 0; sp < splits; ++sp) v += partial[sp * mn + i];
-  out[i] = from_f32<T>(v);
 }
 
 // ---------------------------------------------------------------------------
@@ -528,9 +375,6 @@ __global__ void splitk_reduce(const float* __restrict__ partial,
 // one 16-byte load gives the elements a warp needs next), is each format's
 // own (xperm, and the stage functions below).
 // ---------------------------------------------------------------------------
-
-// the formats whose expert form is qmatmul_experts_kernel (all but q5_k)
-constexpr bool own_expert_kernel(int fmt) { return fmt != 3; }
 
 // stages in the ring: at C = 1 two (one in flight while one is
 // consumed; four blocks of q2_k then fit an SM, three of q3_k, q4_k and
@@ -583,9 +427,9 @@ __host__ __device__ constexpr int stage_bytes(int fmt) {
   return xf_off(fmt, num_fields(fmt));
 }
 // sums of x a C = 1 block keeps per stage: one per sub-block whose min is
-// factored out (q2_k 16 of 16 elements, q4_k 8 of 32)
+// factored out (q2_k 16 of 16 elements, q4_k and q5_k 8 of 32)
 __host__ __device__ constexpr int xsums(int fmt) {
-  return fmt == 4 ? 16 : fmt == 0 ? 8 : 0;
+  return fmt == 4 ? 16 : fmt == 0 || fmt == 3 ? 8 : 0;
 }
 
 // A thread's share of the copies of one stage (SK rows of K) of the
@@ -882,11 +726,11 @@ __device__ __forceinline__ void load_x(const T* row, int k0, int K, bool vec,
 
 // where element k of a stage sits in shared memory: q3_k, q2_k, q6_k (16w
 // + j, p) for k = 16w + j + 64p (a byte row's four bit-pairs; q6_k: ql
-// rows 16w + j and 64 + 16w + j and qh row 16w + j); q4_k (j, h) for k = j
-// + 128h (a byte row's two nibbles); q8_0 in order
+// rows 16w + j and 64 + 16w + j and qh row 16w + j); q4_k and q5_k (j, h)
+// for k = j + 128h (a byte row's two nibbles); q8_0 in order
 template <int FMT>
 __device__ __forceinline__ int xperm(int k) {
-  if constexpr (FMT == 0)
+  if constexpr (FMT == 0 || FMT == 3)
     return ((k & 127) << 1) + (k >> 7);
   else if constexpr (FMT == Q8_0)
     return k;
@@ -990,6 +834,111 @@ __device__ __forceinline__ void q4k_stage_rows(const uint8_t* stage,
   }
 }
 
+// q5_k, C = 1: q4_k's split, with the high bits.  Warp w takes qs byte rows
+// 32w .. 32w + 31 (elements 32w + j of sub-block w in the low nibbles, 128
+// + 32w + j of sub-block 4 + w in the high ones) and bits w and 4 + w of qh
+// rows 0 .. 31 (row j holds their high bits).  A 5-bit code placed in bits
+// 2-6 of its byte becomes 0.5 + q/64 in one byte permute (five integer ops
+// a word place four codes, from a qs word and a qh word shifted by w once),
+// so a weight costs one permute, ~1.25 integer ops and one FMA.  Per
+// sub-block and column: sum x q = 64 (part - xsum / 2), and y += 64 d
+// sum_sub sc (part - xsum / 2) - dmin sum_sub m xsum, with the sums of x
+// per sub-block (``xsum_s``) taken once per block.
+__device__ __forceinline__ void q5k_stage_c1(const uint8_t* stage,
+                                             const float* xsb,
+                                             const float* xsum_s, int w,
+                                             int l, float (&acc)[4]) {
+  const uint8_t* qrow = stage + 32 * w * COLS + 4 * l;
+  const uint8_t* hrow = stage + xf_off(3, 1) + 4 * l;
+  const float* xr = xsb + 64 * w;
+  float plo[4] = {0.f, 0.f, 0.f, 0.f}, phi[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int j = 0; j < 32; j += 2) {
+    const float4 xv = *reinterpret_cast<const float4*>(xr + 2 * j);
+    const uint32_t q0 = *reinterpret_cast<const uint32_t*>(qrow + j * COLS);
+    const uint32_t q1 =
+        *reinterpret_cast<const uint32_t*>(qrow + (j + 1) * COLS);
+    // bits w and 4 + w of the qh rows to bits 0 and 4
+    const uint32_t h0 =
+        *reinterpret_cast<const uint32_t*>(hrow + j * COLS) >> w;
+    const uint32_t h1 =
+        *reinterpret_cast<const uint32_t*>(hrow + (j + 1) * COLS) >> w;
+    const uint32_t lo0 = ((q0 << 2) & 0x3C3C3C3Cu) | ((h0 << 6) & 0x40404040u);
+    const uint32_t hi0 = ((q0 >> 2) & 0x3C3C3C3Cu) | ((h0 << 2) & 0x40404040u);
+    const uint32_t lo1 = ((q1 << 2) & 0x3C3C3C3Cu) | ((h1 << 6) & 0x40404040u);
+    const uint32_t hi1 = ((q1 >> 2) & 0x3C3C3C3Cu) | ((h1 << 2) & 0x40404040u);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      plo[c] = fmaf(xv.x, code_half(lo0, c), plo[c]);
+      phi[c] = fmaf(xv.y, code_half(hi0, c), phi[c]);
+      plo[c] = fmaf(xv.z, code_half(lo1, c), plo[c]);
+      phi[c] = fmaf(xv.w, code_half(hi1, c), phi[c]);
+    }
+  }
+  const uint8_t* sc = stage + xf_off(3, 2) + 4 * l;
+  const uint8_t* mn = stage + xf_off(3, 3) + 4 * l;
+  const uint32_t sl = *reinterpret_cast<const uint32_t*>(sc + w * COLS);
+  const uint32_t sh = *reinterpret_cast<const uint32_t*>(sc + (4 + w) * COLS);
+  const uint32_t ml = *reinterpret_cast<const uint32_t*>(mn + w * COLS);
+  const uint32_t mh = *reinterpret_cast<const uint32_t*>(mn + (4 + w) * COLS);
+  const float xl = xsum_s[w], xh = xsum_s[4 + w];
+  float dd[4], dm[4];
+  load4_half(as_half(stage + xf_off(3, 4)) + 4 * l, dd);
+  load4_half(as_half(stage + xf_off(3, 5)) + 4 * l, dm);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float a1 = fmaf((float)byte_of(sl, c), plo[c] - 0.5f * xl,
+                          (float)byte_of(sh, c) * (phi[c] - 0.5f * xh));
+    const float a2 =
+        fmaf((float)byte_of(ml, c), xl, (float)byte_of(mh, c) * xh);
+    acc[c] = fmaf(64.f * dd[c], a1, acc[c]);
+    acc[c] = fmaf(-dm[c], a2, acc[c]);
+  }
+}
+
+// q5_k, C > 1: q4k_stage_rows with the high bits: each weight dequantized
+// once to the plain version's q * (sc * d) - m * dmin (q * (sc * d) is
+// exact, 5 x 17 significant bits, so one FMA rounds as the plain version's
+// product and subtraction do), then one FMA per row; x is the stage's
+// (256, XROWS) tile.
+__device__ __forceinline__ void q5k_stage_rows(const uint8_t* stage,
+                                               const float* xt, int w, int l,
+                                               float (&acc)[XROWS][4]) {
+  const uint8_t* qrow = stage + 32 * w * COLS + 4 * l;
+  const uint8_t* hrow = stage + xf_off(3, 1) + 4 * l;
+  float dd[4], dm[4], es[2][4], nem[2][4];
+  load4_half(as_half(stage + xf_off(3, 4)) + 4 * l, dd);
+  load4_half(as_half(stage + xf_off(3, 5)) + 4 * l, dm);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t sc = *reinterpret_cast<const uint32_t*>(
+        stage + xf_off(3, 2) + (w + 4 * h) * COLS + 4 * l);
+    const uint32_t mn = *reinterpret_cast<const uint32_t*>(
+        stage + xf_off(3, 3) + (w + 4 * h) * COLS + 4 * l);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      es[h][c] = __fmul_rn(dd[c], (float)byte_of(sc, c));
+      nem[h][c] = -__fmul_rn(dm[c], (float)byte_of(mn, c));
+    }
+  }
+#pragma unroll 2
+  for (int j = 0; j < 32; ++j) {
+    const uint32_t q = *reinterpret_cast<const uint32_t*>(qrow + j * COLS);
+    const uint32_t hb =
+        *reinterpret_cast<const uint32_t*>(hrow + j * COLS) >> w;
+    const uint32_t t[2] = {(q & 0x0F0F0F0Fu) | ((hb << 4) & 0x10101010u),
+                           ((q >> 4) & 0x0F0F0F0Fu) | (hb & 0x10101010u)};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float wv[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        wv[c] = fmaf(code_f32(t[h], c) - kMagic, es[h][c], nem[h][c]);
+      fma_xrows(xt + (2 * (32 * w + j) + h) * XROWS, wv, acc);
+    }
+  }
+}
+
 // q6_k: the four columns' 6-bit codes of elements r, r + 64, r + 128 and r
 // + 192 (t[p] for element r + 64p, one code a byte), from ql rows r (``lo``)
 // and r + 64 (``hi``) and qh row r: ql row r's low and high nibbles are
@@ -1001,6 +950,19 @@ __device__ __forceinline__ void q6k_codes(uint32_t lo, uint32_t hi,
   t[1] = (hi & 0x0F0F0F0Fu) | ((qh << 2) & 0x30303030u);
   t[2] = ((lo >> 4) & 0x0F0F0F0Fu) | (qh & 0x30303030u);
   t[3] = ((hi >> 4) & 0x0F0F0F0Fu) | ((qh >> 2) & 0x30303030u);
+}
+
+// q5_k: the four columns' 5-bit codes of elements r, r + 64, r + 128 and r
+// + 192 (t[p] for element r + 64p, one code a byte), from qs rows r (``lo``)
+// and r + 64 (``hi``) and qh row r % 32 shifted right by r / 32 (``qh``):
+// qs rows as q6_k's ql rows, and element r + 64p's high bit is bit r / 32 +
+// 2p of qh row r % 32, bit 2p of ``qh``.
+__device__ __forceinline__ void q5k_codes(uint32_t lo, uint32_t hi,
+                                          uint32_t qh, uint32_t (&t)[4]) {
+  t[0] = (lo & 0x0F0F0F0Fu) | ((qh << 4) & 0x10101010u);
+  t[1] = (hi & 0x0F0F0F0Fu) | ((qh << 2) & 0x10101010u);
+  t[2] = ((lo >> 4) & 0x0F0F0F0Fu) | (qh & 0x10101010u);
+  t[3] = ((hi >> 4) & 0x0F0F0F0Fu) | ((qh >> 2) & 0x10101010u);
 }
 
 // q6_k, C = 1.  Warp w takes qh rows 16w .. 16w + 15 and the ql rows r and
@@ -1272,6 +1234,8 @@ __global__ void __launch_bounds__(NTHREADS)
     if constexpr (ROWS == 1) {
       if constexpr (FMT == 0)
         q4k_stage_c1(stage, xs + s * SK, xsum + 8 * s, w, l, acc[0]);
+      else if constexpr (FMT == 3)
+        q5k_stage_c1(stage, xs + s * SK, xsum + 8 * s, w, l, acc[0]);
       else if constexpr (FMT == 1)
         q6k_stage_c1(stage, xs + s * SK, w, l, acc[0]);
       else if constexpr (FMT == Q8_0)
@@ -1298,6 +1262,8 @@ __global__ void __launch_bounds__(NTHREADS)
       __syncthreads();
       if constexpr (FMT == 0)
         q4k_stage_rows(stage, xs, w, l, acc);
+      else if constexpr (FMT == 3)
+        q5k_stage_rows(stage, xs, w, l, acc);
       else if constexpr (FMT == 1)
         q6k_stage_rows(stage, xs, w, l, acc);
       else if constexpr (FMT == Q8_0)
@@ -1571,31 +1537,36 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 // ---------------------------------------------------------------------------
-// The 2-D forms of q6_k, q3_k, q2_k and q8_0 at M <= 4 on tensor cores:
-// qmatmul_mma_decode_kernel<T, FMT, V> (see the header).  A cluster of
-// ``ks`` blocks (up to 16, a non-portable size) owns 128 columns; block
+// The 2-D forms of q6_k, q3_k, q5_k, q2_k and q8_0 at M <= 4 on tensor
+// cores: qmatmul_mma_decode_kernel<T, FMT, V> (see the header).  A cluster
+// of ``ks`` blocks (up to 16, a non-portable size) owns 128 columns; block
 // ``rank`` walks its share of the stages (md_k(FMT) rows of K each: a
 // superblock, MD_Q2_SUPERBLOCKS of q2_k's, or MD_Q8_BLOCKS q8_0 blocks of
 // 32).  Warp w (of 8) takes the 64 columns of half w % 2 and group j0 = w /
 // 2 of every stage:
-//  - q6_k, q3_k, q2_k: sub-blocks j0, j0 + 4, j0 + 8, j0 + 12 of each
-//    superblock (elements r + 64p, r = 16 j0 .. 16 j0 + 15: q6_k's ql rows r
-//    and r + 64 and qh row r give them, q3_k's and q2_k's qs row r
-//    (bit-pair p) and q3_k's hmask row r % 32 (bit r / 32 + 2p), so that
-//    the formats share the fragment mapping below);
+//  - q6_k, q3_k, q5_k, q2_k: the 16-element pieces j0, j0 + 4, j0 + 8, j0 +
+//    12 of each superblock (elements r + 64p, r = 16 j0 .. 16 j0 + 15:
+//    q6_k's and q5_k's ql / qs rows r and r + 64 give their low bits, q6_k's
+//    qh row r its high bit-pairs, q3_k's and q2_k's qs row r bit-pair p,
+//    q3_k's hmask row r % 32 and q5_k's qh row r % 32 bit r / 32 + 2p, so
+//    that the formats share the fragment mapping below); a piece is a
+//    sub-block of q6_k, q3_k and q2_k, half of one (j0 / 2 + 2p) of q5_k;
 //  - q8_0: blocks j0, j0 + 4, ... of the stage, two 16-element halves each.
 // One mma.sync.m16n8k16 a (16 elements, 16 columns): A is the weight tile
 // (16 columns x 16 elements, the codes as exact bf16: q - 32 (q6_k), (q - 4)
-// 2^q3_shift(p) (q3_k), q 2^q3_shift(p) (q2_k), q (q8_0)), B the elements'
-// x (16 x 8 rows, rows past DROWS zero), D (columns x rows).  q6_k, q3_k,
-// q2_k: D is scaled in f32 by the sub-block's scale (q3_k and q2_k: times
-// 2^-q3_shift(p), folded into the scale's conversion) and, once a
-// superblock, by its d; q2_k's min term dmin m sum x takes the sub-block's
-// sums of x's rows from the B fragments (md_xsums), times each column's m
-// into a second accumulator, scaled once a superblock by -dmin.  q8_0: a
-// block's two mmas accumulate into one D, scaled once by the block's d.  mma row g (g + 8) of tile c is column
-// 4g + c (32 + 4g + c) of the warp's 64, so that one 4-byte shared load of
-// a byte row gives a row's codes for all four tiles.
+// 2^q3_shift(p) (q3_k), q (q5_k), q 2^q3_shift(p) (q2_k), q (q8_0)), B the
+// elements' x (16 x 8 rows, rows past DROWS zero), D (columns x rows).
+// q6_k, q3_k, q5_k, q2_k: D is scaled in f32 by the piece's scale (q3_k and
+// q2_k: times 2^-q3_shift(p), folded into the scale's conversion) and, once
+// a superblock, by its d; q2_k's min term dmin m sum x takes the
+// sub-block's sums of x's rows from the B fragments (md_xsums), times each
+// column's m into a second accumulator, scaled once a superblock by -dmin;
+// q5_k's is taken by every thread in a layout of its own (q5k_min_stage)
+// from x's staged rows.
+// q8_0: a block's two mmas accumulate into one D, scaled once by the
+// block's d.  mma row g (g + 8) of tile c is column 4g + c (32 + 4g + c) of
+// the warp's 64, so that one 4-byte shared load of a byte row gives a row's
+// codes for all four tiles.
 // ---------------------------------------------------------------------------
 
 constexpr int MD_THREADS = 256;  // 8 warps: 2 column halves x 4 groups
@@ -1612,12 +1583,12 @@ constexpr int MD_MAX_KSPLIT = 16;   // blocks a cluster (non-portable)
 constexpr int MD_Q2_SUPERBLOCKS = 1;
 constexpr int MD_Q8_BLOCKS = 4;
 
-// the formats of this form, and a stage's format blocks and rows of K; a
-// stage is the weights (q6_k 29.5 KB, q3_k 16.0 KB, q2_k 11.8 KB a
-// superblock, q8_0 19.1 KB for 4 blocks, with their rows padded), then x's
-// DROWS rows of it
+// the formats of this form (all but q4_k), and a stage's format blocks and
+// rows of K; a stage is the weights (q6_k 29.5 KB, q5_k 25.3 KB, q3_k 16.0
+// KB, q2_k 11.8 KB a superblock, q8_0 19.1 KB for 4 blocks, with their rows
+// padded), then x's DROWS rows of it
 __host__ __device__ constexpr bool has_mma_decode(int fmt) {
-  return fmt == 1 || fmt == 2 || fmt == 4 || fmt == Q8_0;
+  return fmt != 0;
 }
 __host__ __device__ constexpr int md_blocks(int fmt) {
   return fmt == Q8_0 ? MD_Q8_BLOCKS : fmt == 4 ? MD_Q2_SUPERBLOCKS : 1;
@@ -1738,8 +1709,8 @@ __device__ __forceinline__ void md_xsums(const uint32_t (&b)[x_terms<T>()][2],
   s1 = __shfl_sync(0xFFFFFFFFu, v, 8 * t + 4);
 }
 
-// Superblock bb of a q6_k, q3_k or q2_k stage (128 columns), warp (half,
-// j0): see above.
+// Superblock bb of a q6_k, q3_k, q5_k or q2_k stage (128 columns), warp
+// (half, j0): see above.
 template <typename T, int FMT>
 __device__ __forceinline__ void mma_decode_superblock(const uint8_t* stage,
                                                       const T* xs, int bb,
@@ -1748,9 +1719,11 @@ __device__ __forceinline__ void mma_decode_superblock(const uint8_t* stage,
                                                       float (&acc)[4][4]) {
   constexpr int NT = x_terms<T>();
   constexpr int XP = md_xpitch(FMT);
-  // the fields: q6_k ql, qh, scales, d; q3_k qs, hmask, scales, d; q2_k
-  // qs, sm (scale and min), d, dmin
-  constexpr int SC = FMT == 4 ? 1 : 2, DF = FMT == 4 ? 2 : 3;
+  // the fields: q6_k ql, qh, scales, d; q3_k qs, hmask, scales, d; q5_k qs,
+  // qh, scales, mins, d, dmin (its min term: q5k_min_stage); q2_k qs, sm
+  // (scale and min), d, dmin
+  constexpr int SC = FMT == 4 ? 1 : 2;              // scales (q2_k: sm)
+  constexpr int DF = FMT == 4 ? 2 : FMT == 3 ? 4 : 3;   // d
   const int col = half * 64 + 4 * g;      // + 32 for mma rows g + 8
   const uint8_t* ql = md_field<FMT, 0>(stage, bb) + col;
   const uint8_t* sc = md_field<FMT, SC>(stage, bb) + col;
@@ -1787,6 +1760,18 @@ __device__ __forceinline__ void mma_decode_superblock(const uint8_t* stage,
           q6k_codes(*reinterpret_cast<const uint32_t*>(lp + MD_PITCH),
                     *reinterpret_cast<const uint32_t*>(lp + 65 * MD_PITCH),
                     *reinterpret_cast<const uint32_t*>(hp + MD_PITCH), tb);
+        } else if constexpr (FMT == 3) {
+          // qh rows r % 32 and r % 32 + 1, bits r / 32 + 2p (r / 32 = j0 /
+          // 2 for all of the warp's rows), as q3_k's hmask
+          const uint8_t* hp = qh + (r & 31) * MD_PITCH + 32 * cg;
+          const int hb = j0 >> 1;
+          q5k_codes(*reinterpret_cast<const uint32_t*>(lp),
+                    *reinterpret_cast<const uint32_t*>(lp + 64 * MD_PITCH),
+                    *reinterpret_cast<const uint32_t*>(hp) >> hb, ta);
+          q5k_codes(*reinterpret_cast<const uint32_t*>(lp + MD_PITCH),
+                    *reinterpret_cast<const uint32_t*>(lp + 65 * MD_PITCH),
+                    *reinterpret_cast<const uint32_t*>(hp + MD_PITCH) >> hb,
+                    tb);
         } else {
           // hmask rows r % 32 and r % 32 + 1, bits r / 32 + 2p (r / 32 =
           // j0 / 2 for all of the warp's rows)
@@ -1805,7 +1790,7 @@ __device__ __forceinline__ void mma_decode_superblock(const uint8_t* stage,
       }
     }
   }
-  float part[4][4];    // sum over the stage's sub-blocks of sc x D
+  float part[4][4];    // sum over the stage's pieces of sc x D
   float pmin[4][4];    // q2_k: sum over them of m x sum x
 #pragma unroll
   for (int c = 0; c < 4; ++c)
@@ -1813,33 +1798,36 @@ __device__ __forceinline__ void mma_decode_superblock(const uint8_t* stage,
     for (int v = 0; v < 4; ++v) part[c][v] = pmin[c][v] = 0.f;
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
-    const int i = j0 + 4 * p;   // the sub-block
+    const int i = j0 + 4 * p;   // the piece
+    // its row of the scale fields: q5_k's 32-element sub-block i / 2
+    const int si = FMT == 3 ? (j0 >> 1) + 2 * p : i;
     uint32_t b[NT][2];
     md_xfrag<T, XP>(xs, 16 * bb + i, g, t, b);
     float xs0 = 0.f, xs1 = 0.f;   // q2_k: the sums of x's rows 2t, 2t + 1
     if constexpr (FMT == 4) md_xsums<T>(b, t, xs0, xs1);
     // the scales of rows g, g + 8: q6_k's and q3_k's int8 ones as 2^23 +
     // 128 + sc (one XOR a word, one byte permute a scale, no
-    // int-to-float), q2_k's low nibbles as 2^23 + sc
-    uint32_t s0 = *reinterpret_cast<const uint32_t*>(sc + i * MD_PITCH);
-    uint32_t s1 = *reinterpret_cast<const uint32_t*>(sc + i * MD_PITCH + 32);
-    uint32_t m0 = 0, m1 = 0;   // q2_k: the min codes (high nibbles)
+    // int-to-float), q5_k's u8 ones as 2^23 + sc, q2_k's low nibbles as
+    // 2^23 + sc
+    uint32_t s0 = *reinterpret_cast<const uint32_t*>(sc + si * MD_PITCH);
+    uint32_t s1 = *reinterpret_cast<const uint32_t*>(sc + si * MD_PITCH + 32);
+    uint32_t m0 = 0, m1 = 0;   // q2_k: sm's high nibbles
     if constexpr (FMT == 4) {
       m0 = (s0 >> 4) & 0x0F0F0F0Fu;
       m1 = (s1 >> 4) & 0x0F0F0F0Fu;
       s0 &= 0x0F0F0F0Fu;
       s1 &= 0x0F0F0F0Fu;
-    } else {
+    } else if constexpr (FMT != 3) {
       s0 ^= 0x80808080u;
       s1 ^= 0x80808080u;
     }
-    constexpr uint32_t BIAS = FMT == 1 ? Q6_BIAS : 0u;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       // tile c: the pair of bytes c of a column's two elements
       const int k = (c >> 1) * 4 + p;
       const uint32_t sel = c & 1 ? 0x4342 : 0x4140;
-      const uint32_t bias = FMT == 1 ? BIAS : FMT == 2 ? q3_bias(p) : Q4_BIAS;
+      const uint32_t bias = FMT == 1 ? Q6_BIAS : FMT == 2 ? q3_bias(p)
+                                                          : Q4_BIAS;
       const uint32_t a[4] = {code_pair(w[0][0][k], sel, bias),
                              code_pair(w[0][1][k], sel, bias),
                              code_pair(w[1][0][k], sel, bias),
@@ -1848,9 +1836,10 @@ __device__ __forceinline__ void mma_decode_superblock(const uint8_t* stage,
 #pragma unroll
       for (int u = 0; u < NT; ++u) mma_bf16(d, a, b[u][0], b[u][1]);
       float e0, e1;
-      if constexpr (FMT == 1) {
-        e0 = code_f32(s0, c) - (kMagic + 128.f);
-        e1 = code_f32(s1, c) - (kMagic + 128.f);
+      if constexpr (FMT == 1 || FMT == 3) {
+        constexpr float off = FMT == 1 ? kMagic + 128.f : kMagic;
+        e0 = code_f32(s0, c) - off;
+        e1 = code_f32(s1, c) - off;
       } else {
         // sc 2^-q3_shift(p), exactly: D carries the codes' 2^q3_shift(p)
         const float sh = p == 0 ? 1.f : p == 1 ? 0.25f : 0.0625f;
@@ -1971,13 +1960,59 @@ __device__ __forceinline__ void mma_decode_q8_0(const uint8_t* stage,
   }
 }
 
+// q5_k's min term of one stage (a superblock), off the tensor-core warps'
+// fragments: warp w takes row w % 4 of x (staged at ``xr``) and the
+// sub-blocks 4 (w / 4) .. 4 (w / 4) + 3, lane l the columns 4l .. 4l + 3.
+// The warp sums x over its sub-blocks (lane l four elements, three
+// shuffles a group of 8 lanes, four more give every lane the four sums),
+// then pm[c] += dmin * sum_sub m * sum x (one 4-byte shared load a mins
+// row, conflict-free): ~70 instructions a thread a stage.  The same term
+// taken per 16-element piece from the mma fragments (q2_k's way) ran
+// 2-10 % slower, one more mma a piece 4-11 % slower with spills, and x's
+// sums made once per block from global memory 3-4 % slower
+// (scripts/decode_ablation.py); the term still costs 9-17 % of the kernel.
+template <typename T>
+__device__ __forceinline__ void q5k_min_stage(const uint8_t* stage,
+                                              const T* xr, int sh, int l,
+                                              float (&pm)[4]) {
+  float v = 0.f;
+  const T* xe = xr + 128 * sh + 4 * l;
+  if constexpr (sizeof(T) == 2) {
+    const uint2 u = *reinterpret_cast<const uint2*>(xe);
+    v = (__uint_as_float(u.x << 16) + __uint_as_float(u.x & 0xFFFF0000u)) +
+        (__uint_as_float(u.y << 16) + __uint_as_float(u.y & 0xFFFF0000u));
+  } else {
+    const float4 u = *reinterpret_cast<const float4*>(xe);
+    v = (u.x + u.y) + (u.z + u.w);
+  }
+  v += __shfl_xor_sync(0xFFFFFFFFu, v, 1);
+  v += __shfl_xor_sync(0xFFFFFFFFu, v, 2);
+  v += __shfl_xor_sync(0xFFFFFFFFu, v, 4);
+  float xsub[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) xsub[i] = __shfl_sync(0xFFFFFFFFu, v, 8 * i);
+  const uint8_t* mn = md_field<3, 3>(stage, 0) + 4 * sh * MD_PITCH + 4 * l;
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t m = *reinterpret_cast<const uint32_t*>(mn + i * MD_PITCH);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      part[c] = fmaf(code_f32(m, c) - kMagic, xsub[i], part[c]);
+  }
+  float dm[4];
+  load4_half(as_half(md_field<3, 5>(stage, 0)) + 4 * l, dm);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) pm[c] = fmaf(dm[c], part[c], pm[c]);
+}
+
 // One stage of warp (half, j0), of which ``nvalid`` format blocks exist
 template <typename T, int FMT>
 __device__ __forceinline__ void mma_decode_stage(const uint8_t* stage,
                                                  const T* xs, int nvalid,
                                                  int half, int j0, int g,
                                                  int t, float (&acc)[4][4]) {
-  static_assert(has_mma_decode(FMT), "q6_k, q3_k, q2_k or q8_0");
+  static_assert(has_mma_decode(FMT), "every format but q4_k");
   if constexpr (FMT == Q8_0) {
     mma_decode_q8_0<T>(stage, xs, nvalid, half, j0, g, t, acc);
   } else {
@@ -1998,7 +2033,7 @@ __global__ void __launch_bounds__(MD_THREADS, 2)
   constexpr int STAGE = md_stage_bytes<T, FMT>();
   constexpr int W = md_w<FMT>();
   constexpr int XP = md_xpitch(FMT);
-  static_assert(md_smem<T, FMT>() >= (3 * 2 * 32 * 16 + DROWS * COLS) * 4,
+  static_assert(md_smem<T, FMT>() >= (3 * 2 * 32 * 16 + 3 * DROWS * COLS) * 4,
                 "the ring holds the block's sums at the end");
   extern __shared__ __align__(16) uint8_t smem_md[];
   uint8_t* ring = smem_md;
@@ -2089,6 +2124,9 @@ __global__ void __launch_bounds__(MD_THREADS, 2)
     load_xs(0);
     store_xs(0);
   }
+  // q5_k's min term of row w % 4, sub-blocks 4 (w / 4) .., columns 4l ..
+  const int mr = w & 3, msh = w >> 2;
+  float pm[4] = {0.f, 0.f, 0.f, 0.f};
 
   float acc[4][4];
 #pragma unroll
@@ -2108,6 +2146,12 @@ __global__ void __launch_bounds__(MD_THREADS, 2)
     const uint8_t* stage = ring + slot * STAGE;
     mma_decode_stage<T, FMT>(stage, reinterpret_cast<const T*>(stage + W),
                              valid(s), half, j0, g, t, acc);
+    // (ahead of the mma work and without the branch it ran 0-2 % slower)
+    if constexpr (FMT == 3)
+      if (mr < M)
+        q5k_min_stage<T>(stage,
+                         reinterpret_cast<const T*>(stage + W) + mr * XP,
+                         msh, l, pm);
     // the next stage's slot: its x region was last read at stage s + 1 -
     // NST, before this stage's barrier
     if (!vec && s + 1 < nsb) store_xs(slot == NST - 1 ? 0 : slot + 1);
@@ -2116,12 +2160,13 @@ __global__ void __launch_bounds__(MD_THREADS, 2)
   }
 
   // the block's column sums: the four warps of each half added in a fixed
-  // order; lanes t < 2 hold rows 2t, 2t + 1 (D columns past DROWS are the
-  // zero rows of B)
+  // order (q5_k: less the two halves of its min term); lanes t < 2 hold
+  // rows 2t, 2t + 1 (D columns past DROWS are the zero rows of B)
   cp_async_wait<0>();
   __syncthreads();
   float* red = reinterpret_cast<float*>(ring);   // 3 x 2 halves x 32 x 16
   float* blk = red + 3 * 2 * 32 * 16;            // DROWS x COLS
+  float* mins = blk + DROWS * COLS;              // q5_k: 2 x DROWS x COLS
   if (j0 > 0) {
 #pragma unroll
     for (int c = 0; c < 4; ++c)
@@ -2129,6 +2174,10 @@ __global__ void __launch_bounds__(MD_THREADS, 2)
       for (int v = 0; v < 4; ++v)
         red[(((j0 - 1) * 2 + half) * 32 + l) * 16 + 4 * c + v] = acc[c][v];
   }
+  if constexpr (FMT == 3)
+    if (mr < M)
+      *reinterpret_cast<float4*>(mins + (msh * DROWS + mr) * COLS + 4 * l) =
+          make_float4(pm[0], pm[1], pm[2], pm[3]);
   __syncthreads();
   if (j0 == 0 && t < 2) {
 #pragma unroll
@@ -2141,6 +2190,9 @@ __global__ void __launch_bounds__(MD_THREADS, 2)
           val += red[((j * 2 + half) * 32 + l) * 16 + 4 * c + v];
         const int r = 2 * t + (v & 1);
         const int cl = half * 64 + (v >= 2 ? 32 : 0) + 4 * g + c;
+        if constexpr (FMT == 3)
+          if (r < M)
+            val -= mins[r * COLS + cl] + mins[(DROWS + r) * COLS + cl];
         if (ks == 1) {
           if (r < M && n0 + cl < N)
             out[(size_t)r * N + n0 + cl] = from_f32<T>(val);
@@ -3077,13 +3129,11 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
   cluster.sync();   // each block's shared memory stays until all have read it
 }
 
-// launches of qmatmul_experts_kernel, of the decode forms, of the prefill
-// form, of qmatmul_kernel and of splitk_reduce, made by this library
+// launches of qmatmul_experts_kernel, of the decode forms and of the
+// prefill form, made by this library
 long long g_experts_launches = 0;
 long long g_decode_launches = 0;
 long long g_prefill_launches = 0;
-long long g_kernel_launches = 0;
-long long g_splitk_launches = 0;
 
 // One launch of a decode form: the column tiles along x, a cluster of
 // ``ks`` blocks along y that split the superblocks.
@@ -3137,7 +3187,7 @@ cudaError_t launch_q4k_decode(const void* x, const Fields& f, void* out,
                            stream);
 }
 
-// the tensor-core decode form (q6_k, q3_k, q2_k, q8_0): a cluster of
+// the tensor-core decode form (every format but q4_k): a cluster of
 // 1..MD_MAX_KSPLIT blocks (a non-portable size past 8), each with its fixed
 // ring of stages
 template <typename T, int FMT, int V>
@@ -3145,8 +3195,8 @@ cudaError_t launch_mma_decode(const void* x, const Fields& f, void* out,
                               int M, int K, int N, int ks,
                               cudaStream_t stream) {
   auto kernel = qmatmul_mma_decode_kernel<T, FMT, V>;
-  constexpr size_t smem = md_smem<T, FMT>();
   if (ks < 1 || ks > MD_MAX_KSPLIT) return cudaErrorInvalidValue;
+  constexpr size_t smem = md_smem<T, FMT>();
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -3275,102 +3325,40 @@ cudaError_t launch_experts(const void* x, const Fields& f, void* out, int E,
                                                        stream);
 }
 
-template <typename T, int MT, int FMT>
-void launch(const void* x, const Fields& f, void* partial, void* out, int E,
-            int M, int K, int N, int splits, cudaStream_t stream) {
-  const int row_tiles = (M + MT - 1) / MT;
-  const dim3 block(TX, TY);
-  const dim3 grid((N + COLS - 1) / COLS, splits, row_tiles * E);
-  auto kernel = qmatmul_kernel<T, MT, FMT, false>;
-  if constexpr (!own_expert_kernel(FMT))
-    if (E > 1) kernel = qmatmul_kernel<T, MT, FMT, true>;
-  kernel<<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), f, static_cast<float*>(partial),
-      static_cast<T*>(out), M, K, N, splits, row_tiles);
-  ++g_kernel_launches;
-  if (splits > 1) {
-    const long long mn = (long long)M * N;
-    splitk_reduce<T><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
-        static_cast<const float*>(partial), static_cast<T*>(out), mn, splits);
-    ++g_splitk_launches;
-  }
-}
-
-template <typename T, int FMT>
-void launch_rows(const void* x, const Fields& f, void* partial, void* out,
-                 int E, int M, int K, int N, int splits, cudaStream_t stream) {
-  if (M <= 4)
-    launch<T, 4, FMT>(x, f, partial, out, E, M, K, N, splits, stream);
-  else
-    launch<T, 16, FMT>(x, f, partial, out, E, M, K, N, splits, stream);
-}
-
 #ifndef QMATMUL_FMT
 #error "build with -DQMATMUL_FMT=<format id>"
 #endif
 
-// the formats with a decode form (q4_k: qmatmul_q4k_decode_kernel; q6_k,
-// q3_k, q2_k and q8_0: qmatmul_mma_decode_kernel), and whether a (K, N)
-// weight at M rows takes it
-constexpr bool has_decode_form(int fmt) {
-  return fmt == 0 || has_mma_decode(fmt);
-}
-constexpr bool decode_form(int fmt, int E, int M, int K) {
-  return has_decode_form(fmt) && E == 1 && M <= DROWS && K <= DECODE_MAX_K;
-}
-// whether a (K, N) weight takes the prefill form (qmatmul_prefill_kernel):
-// the formats with a decode form where they do not take it, q5_k at M > 4
-// (at M <= 4 it keeps qmatmul_kernel)
-constexpr bool prefill_form(int fmt, int E, int M, int K) {
-  return E == 1 && (has_decode_form(fmt) ? !decode_form(fmt, E, M, K)
-                                         : M > DROWS);
+// whether a (K, N) weight at M rows takes its format's decode form (q4_k:
+// qmatmul_q4k_decode_kernel; the others: qmatmul_mma_decode_kernel); every
+// other (K, N) weight takes the prefill form (qmatmul_prefill_kernel)
+constexpr bool decode_form(int E, int M, int K) {
+  return E == 1 && M <= DROWS && K <= DECODE_MAX_K;
 }
 
 template <typename T>
-int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
-               int E, int M, int K, int N, int splits, cudaStream_t st) {
-  if constexpr (own_expert_kernel(QMATMUL_FMT)) {
-    if (E > 1) {
-      const cudaError_t err =
-          launch_experts<T, QMATMUL_FMT>(x, f, out, E, M, K, N, st);
-      if (err != cudaSuccess) return (int)err;
-      return (int)cudaGetLastError();
-    }
-  }
+int launch_fmt(const void* x, const Fields& f, void* out, int E, int M,
+               int K, int N, int splits, cudaStream_t st) {
   constexpr int F = QMATMUL_FMT;
-  if constexpr (has_decode_form(F)) {
-    // one weight of a format with a decode form at M <= 4: that form
-    if (decode_form(F, E, M, K)) {
-      cudaError_t err;
-      if constexpr (F == 0)
-        err = N % 16 == 0
-                  ? launch_q4k_decode<T, 16>(x, f, out, M, K, N, splits, st)
-                  : launch_q4k_decode<T, 4>(x, f, out, M, K, N, splits, st);
-      else
-        err = N % 16 == 0
-                  ? launch_mma_decode<T, F, 16>(x, f, out, M, K, N, splits,
-                                                st)
-                  : launch_mma_decode<T, F, 4>(x, f, out, M, K, N, splits,
-                                               st);
-      if (err != cudaSuccess) return (int)err;
-      return (int)cudaGetLastError();
-    }
-  }
-  if (prefill_form(F, E, M, K)) {
-    const cudaError_t err =
-        N % 16 == 0
-            ? launch_prefill<T, F, 16>(x, f, out, M, K, N, splits, st)
-            : launch_prefill<T, F, 4>(x, f, out, M, K, N, splits, st);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
-  }
-  if constexpr (has_decode_form(F)) {
-    return (int)cudaErrorInvalidValue;   // (every call took a form above)
+  cudaError_t err;
+  if (E > 1) {
+    err = launch_experts<T, F>(x, f, out, E, M, K, N, st);
+  } else if (decode_form(E, M, K)) {
+    if constexpr (F == 0)
+      err = N % 16 == 0
+                ? launch_q4k_decode<T, 16>(x, f, out, M, K, N, splits, st)
+                : launch_q4k_decode<T, 4>(x, f, out, M, K, N, splits, st);
+    else
+      err = N % 16 == 0
+                ? launch_mma_decode<T, F, 16>(x, f, out, M, K, N, splits, st)
+                : launch_mma_decode<T, F, 4>(x, f, out, M, K, N, splits, st);
   } else {
-    // q5_k at M <= 4, and q5_k's experts
-    launch_rows<T, F>(x, f, partial, out, E, M, K, N, splits, st);
-    return (int)cudaGetLastError();
+    err = N % 16 == 0
+              ? launch_prefill<T, F, 16>(x, f, out, M, K, N, splits, st)
+              : launch_prefill<T, F, 4>(x, f, out, M, K, N, splits, st);
   }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -3379,22 +3367,17 @@ int launch_fmt(const void* x, const Fields& f, void* partial, void* out,
 // must be the QMATMUL_FMT this library was built for; ``fields`` holds the
 // format's ``nfields`` field pointers in the order of field_layout.  dtype
 // of x and out: 0 = float32, 1 = bfloat16.  E experts: x (E, M, K), fields
-// with a leading E, out (E, M, N); E = 1 for one weight.  q4_k, q6_k,
-// q3_k, q2_k and q8_0 experts (E > 1) go to qmatmul_experts_kernel; one
-// weight of those formats at M <= 4 (K <= 65536) to its decode form
-// (qmatmul_q4k_decode_kernel; qmatmul_mma_decode_kernel for the others),
-// its stages split over a cluster of ``splits`` blocks (q4_k 1..8, the
-// others 1..16, ``partial`` unused), and at any other M or K, like one
-// q5_k weight at M > 4, to the prefill form (qmatmul_prefill_kernel, a
-// cluster of 1..8 blocks a tile, ``partial`` unused); every other weight
-// (q5_k at M <= 4, q5_k's experts) to qmatmul_kernel.
-// N must be a multiple of 4; there ``partial`` holds splits x M x N floats
-// when splits > 1 (E = 1 only; splits count 256-row tiles).  Returns
-// cudaGetLastError() after the launches.
+// with a leading E, out (E, M, N); E = 1 for one weight.  Experts (E > 1)
+// go to qmatmul_experts_kernel (``splits`` must be 1); one weight at M <=
+// 4 (K <= 65536) to its format's decode form (qmatmul_q4k_decode_kernel
+// for q4_k, qmatmul_mma_decode_kernel for the others), its stages split
+// over a cluster of ``splits`` blocks (q4_k 1..8, the others 1..16); one
+// weight at any other M or K to the prefill form (qmatmul_prefill_kernel,
+// a cluster of 1..8 blocks a tile).  N must be a multiple of 4.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int qmatmul(int fmt, int dtype, const void* x,
-                       const void* const* fields, int nfields, void* partial,
-                       void* out, int E, int M, int K, int N, int splits,
-                       void* stream) {
+                       const void* const* fields, int nfields, void* out,
+                       int E, int M, int K, int N, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (fmt != QMATMUL_FMT || nfields != num_fields(fmt) || E < 1 ||
       (E > 1 && splits != 1))
@@ -3403,19 +3386,16 @@ extern "C" int qmatmul(int fmt, int dtype, const void* x,
   for (int i = 0; i < nfields; ++i)
     f.p[i] = static_cast<const uint8_t*>(fields[i]);
   if (dtype == 0)
-    return launch_fmt<float>(x, f, partial, out, E, M, K, N, splits, st);
+    return launch_fmt<float>(x, f, out, E, M, K, N, splits, st);
   if (dtype == 1)
-    return launch_fmt<__nv_bfloat16>(x, f, partial, out, E, M, K, N, splits,
-                                     st);
+    return launch_fmt<__nv_bfloat16>(x, f, out, E, M, K, N, splits, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// How many times this library launched qmatmul_experts_kernel (0 for the
-// formats that have none), its decode form (qmatmul_q4k_decode_kernel or
-// qmatmul_mma_decode_kernel; every format but q5_k), its prefill form
-// (qmatmul_prefill_kernel; every format), qmatmul_kernel (q5_k only) and
-// splitk_reduce: the card tests and chip_smoke.py read them to see which
-// kernels ran.
+// How many times this library launched qmatmul_experts_kernel, its decode
+// form (qmatmul_q4k_decode_kernel or qmatmul_mma_decode_kernel) and its
+// prefill form (qmatmul_prefill_kernel): the card tests and chip_smoke.py
+// read them to see which kernels ran.
 extern "C" long long qmatmul_experts_kernel_launches(void) {
   return g_experts_launches;
 }
@@ -3424,10 +3404,4 @@ extern "C" long long qmatmul_decode_kernel_launches(void) {
 }
 extern "C" long long qmatmul_prefill_kernel_launches(void) {
   return g_prefill_launches;
-}
-extern "C" long long qmatmul_kernel_launches(void) {
-  return g_kernel_launches;
-}
-extern "C" long long qmatmul_splitk_reduce_launches(void) {
-  return g_splitk_launches;
 }

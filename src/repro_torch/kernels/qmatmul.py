@@ -4,63 +4,59 @@ Replaces the Pallas TPU kernel ``repro/kernels/common.py::build_qmatmul``
 (body :119-131) for every K-quant format and ``q8_0`` (``q4_k``, ``q6_k``,
 ``q3_k``, ``q5_k``, ``q2_k``, ``q8_0``), and the reference's XLA path for
 expert-batched weights (``repro/kernels/ops.py:39-50``).  The
-CUDA kernel is ``csrc/qmatmul.cu`` (its header says what bounds it on an
-H100 and how the design answers that); :func:`qmatmul_plain` is its plain
-PyTorch version — dequantize to f32, then an f32 matmul.
+CUDA kernels are in ``csrc/qmatmul.cu`` (its header says what bounds each
+on an H100 and how the design answers that); :func:`qmatmul_plain` is
+their plain PyTorch version — dequantize to f32, then an f32 matmul.
 
 Dispatch is by device only: each wrapper runs the plain version for CPU
-tensors and launches the kernel (or raises) for CUDA tensors.  Each
+tensors and launches a kernel (or raises) for CUDA tensors.  Each
 wrapper's ``launches`` counts its kernel launches: ``qmatmul_<fmt>`` for
 one (K, N) weight, ``qmatmul_experts_<fmt>`` for a stack of expert weights
-(E, K, N) against x (E, C, K), all experts in one launch.
+(E, K, N) against x (E, C, K), all experts in one launch.  Every call is
+one launch of one of three kernels (:func:`library_launches` says which):
 
-The expert form of q4_k, q6_k, q3_k, q2_k and q8_0 is a kernel of its
-own, ``qmatmul_experts_kernel``, which replaces ``qmatmul_kernel`` there
-(the largest device-time family of a DeepSeek decode step): at C = 1 it
-carries one row, turns codes into floats with a byte permute instead of
-an int-to-float conversion, factors each sub-block's scale (q8_0: each
-block's d) out of its sum, brings the weight tiles into shared memory
-through a ring of asynchronous copies, and reads no weight byte of an
-expert whose rows of x are all zero (it writes +0, the plain version's
-result).  Its header in ``csrc/qmatmul.cu`` says what bounds it.  The
-q5_k expert form, which no policy serves, keeps ``qmatmul_kernel`` and
-reads every expert.
+- A stack of expert weights takes ``qmatmul_experts_kernel``: at C = 1 it
+  carries one row, turns codes into floats with a byte permute instead of
+  an int-to-float conversion, factors each sub-block's scale (q8_0: each
+  block's d) out of its sum, brings the weight tiles into shared memory
+  through a ring of asynchronous copies, and reads no weight byte of an
+  expert whose rows of x are all zero (it writes +0, the plain version's
+  result); at C > 1 it dequantizes each weight once to the plain
+  version's value for 20 rows.
 
-One q4_k weight at M <= 4 rows (decode) takes ``qmatmul_q4k_decode_kernel``
-(:func:`decode_form`): the same code conversion and factored scales with
-up to four rows of x.  One q6_k, q3_k, q2_k or q8_0 weight at M <= 4 takes
-``qmatmul_mma_decode_kernel``, on tensor cores: one bf16
-``mma.sync.m16n8k16`` a 16-element sub-block (q8_0: half a block) and 16
-columns, its codes made exact bf16 values by byte permutes (q3_k's
-assembled from a bit-pair of qs and a bit of hmask, q2_k's a bit-pair of
-qs, q8_0's int8 code as its low 7 bits and a bias chosen by its sign bit),
-x (bf16, or f32 as three bf16 terms) the other operand, each product
-scaled in f32 by the sub-block's scale (q8_0: each block's d); q2_k's min
-term, ``dmin * m * sum x`` a sub-block, takes the sub-block's sums of x
-from the same operand fragments.  In both kernels, where the
-column tiles alone would leave SMs idle, the stages of K split over the
-blocks of a thread-block cluster (:data:`DECODE_KSPLIT`) whose sums are
-added in rank order in the same launch: no partial buffer and no second
-kernel.
+- One weight at M <= 4 rows (decode) takes its format's decode form
+  (:func:`decode_form`).  q4_k's is ``qmatmul_q4k_decode_kernel``: the
+  expert form's code conversion and factored scales with up to four rows
+  of x.  Every other format's is ``qmatmul_mma_decode_kernel``, on tensor
+  cores: one bf16 ``mma.sync.m16n8k16`` a 16-element piece of a superblock
+  (q8_0: half a block) and 16 columns, its codes made exact bf16 values by
+  byte permutes (q3_k's assembled from a bit-pair of qs and a bit of
+  hmask, q5_k's from a nibble of qs and a bit of qh, q2_k's a bit-pair of
+  qs, q8_0's int8 code as its low 7 bits and a bias chosen by its sign
+  bit), x (bf16, or f32 as three bf16 terms) the other operand, each
+  product scaled in f32 by its sub-block's scale (q8_0: each block's d);
+  q2_k's min term, ``dmin * m * sum x`` a sub-block, takes the sums of x
+  from the same operand fragments, q5_k's is taken by every thread in a
+  layout of its own from x's staged rows.  In both kernels, where the
+  column tiles alone would leave SMs idle, the stages of K split over the
+  blocks of a thread-block cluster (:data:`DECODE_KSPLIT`) whose sums are
+  added in rank order in the same launch: no partial buffer and no second
+  kernel.
 
-One weight of any format at M > 4 rows (every prefill chunk: 4 x 128 =
-512 rows) takes ``qmatmul_prefill_kernel``
-(:func:`prefill_form`), on tensor cores: a block owns 128 rows of x (64
-where such tiles are few, :func:`prefill_rows`) and 128 columns, converts
-each stage's codes once into an exact bf16 tile in shared memory (byte
-permutes, no int-to-float; q8_0's 8-bit codes as their low 7 bits and a
-bias chosen by the sign bit; q5_k's 5-bit codes as a nibble of qs and a
-bit of qh), multiplies it with bf16 ``mma.sync.m16n8k16`` against bf16 x,
-and applies each sub-block's scale (q8_0: each block's d; q4_k, q5_k and
-q2_k also their min term, from x's sums per sub-block) in f32 to the
-sub-block's products.  f32 x takes the plain version's dequantized weights
-and x as three bf16 terms each (six mmas a product), so that it differs
-from the plain version in summation order only.  Where the tiles are fewer
-than the SMs, the half superblocks split over a cluster
-(:func:`prefill_ksplit`) merged in rank order, in the same launch.  The
-2-D calls of q5_k at M <= 4, and q5_k's expert form (which no policy
-serves), keep ``qmatmul_kernel``, with a split-K pass (``splitk_reduce``)
-where its column tiles are few.
+- One weight at M > 4 rows (every prefill chunk: 4 x 128 = 512 rows), or
+  at K > 65536, takes ``qmatmul_prefill_kernel`` (:func:`prefill_form`),
+  on tensor cores: a block owns 128 rows of x (64 where such tiles are
+  few, :func:`prefill_rows`) and 128 columns, converts each stage's codes
+  once into an exact bf16 tile in shared memory (byte permutes, no
+  int-to-float), multiplies it with bf16 ``mma.sync.m16n8k16`` against
+  bf16 x, and applies each sub-block's scale (q8_0: each block's d; q4_k,
+  q5_k and q2_k also their min term, from x's sums per sub-block) in f32
+  to the sub-block's products.  f32 x takes the plain version's
+  dequantized weights and x as three bf16 terms each (six mmas a
+  product), so that it differs from the plain version in summation order
+  only.  Where the tiles are fewer than the SMs, the half superblocks
+  split over a cluster (:func:`prefill_ksplit`) merged in rank order, in
+  the same launch.
 """
 
 from __future__ import annotations
@@ -84,8 +80,8 @@ _FMT_ID = {fmt: build.QMATMUL_FORMATS.index(fmt) for fmt in FIELDS}
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 _COLS = 128          # output columns per thread block (csrc/qmatmul.cu)
 _TILE = 256          # rows of K per tile: a superblock, or 8 q8_0 blocks
-_ROWS = {True: 4, False: 16}   # qmatmul_kernel's row tile: M <= 4, else 16
-_MAX_GRID_Z = 65535
+_XROWS = 20          # qmatmul_experts_kernel's row tile at C > 1 (C = 1: 1)
+_MAX_GRID_Y = 65535
 # qmatmul_q4k_decode_kernel: the rows of x it carries, the K it takes, the
 # blocks of a cluster (the portable size) and the superblocks of a block
 _DECODE_ROWS = 4
@@ -124,18 +120,11 @@ def qmatmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 
 
-def _splits(device: torch.device, n: int, row_tiles: int, s: int) -> int:
-    """Splits of the ``s`` tiles of K so that the grid has ~2 blocks per
-    SM (``qmatmul_kernel``)."""
-    want = -(-2 * build.sm_count(device) // (-(-n // _COLS) * row_tiles))
-    return max(1, min(s, want))
-
-
 def decode_form(fmt: str, e: int, m: int, k: int) -> bool:
     """Whether a call takes its format's decode form
     (``qmatmul_q4k_decode_kernel``, or ``qmatmul_mma_decode_kernel`` for
-    q6_k, q3_k, q2_k and q8_0): one weight (``e == 1``) of a format other
-    than q5_k at M <= 4 rows, K <= 65536."""
+    every other format): one weight (``e == 1``) at M <= 4 rows, K <=
+    65536."""
     return (fmt in DECODE_KSPLIT and e == 1 and m <= _DECODE_ROWS
             and k <= _DECODE_MAX_K)
 
@@ -197,9 +186,12 @@ def decode_ksplit_q3k(n: int, k: int, sms: int) -> int:
     return max(1, min(_Q6_MAX_KSPLIT, s, ks))
 
 
-# q2_k's stage (11.8 KB) is latency-bound as q3_k's is: q3_k's rule was
-# the fastest split at its four served shapes too
+# q2_k's stage (11.8 KB) and q5_k's (25.3 KB) are latency-bound as q3_k's
+# is: q3_k's rule was the fastest split at q2_k's four served shapes, and
+# at q5_k's two (18432->7168: 4, where q6_k's residency rule gives 2; 8960
+# ->1536: 8) of the 16 sizes scanned (PERF.md)
 decode_ksplit_q2k = decode_ksplit_q3k
+decode_ksplit_q5k = decode_ksplit_q3k
 
 
 def decode_stages(fmt: str, k: int) -> int:
@@ -231,22 +223,17 @@ def decode_ksplit_q8_0(n: int, k: int, sms: int) -> int:
     return max(1, min(_Q6_MAX_KSPLIT, s, ks))
 
 
-# the formats with a decode form, and how each splits its stages of K
+# the formats' decode forms, and how each splits its stages of K
 DECODE_KSPLIT = {"q4_k": decode_ksplit, "q6_k": decode_ksplit_q6k,
-                 "q3_k": decode_ksplit_q3k, "q2_k": decode_ksplit_q2k,
-                 "q8_0": decode_ksplit_q8_0}
+                 "q3_k": decode_ksplit_q3k, "q5_k": decode_ksplit_q5k,
+                 "q2_k": decode_ksplit_q2k, "q8_0": decode_ksplit_q8_0}
 
 
 def prefill_form(fmt: str, e: int, m: int, k: int) -> bool:
     """Whether a call takes the prefill form (``qmatmul_prefill_kernel``):
-    one weight (``e == 1``) at M > 4 rows, and of a format with a decode
-    form also at K > 65536 (any call that does not take it); q5_k at M <= 4
-    keeps ``qmatmul_kernel`` (``prefill_form`` in ``csrc/qmatmul.cu``)."""
-    if e != 1:
-        return False
-    if fmt in DECODE_KSPLIT:
-        return not decode_form(fmt, e, m, k)
-    return m > _DECODE_ROWS
+    one weight (``e == 1``) that does not take its decode form, at M > 4
+    rows or K > 65536 (``launch_fmt`` in ``csrc/qmatmul.cu``)."""
+    return e == 1 and not decode_form(fmt, e, m, k)
 
 
 def prefill_rows(n: int, m: int) -> int:
@@ -305,25 +292,21 @@ def _launch(x: torch.Tensor, qt: QTensor, e: int, counter) -> torch.Tensor:
     out = torch.empty((e, m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return out
+    # one launch of one kernel; a K split merges inside its cluster
     if decode_form(qt.fmt, e, m, k):
-        # one launch: the K split merges inside the cluster
         splits = DECODE_KSPLIT[qt.fmt](n, k, build.sm_count(dev))
-        partial = None
     elif prefill_form(qt.fmt, e, m, k):
         splits = prefill_ksplit(n, m, k, build.sm_count(dev))
-        partial = None
     else:
-        # (qmatmul_experts_kernel's row tiles, 1 or 20 rows, are never more)
-        row_tiles = -(-m // _ROWS[m <= 4])
-        if row_tiles * e > _MAX_GRID_Z:
-            raise ValueError(f"B1 grid too tall: {e} experts x {row_tiles} "
-                             "row tiles")
-        splits = _splits(dev, n, row_tiles, -(-k // _TILE)) if e == 1 else 1
-        partial = (torch.empty((splits, m, n), dtype=torch.float32,
-                               device=dev) if splits > 1 else None)
+        # an expert stack: qmatmul_experts_kernel's row tiles of 1 or 20
+        # rows, all experts' along the grid's y
+        splits = 1
+        if -(-m // _XROWS) * e > _MAX_GRID_Y:
+            raise ValueError(f"B1 grid too tall: {e} experts x "
+                             f"{-(-m // _XROWS)} row tiles")
     err = _entry(qt.fmt)(_FMT_ID[qt.fmt], _DTYPE_ID[x.dtype], x3.data_ptr(),
-                         ptrs, len(ptrs), build.ptr(partial), out.data_ptr(),
-                         e, m, k, n, splits, build.stream_ptr(dev))
+                         ptrs, len(ptrs), out.data_ptr(), e, m, k, n, splits,
+                         build.stream_ptr(dev))
     counter.launches += 1
     build.check(err, counter.__name__)
     return out
@@ -390,22 +373,17 @@ def _entry(fmt: str):
     v = ctypes.c_void_p
     i = ctypes.c_int
     return build.bind(f"qmatmul_{fmt}", "qmatmul",
-                      [i, i, v, ctypes.POINTER(v), i, v, v, i, i, i, i, i, v])
+                      [i, i, v, ctypes.POINTER(v), i, v, i, i, i, i, i, v])
 
 
 def library_launches(fmt: str, kernel: str = "experts") -> int:
     """Launches made by ``fmt``'s library of ``qmatmul_experts_kernel``
-    (``kernel="experts"``; 0 for q5_k, whose expert form is
-    ``qmatmul_kernel``), its decode form (``"decode"``; 0 for q5_k), its
-    prefill form (``"prefill"``), ``qmatmul_kernel`` (``"kernel"``; q5_k
-    only: every call of another format takes another form) or
-    ``splitk_reduce`` (``"splitk"``): which kernels a call ran, for the
-    card tests and ``chip_smoke.py``."""
+    (``kernel="experts"``), its decode form (``"decode"``) or its prefill
+    form (``"prefill"``): which kernel a call ran, for the card tests and
+    ``chip_smoke.py``."""
     name = {"experts": "qmatmul_experts_kernel_launches",
             "decode": "qmatmul_decode_kernel_launches",
-            "prefill": "qmatmul_prefill_kernel_launches",
-            "kernel": "qmatmul_kernel_launches",
-            "splitk": "qmatmul_splitk_reduce_launches"}[kernel]
+            "prefill": "qmatmul_prefill_kernel_launches"}[kernel]
     f = getattr(build.library(f"qmatmul_{fmt}"), name)
     f.restype = ctypes.c_longlong
     f.argtypes = []

@@ -91,8 +91,8 @@ def test_qmatmul_q3_k_kernel_matches_plain(cuda, m, dtype):
 
 
 # the formats whose expert form is qmatmul_experts_kernel, which skips
-# experts whose rows of x are all zero
-SKIPS_EMPTY = ("q3_k", "q2_k", "q4_k", "q6_k", "q8_0")
+# experts whose rows of x are all zero: every format
+SKIPS_EMPTY = ("q3_k", "q2_k", "q4_k", "q6_k", "q5_k", "q8_0")
 
 
 @pytest.mark.parametrize("fmt", ["q3_k", "q4_k", "q6_k", "q5_k", "q2_k",
@@ -118,10 +118,9 @@ def test_qmatmul_experts_kernel_matches_plain(cuda, fmt, c, dtype):
     y = kern(x, qt)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
-    # q3_k, q2_k, q4_k, q6_k and q8_0 run qmatmul_experts_kernel (here with
-    # 4-byte copies: N is not a multiple of 16), q5_k qmatmul_kernel
-    assert qmatmul.library_launches(fmt) == own + (
-        fmt in SKIPS_EMPTY)
+    # every format runs qmatmul_experts_kernel (here with 4-byte copies: N
+    # is not a multiple of 16)
+    assert qmatmul.library_launches(fmt) == own + 1
     assert y.dtype == dtype and y.shape == (e, c, n)
     ref = qmatmul.qmatmul_plain(x, qt).float()
     tol = TOL if dtype == torch.float32 else 2 ** -8
@@ -182,7 +181,7 @@ def test_qmatmul_experts_kernel_skips_empty_experts(cuda, fmt, c, dtype, k,
                          ids=["f32", "bf16"])
 def test_qmatmul_q4k_decode_form(cuda, m, k, n, dtype):
     """q4_k's 2-D form at M <= 4 runs qmatmul_q4k_decode_kernel: one device
-    launch a call and no splitk_reduce, two calls bitwise equal, within
+    launch a call and no other form's, two calls bitwise equal, within
     B1's limits of the plain version; ragged K (1000, 700), N % 16 != 0
     (388, 260: 4-byte copies), the split shapes N = 1536 and 8960 (K
     split over a cluster), and a zero row (a padded lane) gives +0."""
@@ -193,14 +192,14 @@ def test_qmatmul_q4k_decode_form(cuda, m, k, n, dtype):
         x[m - 2] = 0
     kern = qmatmul.qmatmul_q4_k
     before = kern.launches
-    dec, red = (qmatmul.library_launches("q4_k", w)
-                for w in ("decode", "splitk"))
+    dec, pre = (qmatmul.library_launches("q4_k", w)
+                for w in ("decode", "prefill"))
     y = kern(x, qt)
     y2 = kern(x, qt)
     torch.cuda.synchronize()
     assert kern.launches == before + 2
     assert qmatmul.library_launches("q4_k", "decode") == dec + 2
-    assert qmatmul.library_launches("q4_k", "splitk") == red
+    assert qmatmul.library_launches("q4_k", "prefill") == pre
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     assert torch.equal(y.view(bits), y2.view(bits))
     ref = qmatmul.qmatmul_plain(x, qt).float()
@@ -217,8 +216,8 @@ def test_qmatmul_q4k_decode_form(cuda, m, k, n, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_qmatmul_q6k_decode_form(cuda, m, k, n, dtype):
-    """q6_k's 2-D form at M <= 4 runs qmatmul_q6k_decode_kernel on tensor
-    cores: one device launch a call and no splitk_reduce, two calls
+    """q6_k's 2-D form at M <= 4 runs qmatmul_mma_decode_kernel on tensor
+    cores: one device launch a call and no other form's, two calls
     bitwise equal, within B1's limits of the plain version (f32 x as three
     bf16 terms: 1e-5 of max|y|); ragged K (1000, 700), N % 16 != 0 (388,
     260: 4-byte copies), the shapes of qwen2 (attn_k/v 1536->256, down
@@ -231,14 +230,14 @@ def test_qmatmul_q6k_decode_form(cuda, m, k, n, dtype):
         x[m - 2] = 0
     kern = qmatmul.qmatmul_q6_k
     before = kern.launches
-    dec, red = (qmatmul.library_launches("q6_k", w)
-                for w in ("decode", "splitk"))
+    dec, pre = (qmatmul.library_launches("q6_k", w)
+                for w in ("decode", "prefill"))
     y = kern(x, qt)
     y2 = kern(x, qt)
     torch.cuda.synchronize()
     assert kern.launches == before + 2
     assert qmatmul.library_launches("q6_k", "decode") == dec + 2
-    assert qmatmul.library_launches("q6_k", "splitk") == red
+    assert qmatmul.library_launches("q6_k", "prefill") == pre
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     assert torch.equal(y.view(bits), y2.view(bits))
     ref = qmatmul.qmatmul_plain(x, qt).float()
@@ -256,8 +255,8 @@ def test_qmatmul_q6k_decode_form(cuda, m, k, n, dtype):
                          ids=["f32", "bf16"])
 def test_qmatmul_q3k_decode_form(cuda, m, k, n, dtype):
     """q3_k's 2-D form at M <= 4 runs qmatmul_mma_decode_kernel on tensor
-    cores, as q6_k's does: one device launch a call, no qmatmul_kernel and
-    no splitk_reduce, two calls bitwise equal, within B1's limits of the
+    cores, as q6_k's does: one device launch a call and no other form's,
+    two calls bitwise equal, within B1's limits of the
     plain version (f32 x as three bf16 terms: 1e-5 of max|y|; bf16:
     B1_TOL_BF16); ragged K (1000, 700), N % 16 != 0 (388, 260: 4-byte
     copies), DeepSeek's served shapes (attn_kv_a_mqa 7168->576, shexp
@@ -271,14 +270,14 @@ def test_qmatmul_q3k_decode_form(cuda, m, k, n, dtype):
     kern = qmatmul.qmatmul_q3_k
     before = kern.launches
     counts = {w: qmatmul.library_launches("q3_k", w)
-              for w in ("decode", "prefill", "kernel", "splitk")}
+              for w in ("decode", "prefill", "experts")}
     y = kern(x, qt)
     y2 = kern(x, qt)
     torch.cuda.synchronize()
     assert kern.launches == before + 2
     assert {w: qmatmul.library_launches("q3_k", w) - c
             for w, c in counts.items()} == {
-        "decode": 2, "prefill": 0, "kernel": 0, "splitk": 0}
+        "decode": 2, "prefill": 0, "experts": 0}
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     assert torch.equal(y.view(bits), y2.view(bits))
     ref = qmatmul.qmatmul_plain(x, qt).float()
@@ -318,8 +317,8 @@ def _decode_weight(fmt, k, n, device):
                          ids=["f32", "bf16"])
 def test_qmatmul_q2k_q8_0_decode_form(cuda, fmt, k, n, m, dtype):
     """q2_k's and q8_0's 2-D forms at M <= 4 run qmatmul_mma_decode_kernel
-    on tensor cores, as q6_k's and q3_k's do: one device launch a call, no
-    qmatmul_kernel and no splitk_reduce, two calls bitwise equal, within
+    on tensor cores, as q6_k's and q3_k's do: one device launch a call and
+    no other form's, two calls bitwise equal, within
     B1's limits of the plain version (f32 x as three bf16 terms: 1e-5 of
     max|y|; bf16: B1_TOL_BF16), at ``Q2_Q8_DECODE``'s shapes (the served
     ones with the K split their rule gives, the 7168 -> 129280 head), and
@@ -332,14 +331,14 @@ def test_qmatmul_q2k_q8_0_decode_form(cuda, fmt, k, n, m, dtype):
     kern = qmatmul.KERNELS[fmt]
     before = kern.launches
     counts = {w: qmatmul.library_launches(fmt, w)
-              for w in ("decode", "prefill", "kernel", "splitk")}
+              for w in ("decode", "prefill", "experts")}
     y = kern(x, qt)
     y2 = kern(x, qt)
     torch.cuda.synchronize()
     assert kern.launches == before + 2
     assert {w: qmatmul.library_launches(fmt, w) - c
             for w, c in counts.items()} == {
-        "decode": 2, "prefill": 0, "kernel": 0, "splitk": 0}
+        "decode": 2, "prefill": 0, "experts": 0}
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     assert torch.equal(y.view(bits), y2.view(bits))
     ref = qmatmul.qmatmul_plain(x, qt).float()
@@ -358,8 +357,8 @@ def test_qmatmul_q2k_q8_0_decode_form(cuda, fmt, k, n, m, dtype):
                          ids=["f32", "bf16"])
 def test_qmatmul_prefill_form(cuda, fmt, m, k, n, dtype):
     """The 2-D form at M > 4 of every format runs qmatmul_prefill_kernel
-    on tensor cores: one launch of it a call, no qmatmul_kernel and no
-    splitk_reduce, two calls bitwise equal, within
+    on tensor cores: one launch of it a call and no other form's, two calls
+    bitwise equal, within
     B1's limits of the plain version (f32 x as three bf16 terms: 1e-5 of
     max|y|; bf16: B1_TOL_BF16); rows past a 128-row tile (M = 5, 77, 600),
     ragged K (700: x's bf16 rows are not 16-byte aligned; q8_0's 22 blocks
@@ -374,16 +373,15 @@ def test_qmatmul_prefill_form(cuda, fmt, m, k, n, dtype):
     x = x.to(dtype)
     kern = qmatmul.KERNELS[fmt]
     before = kern.launches
-    pre, dec, red, old = (qmatmul.library_launches(fmt, w)
-                          for w in ("prefill", "decode", "splitk", "kernel"))
+    pre, dec, exp = (qmatmul.library_launches(fmt, w)
+                     for w in ("prefill", "decode", "experts"))
     y = kern(x, qt)
     y2 = kern(x, qt)
     torch.cuda.synchronize()
     assert kern.launches == before + 2
     assert qmatmul.library_launches(fmt, "prefill") == pre + 2
     assert qmatmul.library_launches(fmt, "decode") == dec
-    assert qmatmul.library_launches(fmt, "splitk") == red
-    assert qmatmul.library_launches(fmt, "kernel") == old
+    assert qmatmul.library_launches(fmt, "experts") == exp
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     assert torch.equal(y.view(bits), y2.view(bits))
     ref = qmatmul.qmatmul_plain(x, qt).float()
@@ -392,34 +390,44 @@ def test_qmatmul_prefill_form(cuda, fmt, m, k, n, dtype):
     assert not y[zero].view(bits).any()                  # +0, not -0
 
 
-@pytest.mark.parametrize("fmt", ["q5_k"])
-@pytest.mark.parametrize("m", [1, 4])
-@pytest.mark.parametrize("k,n", [(7168, 1536), (256, 260)])
-def test_qmatmul_q3k_q8_0_decode_rows_keep_qmatmul_kernel(cuda, fmt, m, k,
-                                                          n):
-    """q5_k has no decode form, the only format without one: at M <= 4 one
-    weight still runs qmatmul_kernel, with splitk_reduce after it where
-    the column tiles are few (7168 -> 1536) and none at one superblock (256
-    -> 260), and no prefill form; within B1's limits of the plain version
-    (bf16 x, 2^-8 of max|y|)."""
-    rng = np.random.default_rng(m * 23 + k + len(fmt))
-    qt = quantize(torch.from_numpy(_np(rng, (k, n))).to(cuda), fmt)
-    x = torch.from_numpy(_np(rng, (m, k))).to(cuda).to(torch.bfloat16)
-    kern = qmatmul.KERNELS[fmt]
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("k,n", [(1000, 388), (700, 260), (18432, 7168),
+                                 (8960, 1536)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_qmatmul_q5k_decode_form(cuda, m, k, n, dtype):
+    """q5_k's 2-D form at M <= 4 runs qmatmul_mma_decode_kernel on tensor
+    cores, as every other format but q4_k does: one device launch a call
+    and no other form's, two calls bitwise equal, within B1's limits of
+    the plain version (f32 x as three bf16 terms: 1e-5 of max|y|; bf16:
+    B1_TOL_BF16); ragged K (1000, 700), N % 16 != 0 (388, 260: 4-byte
+    copies), the served shapes (under Q3_K_M the DeepSeek cut's dense down
+    18432 -> 7168 and qwen2's down 8960 -> 1536) with the K split their
+    rule gives, and a zero row gives +0."""
+    qt = _decode_weight("q5_k", k, n, cuda)
+    rng = np.random.default_rng(m * 37 + k + n)
+    x = torch.from_numpy(_np(rng, (m, k))).to(cuda).to(dtype)
+    if m > 1:
+        x[m - 2] = 0
+    kern = qmatmul.qmatmul_q5_k
     before = kern.launches
-    counts = {w: qmatmul.library_launches(fmt, w)
-              for w in ("prefill", "decode", "kernel", "splitk", "experts")}
+    counts = {w: qmatmul.library_launches("q5_k", w)
+              for w in ("decode", "prefill", "experts")}
     y = kern(x, qt)
+    y2 = kern(x, qt)
     torch.cuda.synchronize()
-    assert kern.launches == before + 1
-    splits = qmatmul._splits(cuda, n, 1, -(-k // 256))
-    assert (splits > 1) == (k == 7168)
-    assert {w: qmatmul.library_launches(fmt, w) - c
+    assert kern.launches == before + 2
+    assert {w: qmatmul.library_launches("q5_k", w) - c
             for w, c in counts.items()} == {
-        "prefill": 0, "decode": 0, "kernel": 1, "splitk": int(splits > 1),
-        "experts": 0}
+        "decode": 2, "prefill": 0, "experts": 0}
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(y.view(bits), y2.view(bits))
     ref = qmatmul.qmatmul_plain(x, qt).float()
-    assert (y.float() - ref).abs().max() <= 2 ** -8 * ref.abs().max()
+    tol = TOL if dtype == torch.float32 else B1_TOL_BF16
+    assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
+    if m > 1:
+        assert torch.equal(y[m - 2].view(bits),
+                           torch.zeros_like(y[m - 2]).view(bits))
 
 
 def test_qmatmul_kernel_raises_on_what_it_does_not_take(cuda):

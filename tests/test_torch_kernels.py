@@ -152,16 +152,22 @@ def test_q4k_factored_decode_matches_pallas(m):
 
 def _mma_decode(x, fields, fmt, ks):
     """The tensor-core decode form written out
-    (``qmatmul_mma_decode_kernel``).  q6_k, q3_k, q2_k: per 16-element
-    sub-block and column, the exact products of bf16 x terms (one for bf16
-    x, three for f32) and the codes (q6_k q - 32; q3_k q - 4, q a bit-pair
-    of qs and a bit of hmask; q2_k q, a bit-pair of qs), summed (the tensor
-    core; f64 here) and rounded to f32, scaled by the sub-block's scale
-    (int8; q2_k the low nibble of sm) and summed over the four sub-blocks a
-    warp takes (j, j + 4, j + 8, j + 12), times the superblock's d into the
-    warp's accumulator; q2_k also less dmin times the sum over those
-    sub-blocks of m (sm's high nibble) times the sub-block's sum of x (the
-    x terms' sum, f64 here, f32 shuffles on the card).
+    (``qmatmul_mma_decode_kernel``).  q6_k, q3_k, q5_k, q2_k: per
+    16-element piece and column, the exact products of bf16 x terms (one
+    for bf16 x, three for f32) and the codes (q6_k q - 32; q3_k q - 4, q a
+    bit-pair of qs and a bit of hmask; q5_k q, a nibble of qs and a bit of
+    qh; q2_k q, a bit-pair of qs), summed (the tensor core; f64 here) and
+    rounded to f32, scaled by the piece's scale (q6_k's and q3_k's int8
+    sub-block scale; q5_k the u8 scale of its 32-element sub-block, the
+    piece's index halved; q2_k the low nibble of sm) and summed over the
+    four pieces a warp takes (j, j + 4, j + 8, j + 12), times the
+    superblock's d into the warp's accumulator; q2_k also less dmin times
+    the sum over those pieces of m (sm's high nibble) times the piece's sum
+    of x (the x terms' sum, f64 here, f32 shuffles on the card).  q5_k's
+    min term is taken apart from the warps: per superblock and half h of
+    its eight 32-element sub-blocks (4h .. 4h + 3), dmin times the sum of
+    the u8 min times x's f32 sum over the sub-block, added over the
+    block's superblocks; the block's sum is the warps' less both halves.
     q8_0: per 32-element block and column the products summed (f64) and
     rounded to f32, times the block's d into the accumulator of warp ``b %
     4`` (a stage holds 4 blocks; none past the field's last).  The four
@@ -212,6 +218,15 @@ def _mma_decode(x, fields, fmt, ks):
         hi = (hm[:, e % 32] >> (e // 32)[None, :, None]) & 1
         codes = (lo | (hi << 2)) - 4
         scale = f["scales"].to(torch.float32)
+    elif fmt == "q5_k":
+        # element e: qs row e % 128's nibble e // 128, qh row e % 32's bit
+        # e // 32 above it; piece i (16 elements) takes the scale and min
+        # rows i // 2 of its 32-element sub-block
+        qs, qh = f["qs"].to(torch.int32), f["qh"].to(torch.int32)
+        lo = (qs[:, e % 128] >> (4 * (e // 128))[None, :, None]) & 15
+        hi = (qh[:, e % 32] >> (e // 32)[None, :, None]) & 1
+        codes = lo | (hi << 4)
+        scale = f["scales"].to(torch.float32).repeat_interleave(2, dim=1)
     else:
         # q2_k: element e is qs row e % 64's bit-pair e // 64; sm row i the
         # scale (low nibble) and min (high nibble) of sub-block i
@@ -231,9 +246,10 @@ def _mma_decode(x, fields, fmt, ks):
     out = torch.zeros(m, n)
     for r in range(ks):                                    # rank order
         blk = torch.zeros(m, n)
+        own = range(s_blocks * r // ks, s_blocks * (r + 1) // ks)
         for j0 in range(4):                                # warp order
             acc = torch.zeros(m, n)
-            for sb in range(s_blocks * r // ks, s_blocks * (r + 1) // ks):
+            for sb in own:
                 part = torch.zeros(m, n)
                 for p in range(4):
                     i = j0 + 4 * p
@@ -245,6 +261,18 @@ def _mma_decode(x, fields, fmt, ks):
                                for p in range(4)).to(torch.float32)
                     acc = acc - f["dmin"][sb].to(torch.float32) * pmin
             blk = blk + acc
+        if fmt == "q5_k":
+            # x's f32 sums over the 32-element sub-blocks (from x itself)
+            xs32 = xp.reshape(m, s_blocks, 8, 32).sum(-1)    # (M, S, 8)
+            mn = f["mins"].to(torch.float32)                # (S, 8, N)
+            dmin = f["dmin"].to(torch.float32)
+            pm = [torch.zeros(m, n), torch.zeros(m, n)]
+            for sb in own:
+                for h in range(2):
+                    part = sum(mn[sb, i] * xs32[:, sb, i, None]
+                               for i in range(4 * h, 4 * h + 4))
+                    pm[h] = pm[h] + dmin[sb] * part
+            blk = blk - (pm[0] + pm[1])
         out = out + blk
     return out.to(x.dtype)
 
@@ -318,6 +346,17 @@ def test_q8_0_tensor_core_decode_matches_pallas(m, dtype):
     22 blocks: the last stage holds 2), against the Pallas reference
     (``_mma_decode_matches_pallas``)."""
     _mma_decode_matches_pallas("q8_0", m, dtype, seed=360)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_q5k_tensor_core_decode_matches_pallas(m, dtype):
+    """The same decode form with q5_k's codes (a nibble of qs and a bit of
+    qh), each 16-element piece scaled by its 32-element sub-block's u8
+    scale and q2_k's min term taken per piece with the sub-block's u8 min,
+    against the Pallas reference (``_mma_decode_matches_pallas``)."""
+    _mma_decode_matches_pallas("q5_k", m, dtype, seed=460)
 
 
 # every 2-D q3_k weight the DeepSeek cut multiplies at a decode step (K,
@@ -416,6 +455,99 @@ def test_q8_0_decode_ksplit_from_host_integers(k, n):
                (7168, 2048): 6, (2048, 7168): 2, (7168, 129280): 1}
     if (k, n) in fastest:
         assert qmatmul.decode_ksplit_q8_0(n, k, 132) == fastest[k, n]
+
+
+# every 2-D q5_k weight a decode step multiplies (K, N): under Q3_K_M the
+# DeepSeek cut's dense down and qwen2's down; and the CPU tests' (700, 256)
+Q5K_DECODE_SHAPES = [(18432, 7168), (8960, 1536), (700, 256)]
+
+
+@pytest.mark.parametrize("k,n", Q5K_DECODE_SHAPES)
+def test_q5k_decode_ksplit_from_host_integers(k, n):
+    """q5_k's K split, from host integers only: q3_k's rule (its stage is
+    latency-bound as q3_k's is), 1..16 blocks, at most the superblocks; at
+    the served shapes the fastest of the 16 splits timed on an H100 SXM
+    (PERF.md)."""
+    s = -(-k // 256)
+    assert qmatmul.decode_form("q5_k", 1, 4, k)
+    assert qmatmul.decode_form("q5_k", 1, 1, k)
+    assert not qmatmul.decode_form("q5_k", 1, 5, k)
+    assert not qmatmul.decode_form("q5_k", 2, 1, k)
+    assert not qmatmul.prefill_form("q5_k", 1, 4, k)
+    assert qmatmul.decode_stages("q5_k", k) == s
+    for sms in (132, 114, 8):
+        ks = qmatmul.decode_ksplit_q5k(n, k, sms)
+        assert 1 <= ks <= min(16, s)
+        assert ks == qmatmul.decode_ksplit_q3k(n, k, sms)
+    fastest = {(18432, 7168): 4, (8960, 1536): 8}
+    if (k, n) in fastest:
+        assert qmatmul.decode_ksplit_q5k(n, k, 132) == fastest[k, n]
+
+
+def _q5k_experts_c1(x, fields):
+    """q5_k's expert form at C = 1 written out (``q5k_stage_c1`` of
+    ``qmatmul_experts_kernel``), in f32: an expert whose row of x is all
+    zero is not read and gives +0; else per superblock, warp w's
+    sub-blocks w (low nibbles) and 4 + w (high nibbles) take the sums
+    ``part`` of x times the code as 0.5 + q/64 (q a nibble of qs and a bit
+    of qh), the sums of x per sub-block ``xsum``, and y += 64 d sum_sub sc
+    (part - xsum / 2) - dmin sum_sub m xsum; the four warps' sums are added
+    in order.  x (E, 1, K), zeros past K."""
+    qs, qh, sc, mn, d, dmin = (
+        fields[a].to(torch.float32) if a in ("d", "dmin")
+        else fields[a].to(torch.int32) for a in qmatmul.FIELDS["q5_k"])
+    e_n, s_blocks, _, n = qs.shape
+    k = x.shape[-1]
+    e = torch.arange(256)
+    lo = (qs[:, :, e % 128] >> (4 * (e // 128))[None, None, :, None]) & 15
+    hi = (qh[:, :, e % 32] >> (e // 32)[None, None, :, None]) & 1
+    code = 0.5 + (lo | (hi << 4)).to(torch.float32) / 64   # (E, S, 256, N)
+    out = torch.zeros(e_n, 1, n)
+    for ex in range(e_n):
+        if not x[ex].any():
+            continue                                       # +0, not read
+        xp = torch.zeros(s_blocks * 256)
+        xp[:k] = x[ex, 0]
+        xs = xp.reshape(s_blocks, 8, 32)
+        part = torch.einsum("sji,sjin->sjn", xs,
+                            code[ex].reshape(s_blocks, 8, 32, n))
+        xsum = xs.sum(-1)[..., None]                        # (S, 8, 1)
+        t = part - 0.5 * xsum
+        acc = torch.zeros(n)
+        for w in range(4):                                 # warp order
+            aw = torch.zeros(n)
+            for sb in range(s_blocks):
+                a1 = (sc[ex, sb, w] * t[sb, w]
+                      + sc[ex, sb, 4 + w] * t[sb, 4 + w])
+                a2 = (mn[ex, sb, w] * xsum[sb, w]
+                      + mn[ex, sb, 4 + w] * xsum[sb, 4 + w])
+                aw = aw + 64 * d[ex, sb] * a1 - dmin[ex, sb] * a2
+            acc = acc + aw
+        out[ex, 0] = acc
+    return out
+
+
+@pytest.mark.parametrize("e,k,n", [(3, 700, 256), (4, 512, 128),
+                                   (2, 1280, 384)])
+def test_q5k_experts_c1_factored_matches_reference(e, k, n):
+    """The factored arithmetic of q5_k's expert form at C = 1 (a code as
+    0.5 + q/64, the sums of x per 32-element sub-block, each sub-block's
+    scale and min factored out) against the reference's expert path
+    (``impl="xla"``) within 1e-5 of max|y|; an expert whose row of x is
+    all zero (no token routed to it) gives +0."""
+    w = np.random.default_rng(e * k + n).normal(size=(e, k, n)).astype(
+        np.float32)
+    jq = jax_quantize(jnp.asarray(w), "q5_k")
+    tq = from_jax_params({"w": {"fmt": jq.fmt, "shape": jq.shape, "fields": {
+        a: np.asarray(b) for a, b in jq.fields.items()}}})["w"]
+    x = np.random.default_rng(k + n).normal(size=(e, 1, k)).astype(
+        np.float32)
+    x[1] = 0
+    ref = np.asarray(jax_ops.qmatmul(jnp.asarray(x), jq, impl="xla"))
+    got = _q5k_experts_c1(torch.from_numpy(x), tq.fields).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=TOL * np.abs(ref).max())
+    assert not got[1].view(np.int32).any()                 # +0, not -0
 
 
 @pytest.mark.parametrize("k,n", [(700, 256), (1536, 256), (8960, 1536),
@@ -642,12 +774,13 @@ def test_prefill_ksplit_from_host_integers(k, n):
         assert not qmatmul.prefill_form(fmt, 1, 4, k)
         assert not qmatmul.prefill_form(fmt, 1, 1, k)
         assert not qmatmul.prefill_form(fmt, 8, 512, k)
-    # every format but q5_k takes its decode form at M <= 4; q5_k has none:
-    # at M <= 4 it keeps qmatmul_kernel
-    for fmt in ("q4_k", "q6_k", "q3_k", "q2_k", "q8_0"):
-        assert qmatmul.decode_form(fmt, 1, 4, k)
-    for m in (1, 4, 5, 512):
-        assert not qmatmul.decode_form("q5_k", 1, m, k)
+    # every format, q5_k included, takes its decode form at M <= 4 and only
+    # there
+    for fmt in ("q4_k", "q6_k", "q3_k", "q5_k", "q2_k", "q8_0"):
+        for m in (1, 4):
+            assert qmatmul.decode_form(fmt, 1, m, k)
+        for m in (5, 512):
+            assert not qmatmul.decode_form(fmt, 1, m, k)
 
     def fits(tiles, ks, sms):
         return (tiles <= max(1, sms // 16) * (16 // ks)
