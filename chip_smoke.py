@@ -9,44 +9,58 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
   1. build    — compile every CUDA library of the port from this checkout
                 (one nvcc process each, started together).
   2. kernels  — each kernel against its plain PyTorch version on the card at
-                the main paths' shapes (qwen2-1.5b and DeepSeek-V3 under
-                DQ3_K_M, Q3_K_M, Q2_K_L and Q8_0, P=16), the attention
-                kernels with each tile loader the serves use (bf16, q8_0,
-                q4_0 pools; MLA also q8_0 latents beside q4_0 rope keys;
-                every expert form also with the decode's routing, 32 of
-                256 experts live, where no expert kernel reads an empty
-                expert), with times, the roofline bound and the
-                stated tolerance (B1 also at every 2-D shape the DeepSeek
-                cut multiplies by q3_k, q2_k or q8_0 at a chunk's 512 rows,
-                and at a decode step's 1 and 4 rows, q5_k at both of its
-                served shapes at 1, 4 and 512 rows; B1's
-                M = 512 lines also carry ``gemm_ms``, a bf16 torch.matmul
-                by the weight already dequantized, for context); the GQA
+                the served models' shapes, with times, the roofline bound
+                and the stated tolerance: B1's 2-D forms at every weight
+                shape of qwen2-1.5b, deepseek-r1-distill-qwen-32b,
+                qwen2-72b, phi3-mini-3.8b and llama4-scout-17b-a16e under
+                DQ3_K_M at 1, 4 and 512 rows, and of the DeepSeek-V3 cut
+                under DQ3_K_M, Q3_K_M, Q2_K_L and Q8_0 at the rows each
+                form takes (K = 29568, qwen2-72b's ragged down, in all six
+                formats); B1's M = 512 lines also carry ``gemm_ms``, a bf16
+                torch.matmul by the weight already dequantized, for
+                context; the expert form at DeepSeek's E = 256 (C = 1 and
+                20) and llama4's E = 16 (C = 1 and 40), each also with the
+                decode's routing, a few experts live, where no expert
+                kernel reads an empty expert; the GQA decode and prefill
+                with each tile loader the serves use (bf16, q8_0, q4_0
+                pools) at (H, Hkv, D) = (12, 2, 128), (40, 8, 128),
+                (64, 8, 128) and (32, 32, 96); the MLA ones at DeepSeek's
+                shapes (also q8_0 latents beside q4_0 rope keys); the GQA
                 and MLA decodes also at the engine's horizon (4 lanes x
                 1,000 tokens, a 64-page bucket), each on a line of its own.
   3. parity   — full width, f32, weights from one seed, card (kernels)
-                against CPU (plain versions): qwen2-1.5b at depth 2 (a
-                64-token prefill chunk, 4 decode steps) under DQ3_K_M with
+                against CPU (plain versions), one prefill chunk and a few
+                decode steps (``PARITY_CASES``): qwen2-1.5b at depth 2 (a
+                64-token chunk, 4 decode steps) under DQ3_K_M with
                 model-dtype and q8_0 pools, at depth 3 with q4_0 and dq
                 pools, and under Q3_K_M and Q8_0 with model-dtype pools;
                 DeepSeek-V3 at depth 4 (3 dense + 1 MoE layer; an 8-token
                 chunk, 2 decode steps) under DQ3_K_M with model-dtype, q8_0
-                and dq pools and under Q2_K_L with model-dtype pools.
+                and dq pools and under Q2_K_L with model-dtype pools; the
+                four other models at depth 2 (as DeepSeek's run) under
+                DQ3_K_M with model-dtype and q8_0 pools, phi3 also q4_0.
+                A rounding tie that the two sides broke apart in a q4_0
+                pool is broken as the card did (``PARITY_TIE``).
   4. serve    — 8 greedy requests through the engine, weights made and
-                quantized on the card: qwen2-1.5b at full width and depth
-                under DQ3_K_M, then the DeepSeek-V3 cut at full width and 7
-                layers (3 dense + 4 MoE) under DQ3_K_M, each with q8_0,
-                bf16, q4_0 and dq pools (dq with the quant probe), and the
-                cut under Q4_K_M, Q3_K_M, Q2_K_L and Q8_0 with q8_0 pools.
-                Every
-                kernel of each path must have been launched in its run
-                (and each 2-D format of the path, q5_k under Q3_K_M
-                included, must have taken its decode form),
-                and the DeepSeek weights must pack to the reference size
-                calculator's bytes; one traced 4 x 128-token prefill
-                chunk (``prefill_profile``) and one traced decode step
-                (``decode_profile``) per path and pool kind (q8_0, bf16,
-                dq) say where the time goes.
+                quantized on the card: qwen2-1.5b at full width and depth,
+                and the DeepSeek-V3 cut at full width and 7 layers (3 dense
+                + 4 MoE), under DQ3_K_M, each with q8_0, bf16, q4_0 and dq
+                pools (dq with the quant probe), and the cut under Q4_K_M,
+                Q3_K_M, Q2_K_L and Q8_0 with q8_0 pools; then, whole (full
+                width and depth), deepseek-r1-distill-qwen-32b (64 layers)
+                under DQ3_K_M with q8_0 and dq pools and under Q4_K_M with
+                q8_0, phi3-mini-3.8b (32) with q8_0 and q4_0,
+                llama4-scout-17b-a16e (48) and qwen2-72b (80) with q8_0.
+                Every kernel of each path must have been launched in its
+                run (each 2-D format of the path must have taken its decode
+                form, and a ragged K's format both forms), and every
+                model's weights must pack to the size calculator's bytes
+                (``core.size``); one traced 4 x 128-token prefill chunk
+                (``prefill_profile``) and one traced decode step
+                (``decode_profile``) per pool kind of qwen2-1.5b and the
+                DeepSeek cut (q8_0, bf16, dq), and with q8_0 pools of the
+                cut's other policies, distill-32B (DQ3_K_M) and
+                llama4-scout say where the time goes.
 
 The last three lines are the ``{"kernels": [...]}`` summary, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -57,7 +71,9 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -341,6 +357,33 @@ B1_DECODE_SHAPES = [
     (2048, 7168, "q8_0", "DeepSeek shexp down, Q8_0"),
     (7168, 129280, "q8_0", "DeepSeek output, Q8_0")]
 B1_DECODE_ROWS = (1, 4)
+# the 2-D weights of deepseek-r1-distill-qwen-32b, qwen2-72b, phi3-mini-3.8b
+# and llama4-scout-17b-a16e that no other path multiplies, each at a decode
+# step's 1 and 4 rows and a chunk's 512 (DQ3_K_M, and Q4_K_M's q4_k k/v)
+B1_MODEL_SHAPES = [
+    (5120, 5120, "q4_k", "distill-32B, llama4 q_proj, o_proj"),
+    (5120, 1024, "q6_k", "distill-32B, llama4 k_proj, v_proj"),
+    (5120, 1024, "q4_k", "distill-32B k_proj, v_proj, Q4_K_M"),
+    (5120, 27648, "q4_k", "distill-32B gate, up"),
+    (27648, 5120, "q6_k", "distill-32B down"),
+    (5120, 152064, "q6_k", "distill-32B output"),
+    (8192, 8192, "q4_k", "qwen2-72b q_proj, o_proj"),
+    (8192, 1024, "q6_k", "qwen2-72b k_proj, v_proj"),
+    (8192, 29568, "q4_k", "qwen2-72b gate, up"),
+    (8192, 152064, "q6_k", "qwen2-72b output"),
+    (3072, 3072, "q4_k", "phi3 q_proj, o_proj"),
+    (3072, 3072, "q6_k", "phi3 k_proj, v_proj"),
+    (3072, 8192, "q4_k", "phi3 gate, up"),
+    (8192, 3072, "q6_k", "phi3 down"),
+    (3072, 32256, "q6_k", "phi3 output (vocab 32064 padded)"),
+    (5120, 8192, "q4_k", "llama4 shexp gate, up"),
+    (8192, 5120, "q6_k", "llama4 shexp down"),
+    (5120, 202240, "q6_k", "llama4 output (vocab 202048 padded)")]
+# K = 29568, qwen2-72b's down (115.5 superblocks: x's last superblock half
+# empty), in every format, each form: q6_k is DQ3_K_M's and Q4_K_M's
+B1_RAGGED_SHAPES = [(29568, 8192, fmt, "qwen2-72b down, ragged K")
+                    for fmt in ("q6_k", "q4_k", "q3_k", "q5_k", "q2_k",
+                                "q8_0")]
 # the other 2-D weights that the DeepSeek cut multiplies by the prefill
 # form's q3_k (Q3_K_M, Q2_K_L), q2_k (Q2_K_L) and q8_0 (Q8_0) at a chunk's
 # 512 rows, timed at M = 512 only (their M <= 4 form is the one timed above)
@@ -374,26 +417,32 @@ B1_PREFILL_SUMMARY = {"q4_k": (512, 1536, 8960), "q6_k": (512, 8960, 1536),
 B1_SUMMARY = {"q4_k": (4, 1536, 8960), "q6_k": (4, 8960, 1536),
               "q3_k": (4, 7168, 1536), "q5_k": (4, 18432, 7168),
               "q2_k": (4, 7168, 18432), "q8_0": (4, 7168, 18432)}
-# DeepSeek-V3 expert weights (E = 256): (K, N, what they are).  C = 1 is an
-# expert's capacity at decode (4 lanes x top-8 / 256, at least 1), C = 20
-# at a 4 x 128-token prefill chunk (1.25 x 512 x 8 / 256).
-EXPERTS = 256
-EXPERT_SHAPES = [(7168, 2048, "gate_exps, up_exps"), (2048, 7168, "down_exps")]
-EXPERT_ROWS = (1, 20)
+# expert weights: (E, K, N, format, what they are, C values, live experts
+# of the decode's routing).  DeepSeek-V3 (E = 256): C = 1 is an expert's
+# capacity at decode (4 lanes x top-8 / 256, at least 1), C = 20 at a 4 x
+# 128-token prefill chunk (1.25 x 512 x 8 / 256); at 4 lanes x top-8 at
+# most 32 of the 256 experts have a row.  llama4-scout (E = 16, top-1): C
+# = 1 at decode, 40 at a chunk (1.25 x 512 / 16), at most 4 experts live;
+# its DQ3_K_M formats (gate/up q3_k; down q3_k, q4_k and q6_k by layer).
+# Every form is also timed with only the live experts' rows non-zero, at
+# seeded positions, and must give the empty experts the plain version's
+# +0 bitwise.
+EXPERT_FORMATS = ("q3_k", "q4_k", "q6_k", "q5_k", "q2_k", "q8_0")
+EXPERT_CASES = (
+    [(256, k, n, fmt, use, (1, 20), 32) for fmt in EXPERT_FORMATS
+     for k, n, use in ((7168, 2048, "DeepSeek gate_exps, up_exps"),
+                       (2048, 7168, "DeepSeek down_exps"))]
+    + [(16, 5120, 8192, "q3_k", "llama4 gate_exps, up_exps", (1, 40), 4)]
+    + [(16, 8192, 5120, fmt, "llama4 down_exps", (1, 40), 4)
+       for fmt in ("q3_k", "q4_k", "q6_k")])
 # the case that stands for each expert format in the summary line: C = 1,
-# the shape of the format's experts in the DeepSeek cut under DQ3_K_M (q3_k:
-# gate/up of every MoE layer; q4_k, q6_k: down of the 3rd / 1st-2nd MoE
-# layers), Q2_K_L (q2_k: gate/up) and Q8_0 (q8_0: gate/up, as down);
-# no policy puts q5_k on experts
+# all 256 live, the shape of the format's experts in the DeepSeek cut under
+# DQ3_K_M (q3_k: gate/up of every MoE layer; q4_k, q6_k: down of the 3rd /
+# 1st-2nd MoE layers), Q2_K_L (q2_k: gate/up) and Q8_0 (q8_0: gate/up, as
+# down); no policy puts q5_k on experts
 EXPERT_SUMMARY = {"q3_k": (7168, 2048), "q4_k": (2048, 7168),
                   "q6_k": (2048, 7168), "q5_k": (7168, 2048),
                   "q2_k": (7168, 2048), "q8_0": (7168, 2048)}
-# decode routing: at 4 lanes x top-8 at most 32 of the 256 experts have a
-# row, the rest are zero; every expert form is timed that way too, at
-# seeded positions, and the formats whose expert kernel skips empty experts
-# must give them the plain version's +0 bitwise
-LIVE_EXPERTS = 32
-SKIPS_EMPTY = ("q3_k", "q2_k", "q4_k", "q6_k", "q5_k", "q8_0")
 B1_TOL = 8e-3      # bf16 output: one bf16 ulp (2^-8) of the largest value
 B1_TOL_F32 = 1e-5  # f32 output: f32 summation order only
 ATTN_TOL = 1e-5    # f32 output: summation order and the online softmax;
@@ -402,10 +451,7 @@ ATTN_TOL = 1e-5    # f32 output: summation order and the online softmax;
 
 def phase_kernels(torch, summary: dict) -> None:
     from repro_torch.core.qtensor import QTensor, quantize
-    from repro_torch.kernels import paged_attn as pa
     from repro_torch.kernels import qmatmul as qm
-    from repro_torch.models import paged
-    from repro_torch.serving.engine import _bucket_pages
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -414,7 +460,8 @@ def phase_kernels(torch, summary: dict) -> None:
     for k, n, fmt, use, rows in (
             [(*c, B1_ROWS) for c in B1_SHAPES]
             + [(*c, B1_DECODE_ROWS) for c in B1_DECODE_SHAPES]
-            + [(*c, (max(B1_ROWS),)) for c in B1_PREFILL_SHAPES]):
+            + [(*c, (max(B1_ROWS),)) for c in B1_PREFILL_SHAPES]
+            + [(*c, B1_ROWS) for c in B1_MODEL_SHAPES + B1_RAGGED_SHAPES]):
         name = f"qmatmul_{fmt}"
         w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
         qt = quantize(w, fmt)
@@ -469,11 +516,35 @@ def phase_kernels(torch, summary: dict) -> None:
         del copies, qt
         torch.cuda.empty_cache()
 
-    # --- paged attention as the serve phase calls it -----------------------
-    # its engine: max_len 1024 (block tables 64 wide); decode bounds the page
-    # loop by the engine's power-of-two bucket of the live horizon, prefill
-    # passes no bound
-    B, H, HKV, D, P, max_len = 4, 12, 2, 128, 16, 1024
+    lanes = attn_lanes(torch)
+    for h, hkv, d, use in GQA_SHAPES:
+        kernels_gqa(torch, summary if use == "qwen2-1.5b" else None, detail,
+                    gen, lanes, h, hkv, d, use)
+    kernels_experts(torch, summary, detail, gen)
+    kernels_mla(torch, summary, detail, gen, lanes)
+    emit({"phase": "kernels", "detail": detail})
+
+
+# the GQA attention shapes of the served models: (H, Hkv, D, models); the
+# first is the one in the summary line and at the engine's horizon
+GQA_SHAPES = [(12, 2, 128, "qwen2-1.5b"),
+              (40, 8, 128, "deepseek-r1-distill-qwen-32b, llama4-scout"),
+              (64, 8, 128, "qwen2-72b"),
+              (32, 32, 96, "phi3-mini-3.8b")]
+
+
+def attn_lanes(torch) -> dict:
+    """The attention cases' lanes as the serve phase's engine holds them:
+    max_len 1024 (block tables 64 wide), pages of 16, 4 lanes of 100, 217,
+    333 and 400 tokens; decode bounds the page loop by the engine's
+    power-of-two bucket of the live horizon, prefill passes no bound.  A
+    prefill chunk is 128 tokens a lane ending at each lane's frontier,
+    lane 0's short (padded rows have qpos = -1)."""
+    from repro_torch.models import paged
+    from repro_torch.serving.engine import _bucket_pages
+
+    dev = torch.device("cuda")
+    B, P, max_len, C = 4, 16, 1024, 128
     live = torch.tensor([100, 217, 333, 400], dtype=torch.int32)
     nj = paged.pages_for(max_len, P)
     n_lp = (live + P - 1) // P
@@ -487,12 +558,32 @@ def phase_kernels(torch, summary: dict) -> None:
             hi = min(P, int(live[i]) - lp * P)
             pos_pool[nxt, :hi] = torch.arange(lp * P, lp * P + hi)
             nxt += 1
-    pos = live - 1
+    qp = torch.stack([torch.arange(int(p) - C + 1, int(p) + 1)
+                      for p in live - 1])
+    qp[0, :C - 60] = -1
     # every lane's page loop stops at its own pages, short of the bucket
-    lane_pages = n_lp.clone().to(torch.int32)
-    active = _bucket_pages(int(n_lp.max()), nj)
-    bt, pos_pool, pos, lane_pages = (t.to(dev) for t in (bt, pos_pool, pos,
-                                                         lane_pages))
+    return {"B": B, "P": P, "C": C, "live": live, "nj": nj, "n_lp": n_lp,
+            "num_pages": num_pages, "bt": bt.to(dev),
+            "pos_pool": pos_pool.to(dev), "pos": (live - 1).to(dev),
+            "lane_pages": n_lp.clone().to(torch.int32).to(dev),
+            "active": _bucket_pages(int(n_lp.max()), nj),
+            "qp": qp.to(torch.int32).to(dev)}
+
+
+def kernels_gqa(torch, summary, detail: list, gen, lanes: dict, H: int,
+                HKV: int, D: int, use: str) -> None:
+    """B2/B3/B5a (decode) and B4/B5b (prefill) at (H, Hkv, D) over
+    ``lanes``, each tile loader the serves use; into the summary line
+    (and at the engine's horizon) when ``summary`` is given."""
+    from repro_torch.kernels import paged_attn as pa
+    from repro_torch.models import paged
+
+    dev = torch.device("cuda")
+    B, P, C, nj = lanes["B"], lanes["P"], lanes["C"], lanes["nj"]
+    live, n_lp, qp = lanes["live"], lanes["n_lp"], lanes["qp"]
+    bt, pos_pool, pos = lanes["bt"], lanes["pos_pool"], lanes["pos"]
+    lane_pages, active = lanes["lane_pages"], lanes["active"]
+    num_pages = lanes["num_pages"]
     q = torch.randn((B, H, D), generator=gen, device=dev)
     kf = torch.randn((num_pages, P, HKV, D), generator=gen, device=dev)
     vf = torch.randn((num_pages, P, HKV, D), generator=gen, device=dev)
@@ -518,20 +609,15 @@ def phase_kernels(torch, summary: dict) -> None:
             int(live.sum()) * tok_bytes[kv_type] + visited * (4 + P * 4),
             attn_ops, f"B={B} H={H} Hkv={HKV} D={D} P={P} live "
             f"{live.tolist()} active_pages={active} table {nj} wide, "
-            f"{kv_type} pages")
+            f"{kv_type} pages ({use})")
         detail.append(dict(res, kernel=name))
-        if kv_type != "float32":        # the serve path's pool types
+        if summary is not None and kv_type != "float32":
             summary[name] = kernel_entry(name, **res)
-    decode_horizon(torch, gen, cases[1:])
+    if summary is not None:
+        decode_horizon(torch, gen, cases[1:])
 
-    # prefill: a 128-token chunk per lane, ending at each lane's frontier;
-    # lane 0's chunk is short (padded rows have qpos = -1); queries drawn in
-    # f32 (so the f32 case runs all three bf16 terms of each), the serve's
-    # bf16 queries the same values rounded
-    C = 128
-    qp = torch.stack([torch.arange(int(p) - C + 1, int(p) + 1) for p in live - 1])
-    qp[0, :C - 60] = -1
-    qp = qp.to(torch.int32).to(dev)
+    # prefill: queries drawn in f32 (so the f32 case runs all three bf16
+    # terms of each), the serve's bf16 queries the same values rounded
     qc = torch.randn((B, C, H, D), generator=gen, device=dev)
     queries = {torch.float32: qc, torch.bfloat16: qc.to(torch.bfloat16)}
     valid_q = (qp >= 0).sum(dim=1).cpu()
@@ -574,9 +660,10 @@ def phase_kernels(torch, summary: dict) -> None:
         qname = str(qdt).split(".")[-1]
         res = case(f"B={B} C={C} H={H} Hkv={HKV} D={D} P={P} live "
                    f"{live.tolist()} table {nj} wide, {mode} pages, {qname} "
-                   f"queries", y, ref, ATTN_TOL, "max_abs_err", ms, plain_ms,
-                   moved, ops, "bfloat16")
-        if qdt == torch.bfloat16:      # the serve passes bf16 queries
+                   f"queries ({use})", y, ref, ATTN_TOL, "max_abs_err", ms,
+                   plain_ms, moved, ops, "bfloat16")
+        # the serve passes bf16 queries
+        if summary is not None and qdt == torch.bfloat16:
             summary[name] = kernel_entry(name, **res)
         # the other bounds go on the detail line only
         detail.append(dict(res, kernel=name,
@@ -584,10 +671,6 @@ def phase_kernels(torch, summary: dict) -> None:
                            mma_pass_ms=mma_ops / PEAK_OPS["bfloat16"] * 1e3,
                            bytes_ms=moved / HBM_BYTES_S * 1e3))
     del kf, vf, quantized, qc, queries
-    kernels_experts(torch, summary, detail, gen)
-    kernels_mla(torch, summary, detail, gen, live, n_lp, num_pages, bt, pos,
-                lane_pages, active, nj, qp)
-    emit({"phase": "kernels", "detail": detail})
 
 
 def time_decode(torch, name, q, kv, mode, pos_pool, bt, pos, lane_pages,
@@ -661,63 +744,58 @@ def decode_horizon(torch, gen, cases) -> None:
 
 
 def kernels_experts(torch, summary: dict, detail: list, gen) -> None:
-    """B1's expert form: all 256 experts of one weight in one launch, and
-    the decode's routing, 32 experts live and the rest zero."""
+    """B1's expert form: all E experts of one weight in one launch at each
+    C of EXPERT_CASES, and the decode's routing, a few experts live and
+    the rest zero."""
     from repro_torch.core.apply import quantize_in_groups
     from repro_torch.kernels import qmatmul as qm
 
     dev = torch.device("cuda")
-    for fmt in EXPERT_SUMMARY:
+    for e, k, n, fmt, use, rows, n_live in EXPERT_CASES:
         name = f"qmatmul_experts_{fmt}"
         kern = qm.EXPERT_KERNELS[fmt]
-        for k, n, use in EXPERT_SHAPES:
-            qt = quantize_in_groups(
-                lambda r, k=k, n=n: torch.randn(
-                    (len(r), k, n), generator=gen, device=dev) / math.sqrt(k),
-                EXPERTS, fmt, group=16, dim=0)
-            wbytes = qt.packed_bytes()        # > 1 GB: every launch is cold
-            cases = [(c, EXPERTS) for c in EXPERT_ROWS] + [
-                (1, LIVE_EXPERTS)]
-            for c, live in cases:
-                x = torch.randn((EXPERTS, c, k), generator=gen,
-                                device=dev).to(torch.bfloat16)
-                shape = f"E={EXPERTS} C={c} K={k} N={n} bfloat16 ({use})"
-                if live < EXPERTS:
-                    keep = torch.zeros(EXPERTS, dtype=torch.bool, device=dev)
-                    keep[torch.randperm(EXPERTS, generator=gen,
-                                        device=dev)[:live]] = True
-                    x[~keep] = 0
-                    shape = (f"E={EXPERTS} C={c} K={k} N={n} bfloat16, "
-                             f"{live} experts live at seeded positions, the "
-                             f"rest zero; bound from the live experts' "
-                             f"weight bytes ({use})")
-                y = kern(x, qt)
-                ref = qm.qmatmul_plain(x, qt)
-                torch.cuda.synchronize()
-                if y.shape != (EXPERTS, c, n) or y.dtype != torch.bfloat16:
-                    fail(f"{name} shape/dtype {y.shape} {y.dtype}")
-                if live < EXPERTS and fmt in SKIPS_EMPTY and not torch.equal(
-                        y[~keep].view(torch.int16),
-                        ref[~keep].view(torch.int16)):
-                    fail(f"{name}: an empty expert's output is not the "
-                         "plain version's +0")
-                ms = device_ms(torch, lambda: kern(x, qt))
-                plain_ms = device_ms(torch, lambda: qm.qmatmul_plain(x, qt),
-                                     iters=2)
-                res = case(shape, y, ref, B1_TOL, "max_rel_err", ms,
-                           plain_ms, wbytes * live // EXPERTS + nbytes(x)
-                           + EXPERTS * c * n * 2,
-                           2.0 * live * c * k * n, "bfloat16")
-                detail.append(dict(res, kernel=name))
-                if (c, live, k, n) == (1, EXPERTS, *EXPERT_SUMMARY[fmt]):
-                    summary[name] = kernel_entry(name, **res)
-                del x, y, ref
-            del qt
-            torch.cuda.empty_cache()
+        qt = quantize_in_groups(
+            lambda r, k=k, n=n: torch.randn(
+                (len(r), k, n), generator=gen, device=dev) / math.sqrt(k),
+            e, fmt, group=16, dim=0)
+        wbytes = qt.packed_bytes()        # > 400 MB: every launch is cold
+        for c, live in [(c, e) for c in rows] + [(1, n_live)]:
+            x = torch.randn((e, c, k), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            shape = f"E={e} C={c} K={k} N={n} bfloat16 ({use})"
+            if live < e:
+                keep = torch.zeros(e, dtype=torch.bool, device=dev)
+                keep[torch.randperm(e, generator=gen,
+                                    device=dev)[:live]] = True
+                x[~keep] = 0
+                shape = (f"E={e} C={c} K={k} N={n} bfloat16, {live} experts "
+                         f"live at seeded positions, the rest zero; bound "
+                         f"from the live experts' weight bytes ({use})")
+            y = kern(x, qt)
+            ref = qm.qmatmul_plain(x, qt)
+            torch.cuda.synchronize()
+            if y.shape != (e, c, n) or y.dtype != torch.bfloat16:
+                fail(f"{name} shape/dtype {y.shape} {y.dtype}")
+            if live < e and not torch.equal(y[~keep].view(torch.int16),
+                                            ref[~keep].view(torch.int16)):
+                fail(f"{name}: an empty expert's output is not the plain "
+                     "version's +0")
+            ms = device_ms(torch, lambda: kern(x, qt))
+            plain_ms = device_ms(torch, lambda: qm.qmatmul_plain(x, qt),
+                                 iters=2)
+            res = case(shape, y, ref, B1_TOL, "max_rel_err", ms, plain_ms,
+                       wbytes * live // e + nbytes(x) + e * c * n * 2,
+                       2.0 * live * c * k * n, "bfloat16")
+            detail.append(dict(res, kernel=name))
+            if (e, c, live, k, n) == (256, 1, 256, *EXPERT_SUMMARY[fmt]):
+                summary[name] = kernel_entry(name, **res)
+            del x, y, ref
+        del qt
+        torch.cuda.empty_cache()
 
 
-def kernels_mla(torch, summary: dict, detail: list, gen, live, n_lp,
-                num_pages, bt, pos, lane_pages, active, nj, qp) -> None:
+def kernels_mla(torch, summary: dict, detail: list, gen, lanes: dict
+                ) -> None:
     """B6 and B7 at the DeepSeek serve's shapes: the same 4 lanes, block
     tables and page bucket as the GQA cases, 128 heads, latent 512, rope
     64; quantized pools in each (latent, rope) mode pair a serve uses."""
@@ -725,7 +803,12 @@ def kernels_mla(torch, summary: dict, detail: list, gen, live, n_lp,
     from repro_torch.models import paged
 
     dev = torch.device("cuda")
-    B, H, R, DR, P, C = 4, 128, 512, 64, 16, 128
+    H, R, DR = 128, 512, 64
+    B, P, C, nj = lanes["B"], lanes["P"], lanes["C"], lanes["nj"]
+    live, n_lp, qp = lanes["live"], lanes["n_lp"], lanes["qp"]
+    bt, pos = lanes["bt"], lanes["pos"]
+    lane_pages, active = lanes["lane_pages"], lanes["active"]
+    num_pages = lanes["num_pages"]
     scale = (128 + 64) ** -0.5
     ckv = torch.randn((num_pages, P, R), generator=gen, device=dev)
     kr = torch.randn((num_pages, P, DR), generator=gen, device=dev)
@@ -913,128 +996,258 @@ def mla_decode_horizon(torch, gen, cases, tok_bytes, per_pair) -> None:
 # apart or any code two steps apart.  The q8_0 limit is fixed, 3.5x the
 # largest reading of sound runs (qwen2 dq 2.84e-3, DeepSeek q8_0 2.71e-3).
 PARITY_TOL = {"f32": 1e-3, "q8_0": 1e-2}
+# Where the rule refuses a run because the first layer whose codes differ
+# holds a q4_0 code one step apart, the CPU side is run again and breaks
+# each rounding tie as the card did: a code one step from the card's, whose
+# value lies within PARITY_TIE of a step of the boundary between the two
+# codes on both devices, takes the card's code as it is written; any other
+# code apart fails the run.  With no code left apart, the logits are held
+# to the f32 limit.  So every prompt decides: a fault shows as a code off
+# a boundary or as logits apart, a tie broken the other way does not.
+PARITY_TIE = 1e-3
+# The parity cases: (arch, depth, policy, pool kinds (None: model-dtype
+# pools), run shape), each at full width.  qwen2-1.5b: q4_0 and dq pools
+# at depth 3, where dq keeps layers 0 and 2 at q8_0 and packs layer 1 (at
+# depth 2 it would be uniform q8_0); Q3_K_M for q5_k (ffn_down), Q8_0 for
+# q8_0 weights.  DeepSeek-V3 at depth 4, its 3 dense layers and first MoE
+# layer: dq pools hold q8_0 latents and q4_0 rope keys on layers 1 and 2;
+# Q2_K_L runs q2_k and q3_k 2-D weights and experts.  The four other
+# full-attention models at depth 2: head_dim 96 at a group of 1 (phi3),
+# groups of 5 and 8, QKV bias, untied heads over vocabularies of 32064 to
+# 202048, 16 experts at top-1 beside a shared expert (llama4), the ragged
+# K = 29568 (qwen2-72b).  A forward of the wide models multiplies 2 to 3 G
+# weights, and the plain version dequantizes the experts that tokens were
+# routed to on every call, so their chunk is short and their steps few.
+QWEN_RUN = dict(B=2, C=64, max_len=128, steps_n=4, short=9)
+WIDE_RUN = dict(B=2, C=8, max_len=64, steps_n=2, short=3)
+PARITY_CASES = (
+    ("qwen2-1.5b", 2, "DQ3_K_M", (None, "q8_0"), QWEN_RUN),
+    ("qwen2-1.5b", 3, "DQ3_K_M", ("q4_0", "dq"), QWEN_RUN),
+    ("qwen2-1.5b", 2, "Q3_K_M", (None,), QWEN_RUN),
+    ("qwen2-1.5b", 2, "Q8_0", (None,), QWEN_RUN),
+    ("deepseek-v3-671b", 4, "DQ3_K_M", (None, "q8_0", "dq"), WIDE_RUN),
+    ("deepseek-v3-671b", 4, "Q2_K_L", (None,), WIDE_RUN),
+    ("deepseek-r1-distill-qwen-32b", 2, "DQ3_K_M", (None, "q8_0"), WIDE_RUN),
+    ("phi3-mini-3.8b", 2, "DQ3_K_M", (None, "q8_0", "q4_0"), WIDE_RUN),
+    ("llama4-scout-17b-a16e", 2, "DQ3_K_M", (None, "q8_0"), WIDE_RUN),
+    ("qwen2-72b", 2, "DQ3_K_M", (None, "q8_0"), WIDE_RUN))
 
 
 def phase_parity(torch) -> None:
     from repro_torch.configs import get_config
 
-    qwen = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2)
-    qwen_kw = dict(B=2, C=64, max_len=128, steps_n=4, short=9)
-    parity_model(torch, qwen, "DQ3_K_M", (None, "q8_0"), **qwen_kw)
-    # q4_0 and dq pools at depth 3: dq keeps layers 0 and 2 at q8_0 and
-    # packs layer 1 (at depth 2 it would be uniform q8_0)
-    parity_model(torch, dataclasses.replace(qwen, n_layers=3), "DQ3_K_M",
-                 ("q4_0", "dq"), **qwen_kw)
-    # q5_k (ffn_down) and q8_0 weights; the pool kinds were covered above
-    for policy in ("Q3_K_M", "Q8_0"):
-        parity_model(torch, qwen, policy, (None,), **qwen_kw)
-    # DeepSeek-V3 at depth 4: the 3 dense layers and the first MoE layer.
-    # The CPU side dequantizes every weight it multiplies on every call
-    # (~3 G weights per forward, the experts of the tokens routed to them
-    # on top), so the chunk is short and the decode steps few.
-    deepseek = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=4)
-    ds_kw = dict(B=2, C=8, max_len=64, steps_n=2, short=3)
-    # dq: q8_0 latents, q4_0 rope keys on layers 1 and 2
-    parity_model(torch, deepseek, "DQ3_K_M", (None, "q8_0", "dq"), **ds_kw)
-    # q2_k 2-D and experts, q3_k 2-D and experts
-    parity_model(torch, deepseek, "Q2_K_L", (None,), **ds_kw)
+    for arch, depth, policy, pools, run in PARITY_CASES:
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+        weights = parity_weights(torch, cfg, policy)
+        inputs = parity_inputs(torch, cfg, seed=1, **run)
+        for kv_quant in pools:
+            result, error = parity_check(torch, weights, policy, kv_quant,
+                                         inputs)
+            emit(result)
+            if error:
+                fail(f"parity ({arch}, {policy}, {kv_quant or 'f32'}): "
+                     f"{error}")
+        del weights
+        torch.cuda.empty_cache()
 
 
-def parity_model(torch, cfg, policy: str, pools: tuple, *, B: int, C: int,
-                 max_len: int, steps_n: int, short: int) -> None:
-    """One prefill chunk (lane 1 ``short`` tokens short) and ``steps_n``
-    decode steps of ``cfg`` under ``policy`` on the card and on the CPU,
-    per pool kind in ``pools`` (None: model-dtype pools)."""
+def parity_weights(torch, cfg, policy: str) -> tuple:
+    """``(model, card params, CPU params)``: ``cfg``'s weights from seed 0
+    under ``policy``, f32, made on the card, and the CPU side's copy with
+    every 2-D weight it multiplies dequantized to f32 once.  The plain
+    version (``qmatmul_plain``) dequantizes such a weight on every call
+    and then makes this same ``torch.matmul``; dequantizing took most of
+    the CPU side's time.  Expert weights stay packed (the plain version
+    dequantizes only the experts tokens were routed to), as does an
+    untied token embedding (only its tokens' columns are dequantized)."""
     from repro_torch.convert import tree_to
-    from repro_torch.core import get_policy, init_quantized_params
-    from repro_torch.models import paged
+    from repro_torch.core import QTensor, get_policy, init_quantized_params
     from repro_torch.models.model import Model
 
-    dev = torch.device("cuda")
     qparams = init_quantized_params(cfg, get_policy(policy), 0,
-                                    dtype=torch.float32, device=dev)
-    cpu_params = tree_to(qparams, "cpu")
-    model = Model(cfg, dtype=torch.float32)
+                                    dtype=torch.float32,
+                                    device=torch.device("cuda"))
+    cpu = tree_to(qparams, "cpu")
+    for k, v in cpu.items():
+        if (isinstance(v, QTensor) and len(v.shape) == 2
+                and (k != "token_embd" or cfg.tie_embeddings)):
+            cpu[k] = v.dequantize(torch.float32)
+    return Model(cfg, dtype=torch.float32), qparams, cpu
+
+
+def parity_inputs(torch, cfg, *, B: int, C: int, max_len: int, steps_n: int,
+                  short: int, seed: int) -> dict:
+    """One prefill chunk of prompt tokens from ``seed`` (lane 1 ``short``
+    tokens short) over pages of 16, then ``steps_n`` decode steps whose
+    tokens are fixed, not sampled, so that a near-tie argmax cannot send
+    the two devices down different streams."""
+    from repro_torch.models import paged
+
     P = 16
     n = paged.pages_for(max_len, P)
-    bt = torch.tensor([[2 + i * n + j for j in range(n)] for i in range(B)],
-                      dtype=torch.int32)
-    rng = torch.Generator().manual_seed(1)
+    rng = torch.Generator().manual_seed(seed)
     toks = torch.randint(4, cfg.vocab_size, (B, C), generator=rng,
                          dtype=torch.int32)
-    # decode inputs are fixed, not sampled, so a near-tie argmax cannot
-    # send the two devices down different streams
-    dec_toks = torch.randint(4, cfg.vocab_size, (steps_n, B), generator=rng,
-                             dtype=torch.int32)
-    clen = torch.tensor([C, C - short], dtype=torch.int32)
-    for kv_quant in pools:
-        label = kv_quant or "f32"
-        logits, caches, secs = {}, {}, {}
-        for side, device, prm in (("card", dev, qparams),
-                                  ("cpu", torch.device("cpu"), cpu_params)):
-            t0 = time.perf_counter()
-            cache = model.init_paged_cache(2 + B * n, P, B,
-                                           dtype=torch.float32,
-                                           kv_quant=kv_quant, device=device)
-            tables = {"full": bt.to(device)}
-            out, cache = model.prefill_chunk(
-                prm, cache, toks.to(device), torch.zeros(B, dtype=torch.int32,
-                                                         device=device),
-                clen.to(device), max_len=max_len, block_tables=tables,
-                page_size=P, kv_quant=kv_quant, active_pages=(n, 0))
-            steps = [out]
-            pos = clen.to(device).clone()
-            for i in range(steps_n):
-                lp = (pos // P + 1).to(torch.int32)
-                out, cache = model.decode_step_paged(
-                    prm, cache, dec_toks[i].to(device), pos, tables,
-                    page_size=P, max_len=max_len, active_pages=(n, 0),
-                    lane_pages={"full": lp}, kv_quant=kv_quant)
-                steps.append(out)
-                pos = pos + 1
-            logits[side] = torch.stack(steps).cpu()
-            caches[side] = {k: v.cpu() for k, v in cache.items()}
-            secs[side] = time.perf_counter() - t0
-        a, b = logits["card"], logits["cpu"]
-        if (a.shape != (steps_n + 1, B, cfg.vocab_size)
-                or not torch.isfinite(a).all()):
-            fail(f"parity ({cfg.name}, {policy}, {label}): bad logits "
-                 f"{a.shape}")
-        rel = ((a - b).abs().max() / b.abs().max()).item()
-        result = {"phase": "parity", "arch": cfg.name, "policy": policy,
-                  "kv": label, "layers": cfg.n_layers, "chunk": C,
-                  "decode_steps": steps_n,
-                  "max_abs": (a - b).abs().max().item(),
-                  "max_abs_logit": b.abs().max().item(), "rel": rel,
-                  "card_s": secs["card"], "cpu_s": secs["cpu"]}
-        # every page but GARBAGE, the sink of padded writes, whose order
-        # among duplicates is unspecified and which is never read
-        read = [i for i in range(2 + B * n) if i != paged.GARBAGE_PAGE]
-        ca, cb = caches["card"], caches["cpu"]
-        if any(not torch.equal(ca[k][read], cb[k][read]) for k in ca
-               if k.endswith("/pos")):
-            fail(f"parity ({cfg.name}, {policy}, {label}): the caches' "
-                 "positions differ")
-        try:    # skips GARBAGE too
-            tol, apart = paged.parity_limit(
-                cfg, kv_quant, ca, cb, exact=PARITY_TOL["f32"],
-                stepped=PARITY_TOL["q8_0"])
-        except ValueError as e:
-            fail(f"parity ({cfg.name}, {policy}, {label}): {e}")
-        if apart:
-            result.update(codes_apart=apart["apart"],
-                          first_layer_apart=apart["first_layer"],
-                          max_step_all=apart["max_step_all"])
-            if kv_quant == "q8_0" and apart["max_step_all"] > 1:
-                fail(f"parity ({cfg.name}, {policy}, {label}): q8_0 codes "
-                     "more than one step apart")
-        result["tol"] = tol
-        emit(result)
-        if not rel <= tol:
-            fail(f"parity ({cfg.name}, {policy}, {label}): max|d| / "
-                 f"max|logit| = {rel}")
-    del qparams, cpu_params
-    torch.cuda.empty_cache()
+    dec = torch.randint(4, cfg.vocab_size, (steps_n, B), generator=rng,
+                        dtype=torch.int32)
+    return {"B": B, "C": C, "P": P, "n": n, "max_len": max_len, "seed": seed,
+            "toks": toks, "dec": dec,
+            "clen": torch.tensor([C, C - short], dtype=torch.int32),
+            "bt": torch.tensor([[2 + i * n + j for j in range(n)]
+                                for i in range(B)], dtype=torch.int32)}
+
+
+def parity_side(torch, model, params, kv_quant, inputs: dict, device
+                ) -> tuple:
+    """The chunk and the decode steps on ``device``: the logits of each
+    (stacked, on the CPU) and the final cache's leaves on the CPU."""
+    B, P, n, max_len = inputs["B"], inputs["P"], inputs["n"], inputs["max_len"]
+    cache = model.init_paged_cache(2 + B * n, P, B, dtype=torch.float32,
+                                   kv_quant=kv_quant, device=device)
+    tables = {"full": inputs["bt"].to(device)}
+    clen = inputs["clen"].to(device)
+    out, cache = model.prefill_chunk(
+        params, cache, inputs["toks"].to(device),
+        torch.zeros(B, dtype=torch.int32, device=device), clen,
+        max_len=max_len, block_tables=tables, page_size=P, kv_quant=kv_quant,
+        active_pages=(n, 0))
+    steps = [out]
+    pos = clen.clone()
+    for tok in inputs["dec"]:
+        out, cache = model.decode_step_paged(
+            params, cache, tok.to(device), pos, tables, page_size=P,
+            max_len=max_len, active_pages=(n, 0),
+            lane_pages={"full": (pos // P + 1).to(torch.int32)},
+            kv_quant=kv_quant)
+        steps.append(out)
+        pos = pos + 1
+    return (torch.stack(steps).cpu(),
+            {k: v.cpu() for k, v in cache.items()})
+
+
+@contextlib.contextmanager
+def kv_writes(torch, log: list, card: list | None = None,
+              ties: dict | None = None):
+    """Every quantize-on-write of the pools (``paged.quantize_rows``, which
+    each prefill and decode write calls) recorded into ``log`` in call
+    order as ``(mode, value, codes, scale)`` on the CPU, q4_0 codes
+    unpacked.  Given the card's record ``card``, each write takes the
+    card's code where its own is a rounding tie broken the other way
+    (``PARITY_TIE``), counted into ``ties`` (``broken``, the largest
+    ``distance`` from the boundary in steps, ``refused``: codes apart
+    that are no such tie, left as they are)."""
+    from repro_torch.kernels.paged_attn import pack_q4_rows, unpack_q4_rows
+    from repro_torch.models import paged
+
+    own = paged.quantize_rows
+
+    def write(val, mode):
+        qs, d = own(val, mode)
+        codes = (unpack_q4_rows(qs) if mode == "q4_0" else qs).cpu()
+        x, scale = val.to(torch.float32).cpu(), d.cpu()
+        if card is not None:
+            cmode, cx, ccodes, cscale = card[len(log)]
+            if (cmode, cx.shape) != (mode, x.shape):
+                fail(f"write {len(log)}: {mode} {tuple(x.shape)} on the "
+                     f"CPU, {cmode} {tuple(cx.shape)} on the card")
+            apart = codes != ccodes
+            if bool(apart.any()):
+                mid = (codes.to(torch.float32) + ccodes) / 2
+                dist = torch.maximum(
+                    (x / scale.clamp(min=1e-30)[..., None] - mid).abs(),
+                    (cx / cscale.clamp(min=1e-30)[..., None] - mid).abs())
+                tie = apart & ((codes.int() - ccodes.int()).abs() == 1) & (
+                    dist <= PARITY_TIE)
+                ties["refused"] += int((apart & ~tie).sum())
+                ties["broken"] += int(tie.sum())
+                if bool(tie.any()):
+                    ties["distance"] = max(ties["distance"],
+                                           float(dist[tie].max()))
+                codes = torch.where(tie, ccodes, codes)
+                packed = pack_q4_rows(codes) if mode == "q4_0" else codes
+                qs = packed.to(qs.device)
+        log.append((mode, x, codes, scale))
+        return qs, d
+
+    paged.quantize_rows = write
+    try:
+        yield
+    finally:
+        paged.quantize_rows = own
+
+
+def parity_check(torch, weights: tuple, policy: str, kv_quant,
+                 inputs: dict) -> tuple:
+    """``parity_inputs`` through the card (kernels) and the CPU (plain
+    versions) over ``kv_quant`` pools (None: model-dtype): the result line
+    and what failed (None if nothing did)."""
+    from repro_torch.models import paged
+
+    model, qparams, cpu_params = weights
+    cfg = model.cfg
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    steps_n = len(inputs["dec"])
+    card_log, cpu_log, secs = [], [], {}
+    t0 = time.perf_counter()
+    with kv_writes(torch, card_log):
+        a, ca = parity_side(torch, model, qparams, kv_quant, inputs, dev)
+    secs["card"] = time.perf_counter() - t0
+    with kv_writes(torch, cpu_log):
+        b, cb = parity_side(torch, model, cpu_params, kv_quant, inputs, cpu)
+    secs["cpu"] = time.perf_counter() - secs["card"] - t0
+    result = {"phase": "parity", "arch": cfg.name, "policy": policy,
+              "kv": kv_quant or "f32", "layers": cfg.n_layers,
+              "chunk": inputs["C"], "prompt_seed": inputs["seed"],
+              "decode_steps": steps_n}
+    if (a.shape != (steps_n + 1, inputs["B"], cfg.vocab_size)
+            or not torch.isfinite(a).all()):
+        return result, f"bad logits {tuple(a.shape)}"
+    stats = (paged.codes_apart(cfg, kv_quant, ca, cb) if kv_quant
+             else {"first_layer": None})
+    if (stats["first_layer"] is not None and stats["max_step_first"] == 1
+            and "q4_0" in stats["first_modes"]):
+        result.update(own_ties={"rel": rel_apart(a, b),
+                                "codes_apart": stats["apart"],
+                                "first_layer_apart": stats["first_layer"]})
+        ties = {"broken": 0, "distance": 0.0, "refused": 0}
+        with kv_writes(torch, [], card_log, ties):
+            b, cb = parity_side(torch, model, cpu_params, kv_quant, inputs,
+                                cpu)
+        result["card_ties"] = ties
+        if ties["refused"]:
+            return result, (f"{ties['refused']} codes apart that are no "
+                            f"rounding tie")
+    result.update(max_abs=(a - b).abs().max().item(),
+                  max_abs_logit=b.abs().max().item(), rel=rel_apart(a, b),
+                  card_s=secs["card"], cpu_s=secs["cpu"])
+    # every page but GARBAGE, the sink of padded writes, whose order among
+    # duplicates is unspecified and which is never read
+    read = [i for i in range(2 + inputs["B"] * inputs["n"])
+            if i != paged.GARBAGE_PAGE]
+    if any(not torch.equal(ca[k][read], cb[k][read]) for k in ca
+           if k.endswith("/pos")):
+        return result, "the caches' positions differ"
+    try:    # skips GARBAGE too
+        tol, apart = paged.parity_limit(cfg, kv_quant, ca, cb,
+                                        exact=PARITY_TOL["f32"],
+                                        stepped=PARITY_TOL["q8_0"])
+    except ValueError as e:
+        return result, str(e)
+    if apart:
+        result.update(codes_apart=apart["apart"],
+                      first_layer_apart=apart["first_layer"],
+                      max_step_all=apart["max_step_all"])
+        if kv_quant == "q8_0" and apart["max_step_all"] > 1:
+            return result, "q8_0 codes more than one step apart"
+    result["tol"] = tol
+    if not result["rel"] <= tol:
+        return result, f"max|d| / max|logit| = {result['rel']}"
+    return result, None
+
+
+def rel_apart(a, b) -> float:
+    """max|a - b| / max|b|."""
+    return ((a - b).abs().max() / b.abs().max()).item()
 
 
 # ---------------------------------------------------------------------------
@@ -1202,46 +1415,54 @@ def profile_decode(torch, model, qparams, kv_quant, lanes=4, live=256,
             "top_host_ops_ms": {k[:60]: v for k, v in top_host}}
 
 
-# what ``repro.core.size.model_size`` gives for the 7-layer DeepSeek-V3 cut
-# per policy: GGUF bytes and the structure-of-arrays layout both packages
-# store (8-bit scale fields); the serve checks the packed bytes against the
-# latter
-REFERENCE_BYTES = {
-    "DQ3_K_M": {"gguf": 25783579136, "soa": 26417660416},
-    "Q3_K_M": {"gguf": 23930701312, "soa": 24691620352},
-    "Q2_K_L": {"gguf": 18656924160, "soa": 18926240256},
-    "Q8_0": {"gguf": 52756695040, "soa": 52756695040},
-    "Q4_K_M": {"gguf": 30230380544, "soa": 30867207168}}
-# the B1 forms each policy's DeepSeek path takes: (2-D formats, expert
-# formats); under every policy the output head is q6_k but for Q8_0
-DEEPSEEK_B1 = {"DQ3_K_M": (("q4_k", "q6_k"), ("q3_k", "q4_k", "q6_k")),
-               "Q3_K_M": (("q3_k", "q4_k", "q5_k", "q6_k"), ("q3_k", "q4_k")),
-               "Q2_K_L": (("q2_k", "q3_k", "q6_k"), ("q2_k", "q3_k")),
-               "Q8_0": (("q8_0",), ("q8_0",)),
-               "Q4_K_M": (("q4_k", "q6_k"), ("q4_k", "q6_k"))}
+# the attention kernels a serve launches per pool kind (None: model-dtype
+# pools, whose GQA and MLA prefill attention is plain PyTorch); dq's quant
+# probe serves shadow bf16 pools through the same steps
+GQA_POOLS = {"q8_0": ("paged_attn_decode_quant", "paged_attn_prefill_quant"),
+             None: ("paged_attn_decode",),
+             "q4_0": ("paged_attn_decode_quant_q4_0",
+                      "paged_attn_prefill_quant_q4_0")}
+GQA_POOLS["dq"] = GQA_POOLS["q8_0"] + GQA_POOLS["q4_0"] + GQA_POOLS[None]
+MLA_POOLS = {"q8_0": ("paged_mla_decode_quant", "paged_mla_prefill_quant"),
+             None: ("paged_mla_decode",),
+             "q4_0": ("paged_mla_decode_quant_q4_0",
+                      "paged_mla_prefill_quant_q4_0")}
+MLA_POOLS["dq"] = MLA_POOLS["q8_0"] + MLA_POOLS[None] + (
+    "paged_mla_decode_quant_q8_0_q4_0", "paged_mla_prefill_quant_q8_0_q4_0")
 
 
-# the formats whose one-weight calls at M > 4 take qmatmul_prefill_kernel
-# (all), and those of them each path multiplies at a prefill chunk's 512
-# rows (qwen2 under DQ3_K_M; the DeepSeek cut per policy: under Q3_K_M q6_k
-# is only the output head, which takes one row a lane, as the Q8_0 head
-# does, and Q2_K_L has no q4_k); the one-weight calls of every format at
-# M <= 4 take its decode form
-PREFILL_FORMS = ("q4_k", "q6_k", "q3_k", "q5_k", "q2_k", "q8_0")
-QWEN2_PREFILL = ("q4_k", "q6_k")
-DEEPSEEK_PREFILL = {"DQ3_K_M": ("q4_k", "q6_k"), "Q4_K_M": ("q4_k", "q6_k"),
-                    "Q3_K_M": ("q4_k", "q3_k", "q5_k"),
-                    "Q2_K_L": ("q6_k", "q3_k", "q2_k"), "Q8_0": ("q8_0",)}
+def b1_path(cfg, policy: str) -> tuple:
+    """The B1 wrappers a serve of ``cfg`` under ``policy`` launches, from
+    its format map: ``qmatmul_<f>`` for every format of a multiplied 2-D
+    weight (the decode form at a step's M <= 4 rows; an untied token
+    embedding is only gathered), ``qmatmul_<f>_prefill`` for those that
+    also multiply a chunk's 512 rows (all but the output head, which takes
+    one row a lane), ``qmatmul_experts_<f>`` for every expert format; and
+    (K, format) -> roles of the multiplied 2-D weights whose K is not a
+    whole number of the format's blocks (qwen2-72b's down: K = 29568)."""
+    from repro_torch.core import FORMATS, format_map, get_policy
+    from repro_torch.models.spec import model_specs
 
-
-DECODE_FORMS = ("q4_k", "q6_k", "q3_k", "q5_k", "q2_k", "q8_0")
-
-
-def b1_path(policy: str) -> tuple:
-    dense, experts = DEEPSEEK_B1[policy]
-    return (tuple(f"qmatmul_{f}" for f in dense)
-            + tuple(f"qmatmul_{f}_prefill" for f in DEEPSEEK_PREFILL[policy])
-            + tuple(f"qmatmul_experts_{f}" for f in experts))
+    specs = model_specs(cfg)
+    head = "token_embd" if cfg.tie_embeddings else "output"
+    dense, prefill, experts, ragged = set(), set(), set(), {}
+    for path, f in format_map(cfg, get_policy(policy)).items():
+        if f not in FORMATS or (path == "token_embd"
+                                and not cfg.tie_embeddings):
+            continue
+        s = specs[path]
+        if len(s.shape) == 3:
+            experts.add(f)
+            continue
+        dense.add(f)
+        if path != head:
+            prefill.add(f)
+        if s.shape[0] % FORMATS[f].block:
+            ragged.setdefault((s.shape[0], f), set()).add(s.role)
+    return (tuple(f"qmatmul_{f}" for f in sorted(dense))
+            + tuple(f"qmatmul_{f}_prefill" for f in sorted(prefill))
+            + tuple(f"qmatmul_experts_{f}" for f in sorted(experts)),
+            ragged)
 
 
 def phase_serve(torch, summary: dict) -> None:
@@ -1249,52 +1470,51 @@ def phase_serve(torch, summary: dict) -> None:
 
     counters = launch_counters()
     totals = {k: 0 for k in KERNELS}
-    dense = ("qmatmul_q4_k", "qmatmul_q6_k") + tuple(
-        f"qmatmul_{f}_prefill" for f in QWEN2_PREFILL)
-    gqa_q8 = ("paged_attn_decode_quant", "paged_attn_prefill_quant")
-    gqa_q4 = ("paged_attn_decode_quant_q4_0", "paged_attn_prefill_quant_q4_0")
-    # dq: the quant probe's shadow bf16 pools decode through B2
-    serve_model(torch, get_config("qwen2-1.5b"), "DQ3_K_M", counters,
-                totals, {
-                    "q8_0": dense + gqa_q8,
-                    None: dense + ("paged_attn_decode",),
-                    "q4_0": dense + gqa_q4,
-                    "dq": dense + gqa_q8 + gqa_q4 + ("paged_attn_decode",)},
-                profiled=("q8_0", None, "dq"))
+    serve = functools.partial(serve_model, torch, counters=counters,
+                              totals=totals)
+    # dq: the quant probe's shadow bf16 pools decode through B2 (B7 for MLA)
+    serve(get_config("qwen2-1.5b"), "DQ3_K_M", ("q8_0", None, "q4_0", "dq"),
+          profiled=("q8_0", None, "dq"))
     # DeepSeek-V3 cut to 7 layers: the 3 dense layers of the published
     # config and 4 MoE layers, where ffn_down_exps takes all three of
     # DQ3_K_M's formats; every width is the published one
     deepseek = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=7)
-    mla_q8 = ("paged_mla_decode_quant", "paged_mla_prefill_quant")
-    mla_q4 = ("paged_mla_decode_quant_q4_0", "paged_mla_prefill_quant_q4_0")
-    mla_dq = ("paged_mla_decode_quant_q8_0_q4_0",
-              "paged_mla_prefill_quant_q8_0_q4_0")
-    serve_model(torch, deepseek, "DQ3_K_M", counters, totals, {
-        "q8_0": b1_path("DQ3_K_M") + mla_q8,
-        None: b1_path("DQ3_K_M") + ("paged_mla_decode",),
-        "q4_0": b1_path("DQ3_K_M") + mla_q4,
-        "dq": b1_path("DQ3_K_M") + mla_q8 + mla_dq + ("paged_mla_decode",)},
-        profiled=("q8_0", None, "dq"))
+    serve(deepseek, "DQ3_K_M", ("q8_0", None, "q4_0", "dq"),
+          profiled=("q8_0", None, "dq"))
     # the paper's other policies, q8_0 pools (the pool kinds are covered
     # above); each policy's weights are freed before the next is made
     for policy in ("Q4_K_M", "Q3_K_M", "Q2_K_L", "Q8_0"):
-        serve_model(torch, deepseek, policy, counters, totals,
-                    {"q8_0": b1_path(policy) + mla_q8}, profiled=("q8_0",))
+        serve(deepseek, policy, ("q8_0",), profiled=("q8_0",))
+    # the other full-attention models, whole: the paper's distilled 32B
+    # under DQ3_K_M and its 4-bit comparator Q4_K_M (dq with the quant
+    # probe), phi3 at head_dim 96 (a group of 1) with q8_0 and q4_0 pools,
+    # llama4-scout (GQA beside 16 experts, top-1), qwen2-72b (80 layers,
+    # the ragged K = 29568)
+    distill = get_config("deepseek-r1-distill-qwen-32b")
+    serve(distill, "DQ3_K_M", ("q8_0", "dq"), profiled=("q8_0",))
+    serve(distill, "Q4_K_M", ("q8_0",), profiled=())
+    serve(get_config("phi3-mini-3.8b"), "DQ3_K_M", ("q8_0", "q4_0"),
+          profiled=())
+    serve(get_config("llama4-scout-17b-a16e"), "DQ3_K_M", ("q8_0",),
+          profiled=("q8_0",))
+    serve(get_config("qwen2-72b"), "DQ3_K_M", ("q8_0",), profiled=())
     for name in KERNELS:
         summary.setdefault(name, kernel_entry(name))["launches"] = totals[name]
 
 
-def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
-                path_kernels: dict, profiled: tuple) -> None:
+def serve_model(torch, cfg, policy: str, pools: tuple, *, counters: dict,
+                totals: dict, profiled: tuple) -> None:
     """Weights from seed 0 made and quantized on the card (``policy``,
-    bf16), then 8 greedy requests per pool kind of ``path_kernels`` (a
-    ``kv_quant``, or None for bf16 pools), which also lists the kernels
-    each run must launch; the counts are set to 0 just before each serve
-    and read just after.  The "dq" serve runs the quant probe, whose
+    bf16), packed to the bytes of the size calculator, then 8 greedy
+    requests per pool kind of ``pools`` (a ``kv_quant``, or None for bf16
+    pools); each run must launch its path's B1 forms (:func:`b1_path`) and
+    attention kernels, counted from 0 just before each serve and read just
+    after.  The "dq" serve runs the quant probe, whose
     shadow bf16 pools are served through the same steps (its step times
     include them).  One decode step per pool kind of ``profiled`` is
     traced."""
-    from repro_torch.core import QTensor, get_policy, init_quantized_params
+    from repro_torch.core import (QTensor, get_policy, init_quantized_params,
+                                  model_size)
     from repro_torch.kernels import qmatmul as qm
     from repro_torch.launch.serve import build_requests
     from repro_torch.models.model import Model
@@ -1312,11 +1532,17 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
     init_peak = torch.cuda.max_memory_allocated() / 2**30
     packed = sum(v.packed_bytes() if isinstance(v, QTensor)
                  else v.numel() * v.element_size() for v in qparams.values())
-    if cfg.mla and packed != REFERENCE_BYTES[policy]["soa"]:
+    # the packed layout of both packages: every QTensor field and float
+    # leaf, the tied head counted once (it is one leaf, token_embd)
+    size = model_size(cfg, get_policy(policy))
+    if packed != size.tpu_bytes:
         fail(f"serve ({cfg.name}, {policy}): packed {packed} bytes, the "
-             f"reference calculator {REFERENCE_BYTES[policy]['soa']}")
+             f"size calculator {size.tpu_bytes}")
+    attn = MLA_POOLS if cfg.mla else GQA_POOLS
+    b1, ragged = b1_path(cfg, policy)
+    path_kernels = {kv: b1 + attn[kv] for kv in pools}
     model = Model(cfg, dtype=torch.bfloat16)
-    for kv_quant in path_kernels:
+    for kv_quant in pools:
         engine = Engine(model, qparams, max_len=1024, device=dev,
                         sampler=SamplerConfig(greedy=True), page_size=16,
                         prefill_chunk=128, kv_quant=kv_quant,
@@ -1337,7 +1563,7 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
         forms = {fw: qm.library_launches(*fw) - n for fw, n in forms.items()}
         launches = {k: c.launches for k, c in counters.items()}
         launches.update({f"qmatmul_{f}_prefill": forms[f, "prefill"]
-                         for f in PREFILL_FORMS})
+                         for f in qm.FIELDS})
         st = engine.last_stats
         label = kv_quant or "bf16"
         res = {"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
@@ -1367,9 +1593,14 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
         if engine.quant_probe:
             res["quant_probe_steps"] = st.quant_probe_steps
             res["quant_logit_gap_per_lane"] = st.quant_logit_gap_per_lane
-        if cfg.mla:
-            res["reference_size_gib"] = {
-                k: v / 2**30 for k, v in REFERENCE_BYTES[policy].items()}
+        res["size_gib"] = {"gguf": size.gib, "soa": size.tpu_gib}
+        res["avg_bits"] = size.avg_bits
+        if ragged:
+            res["ragged_k"] = [
+                {"K": k, "format": f, "roles": sorted(roles),
+                 "decode_launches": forms[f, "decode"],
+                 "prefill_launches": forms[f, "prefill"]}
+                for (k, f), roles in sorted(ragged.items())]
         emit(res)
         what = f"serve ({cfg.name}, {policy}, {label})"
         if len(done) != 8 or any(r.status != "ok" or len(r.out) != 32
@@ -1383,13 +1614,20 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
         if missing:
             fail(f"{what}: kernels never launched: {missing}")
         # every 2-D format of the path: its decode steps take its decode
-        # form
-        for f in DECODE_FORMS:
+        # form (qmatmul_prefill_kernel takes every one-weight call at M > 4)
+        for f in qm.FIELDS:
             if f"qmatmul_{f}" not in path_kernels[kv_quant]:
                 continue
             if forms[f, "decode"] <= 0:
                 fail(f"{what}: {f} took its decode form "
                      f"{forms[f, 'decode']} times")
+        # a ragged K's format took both forms (its weight is multiplied at
+        # every step and every chunk)
+        for k, f in ragged:
+            if forms[f, "decode"] <= 0 or forms[f, "prefill"] <= 0:
+                fail(f"{what}: K = {k} in {f}: decode form "
+                     f"{forms[f, 'decode']}, prefill form "
+                     f"{forms[f, 'prefill']} launches")
         gaps = st.quant_logit_gap_per_lane
         if engine.quant_probe and not (
                 st.quant_probe_steps and gaps
@@ -1399,8 +1637,10 @@ def serve_model(torch, cfg, policy: str, counters: dict, totals: dict,
         for k, v in launches.items():
             totals[k] += v
     for kv_quant in profiled:
+        # (tracing a step of 8,000-9,000 kernels takes seconds)
+        steps = 5 if cfg.n_layers <= 32 and not cfg.is_moe else 3
         for line in profile_decode(torch, model, qparams, kv_quant,
-                                   steps=3 if cfg.mla else 5):
+                                   steps=steps):
             emit(dict(line, policy=policy))
     del qparams, model, engine
     torch.cuda.empty_cache()

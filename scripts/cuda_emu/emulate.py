@@ -121,6 +121,12 @@ PREFILL_CASES = [
     ("q4_0", torch.float32, 1, 4, 2, 1, 256, 256, 8, 4, [30], 9, 30., 2),
     ("q4_0", torch.bfloat16, 1, 128, 12, 2, 128, 128, 16, 64, [1000], 0, 0.,
      30),
+    # the served models' head widths and groups: D = 96 at a group of 1
+    # (phi3), groups of 5 and 8
+    ("q4_0", torch.bfloat16, 2, 6, 4, 4, 96, 96, 16, 4, [40, 23], 0, 0., 2),
+    ("q8_0", torch.float32, 2, 6, 4, 4, 96, 96, 16, 4, [40, 23], 0, 0., 2),
+    ("q8_0", torch.bfloat16, 1, 20, 10, 2, 128, 128, 16, 4, [50], 0, 0., 3),
+    ("q4_0", torch.float32, 1, 9, 16, 2, 128, 128, 16, 4, [50], 0, 0., 2),
 ]
 # kv (None: bf16 pools), B, H, Hkv, D, P, table width, live, lane_pages,
 # window, softcap
@@ -128,7 +134,10 @@ DECODE_CASES = [
     (kv, 3, 12, 2, 128, 16, 8, [100, 17, 1], [7, 2, 1], 0, 0.)
     for kv in (None, "q8_0", "q4_0")] + [
     (kv, 2, 4, 1, 64, 5, 12, [55, 9], None, 6, 20.)
-    for kv in (None, "q8_0", "q4_0")]
+    for kv in (None, "q8_0", "q4_0")] + [
+    (kv, 2, h, hkv, d, 16, 6, [90, 33], [6, 3], 0, 0.)
+    for kv in (None, "q8_0", "q4_0")
+    for h, hkv, d in ((6, 6, 96), (10, 2, 128), (16, 2, 128))]
 
 
 def attn(sms: int) -> bool:
@@ -264,14 +273,17 @@ def mla(sms: int) -> bool:
     return ok
 
 
-# M, K, N, x dtype: ragged K, N % 16 != 0, 64- and 128-row tiles
+# M, K, N, x dtype: ragged K (also with x read 16 bytes at a time: K %
+# 8 == 0), N % 16 != 0, 64- and 128-row tiles
 PREFILL_FORM_CASES = [(5, 700, 256, torch.bfloat16),
                       (5, 700, 256, torch.float32),
                       (77, 512, 260, torch.bfloat16),
                       (77, 512, 260, torch.float32),
                       (130, 1536, 384, torch.bfloat16),
                       (300, 512, 384, torch.bfloat16),
-                      (300, 700, 388, torch.float32)]
+                      (300, 700, 388, torch.float32),
+                      (77, 1664, 260, torch.bfloat16),
+                      (5, 1664, 256, torch.float32)]
 
 
 def prefill(formats: list[str], sms: int) -> bool:
@@ -314,14 +326,17 @@ DECODE_FORM_CASES = [(1, 700, 256, torch.bfloat16, 1),
                      (4, 1536, 256, torch.bfloat16, 6),
                      (2, 2048, 132, torch.float32, 8),
                      (4, 4096, 128, torch.bfloat16, 16),
-                     (1, 4096, 260, torch.float32, 16)]
+                     (1, 4096, 260, torch.float32, 16),
+                     (4, 1664, 260, torch.bfloat16, 3),
+                     (2, 1664, 128, torch.float32, 7)]
 
 
 def decode(formats: list[str], sms: int) -> bool:
-    """B1's tensor-core decode form (``qmatmul_mma_decode_kernel``) at
-    each cluster size of DECODE_FORM_CASES, forced through the wrapper's
-    split rule: one launch of it and of no other form, two calls bitwise
-    equal, a zero row +0."""
+    """B1's decode forms (``qmatmul_mma_decode_kernel``; q4_k's
+    ``qmatmul_q4k_decode_kernel``, clusters of at most 8) at each cluster
+    size of DECODE_FORM_CASES, forced through the wrapper's split rule:
+    one launch of it and of no other form, two calls bitwise equal, a zero
+    row +0."""
     libs = {f"qmatmul_{fmt}": emulated_library(
         "qmatmul", (f"-DQMATMUL_FMT={build.QMATMUL_FORMATS.index(fmt)}",))
         for fmt in formats}
@@ -331,6 +346,8 @@ def decode(formats: list[str], sms: int) -> bool:
     ok = True
     for fmt in formats:
         for m, k, n, dt, ks in DECODE_FORM_CASES:
+            if fmt == "q4_k":      # its clusters are of a portable size
+                ks = min(ks, qm._MAX_KSPLIT)
             qm.DECODE_KSPLIT[fmt] = lambda n_, k_, sms_, ks=ks: ks
             rng = np.random.default_rng(m + k + n + ks)
             qt = quantize(torch.from_numpy(rng.normal(size=(k, n)).astype(
@@ -362,14 +379,16 @@ def decode(formats: list[str], sms: int) -> bool:
 
 
 # E, C, K, N, x dtype, live experts: C = 1 (one row, x staged whole; K =
-# 16640 too long to stage whole) and C = 20 (one tile) or more, ragged K,
+# 16640 too long to stage whole) and C = 20 (one tile) or more (40: two,
+# llama4-scout's chunk), ragged K,
 # N % 16 != 0 (4-byte copies), experts whose rows are all zero
 EXPERT_CASES = [(4, 1, 700, 256, torch.bfloat16, [0, 2, 3]),
                 (3, 1, 512, 260, torch.float32, [1]),
                 (2, 1, 16640, 128, torch.bfloat16, [1]),
                 (3, 20, 700, 136, torch.bfloat16, [0, 2]),
                 (2, 23, 512, 256, torch.float32, [0, 1]),
-                (2, 7, 1000, 132, torch.float32, [1])]
+                (2, 7, 1000, 132, torch.float32, [1]),
+                (3, 40, 1000, 136, torch.bfloat16, [0, 2])]
 
 
 def experts(formats: list[str], sms: int) -> bool:
@@ -422,8 +441,8 @@ def main() -> int:
                                      "experts"))
     ap.add_argument("formats", nargs="?", default=None,
                     help="B1 formats of the prefill or expert form "
-                         "(default: all) or of the tensor-core decode form "
-                         "(default: all but q4_k)")
+                         "(default: all) or of the decode form (default: "
+                         "the tensor-core one's, all but q4_k)")
     ap.add_argument("--sms", type=int, default=132)
     args = ap.parse_args()
     if shutil.which("g++") is None:

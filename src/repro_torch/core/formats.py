@@ -113,10 +113,15 @@ class BlockFormat:
 
     ``quantize`` maps fp blocks ``(..., S, B, N)`` to a dict of field
     tensors; ``dequantize`` inverts it (up to quantization error).
+    ``gguf_bits`` is the exact GGUF bits-per-weight (Table-1 accounting);
+    ``tpu_bits`` is the bits-per-weight of the structure-of-arrays layout
+    both packages store (8-bit scale fields).
     """
 
     name: str
     block: int
+    gguf_bits: float
+    tpu_bits: float
     quantize: Callable[[torch.Tensor], dict[str, torch.Tensor]]
     dequantize: Callable[[dict[str, torch.Tensor]], torch.Tensor]
 
@@ -272,13 +277,23 @@ def _q6_k_dequantize(f):
 # registry
 # ---------------------------------------------------------------------------
 
+def _bits(gguf_bytes: int, block: int) -> float:
+    return gguf_bytes * 8.0 / block
+
+
 FORMATS: dict[str, BlockFormat] = {
-    "q8_0": BlockFormat("q8_0", QK8_0, _q8_0_quantize, _q8_0_dequantize),
-    "q6_k": BlockFormat("q6_k", QK_K, _q6_k_quantize, _q6_k_dequantize),
-    "q5_k": BlockFormat("q5_k", QK_K, _q5_k_quantize, _q5_k_dequantize),
-    "q4_k": BlockFormat("q4_k", QK_K, _q4_k_quantize, _q4_k_dequantize),
-    "q3_k": BlockFormat("q3_k", QK_K, _q3_k_quantize, _q3_k_dequantize),
-    "q2_k": BlockFormat("q2_k", QK_K, _q2_k_quantize, _q2_k_dequantize),
+    "q8_0": BlockFormat("q8_0", QK8_0, _bits(34, 32), _bits(34, 32),
+                        _q8_0_quantize, _q8_0_dequantize),
+    "q6_k": BlockFormat("q6_k", QK_K, _bits(210, 256), _bits(210, 256),
+                        _q6_k_quantize, _q6_k_dequantize),
+    "q5_k": BlockFormat("q5_k", QK_K, _bits(176, 256), _bits(180, 256),
+                        _q5_k_quantize, _q5_k_dequantize),
+    "q4_k": BlockFormat("q4_k", QK_K, _bits(144, 256), _bits(148, 256),
+                        _q4_k_quantize, _q4_k_dequantize),
+    "q3_k": BlockFormat("q3_k", QK_K, _bits(110, 256), _bits(114, 256),
+                        _q3_k_quantize, _q3_k_dequantize),
+    "q2_k": BlockFormat("q2_k", QK_K, _bits(84, 256), _bits(84, 256),
+                        _q2_k_quantize, _q2_k_dequantize),
 }
 
 # Unquantized formats participate in policies/size accounting.

@@ -5,12 +5,15 @@
       (or --kv-quant q4_0 / dq)
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-v3-671b --reduced --device cpu --dtype f32
+  (any registered --arch: qwen2-1.5b, qwen2-72b, phi3-mini-3.8b,
+  deepseek-r1-distill-qwen-32b, llama4-scout-17b-a16e, deepseek-v3-671b)
 
 Runs on the card (``--device cuda``, the default); ``--device cpu`` runs
 the kernels' plain PyTorch versions (add ``--reduced`` there).  Weights
 are made and quantized one at a time (expert weights a group of experts
 at a time) on the serving device, so the unquantized tree is never held:
-the full-width deepseek-v3-671b needs several cards at its 61 layers.
+the full-width deepseek-v3-671b needs several cards at its 61 layers;
+every other registered model fits one 80 GB card whole under DQ3_K_M.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from .. import resolve_device
 from ..configs import get_config
-from ..core import get_policy, init_quantized_params
+from ..core import get_policy, init_quantized_params, model_size
 from ..models.model import Model
 from ..serving.engine import Engine, Request
 from ..serving.sampler import SamplerConfig
@@ -73,6 +76,10 @@ def main(argv=None):
         cfg = cfg.reduced()
     dtype = _DTYPES[args.dtype]
     policy = get_policy(args.policy)
+    rep = model_size(cfg, policy)
+    print(f"quantizing {cfg.name} with {policy.name}: "
+          f"{rep.gib:.2f} GiB @ {rep.avg_bits:.2f} bits/weight "
+          f"(bf16 would be {rep.total_params * 2 / 1024**3:.2f} GiB)")
     qparams = init_quantized_params(cfg, policy, args.seed, dtype=dtype,
                                     device=device)
     model = Model(cfg, dtype=dtype)

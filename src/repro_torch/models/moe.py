@@ -9,10 +9,9 @@ tokens past an expert's capacity are dropped in stable-sort order (at
 decode the capacity is one slot per expert), and lanes that are not live
 still route their throwaway token, so they can take a live token's slot.
 An expert no token was routed to has an all-zero buffer, and SwiGLU keeps
-its down projection's input zero, so its outputs are zero; the q4_k, q3_k,
-q2_k and q8_0 expert kernels read none of its weights (a decode step at 4
-lanes reads at most 32 of 256 experts there), while the q6_k and q5_k ones
-still multiply every expert, as the reference does.
+its down projection's input zero, so its outputs are zero; the expert
+kernels of every format read none of its weights (a decode step at 4 lanes
+reads at most 32 of DeepSeek's 256 experts, 4 of llama4-scout's 16).
 """
 
 from __future__ import annotations

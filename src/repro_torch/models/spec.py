@@ -33,6 +33,13 @@ class WeightSpec:
     init: str = "fan_in"              # fan_in | zeros | ones
 
     @property
+    def num_params(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
     def quantizable(self) -> bool:
         return self.role not in ROLES_FLOAT and len(self.shape) >= 2
 

@@ -115,6 +115,11 @@ def test_port_imports_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in files
+             if "repro_torch" in p.parts}
+    assert {"core/size.py", "configs/qwen2_72b.py", "configs/phi3_mini_3_8b.py",
+            "configs/deepseek_r1_distill_qwen_32b.py",
+            "configs/llama4_scout_17b_a16e.py"} <= names
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]

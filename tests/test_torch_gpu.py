@@ -1001,3 +1001,186 @@ def _model_on_card_matches_cpu(cuda, arch, kv_quant, policy="DQ3_K_M",
                                 exact=1e-4, stepped=1e-3)
     assert torch.isfinite(a).all()
     assert (a - r).abs().max() <= tol * r.abs().max()
+
+
+# the 2-D weights of deepseek-r1-distill-qwen-32b, qwen2-72b, phi3-mini-3.8b
+# and llama4-scout-17b-a16e (their DQ3_K_M formats, and Q4_K_M's q4_k k/v
+# of distill-32B), and qwen2-72b's down (K = 29568, 115.5 superblocks) in
+# every format
+MODEL_SHAPES = [("q4_k", 5120, 5120), ("q6_k", 5120, 1024),
+                ("q4_k", 5120, 1024), ("q4_k", 5120, 27648),
+                ("q6_k", 27648, 5120), ("q6_k", 5120, 152064),
+                ("q4_k", 8192, 8192), ("q6_k", 8192, 1024),
+                ("q4_k", 8192, 29568), ("q6_k", 8192, 152064),
+                ("q4_k", 3072, 3072), ("q6_k", 3072, 3072),
+                ("q4_k", 3072, 8192), ("q6_k", 8192, 3072),
+                ("q6_k", 3072, 32256), ("q4_k", 5120, 8192),
+                ("q6_k", 8192, 5120), ("q6_k", 5120, 202240)] + [
+    (fmt, 29568, 8192) for fmt in ("q4_k", "q6_k", "q3_k", "q5_k", "q2_k",
+                                   "q8_0")]
+
+
+@pytest.mark.parametrize("fmt,k,n", MODEL_SHAPES,
+                         ids=[f"{f}-{k}-{n}" for f, k, n in MODEL_SHAPES])
+@pytest.mark.parametrize("m", [1, 4, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_qmatmul_served_model_shapes(cuda, fmt, k, n, m, dtype):
+    """Every 2-D weight shape of the four other full-attention models, and
+    the ragged K = 29568 in all six formats, at a decode step's 1 and 4
+    rows (the decode form) and a chunk's 512 (the prefill form): one
+    launch of the form a call and no other's, two calls bitwise equal,
+    within B1's limits of the plain version, a zero row +0."""
+    qt = _decode_weight(fmt, k, n, cuda)
+    rng = np.random.default_rng(m * 13 + k + n)
+    x = torch.from_numpy(_np(rng, (m, k))).to(cuda)
+    zero = [m - 2] if m > 1 else []
+    x[zero] = 0
+    x = x.to(dtype)
+    kern = qmatmul.KERNELS[fmt]
+    form = "decode" if m <= 4 else "prefill"
+    counts = {w: qmatmul.library_launches(fmt, w)
+              for w in ("decode", "prefill", "experts")}
+    y = kern(x, qt)
+    y2 = kern(x, qt)
+    torch.cuda.synchronize()
+    assert {w: qmatmul.library_launches(fmt, w) - c
+            for w, c in counts.items()} == {
+        w: 2 if w == form else 0 for w in counts}
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(y.view(bits), y2.view(bits))
+    ref = qmatmul.qmatmul_plain(x, qt).float()
+    tol = TOL if dtype == torch.float32 else B1_TOL_BF16
+    assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
+    assert not y[zero].view(bits).any()
+
+
+@functools.cache
+def _expert_weight(fmt, e, k, n, device):
+    rng = np.random.default_rng(e + k + n + len(fmt))
+    return quantize(torch.from_numpy(rng.standard_normal(
+        (e, k, n), dtype=np.float32)).to(device), fmt)
+
+
+@pytest.mark.parametrize("fmt,k,n", [("q3_k", 5120, 8192),
+                                     ("q3_k", 8192, 5120),
+                                     ("q4_k", 8192, 5120),
+                                     ("q6_k", 8192, 5120)])
+@pytest.mark.parametrize("c,live", [(1, 16), (1, 4), (40, 16)],
+                         ids=["c1", "c1-4-live", "c40"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_qmatmul_experts_llama4_scout(cuda, fmt, k, n, c, live, dtype):
+    """llama4-scout's expert weights under DQ3_K_M, E = 16, in one launch
+    of qmatmul_experts_kernel: C = 1 (a decode step; all live, and the 4
+    of a 4-lane top-1 step, the rest zero) and C = 40 (a 4 x 128 chunk's
+    capacity, two 20-row tiles); empty experts +0 bitwise, live rows
+    within the tolerance."""
+    e = 16
+    qt = _expert_weight(fmt, e, k, n, cuda)
+    rng = np.random.default_rng(c * 7 + live + k)
+    on = sorted(rng.choice(e, live, replace=False).tolist())
+    x = torch.zeros((e, c, k), device=cuda)
+    x[on] = torch.from_numpy(_np(rng, (live, c, k))).to(cuda)
+    x = x.to(dtype)
+    kern = qmatmul.EXPERT_KERNELS[fmt]
+    own = qmatmul.library_launches(fmt)
+    y = kern(x, qt)
+    torch.cuda.synchronize()
+    assert qmatmul.library_launches(fmt) == own + 1
+    ref = qmatmul.qmatmul_plain(x, qt)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    empty = [i for i in range(e) if i not in on]
+    assert torch.equal(y[empty].view(bits), ref[empty].view(bits))
+    tol = TOL if dtype == torch.float32 else 2 ** -8
+    err = (y[on].float() - ref[on].float()).abs().max()
+    assert err <= tol * ref.float().abs().max()
+
+
+# the served models' attention: (H, Hkv, D) of distill-32B and llama4
+# (group 5), qwen2-72b (group 8) and phi3 (a group of 1, head_dim 96), at
+# 4 lanes of 16-token pages in a 64-page table, as the engine serves them
+SERVED_ATTN = [(40, 8, 128), (64, 8, 128), (32, 32, 96)]
+
+
+def _served_lanes(rng, hkv, d, cuda):
+    live = [100, 217, 333, 400]
+    k, v, pos_pool, bt = (torch.from_numpy(a).to(cuda) for a in _pools(
+        rng, 4, 64, 16, hkv, d, live))
+    return live, k, v, pos_pool, bt
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "q8_0", "q4_0"])
+@pytest.mark.parametrize("h,hkv,d", SERVED_ATTN,
+                         ids=[f"{h}-{g}-{d}" for h, g, d in SERVED_ATTN])
+def test_paged_decode_served_heads(cuda, kv, h, hkv, d):
+    """The GQA decode (B2, B3, B5a) at the served models' heads: one
+    launch, the plain version's result within 1e-5."""
+    rng = np.random.default_rng(h + hkv + d)
+    live, k, v, pos_pool, bt = _served_lanes(rng, hkv, d, cuda)
+    pos = torch.tensor([x - 1 for x in live], dtype=torch.int32, device=cuda)
+    lp = torch.tensor([-(-x // 16) for x in live], dtype=torch.int32,
+                      device=cuda)
+    q = torch.from_numpy(_np(rng, (4, h, d))).to(cuda)
+    kw = dict(active_pages=32, lane_pages=lp)
+    if kv in QUANTIZE:
+        pools = (*QUANTIZE[kv](k), *QUANTIZE[kv](v))
+        fn = paged_attn.paged_attn_decode_quant
+        counter = fn.loaders[kv]
+        kw["mode"] = kv
+    else:
+        dt = torch.float32 if kv == "f32" else torch.bfloat16
+        pools = (k.to(dt), v.to(dt))
+        fn = counter = paged_attn.paged_attn_decode
+    before = counter.launches
+    y = fn(q, *pools, pos_pool, bt, pos, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref = paged_attn.attn_decode_plain(
+        q, pools, pos_pool, bt, pos, lp, window=0, softcap=0.0,
+        scale=d ** -0.5, nj=32, quant=kv if kv in QUANTIZE else None)
+    assert y.shape == (4, h, d)
+    assert (y - ref).abs().max() < TOL
+
+
+@pytest.mark.parametrize("mode", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("h,hkv,d", SERVED_ATTN,
+                         ids=[f"{h}-{g}-{d}" for h, g, d in SERVED_ATTN])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_prefill_served_heads(cuda, mode, h, hkv, d, qdt):
+    """The GQA chunk prefill (B4, B5b) at the served models' heads: a
+    128-token chunk a lane ending at its frontier, lane 0's short (padded
+    rows give zeros); one launch, the plain version's result within
+    1e-5."""
+    rng = np.random.default_rng(h + hkv + d + 1)
+    live, k, v, pos_pool, bt = _served_lanes(rng, hkv, d, cuda)
+    c = 128
+    qpos = torch.stack([torch.arange(x - c, x) for x in live]).to(
+        torch.int32)
+    qpos[0, :c - 60] = -1
+    qpos = qpos.to(cuda)
+    q = torch.from_numpy(_np(rng, (4, c, h, d))).to(cuda).to(qdt)
+    pools = (*QUANTIZE[mode](k), *QUANTIZE[mode](v))
+    counter = paged_attn.paged_attn_prefill_quant.loaders[mode]
+    before = counter.launches
+    y = paged_attn.paged_attn_prefill_quant(q, *pools, pos_pool, bt, qpos,
+                                            mode=mode)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref = paged_attn.attn_prefill_plain(
+        q, pools, pos_pool, bt, qpos, window=0, softcap=0.0,
+        scale=d ** -0.5, nj=64, quant=mode)
+    assert y.shape == (4, c, h, d) and torch.isfinite(y).all()
+    assert bool((y[0, :c - 60] == 0).all())
+    assert (y - ref).abs().max() < TOL
+
+
+@pytest.mark.parametrize("kv_quant", [None, "q8_0"])
+@pytest.mark.parametrize("arch", ["deepseek-r1-distill-qwen-32b",
+                                  "qwen2-72b", "phi3-mini-3.8b",
+                                  "llama4-scout-17b-a16e"])
+def test_served_model_on_card_matches_cpu(cuda, arch, kv_quant):
+    """The four other full-attention models, reduced, DQ3_K_M: the same
+    check as the qwen2 case."""
+    _model_on_card_matches_cpu(cuda, arch, kv_quant)

@@ -56,22 +56,23 @@ def export(params) -> dict:
 
 
 def reference_weights(policy: str, seed: int = 0, arch: str = "qwen2-1.5b",
-                      n_layers: int | None = None):
+                      n_layers: int | None = None, widths: tuple = ()):
     """(jax cfg, port cfg, jax params, port params) for ``arch`` reduced
-    (to ``n_layers`` layers when given), quantized under ``policy`` by the
-    reference (made once per process: the reference quantizes deepseek-v3
-    reduced in ~30 s here).  Nothing mutates them: the models write only
-    their caches."""
-    return _reference_weights(policy, seed, arch, n_layers)
+    (to ``n_layers`` layers when given, and with the ``(field, value)``
+    pairs of ``widths`` replaced in both configs), quantized under
+    ``policy`` by the reference (made once per process: the reference
+    quantizes deepseek-v3 reduced in ~30 s here).  Nothing mutates them:
+    the models write only their caches."""
+    return _reference_weights(policy, seed, arch, n_layers, tuple(widths))
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_weights(policy, seed, arch, n_layers):
-    jcfg = jax_get_config(arch).reduced()
-    cfg = get_config(arch).reduced()
+def _reference_weights(policy, seed, arch, n_layers, widths):
+    over = dict(widths)
     if n_layers is not None:
-        jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        over["n_layers"] = n_layers
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), **over)
+    cfg = dataclasses.replace(get_config(arch).reduced(), **over)
     raw = jax_init_params(jcfg, seed, dtype=jnp.float32)
     jparams = jax_quantize_params(jcfg, raw, jax_get_policy(policy))
     return jcfg, cfg, jparams, from_jax_params(export(jparams))
@@ -102,9 +103,10 @@ def test_quantize_params_bitwise():
     assert n_q == 1 + 7 * cfg.n_layers
 
 
-def _run_both(policy, kv_quant, arch="qwen2-1.5b", seed=0, n_layers=None):
+def _run_both(policy, kv_quant, arch="qwen2-1.5b", seed=0, n_layers=None,
+              widths=()):
     jcfg, cfg, jparams, params = reference_weights(policy, seed, arch,
-                                                   n_layers)
+                                                   n_layers, widths)
     P, max_len, b, c = 3, 24, 2, 5
     n = paged.pages_for(max_len, P)
     num_pages = paged.RESERVED_PAGES + b * n
@@ -156,8 +158,9 @@ def _run_both(policy, kv_quant, arch="qwen2-1.5b", seed=0, n_layers=None):
     return pairs, jc, tc
 
 
-def _check_logits_and_caches(pairs, jc, tc, leaf_max_rel=False):
-    """Logits within REL_TOL of max|logit|; cache positions bitwise, q8_0
+def _check_logits_and_caches(pairs, jc, tc, leaf_max_rel=False,
+                             rel_tol=REL_TOL):
+    """Logits within ``rel_tol`` of max|logit|; cache positions bitwise, q8_0
     codes at most one step apart, float leaves elementwise (rtol 1e-4,
     atol 1e-5) or, with ``leaf_max_rel``, within REL_TOL of the leaf's
     max|x| like the logits (MLA latents pass through every layer of the
@@ -166,7 +169,7 @@ def _check_logits_and_caches(pairs, jc, tc, leaf_max_rel=False):
         assert got.shape == ref.shape == (2, 512)
         assert np.isfinite(got).all()
         err = np.max(np.abs(got - ref))
-        assert err <= REL_TOL * np.max(np.abs(ref)), (i, err)
+        assert err <= rel_tol * np.max(np.abs(ref)), (i, err)
     # the caches hold the same pages: positions bitwise, q8 payloads
     # agree except where a rounding tie flips one code
     assert sorted(tc) == sorted(jc)
