@@ -61,6 +61,19 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 DeepSeek cut (q8_0, bf16, dq), and with q8_0 pools of the
                 cut's other policies, distill-32B (DQ3_K_M) and
                 llama4-scout say where the time goes.
+  5. sched   — the serve phase's weights and 8 requests, in two priority
+                classes, through ``scheduler="preempt"`` over a pool of 60
+                usable pages (``SCHED_PAGES``): qwen2-1.5b with q8_0 and
+                q4_0 pools, the DeepSeek-V3 cut with q8_0; every request
+                completes, lanes are evicted and swapped back in, swap
+                bytes balance, no page leaks, every kernel of the path
+                launches, one lane's pages of every leaf round-trip to the
+                host byte for byte, and qwen2's streams equal the reserve
+                serve's or part only at a near-tie (``SCHED_TIE_STEPS``).
+                Then qwen2 with q8_0 pools under ``SCHED_PLAN``, one fault
+                of each kind: the statuses, the two quarantines, the
+                watchdog's slow step, and the bystanders' streams held to
+                the fault-free preempt serve's by the same rule.
 
 The last three lines are the ``{"kernels": [...]}`` summary, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -89,7 +102,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
-PHASES = ("build", "kernels", "parity", "serve")
+PHASES = ("build", "kernels", "parity", "serve", "sched")
 
 
 def emit(obj) -> None:
@@ -1465,13 +1478,13 @@ def b1_path(cfg, policy: str) -> tuple:
             ragged)
 
 
-def phase_serve(torch, summary: dict) -> None:
+def phase_serve(torch, summary: dict, streams: dict) -> None:
     from repro_torch.configs import get_config
 
     counters = launch_counters()
     totals = {k: 0 for k in KERNELS}
     serve = functools.partial(serve_model, torch, counters=counters,
-                              totals=totals)
+                              totals=totals, streams=streams)
     # dq: the quant probe's shadow bf16 pools decode through B2 (B7 for MLA)
     serve(get_config("qwen2-1.5b"), "DQ3_K_M", ("q8_0", None, "q4_0", "dq"),
           profiled=("q8_0", None, "dq"))
@@ -1502,8 +1515,27 @@ def phase_serve(torch, summary: dict) -> None:
         summary.setdefault(name, kernel_entry(name))["launches"] = totals[name]
 
 
+def counted_serve(torch, counters: dict, engine, reqs) -> tuple:
+    """``engine.serve(reqs)`` on 4 slots with every launch counter set to 0
+    just before and read just after: (done, launches by summary row, B1's
+    launches by (format, form), the libraries' own counts)."""
+    from repro_torch.kernels import qmatmul as qm
+
+    for c in counters.values():
+        c.launches = 0
+    lib = [(f, w) for f in qm.FIELDS for w in ("decode", "prefill")]
+    forms = {fw: qm.library_launches(*fw) for fw in lib}
+    done = engine.serve(reqs, slots=4, seed=0)
+    torch.cuda.synchronize()
+    forms = {fw: qm.library_launches(*fw) - n for fw, n in forms.items()}
+    launches = {k: c.launches for k, c in counters.items()}
+    launches.update({f"qmatmul_{f}_prefill": forms[f, "prefill"]
+                     for f in qm.FIELDS})
+    return done, launches, forms
+
+
 def serve_model(torch, cfg, policy: str, pools: tuple, *, counters: dict,
-                totals: dict, profiled: tuple) -> None:
+                totals: dict, profiled: tuple, streams: dict) -> None:
     """Weights from seed 0 made and quantized on the card (``policy``,
     bf16), packed to the bytes of the size calculator, then 8 greedy
     requests per pool kind of ``pools`` (a ``kv_quant``, or None for bf16
@@ -1512,7 +1544,8 @@ def serve_model(torch, cfg, policy: str, pools: tuple, *, counters: dict,
     after.  The "dq" serve runs the quant probe, whose
     shadow bf16 pools are served through the same steps (its step times
     include them).  One decode step per pool kind of ``profiled`` is
-    traced."""
+    traced.  Each serve's streams go into ``streams`` by (model, policy,
+    pool kind), for the sched phase."""
     from repro_torch.core import (QTensor, get_policy, init_quantized_params,
                                   model_size)
     from repro_torch.kernels import qmatmul as qm
@@ -1553,17 +1586,7 @@ def serve_model(torch, cfg, policy: str, pools: tuple, *, counters: dict,
                      slots=4, seed=0)
         reqs = build_requests(8, cfg.vocab_size, 100, 400, 32, seed=0)
         torch.cuda.reset_peak_memory_stats()
-        for c in counters.values():
-            c.launches = 0
-        # the forms' counts are their libraries', read before and after
-        lib = [(f, w) for f in qm.FIELDS for w in ("decode", "prefill")]
-        forms = {fw: qm.library_launches(*fw) for fw in lib}
-        done = engine.serve(reqs, slots=4, seed=0)
-        torch.cuda.synchronize()
-        forms = {fw: qm.library_launches(*fw) - n for fw, n in forms.items()}
-        launches = {k: c.launches for k, c in counters.items()}
-        launches.update({f"qmatmul_{f}_prefill": forms[f, "prefill"]
-                         for f in qm.FIELDS})
+        done, launches, forms = counted_serve(torch, counters, engine, reqs)
         st = engine.last_stats
         label = kv_quant or "bf16"
         res = {"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
@@ -1602,6 +1625,7 @@ def serve_model(torch, cfg, policy: str, pools: tuple, *, counters: dict,
                  "prefill_launches": forms[f, "prefill"]}
                 for (k, f), roles in sorted(ragged.items())]
         emit(res)
+        streams[cfg.name, policy, label] = {r.rid: r.out for r in done}
         what = f"serve ({cfg.name}, {policy}, {label})"
         if len(done) != 8 or any(r.status != "ok" or len(r.out) != 32
                                  for r in done):
@@ -1646,6 +1670,324 @@ def serve_model(torch, cfg, policy: str, pools: tuple, *, counters: dict,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the preempt scheduler, KV swap and the fault plane
+# ---------------------------------------------------------------------------
+
+# the serve phase's traffic on a pool too small for four live lanes: 60
+# usable pages of 16 tokens (plus the two reserved), against 26 pages for
+# the largest request (378 + 32 tokens) and 4 x 64 for the worst case
+SCHED_PAGES = 2 + 60
+# a preempt serve's greedy stream may part from the reserve serve's (or a
+# bystander's from the fault-free run's) only at a near-tie: where, in the
+# logits the serve sampled the parting token from, the other run's token
+# lies within this many bf16 steps (2^-7 of the larger's binade) of the
+# token taken.  A resumed lane meets other batch mixes, and the kernels'
+# splits follow the batch, so its sums run in another order; with random
+# weights the top two of qwen2's 151,936 logits often lie only a few steps
+# apart (scripts/stream_partings.py measures where streams part).
+SCHED_TIE_STEPS = 4
+# one of each fault kind on qwen2-1.5b with q8_0 pools; the steps fall in
+# the schedule these requests take through SCHED_PAGES (the first live
+# eviction near step 14, swap-ins after it): a corrupted page (rid 3), a
+# NaN logits row (rid 5) and a cancel (rid 7)
+SCHED_PLAN = (dict(kind="swap_out_fail", step=0),
+              dict(kind="swap_in_fail", step=0),
+              dict(kind="alloc_fail", step=20),
+              dict(kind="latency", step=30, value=0.2),
+              dict(kind="corrupt_page", step=55, rid=3),
+              dict(kind="nan_logits", step=68, rid=5),
+              dict(kind="cancel", step=40, rid=7))
+SCHED_FAILED, SCHED_CANCELLED = (3, 5), (7,)
+
+
+def phase_sched(torch, summary: dict, streams: dict) -> None:
+    from repro_torch.configs import get_config
+
+    emit({"phase": "sched", "pages": SCHED_PAGES,
+          "tie_limit": (f"the two tokens' logits within {SCHED_TIE_STEPS} "
+                        "bf16 steps"),
+          "plan": list(SCHED_PLAN)})
+    counters = launch_counters()
+    sched_model(torch, get_config("qwen2-1.5b"), ("q8_0", "q4_0"),
+                counters=counters, summary=summary, reserve=streams)
+    deepseek = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=7)
+    sched_model(torch, deepseek, ("q8_0",), counters=counters,
+                summary=summary, reserve=None)
+
+
+def sched_model(torch, cfg, pools: tuple, *, counters: dict, summary: dict,
+                reserve: dict | None) -> None:
+    """The serve phase's weights (seed 0, DQ3_K_M, bf16) and requests, in
+    two classes, through ``scheduler="preempt"`` on SCHED_PAGES pages per
+    pool kind of ``pools``: every request completes, lanes are evicted and
+    swapped back in, the swap bytes balance, no page leaks, every kernel of
+    the path launches (counted from 0 around the serve), and one lane's
+    pages round-trip byte for byte.  With ``reserve`` (the serve phase's
+    streams, by (model, policy, pool kind)) the streams are also held to
+    the reserve serve's (served here when the serve phase did not run),
+    and the first pool kind serves SCHED_PLAN."""
+    from repro_torch.core import get_policy, init_quantized_params
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.models.model import Model
+    from repro_torch.serving import Engine, FaultPlan, Fault, SamplerConfig
+    from repro_torch.serving.faults import KINDS
+
+    dev = torch.device("cuda")
+    qparams = init_quantized_params(cfg, get_policy("DQ3_K_M"), 0,
+                                    dtype=torch.bfloat16, device=dev)
+    model = Model(cfg, dtype=torch.bfloat16)
+    attn = MLA_POOLS if cfg.mla else GQA_POOLS
+    b1, _ = b1_path(cfg, "DQ3_K_M")
+
+    def requests():
+        reqs = build_requests(8, cfg.vocab_size, 100, 400, 32, seed=0)
+        for r in reqs:
+            r.priority = r.rid % 2
+        return reqs
+
+    def engine(kv_quant, **kw):
+        return Engine(model, qparams, max_len=1024, device=dev,
+                      sampler=SamplerConfig(greedy=True), page_size=16,
+                      prefill_chunk=128, kv_quant=kv_quant, **kw)
+
+    for n, kv_quant in enumerate(pools):
+        label = kv_quant or "bf16"
+        what = f"sched ({cfg.name}, {label})"
+        emit(dict(page_roundtrip(torch, model, kv_quant), phase="sched",
+                  arch=cfg.name, kv=label))
+        want = None if reserve is None else reserve.get(
+            (cfg.name, "DQ3_K_M", label))
+        if reserve is not None and want is None:
+            ref = engine(kv_quant)
+            want = {r.rid: r.out for r in ref.serve(requests(), slots=4)}
+            rst = ref.last_stats
+            emit({"phase": "sched", "arch": cfg.name, "kv": label,
+                  "scheduler": "reserve", "wall_s": rst.wall_s,
+                  "decode_steps": rst.decode_iterations,
+                  "prefill_chunks": rst.prefill_iterations,
+                  "decode_step_ms_p50": rst.decode_step_ms(0.5),
+                  "decode_step_ms_p90": rst.decode_step_ms(0.9),
+                  "ttft_ms_mean": rst.mean_admission_s * 1e3})
+        eng = engine(kv_quant, scheduler="preempt", num_pages=SCHED_PAGES)
+        reqs = requests()
+        with recording(model) as calls:
+            done, launches, _ = counted_serve(torch, counters, eng, reqs)
+        st = eng.last_stats
+        got = {r.rid: r.out for r in done}
+        res = sched_line(st, what)
+        res.update(arch=cfg.name, layers=cfg.n_layers, kv=label,
+                   launches={k: v for k, v in launches.items() if v})
+        if want is not None:
+            res["streams_equal_reserve"] = sum(got[k] == want[k]
+                                               for k in want)
+            res["splits"] = hold_streams(torch, reqs, got, want, calls, what,
+                                         "reserve")
+        del calls
+        emit(res)
+        if any(r.status != "ok" or len(r.out) != 32 for r in done):
+            fail(f"{what}: not every request completed: "
+                 f"{[(r.rid, r.status, len(r.out)) for r in done]}")
+        if st.preemptions < 2 or not st.swap_in_s:
+            fail(f"{what}: {st.preemptions} preemptions, "
+                 f"{len(st.swap_in_s)} swap-ins")
+        missing = [k for k in b1 + attn[kv_quant] if launches[k] <= 0]
+        if missing:
+            fail(f"{what}: kernels never launched: {missing}")
+        for k, v in launches.items():
+            entry = summary.setdefault(k, kernel_entry(k))
+            entry["launches"] = (entry["launches"] or 0) + v
+        if reserve is None or n:
+            continue
+        # the fixed fault plan, held to the fault-free preempt serve
+        plan = FaultPlan([Fault(**f) for f in SCHED_PLAN])
+        ceng = engine(kv_quant, scheduler="preempt", num_pages=SCHED_PAGES,
+                      faults=plan, watchdog_factor=2.0)
+        creqs = requests()
+        with recording(model) as calls:
+            cdone = ceng.serve(creqs, slots=4)
+        cst = ceng.last_stats
+        cwhat = f"{what} under SCHED_PLAN"
+        statuses = {r.rid: r.status for r in cdone}
+        cres = sched_line(cst, cwhat)
+        cres.update(arch=cfg.name, kv=label, chaos=True,
+                    statuses=statuses, fault_log=cst.fault_log,
+                    slow_steps=cst.slow_steps,
+                    nan_quarantines=cst.nan_quarantines,
+                    pages_corrupted=cst.pages_corrupted,
+                    alloc_stalls=cst.alloc_stalls,
+                    swap_failures=cst.swap_failures,
+                    swap_retries=cst.swap_retries)
+        bystanders = {r.rid: r.out for r in cdone if r.status == "ok"}
+        cres["splits"] = hold_streams(torch, creqs, bystanders, got, calls,
+                                      cwhat, "fault-free")
+        del calls
+        emit(cres)
+        expect = {rid: ("failed" if rid in SCHED_FAILED else "cancelled"
+                        if rid in SCHED_CANCELLED else "ok")
+                  for rid in range(8)}
+        if statuses != expect:
+            fail(f"{cwhat}: statuses {statuses}, expected {expect}")
+        if cst.nan_quarantines != 2 or cst.slow_steps < 1:
+            fail(f"{cwhat}: {cst.nan_quarantines} quarantines, "
+                 f"{cst.slow_steps} slow steps")
+        landed = {f["kind"] for f in cst.fault_log}
+        if landed != set(KINDS) or cst.faults_injected != len(cst.fault_log):
+            fail(f"{cwhat}: faults landed {sorted(landed)}")
+    del qparams, model
+    torch.cuda.empty_cache()
+
+
+def sched_line(st, what: str) -> dict:
+    """A preempt serve's detail line; fails on unbalanced swap bytes or a
+    leaked page."""
+    swaps = st.swap_out_s + st.swap_in_s
+    res = {"phase": "sched", "scheduler": "preempt", "wall_s": st.wall_s,
+           "preemptions": st.preemptions, "swap_outs": len(st.swap_out_s),
+           "swap_ins": len(st.swap_in_s), "swap_restarts": st.swap_restarts,
+           "swap_out_bytes": st.swap_out_bytes,
+           "swap_in_bytes": st.swap_in_bytes,
+           "swap_dropped_bytes": st.swap_dropped_bytes,
+           "swap_held_bytes": st.swap_held_bytes,
+           "swap_mib_per_swap": (st.swap_out_bytes / 2**20
+                                 / max(len(st.swap_out_s), 1)),
+           "swap_out_ms": [t * 1e3 for t in st.swap_out_s],
+           "swap_in_ms": [t * 1e3 for t in st.swap_in_s],
+           "swap_ms_mean": 1e3 * sum(swaps) / max(len(swaps), 1),
+           "decode_steps": st.decode_iterations,
+           "prefill_chunks": st.prefill_iterations,
+           "decode_step_ms_p50": st.decode_step_ms(0.5),
+           "decode_step_ms_p90": st.decode_step_ms(0.9),
+           "ttft_ms_mean": st.mean_admission_s * 1e3,
+           "class_queue_wait_ms": {
+               c: v["mean_queue_wait_s"] * 1e3
+               for c, v in st.class_stats.items()},
+           "pages_leaked": st.pages_leaked, "peak_pages": st.peak_pages}
+    if st.swap_out_bytes != st.swap_in_bytes + st.swap_dropped_bytes:
+        fail(f"{what}: swapped out {st.swap_out_bytes} B, in "
+             f"{st.swap_in_bytes} B, dropped {st.swap_dropped_bytes} B")
+    if st.pages_leaked:
+        fail(f"{what}: {st.pages_leaked} pages leaked")
+    return res
+
+
+def page_roundtrip(torch, model, kv_quant) -> dict:
+    """Random bytes in every leaf of a full-width SCHED_PAGES pool; one
+    lane's 26 pages out to the host and back in at other page ids, as a
+    swap moves them (``paged.extract_pages`` / ``inject_pages``): byte for
+    byte, timed (CUDA synchronized around each direction)."""
+    from repro_torch.models import paged
+
+    dev = torch.device("cuda")
+    cache = model.init_paged_cache(SCHED_PAGES, 16, 4, dtype=model.dtype,
+                                   kv_quant=kv_quant, device=dev)
+    twin = {k: torch.zeros_like(v) for k, v in cache.items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for v in cache.values():
+        b = v.view(torch.uint8)
+        b.copy_(torch.randint(0, 256, b.shape, dtype=torch.uint8,
+                              device=dev, generator=gen))
+    src = list(range(2, 28))
+    dst = list(range(SCHED_PAGES - 26, SCHED_PAGES))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = {k: paged.extract_pages(v, src).cpu() for k, v in cache.items()}
+    t1 = time.perf_counter()
+    for k, v in twin.items():
+        paged.inject_pages(v, dst, rows[k])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bad = [k for k in cache if not torch.equal(
+        twin[k][dst].view(torch.uint8), cache[k][src].view(torch.uint8))]
+    if bad:
+        fail(f"page round trip ({model.cfg.name}, {kv_quant}): {bad[:4]}")
+    return {"roundtrip": "exact", "pages": len(src), "leaves": len(cache),
+            "leaf_kinds": sorted({f"{k.rsplit('/', 1)[1]}:{v.dtype}"
+                                  for k, v in cache.items()}),
+            "mib": sum(r.numel() * r.element_size()
+                       for r in rows.values()) / 2**20,
+            "out_ms": (t1 - t0) * 1e3, "in_ms": (t2 - t1) * 1e3}
+
+
+def hold_streams(torch, reqs, got: dict, want: dict, calls: list,
+                 what: str, other: str) -> list:
+    """Every stream of ``got`` against ``want``'s (by rid): where one parts
+    from the other, the logits ``got``'s serve sampled the first parting
+    token from (``calls``, kept by :func:`recording`) must hold ``want``'s
+    token within SCHED_TIE_STEPS bf16 steps of the token taken, a near-tie;
+    returns the partings."""
+    splits = []
+    prompts = {r.rid: r.prompt for r in reqs}
+    for rid, a in sorted(got.items()):
+        b = want[rid]
+        if a == b:
+            continue
+        if len(a) != len(b):
+            fail(f"{what}: rid {rid} gave {len(a)} tokens, the {other} "
+                 f"serve {len(b)}")
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        logits = sampled_logits(calls, prompts[rid], a, i)
+        if logits is None:
+            fail(f"{what}: rid {rid}: no logits recorded for token {i}")
+        logits = logits.float()
+        la, lb = logits[a[i]].item(), logits[b[i]].item()
+        step = 2.0 ** (math.floor(math.log2(max(abs(la), abs(lb)) or 1.0))
+                       - 7)
+        gap, limit = la - lb, SCHED_TIE_STEPS * step
+        two = torch.topk(logits, 2).values.tolist()
+        splits.append({"rid": rid, "at": i, "tokens": [a[i], b[i]],
+                       "gap": gap, "limit": limit,
+                       "top2_gap": two[0] - two[1]})
+        if not gap <= limit:
+            fail(f"{what}: rid {rid} parts from the {other} serve at token "
+                 f"{i}: the two tokens' logits lie {gap} apart > {limit}")
+    return splits
+
+
+@contextlib.contextmanager
+def recording(model):
+    """Keep every decode step's and prefill chunk's inputs and logits, on
+    the card and without a copy, while the model serves: a list of
+    ``(kind, tokens, positions or (start, length), logits)``."""
+    calls = []
+    decode, prefill = model.decode_step_paged, model.prefill_chunk
+
+    def decode_rec(params, cache, toks, pos, *args, **kw):
+        logits, cache = decode(params, cache, toks, pos, *args, **kw)
+        calls.append(("decode", toks, pos, logits))
+        return logits, cache
+
+    def prefill_rec(params, cache, toks, start, clen, *args, **kw):
+        logits, cache = prefill(params, cache, toks, start, clen, *args,
+                                **kw)
+        calls.append(("prefill", toks, (start, clen), logits))
+        return logits, cache
+
+    model.decode_step_paged, model.prefill_chunk = decode_rec, prefill_rec
+    try:
+        yield calls
+    finally:
+        del model.decode_step_paged, model.prefill_chunk
+
+
+def sampled_logits(calls: list, prompt: list, out: list, i: int):
+    """The logits row ``out[i]`` was sampled from: the prefill chunk that
+    ended the prompt (i = 0) or the decode step fed ``out[i - 1]`` at its
+    position; the last such call, as a restarted lane recomputes."""
+    n = len(prompt)
+    for kind, toks, where, logits in reversed(calls):
+        if kind == "decode" and i:
+            for s, (t, p) in enumerate(zip(toks.tolist(), where.tolist())):
+                if t == out[i - 1] and p == n + i - 1:
+                    return logits[s]
+        elif kind == "prefill" and not i:
+            start, clen = (w.tolist() for w in where)
+            for s, (lo, c) in enumerate(zip(start, clen)):
+                if c and lo + c == n and toks[s, :c].tolist() == prompt[lo:]:
+                    return logits[s]
+    return None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1664,6 +2006,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
     summary: dict = {}
+    streams: dict = {}      # the serve phase's, for the sched phase
     if "build" in phases:
         t0 = time.perf_counter()
         secs = build.build_all()
@@ -1680,7 +2023,8 @@ def main(argv=None) -> int:
     seconds = {}
     for name, run in (("kernels", lambda: phase_kernels(torch, summary)),
                       ("parity", lambda: phase_parity(torch)),
-                      ("serve", lambda: phase_serve(torch, summary))):
+                      ("serve", lambda: phase_serve(torch, summary, streams)),
+                      ("sched", lambda: phase_sched(torch, summary, streams))):
         if name in phases:
             t0 = time.perf_counter()
             run()

@@ -110,8 +110,18 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     logits = router_probs(p["router"], xf)                     # (T, E) f32
     probs = torch.softmax(logits, dim=-1)
-    gates, idx = torch.topk(probs, cfg.top_k, dim=-1)          # (T, K)
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    # the reference's top-k (``jax.lax.top_k``) ranks NaN above every
+    # number and breaks ties to the lower index; ``torch.topk`` does
+    # neither.  A token whose router row went non-finite (a poisoned lane)
+    # must claim the reference's experts, and so the same capacity slots,
+    # or a bystander's drops differ: rank by a stable descending sort with
+    # NaN read as +inf (softmax outputs are never inf themselves)
+    key = torch.where(torch.isnan(probs),
+                      torch.full_like(probs, float("inf")), probs)
+    idx = torch.sort(key, dim=-1, descending=True,
+                     stable=True).indices[:, :cfg.top_k]       # (T, K)
+    gates = torch.gather(probs, -1, idx)
+    gates = gates /torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
     capacity = max(1, int(cf * n_tok * cfg.top_k / cfg.n_experts))
     buf, meta = moe_dispatch(xf, gates.to(xf.dtype), idx, cfg.n_experts,

@@ -249,6 +249,30 @@ def scatter_token_quant(qs_pool, d_pool, block_table, idx, val, ok=None,
             scatter_token(d_pool, block_table, idx, d, ok=ok))
 
 
+def extract_pages(pool: torch.Tensor, page_ids) -> torch.Tensor:
+    """Whole physical pages ``(n, P, ...)`` of one pool leaf, for swap-out.
+
+    ``page_ids``: a host list of physical page ids.  Any leaf kind copies
+    verbatim (model-dtype payloads, q8_0/q4_0 int8 codes and f32 scales,
+    ``pos`` rows, MLA latent and rope leaves), so a swapped lane never
+    re-quantizes.  The result stays on ``pool``'s device; the caller moves
+    it to the host.  The page axis is 0 (the port has no stacked pools).
+    """
+    ids = torch.as_tensor(page_ids, dtype=torch.long, device=pool.device)
+    return pool.index_select(0, ids)
+
+
+def inject_pages(pool: torch.Tensor, page_ids, rows: torch.Tensor
+                 ) -> torch.Tensor:
+    """Write saved page rows back at (possibly other) physical ids, in
+    place: the inverse of :func:`extract_pages`.  ``page_ids`` must be
+    freshly allocated pages (never NULL/GARBAGE, the caller's invariant).
+    """
+    ids = torch.as_tensor(page_ids, dtype=torch.long, device=pool.device)
+    pool.index_copy_(0, ids, rows.to(device=pool.device, dtype=pool.dtype))
+    return pool
+
+
 def chunk_write_plan(idx: torch.Tensor, valid: torch.Tensor, length: int):
     """Last-writer-wins resolution of in-chunk writes to one logical index.
 

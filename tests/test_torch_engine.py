@@ -8,8 +8,10 @@
     model-dtype and q8_0 pools;
   * stochastic streams do not depend on the batch mix (port only: the
     reference's threefry bits are not reproducible in PyTorch);
-  * entry points run on the card unless asked for the CPU, and options
-    that are not ported yet raise naming their ROADMAP item.
+  * entry points run on the card unless asked for the CPU, options that
+    are not ported yet raise naming their ROADMAP item, and the ported
+    scheduler and lifecycle options are checked as the reference checks
+    them; the serve CLI runs the preempt scheduler under a chaos plan.
 """
 
 import jax.numpy as jnp
@@ -135,11 +137,32 @@ def test_engine_runs_on_the_card_unless_asked(weights, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"scheduler": "preempt"}, {"page_size": 0}, {"mesh": object()},
-    {"faults": object()}, {"max_queue": 4}, {"kernel": "gather"}])
+    {"page_size": 0}, {"mesh": object()}, {"kernel": "gather"}])
 def test_unported_options_name_their_roadmap_item(weights, kwargs):
     _, cfg, _, params = weights
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(Model(cfg, dtype=torch.float32), params, device="cpu",
+               **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"scheduler": "fifo"}, "unknown scheduler"),
+    ({"scheduler": "preempt", "kv_quant": "q8_0", "quant_probe": True},
+     "quant_probe"),
+    ({"kv_quant": "q8_0", "quant_probe": True, "faults": object()},
+     "quant_probe"),
+    ({"swap_budget_bytes": 1 << 20}, "requires scheduler='preempt'"),
+    ({"scheduler": "preempt", "swap_budget_bytes": -1}, ">= 0"),
+    ({"swap_dir": "unused"}, "requires scheduler='preempt'"),
+    ({"max_queue": -1}, "max_queue"),
+    ({"class_queues": {0: -1}}, "class_queues"),
+    ({"watchdog_factor": 1.0}, "watchdog_factor")])
+def test_lifecycle_options_are_checked_as_the_reference_does(weights, kwargs,
+                                                            match):
+    """The preempt scheduler, the fault plane and the lifecycle options are
+    ported; their argument checks are the reference's."""
+    _, cfg, _, params = weights
+    with pytest.raises(ValueError, match=match):
         Engine(Model(cfg, dtype=torch.float32), params, device="cpu",
                **kwargs)
 
@@ -162,3 +185,22 @@ def test_serve_cli_deepseek_on_cpu(capsys):
         "--max-new", "3", "--max-len", "32", "--kv-quant", "q8_0"])
     assert len(done) == 3 and all(len(r.out) == 3 for r in done)
     assert "leaked 0" in capsys.readouterr().out
+
+
+def test_serve_cli_preempt_chaos_on_cpu(capsys):
+    """The CLI's D3 flags: two classes over half the worst-case pool, a
+    seeded fault plan; every request ends in a terminal status and no page
+    leaks."""
+    done = serve_cli.main([
+        "--arch", "qwen2-1.5b", "--reduced", "--device", "cpu", "--dtype",
+        "f32", "--requests", "4", "--slots", "3", "--prompt-min", "6",
+        "--prompt-max", "13", "--page-size", "4", "--prefill-chunk", "4",
+        "--max-new", "6", "--max-len", "32", "--greedy",
+        "--scheduler", "preempt", "--priority-classes", "2",
+        "--oversubscribe", "0.5", "--chaos", "0"])
+    out = capsys.readouterr().out
+    assert len(done) == 4 and all(r.done and r.status for r in done)
+    assert [r.priority for r in sorted(done, key=lambda r: r.rid)] == [
+        0, 1, 0, 1]
+    assert "chaos mode: seed 0" in out and "oversubscribed pool" in out
+    assert "scheduler preempt:" in out and "leaked 0" in out

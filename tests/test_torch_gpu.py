@@ -1184,3 +1184,121 @@ def test_served_model_on_card_matches_cpu(cuda, arch, kv_quant):
     """The four other full-attention models, reduced, DQ3_K_M: the same
     check as the qwen2 case."""
     _model_on_card_matches_cpu(cuda, arch, kv_quant)
+
+
+# -- the preempt scheduler's swap and the fault plane's poison --------------
+
+POOL_KINDS = [None, "q8_0", "q4_0", "dq"]
+
+
+@pytest.mark.parametrize("kv_quant", POOL_KINDS)
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-v3-671b"])
+def test_extract_inject_pages_on_card(cuda, arch, kv_quant):
+    """Every leaf kind of both families (bf16 payloads, int8 codes and f32
+    scales of q8_0 and nibble-packed q4_0, ``pos`` rows, MLA latent and
+    rope leaves): a lane's pages out to the host and back in at other ids,
+    as a swap moves them, byte for byte."""
+    cfg = get_config(arch).reduced()
+    model = Model(cfg, dtype=torch.bfloat16)
+    cache = model.init_paged_cache(12, 4, 2, dtype=torch.bfloat16,
+                                   kv_quant=kv_quant, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for v in cache.values():
+        b = v.view(torch.uint8)
+        b.copy_(torch.randint(0, 256, b.shape, dtype=torch.uint8,
+                              device=cuda, generator=gen))
+    src, dst = [5, 2, 3, 9], [4, 6, 7, 11]
+    for k, v in cache.items():
+        rows = paged.extract_pages(v, src).cpu()
+        twin = torch.zeros_like(v)
+        paged.inject_pages(twin, dst, rows)
+        assert torch.equal(twin[dst].view(torch.uint8),
+                           v[src].view(torch.uint8)), k
+        rest = [i for i in range(12) if i not in dst]
+        assert not twin[rest].view(torch.uint8).any(), k
+
+
+def _poison(cache, page):
+    """``corrupt_page``'s fill: +inf in float leaves, the dtype max in
+    integer ones (the scales of q8_0/q4_0 pages carry the inf)."""
+    for k, v in cache.items():
+        if k.endswith("/pos"):
+            continue
+        v[page] = (float("inf") if v.dtype.is_floating_point
+                   else torch.iinfo(v.dtype).max)
+
+
+@pytest.mark.parametrize("kv_quant", POOL_KINDS)
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-v3-671b"])
+def test_poisoned_page_reaches_only_its_lane(cuda, arch, kv_quant):
+    """A poisoned page of lane 1 turns lane 1's logits non-finite through
+    the prefill kernel (a second chunk attends the page) and the decode
+    kernel, and no other lane's: theirs equal an unpoisoned run's.  (The
+    split merge's ``fmaxf`` drops a NaN maximum; the NaN must still reach
+    the lane's sums.)"""
+    cfg = get_config(arch).reduced()
+    params = init_quantized_params(cfg, get_policy("DQ3_K_M"), 0,
+                                   dtype=torch.bfloat16, device=cuda)
+    model = Model(cfg, dtype=torch.bfloat16)
+    P, max_len, b, c = 4, 32, 3, 6
+    n = paged.pages_for(max_len, P)
+    bt = torch.tensor([[2 + i * n + j for j in range(n)] for i in range(b)],
+                      dtype=torch.int32, device=cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(4, cfg.vocab_size, (2, b, c)).astype(
+        np.int32)).to(cuda)
+    dec = torch.from_numpy(rng.integers(4, cfg.vocab_size, b).astype(
+        np.int32)).to(cuda)
+    out = []
+    for poison in (False, True):
+        cache = model.init_paged_cache(2 + b * n, P, b, dtype=torch.bfloat16,
+                                       kv_quant=kv_quant, device=cuda)
+        tables = {"full": bt}
+        clen = torch.full((b,), c, dtype=torch.int32, device=cuda)
+        zero = torch.zeros(b, dtype=torch.int32, device=cuda)
+        _, cache = model.prefill_chunk(params, cache, toks[0], zero, clen,
+                                       max_len=max_len, block_tables=tables,
+                                       kv_quant=kv_quant)
+        if poison:
+            _poison(cache, int(bt[1, 0]))
+        lg1, cache = model.prefill_chunk(params, cache, toks[1], clen, clen,
+                                         max_len=max_len, block_tables=tables,
+                                         kv_quant=kv_quant)
+        lg2, cache = model.decode_step_paged(
+            params, cache, dec, 2 * clen, tables, page_size=P,
+            max_len=max_len, kv_quant=kv_quant,
+            lane_pages={"full": (2 * clen // P + 1).to(torch.int32)})
+        out.append(torch.stack([lg1, lg2]).float().cpu())
+    clean, bad = out
+    assert torch.isfinite(clean).all()
+    finite = torch.isfinite(bad).all(dim=-1)        # (2, b)
+    assert finite[:, 1].logical_not().all(), finite
+    assert finite[:, [0, 2]].all(), finite
+    assert torch.equal(bad[:, [0, 2]], clean[:, [0, 2]])
+
+
+@pytest.mark.parametrize("kv_quant", [None, "q8_0"])
+def test_preempt_serve_on_card(cuda, kv_quant):
+    """qwen2 reduced on an oversubscribed pool: lanes are evicted and
+    swapped back in through the card's pools, the swap bytes balance, no
+    page leaks, every request completes."""
+    from repro_torch.serving import Engine, SamplerConfig
+    from repro_torch.serving.engine import Request
+
+    cfg = get_config("qwen2-1.5b").reduced()
+    params = init_quantized_params(cfg, get_policy("DQ3_K_M"), 0,
+                                   dtype=torch.bfloat16, device=cuda)
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(
+                4, cfg.vocab_size, int(rng.integers(6, 14)))],
+                    max_new=8, priority=i % 3) for i in range(6)]
+    eng = Engine(Model(cfg, dtype=torch.bfloat16), params, device=cuda,
+                 max_len=48, page_size=4, kv_quant=kv_quant,
+                 scheduler="preempt", num_pages=12,
+                 sampler=SamplerConfig(greedy=True))
+    done = eng.serve(reqs, slots=4)
+    st = eng.last_stats
+    assert all(r.status == "ok" and len(r.out) == 8 for r in done)
+    assert st.preemptions >= 2 and st.swap_in_bytes > 0
+    assert st.swap_out_bytes == st.swap_in_bytes + st.swap_dropped_bytes
+    assert st.pages_leaked == 0 and st.swap_held_end_bytes == 0
