@@ -16,10 +16,13 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 DQ3_K_M at 1, 4 and 512 rows, and of the DeepSeek-V3 cut
                 under DQ3_K_M, Q3_K_M, Q2_K_L and Q8_0 at the rows each
                 form takes (K = 29568, qwen2-72b's ragged down, in all six
-                formats); B1's M = 512 lines also carry ``gemm_ms``, a bf16
-                torch.matmul by the weight already dequantized, for
-                context; the expert form at DeepSeek's E = 256 (C = 1 and
-                20) and llama4's E = 16 (C = 1 and 40), each also with the
+                formats), and qwen2's and the cut's shapes also at the
+                one-shot forward's 2,048 rows; B1's M = 512 lines also
+                carry ``gemm_ms``, a bf16 torch.matmul by the weight
+                already dequantized, for context; the expert form at
+                DeepSeek's E = 256 (C = 1 and 20, and in DQ3_K_M's formats
+                the forward's 80) and
+                llama4's E = 16 (C = 1 and 40), each also with the
                 decode's routing, a few experts live, where no expert
                 kernel reads an empty expert; the GQA decode and prefill
                 with each tile loader the serves use (bf16, q8_0, q4_0
@@ -40,7 +43,10 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 four other models at depth 2 (as DeepSeek's run) under
                 DQ3_K_M with model-dtype and q8_0 pools, phi3 also q4_0.
                 A rounding tie that the two sides broke apart in a q4_0
-                pool is broken as the card did (``PARITY_TIE``).
+                pool is broken as the card did (``PARITY_TIE``).  The
+                qwen2 depth-2 and DeepSeek depth-4 DQ3_K_M weights also
+                take ``Model.forward`` over 1 x 64 tokens
+                (``FORWARD_PARITY``), held to the f32 limit.
   4. serve    — 8 greedy requests through the engine, weights made and
                 quantized on the card: qwen2-1.5b at full width and depth,
                 and the DeepSeek-V3 cut at full width and 7 layers (3 dense
@@ -61,7 +67,8 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 DeepSeek cut (q8_0, bf16, dq), and with q8_0 pools of the
                 cut's other policies, distill-32B (DQ3_K_M) and
                 llama4-scout say where the time goes.
-  5. sched   — the serve phase's weights and 8 requests, in two priority
+  5. sched   — the serve phase's 8 requests (its weights made again, once
+                for this phase and the next: ``held_weights``), in two priority
                 classes, through ``scheduler="preempt"`` over a pool of 60
                 usable pages (``SCHED_PAGES``): qwen2-1.5b with q8_0 and
                 q4_0 pools, the DeepSeek-V3 cut with q8_0; every request
@@ -74,6 +81,24 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
                 of each kind: the statuses, the two quarantines, the
                 watchdog's slow step, and the bystanders' streams held to
                 the fault-free preempt serve's by the same rule.
+  6. dense   — the one-shot and dense entry points, on the sched phase's
+                weights: for qwen2-1.5b and the DeepSeek-V3 cut, under
+                DQ3_K_M, bf16, ``Model.loss`` over 2 x 1024 tokens (every
+                2-D weight on B1's prefill form, the experts at the
+                reference's capacity, C = 80; no attention kernel), the
+                serve phase's 8 requests through ``Engine(page_size=0)``
+                (bf16 dense caches) and through ``Engine(kernel="gather")``
+                over q8_0 and over bf16 pools (none launches an attention
+                kernel; the gather bf16 serve's streams equal the dense
+                serve's bitwise), two of them through ``serve_sequential``
+                over the dense layout and over q8_0 pools, and two others'
+                prompts through one ``generate`` call.  Then each of these
+                runs again in f32, teacher-forced with the paged bf16
+                serve's first tokens (``DENSE_FORCED``), its logits held row
+                by row to a reference run that batches the same tokens the
+                same way, under PARITY_TOL (``dense_forced``), at the
+                depths of ``DENSE_FORCED_LAYERS``: qwen2 whole (q8_0 pools
+                at 2 layers), DeepSeek-V3's 3 dense layers.
 
 The last three lines are the ``{"kernels": [...]}`` summary, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -102,7 +127,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
-PHASES = ("build", "kernels", "parity", "serve", "sched")
+PHASES = ("build", "kernels", "parity", "serve", "sched", "dense")
 
 
 def emit(obj) -> None:
@@ -348,6 +373,9 @@ B1_SHAPES = [(1536, 1536, "q4_k", "q_proj, o_proj"),
              (1536, 8960, "q8_0", "qwen2 gate, up, Q8_0"),
              (7168, 18432, "q8_0", "DeepSeek dense gate, up, Q8_0")]
 B1_ROWS = (1, 4, 512)
+# the one-shot forward's rows: a loss over 2 x 1024 tokens (the dense
+# phase), timed at qwen2's and the DeepSeek cut's shapes
+B1_FORWARD_ROWS = 2048
 # the other 2-D weights that the DeepSeek cut multiplies by the decode form
 # of q3_k (Q3_K_M, Q2_K_L), q2_k (Q2_K_L) or q8_0 (Q8_0, the output head
 # included) at a decode step, timed at M = 1 and 4 only (their M = 512 form
@@ -433,7 +461,8 @@ B1_SUMMARY = {"q4_k": (4, 1536, 8960), "q6_k": (4, 8960, 1536),
 # expert weights: (E, K, N, format, what they are, C values, live experts
 # of the decode's routing).  DeepSeek-V3 (E = 256): C = 1 is an expert's
 # capacity at decode (4 lanes x top-8 / 256, at least 1), C = 20 at a 4 x
-# 128-token prefill chunk (1.25 x 512 x 8 / 256); at 4 lanes x top-8 at
+# 128-token prefill chunk (1.25 x 512 x 8 / 256), C = 80 at the loss's
+# 2 x 1024-token forward (1.25 x 2048 x 8 / 256); at 4 lanes x top-8 at
 # most 32 of the 256 experts have a row.  llama4-scout (E = 16, top-1): C
 # = 1 at decode, 40 at a chunk (1.25 x 512 / 16), at most 4 experts live;
 # its DQ3_K_M formats (gate/up q3_k; down q3_k, q4_k and q6_k by layer).
@@ -441,8 +470,11 @@ B1_SUMMARY = {"q4_k": (4, 1536, 8960), "q6_k": (4, 8960, 1536),
 # seeded positions, and must give the empty experts the plain version's
 # +0 bitwise.
 EXPERT_FORMATS = ("q3_k", "q4_k", "q6_k", "q5_k", "q2_k", "q8_0")
+# the expert formats of the DeepSeek cut under DQ3_K_M, the loss's (C = 80)
+DQ3_EXPERTS = ("q3_k", "q4_k", "q6_k")
 EXPERT_CASES = (
-    [(256, k, n, fmt, use, (1, 20), 32) for fmt in EXPERT_FORMATS
+    [(256, k, n, fmt, use, (1, 20) + ((80,) if fmt in DQ3_EXPERTS else ()),
+      32) for fmt in EXPERT_FORMATS
      for k, n, use in ((7168, 2048, "DeepSeek gate_exps, up_exps"),
                        (2048, 7168, "DeepSeek down_exps"))]
     + [(16, 5120, 8192, "q3_k", "llama4 gate_exps, up_exps", (1, 40), 4)]
@@ -471,7 +503,7 @@ def phase_kernels(torch, summary: dict) -> None:
     gen.manual_seed(0)
     detail = []
     for k, n, fmt, use, rows in (
-            [(*c, B1_ROWS) for c in B1_SHAPES]
+            [(*c, B1_ROWS + (B1_FORWARD_ROWS,)) for c in B1_SHAPES]
             + [(*c, B1_DECODE_ROWS) for c in B1_DECODE_SHAPES]
             + [(*c, (max(B1_ROWS),)) for c in B1_PREFILL_SHAPES]
             + [(*c, B1_ROWS) for c in B1_MODEL_SHAPES + B1_RAGGED_SHAPES]):
@@ -1046,6 +1078,14 @@ PARITY_CASES = (
     ("qwen2-72b", 2, "DQ3_K_M", (None, "q8_0"), WIDE_RUN))
 
 
+# the cases whose weights also take the one-shot forward (``Model.forward``,
+# 1 x FORWARD_PARITY_TOKENS tokens from seed 1): the dense phase's models
+# at the parity depths
+FORWARD_PARITY = {("qwen2-1.5b", 2, "DQ3_K_M"),
+                  ("deepseek-v3-671b", 4, "DQ3_K_M")}
+FORWARD_PARITY_TOKENS = 64
+
+
 def phase_parity(torch) -> None:
     from repro_torch.configs import get_config
 
@@ -1060,8 +1100,39 @@ def phase_parity(torch) -> None:
             if error:
                 fail(f"parity ({arch}, {policy}, {kv_quant or 'f32'}): "
                      f"{error}")
+        if (arch, depth, policy) in FORWARD_PARITY:
+            result = forward_parity(torch, weights, policy)
+            emit(result)
+            if not result["rel"] <= result["tol"]:
+                fail(f"parity ({arch}, {policy}, forward): max|d| / "
+                     f"max|logit| = {result['rel']}")
         del weights
         torch.cuda.empty_cache()
+
+
+def forward_parity(torch, weights: tuple, policy: str) -> dict:
+    """``Model.forward`` of 1 x FORWARD_PARITY_TOKENS tokens from seed 1 on
+    the card (kernels) and the CPU (plain versions), f32: the logits of
+    every position held to PARITY_TOL["f32"]."""
+    model, qparams, cpu_params = weights
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(4, cfg.vocab_size, (1, FORWARD_PARITY_TOKENS),
+                         generator=gen, dtype=torch.int32)
+    t0 = time.perf_counter()
+    a, aux_a = model.forward(qparams, {"tokens": toks.cuda()})
+    a, aux_a = a.cpu(), aux_a.item()
+    t1 = time.perf_counter()
+    b, aux_b = model.forward(cpu_params, {"tokens": toks})
+    if a.shape != b.shape or not torch.isfinite(a).all():
+        fail(f"parity ({cfg.name}, forward): bad logits {tuple(a.shape)}")
+    return {"phase": "parity", "arch": cfg.name, "policy": policy,
+            "entry": "forward", "layers": cfg.n_layers,
+            "tokens": FORWARD_PARITY_TOKENS, "prompt_seed": 1,
+            "max_abs": (a - b).abs().max().item(),
+            "max_abs_logit": b.abs().max().item(), "rel": rel_apart(a, b),
+            "aux": [aux_a, aux_b.item()], "tol": PARITY_TOL["f32"],
+            "card_s": t1 - t0, "cpu_s": time.perf_counter() - t1}
 
 
 def parity_weights(torch, cfg, policy: str) -> tuple:
@@ -1478,20 +1549,17 @@ def b1_path(cfg, policy: str) -> tuple:
             ragged)
 
 
-def phase_serve(torch, summary: dict, streams: dict) -> None:
+def phase_serve(torch, summary: dict, streams: dict, reads: dict) -> None:
     from repro_torch.configs import get_config
 
     counters = launch_counters()
     totals = {k: 0 for k in KERNELS}
     serve = functools.partial(serve_model, torch, counters=counters,
-                              totals=totals, streams=streams)
+                              totals=totals, streams=streams, reads=reads)
     # dq: the quant probe's shadow bf16 pools decode through B2 (B7 for MLA)
     serve(get_config("qwen2-1.5b"), "DQ3_K_M", ("q8_0", None, "q4_0", "dq"),
           profiled=("q8_0", None, "dq"))
-    # DeepSeek-V3 cut to 7 layers: the 3 dense layers of the published
-    # config and 4 MoE layers, where ffn_down_exps takes all three of
-    # DQ3_K_M's formats; every width is the published one
-    deepseek = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=7)
+    deepseek = deepseek_cut()
     serve(deepseek, "DQ3_K_M", ("q8_0", None, "q4_0", "dq"),
           profiled=("q8_0", None, "dq"))
     # the paper's other policies, q8_0 pools (the pool kinds are covered
@@ -1516,16 +1584,23 @@ def phase_serve(torch, summary: dict, streams: dict) -> None:
 
 
 def counted_serve(torch, counters: dict, engine, reqs) -> tuple:
-    """``engine.serve(reqs)`` on 4 slots with every launch counter set to 0
-    just before and read just after: (done, launches by summary row, B1's
-    launches by (format, form), the libraries' own counts)."""
+    """``engine.serve(reqs)`` on 4 slots, counted (:func:`counted_run`)."""
+    return counted_run(torch, counters,
+                       lambda: engine.serve(reqs, slots=4, seed=0))
+
+
+def counted_run(torch, counters: dict, run) -> tuple:
+    """``run()`` with every launch counter set to 0 just before and read
+    just after: (its result, launches by summary row, B1's launches by
+    (format, form), the libraries' own counts)."""
     from repro_torch.kernels import qmatmul as qm
 
     for c in counters.values():
         c.launches = 0
-    lib = [(f, w) for f in qm.FIELDS for w in ("decode", "prefill")]
+    lib = [(f, w) for f in qm.FIELDS for w in ("decode", "prefill",
+                                                  "experts")]
     forms = {fw: qm.library_launches(*fw) for fw in lib}
-    done = engine.serve(reqs, slots=4, seed=0)
+    done = run()
     torch.cuda.synchronize()
     forms = {fw: qm.library_launches(*fw) - n for fw, n in forms.items()}
     launches = {k: c.launches for k, c in counters.items()}
@@ -1535,7 +1610,8 @@ def counted_serve(torch, counters: dict, engine, reqs) -> tuple:
 
 
 def serve_model(torch, cfg, policy: str, pools: tuple, *, counters: dict,
-                totals: dict, profiled: tuple, streams: dict) -> None:
+                totals: dict, profiled: tuple, streams: dict,
+                reads: dict) -> None:
     """Weights from seed 0 made and quantized on the card (``policy``,
     bf16), packed to the bytes of the size calculator, then 8 greedy
     requests per pool kind of ``pools`` (a ``kv_quant``, or None for bf16
@@ -1545,7 +1621,8 @@ def serve_model(torch, cfg, policy: str, pools: tuple, *, counters: dict,
     shadow bf16 pools are served through the same steps (its step times
     include them).  One decode step per pool kind of ``profiled`` is
     traced.  Each serve's streams go into ``streams`` by (model, policy,
-    pool kind), for the sched phase."""
+    pool kind), for the sched and dense phases, and its ``decode_kv_bytes``
+    into ``reads``."""
     from repro_torch.core import (QTensor, get_policy, init_quantized_params,
                                   model_size)
     from repro_torch.kernels import qmatmul as qm
@@ -1612,7 +1689,8 @@ def serve_model(torch, cfg, policy: str, pools: tuple, *, counters: dict,
                "page_bytes": st.page_bytes,
                "launches": {k: v for k, v in launches.items() if v},
                "library_launches": {f"{f} {w}": v
-                                    for (f, w), v in forms.items() if v}}
+                                    for (f, w), v in forms.items()
+                                    if v and w != "experts"}}
         if engine.quant_probe:
             res["quant_probe_steps"] = st.quant_probe_steps
             res["quant_logit_gap_per_lane"] = st.quant_logit_gap_per_lane
@@ -1626,6 +1704,7 @@ def serve_model(torch, cfg, policy: str, pools: tuple, *, counters: dict,
                 for (k, f), roles in sorted(ragged.items())]
         emit(res)
         streams[cfg.name, policy, label] = {r.rid: r.out for r in done}
+        reads[cfg.name, policy, label] = st.decode_kv_bytes
         what = f"serve ({cfg.name}, {policy}, {label})"
         if len(done) != 8 or any(r.status != "ok" or len(r.out) != 32
                                  for r in done):
@@ -1701,7 +1780,7 @@ SCHED_PLAN = (dict(kind="swap_out_fail", step=0),
 SCHED_FAILED, SCHED_CANCELLED = (3, 5), (7,)
 
 
-def phase_sched(torch, summary: dict, streams: dict) -> None:
+def phase_sched(torch, summary: dict, streams: dict, held: dict) -> None:
     from repro_torch.configs import get_config
 
     emit({"phase": "sched", "pages": SCHED_PAGES,
@@ -1710,14 +1789,35 @@ def phase_sched(torch, summary: dict, streams: dict) -> None:
           "plan": list(SCHED_PLAN)})
     counters = launch_counters()
     sched_model(torch, get_config("qwen2-1.5b"), ("q8_0", "q4_0"),
-                counters=counters, summary=summary, reserve=streams)
-    deepseek = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=7)
-    sched_model(torch, deepseek, ("q8_0",), counters=counters,
-                summary=summary, reserve=None)
+                counters=counters, summary=summary, reserve=streams,
+                held=held)
+    sched_model(torch, deepseek_cut(), ("q8_0",), counters=counters,
+                summary=summary, reserve=None, held=held)
+
+
+def deepseek_cut():
+    """DeepSeek-V3 cut to 7 layers at full width: the 3 dense layers of the
+    published config and 4 MoE layers, where ffn_down_exps takes all three
+    of DQ3_K_M's formats."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=7)
+
+
+def held_weights(torch, cfg, held: dict) -> dict:
+    """``cfg``'s weights from seed 0 under DQ3_K_M, bf16, made on the card
+    once for the sched and dense phases (``held``, by model name)."""
+    from repro_torch.core import get_policy, init_quantized_params
+
+    if cfg.name not in held:
+        held[cfg.name] = init_quantized_params(
+            cfg, get_policy("DQ3_K_M"), 0, dtype=torch.bfloat16,
+            device=torch.device("cuda"))
+    return held[cfg.name]
 
 
 def sched_model(torch, cfg, pools: tuple, *, counters: dict, summary: dict,
-                reserve: dict | None) -> None:
+                reserve: dict | None, held: dict) -> None:
     """The serve phase's weights (seed 0, DQ3_K_M, bf16) and requests, in
     two classes, through ``scheduler="preempt"`` on SCHED_PAGES pages per
     pool kind of ``pools``: every request completes, lanes are evicted and
@@ -1727,15 +1827,13 @@ def sched_model(torch, cfg, pools: tuple, *, counters: dict, summary: dict,
     streams, by (model, policy, pool kind)) the streams are also held to
     the reserve serve's (served here when the serve phase did not run),
     and the first pool kind serves SCHED_PLAN."""
-    from repro_torch.core import get_policy, init_quantized_params
     from repro_torch.launch.serve import build_requests
     from repro_torch.models.model import Model
     from repro_torch.serving import Engine, FaultPlan, Fault, SamplerConfig
     from repro_torch.serving.faults import KINDS
 
     dev = torch.device("cuda")
-    qparams = init_quantized_params(cfg, get_policy("DQ3_K_M"), 0,
-                                    dtype=torch.bfloat16, device=dev)
+    qparams = held_weights(torch, cfg, held)
     model = Model(cfg, dtype=torch.bfloat16)
     attn = MLA_POOLS if cfg.mla else GQA_POOLS
     b1, _ = b1_path(cfg, "DQ3_K_M")
@@ -1834,8 +1932,6 @@ def sched_model(torch, cfg, pools: tuple, *, counters: dict, summary: dict,
         landed = {f["kind"] for f in cst.fault_log}
         if landed != set(KINDS) or cst.faults_injected != len(cst.fault_log):
             fail(f"{cwhat}: faults landed {sorted(landed)}")
-    del qparams, model
-    torch.cuda.empty_cache()
 
 
 def sched_line(st, what: str) -> dict:
@@ -1988,6 +2084,500 @@ def sampled_logits(calls: list, prompt: list, out: list, i: int):
     return None
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the one-shot and dense entry points
+# ---------------------------------------------------------------------------
+
+# the loss's batch: DENSE_LOSS_SHAPE token ids from seed 0, next-token
+# labels, -1 at each row's last position and the first DENSE_MASKED of
+# row 0
+DENSE_LOSS_SHAPE = (2, 1024)
+DENSE_MASKED = 100
+# of the serve phase's 8 requests: the 2 that serve_sequential serves, and
+# the 2 whose prompts (of unequal length) one generate call takes
+DENSE_SEQ_RIDS = (0, 1)
+DENSE_GEN_RIDS = (2, 3)
+ATTN_ROWS = tuple(k for k in KERNELS if k.startswith("paged_"))
+# The runs' numbers are held in f32 and teacher-forced (:func:`forcing`):
+# each request is fed the first DENSE_FORCED tokens of the paged bf16
+# serve's stream in place of the tokens it samples, so a run and its
+# reference compute each logits row from the same tokens, and the rows are
+# held to each other at PARITY_TOL (max|d| / max|logit| a row).  No limit
+# on bf16 rows at these depths would tell a fault from rounding: under
+# another summation order the card's bf16 logits lie 0.8-7.0 apart of ~9
+# (PERF.md, PR 28, run SP).  DENSE_FORCED_LAYERS gives each model's depth
+# for these runs: (model-dtype caches, q8_0 pools).  Over q8_0 pools a
+# value that a rounding difference moves across a rounding boundary moves
+# its code by one step, which moves the logits by up to ~3e-3 at the
+# parity phase's depths (the readings behind PARITY_TOL["q8_0"]), and
+# every layer after it moves them further.  DeepSeek-V3 runs its 3 dense
+# layers: its MoE layers couple the rows of a batch through expert
+# capacity, padding rows and free lanes included, and those rows hold
+# other values under plain than under fused attention, so a real token's
+# expert can be dropped in one run and not the other (at 7 layers a
+# prefill's logits lay 0.13 apart, PERF.md, PR 29, run W1).
+DENSE_FORCED = 8
+DENSE_FORCED_LAYERS = {"qwen2-1.5b": (28, 2), "deepseek-v3-671b": (3, 3)}
+
+
+def phase_dense(torch, summary: dict, streams: dict, reads: dict,
+                held: dict) -> None:
+    from repro_torch.configs import get_config
+
+    emit({"phase": "dense", "loss_tokens": list(DENSE_LOSS_SHAPE),
+          "sequential_rids": list(DENSE_SEQ_RIDS),
+          "generate_rids": list(DENSE_GEN_RIDS),
+          "forced_tokens": DENSE_FORCED,
+          "forced_q8_0_layers": DENSE_FORCED_LAYERS,
+          "tol": PARITY_TOL})
+    counters = launch_counters()
+    for cfg in (get_config("qwen2-1.5b"), deepseek_cut()):
+        dense_model(torch, cfg, counters=counters, summary=summary,
+                    streams=streams, reads=reads, held=held)
+
+
+def dense_model(torch, cfg, *, counters: dict, summary: dict, streams: dict,
+                reads: dict, held: dict) -> None:
+    """``cfg`` under DQ3_K_M (the sched phase's weights) through the
+    one-shot and dense entry points in bf16: ``Model.loss`` over 2 x 1024
+    tokens; the serve phase's 8 requests through ``Engine(page_size=0)``
+    and through ``Engine(kernel="gather")`` over q8_0 and over bf16 pools;
+    two of them through ``serve_sequential`` over the dense layout and over
+    q8_0 pools; two others' prompts through one ``generate`` call.  Every
+    request completes, every kernel of the path launches and no attention
+    kernel where the path has none, the KV bytes follow the layout, and
+    the dense serve's streams equal the gather bf16 serve's bitwise (the
+    same values through the same operations).  Then each run's numbers,
+    in f32 and teacher-forced (:func:`dense_forced`)."""
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampler import SamplerConfig
+
+    dev = torch.device("cuda")
+    qparams = held_weights(torch, cfg, held)
+    model = Model(cfg, dtype=torch.bfloat16)
+    b1, _ = b1_path(cfg, "DQ3_K_M")
+    attn = MLA_POOLS if cfg.mla else GQA_POOLS
+    emit(dense_loss(torch, model, qparams, counters, b1, summary))
+
+    def engine(**kw):
+        return Engine(model, qparams, max_len=1024, device=dev,
+                      sampler=SamplerConfig(greedy=True), prefill_chunk=128,
+                      **kw)
+
+    def requests(rids=range(8)):
+        return [r for r in build_requests(8, cfg.vocab_size, 100, 400, 32,
+                                          seed=0) if r.rid in rids]
+
+    for label in ("bf16", "q8_0"):
+        # the paged serve's streams and reads (the serve phase's)
+        key = (cfg.name, "DQ3_K_M", label)
+        if key not in streams:
+            ref = engine(page_size=16,
+                         kv_quant=None if label == "bf16" else label)
+            streams[key] = {r.rid: r.out for r in ref.serve(requests(),
+                                                            slots=4)}
+            reads[key] = ref.last_stats.decode_kv_bytes
+
+    def run(what: str, go, reqs, *, attention: bool):
+        """``go()`` counted; every request complete; the attention kernels
+        launched only where ``attention``; B1 on every path."""
+        done, launches, forms = counted_run(torch, counters, go)
+        served = reqs is None
+        got = ({r.rid: r.out for r in done} if served
+               else {r.rid: out for r, out in zip(reqs, done)})
+        res = {"phase": "dense", "arch": cfg.name, "layers": cfg.n_layers,
+               "run": what, "requests": len(got),
+               "launches": {k: v for k, v in launches.items() if v},
+               "library_launches": {f"{f} {w}": v
+                                    for (f, w), v in forms.items() if v}}
+        if any(len(out) != 32 for out in got.values()) or (
+                served and any(r.status != "ok" for r in done)):
+            fail(f"{what}: not every request completed")
+        if any(not 0 <= t < cfg.vocab_size for o in got.values() for t in o):
+            fail(f"{what}: token outside the vocabulary")
+        ran = [k for k in ATTN_ROWS if launches[k]]
+        if attention and not ran:
+            fail(f"{what}: no attention kernel launched")
+        if not attention and ran:
+            fail(f"{what}: attention kernels launched: {ran}")
+        missing = [k for k in b1 if not launches[k]]
+        if missing:
+            fail(f"{what}: kernels never launched: {missing}")
+        for k, v in launches.items():
+            entry = summary.setdefault(k, kernel_entry(k))
+            entry["launches"] = (entry["launches"] or 0) + v
+        return res, got
+
+    dense_streams = None
+    for label, kw in (("bf16", dict(page_size=0)),
+                      ("q8_0", dict(page_size=16, kernel="gather",
+                                    kv_quant="q8_0")),
+                      ("gather bf16", dict(page_size=16, kernel="gather"))):
+        eng = engine(**kw)
+        reqs = requests()
+        what = (f"dense ({cfg.name}, "
+                f"{'page_size=0' if label == 'bf16' else label})")
+        res, got = run(what, lambda: eng.serve(reqs, slots=4, seed=0), None,
+                       attention=False)
+        st = eng.last_stats
+        res.update(wall_s=st.wall_s, decode_steps=st.decode_iterations,
+                   prefill_chunks=st.prefill_iterations,
+                   decode_step_ms_p50=st.decode_step_ms(0.5),
+                   decode_step_ms_p90=st.decode_step_ms(0.9),
+                   ttft_ms_mean=st.mean_admission_s * 1e3,
+                   dense_cache_bytes=st.dense_cache_bytes,
+                   decode_kv_bytes=st.decode_kv_bytes,
+                   kv_bytes_per_decoded_token=st.kv_bytes_per_decoded_token,
+                   pages_leaked=st.pages_leaked)
+        if label == "q8_0":
+            res["fused_decode_kv_bytes"] = reads[cfg.name, "DQ3_K_M", label]
+        if label == "gather bf16":
+            # the same values through the same operations as page_size=0
+            res["streams_equal_page_size_0"] = sum(
+                got[k] == dense_streams[k] for k in got)
+        emit(res)
+        if label == "bf16":
+            dense_streams = got
+            if st.decode_kv_bytes != (eng._dense_kv_read_bytes(4)
+                                      * st.decode_iterations):
+                fail(f"{what}: decode_kv_bytes {st.decode_kv_bytes} is not "
+                     f"{st.decode_iterations} steps of the dense cache")
+        if label == "q8_0" and st.decode_kv_bytes < reads[
+                cfg.name, "DQ3_K_M", label]:
+            fail(f"{what}: decode_kv_bytes {st.decode_kv_bytes} below the "
+                 "fused serve's")
+        if label == "gather bf16" and got != dense_streams:
+            fail(f"{what}: {res['streams_equal_page_size_0']} of "
+                 f"{len(got)} streams equal the page_size=0 serve's")
+        if st.pages_leaked:
+            fail(f"{what}: {st.pages_leaked} pages leaked")
+
+    for label, kw in (("bf16", dict(page_size=0)),
+                      ("q8_0", dict(page_size=16, kv_quant="q8_0"))):
+        eng = engine(**kw)
+        reqs = requests(DENSE_SEQ_RIDS)
+        what = f"dense ({cfg.name}, serve_sequential {label})"
+        t0 = time.perf_counter()
+        res, _ = run(what, lambda: eng.serve_sequential(reqs, seed=0), None,
+                     attention=label != "bf16")
+        emit(dict(res, wall_s=time.perf_counter() - t0,
+                  decode_steps=eng.last_stats.decode_iterations))
+        # over q8_0 pools each request runs alone through the fused serve
+        missing = [k for k in attn["q8_0"] if label == "q8_0"
+                   and k not in res["launches"]]
+        if missing:
+            fail(f"{what}: kernels never launched: {missing}")
+
+    eng = engine(page_size=0)
+    reqs = requests(DENSE_GEN_RIDS)
+    what = f"dense ({cfg.name}, generate)"
+    t0 = time.perf_counter()
+    res, _ = run(what,
+                 lambda: eng.generate([r.prompt for r in reqs], 32, seed=0),
+                 reqs, attention=False)
+    emit(dict(res, wall_s=time.perf_counter() - t0,
+              prompt_tokens=[len(r.prompt) for r in reqs]))
+
+    want = streams[cfg.name, "DQ3_K_M", "bf16"]
+    layers, q8_layers = DENSE_FORCED_LAYERS[cfg.name]
+    dense_forced(torch, cfg, qparams,
+                 {rid: out[:DENSE_FORCED] for rid, out in want.items()},
+                 layers=layers, q8_layers=q8_layers, device=dev)
+
+
+def dense_forced(torch, cfg, qparams, forced: dict, *, layers: int,
+                 q8_layers: int, device) -> None:
+    """The dense phase's runs in f32 on ``qparams`` on ``device``, at
+    ``layers`` (those over q8_0 pools at ``q8_layers``), teacher-forced
+    with ``forced`` (by rid),
+    each held to a reference run that batches the same tokens the same way
+    (the experts' capacity couples the rows of a batch, free lanes too):
+    the page_size=0 serve to the fused paged serve; the gather serve over
+    q8_0 pools to the fused one; serve_sequential over the dense layout
+    (one row, the whole prompt prefilled at once) to the fused serve of
+    each request alone on one slot, its chunk as long as its prompt;
+    serve_sequential over q8_0 pools to the gather one; generate, the
+    longer prompt first (its padding rows come last, behind every real
+    token), to the fused serve of both on two slots, the chunk as long as
+    the longer prompt.  Every row of both within PARITY_TOL of its pool
+    kind."""
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampler import SamplerConfig
+
+    prompts = {r.rid: r.prompt for r in build_requests(
+        8, cfg.vocab_size, 100, 400, DENSE_FORCED, seed=0)}
+    models = {kv: Model(dataclasses.replace(
+        cfg, n_layers=q8_layers if kv else layers),
+        dtype=torch.float32) for kv in (None, "q8_0")}
+
+    def forced_run(kv, rids, go, **kw):
+        """``go(engine, requests)`` over ``rids`` (in that order), forced:
+        the logits rows by (rid, token index)."""
+        from repro_torch.serving import Request
+
+        reqs = [Request(rid=i, prompt=prompts[i], max_new=DENSE_FORCED)
+                for i in rids]
+        eng = Engine(models[kv], qparams, max_len=1024, device=device,
+                     sampler=SamplerConfig(greedy=True), kv_quant=kv, **kw)
+        with forcing(torch, models[kv], reqs, forced) as rows:
+            go(eng, reqs)
+        return rows
+
+    def serve(slots):
+        return lambda eng, reqs: eng.serve(reqs, slots=slots, seed=0)
+
+    def sequential(eng, reqs):
+        eng.serve_sequential(reqs, seed=0)
+
+    def generate(eng, reqs):
+        eng.generate([r.prompt for r in reqs], DENSE_FORCED, seed=0)
+
+    everyone = tuple(range(8))
+    gen = sorted(DENSE_GEN_RIDS, key=lambda i: -len(prompts[i]))
+    alone = {}
+    for rid in DENSE_SEQ_RIDS:
+        alone.update(forced_run(None, (rid,), serve(1), page_size=16,
+                                prefill_chunk=len(prompts[rid])))
+    cases = (
+        ("serve page_size=0", None,
+         lambda: forced_run(None, everyone, serve(4), page_size=0,
+                            prefill_chunk=128),
+         "the fused paged serve",
+         lambda: forced_run(None, everyone, serve(4), page_size=16,
+                            prefill_chunk=128)),
+        ("serve gather q8_0", "q8_0",
+         lambda: forced_run("q8_0", everyone, serve(4), page_size=16,
+                            kernel="gather", prefill_chunk=128),
+         "the fused q8_0 serve",
+         lambda: forced_run("q8_0", everyone, serve(4), page_size=16,
+                            prefill_chunk=128)),
+        ("serve_sequential bf16", None,
+         lambda: forced_run(None, DENSE_SEQ_RIDS, sequential, page_size=0),
+         "each request's fused serve on one slot, one chunk",
+         lambda: alone),
+        ("serve_sequential q8_0", "q8_0",
+         lambda: forced_run("q8_0", DENSE_SEQ_RIDS, sequential,
+                            page_size=16, prefill_chunk=128),
+         "the gather q8_0 serve_sequential",
+         lambda: forced_run("q8_0", DENSE_SEQ_RIDS, sequential,
+                            page_size=16, kernel="gather",
+                            prefill_chunk=128)),
+        ("generate", None,
+         lambda: forced_run(None, gen, generate, page_size=0),
+         "the fused serve on two slots, one chunk",
+         lambda: forced_run(None, gen, serve(2), page_size=16,
+                            prefill_chunk=len(prompts[gen[0]]))))
+    for what, kv, go, other, ref in cases:
+        t0 = time.perf_counter()
+        got, want = go(), ref()
+        tol = PARITY_TOL["q8_0" if kv else "f32"]
+        keys = sorted(want)
+        if sorted(got) != keys or len(keys) != len(
+                {r for r, _ in keys}) * DENSE_FORCED:
+            fail(f"dense ({cfg.name}, forced {what}): rows {sorted(got)} "
+                 f"against {keys}")
+        a = torch.stack([got[k] for k in keys]).float()
+        b = torch.stack([want[k] for k in keys]).float()
+        rel = ((a - b).abs().amax(-1) / b.abs().amax(-1)).cpu()
+        worst = int(rel.argmax())
+        res = {"phase": "dense", "arch": cfg.name, "run": f"forced {what}",
+               "dtype": "f32", "layers": models[kv].cfg.n_layers,
+               "held_to": other, "rows": len(keys),
+               "rel_max": rel.max().item(), "rel_p50": rel.median().item(),
+               "worst": list(keys[worst]), "tol": tol,
+               "seconds": time.perf_counter() - t0}
+        emit(res)
+        if not (torch.isfinite(a).all() and rel.max().item() <= tol):
+            fail(f"dense ({cfg.name}, forced {what}): a row lies "
+                 f"{res['rel_max']} apart (> {tol}) at {res['worst']}")
+
+
+@contextlib.contextmanager
+def forcing(torch, model, reqs, forced: dict):
+    """Teacher forcing while an engine serves ``reqs`` on ``model``
+    (``Engine.serve``, ``serve_sequential``, or ``generate`` over their
+    prompts in order): each token the engine samples for request ``rid``
+    becomes ``forced[rid][j]``, the j-th, as the next step's input and in
+    its stream.  Yields ``{(rid, j): the logits row that token was sampled
+    from}``.  A lane is told by the prompt its prefill writes; a decode
+    row's token index follows from its position."""
+    from repro_torch.serving import engine as engine_mod
+
+    prompts = {r.rid: r.prompt for r in reqs}
+    lane: dict = {}       # slot or row -> rid
+    pending: dict = {}    # slot or row -> (rid, j) of the next sample
+    rows: dict = {}
+    names = ("prefill_chunk", "prefill", "decode_step", "decode_step_paged")
+    own = {n: getattr(model, n) for n in names}
+    sample = engine_mod.sample_per_slot
+
+    def whose(toks: list, n: int) -> int:
+        hits = [rid for rid, p in prompts.items() if p[:n] == toks[:n]]
+        if len(hits) != 1:
+            fail(f"forcing: a prefill row matches requests {hits}")
+        return hits[0]
+
+    def chunk(params, cache, toks, start, clen, *args, **kw):
+        out = own["prefill_chunk"](params, cache, toks, start, clen, *args,
+                                   **kw)
+        pending.clear()
+        for s, (t, lo, n) in enumerate(zip(toks.tolist(), start.tolist(),
+                                           clen.tolist())):
+            if n and not lo:
+                lane[s] = whose(t, n)
+            if n and lo + n == len(prompts[lane[s]]):
+                pending[s] = (lane[s], 0)
+        return out
+
+    def prefill(params, batch, max_len, **kw):
+        out = own["prefill"](params, batch, max_len, **kw)
+        toks = batch["tokens"].tolist()
+        lengths = kw["lengths"].tolist()
+        pending.clear()
+        for s, (t, n) in enumerate(zip(toks, lengths)):
+            lane[s] = whose(t, n)
+            pending[s] = (lane[s], 0)
+        return out
+
+    def step(name):
+        def fn(params, cache, toks, pos, *args, **kw):
+            out = own[name](params, cache, toks, pos, *args, **kw)
+            live = kw.get("live")
+            live = ([True] * len(toks) if live is None else live.tolist())
+            pending.clear()
+            for s, (t, p, on) in enumerate(zip(toks.tolist(), pos.tolist(),
+                                               live)):
+                if not on:
+                    continue
+                rid = lane[s]
+                j = p - len(prompts[rid]) + 1
+                if t != forced[rid][j - 1]:
+                    fail(f"forcing: rid {rid} was fed {t} at token {j - 1}")
+                pending[s] = (rid, j)
+            return out
+        return fn
+
+    def forced_sample(logits, seeds, sampler):
+        tok = sample(logits, seeds, sampler)
+        if pending:
+            at = sorted(pending)
+            tok = tok.clone()
+            for s in at:
+                rows[pending[s]] = logits[s]
+            tok[at] = torch.tensor([forced[r][j] for r, j in
+                                    (pending[s] for s in at)],
+                                   dtype=tok.dtype, device=tok.device)
+        pending.clear()
+        return tok
+
+    model.prefill_chunk, model.prefill = chunk, prefill
+    model.decode_step = step("decode_step")
+    model.decode_step_paged = step("decode_step_paged")
+    engine_mod.sample_per_slot = forced_sample
+    try:
+        yield rows
+    finally:
+        engine_mod.sample_per_slot = sample
+        for n in names:
+            delattr(model, n)
+
+
+def dense_loss(torch, model, qparams, counters: dict, b1: tuple,
+               summary: dict) -> dict:
+    """``Model.loss`` over DENSE_LOSS_SHAPE token ids from seed 0 (some
+    labels -1): finite, every 2-D weight on the prefill form (M = 2048
+    rows), every expert weight on the expert form at the reference's
+    capacity, no attention kernel; wall and device ms of one call, B1's
+    launches by format and form, and the device time by kernel family
+    of one traced call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import moe
+
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    b, t = DENSE_LOSS_SHAPE
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(4, cfg.vocab_size, (b, t), generator=gen,
+                         dtype=torch.int32)
+    labels = torch.roll(toks, -1, dims=1)
+    labels[:, -1] = -1
+    labels[0, :DENSE_MASKED] = -1
+    batch = {"tokens": toks.to(dev), "labels": labels.to(dev)}
+    # a short forward first, so that loading kernels is not timed
+    model.loss(qparams, {k: v[:1, :64] for k, v in batch.items()})
+    capacities = []
+    own = moe.moe_dispatch
+
+    def spy(x, gates, idx, n_experts, capacity):
+        capacities.append(capacity)
+        return own(x, gates, idx, n_experts, capacity)
+
+    moe.moe_dispatch = spy
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        def go():
+            start.record()
+            out = model.loss(qparams, batch)
+            end.record()
+            return out
+        t0 = time.perf_counter()
+        (total, parts), launches, forms = counted_run(torch, counters, go)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        moe.moe_dispatch = own
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.loss(qparams, batch)
+        torch.cuda.synchronize()
+    fams: dict[str, float] = {}
+    n_kernels = 0
+    for key, (ms, n) in kernel_ms(torch, prof, 1).items():
+        fams[family(key)] = fams.get(family(key), 0.0) + ms
+        n_kernels += n
+    busy = sum(fams.values()) or None
+    want_c = (max(1, int(cfg.capacity_factor * b * t * cfg.top_k
+                         / cfg.n_experts)) if cfg.is_moe else None)
+    res = {"phase": "dense", "arch": cfg.name, "layers": cfg.n_layers,
+           "run": "loss", "tokens": [b, t], "masked_labels": DENSE_MASKED + b,
+           "loss": total.item(), "nll": parts["nll"].item(),
+           "aux": parts["aux"].item(), "wall_ms": wall,
+           "events_ms": start.elapsed_time(end), "device_ms": busy,
+           "idle_share": busy and max(0.0, 1 - busy / wall),
+           "by_family_ms": fams, "kernels": n_kernels,
+           "moe_capacity": sorted(set(capacities)),
+           "launches": {k: v for k, v in launches.items() if v},
+           "library_launches": {f"{f} {w}": v
+                                for (f, w), v in forms.items() if v}}
+    what = f"dense ({cfg.name}, loss)"
+    if not all(math.isfinite(res[k]) for k in ("loss", "nll", "aux")):
+        fail(f"{what}: loss {res['loss']}, nll {res['nll']}")
+    if cfg.is_moe and capacities != [want_c] * len(capacities):
+        fail(f"{what}: expert capacity {sorted(set(capacities))}, the "
+             f"reference's {want_c}")
+    for name in b1:
+        if name.startswith("qmatmul_experts_"):
+            f = name[len("qmatmul_experts_"):]
+            ok = forms[f, "experts"] > 0
+        else:
+            f = name[len("qmatmul_"):].removesuffix("_prefill")
+            ok = forms[f, "prefill"] > 0 and forms[f, "decode"] == 0
+        if not ok:
+            fail(f"{what}: {name}: forms {forms}")
+    ran = [k for k in ATTN_ROWS if launches[k]]
+    if ran:
+        fail(f"{what}: attention kernels launched: {ran}")
+    for k, v in launches.items():
+        entry = summary.setdefault(k, kernel_entry(k))
+        entry["launches"] = (entry["launches"] or 0) + v
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2006,7 +2596,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
     summary: dict = {}
-    streams: dict = {}      # the serve phase's, for the sched phase
+    streams: dict = {}      # the serve phase's, for the sched and dense phases
+    reads: dict = {}        # the serve phase's decode_kv_bytes, for dense
+    held: dict = {}         # the sched and dense phases' weights
     if "build" in phases:
         t0 = time.perf_counter()
         secs = build.build_all()
@@ -2023,8 +2615,12 @@ def main(argv=None) -> int:
     seconds = {}
     for name, run in (("kernels", lambda: phase_kernels(torch, summary)),
                       ("parity", lambda: phase_parity(torch)),
-                      ("serve", lambda: phase_serve(torch, summary, streams)),
-                      ("sched", lambda: phase_sched(torch, summary, streams))):
+                      ("serve", lambda: phase_serve(torch, summary, streams,
+                                                    reads)),
+                      ("sched", lambda: phase_sched(torch, summary, streams,
+                                                    held)),
+                      ("dense", lambda: phase_dense(torch, summary, streams,
+                                                    reads, held))):
         if name in phases:
             t0 = time.perf_counter()
             run()

@@ -12,6 +12,10 @@
       --priority-classes 2 --oversubscribe 0.3 --chaos 0
       (preemption with KV swap-out over an undersized pool, under a
       seeded fault plan)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+      --page-size 0 --sequential
+      (the dense cache layout, one request at a time through one-shot
+      generate; --kernel gather runs the paged decode's reference path)
 
 Runs on the card (``--device cuda``, the default); ``--device cpu`` runs
 the kernels' plain PyTorch versions (add ``--reduced`` there).  Weights
@@ -60,9 +64,21 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-min", type=int, default=100)
     ap.add_argument("--prompt-max", type=int, default=400)
-    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--sequential", action="store_true",
+                    help="serve one request at a time (the throughput "
+                         "baseline): one-shot generate over a dense cache, "
+                         "or with --kv-quant each request alone through "
+                         "the batched path")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV-cache page; 0 keeps the dense "
+                         "slots x max-len layout")
     ap.add_argument("--num-pages", type=int, default=0)
     ap.add_argument("--prefill-chunk", type=int, default=0)
+    ap.add_argument("--kernel", default=None, choices=Model.KERNELS,
+                    help="paged decode: 'fused' (default) attends the pages "
+                         "in place through the fused kernels, 'gather' "
+                         "attends the dense view of every lane's whole "
+                         "block table (the reference path)")
     ap.add_argument("--kv-quant", default=None,
                     choices=("q8_0", "q4_0", "dq"),
                     help="quantize the paged KV pools: 'q8_0' int8 values + "
@@ -127,7 +143,7 @@ def main(argv=None):
         print(f"chaos mode: seed {args.chaos}, {len(plan.faults)} faults "
               f"armed ({', '.join(f.kind for f in plan.faults)})")
     num_pages = args.num_pages
-    if args.oversubscribe:
+    if args.oversubscribe and args.page_size:
         n_full = paged.pages_for(args.max_len, args.page_size)
         worst = paged.RESERVED_PAGES + args.slots * n_full
         # floor: one request's worst case must always fit
@@ -139,7 +155,8 @@ def main(argv=None):
                     sampler=SamplerConfig(args.temperature, args.top_p,
                                           greedy=args.greedy),
                     page_size=args.page_size, num_pages=num_pages,
-                    prefill_chunk=args.prefill_chunk, kv_quant=args.kv_quant,
+                    prefill_chunk=args.prefill_chunk, kernel=args.kernel,
+                    kv_quant=args.kv_quant,
                     scheduler=args.scheduler,
                     swap_budget_bytes=args.swap_budget_bytes, faults=plan,
                     max_queue=args.max_queue)
@@ -149,7 +166,10 @@ def main(argv=None):
     for r in reqs:
         r.priority = r.rid % max(args.priority_classes, 1)
         r.deadline_s = args.deadline_s
-    done = engine.serve(reqs, slots=args.slots, seed=args.seed)
+    if args.sequential:
+        done = engine.serve_sequential(reqs, seed=args.seed)
+    else:
+        done = engine.serve(reqs, slots=args.slots, seed=args.seed)
     for r in sorted(done, key=lambda r: r.rid):
         tag = "" if r.status == "ok" else f"  [{r.status}]"
         print(f"req {r.rid}: prompt[{len(r.prompt)}] -> {len(r.out)} tokens "

@@ -1,14 +1,20 @@
-"""Full-horizon GQA attention (with QKV bias) over a paged KV cache.
+"""Full-horizon GQA attention (with QKV bias): the full-sequence forward,
+a dense per-slot cache, and a paged KV cache.
 
-Decode runs the fused paged kernels (B2 for model-dtype pools, B3 for
-q8_0 pools, its q4_0 loader B5 for q4_0 pools).  Chunked prefill over
-quantized pools is write-then-attend: the chunk's rows are quantized
-once, scattered into their pages, and every chunk query attends the pools
-in place (B4, or B5 for q4_0).  Chunked prefill over model-dtype pools
-gathers the dense view and runs the online-softmax attention below in
-plain PyTorch, as the reference leaves it to XLA.  ``lq`` is one layer's
+The full-sequence forward (train, loss, one-shot prefill) and chunked
+prefill over a dense cache or over model-dtype pools run the
+online-softmax attention below in plain PyTorch, as the reference leaves
+them to XLA; so does decode over a dense cache (:func:`attn_decode`) and
+over the dense view of a paged one (``kernel="gather"``, the reference
+path: :func:`_attend_cache`).  Decode over pages with ``kernel="fused"``
+runs the fused paged kernels (B2 for model-dtype pools, B3 for q8_0
+pools, its q4_0 loader B5 for q4_0 pools).  Chunked prefill over
+quantized pools with ``kernel="fused"`` is write-then-attend: the chunk's
+rows are quantized once, scattered into their pages, and every chunk
+query attends the pools in place (B4, or B5 for q4_0); ``kernel="gather"``
+attends their dequantized dense view instead.  ``lq`` is one layer's
 ``paged.LayerQuant`` (None for model-dtype pools); the K/V leaves take its
-``kv`` mode.
+``kv`` mode.  Every cache is updated in place.
 """
 
 from __future__ import annotations
@@ -116,6 +122,98 @@ def _qkv(p, cfg: ModelConfig, x, positions):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
+def causal_mask(qi, ki):
+    """The full-sequence mask: each query attends its own and earlier
+    positions."""
+    return ki <= qi
+
+
+def _forward_kv(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    """Full-sequence causal attention: (output, rotated K, V)."""
+    b, t, _ = x.shape
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    q, k, v = _qkv(p, cfg, h, positions)
+    o = _chunk_attn(q, k, v, causal_mask, cfg.attn_softcap)
+    o = o.reshape(b, t, cfg.n_heads * cfg.head_dim).to(x.dtype)
+    return linear(p["o_proj"], o), k, v
+
+
+def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence causal attention (train / loss).  x: (B, T, D)."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    return _forward_kv(p, cfg, x, positions)[0]
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
+                    dtype=torch.bfloat16, device=None) -> dict:
+    """Dense per-slot K/V/pos leaves ``(batch, max_len, ...)``; ``pos`` -1
+    marks an entry never written."""
+    nkv, hd = cfg.n_kv_heads, cfg.head_dim
+    kw = dict(device=device)
+    return {
+        "k": torch.zeros((batch, max_len, nkv, hd), dtype=dtype, **kw),
+        "v": torch.zeros((batch, max_len, nkv, hd), dtype=dtype, **kw),
+        "pos": torch.full((batch, max_len), -1, dtype=torch.int32, **kw),
+    }
+
+
+def attn_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, max_len: int
+                 ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward that also builds the dense decode cache over
+    positions [0, T) (the last ``max_len`` of them when T is longer, each
+    at ``pos % max_len``)."""
+    b, t, _ = x.shape
+    keep = torch.arange(t, device=x.device)
+    out, k, v = _forward_kv(p, cfg, x, keep[None, :])
+    cache = init_attn_cache(cfg, b, max_len, dtype=k.dtype, device=x.device)
+    keep = keep[max(0, t - max_len):]
+    slots = keep % max_len
+    cache["k"][:, slots] = k[:, keep]
+    cache["v"][:, slots] = v[:, keep]
+    cache["pos"][:, slots] = keep.to(torch.int32)
+    return out, cache
+
+
+def _attend_cache(cfg: ModelConfig, q: torch.Tensor, ck: torch.Tensor,
+                  cv: torch.Tensor, cpos: torch.Tensor, pos: torch.Tensor
+                  ) -> torch.Tensor:
+    """One rotated query row against a dense cache view: the masked
+    softmax read of :func:`attn_decode` and of the gather reference.  q:
+    (B, 1, H, D); ck/cv: (B, L, Hkv, D); cpos: (B, L); returns (B, 1, H*D)
+    in f32 (pre-``o_proj``)."""
+    b = q.shape[0]
+    rep = cfg.n_heads // cfg.n_kv_heads
+    valid = (cpos >= 0) & (cpos <= pos[:, None])
+    kk = torch.repeat_interleave(ck.to(torch.float32), rep, dim=2)
+    vv = torch.repeat_interleave(cv.to(torch.float32), rep, dim=2)
+    s = torch.einsum("bhd,blhd->bhl",
+                     q[:, 0].to(torch.float32) * cfg.head_dim ** -0.5, kk)
+    s = _softcap(s, cfg.attn_softcap)
+    s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
+    o = torch.einsum("bhl,blhd->bhd", torch.softmax(s, dim=-1), vv)
+    return o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+
+
+def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+                pos: torch.Tensor, live: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, dict]:
+    """One-token decode against a dense cache.  x: (B, 1, D); pos: (B,).
+    Writes the new K/V/pos row at ``pos % L`` in place, except in rows
+    with ``live == False``, then attends the cache."""
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    q, k, v = _qkv(p, cfg, h, pos[:, None])
+    slot = (pos % cache["k"].shape[1])[:, None]
+    ok = None if live is None else live[:, None]
+    paged.write_dense(cache["k"], slot, k, ok)
+    paged.write_dense(cache["v"], slot, v, ok)
+    paged.write_dense(cache["pos"], slot, pos[:, None].to(torch.int32), ok)
+    o = _attend_cache(cfg, q, cache["k"], cache["v"], cache["pos"], pos)
+    return linear(p["o_proj"], o.to(x.dtype)), cache
+
+
 def init_paged_attn_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                           dtype=torch.bfloat16,
                           lq: paged.LayerQuant | None = None,
@@ -153,17 +251,32 @@ def attn_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
                       live: torch.Tensor | None = None,
                       active_pages: int | None = None,
                       lane_pages: torch.Tensor | None = None,
-                      lq: paged.LayerQuant | None = None
+                      lq: paged.LayerQuant | None = None,
+                      kernel: str = "fused"
                       ) -> tuple[torch.Tensor, dict]:
-    """One-token decode against a paged cache (the fused kernels).
+    """One-token decode against a paged cache.
 
-    Scatters the new K/V/pos row into its page (in place; rows with
-    ``live == False`` go to GARBAGE), then attends the pages in place
-    through the block table.  ``active_pages`` bounds the page loop to the
-    batch's live horizon, ``lane_pages`` (B,) each lane to its own.
+    ``kernel="fused"``: scatter the new K/V/pos row into its page (in
+    place; rows with ``live == False`` go to GARBAGE), then attend the
+    pages in place through the block table.  ``active_pages`` bounds the
+    page loop to the batch's live horizon, ``lane_pages`` (B,) each lane to
+    its own.  ``kernel="gather"``, the reference path, ignores both: it
+    runs :func:`attn_decode` on the gathered dense view of the whole table
+    and scatters the new row back (model-dtype pools), or attends the
+    dequantized dense view of the updated pools (quantized pools).
     """
     mode = lq.kv if lq else None
     b = x.shape[0]
+    if kernel == "gather" and not mode:
+        dense = {k: paged.gather_pages(cache[k], block_table, max_len)
+                 for k in ("k", "v", "pos")}
+        delta, dense = attn_decode(p, cfg, x, dense, pos, live=live)
+        slot = (pos % max_len).long()
+        rows = torch.arange(b, device=x.device)
+        for key in ("k", "v", "pos"):
+            paged.scatter_token(cache[key], block_table, slot.to(torch.int32),
+                                dense[key][rows, slot], ok=live)
+        return delta, cache
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(p, cfg, h, pos[:, None])
     slot = (pos % max_len).to(torch.int32)
@@ -176,6 +289,14 @@ def attn_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
                                   slot, k[:, 0], ok=live, mode=mode)
         paged.scatter_token_quant(cache["v_qs"], cache["v_d"], block_table,
                                   slot, v[:, 0], ok=live, mode=mode)
+        if kernel == "gather":
+            ck = paged.gather_pages_quant(cache["k_qs"], cache["k_d"],
+                                          block_table, max_len, mode)
+            cv = paged.gather_pages_quant(cache["v_qs"], cache["v_d"],
+                                          block_table, max_len, mode)
+            cpos = paged.gather_pages(cache["pos"], block_table, max_len)
+            o = _attend_cache(cfg, q, ck, cv, cpos, pos).to(x.dtype)
+            return linear(p["o_proj"], o), cache
         o = paged_attn.paged_attn_decode_quant(
             q[:, 0], cache["k_qs"], cache["k_d"], cache["v_qs"],
             cache["v_d"], cache["pos"], block_table, pos, mode=mode, **kw)
@@ -192,15 +313,18 @@ def attn_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
 def attn_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
                        cache: dict, positions: torch.Tensor,
                        start: torch.Tensor, chunk_len: torch.Tensor, *,
-                       max_len: int, block_table: torch.Tensor,
+                       max_len: int, block_table: torch.Tensor | None = None,
                        lq: paged.LayerQuant | None = None,
-                       active_pages: int | None = None
-                       ) -> tuple[torch.Tensor, dict]:
-    """One prefill chunk against the paged cache.
+                       active_pages: int | None = None,
+                       kernel: str = "fused") -> tuple[torch.Tensor, dict]:
+    """One prefill chunk against the paged cache, or against the dense one
+    when ``block_table`` is None.
 
     x: (B, C, D) right-padded per row; positions: (B, C) absolute; start:
     (B,) first position of the chunk; chunk_len: (B,) valid tokens (0 = an
-    inactive row: no writes, output ignored).
+    inactive row: no writes, output ignored).  Every path but the fused
+    write-then-attend one attends [old cache view | chunk] and writes the
+    chunk after.
     """
     mode = lq.kv if lq else None
     b, c, _ = x.shape
@@ -213,7 +337,7 @@ def attn_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
     ok = paged.chunk_write_plan(idx, valid_tok, length)
     wpos = positions.to(torch.int32)
 
-    if mode:
+    if mode and kernel == "fused":
         # write-then-attend: quantize once, scatter, attend the pages in
         # place (stored pos == logical index lets the kernel mask stale
         # rows beyond the frontier)
@@ -232,19 +356,44 @@ def attn_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
         o = o.reshape(b, c, cfg.n_heads * cfg.head_dim).to(x.dtype)
         return linear(p["o_proj"], o), cache
 
+    if mode:
+        # the dequantizing gather reference: the chunk's rows quantized
+        # once, attended through the same round trip they are stored with
+        ck = paged.gather_pages_quant(cache["k_qs"], cache["k_d"],
+                                      block_table, length, mode)
+        cv = paged.gather_pages_quant(cache["v_qs"], cache["v_d"],
+                                      block_table, length, mode)
+        cpos = paged.gather_pages(cache["pos"], block_table, length)
+        k_qs, k_d, k_att = paged.roundtrip_quant(k, mode)
+        v_qs, v_d, v_att = paged.roundtrip_quant(v, mode)
+    elif block_table is not None:
+        ck = paged.gather_pages(cache["k"], block_table, length)
+        cv = paged.gather_pages(cache["v"], block_table, length)
+        cpos = paged.gather_pages(cache["pos"], block_table, length)
+        k_att, v_att = k, v
+    else:
+        ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+        k_att, v_att = k, v
     # attend over [old cache view | chunk] so in-chunk writes can never
     # evict entries an earlier in-chunk query still needs
-    ck = paged.gather_pages(cache["k"], block_table, length)
-    cv = paged.gather_pages(cache["v"], block_table, length)
-    cpos = paged.gather_pages(cache["pos"], block_table, length)
     key_pos = chunk_key_positions(cpos, positions, valid_tok)
-    kk = torch.cat([ck, k.to(ck.dtype)], dim=1)
-    vv = torch.cat([cv, v.to(cv.dtype)], dim=1)
+    kk = torch.cat([ck, k_att.to(ck.dtype)], dim=1)
+    vv = torch.cat([cv, v_att.to(cv.dtype)], dim=1)
     mask_fn = chunk_mask_fn(key_pos, length, positions, start, 0)
     o = _chunk_attn(q.to(ck.dtype), kk, vv, mask_fn, cfg.attn_softcap)
     o = o.reshape(b, c, cfg.n_heads * cfg.head_dim).to(x.dtype)
     out = linear(p["o_proj"], o)
-    paged.scatter_chunk(cache["k"], block_table, idx, k, ok)
-    paged.scatter_chunk(cache["v"], block_table, idx, v, ok)
-    paged.scatter_chunk(cache["pos"], block_table, idx, wpos, ok)
+    if mode:
+        for leaf, qs, d in (("k", k_qs, k_d), ("v", v_qs, v_d)):
+            paged.scatter_chunk(cache[f"{leaf}_qs"], block_table, idx, qs, ok)
+            paged.scatter_chunk(cache[f"{leaf}_d"], block_table, idx, d, ok)
+        paged.scatter_chunk(cache["pos"], block_table, idx, wpos, ok)
+    elif block_table is not None:
+        paged.scatter_chunk(cache["k"], block_table, idx, k, ok)
+        paged.scatter_chunk(cache["v"], block_table, idx, v, ok)
+        paged.scatter_chunk(cache["pos"], block_table, idx, wpos, ok)
+    else:
+        paged.write_dense(cache["k"], idx, k, ok)
+        paged.write_dense(cache["v"], idx, v, ok)
+        paged.write_dense(cache["pos"], idx, wpos, ok)
     return out, cache

@@ -207,6 +207,39 @@ def scatter_chunk(pool: torch.Tensor, block_table: torch.Tensor,
     return pool
 
 
+def write_dense(leaf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+                ok: torch.Tensor | None = None) -> torch.Tensor:
+    """The dense layout's :func:`scatter_chunk`: write ``val`` (B, C, ...)
+    into a per-slot leaf (B, L, ...) at indices ``idx`` (B, C), in place.
+    Entries with ``ok == False`` drop their writes (the reference's
+    ``mode="drop"``) with no host sync to pick the writes out: such an
+    entry writes what its index holds after the call, the value of the
+    last entry with ``ok`` at that index in its row, else the leaf's own.
+    So every entry at one index writes one value, and the order in which
+    the card applies them does not matter.  Callers keep ``idx`` in
+    range."""
+    rows = torch.arange(leaf.shape[0], device=leaf.device)[:, None]
+    rows, at = rows.expand_as(idx), idx.long()
+    val = val.to(leaf.dtype)
+    if ok is not None:
+        if at.shape[1] > 1:
+            # each entry takes the value of its index's last writer
+            j = torch.arange(at.shape[1], device=at.device).expand_as(at)
+            last = torch.full(leaf.shape[:2], -1, dtype=torch.long,
+                              device=leaf.device)
+            last.scatter_reduce_(1, at, torch.where(ok, j, -1),
+                                 reduce="amax")
+            src = torch.gather(last, 1, at)
+            ok = src >= 0
+            src = src.clamp(min=0).reshape(
+                *src.shape, *([1] * (val.ndim - 2))).expand_as(val)
+            val = torch.gather(val, 1, src)
+        keep = ok.reshape(*ok.shape, *([1] * (val.ndim - ok.ndim)))
+        val = torch.where(keep, val, leaf[rows, at])
+    leaf.index_put_((rows, at), val)
+    return leaf
+
+
 def quantize_rows(val: torch.Tensor, mode: str):
     """Quantize float rows over the trailing axis in storage ``mode``:
     ``(qs, d)``, int8 values (nibble-packed for q4_0, trailing dim halved)

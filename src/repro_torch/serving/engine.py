@@ -1,6 +1,7 @@
-"""Continuous-batching serving engine over a paged KV cache, the port of
-``repro.serving.engine``: the ``reserve`` and ``preempt`` schedulers, the
-request lifecycle and the fault plane.
+"""Continuous-batching serving engine over a paged or dense KV cache, the
+port of ``repro.serving.engine``: the ``reserve`` and ``preempt``
+schedulers, the request lifecycle, the fault plane, and the one-shot
+``generate`` / ``serve_sequential`` baseline.
 
   * **Slots.**  ``slots`` decode lanes share one paged cache; a lane is
     FREE, PREFILLING (its prompt streams in chunk by chunk) or LIVE.
@@ -9,7 +10,9 @@ request lifecycle and the fault plane.
     from a host-side free list (:class:`PagePool`).  ``kv_quant`` stores
     the pools as int8 + per-row f32 scales: "q8_0", "q4_0" (two int4
     codes a byte) or "dq" (per layer: q8_0 on the first/last layers and
-    MLA latents, q4_0 elsewhere).
+    MLA latents, q4_0 elsewhere).  ``page_size=0`` keeps the dense layout
+    instead: one ``(slots, max_len)`` cache row a lane, model-dtype leaves
+    only, ``reserve`` admission only.
   * **Admission.**  ``reserve``: a request is admitted only when the pool
     can hold its worst case, so allocation never fails mid-serve.
     ``preempt``: priority classes (``Request.priority``, smaller = more
@@ -24,9 +27,12 @@ request lifecycle and the fault plane.
   * **Decode.**  One batched fused decode step per iteration over all
     slots; the kernels' page loops are bounded by the batch's bucketed
     live horizon (``active_pages``) and each lane's own page count
-    (``lane_pages``).  Free lanes compute throwaway rows whose writes go to
-    the GARBAGE page.  One device-to-host copy per step carries the
-    sampled tokens and each lane's non-finite-logits flag.
+    (``lane_pages``).  ``kernel="gather"`` runs the reference path
+    instead: every layer attends the dense view of each lane's whole block
+    table.  Free lanes compute throwaway rows whose writes go to the
+    GARBAGE page (the dense layout drops them).  One device-to-host copy
+    per step carries the sampled tokens and each lane's non-finite-logits
+    flag.
   * **Retirement.**  A lane frees on ``eos_id``, ``max_new`` or the
     ``max_len`` horizon; its pages return to the pool the same iteration
     (and their ``pos`` rows are scrubbed to -1).
@@ -41,6 +47,11 @@ request lifecycle and the fault plane.
     throughput, TTFT, decode tok/s, page occupancy, leaked pages,
     bytes-per-live-token, KV bytes per decoded token and the scheduler's
     counters, and adds the per-step decode times and per-swap times.
+  * **One-shot.**  :meth:`Engine.generate` prefills a right-padded batch
+    into a dense cache in one forward and decodes it; :meth:`Engine.
+    serve_sequential` runs requests one at a time through it (or, with
+    ``kv_quant``, each alone through :meth:`Engine.serve`): the
+    throughput baseline and the stream oracle of a batched serve.
   * **Quantization probe.**  ``quant_probe=True`` serves a shadow
     model-dtype cache through the same steps (the same block tables,
     teacher-forced with the served tokens) and reports each lane's
@@ -487,23 +498,21 @@ class _Swapped:
         return sum(_nbytes(a) for a in self.pool_rows.values())
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 class Engine:
     """Single-card continuous-batching engine.
 
     ``page_size`` tokens per KV page (``num_pages`` caps the pool; default:
-    the worst case for ``slots x max_len``); ``prefill_chunk`` admission
-    chunk length (default: whole prompts); ``kv_quant`` None (model-dtype
-    pools), ``"q8_0"``, ``"q4_0"`` or ``"dq"``; ``quant_probe`` (needs
+    the worst case for ``slots x max_len``), or 0 for the dense layout;
+    ``prefill_chunk`` admission chunk length (default: whole prompts);
+    ``kernel`` ``"fused"`` (default) or ``"gather"``, the paged decode's
+    reference path; ``kv_quant`` (paged only) None (model-dtype pools),
+    ``"q8_0"``, ``"q4_0"`` or ``"dq"``; ``quant_probe`` (needs
     ``kv_quant``, the ``reserve`` scheduler and no fault plan) shadows
     every step with a model-dtype cache and reports the logit gap in
     :class:`EngineStats`.  ``scheduler`` is ``"reserve"`` (admit on the
     worst case) or ``"preempt"`` (priority classes, preemption and KV
-    swap-out over an oversubscribed pool; ``swap_budget_bytes`` caps the
-    host store, default ``SWAP_BUDGET_FRACTION`` of host RAM, and
+    swap-out over a paged, oversubscribed pool; ``swap_budget_bytes`` caps
+    the host store, default ``SWAP_BUDGET_FRACTION`` of host RAM, and
     ``swap_dir`` spills past it to files).  ``faults`` takes a
     :class:`~.faults.FaultPlan`; ``max_queue`` / ``class_queues`` shed
     requests past their bounds; ``watchdog_factor`` sets the slow-step
@@ -525,6 +534,9 @@ class Engine:
                  watchdog_factor: float = 4.0):
         self.device = resolve_device(device)
         self.kv_quant = paged.check_kv_quant(kv_quant)
+        if self.kv_quant and not page_size:
+            raise ValueError("kv_quant requires the paged cache "
+                             "(page_size > 0)")
         self.quant_probe = bool(quant_probe)
         if self.quant_probe:
             if not self.kv_quant:
@@ -539,12 +551,12 @@ class Engine:
         if scheduler not in self.SCHEDULERS:
             raise ValueError(f"unknown scheduler {scheduler!r}; "
                              f"supported: {self.SCHEDULERS}")
+        if scheduler == "preempt" and not page_size:
+            raise ValueError("scheduler='preempt' swaps KV pages and "
+                             "requires the paged cache (page_size > 0)")
         if mesh is not None:
-            _not_ported("Engine(mesh=...)", "D8")
-        if not page_size:
-            _not_ported("the dense (page_size=0) cache layout", "D5")
-        if kernel not in (None, "fused"):
-            _not_ported(f"kernel={kernel!r}", "D5")
+            raise NotImplementedError("Engine(mesh=...) is not ported yet "
+                                      "(ROADMAP D8)")
         if swap_budget_bytes is not None:
             if scheduler != "preempt":
                 raise ValueError("swap_budget_bytes caps the preemption "
@@ -586,9 +598,12 @@ class Engine:
         self.page_size = page_size
         self.num_pages = num_pages
         self.scheduler = scheduler
+        self.kernel = kernel or "fused"
+        if self.kernel not in Model.KERNELS:
+            raise ValueError(f"unknown paged decode kernel {self.kernel!r}")
         self.prefill_chunk = min(prefill_chunk, max_len) or max_len
         self.last_stats: EngineStats | None = None
-        self._page_bytes = self._one_page_bytes()
+        self._page_bytes = self._one_page_bytes() if page_size else 0
 
     def cancel(self, rid: int) -> None:
         """Cancel request ``rid``: the serve loop's per-iteration sweep
@@ -609,14 +624,19 @@ class Engine:
         return sum(_nbytes(t) for t in self._meta_cache(1).values())
 
     def _dense_cache_bytes(self, slots: int) -> int:
-        """The contiguous ``slots x max_len`` layout's bytes, derived from
-        the model's own cache leaves (K/V/pos for GQA, ``c_kv``/``k_rope``
-        for MLA) in the model dtype: ``slots`` pages of ``max_len``
-        tokens."""
-        meta = self.model.init_paged_cache(
-            slots, self.max_len, slots, dtype=self.model.dtype,
-            device="meta")
+        """The dense ``slots x max_len`` layout's bytes, from the model's
+        own cache leaves (K/V/pos for GQA, ``c_kv``/``k_rope`` for MLA) in
+        the model dtype."""
+        meta = self.model.init_cache(slots, self.max_len,
+                                     dtype=self.model.dtype, device="meta")
         return sum(_nbytes(t) for t in meta.values())
+
+    def _dense_kv_read_bytes(self, slots: int) -> int:
+        """Bytes one dense decode step reads from the attention / MLA
+        caches: every leaf of every layer (the port has no recurrent
+        passthrough state), so ``decode_kv_bytes`` compares with what the
+        paged modes charge."""
+        return self._dense_cache_bytes(slots)
 
     # -- continuous batching -------------------------------------------------
     def serve(self, requests: list[Request], slots: int = 4,
@@ -703,31 +723,42 @@ class Engine:
         def pending() -> bool:
             return bool(pqueue) if preempt else bool(queue)
 
-        n_full = paged.pages_for(self.max_len, P)
-        num_pages = self.num_pages or paged.RESERVED_PAGES + slots * n_full
-        pool = PagePool(num_pages)
-        cache = model.init_paged_cache(num_pages, P, slots,
-                                       dtype=model.dtype,
-                                       kv_quant=self.kv_quant, device=dev)
+        # page_size=0: the dense layout, one (slots, max_len) cache row a
+        # lane and no page pool (no kv_quant, reserve scheduler only)
+        use_paged = P > 0
+        n_full = paged.pages_for(self.max_len, P) if use_paged else 0
+        shadow, probe_gap, pool = None, None, None
+        if use_paged:
+            num_pages = (self.num_pages
+                         or paged.RESERVED_PAGES + slots * n_full)
+            pool = PagePool(num_pages)
+            cache = model.init_paged_cache(num_pages, P, slots,
+                                           dtype=model.dtype,
+                                           kv_quant=self.kv_quant, device=dev)
+            if self.quant_probe:
+                # model-dtype pools sharing the slots' block tables, fed
+                # the served token and position streams
+                shadow = model.init_paged_cache(num_pages, P, slots,
+                                                dtype=model.dtype, device=dev)
+                probe_gap = torch.zeros(slots, dtype=torch.float32,
+                                        device=dev)
+            stats.page_size, stats.num_pages = P, num_pages
+            stats.page_bytes = self._page_bytes
+            stats.kv_quant = self.kv_quant or ""
+        else:
+            cache = model.init_cache(slots, self.max_len, dtype=model.dtype,
+                                     device=dev)
         pos_keys = [k for k in cache if k.endswith("/pos")]
-        shadow, probe_gap = None, None
-        if self.quant_probe:
-            # model-dtype pools sharing the slots' block tables, fed the
-            # served token and position streams
-            shadow = model.init_paged_cache(num_pages, P, slots,
-                                            dtype=model.dtype, device=dev)
-            probe_gap = torch.zeros(slots, dtype=torch.float32, device=dev)
-        bt_full = np.full((slots, n_full), paged.GARBAGE_PAGE, np.int32)
-        stats.page_size, stats.num_pages = P, num_pages
-        stats.page_bytes = self._page_bytes
-        stats.kv_quant = self.kv_quant or ""
+        bt_full = np.full((slots, max(n_full, 1)), paged.GARBAGE_PAGE,
+                          np.int32)
         stats.dense_cache_bytes = self._dense_cache_bytes(slots)
+        dense_kv_read = 0 if use_paged else self._dense_kv_read_bytes(slots)
 
         # the leaves a swap copies and a fault may poison: the page pools,
         # i.e. the leaves whose shape follows num_pages (every leaf of the
         # port's caches; per-slot recurrent state waits for ROADMAP D6)
         pool_leaves: list[str] = []
-        if preempt or plan is not None:
+        if use_paged and (preempt or plan is not None):
             lo = self._meta_cache(paged.RESERVED_PAGES, slots)
             hi = self._meta_cache(paged.RESERVED_PAGES + 1, slots)
             pool_leaves = sorted(k for k in lo if lo[k].shape != hi[k].shape)
@@ -748,12 +779,12 @@ class Engine:
             return {"full": torch.from_numpy(bt_full).to(dev)}
 
         def free_pages() -> int:
-            return pool.capacity - pool.in_use
+            return (pool.capacity - pool.in_use) if use_paged else 0
 
         def first_chunk_pages(plen: int) -> int:
             """Pages the first prefill chunk of a ``plen``-token prompt
             allocates: the admission bar under scheduler="preempt"."""
-            return paged.pages_for(min(C, plen), P)
+            return paged.pages_for(min(C, plen), P) if use_paged else 0
 
         def need_now(item: Any) -> int:
             return (item.n_pages if isinstance(item, _Swapped)
@@ -762,6 +793,8 @@ class Engine:
         def worst_pages(plen: int, max_new: int) -> int:
             """Pages one request can ever hold: reserve admission holds
             this headroom, so ``pool.alloc`` never fails mid-serve."""
+            if not use_paged:
+                return 0
             return paged.pages_for(plen + min(max_new, self.max_len - plen), P)
 
         def ensure_pages(lane: _Slot, s: int, lo: int, hi: int) -> bool:
@@ -769,7 +802,7 @@ class Engine:
             Under scheduler="preempt" a dry pool first evicts worse-ranked
             lanes; if that cannot cover the span, THIS lane goes back to
             the queue (returns False: skip its chunk)."""
-            if hi <= lo:
+            if not use_paged or hi <= lo:
                 return True
             targets = [lp for lp in range(lo // P, (hi - 1) // P + 1)
                        if bt_full[s, lp] < paged.RESERVED_PAGES]
@@ -794,7 +827,7 @@ class Engine:
             active lane and retries.  Returns True when an injected
             allocator outage blocked the step's claims (the caller stalls
             the whole decode step)."""
-            if live_s.size == 0:
+            if not use_paged or live_s.size == 0:
                 return False
             while True:
                 live_s = np.array([s for s in live_s if lanes[s].live],
@@ -839,7 +872,7 @@ class Engine:
                 if shadow is not None:
                     for k in pos_keys:
                         shadow[k].index_fill_(0, ids, -1)
-            pool.free(lane.pages)
+                pool.free(lane.pages)
             bt_full[s, :] = paged.GARBAGE_PAGE
             lane.pages = []
             lane.reserve_remaining = 0
@@ -1131,12 +1164,14 @@ class Engine:
                         continue
                     n = len(queue[0].prompt)
                     need = worst_pages(n, queue[0].max_new)
-                    if n + 1 > self.max_len or need > pool.capacity:
+                    if n + 1 > self.max_len or (use_paged
+                                                and need > pool.capacity):
                         terminate(queue.popleft(), "failed",
                                   queue_wait=time.perf_counter() - t_start)
                         continue
                     outstanding = sum(l.reserve_remaining for l in lanes)
-                    if pool.capacity - pool.in_use - outstanding < need:
+                    if use_paged and (pool.capacity - pool.in_use
+                                      - outstanding < need):
                         break        # wait for retirements to free pages
                     req = queue.popleft()
                     lane.reserve_remaining = need
@@ -1190,14 +1225,15 @@ class Engine:
                 chunk = (torch.from_numpy(toks).to(dev),
                          torch.from_numpy(start).to(dev),
                          torch.from_numpy(clen).to(dev))
-                bts = tables()
+                bts = tables() if use_paged else None
                 logits, cache = model.prefill_chunk(
                     params, cache, *chunk, max_len=self.max_len,
-                    block_tables=bts, page_size=P, kv_quant=self.kv_quant)
+                    block_tables=bts, page_size=P, kv_quant=self.kv_quant,
+                    kernel=self.kernel)
                 if shadow is not None:
                     _, shadow = model.prefill_chunk(
                         params, shadow, *chunk, max_len=self.max_len,
-                        block_tables=bts, page_size=P)
+                        block_tables=bts, page_size=P, kernel=self.kernel)
                 stats.prefill_iterations += 1
                 first_toks = first_bad = None
                 for s in prefilling:
@@ -1253,8 +1289,9 @@ class Engine:
             stats.live_tokens_per_iteration.append(
                 sum(l.pos + 1 for l in live)
                 + sum(l.prefill_pos for l in lanes if l.state == _PREFILL))
-            stats.pages_in_use_per_iteration.append(pool.in_use)
-            if plan is not None:
+            if use_paged:
+                stats.pages_in_use_per_iteration.append(pool.in_use)
+            if plan is not None and use_paged:
                 # corrupt_page: poison one held page of the target lane in
                 # every payload leaf (+inf in float leaves, the dtype max in
                 # integer ones, so q8_0/q4_0 pages carry it in their
@@ -1288,20 +1325,35 @@ class Engine:
                 # injected latency spike, inside the timed step so the
                 # watchdog sees it like a real stall
                 time.sleep(lat.value if lat.value is not None else 0.02)
-            horizon = max(l.pos + 1 for l in live)
-            active = (_bucket_pages(paged.pages_for(horizon, P), n_full), 0)
-            # per-lane page counts: each lane's page loop stops at its OWN
-            # live pages (free lanes charge their single page)
-            lf = np.array([min(paged.pages_for(l.pos + 1, P), active[0])
-                           if l.live else 1 for l in lanes], np.int32)
-            stats.decode_kv_bytes += int(lf.sum()) * self._page_bytes
-            step_kw = dict(page_size=P, max_len=self.max_len, live=live_mask,
-                           active_pages=active,
-                           lane_pages={"full": torch.from_numpy(lf).to(dev)})
-            bts = tables()
-            logits, cache = model.decode_step_paged(
-                params, cache, toks, pos, bts, kv_quant=self.kv_quant,
-                **step_kw)
+            if not use_paged:
+                # every layer's whole dense cache is read
+                stats.decode_kv_bytes += dense_kv_read
+                logits, cache = model.decode_step(params, cache, toks, pos,
+                                                  live=live_mask)
+            else:
+                active = lane_pages = None
+                if self.kernel == "fused":
+                    horizon = max(l.pos + 1 for l in live)
+                    active = (_bucket_pages(paged.pages_for(horizon, P),
+                                            n_full), 0)
+                    # per-lane page counts: each lane's page loop stops at
+                    # its OWN live pages (free lanes charge their single
+                    # page)
+                    lf = np.array([min(paged.pages_for(l.pos + 1, P),
+                                       active[0]) if l.live else 1
+                                   for l in lanes], np.int32)
+                    stats.decode_kv_bytes += int(lf.sum()) * self._page_bytes
+                    lane_pages = {"full": torch.from_numpy(lf).to(dev)}
+                else:
+                    # the gather reference reads every lane's whole table
+                    stats.decode_kv_bytes += slots * n_full * self._page_bytes
+                step_kw = dict(page_size=P, max_len=self.max_len,
+                               live=live_mask, active_pages=active,
+                               lane_pages=lane_pages, kernel=self.kernel)
+                bts = tables()
+                logits, cache = model.decode_step_paged(
+                    params, cache, toks, pos, bts, kv_quant=self.kv_quant,
+                    **step_kw)
             if shadow is not None:
                 # the same step over the shadow pools, teacher-forced with
                 # the served tokens: the gap is the cache quantization's
@@ -1368,8 +1420,9 @@ class Engine:
                     finish(req, rst)
                     release(lane, s)
 
-        stats.peak_pages = pool.peak_in_use
-        stats.pages_leaked = pool.in_use
+        if use_paged:
+            stats.peak_pages = pool.peak_in_use
+            stats.pages_leaked = pool.in_use
         if probe_gap is not None:
             stats.quant_logit_gap_per_lane = probe_gap.cpu().tolist()
         if plan is not None:
@@ -1382,6 +1435,110 @@ class Engine:
         self._cancel_rids.clear()
         stats.wall_s = time.perf_counter() - t_start
         self.last_stats = stats
+        return done
+
+    # -- one-shot batch generation -------------------------------------------
+    def generate(self, prompts: list[list[int]], max_new: int,
+                 seed: int = 0) -> list[list[int]]:
+        """Batched one-shot generation over a dense cache: one
+        ``Model.prefill`` of the right-padded prompts, then ``max_new - 1``
+        decode steps.  Exact for mixed lengths: each row's first token is
+        sampled at ``length - 1``, and decode overwrites every padded
+        position before it attends it.  Row ``i``'s ``j``-th token draws
+        from the generator seeded ``stream_seed(seed, i, j)``.  A row stops
+        emitting at ``eos_id``; the steps stop when every row has."""
+        dev, b = self.device, len(prompts)
+        lengths = [len(p) for p in prompts]
+        toks = np.zeros((b, max(lengths)), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p     # right-padded with 0
+        logits, cache = self.model.prefill(
+            self.params, {"tokens": torch.from_numpy(toks).to(dev)},
+            self.max_len, lengths=torch.tensor(lengths, device=dev))
+        logits = logits[:, -1]
+        pos = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        outs: list[list[int]] = [[] for _ in range(b)]
+        live = np.ones(b, bool)
+        for step in range(max_new):
+            seeds = [stream_seed(seed, i, step) for i in range(b)]
+            next_tok = sample_per_slot(logits, seeds, self.sampler)
+            host_tok = next_tok.cpu().numpy()  # one copy a step
+            for i in range(b):
+                if live[i]:
+                    outs[i].append(int(host_tok[i]))
+                    live[i] = int(host_tok[i]) != self.eos_id
+            if not live.any() or step == max_new - 1:
+                break
+            logits, cache = self.model.decode_step(self.params, cache,
+                                                   next_tok, pos)
+            pos = pos + 1
+        return outs
+
+    def serve_sequential(self, requests: list[Request],
+                         seed: int = 0) -> list[Request]:
+        """Baseline: one request at a time through one-shot
+        :meth:`generate` (seed ``seed + rid``), generation clamped to the
+        ``max_len`` horizon as :meth:`serve` retires lanes there.  With
+        ``kv_quant`` the dense one-shot path does not exist, so each
+        request instead runs alone through :meth:`serve` (seed ``seed``):
+        the same quantized cache path and per-request sample streams, with
+        no batching or preemption effects."""
+        if self.kv_quant:
+            return self._serve_sequential_paged(requests, seed)
+        t_start = time.perf_counter()
+        stats = EngineStats()
+        done = []
+        for req in requests:
+            t0 = time.perf_counter()
+            rst = RequestStats(rid=req.rid, queue_wait_s=t0 - t_start)
+            budget = min(req.max_new, self.max_len - len(req.prompt))
+            req.out = self.generate([req.prompt], budget,
+                                    seed=seed + req.rid)[0]
+            rst.decode_s = time.perf_counter() - t0
+            rst.decode_tokens = max(len(req.out) - 1, 0)
+            req.done, req.status = True, "ok"
+            req.stats = rst
+            stats.requests.append(rst)
+            stats.total_tokens += len(req.out)
+            stats.decode_iterations += rst.decode_tokens
+            stats.live_per_iteration.extend([1] * rst.decode_tokens)
+            done.append(req)
+        stats.wall_s = time.perf_counter() - t_start
+        self.last_stats = stats
+        return done
+
+    def _serve_sequential_paged(self, requests: list[Request],
+                                seed: int) -> list[Request]:
+        """One request at a time through the whole :meth:`serve` path on
+        one slot, aggregating the per-call :class:`EngineStats`."""
+        t_start = time.perf_counter()
+        agg = EngineStats()
+        agg.scheduler = self.scheduler
+        done = []
+        for req in requests:
+            done.extend(self.serve([req], slots=1, seed=seed))
+            s = self.last_stats
+            agg.requests.extend(s.requests)
+            agg.total_tokens += s.total_tokens
+            agg.decode_iterations += s.decode_iterations
+            agg.prefill_iterations += s.prefill_iterations
+            agg.live_per_iteration.extend(s.live_per_iteration)
+            agg.live_tokens_per_iteration.extend(s.live_tokens_per_iteration)
+            agg.pages_in_use_per_iteration.extend(
+                s.pages_in_use_per_iteration)
+            agg.decode_step_s.extend(s.decode_step_s)
+            agg.decode_kv_bytes += s.decode_kv_bytes
+            agg.decoded_tokens += s.decoded_tokens
+            agg.page_size, agg.num_pages = s.page_size, s.num_pages
+            agg.page_bytes = s.page_bytes
+            agg.kv_quant = s.kv_quant
+            agg.quant_probe_steps += s.quant_probe_steps
+            agg.quant_logit_gap_per_lane.extend(s.quant_logit_gap_per_lane)
+            agg.dense_cache_bytes = s.dense_cache_bytes
+            agg.peak_pages = max(agg.peak_pages, s.peak_pages)
+            agg.pages_leaked += s.pages_leaked
+        agg.wall_s = time.perf_counter() - t_start
+        self.last_stats = agg
         return done
 
     def _sample_host(self, logits: torch.Tensor, seeds: list) -> tuple:

@@ -1302,3 +1302,166 @@ def test_preempt_serve_on_card(cuda, kv_quant):
     assert st.preemptions >= 2 and st.swap_in_bytes > 0
     assert st.swap_out_bytes == st.swap_in_bytes + st.swap_dropped_bytes
     assert st.pages_leaked == 0 and st.swap_held_end_bytes == 0
+
+
+# -- the one-shot forward's shapes (2 x 1024 tokens) and the dense cache -----
+
+# the 2-D weights of qwen2-1.5b and the DeepSeek-V3 cut that the forward
+# multiplies at M = B x T rows, each format taken there at these shapes
+FORWARD_SHAPES = [(1536, 8960, "qwen2 gate, up"), (8960, 1536, "qwen2 down"),
+                  (1536, 256, "qwen2 k_proj, v_proj"),
+                  (7168, 18432, "DeepSeek dense gate, up"),
+                  (16384, 7168, "DeepSeek attn_output"),
+                  (7168, 576, "DeepSeek attn_kv_a_mqa")]
+# the output heads over every row of the forward, in their DQ3_K_M formats
+FORWARD_HEADS = [("q4_k", 1536, 152064), ("q6_k", 7168, 129280)]
+
+
+@functools.cache
+def _dense_weight(fmt, k, n, device):
+    rng = np.random.default_rng(k + 3 * n + len(fmt))
+    return quantize(torch.from_numpy(rng.standard_normal(
+        (k, n), dtype=np.float32) / np.sqrt(k)).to(device), fmt)
+
+
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q3_k", "q5_k", "q2_k",
+                                 "q8_0"])
+@pytest.mark.parametrize("k,n", [s[:2] for s in FORWARD_SHAPES],
+                         ids=[f"{k}-{n}" for k, n, _ in FORWARD_SHAPES])
+@pytest.mark.parametrize("m", [2000, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_qmatmul_prefill_form_forward_rows(cuda, fmt, k, n, m, dtype):
+    """The prefill form at the one-shot forward's rows: 2 x 1024 (128-row
+    tiles, the cluster split ``prefill_ksplit`` takes there) and a ragged
+    2000 (the last tile 80 rows); one launch of it a call, two calls
+    bitwise equal, within B1's limits of the plain version, zero rows
+    +0."""
+    qt = _dense_weight(fmt, k, n, cuda)
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(_np(rng, (m, k))).to(cuda)
+    zero = [3, m - 1]
+    x[zero] = 0
+    x = x.to(dtype)
+    kern = qmatmul.KERNELS[fmt]
+    counts = {w: qmatmul.library_launches(fmt, w)
+              for w in ("decode", "prefill", "experts")}
+    y = kern(x, qt)
+    y2 = kern(x, qt)
+    torch.cuda.synchronize()
+    assert {w: qmatmul.library_launches(fmt, w) - c
+            for w, c in counts.items()} == {
+        "decode": 0, "prefill": 2, "experts": 0}
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(y.view(bits), y2.view(bits))
+    ref = qmatmul.qmatmul_plain(x, qt).float()
+    tol = TOL if dtype == torch.float32 else B1_TOL_BF16
+    assert (y.float() - ref).abs().max() <= tol * ref.abs().max()
+    assert not y[zero].view(bits).any()
+
+
+@pytest.mark.parametrize("fmt,k,n", FORWARD_HEADS,
+                         ids=[f"{f}-{k}-{n}" for f, k, n in FORWARD_HEADS])
+def test_qmatmul_prefill_form_forward_heads(cuda, fmt, k, n):
+    """The output heads at 2 x 1024 bf16 rows (the loss's logits): the
+    prefill form within B1_TOL_BF16 of the plain version."""
+    qt = _dense_weight(fmt, k, n, cuda)
+    x = torch.from_numpy(_np(np.random.default_rng(k), (2048, k))).to(
+        cuda).to(torch.bfloat16)
+    before = qmatmul.library_launches(fmt, "prefill")
+    y = qmatmul.KERNELS[fmt](x, qt)
+    torch.cuda.synchronize()
+    assert qmatmul.library_launches(fmt, "prefill") == before + 1
+    ref = qmatmul.qmatmul_plain(x, qt).float()
+    assert (y.float() - ref).abs().max() <= B1_TOL_BF16 * ref.abs().max()
+
+
+@functools.cache
+def _deepseek_experts(fmt, k, n, device):
+    from repro_torch.core.apply import quantize_in_groups
+    gen = torch.Generator(device=device).manual_seed(k + n + len(fmt))
+    return quantize_in_groups(
+        lambda r: torch.randn((len(r), k, n), generator=gen,
+                              device=device) / np.sqrt(k),
+        256, fmt, group=16, dim=0)
+
+
+@pytest.mark.parametrize("fmt,k,n", [("q3_k", 7168, 2048),
+                                     ("q4_k", 2048, 7168),
+                                     ("q6_k", 2048, 7168),
+                                     ("q2_k", 7168, 2048),
+                                     ("q8_0", 7168, 2048)],
+                         ids=["q3_k-gate", "q4_k-down", "q6_k-down",
+                              "q2_k-gate", "q8_0-gate"])
+@pytest.mark.parametrize("c", [78, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_qmatmul_experts_forward_capacity(cuda, fmt, k, n, c, dtype):
+    """DeepSeek's expert weights (E = 256) at the forward's capacity, C =
+    1.25 x 2048 x 8 / 256 = 80 (four 20-row tiles), and a ragged 78: one
+    launch of qmatmul_experts_kernel, 5 experts empty and +0 bitwise, the
+    rest within the tolerance of the plain version (bf16: B1_TOL_BF16, one
+    step of the top binade: the row tiles sum in another order than the
+    plain version, and 2^-8 of max|y| is less than a step where max|y|
+    lies low in its binade)."""
+    e = 256
+    qt = _deepseek_experts(fmt, k, n, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(c + k)
+    x = torch.randn((e, c, k), generator=gen, device=cuda)
+    empty = [0, 17, 100, 101, 255]
+    x[empty] = 0
+    x[5, c - 3:] = 0                   # a partly filled expert
+    x = x.to(dtype)
+    kern = qmatmul.EXPERT_KERNELS[fmt]
+    own = qmatmul.library_launches(fmt)
+    y = kern(x, qt)
+    torch.cuda.synchronize()
+    assert qmatmul.library_launches(fmt) == own + 1
+    assert y.shape == (e, c, n) and y.dtype == dtype
+    ref = qmatmul.qmatmul_plain(x, qt)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(y[empty].view(bits), ref[empty].view(bits))
+    assert not y[5, c - 3:].view(bits).any()
+    tol = TOL if dtype == torch.float32 else B1_TOL_BF16
+    assert (y.float() - ref.float()).abs().max() <= (
+        tol * ref.float().abs().max())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-v3-671b"])
+def test_dense_decode_masked_write_on_card(cuda, arch):
+    """The dense layout on the card (reduced, DQ3_K_M, f32): a prefill of
+    two right-padded prompts and three decode steps with lane 1 not live;
+    lane 1's cache rows stay bitwise as the prefill wrote them, lane 0's
+    take each step, and the logits are the CPU's within 1e-4 of
+    max|logit|."""
+    cfg = get_config(arch).reduced()
+    params = init_quantized_params(cfg, get_policy("DQ3_K_M"), 0,
+                                   dtype=torch.float32, device=cuda)
+    model = Model(cfg, dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(4, cfg.vocab_size, (2, 9)).astype(
+        np.int32))
+    dec = torch.from_numpy(rng.integers(4, cfg.vocab_size, (3, 2)).astype(
+        np.int32))
+    lengths = torch.tensor([9, 6], dtype=torch.int32)
+    live = torch.tensor([True, False])
+    out = {}
+    for dev, prm in ((cuda, params), (torch.device("cpu"),
+                                      tree_to(params, "cpu"))):
+        last, cache = model.prefill(prm, {"tokens": toks.to(dev)}, 24,
+                                    lengths=lengths.to(dev))
+        before = {k: v.clone() for k, v in cache.items()}
+        steps = [last[:, 0]]
+        pos = lengths.to(dev)
+        for tok in dec:
+            lg, cache = model.decode_step(prm, cache, tok.to(dev), pos,
+                                          live=live.to(dev))
+            steps.append(lg)
+            pos = pos + 1
+        for k, v in cache.items():
+            assert torch.equal(v[1], before[k][1]), k
+            assert not torch.equal(v[0, 9:12], before[k][0, 9:12]), k
+        out[dev.type] = torch.stack(steps).cpu()
+    a, r = out["cuda"], out["cpu"]
+    assert torch.isfinite(a).all()
+    assert (a - r).abs().max() <= 1e-4 * r.abs().max()

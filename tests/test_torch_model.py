@@ -208,12 +208,17 @@ def test_deepseek_prefill_and_decode_logits_match_reference(kv_quant):
 
 
 def test_model_rejects_unported_paths():
+    """Local-attention block families are not ported (D6).  The dense
+    layout is (D5): a chunk over it refuses only what the reference
+    refuses, quantized pools, which exist only paged."""
     _, cfg, _, params = reference_weights("F32")
     model = Model(cfg, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.prefill_chunk(params, {}, torch.zeros((1, 2), dtype=torch.int32),
+    with pytest.raises(ValueError, match="kv_quant requires a paged cache"):
+        model.prefill_chunk(params, model.init_cache(1, 8, torch.float32),
+                            torch.zeros((1, 2), dtype=torch.int32),
                             torch.zeros(1, dtype=torch.int32),
-                            torch.ones(1, dtype=torch.int32), max_len=8)
+                            torch.ones(1, dtype=torch.int32), max_len=8,
+                            kv_quant="q8_0")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_config("qwen2-1.5b").__class__(
             name="local", family="hybrid", n_layers=2, d_model=64,
